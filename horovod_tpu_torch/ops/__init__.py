@@ -1,0 +1,20 @@
+"""The port's kernels: each a hand-written CUDA kernel for Hopper
+(``csrc/``) beside a plain PyTorch version of the same math.
+
+* :func:`~.attention.flash_attention` — causal flash attention forward
+  (prefill), replacing the JAX package's Pallas ``_attn_kernel``.
+* :func:`~.paged_attention.paged_decode_attention` — paged decode
+  attention, replacing the Pallas ``_paged_kernel``.
+
+:data:`~._build.LAUNCHES` counts each kernel's launches.
+"""
+
+from ._build import LAUNCHES
+from .attention import flash_attention, flash_attention_reference
+from .paged_attention import (paged_attention_reference,
+                              paged_attention_supported,
+                              paged_decode_attention)
+
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_reference",
+           "paged_decode_attention", "paged_attention_reference",
+           "paged_attention_supported"]

@@ -28,9 +28,15 @@ setup(
     version="0.1.0",
     description="TPU-native distributed training framework "
                 "(Horovod v0.11.2 capability parity)",
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
+    # horovod_tpu_torch: the PyTorch/CUDA port (its CUDA sources ship as
+    # package data and are built with nvcc on first use; it needs torch,
+    # which the JAX package does not).
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
     package_data={"horovod_tpu.coord": ["libhvdcoord.so", "coordinator.cc",
-                                        "Makefile"]},
+                                        "Makefile"],
+                  "horovod_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.10",
     # jax floor: 0.9 is the version every CI leg verifies (this image
     # ships exactly one jax, so older floors would be untested claims).
@@ -40,7 +46,7 @@ setup(
     install_requires=["jax>=0.9", "flax", "optax", "orbax-checkpoint",
                       "numpy"],
     # "digits" real-dataset loader (data.load_dataset) needs sklearn.
-    extras_require={"datasets": ["scikit-learn"]},
+    extras_require={"datasets": ["scikit-learn"], "torch": ["torch"]},
     scripts=["bin/tpurun"],
     cmdclass={"build_py": BuildWithNativeCore},
 )

@@ -1,0 +1,91 @@
+"""The port stands alone: importing it never loads JAX or the JAX
+package, no file of it names them, and its entry points default to the
+GPU — raising on a host without CUDA instead of running on the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import horovod_tpu_torch
+from horovod_tpu_torch.parallel.kv_blocks import init_paged_kv_cache
+from horovod_tpu_torch.parallel.transformer import (Transformer,
+                                                    TransformerConfig)
+from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "horovod_tpu_torch")
+TINY = TransformerConfig(vocab=16, d_model=64, n_heads=1, n_layers=1,
+                         d_ff=64, dtype=torch.float32)
+
+_PROBE = """
+import importlib, pkgutil, sys
+import horovod_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "horovod_tpu" or m.startswith("horovod_tpu."))
+print(len(names), "modules;", "leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout
+
+
+def test_every_submodule_is_importable_here():
+    names = [m.name for m in pkgutil.walk_packages(
+        horovod_tpu_torch.__path__, "horovod_tpu_torch.")]
+    assert {"horovod_tpu_torch.ops.attention",
+            "horovod_tpu_torch.ops.paged_attention",
+            "horovod_tpu_torch.serve.generate"} <= set(names)
+
+
+def test_no_file_names_jax_or_the_jax_package():
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith((".py", ".cu", ".cuh")):
+                continue
+            path = os.path.join(root, f)
+            with open(path, encoding="utf-8") as fh:
+                text = fh.read()
+            for needle in ("import jax", "from jax", "horovod_tpu."):
+                if needle in text:
+                    offenders.append(f"{path}: {needle}")
+    assert not offenders, offenders
+
+
+def _without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    _without_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Transformer(TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_paged_kv_cache(TINY, 4, 16, 1)
+
+
+def test_engine_default_device_raises_without_cuda(monkeypatch):
+    model = Transformer(TINY, device="cpu")
+    _without_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationEngine(model, GenerationConfig(max_slots=1, max_len=16))
+
+
+def test_unsupported_device_type_is_rejected():
+    with pytest.raises(ValueError, match="unsupported device"):
+        Transformer(TINY, device="meta")
