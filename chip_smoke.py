@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-Drives the port's main path — the paged generation engine serving the
-bench LM at full width (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model
-2048, 16 heads of 128, 8 layers, d_ff 8192; random weights from a seed)
-— and holds every CUDA kernel on that path against its plain PyTorch
-version on the card. Phases, one JSON line each:
+Drives the port's two main paths and holds every CUDA kernel on them
+against its plain PyTorch version on the card:
+
+* serving — the paged generation engine serving the bench LM at full
+  width (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
+  of 128, 8 layers, d_ff 8192; random weights from a seed);
+* training — ``bench.py``'s ResNet-50 train step with
+  ``--conv-backend fused`` at full width (``[3,4,6,3]`` bottlenecks, 64
+  base filters, 1000 classes, 224x224, batch 128, bf16 compute with f32
+  params and head, SGD 0.1 / momentum 0.9, local BatchNorm) through the
+  Horovod surface (``init``, ``broadcast_parameters``,
+  ``DistributedOptimizer``) on a 1-rank NCCL world.
+
+Phases, one JSON line each:
 
 1. device   — require CUDA; print the card, its power limit, versions.
 2. build    — nvcc-build the kernels from ``horovod_tpu_torch/ops/csrc``.
@@ -24,6 +33,22 @@ version on the card. Phases, one JSON line each:
                the plain versions run); last logits compared.
 6. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's.
+7. parity_conv — K1/K2 (``fused_conv_bn.cu``) vs their plain versions at
+               every distinct (M, Cin, Cout, prologue) of the 16 fused
+               sites and a ragged M, with non-zero stats cotangents; two
+               launches must agree bitwise.
+8. train    — the fused ResNet-50 train step: 2 warmup + 10 timed steps
+               on the bench's fixed synthetic batch; launch counters
+               zeroed before the timed steps (16 K1 + 16 K2 per step);
+               the loss must be finite and fall. Then the same with the
+               stock backend (cuDNN convs, PyTorch BatchNorm) as the
+               model-level yardstick.
+9. train_profile — one fused step under ``torch.profiler``.
+10. e2e_train — one step of full-width ResNet-50 at batch 8 on the card
+               and on the CPU from the same weights and batch: loss,
+               logits, updated params and running statistics compared.
+11. timing_conv — K1 and K2 at two site shapes beside their bounds,
+               plain versions and a GEMM-only yardstick.
 
 Then, before the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
@@ -38,6 +63,7 @@ import copy
 import http.client
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -63,14 +89,44 @@ TOL_E2E = 0.1
 # Published dense peaks (bf16 tensor-core FLOP/s, memory bytes/s).
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12)}
 PEAK_DEFAULT = (989e12, 3.35e12)    # H100 SXM
+# ResNet-50 training (bench.py's resnet50 config).
+RN_BATCH, RN_IMAGE, RN_CLASSES = 128, 224, 1000
+RN_WARMUP, RN_STEPS = 2, 10
+RN_E2E_BATCH = 8
+RN_SITES = 16         # fused 1x1 sites per step with fused_stages=(0, 1)
+# The distinct (M, Cin, Cout, prologue) of the 16 sites at batch 128, and
+# a ragged M (not a multiple of the 128-row tile) both ways.
+CONV_SHAPES = ((401408, 64, 64, False), (401408, 64, 256, True),
+               (401408, 64, 256, False), (401408, 256, 64, False),
+               (401408, 256, 128, False), (100352, 128, 512, True),
+               (100352, 256, 512, False), (100352, 512, 128, False),
+               (1000, 64, 128, True), (1000, 128, 64, False))
+CONV_TIMED = ((401408, 64, 256, True), (401408, 256, 128, False))
+# Errors are max|kernel - plain| / max|plain| per output. bf16 outputs
+# (y, dx): within one bf16 ulp of the largest value (f32 sums in another
+# order can flip a rounding). f32 sums (s1, s2, dW, da, db) over up to
+# 401408 rows: 1e-3.
+TOL_CONV = {"y": 2.0 ** -7, "dx": 2.0 ** -7, "s1": 1e-3, "s2": 1e-3,
+            "dw": 1e-3, "da": 1e-3, "db": 1e-3}
+# Card vs CPU after one bf16 train step of full-width ResNet-50 (batch 8,
+# flax's init), each about 3-4x the value measured on an H100 (PERF.md):
+# loss 4.9e-4, logits 2.4e-3, per-leaf update 0.10 (the last block's BN
+# scale; 0.03 elsewhere), running stats 7.6e-5; the whole update's
+# cosine must stay near 1 (measured 1.000).
+TOL_E2E_TRAIN = {"loss": 2e-3, "logits": 1e-2, "param_updates": 0.3,
+                 "batch_stats": 3e-4, "update_cosine": 0.99}
 REPLACES = {
     "flash_attention": "horovod_tpu/ops/pallas_attention.py:101",
     "paged_decode_attention": "horovod_tpu/ops/pallas_paged_attention.py:57",
+    "fused_conv_bn_fwd": "horovod_tpu/ops/pallas_conv.py:81",
+    "fused_conv_bn_bwd": "horovod_tpu/ops/pallas_conv.py:116",
 }
 SOURCES = {
     "flash_attention": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
     "paged_decode_attention":
         "horovod_tpu_torch/ops/csrc/paged_attention.cu",
+    "fused_conv_bn_fwd": "horovod_tpu_torch/ops/csrc/fused_conv_bn.cu",
+    "fused_conv_bn_bwd": "horovod_tpu_torch/ops/csrc/fused_conv_bn.cu",
 }
 
 
@@ -167,13 +223,45 @@ def phase_device():
     return line
 
 
+def ptxas_summary(log: str, needle: str) -> dict:
+    """Registers, shared memory and spills per kernel whose mangled name
+    holds ``needle``, from the ``-Xptxas -v`` log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled = m.group(1)
+            hit = re.search(r"\d+([a-z_]+kernel)(?:ILi(\d+)E)?", mangled)
+            name = None
+            if needle in mangled and hit:
+                name = hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
+                                       else "")
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            out[name]["smem_bytes"] = int(m.group(2))
+    return out
+
+
 def phase_build():
     from horovod_tpu_torch.ops import _build
     t0 = time.monotonic()
     path = _build.build()
     _build.library()
     secs = time.monotonic() - t0
-    emit("build", seconds=secs, library=path, compiler_log=path + ".log")
+    with open(path + ".log") as f:
+        log = f.read()
+    emit("build", seconds=secs, library=path, compiler_log=path + ".log",
+         fused_conv_bn_ptxas=ptxas_summary(log, "fused_conv_bn"))
 
 
 def phase_parity(seed: int):
@@ -440,6 +528,331 @@ def phase_timing(seed: int, peaks):
             "paged_decode_attention": paged}
 
 
+# -- ResNet-50 training (slice 2) ---------------------------------------------
+
+def conv_inputs(M, cin, cout, prologue, gen):
+    """One site's operands at the model's dtypes: bf16 x, f32 [Cout, Cin]
+    weight, f32 affine, and the backward's bf16 dy with small non-zero
+    stats cotangents."""
+    x = torch.randn((M, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((cout, cin), generator=gen, device="cuda") * cin ** -0.5
+    a = b = None
+    if prologue:
+        a = torch.rand((cin,), generator=gen, device="cuda") + 0.5
+        b = torch.randn((cin,), generator=gen, device="cuda") * 0.5
+    dy = torch.randn((M, cout), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    ds1 = torch.randn((cout,), generator=gen, device="cuda") * 1e-3
+    ds2 = torch.randn((cout,), generator=gen, device="cuda") * 1e-4
+    return x, w, a, b, dy, ds1, ds2
+
+
+def _rel_err(got, ref) -> float:
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max()
+            .clamp_min(1e-30)).item()
+
+
+def phase_parity_conv(seed: int):
+    from horovod_tpu_torch.ops import fused_conv_bn as fcb
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    worst = {k: 0.0 for k in TOL_CONV}
+    abs_err = {"fused_conv_bn_fwd": 0.0, "fused_conv_bn_bwd": 0.0}
+    for M, cin, cout, pro in CONV_SHAPES:
+        x, w, a, b, dy, ds1, ds2 = conv_inputs(M, cin, cout, pro, gen)
+        fwd = fcb.fused_linear_bn_act_fwd(x, w, a, b)
+        bwd = fcb.fused_linear_bn_act_bwd(x, w, a, b, fwd[0], dy, ds1, ds2)
+        fwd2 = fcb.fused_linear_bn_act_fwd(x, w, a, b)
+        bwd2 = fcb.fused_linear_bn_act_bwd(x, w, a, b, fwd[0], dy, ds1, ds2)
+        torch.cuda.synchronize()
+        rfwd = fcb.fused_linear_bn_act_reference(x, w, a, b)
+        rbwd = fcb.fused_linear_bn_act_bwd_reference(x, w, a, b, fwd[0], dy,
+                                                     ds1, ds2)
+        errs = {}
+        for name, got, ref in zip(("y", "s1", "s2", "dx", "dw", "da", "db"),
+                                  fwd + bwd, rfwd + rbwd):
+            if ref is None:
+                continue
+            check(got is not None and got.shape == ref.shape
+                  and bool(torch.isfinite(got).all()),
+                  f"conv {M}x{cin}->{cout}: bad {name}")
+            errs[name] = _rel_err(got, ref)
+            worst[name] = max(worst[name], errs[name])
+            check(errs[name] <= TOL_CONV[name],
+                  f"conv {M}x{cin}->{cout} prologue={pro}: {name} error "
+                  f"{errs[name]} > {TOL_CONV[name]}")
+        abs_err["fused_conv_bn_fwd"] = max(
+            abs_err["fused_conv_bn_fwd"],
+            (fwd[0].float() - rfwd[0].float()).abs().max().item())
+        abs_err["fused_conv_bn_bwd"] = max(
+            abs_err["fused_conv_bn_bwd"],
+            (bwd[0].float() - rbwd[0].float()).abs().max().item())
+        same = all(torch.equal(p, q) for p, q in zip(
+            fwd + bwd, fwd2 + bwd2) if p is not None)
+        check(same, f"conv {M}x{cin}->{cout}: two launches differ")
+        emit("parity_conv", M=M, cin=cin, cout=cout, prologue=pro,
+             rel_err=errs, bitwise_repeatable=same,
+             y_max_abs_err=(fwd[0].float() - rfwd[0].float()).abs().max()
+             .item())
+    emit("parity_conv_summary", worst_rel_err=worst, tolerance=TOL_CONV,
+         max_abs_err=abs_err, deterministic=True,
+         note="rel_err = max|kernel-plain|/max|plain|; max_abs_err is y "
+              "for K1 and dx for K2")
+    return abs_err
+
+
+def synthetic_batch(batch: int, seed: int):
+    """bench.py's synthetic data: standard-normal images and uniform
+    labels from a seeded numpy generator, one fixed batch, on the card."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((batch, RN_IMAGE, RN_IMAGE, 3)).astype(
+        np.float32)
+    y = rng.randint(0, RN_CLASSES, size=(batch,))
+    return (torch.from_numpy(x).to("cuda"), torch.from_numpy(y).to("cuda"))
+
+
+def build_resnet(backend: str, seed: int, device="cuda"):
+    from horovod_tpu_torch.models import resnet50
+    return resnet50(RN_CLASSES, conv_backend=backend, device=device,
+                    generator=torch.Generator().manual_seed(seed))
+
+
+def train_run(backend: str, seed: int, data):
+    """Warmup, then timed steps; returns the report and the state."""
+    import functools
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_resnet(backend, seed)
+    state = create_train_state(model, functools.partial(
+        torch.optim.SGD, lr=0.1, momentum=0.9))
+    hvd.broadcast_parameters(model)
+    step = make_train_step()
+    losses = []
+    for _ in range(RN_WARMUP):
+        state, metrics = step(state, data)
+        losses.append(metrics["loss"].item())
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    times = []
+    for _ in range(RN_STEPS):
+        t0 = time.monotonic()
+        state, metrics = step(state, data)
+        losses.append(metrics["loss"].item())
+        times.append(time.monotonic() - t0)
+    launches = LAUNCHES.snapshot()
+    p50 = float(np.median(times))
+    report = dict(backend=backend, batch=RN_BATCH, image=RN_IMAGE,
+                  warmup=RN_WARMUP, steps=RN_STEPS, losses=losses,
+                  step_ms=[t * 1e3 for t in times], step_ms_p50=p50 * 1e3,
+                  images_per_s=RN_BATCH / p50,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  launches=launches, world=hvd.size())
+    check(all(np.isfinite(losses)), f"{backend}: loss not finite {losses}")
+    check(losses[-1] < losses[0], f"{backend}: loss did not fall {losses}")
+    return report, state
+
+
+def phase_train(seed: int):
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    check(hvd.size() == 1 and hvd.rank() == 0, "expected a 1-rank world")
+    data = synthetic_batch(RN_BATCH, seed)
+    fused, state = train_run("fused", seed, data)
+    k1 = fused["launches"].get("fused_conv_bn_fwd", 0)
+    k2 = fused["launches"].get("fused_conv_bn_bwd", 0)
+    check(k1 == k2 == RN_SITES * RN_STEPS,
+          f"fused step launched K1 {k1}, K2 {k2} times; expected "
+          f"{RN_SITES} x {RN_STEPS}")
+    emit("train", **fused)
+    profiled = profile_train_step(state, data)
+    emit("train_profile", **profiled)
+    del state
+    torch.cuda.empty_cache()
+    stock, state = train_run("xla", seed, data)
+    check(not any(k.startswith("fused_conv_bn")
+                  for k in stock["launches"]),
+          f"stock step launched the fused kernels: {stock['launches']}")
+    emit("train", **stock)
+    del state, data
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return fused["launches"]
+
+
+def profile_train_step(state, data) -> dict:
+    """One fused step under ``torch.profiler`` (CUDA activity only):
+    device busy share = summed kernel time over the step's wall time,
+    top kernels, and K1's and K2's shares (the reduction kernel they
+    share is reported on its own)."""
+    from torch.profiler import ProfilerActivity, profile
+    from horovod_tpu_torch.training import make_train_step
+    step = make_train_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        state, metrics = step(state, data)
+        metrics["loss"].item()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+
+    def share(pattern):
+        us = sum(r[0] for r in rows if pattern in r[1])
+        return {"ms": us / 1e3, "share": us / busy_us if busy_us else None}
+    return {"wall_ms": wall_s * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / 1e6 / wall_s if rows else None,
+            "k1": share("conv_bn_fwd_kernel"),
+            "k2_dx": share("conv_bn_bwd_dx_kernel"),
+            "k2_dw": share("conv_bn_bwd_dw_kernel"),
+            "col_sum": share("col_sum_kernel"),
+            "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
+                    for us, k, n in rows[:12]]}
+
+
+def _one_step(model, x, y):
+    """One plain train step (no world: the e2e check compares the model
+    and its kernels, not the collective): forward, loss, backward, SGD."""
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.training import cross_entropy_loss
+    opt = torch.optim.SGD([p for _, p in convert.jax_leaf_order(model)],
+                          lr=0.1, momentum=0.9)
+    logits = model(x, train=True)
+    loss = cross_entropy_loss(logits, y)
+    loss.backward()
+    opt.step()
+    return loss.item(), logits.detach().float().cpu()
+
+
+# Leaves whose gradient is non-zero at flax's init (each block's last
+# BatchNorm scale starts at 0, which zeroes the gradients of the block's
+# inner convs): the stem, the fused shortcut convs of stages 0 and 1, the
+# zero-initialised scales themselves, the head.
+E2E_PARAMS = ("stem.kernel", "BottleneckBlock_0.shortcut.kernel",
+              "BottleneckBlock_3.shortcut.kernel",
+              "BottleneckBlock_1.BatchNorm_2.scale",
+              "BottleneckBlock_5.BatchNorm_2.scale",
+              "BottleneckBlock_15.BatchNorm_2.scale", "head.kernel")
+E2E_STATS = ("stem_bn.var", "BottleneckBlock_0.BatchNorm_0.mean",
+             "BottleneckBlock_2.BatchNorm_2.var",
+             "BottleneckBlock_3.shortcut_bn.mean",
+             "BottleneckBlock_15.BatchNorm_1.var")
+
+
+def phase_e2e_train(seed: int):
+    """Full-width ResNet-50 at flax's init, batch 8 at 224²: every one of
+    the 16 sites still fuses. One step on the card (kernels) and on the
+    CPU (plain versions) from the same weights and batch. (With every
+    residual branch switched on, a random ResNet-50's bf16 gradient at
+    batch 8 is dominated by rounding — card and CPU, or bf16 and f32,
+    disagree in direction — so the check runs where flax starts.)"""
+    from horovod_tpu_torch.ops import LAUNCHES
+    card = build_resnet("fused", seed + 1)
+    cpu = copy.deepcopy(card).to("cpu")
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    x, y = synthetic_batch(RN_E2E_BATCH, seed + 3)
+    LAUNCHES.reset()
+    t0 = time.monotonic()
+    loss_card, logits_card = _one_step(card, x, y)
+    card_s = time.monotonic() - t0
+    launches = LAUNCHES.snapshot()
+    check(launches.get("fused_conv_bn_fwd") == RN_SITES
+          and launches.get("fused_conv_bn_bwd") == RN_SITES,
+          f"e2e step at batch {RN_E2E_BATCH} did not fuse every site: "
+          f"{launches}")
+    t0 = time.monotonic()
+    loss_cpu, logits_cpu = _one_step(cpu, x.cpu(), y.cpu())
+    cpu_s = time.monotonic() - t0
+    check(bool(torch.isfinite(logits_card).all()), "card logits not finite")
+    cp, pp = dict(card.named_parameters()), dict(cpu.named_parameters())
+    cb, pb = dict(card.named_buffers()), dict(cpu.named_buffers())
+    rel = lambda a, b: _rel_err(a.detach().cpu(), b.detach())  # noqa: E731
+    diffs = {"loss": abs(loss_card - loss_cpu),
+             "logits": (logits_card - logits_cpu).abs().max().item(),
+             "param_updates": {n: rel(cp[n].cpu() - before[n],
+                                      pp[n] - before[n])
+                               for n in E2E_PARAMS},
+             "batch_stats": {n: rel(cb[n], pb[n]) for n in E2E_STATS}}
+    upd_card = torch.cat([(cp[n].detach().cpu() - before[n]).flatten()
+                          for n in before])
+    upd_cpu = torch.cat([(pp[n].detach() - before[n]).flatten()
+                         for n in before])
+    cosine = F.cosine_similarity(upd_card, upd_cpu, dim=0).item()
+    emit("e2e_train", batch=RN_E2E_BATCH, loss_card=loss_card,
+         loss_cpu=loss_cpu, logits_std=logits_cpu.std().item(),
+         diffs=diffs, update_cosine=cosine, tolerance=TOL_E2E_TRAIN,
+         launches=launches,
+         card_s=card_s, cpu_s=cpu_s,
+         note="param_updates: max|card-cpu|/max|cpu| of the step's change "
+              "to each leaf; batch_stats: the same of the running stats")
+    check(diffs["loss"] <= TOL_E2E_TRAIN["loss"],
+          f"e2e loss differs by {diffs['loss']}")
+    check(diffs["logits"] <= TOL_E2E_TRAIN["logits"],
+          f"e2e logits differ by {diffs['logits']}")
+    check(cosine >= TOL_E2E_TRAIN["update_cosine"],
+          f"e2e whole-model update cosine {cosine}")
+    for key in ("param_updates", "batch_stats"):
+        for n, v in diffs[key].items():
+            check(v <= TOL_E2E_TRAIN[key], f"e2e {n} differs by {v}")
+
+
+def phase_timing_conv(seed: int, peaks):
+    """K1 and K2 at two site shapes. Bytes: each input read once, each
+    output written once (x, y, dy bf16; W, a, b, stats, dW f32)."""
+    from horovod_tpu_torch.ops import fused_conv_bn as fcb
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    rows = {}
+    for M, cin, cout, pro in CONV_TIMED:
+        x, w, a, b, dy, ds1, ds2 = conv_inputs(M, cin, cout, pro, gen)
+        y = fcb.fused_linear_bn_act_fwd(x, w, a, b)[0]
+        wb = w.to(torch.bfloat16)
+        e = dy.clone()
+        ab_bytes = 8 * cin if pro else 0
+        shape = dict(M=M, cin=cin, cout=cout, prologue=pro)
+        # K1
+        ms = time_ms(lambda: fcb.fused_linear_bn_act_fwd(x, w, a, b))
+        plain = time_ms(lambda: fcb.fused_linear_bn_act_reference(
+            x, w, a, b), reps=5, inner=2)
+        lib = time_ms(lambda: torch.matmul(x, wb.t()))
+        bnd, by = bound_ms(2.0 * M * cin * cout,
+                           2.0 * M * (cin + cout) + 4.0 * cin * cout
+                           + ab_bytes + 8.0 * cout, peaks)
+        k1 = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                  bound_by=by)
+        emit("timing", kernel="fused_conv_bn_fwd", **shape, **k1,
+             library="torch.matmul [M,Cin]x[Cin,Cout] bf16 (GEMM only, "
+                     "not the same function)")
+        # K2
+        ms = time_ms(lambda: fcb.fused_linear_bn_act_bwd(
+            x, w, a, b, y, dy, ds1, ds2))
+        plain = time_ms(lambda: fcb.fused_linear_bn_act_bwd_reference(
+            x, w, a, b, y, dy, ds1, ds2), reps=5, inner=2)
+        lib = time_ms(lambda: (torch.matmul(e, wb), torch.matmul(e.t(), x)))
+        bnd, by = bound_ms(4.0 * M * cin * cout,
+                           2.0 * M * (2 * cin + 2 * cout)
+                           + 8.0 * cin * cout + ab_bytes + 8.0 * cout
+                           + (8 * cin if pro else 0), peaks)
+        k2 = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                  bound_by=by)
+        emit("timing", kernel="fused_conv_bn_bwd", **shape, **k2,
+             library="torch.matmul e.W and e^T.x bf16 (GEMMs only, not "
+                     "the same function)")
+        rows.setdefault("fused_conv_bn_fwd", k1)
+        rows.setdefault("fused_conv_bn_bwd", k2)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -466,13 +879,18 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         times = phase_timing(args.seed, peaks)
+        errs.update(phase_parity_conv(args.seed))
+        launches.update(phase_train(args.seed))
+        phase_e2e_train(args.seed)
+        times.update(phase_timing_conv(args.seed, peaks))
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches.get(name, 0),
                     max_abs_err=errs[name], **times[name])
-               for name in ("flash_attention", "paged_decode_attention")]
+               for name in ("flash_attention", "paged_decode_attention",
+                            "fused_conv_bn_fwd", "fused_conv_bn_bwd")]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Weight carry between the JAX package's transformer parameter tree and
-the port's :class:`~.parallel.transformer.Transformer`.
+"""Weight carry between the JAX package's parameter trees and the port's
+models: the transformer (:func:`params_from_jax`) and the ResNet
+(:func:`resnet_from_jax`, :func:`resnet_to_numpy`, :func:`jax_leaf_order`).
 
 The JAX tree is ``{"embed", "lnf", "layers": [{"ln1", "wqkv", "wo",
 "ln2", "w1", "w2"}, ...]}`` with every projection ``[in, out]`` and used
@@ -15,12 +16,13 @@ inference format (a ``(q, scale)`` pair per quantized weight, from
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .models.resnet import ResNet, ResNetConfig
 from .parallel.transformer import Transformer, TransformerConfig
 
 _LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
@@ -57,3 +59,93 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                                  f"{tuple(param.shape)}")
             param.copy_(torch.from_numpy(arr))
     return model
+
+
+# -- ResNet -------------------------------------------------------------------
+#
+# The flax tree is {"params": {...}, "batch_stats": {...}} with one dict
+# level per module scope. The port's modules carry the flax scope names,
+# so a leaf's path IS its dotted attribute name; only conv kernels change
+# layout ([kh, kw, Cin, Cout] in flax, [Cout, Cin, kh, kw] in the port).
+
+
+def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+    for key in sorted(tree):
+        val = tree[key]
+        if hasattr(val, "items"):
+            yield from _flatten(dict(val), prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _is_conv_kernel(path: Tuple[str, ...], ndim: int) -> bool:
+    return path[-1] == "kernel" and ndim == 4
+
+
+def _to_port(path, arr: np.ndarray) -> np.ndarray:
+    if _is_conv_kernel(path, arr.ndim):
+        arr = arr.transpose(3, 2, 0, 1)
+    return np.array(arr, dtype=np.float32, order="C")
+
+
+def _to_flax(path, arr: np.ndarray) -> np.ndarray:
+    if _is_conv_kernel(path, arr.ndim):
+        return np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+    return arr
+
+
+def jax_leaf_order(model: torch.nn.Module
+                   ) -> List[Tuple[str, torch.nn.Parameter]]:
+    """``model``'s parameters in the flax flatten order: dict keys sorted
+    at every level (so ``BottleneckBlock_10`` comes before
+    ``BottleneckBlock_2`` and ``BatchNorm_*`` before ``Conv_*``). The
+    bucket plan walks this order, as the JAX plan walks the flax tree."""
+    return sorted(model.named_parameters(),
+                  key=lambda kv: tuple(kv[0].split(".")))
+
+
+def resnet_from_jax(variables: Dict[str, Any], cfg: ResNetConfig,
+                    device: DeviceLike = "cuda") -> ResNet:
+    """Build a :class:`ResNet` on ``device`` holding the flax
+    ``variables``' params and batch_stats (as f32). Raises ``ValueError``
+    when a leaf is missing, extra, or of the wrong shape."""
+    dev = resolve_device(device)
+    model = ResNet(cfg, device=dev)
+    targets = dict(model.named_parameters())
+    targets.update(model.named_buffers())
+    seen = set()
+    with torch.no_grad():
+        for coll in ("params", "batch_stats"):
+            for path, leaf in _flatten(dict(variables[coll])):
+                name = ".".join(path)
+                if name not in targets:
+                    raise ValueError(f"{coll}/{'/'.join(path)} has no "
+                                     f"counterpart in the port's model")
+                arr = _to_port(path, _float_leaf(leaf, name))
+                dst = targets[name]
+                if tuple(arr.shape) != tuple(dst.shape):
+                    raise ValueError(f"{name}: shape {arr.shape} does not "
+                                     f"match {tuple(dst.shape)}")
+                dst.copy_(torch.from_numpy(arr))
+                seen.add(name)
+    missing = sorted(set(targets) - seen)
+    if missing:
+        raise ValueError(f"variables lack {missing[:5]} "
+                         f"({len(missing)} leaves)")
+    return model
+
+
+def resnet_to_numpy(model: ResNet) -> Dict[str, Dict[str, Any]]:
+    """The model's variables as a flax-shaped numpy tree ``{"params":
+    ..., "batch_stats": ...}`` (conv kernels back in ``[kh, kw, Cin,
+    Cout]``)."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    named = [("params", n, t) for n, t in model.named_parameters()]
+    named += [("batch_stats", n, t) for n, t in model.named_buffers()]
+    for coll, name, t in named:
+        path = tuple(name.split("."))
+        node = out[coll]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _to_flax(path, t.detach().float().cpu().numpy())
+    return out

@@ -5,16 +5,26 @@
   (prefill), replacing the JAX package's Pallas ``_attn_kernel``.
 * :func:`~.paged_attention.paged_decode_attention` — paged decode
   attention, replacing the Pallas ``_paged_kernel``.
+* :func:`~.fused_conv_bn.fused_linear_bn_act` — fused 1x1 conv +
+  BatchNorm statistics, forward and backward, replacing the Pallas
+  ``_fwd_kernel`` and ``_bwd_kernel`` of ``pallas_conv.py``.
 
-:data:`~._build.LAUNCHES` counts each kernel's launches.
+:data:`~._build.LAUNCHES` counts each kernel's launches. The eager
+collectives and the fused gradient allreduce live beside them
+(``collectives.py``, ``fusion.py``).
 """
 
 from ._build import LAUNCHES
 from .attention import flash_attention, flash_attention_reference
+from .fused_conv_bn import (fused_linear_bn_act,
+                            fused_linear_bn_act_bwd_reference,
+                            fused_linear_bn_act_reference)
 from .paged_attention import (paged_attention_reference,
                               paged_attention_supported,
                               paged_decode_attention)
 
 __all__ = ["LAUNCHES", "flash_attention", "flash_attention_reference",
            "paged_decode_attention", "paged_attention_reference",
-           "paged_attention_supported"]
+           "paged_attention_supported", "fused_linear_bn_act",
+           "fused_linear_bn_act_reference",
+           "fused_linear_bn_act_bwd_reference"]

@@ -55,6 +55,19 @@ _SIGNATURES = {
         _i32, _i32, _i32,                   # S, H, D
         _i32, _i32, _i32,                   # block_size, max_blocks, n_blocks
         _f32, _vp],                         # scale, stream
+    "hvd_conv_bn_fwd": [
+        _vp, _vp, _vp, _vp,                 # x, w, a, b
+        _vp, _vp, _vp,                      # y, partial sums, stats
+        _i32, _i32, _i32,                   # M, Cin, Cout
+        _i32, _i32, _vp],                   # prologue, relu, stream
+    "hvd_conv_bn_bwd": [
+        _vp, _vp, _vp,                      # x, y, dy
+        _vp, _vp, _vp, _vp, _vp,            # w, a, b, ds1, ds2
+        _vp, _vp, _vp,                      # dx, dw, dab
+        _vp, _vp,                           # partial da/db, partial dw
+        _i32, _i32, _i32,                   # M, Cin, Cout
+        _i32, _i32, _i32, _i32, _vp],       # prologue, relu, splits,
+                                            # rows per split, stream
 }
 
 

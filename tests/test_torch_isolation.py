@@ -11,10 +11,14 @@ import pytest
 import torch
 
 import horovod_tpu_torch
+from horovod_tpu_torch import runtime
+from horovod_tpu_torch.models import ResNetConfig, resnet50
+from horovod_tpu_torch.models.resnet import ResNet
 from horovod_tpu_torch.parallel.kv_blocks import init_paged_kv_cache
 from horovod_tpu_torch.parallel.transformer import (Transformer,
                                                     TransformerConfig)
 from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
+from horovod_tpu_torch.training import create_train_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "horovod_tpu_torch")
@@ -49,7 +53,15 @@ def test_every_submodule_is_importable_here():
         horovod_tpu_torch.__path__, "horovod_tpu_torch.")]
     assert {"horovod_tpu_torch.ops.attention",
             "horovod_tpu_torch.ops.paged_attention",
-            "horovod_tpu_torch.serve.generate"} <= set(names)
+            "horovod_tpu_torch.serve.generate",
+            "horovod_tpu_torch.ops.fused_conv_bn",
+            "horovod_tpu_torch.ops.collectives",
+            "horovod_tpu_torch.ops.fusion",
+            "horovod_tpu_torch.models.resnet",
+            "horovod_tpu_torch.runtime",
+            "horovod_tpu_torch.optimizer",
+            "horovod_tpu_torch.training",
+            "horovod_tpu_torch.utils.config"} <= set(names)
 
 
 def test_no_file_names_jax_or_the_jax_package():
@@ -84,6 +96,24 @@ def test_engine_default_device_raises_without_cuda(monkeypatch):
     _without_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         GenerationEngine(model, GenerationConfig(max_slots=1, max_len=16))
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    tiny = ResNetConfig(stage_sizes=(1,), num_classes=2, num_filters=8,
+                        dtype=torch.float32)
+    cpu_model = ResNet(tiny, device="cpu")
+    _without_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runtime.init()
+    assert not runtime.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resnet50()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(cpu_model, torch.optim.SGD)
+    # ... and run when asked for the CPU.
+    state = create_train_state(cpu_model, lambda p: torch.optim.SGD(
+        p, lr=0.1), device="cpu")
+    assert state.step == 0 and len(state.params) == 17
 
 
 def test_unsupported_device_type_is_rejected():

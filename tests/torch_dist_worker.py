@@ -1,0 +1,97 @@
+"""One rank of a spawned gloo world for tests/test_torch_training.py.
+
+Started by ``torch.multiprocessing.spawn`` with the launcher's environment
+contract (``HVD_RANK``/``HVD_SIZE``/``HVD_LOCAL_RANK``); it imports only
+torch and the port. It reads its inputs from ``<workdir>/inputs.pkl``,
+runs every multi-rank check of the test file in one world — two data-
+parallel train steps on this rank's shard of the global batch,
+``broadcast_parameters`` over differently initialised models,
+``broadcast_optimizer_state`` into an optimizer with no state, and the
+eager collectives — and writes what it saw to ``<workdir>/rank<r>.pkl``
+for the test process to compare against the JAX functions.
+"""
+
+import datetime
+import functools
+import os
+import pickle
+
+import numpy as np
+import torch
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy().copy()
+
+
+def run(rank: int, world: int, port: int, workdir: str) -> None:
+    os.environ.update(HVD_RANK=str(rank), HVD_SIZE=str(world),
+                      HVD_LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(2)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models.resnet import ResNet, ResNetConfig
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    hvd.init(device="cpu", timeout=datetime.timedelta(seconds=120))
+    assert (hvd.rank(), hvd.size(), hvd.local_rank()) == (rank, world, rank)
+    out = {}
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+
+    # Two train steps on this rank's rows of the global batch.
+    cfg = ResNetConfig(**inp["cfg"])
+    model = convert.resnet_from_jax(inp["variables"], cfg, device="cpu")
+    state = create_train_state(model, sgd, device="cpu")
+    step = make_train_step()
+    n = inp["x"].shape[0] // world
+    x = torch.tensor(inp["x"][rank * n:(rank + 1) * n])
+    y = torch.tensor(inp["y"][rank * n:(rank + 1) * n])
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, (x, y))
+        losses.append(float(metrics["loss"]))
+    out["losses"] = losses
+    out["variables"] = convert.resnet_to_numpy(model)
+    out["momentum"] = {name: _np(state.optimizer.state[p]["momentum_buffer"])
+                       for name, p in model.named_parameters()}
+
+    # broadcast_optimizer_state: rank 0's trained state into a fresh SGD.
+    fresh = sgd([p for _, p in convert.jax_leaf_order(model)]) if rank \
+        else state.optimizer
+    if rank:
+        fresh.param_groups[0]["lr"] = 0.5
+    hvd.broadcast_optimizer_state(fresh)
+    out["bcast_opt_lr"] = fresh.param_groups[0]["lr"]
+    out["bcast_momentum"] = {
+        name: _np(fresh.state[p]["momentum_buffer"])
+        for name, p in model.named_parameters()}
+
+    # broadcast_parameters over differently initialised models.
+    other = ResNet(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(10 + rank))
+    hvd.broadcast_parameters(other)
+    out["bcast_params"] = {k: _np(v) for k, v in
+                           other.state_dict().items()}
+
+    # Eager collectives.
+    base = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    out["sum"] = _np(hvd.allreduce(base, average=False))
+    out["avg"] = _np(hvd.allreduce(base))
+    out["op_sum_ranked"] = _np(hvd.allreduce(base * (rank + 1),
+                                             op=hvd.Op.SUM))
+    out["max_ranked"] = _np(hvd.allreduce(base * (rank + 1),
+                                          op=hvd.Op.MAX))
+    out["int_sum"] = hvd.allreduce(torch.arange(5) + rank,
+                                   average=False).tolist()
+    out["gather"] = _np(hvd.allgather(torch.full((2, 3), float(rank))))
+    out["bcast"] = [_np(hvd.broadcast(torch.full((4,), float(rank) + 1),
+                                      root_rank=r)) for r in range(world)]
+    out["input_untouched"] = bool(torch.equal(
+        base, torch.arange(12, dtype=torch.float32).reshape(3, 4)))
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
