@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-Drives the port's two main paths and holds every CUDA kernel on them
+Drives the port's three main paths and holds every CUDA kernel on them
 against its plain PyTorch version on the card:
 
 * serving — the paged generation engine serving the bench LM at full
@@ -12,7 +12,13 @@ against its plain PyTorch version on the card:
   base filters, 1000 classes, 224x224, batch 128, bf16 compute with f32
   params and head, SGD 0.1 / momentum 0.9, local BatchNorm) through the
   Horovod surface (``init``, ``broadcast_parameters``,
-  ``DistributedOptimizer``) on a 1-rank NCCL world.
+  ``DistributedOptimizer``) on a 1-rank NCCL world;
+* LM training — ``bench.py``'s transformer-LM train step at full width
+  (``_LM_TPU``: T=2048, batch 8, bf16 compute with f32 params and a bf16
+  unembed, dense NLL, AdamW(1e-4, b1 0.9, b2 0.95, weight decay 0.1))
+  through ``make_parallel_train_step`` on a 1-rank NCCL world, its
+  attention on the packed flash forward with lse and the dq/dkv backward
+  kernels.
 
 Phases, one JSON line each:
 
@@ -49,6 +55,24 @@ Phases, one JSON line each:
                logits, updated params and running statistics compared.
 11. timing_conv — K1 and K2 at two site shapes beside their bounds,
                plain versions and a GEMM-only yardstick.
+12. parity_attn — the packed forward with lse (K3-qkv) and the dq/dkv
+               backward pair vs their plain versions at B=1, H=16,
+               d=128: T in {128, 1024, 2048} causal, T=256 non-causal
+               and T=1000 (not a multiple of the 64-row tile); two
+               launches must agree bitwise.
+13. lm_train — the full-width LM train step: 2 warmup + 10 timed steps
+               on a fixed random batch; launch counters zeroed before the
+               timed steps (8 K3-qkv + 8 dq + 8 dkv per step, no prefill
+               K3-fwd); step p50, tokens/s, MFU, peak memory; the loss
+               must be finite and fall.
+14. lm_train_profile — one LM step under ``torch.profiler``.
+15. e2e_lm_train — one full-width step at batch 1, T=256 on the card and
+               on the CPU from the same weights and batch: loss, logits,
+               gradients and updates compared.
+16. timing_attn — K3-qkv and the dq/dkv pair at the LM step's shape
+               (B=8, H=16, T=2048, causal) vs their plain versions (the
+               kernels line's max_abs_err; two launches bitwise equal),
+               then timed beside their bounds, plain versions and SDPA.
 
 Then, before the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
@@ -60,8 +84,10 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import http.client
 import json
+import math
 import os
 import re
 import subprocess
@@ -115,14 +141,45 @@ TOL_CONV = {"y": 2.0 ** -7, "dx": 2.0 ** -7, "s1": 1e-3, "s2": 1e-3,
 # cosine must stay near 1 (measured 1.000).
 TOL_E2E_TRAIN = {"loss": 2e-3, "logits": 1e-2, "param_updates": 0.3,
                  "batch_stats": 3e-4, "update_cosine": 0.99}
+# Transformer-LM training (bench.py's _LM_TPU and measure_lm).
+LM_BATCH, LM_SEQ = 8, 2048
+LM_WARMUP, LM_STEPS = 2, 10
+LM_E2E_BATCH, LM_E2E_SEQ = 1, 256
+ADAMW = dict(lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
+# (T, causal) of the attention parity checks at B=1, H=16, d=128.
+ATTN_PARITY = ((128, True), (1024, True), (2048, True), (256, False),
+               (1000, True))
+# bf16 outputs (o, dq, dk, dv): within 2 bf16 ulps of the largest value
+# (f32 sums in another order can flip a rounding of ds or of the output);
+# lse2 (f32, log2 domain): 1e-4 absolute.
+TOL_ATTN_ULPS = 2.0
+TOL_LSE = 1e-4
+ATTN_KERNELS = ("flash_attention_qkv_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# Card vs CPU after one bf16 AdamW step of the full-width LM (batch 1,
+# T=256, same weights and batch), about 3-4x the values measured on an
+# H100 (PERF.md): loss 4.5e-4, logits 0.046, the worst leaf's gradient
+# 1.2e-2 in relative L2. The gradient limit is the one that separates a
+# wrong kernel. AdamW's first step is ~lr*sign(g), so entries whose
+# gradient is rounding noise flip sign: per-leaf updates differ by up to
+# 0.17 in relative L2 (printed, not held to a limit), and the whole
+# update's cosine (0.993 measured) is held to [0.97, 1 + 1e-6].
+TOL_E2E_LM = {"loss": 1.5e-3, "logits": 0.15, "grad_rel_l2": 0.04,
+              "update_cosine": 0.97}
 REPLACES = {
     "flash_attention": "horovod_tpu/ops/pallas_attention.py:101",
+    "flash_attention_qkv_fwd": "horovod_tpu/ops/pallas_attention.py:101",
+    "flash_bwd_dq": "horovod_tpu/ops/pallas_attention.py:163",
+    "flash_bwd_dkv": "horovod_tpu/ops/pallas_attention.py:206",
     "paged_decode_attention": "horovod_tpu/ops/pallas_paged_attention.py:57",
     "fused_conv_bn_fwd": "horovod_tpu/ops/pallas_conv.py:81",
     "fused_conv_bn_bwd": "horovod_tpu/ops/pallas_conv.py:116",
 }
 SOURCES = {
     "flash_attention": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_qkv_fwd":
+        "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+    "flash_bwd_dkv": "horovod_tpu_torch/ops/csrc/flash_attention_bwd.cu",
     "paged_decode_attention":
         "horovod_tpu_torch/ops/csrc/paged_attention.cu",
     "fused_conv_bn_fwd": "horovod_tpu_torch/ops/csrc/fused_conv_bn.cu",
@@ -175,6 +232,41 @@ def bound_ms(flops: float, nbytes: float, peaks) -> tuple:
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes")
+
+
+def device_profile(run) -> tuple:
+    """Run ``run()`` once under ``torch.profiler`` (CUDA activity): its
+    wall time and the (device us, name, count) rows by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    return wall_s, rows
+
+
+def busy_shares(rows, wall_s: float, patterns: dict) -> dict:
+    """Device busy time and share of the wall time, and for each named
+    pattern the device time of the kernels whose name holds it and its
+    share of the busy time."""
+    busy_us = sum(r[0] for r in rows)
+    out = {"device_busy_ms": busy_us / 1e3,
+           "device_busy_share": busy_us / 1e6 / wall_s if rows else None}
+    for key, pattern in patterns.items():
+        us = sum(r[0] for r in rows if pattern in r[1])
+        out[key] = {"ms": us / 1e3,
+                    "share": us / busy_us if busy_us else None}
+    return out
 
 
 # -- phase inputs ------------------------------------------------------------
@@ -231,7 +323,8 @@ def ptxas_summary(log: str, needle: str) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             mangled = m.group(1)
-            hit = re.search(r"\d+([a-z_]+kernel)(?:ILi(\d+)E)?", mangled)
+            hit = re.search(r"\d+([a-z_]+kernel)(?:IL[ib](\d+)E)?",
+                            mangled)
             name = None
             if needle in mangled and hit:
                 name = hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
@@ -245,10 +338,11 @@ def ptxas_summary(log: str, needle: str) -> dict:
         if m:
             out[name]["spill_stores"] = int(m.group(1))
             out[name]["spill_loads"] = int(m.group(2))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m:
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                      line)
+        if m:     # dynamic shared memory is not in the static smem count
             out[name]["registers"] = int(m.group(1))
-            out[name]["smem_bytes"] = int(m.group(2))
+            out[name]["smem_bytes"] = int(m.group(2) or 0)
     return out
 
 
@@ -261,7 +355,8 @@ def phase_build():
     with open(path + ".log") as f:
         log = f.read()
     emit("build", seconds=secs, library=path, compiler_log=path + ".log",
-         fused_conv_bn_ptxas=ptxas_summary(log, "fused_conv_bn"))
+         fused_conv_bn_ptxas=ptxas_summary(log, "fused_conv_bn"),
+         flash_ptxas=ptxas_summary(log, "flash"))
 
 
 def phase_parity(seed: int):
@@ -324,21 +419,10 @@ def profile_round(eng, prompts) -> dict:
     time of the round (one stream, so device work does not overlap), and
     the top entries by device time. Null when the profiler records no
     device time (tracing is unavailable)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
+    def serve():
         for h in [eng.submit(p) for p in prompts]:
             h.result(600)
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
+    wall_s, rows = device_profile(serve)
     busy_s = sum(r[0] for r in rows) / 1e6
     return {"wall_s": wall_s,
             "device_busy_share": busy_s / wall_s if rows else None,
@@ -687,38 +771,17 @@ def profile_train_step(state, data) -> dict:
     device busy share = summed kernel time over the step's wall time,
     top kernels, and K1's and K2's shares (the reduction kernel they
     share is reported on its own)."""
-    from torch.profiler import ProfilerActivity, profile
     from horovod_tpu_torch.training import make_train_step
     step = make_train_step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        state, metrics = step(state, data)
-        metrics["loss"].item()
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
 
-    def share(pattern):
-        us = sum(r[0] for r in rows if pattern in r[1])
-        return {"ms": us / 1e3, "share": us / busy_us if busy_us else None}
-    return {"wall_ms": wall_s * 1e3,
-            "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / 1e6 / wall_s if rows else None,
-            "k1": share("conv_bn_fwd_kernel"),
-            "k2_dx": share("conv_bn_bwd_dx_kernel"),
-            "k2_dw": share("conv_bn_bwd_dw_kernel"),
-            "col_sum": share("col_sum_kernel"),
-            "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
-                    for us, k, n in rows[:12]]}
+    def one_step():
+        step(state, data)[1]["loss"].item()
+    wall_s, rows = device_profile(one_step)
+    return {"wall_ms": wall_s * 1e3, **busy_shares(rows, wall_s, {
+        "k1": "conv_bn_fwd_kernel", "k2_dx": "conv_bn_bwd_dx_kernel",
+        "k2_dw": "conv_bn_bwd_dw_kernel", "col_sum": "col_sum_kernel"}),
+        "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
+                for us, k, n in rows[:12]]}
 
 
 def _one_step(model, x, y):
@@ -853,6 +916,327 @@ def phase_timing_conv(seed: int, peaks):
     return rows
 
 
+# -- transformer-LM training (slice 3) ----------------------------------------
+
+def bf16_ulps(got, ref) -> float:
+    """max|got - ref| in units of one bf16 ulp of max|ref|."""
+    top = ref.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 2.0 ** -133
+    return (got.float() - ref.float()).abs().max().item() / ulp
+
+
+def attn_inputs(B: int, T: int, gen: torch.Generator):
+    """The packed projection output qkv [B, T, H*3*d] and a cotangent
+    dO [B, T, H*d], bf16 standard normals."""
+    H, d = LM["n_heads"], 128
+    qkv = torch.randn((B, T, H * 3 * d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    do = torch.randn((B, T, H * d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    return qkv, do
+
+
+def _abs_err(got, ref) -> float:
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def attn_parity(qkv, do, causal: bool, what: str):
+    """K3-qkv (o, lse2) and the dq/dkv pair (d_qkv) on ``qkv``/``do``,
+    each launched twice (the results must agree bitwise), against their
+    plain versions. Emits one ``parity_attn`` line; returns the errors
+    (o/dq/dk/dv in bf16 ulps of the largest value, lse absolute) and the
+    max |kernel - plain| per kernel (o for K3-qkv, dq for dq, dk and dv
+    for dkv)."""
+    from horovod_tpu_torch.ops import attention as A
+    H, d = LM["n_heads"], 128
+    B, T = qkv.shape[:2]
+    o, lse = A.flash_attention_qkv_fwd(qkv, H, causal=causal)
+    o2, lse2 = A.flash_attention_qkv_fwd(qkv, H, causal=causal)
+    g = A.flash_attention_qkv_bwd(qkv, o, lse, do, H, causal=causal)
+    g2 = A.flash_attention_qkv_bwd(qkv, o, lse, do, H, causal=causal)
+    torch.cuda.synchronize()
+    same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and torch.equal(g, g2))
+    del o2, lse2, g2
+    ro, rl = A.flash_attention_qkv_reference(qkv, H, causal=causal)
+    rg = A.flash_attention_qkv_bwd_reference(qkv, o, lse, do, H,
+                                             causal=causal)
+    for name, got, ref in (("o", o, ro), ("lse", lse, rl), ("d_qkv", g, rg)):
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"attention {what}: bad {name}")
+    parts = g.view(B, T, H, 3, d).unbind(3)
+    rparts = rg.view(B, T, H, 3, d).unbind(3)
+    errs = {"o": bf16_ulps(o, ro), "lse": (lse - rl).abs().max().item()}
+    for name, got, ref in zip(("dq", "dk", "dv"), parts, rparts):
+        errs[name] = bf16_ulps(got, ref)
+    abs_err = {"flash_attention_qkv_fwd": _abs_err(o, ro),
+               "flash_bwd_dq": _abs_err(parts[0], rparts[0]),
+               "flash_bwd_dkv": max(_abs_err(parts[1], rparts[1]),
+                                    _abs_err(parts[2], rparts[2]))}
+    emit("parity_attn", B=B, T=T, causal=causal, err=errs,
+         max_abs_err=abs_err, bitwise_repeatable=same,
+         note="o/dq/dk/dv in bf16 ulps of the largest value; lse abs")
+    check(same, f"attention {what}: two launches differ")
+    for name, v in errs.items():
+        tol = TOL_LSE if name == "lse" else TOL_ATTN_ULPS
+        check(v <= tol, f"attention {what}: {name} error {v} > {tol}")
+    del o, lse, g, ro, rl, rg, parts, rparts
+    torch.cuda.empty_cache()
+    return errs, abs_err
+
+
+def phase_parity_attn(seed: int):
+    """The edge cases at B=1: short, ragged (T not a multiple of the
+    64-row tile) and non-causal. The training shape itself is compared
+    in :func:`phase_timing_attn`, on the inputs it times."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    for T, causal in ATTN_PARITY:
+        qkv, do = attn_inputs(1, T, gen)
+        errs, _ = attn_parity(qkv, do, causal, f"B=1 T={T} causal={causal}")
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        del qkv, do
+    emit("parity_attn_summary", worst=worst,
+         tolerance={"ulps": TOL_ATTN_ULPS, "lse": TOL_LSE})
+
+
+def lm_config():
+    from horovod_tpu_torch.parallel.transformer import TransformerConfig
+    return TransformerConfig(**LM, dtype=torch.bfloat16,
+                             unembed_dtype=torch.bfloat16)
+
+
+def lm_batch(batch: int, seq: int, seed: int, device="cuda"):
+    """bench.py's LM data: uniform tokens, then labels, from one seeded
+    numpy generator."""
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, LM["vocab"], size=(batch, seq))
+    labels = rng.randint(0, LM["vocab"], size=(batch, seq))
+    return (torch.from_numpy(tokens).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def phase_lm_train(seed: int, peaks):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.transformer import \
+        make_parallel_train_step
+    from horovod_tpu_torch.utils.flops import lm_train_gflop_per_token
+    hvd.init()
+    check(hvd.size() == 1 and hvd.rank() == 0, "expected a 1-rank world")
+    cfg = lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, step = make_parallel_train_step(
+        cfg, functools.partial(torch.optim.AdamW, **ADAMW))
+    state = init_state(seed)
+    hvd.broadcast_parameters(state.model)
+    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
+    losses = []
+    for _ in range(LM_WARMUP):
+        state, loss = step(state, tokens, labels)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    times = []
+    for _ in range(LM_STEPS):
+        t0 = time.monotonic()
+        state, loss = step(state, tokens, labels)
+        losses.append(loss.item())
+        times.append(time.monotonic() - t0)
+    launches = LAUNCHES.snapshot()
+    p50 = float(np.median(times))
+    tok_s = LM_BATCH * LM_SEQ / p50
+    gflop = lm_train_gflop_per_token(dict(LM, seq=LM_SEQ))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    emit("lm_train", batch=LM_BATCH, seq=LM_SEQ, params=n_params,
+         warmup=LM_WARMUP, steps=LM_STEPS, losses=losses,
+         step_ms=[t * 1e3 for t in times], step_ms_p50=p50 * 1e3,
+         tokens_per_s=tok_s, gflop_per_token=gflop,
+         mfu=tok_s * gflop * 1e9 / peaks[0], peak_flops=peaks[0],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches, world=hvd.size(),
+         unembed="torch.mm(bf16, bf16, out_dtype=float32)")
+    n = cfg.n_layers * LM_STEPS
+    for name in ATTN_KERNELS:
+        check(launches.get(name, 0) == n,
+              f"{name} launched {launches.get(name, 0)} times; expected "
+              f"{cfg.n_layers} x {LM_STEPS}")
+    check(launches.get("flash_attention", 0) == 0,
+          "the LM step launched the prefill kernel")
+    check(all(np.isfinite(losses)), f"LM loss not finite {losses}")
+    check(losses[-1] < losses[0], f"LM loss did not fall {losses}")
+
+    def one_step():
+        nonlocal state
+        state, loss = step(state, tokens, labels)
+        loss.item()
+    wall_s, rows = device_profile(one_step)
+    emit("lm_train_profile", wall_ms=wall_s * 1e3, **busy_shares(
+        rows, wall_s, {"k3_qkv": "flash_fwd_kernel",
+                       "dq": "flash_bwd_dq_kernel",
+                       "dkv": "flash_bwd_dkv_kernel"}),
+         top=[{"name": k[:90], "ms": us / 1e3, "count": c}
+              for us, k, c in rows[:14]])
+    del state
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return launches
+
+
+def _lm_one_step(model, tokens, labels):
+    """One plain LM step (no world: the check compares the model and its
+    kernels, not the collective): forward, dense NLL, backward, AdamW.
+    Returns the loss, the logits and the gradients (on the CPU)."""
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.parallel.transformer import dense_nll, forward
+    opt = torch.optim.AdamW([p for _, p in convert.jax_leaf_order(model)],
+                            **ADAMW)
+    logits = forward(model, tokens)
+    loss = dense_nll(logits, labels).mean()
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu().clone()
+             for n, p in model.named_parameters()}
+    opt.step()
+    return loss.item(), logits.detach().float().cpu(), grads
+
+
+def phase_e2e_lm_train(seed: int):
+    """The full-width LM at batch 1, T=256 (tilable: the kernels run on
+    the card), one step on the card and on the CPU (plain versions) from
+    the same weights and batch."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.transformer import Transformer
+    cfg = lm_config()
+    card = Transformer(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1), device="cuda")
+    cpu = copy.deepcopy(card).to("cpu")
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    tokens, labels = lm_batch(LM_E2E_BATCH, LM_E2E_SEQ, seed + 5)
+    LAUNCHES.reset()
+    t0 = time.monotonic()
+    loss_card, logits_card, g_card = _lm_one_step(card, tokens, labels)
+    card_s = time.monotonic() - t0
+    launches = LAUNCHES.snapshot()
+    check(all(launches.get(k) == cfg.n_layers for k in ATTN_KERNELS),
+          f"e2e LM step did not run the attention kernels: {launches}")
+    t0 = time.monotonic()
+    loss_cpu, logits_cpu, g_cpu = _lm_one_step(cpu, tokens.cpu(),
+                                               labels.cpu())
+    cpu_s = time.monotonic() - t0
+    check(bool(torch.isfinite(logits_card).all()), "card logits not finite")
+    cp, pp = dict(card.named_parameters()), dict(cpu.named_parameters())
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    upd_card = {n: cp[n].detach().cpu() - before[n] for n in before}
+    upd_cpu = {n: pp[n].detach() - before[n] for n in before}
+    grad_err = {n: rel_l2(g_card[n], g_cpu[n]) for n in before}
+    upd_err = {n: rel_l2(upd_card[n], upd_cpu[n]) for n in before}
+    cosine = F.cosine_similarity(     # f64: 470 M terms
+        torch.cat([u.flatten() for u in upd_card.values()]).double(),
+        torch.cat([u.flatten() for u in upd_cpu.values()]).double(),
+        dim=0).item()
+    worst_g = max(grad_err, key=grad_err.get)
+    worst_u = max(upd_err, key=upd_err.get)
+    diffs = {"loss": abs(loss_card - loss_cpu),
+             "logits": (logits_card - logits_cpu).abs().max().item(),
+             "grad_rel_l2": grad_err[worst_g],
+             "update_rel_l2": upd_err[worst_u]}
+    emit("e2e_lm_train", batch=LM_E2E_BATCH, seq=LM_E2E_SEQ,
+         loss_card=loss_card, loss_cpu=loss_cpu,
+         logits_std=logits_cpu.std().item(), diffs=diffs,
+         worst_grad_leaf=worst_g, worst_update_leaf=worst_u,
+         grad_rel_l2={n: grad_err[n] for n in ("embed", "lnf",
+                                               "layers.0.wqkv",
+                                               "layers.7.w2")},
+         update_cosine=cosine, tolerance=TOL_E2E_LM, launches=launches,
+         card_s=card_s, cpu_s=cpu_s,
+         note="grad/update_rel_l2: worst leaf's ||card-cpu||/||cpu||")
+    for key in ("loss", "logits", "grad_rel_l2"):
+        check(diffs[key] <= TOL_E2E_LM[key],
+              f"e2e LM {key} differs by {diffs[key]}")
+    check(TOL_E2E_LM["update_cosine"] <= cosine <= 1 + 1e-6,
+          f"e2e LM whole-model update cosine {cosine}")
+
+
+def phase_timing_attn(seed: int, peaks):
+    """K3-qkv, dq, dkv and the pair at the training shape: compared with
+    their plain versions (:func:`attn_parity`), then timed. Bounds: FLOPs
+    of the causal (q, key) pairs, T(T+1)/2 per head, at 2d per pair per
+    matmul (fwd 2 matmuls; the backward's function 5; dq 3, dkv 4 as the
+    kernels split it); bytes: each input read once, each output written
+    once (q, k, v, o, dO, dq, dk, dv bf16; lse2, Delta f32)."""
+    from horovod_tpu_torch.ops import attention as A
+    B, T, H, d = LM_BATCH, LM_SEQ, LM["n_heads"], 128
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    qkv, do = attn_inputs(B, T, gen)
+    # The kernels against their plain versions at the shape the LM step
+    # gives them; this is the kernels line's max_abs_err.
+    _, abs_err = attn_parity(qkv, do, True, f"B={B} T={T} causal")
+    o, lse = A.flash_attention_qkv_fwd(qkv, H, causal=True)
+    delta = A.attention_delta(do, o, H)
+    g = torch.empty_like(qkv)
+    mm = 2.0 * d * B * H * T * (T + 1) / 2      # flops of one matmul pass
+    io = 2.0 * B * T * H * d                    # one [B,T,H,d] bf16 tensor
+    stat = 4.0 * B * H * T
+    rows = {}
+
+    def row(name, fn, n_mm, nbytes, plain, lib, lib_name):
+        ms = time_ms(fn)
+        bnd, by = bound_ms(n_mm * mm, nbytes, peaks)
+        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bnd, bound_by=by)
+        emit("timing", kernel=name, B=B, T=T, H=H, causal=True, **rows[name],
+             library=lib_name)
+
+    q4, k4, v4 = (x.transpose(1, 2) for x in A._split_qkv(qkv, H))
+    plain_fwd = time_ms(lambda: A.flash_attention_qkv_reference(
+        qkv, H, causal=True), reps=3, inner=1)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    row("flash_attention_qkv_fwd",
+        lambda: A.flash_attention_qkv_fwd(qkv, H, causal=True), 2,
+        4 * io + stat, plain_fwd, lib_fwd,
+        "torch.nn.functional.scaled_dot_product_attention (forward)")
+    torch.cuda.empty_cache()
+    plain_bwd = time_ms(lambda: A.flash_attention_qkv_bwd_reference(
+        qkv, o, lse, do, H, causal=True), reps=3, inner=1)
+    torch.cuda.empty_cache()
+    row("flash_bwd_dq", lambda: A.flash_bwd_dq(qkv, do, lse, delta, g, H,
+                                               causal=True),
+        3, 5 * io + 2 * stat, plain_bwd, None, None)
+    row("flash_bwd_dkv", lambda: A.flash_bwd_dkv(qkv, do, lse, delta, g, H,
+                                                 causal=True),
+        4, 6 * io + 2 * stat, plain_bwd, None, None)
+    ql, kl, vl = (x.detach().contiguous().requires_grad_()
+                  for x in (q4, k4, v4))
+    gl = do.view(B, T, H, d).transpose(1, 2).contiguous()
+    lib_pair = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+        (ql, kl, vl), gl))
+
+    def pair():
+        A.flash_bwd_dq(qkv, do, lse, delta, g, H, causal=True)
+        A.flash_bwd_dkv(qkv, do, lse, delta, g, H, causal=True)
+    row("flash_bwd_pair", pair, 5, 7 * io + 2 * stat, plain_bwd, lib_pair,
+        "scaled_dot_product_attention forward + backward (autograd)")
+    del qkv, do, o, lse, delta, g, ql, kl, vl, gl
+    torch.cuda.empty_cache()
+    # The LM step's bf16 unembed (not a kernel of the port): the cuBLAS
+    # product with f32 output it uses, beside the f32 upcast of the same
+    # bf16 values that the CPU path computes.
+    n, dm, V = LM_BATCH * LM_SEQ, LM["d_model"], LM["vocab"]
+    x = torch.randn((n, dm), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((V, dm), generator=gen, device="cuda").to(torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.mm(x, w.t(), out_dtype=torch.float32))
+    up_ms = time_ms(lambda: x.float() @ w.float().t(), reps=5, inner=2)
+    emit("timing_unembed", shape=[n, dm, V], out_dtype_mm_ms=mm_ms,
+         f32_upcast_ms=up_ms, bound_ms=bound_ms(
+             2.0 * n * dm * V, 2.0 * (n + V) * dm + 4.0 * n * V, peaks)[0],
+         note="forward only; torch.mm(bf16, bf16, out_dtype=float32)")
+    return rows, abs_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -868,21 +1252,28 @@ def main() -> int:
         print(f"chip_smoke: cannot import horovod_tpu_torch ({e}); run "
               f"from the repository root", file=sys.stderr)
         return 2
+    errs, launches, times = {}, {}, {}
     try:
         smi = phase_device()
         peaks = peaks_for(smi)
         phase_build()
-        errs = phase_parity(args.seed)
+        errs.update(phase_parity(args.seed))
         model = build_model(args.seed)
-        launches = phase_engine(model, args.seed)
+        launches.update(phase_engine(model, args.seed))
         phase_e2e(model, args.seed)
         del model
         torch.cuda.empty_cache()
-        times = phase_timing(args.seed, peaks)
+        times.update(phase_timing(args.seed, peaks))
         errs.update(phase_parity_conv(args.seed))
         launches.update(phase_train(args.seed))
         phase_e2e_train(args.seed)
         times.update(phase_timing_conv(args.seed, peaks))
+        phase_parity_attn(args.seed)
+        launches.update(phase_lm_train(args.seed, peaks))
+        phase_e2e_lm_train(args.seed)
+        attn_times, attn_errs = phase_timing_attn(args.seed, peaks)
+        times.update(attn_times)
+        errs.update(attn_errs)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -890,7 +1281,8 @@ def main() -> int:
                     replaces=REPLACES[name], launches=launches.get(name, 0),
                     max_abs_err=errs[name], **times[name])
                for name in ("flash_attention", "paged_decode_attention",
-                            "fused_conv_bn_fwd", "fused_conv_bn_bwd")]
+                            "fused_conv_bn_fwd", "fused_conv_bn_bwd")
+               + ATTN_KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

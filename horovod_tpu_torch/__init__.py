@@ -14,7 +14,11 @@ The ported slices:
 * data-parallel training — the Horovod surface below (one process per
   GPU over ``torch.distributed``: NCCL on the GPU, gloo on the CPU),
   ``training.make_train_step`` and ``models.resnet50`` with the fused
-  1x1-conv + BatchNorm kernels.
+  1x1-conv + BatchNorm kernels;
+* transformer-LM training —
+  ``parallel.transformer.make_parallel_train_step`` on the same surface,
+  with the packed flash-attention forward (with lse) and backward
+  kernels.
 
 Importing the package never imports JAX or the JAX package.
 """

@@ -1,6 +1,8 @@
 """Weight carry between the JAX package's parameter trees and the port's
-models: the transformer (:func:`params_from_jax`) and the ResNet
-(:func:`resnet_from_jax`, :func:`resnet_to_numpy`, :func:`jax_leaf_order`).
+models: the transformer (:func:`params_from_jax`,
+:func:`params_to_numpy`), the ResNet (:func:`resnet_from_jax`,
+:func:`resnet_to_numpy`), and the JAX leaf order both train steps plan
+their gradient buckets in (:func:`jax_leaf_order`).
 
 The JAX tree is ``{"embed", "lnf", "layers": [{"ln1", "wqkv", "wo",
 "ln2", "w1", "w2"}, ...]}`` with every projection ``[in, out]`` and used
@@ -34,6 +36,17 @@ def _float_leaf(leaf: Any, name: str) -> np.ndarray:
             f"{name}: int8-quantized weights come in a later slice of the "
             f"PyTorch port; restore the checkpoint in f32 or bf16")
     return np.asarray(leaf, dtype=np.float32)
+
+
+def params_to_numpy(model: Transformer) -> Dict[str, Any]:
+    """The model's weights as the JAX parameter tree ``{"embed", "lnf",
+    "layers": [{...}, ...]}`` of f32 numpy arrays (the inverse of
+    :func:`params_from_jax`)."""
+    def np_(t):
+        return t.detach().float().cpu().numpy().copy()
+    return {"embed": np_(model.embed), "lnf": np_(model.lnf),
+            "layers": [{key: np_(getattr(blk, key)) for key in _LAYER_KEYS}
+                       for blk in model.layers]}
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
@@ -94,14 +107,23 @@ def _to_flax(path, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _leaf_key(name: str):
+    # A purely numeric part is a list index (the LM's "layers.10"), which
+    # JAX flattens in index order; any other part is a dict key, which it
+    # flattens in sorted string order.
+    return tuple((0, int(part), "") if part.isdigit() else (1, 0, part)
+                 for part in name.split("."))
+
+
 def jax_leaf_order(model: torch.nn.Module
                    ) -> List[Tuple[str, torch.nn.Parameter]]:
-    """``model``'s parameters in the flax flatten order: dict keys sorted
-    at every level (so ``BottleneckBlock_10`` comes before
-    ``BottleneckBlock_2`` and ``BatchNorm_*`` before ``Conv_*``). The
-    bucket plan walks this order, as the JAX plan walks the flax tree."""
-    return sorted(model.named_parameters(),
-                  key=lambda kv: tuple(kv[0].split(".")))
+    """``model``'s parameters in the JAX tree-flatten order of the
+    matching parameter tree: dict keys sorted at every level (so flax's
+    ``BottleneckBlock_10`` comes before ``BottleneckBlock_2`` and
+    ``BatchNorm_*`` before ``Conv_*``) and list entries in index order
+    (the LM's ``layers.2`` before ``layers.10``). The bucket plan walks
+    this order, as the JAX plan walks the tree."""
+    return sorted(model.named_parameters(), key=lambda kv: _leaf_key(kv[0]))
 
 
 def resnet_from_jax(variables: Dict[str, Any], cfg: ResNetConfig,

@@ -39,16 +39,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _vp, _i32, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
+_FLASH_BWD = [
+    _vp, _vp, _vp, _vp,                     # q, k, v, dout
+    _vp, _vp,                               # lse, delta
+    _vp, _vp, _vp,                          # dq, dk, dv
+    _i32, _i32, _i32, _i32,                 # B, T, H, D
+    ctypes.POINTER(_i64),                   # 21 strides: (b, t, h) x 7
+    _f32, _f32, _i32, _vp]                  # q scale, grad scale, causal,
+                                            # stream
 # C entry points of csrc/*.cu: name -> argtypes (every one returns the
 # cudaError_t of its launch as an int).
 _SIGNATURES = {
     "hvd_flash_attention_fwd": [
-        _vp, _vp, _vp, _vp,                 # q, k, v, out
+        _vp, _vp, _vp, _vp, _vp,            # q, k, v, out, lse (or null)
         _i32, _i32, _i32, _i32,             # B, T, H, D
         _i64, _i64, _i64,                   # q strides (b, t, h)
         _i64, _i64, _i64,                   # k strides
         _i64, _i64, _i64,                   # v strides
         _f32, _i32, _vp],                   # q scale, causal, stream
+    "hvd_flash_bwd_dq": _FLASH_BWD,
+    "hvd_flash_bwd_dkv": _FLASH_BWD,
     "hvd_paged_decode_attention": [
         _vp, _vp, _vp,                      # q, k_pool, v_pool
         _vp, _vp, _vp,                      # tables, positions, out

@@ -1,16 +1,22 @@
 // Causal flash-attention forward for Hopper (sm_90a): bf16 q/k/v with
-// d_head 128 in, bf16 out.
+// d_head 128 in, bf16 out, and optionally the row log2-sum-exp2.
 //
 // Replaces: horovod_tpu/ops/pallas_attention.py::_attn_kernel as launched
 // by _fwd_pallas (with_lse=False) -- the TPU kernel every prefill layer of
-// the paged generation engine runs.
+// the paged generation engine runs (K3-fwd) -- and as launched by
+// _fwd_pallas_qkv with its lse2 output -- the packed-qkv forward of LM
+// training (K3-qkv), whose lse2 the backward (flash_attention_bwd.cu)
+// recomputes the probabilities from.
 //
 // Computes, per (batch, head), o = softmax(q k^T * sm_scale) v with the
 // JAX kernel's rounding points: q is multiplied by sm_scale*log2(e) in f32
 // and rounded back to bf16 on load; scores are bf16 products accumulated in
 // f32 and exponentiated with exp2; P is rounded to bf16 before P.V; the
 // accumulator and the softmax statistics are f32; masked scores are -1e30;
-// a row whose sum is 0 divides by 1 (comes out 0).
+// a row whose sum is 0 divides by 1 (comes out 0). With a non-null `lse`
+// it also writes lse2 = m + log2(l) per row (-1e30 where l = 0) as one f32
+// per row of an [B*H, T] array (the TPU kernel's [BH, T, 8]
+// lane-replicated wire format is a Mosaic layout, not carried over).
 //
 // Bound: at the engine's prefill shapes (T up to 2048, d = 128) the work
 // is 4*T^2*d*H/2 flops against 4*T*H*d*2 bytes, about T/2 flops per byte:
@@ -26,48 +32,42 @@
 // P.V product without touching shared memory. Tiles above the diagonal are
 // never loaded; the ragged edge (T not a multiple of 64) is masked, so
 // every prompt length runs this kernel. q/k/v are read through strides,
-// so the [B,T,H,3,d] projection output is consumed without transposes.
-// The heaviest (last) q tiles are scheduled first. Loads are synchronous
-// (no cp.async/TMA pipelining yet): a simple kernel that is right first.
+// so the [B,T,H,3,d] projection output is consumed without transposes,
+// and o is written as [B,T,H,d], which is the packed [B,T,H*d] input of
+// the output projection. The heaviest (last) q tiles are scheduled first.
+// Loads are synchronous (no cp.async/TMA pipelining yet): a simple kernel
+// that is right first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int kD = 128;      // head dimension
+using hvd_flash::kD;
+using hvd_flash::kPad;
+using hvd_flash::mma_bf16;
+using hvd_flash::pack_bf16;
+using hvd_flash::pack_raw;
+
 constexpr int kBQ = 64;      // q rows per CTA (16 per warp)
 constexpr int kBK = 64;      // keys per K/V tile
 constexpr int kWarps = 4;
-constexpr int kPad = 8;      // shared-memory row padding, in elements
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c += a * b for one m16n8k16 tile (a row-major 16x16, b col-major 16x8).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(kWarps * 32)
+// Three CTAs per SM (at most 168 registers a thread): at 169 the register
+// file holds only two, and a B=1, T=2048 prefill (512 CTAs) then needs two
+// waves instead of one and a third. kLse compiles the lse2 epilogue only
+// into the training instance, so the prefill instance is the lse-free
+// kernel.
+template <bool kLse>
+__global__ void __launch_bounds__(kWarps * 32, 3)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int T, int H,
+                 __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int T, int H,
                  long long qsb, long long qst, long long qsh,
                  long long ksb, long long kst, long long ksh,
                  long long vsb, long long vst, long long vsh,
@@ -232,6 +232,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = r0 + hf * 8;
     if (row >= T) continue;
     const float safe = (l[hf] == 0.f) ? 1.f : l[hf];
+    if (kLse && t4 == 0)   // log2 domain, for the backward
+      lse[static_cast<long long>(blockIdx.y) * T + row] =
+          (l[hf] == 0.f) ? -1e30f : m[hf] + log2f(safe);
     __nv_bfloat16* orow =
         o + ((static_cast<long long>(b) * T + row) * H + h) * D;
 #pragma unroll
@@ -245,10 +248,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 // q/k/v: [B, T, H, D] bf16 views with unit stride on D (strides in
-// elements); o: contiguous [B, T, H, D] bf16. Returns cudaGetLastError().
+// elements); o: contiguous [B, T, H, D] bf16; lse: null, or contiguous
+// [B*H, T] f32. Returns cudaGetLastError().
 extern "C" int hvd_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int T,
-    int H, int D, long long qsb, long long qst, long long qsh,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int B, int T, int H, int D, long long qsb, long long qst, long long qsh,
     long long ksb, long long kst, long long ksh, long long vsb,
     long long vst, long long vsh, float qscale, int causal, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
@@ -260,8 +264,14 @@ extern "C" int hvd_flash_attention_fwd(
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<<<grid, block, 0, st>>>(
-      qp, kp, vp, op, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-      qscale, causal);
+  auto* lp = static_cast<float*>(lse);
+  if (lp != nullptr)
+    flash_fwd_kernel<true><<<grid, block, 0, st>>>(
+        qp, kp, vp, op, lp, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
+        vsh, qscale, causal);
+  else
+    flash_fwd_kernel<false><<<grid, block, 0, st>>>(
+        qp, kp, vp, op, lp, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
+        vsh, qscale, causal);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,9 @@
 
 Port of the plain plane of the JAX package's ``training.py``:
 ``cross_entropy_loss``/``accuracy`` (:54-72), ``TrainState`` (:43),
-``create_train_state`` (:227) and ``make_train_step`` (:324) with
-``accum_steps=1`` and no guard, ZeRO, overlap or hybrid mesh, and
-``make_eval_step`` (:1264).
+``create_train_state`` (:227) and ``make_train_step`` (:324, with its
+``_value_and_grad`` hook) with ``accum_steps=1`` and no guard, ZeRO,
+overlap or hybrid mesh, and ``make_eval_step`` (:1264).
 
 One step: forward in training mode (BatchNorm updates its running
 statistics in place), the loss, backward, the fused-bucket gradient
@@ -76,17 +76,32 @@ def create_train_state(model: torch.nn.Module,
     return TrainState(model=model, optimizer=opt)
 
 
-def make_train_step(loss_fn: Callable = cross_entropy_loss):
+def make_train_step(loss_fn: Callable = cross_entropy_loss, *,
+                    _value_and_grad: Optional[Callable] = None):
     """Build ``step(state, (inputs, labels)) -> (state, {"loss": ...})``.
-    The batch is this rank's shard; the loss is the world average."""
+    The batch is this rank's shard; the loss is the world average.
+
+    ``_value_and_grad(model, batch) -> loss`` (the counterpart of the
+    JAX hook of the same name) replaces the default loss of
+    ``loss_fn(model(inputs, train=True), labels)``: it computes the loss
+    of the whole batch from the model and leaves the gradients in each
+    parameter's ``.grad`` (e.g. by ``loss.backward()``). The transformer
+    LM's step (:func:`~.parallel.transformer.make_parallel_train_step`)
+    plugs in its own forward and loss this way."""
+
+    def default_value_and_grad(model, batch) -> torch.Tensor:
+        inputs, labels = batch
+        loss = loss_fn(model(inputs, train=True), labels)
+        loss.backward()
+        return loss
+
+    vag = default_value_and_grad if _value_and_grad is None \
+        else _value_and_grad
 
     def step(state: TrainState, batch) -> Tuple[TrainState, dict]:
-        inputs, labels = batch
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        logits = state.model(inputs, train=True)
-        loss = loss_fn(logits, labels)
-        loss.backward()
+        loss = vag(state.model, batch)
         state.optimizer.step()
         state.step += 1
         return state, {"loss": _world_mean(loss.detach().float())}

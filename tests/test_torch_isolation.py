@@ -15,8 +15,8 @@ from horovod_tpu_torch import runtime
 from horovod_tpu_torch.models import ResNetConfig, resnet50
 from horovod_tpu_torch.models.resnet import ResNet
 from horovod_tpu_torch.parallel.kv_blocks import init_paged_kv_cache
-from horovod_tpu_torch.parallel.transformer import (Transformer,
-                                                    TransformerConfig)
+from horovod_tpu_torch.parallel.transformer import (
+    Transformer, TransformerConfig, make_parallel_train_step)
 from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
 from horovod_tpu_torch.training import create_train_state
 
@@ -61,7 +61,8 @@ def test_every_submodule_is_importable_here():
             "horovod_tpu_torch.runtime",
             "horovod_tpu_torch.optimizer",
             "horovod_tpu_torch.training",
-            "horovod_tpu_torch.utils.config"} <= set(names)
+            "horovod_tpu_torch.utils.config",
+            "horovod_tpu_torch.utils.flops"} <= set(names)
 
 
 def test_no_file_names_jax_or_the_jax_package():
@@ -114,6 +115,15 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     state = create_train_state(cpu_model, lambda p: torch.optim.SGD(
         p, lr=0.1), device="cpu")
     assert state.step == 0 and len(state.params) == 17
+
+
+def test_lm_train_step_defaults_to_cuda(monkeypatch):
+    _without_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_parallel_train_step(TINY, torch.optim.AdamW)
+    init_state, _ = make_parallel_train_step(TINY, torch.optim.AdamW,
+                                             device="cpu")
+    assert init_state(0).model.device.type == "cpu"
 
 
 def test_unsupported_device_type_is_rejected():

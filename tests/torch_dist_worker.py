@@ -1,4 +1,5 @@
-"""One rank of a spawned gloo world for tests/test_torch_training.py.
+"""One rank of a spawned gloo world for tests/test_torch_training.py
+(:func:`run`) and tests/test_torch_lm_training.py (:func:`run_lm`).
 
 Started by ``torch.multiprocessing.spawn`` with the launcher's environment
 contract (``HVD_RANK``/``HVD_SIZE``/``HVD_LOCAL_RANK``); it imports only
@@ -94,4 +95,40 @@ def run(rank: int, world: int, port: int, workdir: str) -> None:
         base, torch.arange(12, dtype=torch.float32).reshape(3, 4)))
     hvd.shutdown()
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_lm(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of the LM check of tests/test_torch_lm_training.py: one
+    ``make_parallel_train_step`` step (AdamW) on this rank's rows of the
+    global batch, from the weights in ``<workdir>/inputs.pkl``; writes
+    the world-averaged loss and the updated parameters (as the JAX tree)
+    to ``<workdir>/lm_rank<r>.pkl``."""
+    os.environ.update(HVD_RANK=str(rank), HVD_SIZE=str(world),
+                      HVD_LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(2)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.parallel.transformer import (
+        TransformerConfig, make_parallel_train_step)
+
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    hvd.init(device="cpu", timeout=datetime.timedelta(seconds=120))
+    cfg = TransformerConfig(**inp["dims"], dtype=torch.float32,
+                            unembed_dtype=torch.float32)
+    init_state, step = make_parallel_train_step(
+        cfg, functools.partial(torch.optim.AdamW, **inp["adamw"]),
+        device="cpu")
+    state = init_state(model=convert.params_from_jax(inp["tree"], cfg,
+                                                     device="cpu"))
+    n = inp["tokens"].shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    state, loss = step(state, torch.from_numpy(inp["tokens"][rows]),
+                       torch.from_numpy(inp["labels"][rows]))
+    out = {"loss": float(loss),
+           "params": convert.params_to_numpy(state.model)}
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"lm_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
