@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-Drives the port's three main paths and holds every CUDA kernel on them
+Drives the port's four main paths and holds every CUDA kernel on them
 against its plain PyTorch version on the card:
 
 * serving — the paged generation engine serving the bench LM at full
@@ -18,7 +18,12 @@ against its plain PyTorch version on the card:
   unembed, dense NLL, AdamW(1e-4, b1 0.9, b2 0.95, weight decay 0.1))
   through ``make_parallel_train_step`` on a 1-rank NCCL world, its
   attention on the packed flash forward with lse and the dq/dkv backward
-  kernels.
+  kernels;
+* pipelined LM training — the same LM and batch through
+  ``make_pp_transformer_train_step`` (1F1B, 2 microbatches of 4) on a
+  dp=1 x pp=1 mesh of a 1-rank NCCL world (one card: all 8 layers in one
+  stage), its attention on the [B,T,H,D] flash forward with lse and the
+  dq/dkv kernels with K6's constants.
 
 Phases, one JSON line each:
 
@@ -73,6 +78,25 @@ Phases, one JSON line each:
                (B=8, H=16, T=2048, causal) vs their plain versions (the
                kernels line's max_abs_err; two launches bitwise equal),
                then timed beside their bounds, plain versions and SDPA.
+17. parity_attn_bhtd — the [B,T,H,D] forward with lse and the dq and
+               dk/dv kernels (K6's constants) vs their plain versions at
+               the pp step's shape (B=4, H=16, T=2048, causal; q/k/v
+               strided slices of a packed [B,T,H,3,d] projection, q
+               prescaled; the kernels line's max_abs_err) and at B=1,
+               T=1000 causal and T=256 non-causal; two launches must agree
+               bitwise.
+18. pp_lm_train — the full-width pipelined step: 2 warmup + 10 timed
+               steps on lm_train's batch; counters zeroed before the timed
+               steps (16 lse forwards + 16 dq + 16 dkv per step, no packed
+               K3-qkv and no forward without lse); step p50, tokens/s,
+               MFU, peak memory; the loss must be finite and fall.
+19. pp_lm_train_profile — one pipelined step under ``torch.profiler``.
+20. e2e_pp_lm_train — one full-width pipelined step at batch 2 (2
+               microbatches of 1), T=256, on the card (NCCL world) and on
+               the CPU (gloo world) from the same weights and batch: loss,
+               gradients and the update compared.
+21. timing_attn_bhtd — the three [B,T,H,D] launches and the pair at
+               B=4, T=2048 beside their bounds, plain versions and SDPA.
 
 Then, before the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
@@ -155,6 +179,21 @@ ATTN_PARITY = ((128, True), (1024, True), (2048, True), (256, False),
 TOL_ATTN_ULPS = 2.0
 TOL_LSE = 1e-4
 ATTN_KERNELS = ("flash_attention_qkv_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The pipelined LM (bench.py measure_lm's max(2, accum_steps) microbatches).
+PP_MICRO = 2
+PP_E2E_BATCH, PP_E2E_SEQ = 2, 256
+# (B, T, causal) of the [B,T,H,D] parity checks; the first is the pp
+# step's own shape (one microbatch) and gives the kernels line's errors.
+BHTD_PARITY = ((LM_BATCH // PP_MICRO, LM_SEQ, True), (1, 1000, True),
+               (1, 256, False))
+BHTD_KERNELS = ("flash_attention_lse", "flash_bwd_dq_bhtd",
+                "flash_bwd_dkv_bhtd")
+# Card vs CPU after one bf16 AdamW pipelined step (batch 2 as 2
+# microbatches, T=256, same weights and batch), about 3-4x the values
+# measured on an H100 (PERF.md): loss 4.5e-4, the worst leaf's gradient
+# 1.07e-2 in relative L2 (the embedding), the whole update's cosine 0.9936
+# (1 - cosine 6.4e-3), held to [0.975, 1 + 1e-6].
+TOL_E2E_PP = {"loss": 1.5e-3, "grad_rel_l2": 0.04, "update_cosine": 0.975}
 # Card vs CPU after one bf16 AdamW step of the full-width LM (batch 1,
 # T=256, same weights and batch), about 3-4x the values measured on an
 # H100 (PERF.md): loss 4.5e-4, logits 0.046, the worst leaf's gradient
@@ -170,6 +209,9 @@ REPLACES = {
     "flash_attention_qkv_fwd": "horovod_tpu/ops/pallas_attention.py:101",
     "flash_bwd_dq": "horovod_tpu/ops/pallas_attention.py:163",
     "flash_bwd_dkv": "horovod_tpu/ops/pallas_attention.py:206",
+    "flash_attention_lse": "horovod_tpu/ops/pallas_attention.py:462",
+    "flash_bwd_dq_bhtd": "horovod_tpu/ops/pallas_attention.py:250",
+    "flash_bwd_dkv_bhtd": "horovod_tpu/ops/pallas_attention.py:250",
     "paged_decode_attention": "horovod_tpu/ops/pallas_paged_attention.py:57",
     "fused_conv_bn_fwd": "horovod_tpu/ops/pallas_conv.py:81",
     "fused_conv_bn_bwd": "horovod_tpu/ops/pallas_conv.py:116",
@@ -180,6 +222,10 @@ SOURCES = {
         "horovod_tpu_torch/ops/csrc/flash_attention.cu",
     "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_attention_bwd.cu",
     "flash_bwd_dkv": "horovod_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+    "flash_attention_lse": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_bwd_dq_bhtd": "horovod_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+    "flash_bwd_dkv_bhtd":
+        "horovod_tpu_torch/ops/csrc/flash_attention_bwd.cu",
     "paged_decode_attention":
         "horovod_tpu_torch/ops/csrc/paged_attention.cu",
     "fused_conv_bn_fwd": "horovod_tpu_torch/ops/csrc/fused_conv_bn.cu",
@@ -360,7 +406,7 @@ def phase_build():
 
 
 def phase_parity(seed: int):
-    from horovod_tpu_torch.ops.attention import (flash_attention,
+    from horovod_tpu_torch.ops.attention import (flash_attention_prefill,
                                                  flash_attention_reference)
     from horovod_tpu_torch.ops.paged_attention import (
         paged_attention_reference, paged_decode_attention)
@@ -368,7 +414,7 @@ def phase_parity(seed: int):
     errs = {}
     for T in FLASH_T_PARITY:
         q, k, v = flash_inputs(T, gen)
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention_prefill(q, k, v, causal=True)
         torch.cuda.synchronize()
         ref = flash_attention_reference(q, k, v, causal=True)
         err = (out.float() - ref.float()).abs().max().item()
@@ -572,7 +618,7 @@ def phase_e2e(model, seed: int):
 
 
 def phase_timing(seed: int, peaks):
-    from horovod_tpu_torch.ops.attention import (flash_attention,
+    from horovod_tpu_torch.ops.attention import (flash_attention_prefill,
                                                  flash_attention_reference)
     from horovod_tpu_torch.ops.paged_attention import (
         paged_attention_reference, paged_decode_attention)
@@ -582,7 +628,7 @@ def phase_timing(seed: int, peaks):
     for T in FLASH_T:
         q, k, v = flash_inputs(T, gen)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+        ms = time_ms(lambda: flash_attention_prefill(q, k, v, causal=True))
         plain = time_ms(lambda: flash_attention_reference(
             q, k, v, causal=True), reps=5, inner=2)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
@@ -940,49 +986,64 @@ def _abs_err(got, ref) -> float:
     return (got.float() - ref.float()).abs().max().item()
 
 
+def parity_report(phase: str, kernels, run, plain, causal: bool,
+                  what: str):
+    """Hold one forward-with-lse + dq/dkv kernel set against its plain
+    versions. ``run()`` launches the kernels and returns ``(o, lse, dq,
+    dk, dv)``; it runs twice and the two results must agree bitwise.
+    ``plain(o, lse)`` returns the plain versions' five, the backward's
+    computed from the kernels' own o and lse2. Emits one ``phase`` line;
+    returns the errors (o/dq/dk/dv in bf16 ulps of the largest value, lse
+    absolute) and the max |kernel - plain| of each of ``kernels`` (the
+    forward's o, dq, and dk/dv)."""
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    ref = plain(got[0], got[1])
+    names = ("o", "lse", "dq", "dk", "dv")
+    for name, g, r in zip(names, got, ref):
+        check(g.shape == r.shape and bool(torch.isfinite(g).all()),
+              f"attention {what}: bad {name}")
+    errs = {n: (g - r).abs().max().item() if n == "lse" else bf16_ulps(g, r)
+            for n, g, r in zip(names, got, ref)}
+    fwd, dq, dkv = kernels
+    abs_err = {fwd: _abs_err(got[0], ref[0]), dq: _abs_err(got[2], ref[2]),
+               dkv: max(_abs_err(got[3], ref[3]), _abs_err(got[4], ref[4]))}
+    B, T = got[0].shape[:2]
+    emit(phase, B=B, T=T, causal=causal, err=errs, max_abs_err=abs_err,
+         bitwise_repeatable=same,
+         note="o/dq/dk/dv in bf16 ulps of the largest value; lse abs")
+    check(same, f"attention {what}: two launches differ")
+    for name, val in errs.items():
+        tol = TOL_LSE if name == "lse" else TOL_ATTN_ULPS
+        check(val <= tol, f"attention {what}: {name} error {val} > {tol}")
+    del got, ref
+    torch.cuda.empty_cache()
+    return errs, abs_err
+
+
 def attn_parity(qkv, do, causal: bool, what: str):
-    """K3-qkv (o, lse2) and the dq/dkv pair (d_qkv) on ``qkv``/``do``,
-    each launched twice (the results must agree bitwise), against their
-    plain versions. Emits one ``parity_attn`` line; returns the errors
-    (o/dq/dk/dv in bf16 ulps of the largest value, lse absolute) and the
-    max |kernel - plain| per kernel (o for K3-qkv, dq for dq, dk and dv
-    for dkv)."""
+    """K3-qkv (o, lse2) and the dq/dkv pair (the packed d_qkv) on
+    ``qkv``/``do`` against their plain versions (:func:`parity_report`,
+    one ``parity_attn`` line)."""
     from horovod_tpu_torch.ops import attention as A
     H, d = LM["n_heads"], 128
     B, T = qkv.shape[:2]
-    o, lse = A.flash_attention_qkv_fwd(qkv, H, causal=causal)
-    o2, lse2 = A.flash_attention_qkv_fwd(qkv, H, causal=causal)
-    g = A.flash_attention_qkv_bwd(qkv, o, lse, do, H, causal=causal)
-    g2 = A.flash_attention_qkv_bwd(qkv, o, lse, do, H, causal=causal)
-    torch.cuda.synchronize()
-    same = (torch.equal(o, o2) and torch.equal(lse, lse2)
-            and torch.equal(g, g2))
-    del o2, lse2, g2
-    ro, rl = A.flash_attention_qkv_reference(qkv, H, causal=causal)
-    rg = A.flash_attention_qkv_bwd_reference(qkv, o, lse, do, H,
-                                             causal=causal)
-    for name, got, ref in (("o", o, ro), ("lse", lse, rl), ("d_qkv", g, rg)):
-        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
-              f"attention {what}: bad {name}")
-    parts = g.view(B, T, H, 3, d).unbind(3)
-    rparts = rg.view(B, T, H, 3, d).unbind(3)
-    errs = {"o": bf16_ulps(o, ro), "lse": (lse - rl).abs().max().item()}
-    for name, got, ref in zip(("dq", "dk", "dv"), parts, rparts):
-        errs[name] = bf16_ulps(got, ref)
-    abs_err = {"flash_attention_qkv_fwd": _abs_err(o, ro),
-               "flash_bwd_dq": _abs_err(parts[0], rparts[0]),
-               "flash_bwd_dkv": max(_abs_err(parts[1], rparts[1]),
-                                    _abs_err(parts[2], rparts[2]))}
-    emit("parity_attn", B=B, T=T, causal=causal, err=errs,
-         max_abs_err=abs_err, bitwise_repeatable=same,
-         note="o/dq/dk/dv in bf16 ulps of the largest value; lse abs")
-    check(same, f"attention {what}: two launches differ")
-    for name, v in errs.items():
-        tol = TOL_LSE if name == "lse" else TOL_ATTN_ULPS
-        check(v <= tol, f"attention {what}: {name} error {v} > {tol}")
-    del o, lse, g, ro, rl, rg, parts, rparts
-    torch.cuda.empty_cache()
-    return errs, abs_err
+
+    def run():
+        o, lse = A.flash_attention_qkv_fwd(qkv, H, causal=causal)
+        g = A.flash_attention_qkv_bwd(qkv, o, lse, do, H, causal=causal)
+        return (o, lse, *g.view(B, T, H, 3, d).unbind(3))
+
+    def plain(o, lse):
+        ro, rl = A.flash_attention_qkv_reference(qkv, H, causal=causal)
+        rg = A.flash_attention_qkv_bwd_reference(qkv, o, lse, do, H,
+                                                 causal=causal)
+        return (ro, rl, *rg.view(B, T, H, 3, d).unbind(3))
+    return parity_report("parity_attn", ATTN_KERNELS, run, plain, causal,
+                         what)
 
 
 def phase_parity_attn(seed: int):
@@ -1016,21 +1077,12 @@ def lm_batch(batch: int, seq: int, seed: int, device="cuda"):
             torch.from_numpy(labels).to(device))
 
 
-def phase_lm_train(seed: int, peaks):
-    import horovod_tpu_torch as hvd
+def lm_steps(step, state, tokens, labels):
+    """LM_WARMUP steps, then LM_STEPS timed ones (host clock around a step
+    that ends in ``.item()`` of its loss) with the launch counters zeroed
+    just before them. Returns the state, every loss, the timed steps'
+    seconds and their launches."""
     from horovod_tpu_torch.ops import LAUNCHES
-    from horovod_tpu_torch.parallel.transformer import \
-        make_parallel_train_step
-    from horovod_tpu_torch.utils.flops import lm_train_gflop_per_token
-    hvd.init()
-    check(hvd.size() == 1 and hvd.rank() == 0, "expected a 1-rank world")
-    cfg = lm_config()
-    torch.cuda.reset_peak_memory_stats()
-    init_state, step = make_parallel_train_step(
-        cfg, functools.partial(torch.optim.AdamW, **ADAMW))
-    state = init_state(seed)
-    hvd.broadcast_parameters(state.model)
-    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
     losses = []
     for _ in range(LM_WARMUP):
         state, loss = step(state, tokens, labels)
@@ -1043,19 +1095,57 @@ def phase_lm_train(seed: int, peaks):
         state, loss = step(state, tokens, labels)
         losses.append(loss.item())
         times.append(time.monotonic() - t0)
-    launches = LAUNCHES.snapshot()
+    return state, losses, times, LAUNCHES.snapshot()
+
+
+def lm_report(losses, times, launches, n_params, peaks) -> dict:
+    """The LM steps' line: step p50, tokens/s, MFU on the bench's
+    matmul-only count, peak memory."""
+    from horovod_tpu_torch.utils.flops import lm_train_gflop_per_token
     p50 = float(np.median(times))
     tok_s = LM_BATCH * LM_SEQ / p50
     gflop = lm_train_gflop_per_token(dict(LM, seq=LM_SEQ))
+    return dict(batch=LM_BATCH, seq=LM_SEQ, params=n_params,
+                warmup=LM_WARMUP, steps=LM_STEPS, losses=losses,
+                step_ms=[t * 1e3 for t in times], step_ms_p50=p50 * 1e3,
+                tokens_per_s=tok_s, gflop_per_token=gflop,
+                mfu=tok_s * gflop * 1e9 / peaks[0], peak_flops=peaks[0],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches)
+
+
+def lm_profile(step, state, tokens, labels, patterns) -> tuple:
+    """One more step under ``torch.profiler``: the state and the profile
+    line's fields (busy share, the named kernels' shares, top kernels)."""
+    box = [state]
+
+    def one_step():
+        box[0], loss = step(box[0], tokens, labels)
+        loss.item()
+    wall_s, rows = device_profile(one_step)
+    return box[0], dict(wall_ms=wall_s * 1e3,
+                        **busy_shares(rows, wall_s, patterns),
+                        top=[{"name": k[:90], "ms": us / 1e3, "count": c}
+                             for us, k, c in rows[:14]])
+
+
+def phase_lm_train(seed: int, peaks):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.transformer import \
+        make_parallel_train_step
+    hvd.init()
+    check(hvd.size() == 1 and hvd.rank() == 0, "expected a 1-rank world")
+    cfg = lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, step = make_parallel_train_step(
+        cfg, functools.partial(torch.optim.AdamW, **ADAMW))
+    state = init_state(seed)
+    hvd.broadcast_parameters(state.model)
+    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
+    state, losses, times, launches = lm_steps(step, state, tokens, labels)
     n_params = sum(p.numel() for p in state.model.parameters())
-    emit("lm_train", batch=LM_BATCH, seq=LM_SEQ, params=n_params,
-         warmup=LM_WARMUP, steps=LM_STEPS, losses=losses,
-         step_ms=[t * 1e3 for t in times], step_ms_p50=p50 * 1e3,
-         tokens_per_s=tok_s, gflop_per_token=gflop,
-         mfu=tok_s * gflop * 1e9 / peaks[0], peak_flops=peaks[0],
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches, world=hvd.size(),
-         unembed="torch.mm(bf16, bf16, out_dtype=float32)")
+    emit("lm_train", **lm_report(losses, times, launches, n_params, peaks),
+         world=hvd.size(), unembed="torch.mm(bf16, bf16, out_dtype=float32)")
     n = cfg.n_layers * LM_STEPS
     for name in ATTN_KERNELS:
         check(launches.get(name, 0) == n,
@@ -1065,18 +1155,10 @@ def phase_lm_train(seed: int, peaks):
           "the LM step launched the prefill kernel")
     check(all(np.isfinite(losses)), f"LM loss not finite {losses}")
     check(losses[-1] < losses[0], f"LM loss did not fall {losses}")
-
-    def one_step():
-        nonlocal state
-        state, loss = step(state, tokens, labels)
-        loss.item()
-    wall_s, rows = device_profile(one_step)
-    emit("lm_train_profile", wall_ms=wall_s * 1e3, **busy_shares(
-        rows, wall_s, {"k3_qkv": "flash_fwd_kernel",
-                       "dq": "flash_bwd_dq_kernel",
-                       "dkv": "flash_bwd_dkv_kernel"}),
-         top=[{"name": k[:90], "ms": us / 1e3, "count": c}
-              for us, k, c in rows[:14]])
+    state, profiled = lm_profile(step, state, tokens, labels, {
+        "k3_qkv": "flash_fwd_kernel", "dq": "flash_bwd_dq_kernel",
+        "dkv": "flash_bwd_dkv_kernel"})
+    emit("lm_train_profile", **profiled)
     del state
     torch.cuda.empty_cache()
     hvd.shutdown()
@@ -1159,6 +1241,24 @@ def phase_e2e_lm_train(seed: int):
           f"e2e LM whole-model update cosine {cosine}")
 
 
+def attn_timing_row(rows: dict, shape, peaks, name: str, fn, n_mm: int,
+                    n_io: int, n_stat: int, plain, lib, lib_name) -> None:
+    """Time one attention launch (``fn``) at ``shape`` = (B, T, H, d),
+    causal, and emit its ``timing`` line. Bound: ``n_mm`` matmul passes
+    over the T(T+1)/2 causal (q, key) pairs per head at 2d flops a pair,
+    against ``n_io`` [B,T,H,d] bf16 tensors and ``n_stat`` [B*H, T] f32
+    rows read or written once."""
+    B, T, H, d = shape
+    ms = time_ms(fn)
+    bnd, by = bound_ms(n_mm * 2.0 * d * B * H * T * (T + 1) / 2,
+                       n_io * 2.0 * B * T * H * d + n_stat * 4.0 * B * H * T,
+                       peaks)
+    rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                      bound_by=by)
+    emit("timing", kernel=name, B=B, T=T, H=H, causal=True, **rows[name],
+         library=lib_name)
+
+
 def phase_timing_attn(seed: int, peaks):
     """K3-qkv, dq, dkv and the pair at the training shape: compared with
     their plain versions (:func:`attn_parity`), then timed. Bounds: FLOPs
@@ -1176,27 +1276,16 @@ def phase_timing_attn(seed: int, peaks):
     o, lse = A.flash_attention_qkv_fwd(qkv, H, causal=True)
     delta = A.attention_delta(do, o, H)
     g = torch.empty_like(qkv)
-    mm = 2.0 * d * B * H * T * (T + 1) / 2      # flops of one matmul pass
-    io = 2.0 * B * T * H * d                    # one [B,T,H,d] bf16 tensor
-    stat = 4.0 * B * H * T
     rows = {}
-
-    def row(name, fn, n_mm, nbytes, plain, lib, lib_name):
-        ms = time_ms(fn)
-        bnd, by = bound_ms(n_mm * mm, nbytes, peaks)
-        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=bnd, bound_by=by)
-        emit("timing", kernel=name, B=B, T=T, H=H, causal=True, **rows[name],
-             library=lib_name)
-
+    row = functools.partial(attn_timing_row, rows, (B, T, H, d), peaks)
     q4, k4, v4 = (x.transpose(1, 2) for x in A._split_qkv(qkv, H))
     plain_fwd = time_ms(lambda: A.flash_attention_qkv_reference(
         qkv, H, causal=True), reps=3, inner=1)
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True))
     row("flash_attention_qkv_fwd",
-        lambda: A.flash_attention_qkv_fwd(qkv, H, causal=True), 2,
-        4 * io + stat, plain_fwd, lib_fwd,
+        lambda: A.flash_attention_qkv_fwd(qkv, H, causal=True), 2, 4, 1,
+        plain_fwd, lib_fwd,
         "torch.nn.functional.scaled_dot_product_attention (forward)")
     torch.cuda.empty_cache()
     plain_bwd = time_ms(lambda: A.flash_attention_qkv_bwd_reference(
@@ -1204,10 +1293,10 @@ def phase_timing_attn(seed: int, peaks):
     torch.cuda.empty_cache()
     row("flash_bwd_dq", lambda: A.flash_bwd_dq(qkv, do, lse, delta, g, H,
                                                causal=True),
-        3, 5 * io + 2 * stat, plain_bwd, None, None)
+        3, 5, 2, plain_bwd, None, None)
     row("flash_bwd_dkv", lambda: A.flash_bwd_dkv(qkv, do, lse, delta, g, H,
                                                  causal=True),
-        4, 6 * io + 2 * stat, plain_bwd, None, None)
+        4, 6, 2, plain_bwd, None, None)
     ql, kl, vl = (x.detach().contiguous().requires_grad_()
                   for x in (q4, k4, v4))
     gl = do.view(B, T, H, d).transpose(1, 2).contiguous()
@@ -1218,7 +1307,7 @@ def phase_timing_attn(seed: int, peaks):
     def pair():
         A.flash_bwd_dq(qkv, do, lse, delta, g, H, causal=True)
         A.flash_bwd_dkv(qkv, do, lse, delta, g, H, causal=True)
-    row("flash_bwd_pair", pair, 5, 7 * io + 2 * stat, plain_bwd, lib_pair,
+    row("flash_bwd_pair", pair, 5, 7, 2, plain_bwd, lib_pair,
         "scaled_dot_product_attention forward + backward (autograd)")
     del qkv, do, o, lse, delta, g, ql, kl, vl, gl
     torch.cuda.empty_cache()
@@ -1235,6 +1324,234 @@ def phase_timing_attn(seed: int, peaks):
              2.0 * n * dm * V, 2.0 * (n + V) * dm + 4.0 * n * V, peaks)[0],
          note="forward only; torch.mm(bf16, bf16, out_dtype=float32)")
     return rows, abs_err
+
+
+# -- the pipelined LM (slice 4) -----------------------------------------------
+
+def bhtd_inputs(B: int, T: int, gen: torch.Generator):
+    """q/k/v as the pipelined block hands them to the kernels: strided
+    slices of a packed [B, T, H, 3, d] projection, q prescaled by
+    sm_scale*log2(e) (contiguous); and a cotangent dO [B, T, H, d]."""
+    from horovod_tpu_torch.ops.attention import LOG2E
+    H, d = LM["n_heads"], 128
+    qkv = torch.randn((B, T, H, 3, d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q = (qkv[..., 0, :].float() * (d ** -0.5 * LOG2E)).to(torch.bfloat16)
+    do = torch.randn((B, T, H, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    return q, qkv[..., 1, :], qkv[..., 2, :], do
+
+
+def bhtd_parity(q, k, v, do, causal: bool, what: str):
+    """The forward with lse and the dq and dk/dv kernels on [B,T,H,D]
+    operands against their plain versions (:func:`parity_report`, one
+    ``parity_attn_bhtd`` line)."""
+    from horovod_tpu_torch.ops import attention as A
+
+    def run():
+        o, lse = A.flash_attention_lse(q, k, v, causal=causal)
+        delta = A.attention_delta_bhtd(do, o)
+        return (o, lse,
+                A.flash_bwd_dq_bhtd(q, k, v, do, lse, delta, causal=causal),
+                *A.flash_bwd_dkv_bhtd(q, k, v, do, lse, delta,
+                                      causal=causal))
+
+    def plain(o, lse):
+        return (*A.flash_attention_lse_reference(q, k, v, causal=causal),
+                *A.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                 causal=causal))
+    return parity_report("parity_attn_bhtd", BHTD_KERNELS, run, plain,
+                         causal, what)
+
+
+def phase_parity_attn_bhtd(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    abs_err = None
+    for B, T, causal in BHTD_PARITY:
+        q, k, v, do = bhtd_inputs(B, T, gen)
+        errs, err_abs = bhtd_parity(q, k, v, do, causal,
+                                    f"[B,T,H,D] B={B} T={T} causal={causal}")
+        worst = {key: max(val, errs[key]) for key, val in worst.items()}
+        abs_err = abs_err or err_abs         # the pp step's shape: first
+        del q, k, v, do
+    emit("parity_attn_bhtd_summary", worst=worst,
+         tolerance={"ulps": TOL_ATTN_ULPS, "lse": TOL_LSE})
+    return abs_err
+
+
+def pp_step_fn(cfg, mesh, device="cuda"):
+    from horovod_tpu_torch.parallel.pp_transformer import \
+        make_pp_transformer_train_step
+    return make_pp_transformer_train_step(
+        cfg, mesh, functools.partial(torch.optim.AdamW, **ADAMW), PP_MICRO,
+        device=device)
+
+
+def phase_pp_lm_train(seed: int, peaks):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+    hvd.init()
+    check(hvd.size() == 1 and hvd.rank() == 0, "expected a 1-rank world")
+    mesh = create_hybrid_mesh(dp=1, pp=1)
+    cfg = lm_config()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, step = pp_step_fn(cfg, mesh)
+    state = init_state(seed)
+    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
+    state, losses, times, launches = lm_steps(step, state, tokens, labels)
+    n_params = sum(p.numel() for p in state.optimizer.param_groups[0][
+        "params"])
+    emit("pp_lm_train", **lm_report(losses, times, launches, n_params,
+                                    peaks),
+         microbatches=PP_MICRO, mesh=mesh.shape, world=hvd.size())
+    n = cfg.n_layers * PP_MICRO * LM_STEPS
+    for name in BHTD_KERNELS:
+        check(launches.get(name, 0) == n,
+              f"{name} launched {launches.get(name, 0)} times; expected "
+              f"{cfg.n_layers} x {PP_MICRO} x {LM_STEPS}")
+    for name in ("flash_attention_qkv_fwd", "flash_attention"):
+        check(launches.get(name, 0) == 0,
+              f"the pipelined step launched {name}")
+    check(all(np.isfinite(losses)), f"pp LM loss not finite {losses}")
+    check(losses[-1] < losses[0], f"pp LM loss did not fall {losses}")
+    state, profiled = lm_profile(step, state, tokens, labels, {
+        "k3_lse": "flash_fwd_kernel", "dq": "flash_bwd_dq_kernel",
+        "dkv": "flash_bwd_dkv_kernel", "index_add": "index"})
+    emit("pp_lm_train_profile", **profiled)
+    del state
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return launches
+
+
+def _pp_one_step(params, device, tokens, labels):
+    """One pipelined step on a 1-rank world of ``device`` (NCCL on the
+    card, gloo on the CPU) from a copy of ``params``: returns the loss,
+    the gradients, the updated parameters (on the CPU, by leaf name), the
+    launches and the seconds the step took."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+    from horovod_tpu_torch.parallel.pp_transformer import named_leaves
+
+    def copy_to(tree):
+        if isinstance(tree, dict):
+            return {k: copy_to(v) for k, v in tree.items()}
+        return torch.nn.Parameter(tree.detach().to(device, copy=True))
+    hvd.init(device=device)
+    try:
+        init_state, step = pp_step_fn(
+            lm_config(), create_hybrid_mesh(dp=1, pp=1), device=device)
+        state = init_state(params=copy_to(params))
+        LAUNCHES.reset()
+        t0 = time.monotonic()
+        state, loss = step(state, tokens.to(device), labels.to(device))
+        loss = loss.item()
+        secs = time.monotonic() - t0
+        launches = LAUNCHES.snapshot()
+        named = named_leaves(state.params)
+        grads = {n: p.grad.detach().float().cpu() for n, p in named}
+        after = {n: p.detach().float().cpu() for n, p in named}
+    finally:
+        hvd.shutdown()
+    return loss, grads, after, launches, secs
+
+
+def phase_e2e_pp_lm_train(seed: int):
+    """One full-width pipelined step at batch 2 (2 microbatches of 1),
+    T=256 (tilable: the kernels run on the card), through the same entry
+    points on the card and on the CPU (plain versions) from the same
+    weights and batch."""
+    from horovod_tpu_torch.parallel.pp_transformer import (init_pp_params,
+                                                           named_leaves)
+    cfg = lm_config()
+    params = init_pp_params(torch.Generator(device="cuda").manual_seed(
+        seed + 2), cfg, 1, 0, device="cuda")
+    before = {n: p.detach().float().cpu() for n, p in named_leaves(params)}
+    tokens, labels = lm_batch(PP_E2E_BATCH, PP_E2E_SEQ, seed + 6)
+    loss_card, g_card, p_card, launches, card_s = _pp_one_step(
+        params, "cuda", tokens, labels)
+    n = cfg.n_layers * PP_MICRO
+    check(all(launches.get(k) == n for k in BHTD_KERNELS),
+          f"e2e pp step did not run the [B,T,H,D] kernels: {launches}")
+    loss_cpu, g_cpu, p_cpu, _, cpu_s = _pp_one_step(params, "cpu", tokens,
+                                                    labels)
+    del params
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    grad_err = {n: rel_l2(g_card[n], g_cpu[n]) for n in before}
+    cosine = F.cosine_similarity(     # f64: 470 M terms
+        torch.cat([(p_card[n] - before[n]).flatten() for n in before])
+        .double(),
+        torch.cat([(p_cpu[n] - before[n]).flatten() for n in before])
+        .double(), dim=0).item()
+    worst = max(grad_err, key=grad_err.get)
+    diffs = {"loss": abs(loss_card - loss_cpu),
+             "grad_rel_l2": grad_err[worst]}
+    emit("e2e_pp_lm_train", batch=PP_E2E_BATCH, seq=PP_E2E_SEQ,
+         microbatches=PP_MICRO, loss_card=loss_card, loss_cpu=loss_cpu,
+         diffs=diffs, worst_grad_leaf=worst, grad_rel_l2=grad_err,
+         update_cosine=cosine, tolerance=TOL_E2E_PP, launches=launches,
+         card_s=card_s, cpu_s=cpu_s,
+         note="grad_rel_l2: ||card-cpu||/||cpu|| per leaf")
+    check(np.isfinite(loss_card), "e2e pp loss not finite")
+    for key in ("loss", "grad_rel_l2"):
+        check(diffs[key] <= TOL_E2E_PP[key],
+              f"e2e pp {key} differs by {diffs[key]}")
+    check(TOL_E2E_PP["update_cosine"] <= cosine <= 1 + 1e-6,
+          f"e2e pp whole-model update cosine {cosine}")
+
+
+def phase_timing_attn_bhtd(seed: int, peaks):
+    """The [B,T,H,D] launches at the pp step's shape (B=4, H=16, T=2048,
+    causal), timed beside their bounds (as :func:`phase_timing_attn`
+    counts them), plain versions and SDPA."""
+    from horovod_tpu_torch.ops import attention as A
+    B, T, H, d = LM_BATCH // PP_MICRO, LM_SEQ, LM["n_heads"], 128
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    q, k, v, do = bhtd_inputs(B, T, gen)
+    o, lse = A.flash_attention_lse(q, k, v, causal=True)
+    delta = A.attention_delta_bhtd(do, o)
+    rows = {}
+    row = functools.partial(attn_timing_row, rows, (B, T, H, d), peaks)
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    plain_fwd = time_ms(lambda: A.flash_attention_lse_reference(
+        q, k, v, causal=True), reps=3, inner=1)
+    # q is prescaled into the log2 domain: scale ln 2 gives SDPA the
+    # same function (exp(x ln 2) = exp2(x)).
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=A.LN2))
+    row("flash_attention_lse",
+        lambda: A.flash_attention_lse(q, k, v, causal=True), 2, 4, 1,
+        plain_fwd, lib_fwd,
+        "torch.nn.functional.scaled_dot_product_attention (forward)")
+    torch.cuda.empty_cache()
+    plain_bwd = time_ms(lambda: A.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=True), reps=3, inner=1)
+    torch.cuda.empty_cache()
+    row("flash_bwd_dq_bhtd", lambda: A.flash_bwd_dq_bhtd(
+        q, k, v, do, lse, delta, causal=True), 3, 5, 2, plain_bwd, None,
+        None)
+    row("flash_bwd_dkv_bhtd", lambda: A.flash_bwd_dkv_bhtd(
+        q, k, v, do, lse, delta, causal=True), 4, 6, 2, plain_bwd, None,
+        None)
+    ql, kl, vl = (x.detach().contiguous().requires_grad_()
+                  for x in (q4, k4, v4))
+    gl = do.transpose(1, 2).contiguous()
+    lib_pair = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                       scale=A.LN2), (ql, kl, vl), gl))
+
+    def pair():
+        A.flash_bwd_dq_bhtd(q, k, v, do, lse, delta, causal=True)
+        A.flash_bwd_dkv_bhtd(q, k, v, do, lse, delta, causal=True)
+    row("flash_bwd_pair_bhtd", pair, 5, 7, 2, plain_bwd, lib_pair,
+        "scaled_dot_product_attention forward + backward (autograd)")
+    del q, k, v, do, o, lse, delta, ql, kl, vl, gl
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -1274,6 +1591,10 @@ def main() -> int:
         attn_times, attn_errs = phase_timing_attn(args.seed, peaks)
         times.update(attn_times)
         errs.update(attn_errs)
+        errs.update(phase_parity_attn_bhtd(args.seed))
+        launches.update(phase_pp_lm_train(args.seed, peaks))
+        phase_e2e_pp_lm_train(args.seed)
+        times.update(phase_timing_attn_bhtd(args.seed, peaks))
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
@@ -1282,7 +1603,7 @@ def main() -> int:
                     max_abs_err=errs[name], **times[name])
                for name in ("flash_attention", "paged_decode_attention",
                             "fused_conv_bn_fwd", "fused_conv_bn_bwd")
-               + ATTN_KERNELS]
+               + ATTN_KERNELS + BHTD_KERNELS]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

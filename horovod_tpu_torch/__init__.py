@@ -18,6 +18,11 @@ The ported slices:
 * transformer-LM training —
   ``parallel.transformer.make_parallel_train_step`` on the same surface,
   with the packed flash-attention forward (with lse) and backward
+  kernels;
+* pipelined transformer-LM training —
+  ``parallel.pp_transformer.make_pp_transformer_train_step`` (1F1B over
+  a ``parallel.mesh.create_hybrid_mesh`` dp × pp mesh), with the
+  ``[B, T, H, D]`` flash-attention forward (with lse) and backward
   kernels.
 
 Importing the package never imports JAX or the JAX package.

@@ -1,6 +1,8 @@
 """Weight carry between the JAX package's parameter trees and the port's
 models: the transformer (:func:`params_from_jax`,
-:func:`params_to_numpy`), the ResNet (:func:`resnet_from_jax`,
+:func:`params_to_numpy`), the pipelined transformer's stage slices
+(:func:`pp_params_from_jax`, :func:`pp_params_to_numpy`), the ResNet
+(:func:`resnet_from_jax`,
 :func:`resnet_to_numpy`), and the JAX leaf order both train steps plan
 their gradient buckets in (:func:`jax_leaf_order`).
 
@@ -72,6 +74,53 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                                  f"{tuple(param.shape)}")
             param.copy_(torch.from_numpy(arr))
     return model
+
+
+def pp_params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, mesh,
+                       device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """This rank's parameters of the pipelined transformer from a JAX
+    ``init_pp_params`` tree ``{"embed", "lnf", "stages": {leaf: [S, lps,
+    ...]}}`` of numpy arrays: the head whole and the stacks' slice at this
+    rank's pp index, as f32 ``nn.Parameter``s on ``device`` in the layout
+    :func:`~.parallel.pp_transformer.init_pp_params` returns. Raises
+    ``ValueError`` when a leaf's shape is not that of ``mesh``'s stages of
+    ``cfg``'s layers."""
+    dev = resolve_device(device)
+    S, stage = mesh.shape["pp"], mesh.coords["pp"]
+    if cfg.n_layers % S:
+        raise ValueError(f"n_layers={cfg.n_layers} must divide into "
+                         f"pp={S} stages")
+    lps, d, f = cfg.n_layers // S, cfg.d_model, cfg.d_ff
+    stacks = {"ln1": (lps, d), "ln2": (lps, d), "w1": (lps, d, f),
+              "w2": (lps, f, d), "wo": (lps, d, d), "wqkv": (lps, d, 3 * d)}
+
+    def param(leaf, name, shape, index=None):
+        arr = _float_leaf(leaf, name)
+        want = shape if index is None else (S, *shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{name}: shape {arr.shape} does not match "
+                             f"{want}")
+        if index is not None:
+            arr = arr[index]
+        return torch.nn.Parameter(torch.tensor(arr, device=dev))
+
+    return {"embed": param(tree["embed"], "embed", (cfg.vocab, d)),
+            "lnf": param(tree["lnf"], "lnf", (d,)),
+            "stages": {k: param(tree["stages"][k], f"stages.{k}", shape,
+                                stage) for k, shape in stacks.items()}}
+
+
+def pp_params_to_numpy(params: Dict[str, Any], mesh
+                       ) -> Tuple[Dict[str, Any], int]:
+    """This rank's pipelined parameters as f32 numpy arrays in the JAX
+    tree's shape, ``{"embed", "lnf", "stages": {leaf: [lps, ...]}}``,
+    with its stage index: stacking the stages of every pp rank in index
+    order gives the JAX ``[S, lps, ...]`` leaves."""
+    def np_(t):
+        return t.detach().float().cpu().numpy().copy()
+    return ({"embed": np_(params["embed"]), "lnf": np_(params["lnf"]),
+             "stages": {k: np_(v) for k, v in params["stages"].items()}},
+            mesh.coords["pp"])
 
 
 # -- ResNet -------------------------------------------------------------------

@@ -1,8 +1,12 @@
 """The port's kernels: each a hand-written CUDA kernel for Hopper
 (``csrc/``) beside a plain PyTorch version of the same math.
 
-* :func:`~.attention.flash_attention` — causal flash attention forward
-  (prefill), replacing the JAX package's Pallas ``_attn_kernel``.
+* :func:`~.attention.flash_attention_prefill` — causal flash attention
+  forward (prefill), replacing the JAX package's Pallas ``_attn_kernel``.
+* :func:`~.attention.flash_attention` — the differentiable ``[B, T, H,
+  D]`` flash attention of the pipelined LM: the forward with lse
+  (``_attn_kernel`` as ``_fwd_pallas`` launches it with lse) and the dq
+  and dk/dv kernels with K6's (``_dqkv_kernel``'s) constants.
 * :func:`~.attention.flash_attention_qkv` — the differentiable flash
   attention of LM training over the packed qkv projection: the forward
   with lse (``_attn_kernel`` as ``_fwd_pallas_qkv`` launches it) and the
@@ -20,7 +24,9 @@ collectives and the fused gradient allreduce live beside them
 """
 
 from ._build import LAUNCHES
-from .attention import (flash_attention, flash_attention_qkv,
+from .attention import (flash_attention, flash_attention_bwd_reference,
+                        flash_attention_lse_reference,
+                        flash_attention_prefill, flash_attention_qkv,
                         flash_attention_qkv_bwd_reference,
                         flash_attention_qkv_reference,
                         flash_attention_reference, qkv_flash_tilable,
@@ -32,7 +38,9 @@ from .paged_attention import (paged_attention_reference,
                               paged_attention_supported,
                               paged_decode_attention)
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_reference",
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_prefill",
+           "flash_attention_reference", "flash_attention_lse_reference",
+           "flash_attention_bwd_reference",
            "flash_attention_qkv", "flash_attention_qkv_reference",
            "flash_attention_qkv_bwd_reference", "qkv_flash_tilable",
            "xla_attention",

@@ -38,13 +38,14 @@ _REDUCE_OPS = {Op.SUM: dist.ReduceOp.SUM, Op.AVERAGE: dist.ReduceOp.SUM,
                Op.PRODUCT: dist.ReduceOp.PRODUCT}
 
 
-def reduce_(tensor: torch.Tensor, op: Op) -> torch.Tensor:
-    """All-reduce a contiguous tensor IN PLACE and return it. ``AVERAGE``
-    sums, then divides by the world size (a true division, as the JAX
-    package's ``pmean``); an integer tensor averages into a float one."""
-    dist.all_reduce(tensor, op=_REDUCE_OPS[op])
+def reduce_(tensor: torch.Tensor, op: Op, group=None) -> torch.Tensor:
+    """All-reduce a contiguous tensor IN PLACE over ``group`` (the world
+    when None) and return it. ``AVERAGE`` sums, then divides by the
+    group's size (a true division, as the JAX package's ``pmean``); an
+    integer tensor averages into a float one."""
+    dist.all_reduce(tensor, op=_REDUCE_OPS[op], group=group)
     if op is Op.AVERAGE:
-        n = runtime.size()
+        n = runtime.size() if group is None else dist.get_world_size(group)
         if tensor.is_floating_point():
             return tensor.div_(n)
         return tensor / n

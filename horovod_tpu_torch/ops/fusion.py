@@ -2,8 +2,11 @@
 
 Port of the plain plane of the JAX package's ``ops/fusion.py``:
 ``_greedy_scan``/``plan_buckets`` (:48, :98), ``_fuse``/``_unfuse``
-(:276), ``_prescale_array`` (:290) and ``fused_allreduce`` (:599) for a
-1-D world with a full-precision wire, no overlap and no sparse leaves.
+(:276), ``_prescale_array`` (:290) and ``fused_allreduce`` (:599) with a
+full-precision wire, no overlap and no sparse leaves, over the world or
+one process group; and the spec-grouped plan ``GradSync`` /
+``plan_grad_sync`` (:434-487), which decides per leaf which mesh axes its
+gradient is summed over.
 
 The plan walks the tensors in request order and fuses while the dtype
 matches and the bucket stays within the byte threshold, closing the
@@ -13,9 +16,10 @@ never reorders. Each bucket rides ONE ``all_reduce``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,12 +107,12 @@ def _prescale_array(x: torch.Tensor, prescale: Optional[float]
 
 def fused_allreduce(tensors: Sequence[torch.Tensor], average: bool = True,
                     fusion_threshold: Optional[int] = None,
-                    prescale: Optional[float] = None
+                    prescale: Optional[float] = None, group=None
                     ) -> List[torch.Tensor]:
-    """Allreduce ``tensors`` bucket by bucket (one ``all_reduce`` each)
-    and return the reduced tensors in the same order. ``average`` divides
-    the sums by the world size; ``prescale`` multiplies every bucket
-    before its reduce."""
+    """Allreduce ``tensors`` over ``group`` (the world when None) bucket
+    by bucket (one ``all_reduce`` each) and return the reduced tensors in
+    the same order. ``average`` divides the sums by the group's size;
+    ``prescale`` multiplies every bucket before its reduce."""
     tensors = list(tensors)
     op = Op.AVERAGE if average else Op.SUM
     reduced: List[Optional[torch.Tensor]] = [None] * len(tensors)
@@ -120,10 +124,56 @@ def fused_allreduce(tensors: Sequence[torch.Tensor], average: bool = True,
         else:
             operand = _fuse([m.detach() for m in members])
         operand = _prescale_array(operand, prescale)
-        r = reduce_(operand, op)
+        r = reduce_(operand, op, group)
         if len(bucket) == 1:
             reduced[bucket[0]] = r.view(members[0].shape)
         else:
             for j, rr in zip(bucket, _unfuse(r, members)):
                 reduced[j] = rr
     return reduced
+
+
+# -- the spec-grouped plan ----------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GradSync:
+    """One leaf's gradient-sync decision on a named mesh: ``psum``, the
+    mesh axes the gradient is summed over (the leaf is replicated across
+    exactly these); ``shard``, the axes the leaf itself is sharded over;
+    ``denom``, the averaging denominator (the product of the ``psum``
+    axis sizes)."""
+
+    psum: Tuple[str, ...]
+    shard: Tuple[str, ...]
+    denom: int
+
+
+def _spec_axes(spec) -> set:
+    """Mesh axis names a spec names (entries are an axis name, a tuple of
+    names, or None)."""
+    axes = set()
+    for s in (spec or ()):
+        if s is not None:
+            axes.update((s,) if isinstance(s, str) else s)
+    return axes
+
+
+def plan_grad_sync(specs: Sequence[Any], mesh, *,
+                   skip_axes: Tuple[str, ...] = ()) -> List[GradSync]:
+    """Per-leaf :class:`GradSync` for a flat list of specs (one tuple per
+    leaf naming the mesh axis each dimension is sharded over, or None)
+    over ``mesh`` (:class:`~..parallel.mesh.Mesh`): the gradient is
+    summed over every mesh axis the leaf is replicated across, minus
+    ``skip_axes``, and averaged by the product of those axes' sizes. The
+    JAX rule's tp correction has no counterpart until the port has a tp
+    axis."""
+    out = []
+    for spec in specs:
+        leaf_axes = _spec_axes(spec)
+        over = tuple(a for a in mesh.axis_names
+                     if a not in leaf_axes and a not in skip_axes)
+        shard = tuple(a for a in mesh.axis_names
+                      if a in leaf_axes and a not in skip_axes)
+        out.append(GradSync(psum=over, shard=shard,
+                            denom=math.prod(mesh.shape[a] for a in over)))
+    return out

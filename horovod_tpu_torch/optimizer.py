@@ -32,14 +32,17 @@ NamedParams = Sequence[Tuple[str, torch.nn.Parameter]]
 
 def allreduce_gradients(params: Iterable[torch.nn.Parameter],
                         average: bool = True,
-                        fusion_threshold: Optional[int] = None) -> None:
-    """Replace each parameter's ``.grad`` with its world average (or sum)
-    through the fused bucket allreduce, in the order given."""
+                        fusion_threshold: Optional[int] = None,
+                        group=None) -> None:
+    """Replace each parameter's ``.grad`` with its average (or sum) over
+    ``group`` (the world when None) through the fused bucket allreduce,
+    in the order given."""
     params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
     reduced = fused_allreduce(grads, average=average,
-                              fusion_threshold=fusion_threshold)
+                              fusion_threshold=fusion_threshold,
+                              group=group)
     with torch.no_grad():
         for p, g, r in zip(params, grads, reduced):
             if p.grad is None:
@@ -50,7 +53,8 @@ def allreduce_gradients(params: Iterable[torch.nn.Parameter],
 
 class DistributedOptimizer:
     """Wrap ``optimizer`` so that ``step()`` first averages the gradients
-    over the world.
+    over the world, or over ``process_group`` when one is given (the
+    averaging denominator is then that group's size).
 
     ``named_parameters`` fixes the bucket order (default: the wrapped
     optimizer's parameter groups in order). Every other attribute —
@@ -60,10 +64,12 @@ class DistributedOptimizer:
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Optional[NamedParams] = None,
                  average: bool = True,
-                 fusion_threshold: Optional[int] = None):
+                 fusion_threshold: Optional[int] = None,
+                 process_group=None):
         self.optimizer = optimizer
         self.average = average
         self.fusion_threshold = fusion_threshold
+        self.process_group = process_group
         owned = [p for g in optimizer.param_groups for p in g["params"]]
         if named_parameters is None:
             named_parameters = [(f"param_{i}", p) for i, p in
@@ -82,7 +88,8 @@ class DistributedOptimizer:
         """The gradient exchange alone."""
         allreduce_gradients([p for _, p in self.named_parameters],
                             average=self.average,
-                            fusion_threshold=self.fusion_threshold)
+                            fusion_threshold=self.fusion_threshold,
+                            group=self.process_group)
 
     def step(self, closure=None):
         self.synchronize()

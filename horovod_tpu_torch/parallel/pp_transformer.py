@@ -1,0 +1,224 @@
+"""The pipelined transformer LM: dp × pp over one mesh.
+
+Port of the JAX package's ``parallel/pp_transformer.py`` for the dp × pp
+mesh (:func:`~.mesh.create_hybrid_mesh`; tp inside the stages comes with
+its slice). The layers are split into ``pp`` stages driven by the 1F1B
+schedule (:func:`~.pipeline.one_f_one_b`); data parallelism splits the
+batch over ``dp``. The embedding and the loss head (final RMSNorm and
+the tied unembedding) live outside the pipeline: stage 0 embeds each
+microbatch as it injects it, and the embedding gradient is the head's
+unembedding gradient (last stage) plus the scatter-add of the input
+cotangents (stage 0), summed over pp.
+
+Each block is the data-parallel model's layer (:func:`~.transformer.
+_layer`: bf16 projections of f32 weights, f32 RMSNorm statistics,
+tanh-GELU) with its attention on :func:`~..ops.attention.
+flash_attention` under ``cfg.attn_backend``: at the default "pallas" a
+tilable layer runs the ``[B, T, H, D]`` flash forward with lse and the dq
+and dk/dv kernels in the backward's recompute.
+
+Gradient sync follows the spec-grouped plan (:func:`~..ops.fusion.
+plan_grad_sync` over :func:`pp_param_specs` with ``pp`` skipped: each
+stage owns its weights); without tp every leaf sums over dp, one group,
+bucketed in the JAX leaf order by the
+:class:`~horovod_tpu_torch.DistributedOptimizer` on the dp group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..ops.fusion import plan_grad_sync
+from ..optimizer import DistributedOptimizer
+from .pipeline import one_f_one_b
+from .transformer import (TransformerConfig, _layer, attend_heads,
+                          check_dense, dense_nll, rms_norm, unembed)
+
+_STAGE_KEYS = ("ln1", "ln2", "w1", "w2", "wo", "wqkv")   # JAX (sorted) order
+_PROJ = ("wqkv", "wo", "w1", "w2")
+
+
+def init_pp_params(generator: torch.Generator, cfg: TransformerConfig,
+                   n_stages: int, stage: int, *,
+                   device: DeviceLike = "cuda") -> Dict:
+    """This stage's parameters in the pipeline layout (JAX
+    ``init_pp_params``): ``{"embed", "lnf", "stages": {leaf: [lps,
+    ...]}}``, the stage's slice of the per-layer weights stacked as
+    ``[n_stages, lps, ...]``, with the JAX scales (embedding N(0, 0.02²),
+    projections N(0, 1/fan_in), norm scales 1). Every rank draws the full
+    stacks from ``generator`` (a ``torch.Generator`` on ``device``, seeded
+    alike on every rank), so the head is the same on every stage."""
+    check_dense(cfg, "init_pp_params")
+    if cfg.n_layers % n_stages:
+        raise ValueError(f"n_layers={cfg.n_layers} must divide into "
+                         f"pp={n_stages} stages")
+    if not 0 <= stage < n_stages:
+        raise ValueError(f"stage {stage} is outside 0..{n_stages - 1}")
+    dev = resolve_device(device)
+    lps = cfg.n_layers // n_stages
+    d, f = cfg.d_model, cfg.d_ff
+
+    def norm(shape, std):
+        return torch.randn(shape, generator=generator, device=dev) * std
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev)
+
+    embed = norm((cfg.vocab, d), 0.02)
+    stacks = {"wqkv": norm((n_stages, lps, d, 3 * d), d ** -0.5),
+              "wo": norm((n_stages, lps, d, d), d ** -0.5),
+              "w1": norm((n_stages, lps, d, f), d ** -0.5),
+              "w2": norm((n_stages, lps, f, d), f ** -0.5)}
+    stages = {k: torch.nn.Parameter(v[stage].clone())
+              for k, v in stacks.items()}
+    stages["ln1"] = torch.nn.Parameter(ones(lps, d))
+    stages["ln2"] = torch.nn.Parameter(ones(lps, d))
+    return {"embed": torch.nn.Parameter(embed),
+            "lnf": torch.nn.Parameter(ones(d)),
+            "stages": {k: stages[k] for k in _STAGE_KEYS}}
+
+
+def pp_param_specs(mesh) -> Dict:
+    """The sharded axis of each leaf of the stacked layout (JAX
+    ``pp_param_specs``), as plain data: per dimension the mesh axis it is
+    split over, or None. The stage dimension is split over pp; the head
+    is replicated."""
+    del mesh   # no tp axis yet: the specs do not depend on the mesh
+    return {"embed": (), "lnf": (),
+            "stages": {k: ("pp", None, None) if k in ("ln1", "ln2")
+                       else ("pp", None, None, None) for k in _STAGE_KEYS}}
+
+
+def named_leaves(params: Dict) -> List[Tuple[str, torch.Tensor]]:
+    """``params``' leaves with dotted names in the JAX tree-flatten order
+    (sorted keys at every level): the bucket plan's order."""
+    return ([("embed", params["embed"]), ("lnf", params["lnf"])]
+            + [(f"stages.{k}", params["stages"][k]) for k in _STAGE_KEYS])
+
+
+@dataclasses.dataclass
+class PPTrainState:
+    """This rank's parameters (its stage's slice and the head), the
+    distributed optimizer over them, and the step."""
+
+    params: Dict
+    optimizer: DistributedOptimizer
+    step: int = 0
+
+
+def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
+                                   optimizer: Callable[...,
+                                                       torch.optim.Optimizer],
+                                   n_microbatches: int, *,
+                                   fusion_threshold: Optional[int] = None,
+                                   device: DeviceLike = "cuda"):
+    """Build ``(init_state, step)``: the pipelined LM's 1F1B train step.
+
+    ``mesh`` is a :func:`~.mesh.create_hybrid_mesh` dp × pp mesh over the
+    world; ``optimizer`` builds the wrapped optimizer from the parameter
+    list (e.g. ``functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9,
+    0.95), eps=1e-8, weight_decay=0.1)``).
+
+    ``init_state(seed=0, params=None)`` draws this rank's stage and head
+    from ``seed`` (:func:`init_pp_params`; or takes ``params``, e.g. from
+    :func:`~horovod_tpu_torch.convert.pp_params_from_jax`) and wraps the
+    optimizer in a :class:`~horovod_tpu_torch.DistributedOptimizer` over
+    the dp group, bucketed in the JAX leaf order. ``step(state, tokens,
+    labels) -> (state, loss)`` takes this dp rank's ``[B_local, T]`` rows
+    (the same on every stage of a pipeline; ``B_local`` divisible by
+    ``n_microbatches``), runs one 1F1B update in place, and returns the
+    mean loss averaged over dp.
+
+    The JAX function's ``zero``, ``wire_dtype``, ``overlap`` and
+    ``guard_nonfinite`` keywords and the tp axis are not ported yet:
+    passing one of those keywords is a ``TypeError``."""
+    check_dense(cfg, "make_pp_transformer_train_step")
+    dev = resolve_device(device)
+    S = mesh.shape["pp"]
+    stage = mesh.coords["pp"]
+    M = n_microbatches
+    if cfg.n_layers % S:
+        raise ValueError(f"n_layers={cfg.n_layers} must divide into "
+                         f"pp={S} stages")
+    lps = cfg.n_layers // S
+    specs = pp_param_specs(mesh)
+    spec_leaves = [specs["embed"], specs["lnf"]] + [
+        specs["stages"][k] for k in _STAGE_KEYS]
+    (sync_axes,) = {s.psum for s in plan_grad_sync(spec_leaves, mesh,
+                                                   skip_axes=("pp",))}
+    (sync_axis,) = sync_axes            # without tp: every leaf over dp
+    dp_group = mesh.groups[sync_axis]
+    pp_group = mesh.groups["pp"]
+
+    def stage_fn(st, x):
+        # Cast each stacked projection once and unbind it into its layers:
+        # the backward then stacks the layers' gradients in one pass, where
+        # indexing layer by layer would add lps zero-padded copies of the
+        # whole stack. (JAX casts per layer; the values are the same.)
+        per_layer = {k: (st[k].to(cfg.dtype) if k in _PROJ else st[k])
+                     .unbind(0) for k in _STAGE_KEYS}
+        for i in range(lps):
+            layer = {k: per_layer[k][i] for k in _STAGE_KEYS}
+            x = _layer(layer, x, cfg, lambda qkv: attend_heads(qkv, cfg))
+        return x
+
+    def head_loss(act, labels, head):
+        h = rms_norm(act, head["lnf"])
+        logits = unembed({"unembed": head["embed"].to(cfg.unembed_dtype)},
+                         h, cfg)
+        return dense_nll(logits, labels).mean()
+
+    def init_state(seed: int = 0, params: Optional[Dict] = None
+                   ) -> PPTrainState:
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params = init_pp_params(gen, cfg, S, stage, device=dev)
+        named = named_leaves(params)
+        opt = DistributedOptimizer(
+            optimizer([p for _, p in named]), named_parameters=named,
+            fusion_threshold=fusion_threshold, process_group=dp_group)
+        return PPTrainState(params=params, optimizer=opt)
+
+    def step(state: PPTrainState, tokens: torch.Tensor,
+             labels: torch.Tensor):
+        params = state.params
+        B, T = tokens.shape
+        if B % M:
+            raise ValueError(f"batch {B} does not split into {M} "
+                             f"microbatches")
+        tok_m = tokens.reshape(M, B // M, T)
+        y_m = labels.reshape(M, B // M, T)
+        embed = params["embed"]
+
+        def inject(toks):
+            return embed[toks.long()].to(cfg.dtype)
+
+        def accumulate_embed_grad(acc, i, din):
+            return acc.index_add_(0, tok_m[i].reshape(-1).long(),
+                                  din.float().reshape(-1, cfg.d_model))
+
+        loss, sg, hg, d_embed_in = one_f_one_b(
+            stage_fn, params["stages"], tok_m, y_m, head_loss, mesh=mesh,
+            head_params={"embed": embed, "lnf": params["lnf"]},
+            inject_fn=inject,
+            input_grad_acc=(torch.zeros_like(embed), accumulate_embed_grad))
+        # The embedding gradient: the unembedding's (last stage) plus the
+        # input lookup's (stage 0), summed over pp with lnf's.
+        if S > 1:
+            for g in (hg["embed"], hg["lnf"], d_embed_in):
+                torch.distributed.all_reduce(g, group=pp_group)
+        grads = {"embed": hg["embed"] + d_embed_in, "lnf": hg["lnf"],
+                 **{f"stages.{k}": sg[k] for k in _STAGE_KEYS}}
+        for name, p in named_leaves(params):
+            p.grad = grads[name]
+        state.optimizer.step()
+        state.step += 1
+        loss = loss.reshape(1)
+        torch.distributed.all_reduce(loss, group=dp_group)
+        return state, loss[0] / mesh.shape["dp"]
+
+    return init_state, step

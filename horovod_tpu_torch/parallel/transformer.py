@@ -17,10 +17,14 @@ residuals add in ``cfg.dtype`` and logits are f32 from a
 ``cfg.unembed_dtype`` product with f32 accumulation (:func:`unembed`).
 Attention in training (:func:`forward_hidden`) routes as the JAX
 function does: the packed flash kernels
-(:func:`~..ops.attention.flash_attention_qkv`) where the shape is
-tilable, the dense :func:`~..ops.attention.xla_attention` otherwise. Prompts run
-:func:`~..ops.attention.flash_attention` at every length, decode steps a
-caller-supplied ``mix`` (the paged pool read in :mod:`.kv_blocks`).
+(:func:`~..ops.attention.flash_attention_qkv`) where
+``cfg.attn_backend`` is ``"pallas"`` and the shape is tilable,
+:func:`~..ops.attention.flash_attention` with that backend otherwise
+(which takes the dense :func:`~..ops.attention.xla_attention` for
+untilable shapes). Prompts run
+:func:`~..ops.attention.flash_attention_prefill` at every length, decode
+steps a caller-supplied ``mix`` (the paged pool read in
+:mod:`.kv_blocks`).
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops.attention import (flash_attention, flash_attention_qkv,
-                             qkv_flash_tilable, xla_attention)
+from ..ops.attention import (flash_attention, flash_attention_prefill,
+                             flash_attention_qkv, qkv_flash_tilable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +50,10 @@ class TransformerConfig:
     d_ff: int = 512
     n_experts: int = 0          # 0 = dense MLP (the only kind ported yet)
     dtype: torch.dtype = torch.bfloat16
+    # Training attention: "pallas" takes the flash kernels where the shape
+    # is tilable (the JAX name for the kernel route), "xla" the dense
+    # attention, "auto" the kernels only past 4 GiB of scores.
+    attn_backend: str = "pallas"
     # The tied-head unembed matmul dtype; logits are f32 (and accumulated
     # in f32) either way.
     unembed_dtype: torch.dtype = torch.float32
@@ -137,9 +145,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _split_heads(qkv: torch.Tensor, cfg: TransformerConfig):
-    """q, k, v ``[..., H, dh]`` views of the head-major projection."""
-    r = qkv.unflatten(-1, (cfg.n_heads, 3, cfg.d_head))
-    return r[..., 0, :], r[..., 1, :], r[..., 2, :]
+    """q, k, v ``[..., H, dh]`` views of the head-major projection (one
+    ``unbind``, whose backward stacks the three gradients in one pass)."""
+    return qkv.unflatten(-1, (cfg.n_heads, 3, cfg.d_head)).unbind(-2)
 
 
 def _layer(layer: Dict, x: torch.Tensor, cfg: TransformerConfig,
@@ -196,21 +204,25 @@ def unembed(w: Dict, x: torch.Tensor, cfg: TransformerConfig
     return xu.float() @ u.float().t()
 
 
+def attend_heads(qkv: torch.Tensor, cfg: TransformerConfig
+                 ) -> torch.Tensor:
+    """Causal attention over the head-major projection ``[B, T,
+    H·3·dh]`` through :func:`~..ops.attention.flash_attention` with
+    ``cfg.attn_backend``; returns ``[B, T, H·dh]``."""
+    q, k, v = _split_heads(qkv, cfg)
+    return flash_attention(q, k, v, causal=True,
+                           backend=cfg.attn_backend).flatten(-2)
+
+
 def _train_attend(cfg: TransformerConfig, T: int) -> Callable:
     """The training forward's attention for sequences of length ``T``
     (JAX ``forward_hidden`` :165-185 without sp): the packed flash
-    kernels where the JAX package would take its packed kernel path
-    (``attn_backend="pallas"``, its default), the dense f32 attention
-    elsewhere."""
-    if qkv_flash_tilable(T, cfg.d_head):
+    kernels when ``cfg.attn_backend`` is ``"pallas"`` and the shape is
+    tilable, :func:`attend_heads` otherwise."""
+    if cfg.attn_backend == "pallas" and qkv_flash_tilable(T, cfg.d_head):
         return lambda qkv: flash_attention_qkv(qkv, cfg.n_heads,
                                                causal=True)
-
-    def dense(qkv):
-        q, k, v = _split_heads(qkv, cfg)
-        return xla_attention(q, k, v, True,
-                             float(cfg.d_head) ** -0.5).flatten(-2)
-    return dense
+    return lambda qkv: attend_heads(qkv, cfg)
 
 
 def _hidden(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig
@@ -256,14 +268,16 @@ def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
     """Prompt-phase forward (``w`` from :func:`gen_weights`): per layer
     the computed K/V (``[T, H, dh]``) is handed to ``store_kv(li, k, v)``
     and the attention is the self-contained causal
-    :func:`flash_attention` over the prompt. Returns logits
+    :func:`~..ops.attention.flash_attention_prefill` over the prompt (the
+    kernel at every length). Returns logits
     ``[T, vocab]`` f32."""
     x = w["embed"][tokens.long()][None].to(cfg.dtype)           # [1, T, D]
     for li, layer in enumerate(w["layers"]):
         def attend(qkv, li=li):
             q, k, v = _split_heads(qkv, cfg)
             store_kv(li, k[0], v[0])
-            return flash_attention(q, k, v, causal=True).flatten(-2)
+            return flash_attention_prefill(q, k, v,
+                                           causal=True).flatten(-2)
         x = _layer(layer, x, cfg, attend)
     return unembed(w, rms_norm(x, w["lnf"]), cfg)[0]
 

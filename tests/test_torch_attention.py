@@ -1,24 +1,34 @@
-"""Port parity: flash attention (prefill) against the JAX package.
+"""Port parity: flash attention (prefill) against the JAX package, and
+the training forward's attention routing.
 
 The port's ``flash_attention_reference`` (the plain PyTorch version of the
-CUDA flash kernel, and what ``flash_attention`` runs on CPU tensors) is
-held against the JAX ``flash_attention`` with the Pallas kernel in
-interpret mode — the same kernel program a TPU runs — on the same numpy
-inputs, and against the JAX dense XLA attention for lengths the Pallas
-kernel does not tile (the port's CUDA kernel tiles every length).
+CUDA flash kernel, and what ``flash_attention_prefill`` runs on CPU
+tensors) is held against the JAX ``flash_attention`` with the Pallas
+kernel in interpret mode — the same kernel program a TPU runs — on the
+same numpy inputs, and against the JAX dense XLA attention for lengths
+the Pallas kernel does not tile (the port's CUDA kernel tiles every
+length). ``forward_hidden`` routes each layer's attention by
+``attn_backend`` as the JAX function does.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
+import horovod_tpu.ops.pallas_attention as pa
 from horovod_tpu.ops.pallas_attention import _xla_attention
 from horovod_tpu.ops.pallas_attention import \
     flash_attention as jax_flash_attention
+from horovod_tpu.parallel import transformer as jtr
+from horovod_tpu.parallel.mesh import create_hybrid_mesh
+from horovod_tpu_torch import convert
 from horovod_tpu_torch.ops import LAUNCHES
-from horovod_tpu_torch.ops.attention import (flash_attention,
+from horovod_tpu_torch.ops.attention import (flash_attention_prefill,
                                              flash_attention_reference)
+from horovod_tpu_torch.parallel import transformer as ttr
 
 D = 128
 
@@ -99,7 +109,7 @@ def test_cpu_wrapper_runs_reference_on_strided_views():
     qkv = torch.from_numpy(rng.randn(1, 40, 2, 3, D).astype(np.float32))
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     before = LAUNCHES.get("flash_attention")
-    got = flash_attention(q, k, v, causal=True)
+    got = flash_attention_prefill(q, k, v, causal=True)
     want = flash_attention_reference(q.contiguous(), k.contiguous(),
                                      v.contiguous(), causal=True)
     assert torch.equal(got, want)
@@ -111,3 +121,47 @@ def test_first_row_attends_only_itself():
     q, k, v = _torch(_qkv(8, seed=4), torch.float32)
     out = flash_attention_reference(q, k, v, causal=True)
     torch.testing.assert_close(out[:, 0], v[:, 0], rtol=0, atol=1e-6)
+
+
+def _recorder(calls, tag, fn):
+    def wrapped(*args, **kw):
+        calls.append((tag, kw.get("backend")))
+        return fn(*args, **kw)
+    return wrapped
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla", "auto"])
+@pytest.mark.parametrize("T", [128, 96])
+def test_attn_backend_routes_forward_hidden_as_jax(backend, T,
+                                                   monkeypatch):
+    """Each layer of ``forward_hidden`` takes the route the JAX function
+    takes for ``attn_backend`` and T: the packed kernels only for
+    "pallas" at a tilable length, ``flash_attention`` with the backend
+    otherwise; the f32 hidden states agree (rtol/atol 1e-5: summation
+    order)."""
+    dims = dict(vocab=128, d_model=256, n_heads=2, n_layers=2, d_ff=256)
+    jcfg = jtr.TransformerConfig(**dims, dtype=jnp.float32,
+                                 attn_backend=backend)
+    tcfg = ttr.TransformerConfig(**dims, dtype=torch.float32,
+                                 attn_backend=backend)
+    tree = jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32),
+        jtr.init_params(jax.random.PRNGKey(0), jcfg))
+    toks = np.random.RandomState(11).randint(0, 128, (2, T)).astype(
+        np.int32)
+    jcalls, tcalls = [], []
+    for mod, calls in ((pa, jcalls), (ttr, tcalls)):
+        for name in ("flash_attention", "flash_attention_qkv"):
+            monkeypatch.setattr(mod, name,
+                                _recorder(calls, name, getattr(mod, name)))
+    mesh = create_hybrid_mesh(dp=1, devices=jax.devices()[:1])
+    want = jax.jit(jax.shard_map(
+        lambda p, t: jtr.forward_hidden(p, t, jcfg, mesh)[0], mesh=mesh,
+        in_specs=(P(), P()), out_specs=P(), check_vma=False))(
+            jax.tree_util.tree_map(jnp.asarray, tree), jnp.asarray(toks))
+    model = convert.params_from_jax(tree, tcfg, device="cpu")
+    with torch.no_grad():
+        got = ttr.forward_hidden(model, torch.from_numpy(toks))
+    assert tcalls == jcalls and len(tcalls) == dims["n_layers"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

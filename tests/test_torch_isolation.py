@@ -15,6 +15,9 @@ from horovod_tpu_torch import runtime
 from horovod_tpu_torch.models import ResNetConfig, resnet50
 from horovod_tpu_torch.models.resnet import ResNet
 from horovod_tpu_torch.parallel.kv_blocks import init_paged_kv_cache
+from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+from horovod_tpu_torch.parallel.pp_transformer import (
+    init_pp_params, make_pp_transformer_train_step)
 from horovod_tpu_torch.parallel.transformer import (
     Transformer, TransformerConfig, make_parallel_train_step)
 from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
@@ -62,7 +65,10 @@ def test_every_submodule_is_importable_here():
             "horovod_tpu_torch.optimizer",
             "horovod_tpu_torch.training",
             "horovod_tpu_torch.utils.config",
-            "horovod_tpu_torch.utils.flops"} <= set(names)
+            "horovod_tpu_torch.utils.flops",
+            "horovod_tpu_torch.parallel.mesh",
+            "horovod_tpu_torch.parallel.pipeline",
+            "horovod_tpu_torch.parallel.pp_transformer"} <= set(names)
 
 
 def test_no_file_names_jax_or_the_jax_package():
@@ -129,3 +135,27 @@ def test_lm_train_step_defaults_to_cuda(monkeypatch):
 def test_unsupported_device_type_is_rejected():
     with pytest.raises(ValueError, match="unsupported device"):
         Transformer(TINY, device="meta")
+
+
+def test_pp_train_step_defaults_to_cuda(monkeypatch):
+    """The pipelined step and its parameters default to the GPU; the mesh
+    is built over the world, which itself defaults to the GPU."""
+    monkeypatch.setenv("HVD_SIZE", "1")
+    monkeypatch.setenv("HVD_RANK", "0")
+    _without_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runtime.init()
+    with pytest.raises(ValueError, match="not been initialized"):
+        create_hybrid_mesh(dp=1, pp=1)
+    runtime.init(device="cpu")
+    try:
+        mesh = create_hybrid_mesh(dp=1, pp=1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_pp_transformer_train_step(TINY, mesh, torch.optim.AdamW, 1)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_pp_params(torch.Generator(), TINY, 1, 0)
+        init_state, _ = make_pp_transformer_train_step(
+            TINY, mesh, torch.optim.AdamW, 1, device="cpu")
+        assert init_state(0).params["embed"].device.type == "cpu"
+    finally:
+        runtime.shutdown()

@@ -303,8 +303,9 @@ def test_unported_options_raise():
         with pytest.raises(TypeError, match=next(iter(kw))):
             ttr.make_parallel_train_step(tcfg, _adamw_torch(), device="cpu",
                                          **kw)
-    with pytest.raises(TypeError, match="attn_backend"):
-        ttr.TransformerConfig(**DIMS, attn_backend="xla")
+    for field in ("loss_chunk", "remat"):
+        with pytest.raises(TypeError, match=field):
+            ttr.TransformerConfig(**DIMS, **{field: 1})
 
 
 # -- two ranks ----------------------------------------------------------------

@@ -1,5 +1,6 @@
 """One rank of a spawned gloo world for tests/test_torch_training.py
-(:func:`run`) and tests/test_torch_lm_training.py (:func:`run_lm`).
+(:func:`run`), tests/test_torch_lm_training.py (:func:`run_lm`) and
+tests/test_torch_pipeline.py (:func:`run_pp`).
 
 Started by ``torch.multiprocessing.spawn`` with the launcher's environment
 contract (``HVD_RANK``/``HVD_SIZE``/``HVD_LOCAL_RANK``); it imports only
@@ -131,4 +132,73 @@ def run_lm(rank: int, world: int, port: int, workdir: str) -> None:
            "params": convert.params_to_numpy(state.model)}
     hvd.shutdown()
     with open(os.path.join(workdir, f"lm_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _pp_case(case, np_):
+    """One case of :func:`run_pp` on this rank."""
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+    from horovod_tpu_torch.parallel.pipeline import one_f_one_b
+    from horovod_tpu_torch.parallel.pp_transformer import \
+        make_pp_transformer_train_step
+    from horovod_tpu_torch.parallel.transformer import TransformerConfig
+
+    mesh = create_hybrid_mesh(dp=case["dp"], pp=case["pp"])
+    if case["kind"] == "1f1b":
+        stage = mesh.coords["pp"]
+        w = torch.from_numpy(case["ws"][stage])
+        x, y = torch.from_numpy(case["x"]), torch.from_numpy(case["y"])
+        head = case.get("head")
+        kw = {}
+        if head is not None:
+            kw["head_params"] = torch.from_numpy(head)
+
+            def loss_fn(act, yy, h):
+                return ((act @ h - yy) ** 2).mean()
+        else:
+            def loss_fn(act, yy):
+                return ((act - yy) ** 2).mean()
+        if case["input_grads"]:
+            kw["input_grad_acc"] = (torch.zeros_like(x[0]),
+                                    lambda acc, i, din: acc.add_(din))
+            kw["return_input_grads"] = True
+        out = one_f_one_b(lambda p, a: torch.tanh(a @ p), w, x, y, loss_fn,
+                          mesh=mesh, **kw)
+        return {"stage": stage, "out": [np_(t) for t in out]}
+    dt = getattr(torch, case["dtype"])
+    cfg = TransformerConfig(**case["dims"], dtype=dt, unembed_dtype=dt,
+                            attn_backend=case["backend"])
+    init_state, step = make_pp_transformer_train_step(
+        cfg, mesh, functools.partial(torch.optim.SGD, lr=case["lr"]),
+        case["M"], device="cpu")
+    state = init_state(params=convert.pp_params_from_jax(
+        case["tree"], cfg, mesh, device="cpu"))
+    n = case["tokens"].shape[0] // case["dp"]
+    rows = slice(mesh.coords["dp"] * n, (mesh.coords["dp"] + 1) * n)
+    state, loss = step(state, torch.from_numpy(case["tokens"][rows]),
+                       torch.from_numpy(case["labels"][rows]))
+    params, stage = convert.pp_params_to_numpy(state.params, mesh)
+    return {"loss": float(loss), "params": params, "stage": stage,
+            "dp": mesh.coords["dp"]}
+
+
+def run_pp(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of the pipeline checks of tests/test_torch_pipeline.py:
+    every case in ``<workdir>/pp_inputs.pkl`` — ``one_f_one_b`` on the
+    toy tanh stage and one ``make_pp_transformer_train_step`` step, each
+    on its own dp × pp mesh over this world — in order; writes each
+    case's result to ``<workdir>/pp_rank<r>.pkl``."""
+    os.environ.update(HVD_RANK=str(rank), HVD_SIZE=str(world),
+                      HVD_LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(2)
+    import horovod_tpu_torch as hvd
+
+    with open(os.path.join(workdir, "pp_inputs.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    hvd.init(device="cpu", timeout=datetime.timedelta(seconds=120))
+    out = [_pp_case(case, _np) for case in cases]
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"pp_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
