@@ -28,8 +28,12 @@ against its plain PyTorch version on the card:
 Phases, one JSON line each:
 
 1. device   — require CUDA; print the card, its power limit, versions.
-2. build    — nvcc-build the kernels from ``horovod_tpu_torch/ops/csrc``.
-3. parity   — each kernel vs its plain version at the engine's shapes.
+2. build    — nvcc-build the kernels from ``horovod_tpu_torch/ops/csrc``;
+               registers, spills and shared memory of the flash kernels
+               (fails if ptxas serialized a wgmma).
+3. parity   — each kernel vs its plain version at the engine's shapes
+               (the flash forward at T in {1, 16, 127, 128, 129, 1000,
+               2047, 2048}).
 4. engine   — ``GenerationEngine`` (8 slots, max_len 2048, paged,
                block 16), ``warmup()``, 8 concurrent requests of 32 new
                tokens with prompts from 9 to 1500 tokens, one over
@@ -43,7 +47,8 @@ Phases, one JSON line each:
                the card and, from the same weights, on the CPU (where
                the plain versions run); last logits compared.
 6. timing   — each kernel's median time beside its bound, its plain
-               version's time and a library yardstick's.
+               version's time and a library yardstick's; the flash
+               forward's host time per call.
 7. parity_conv — K1/K2 (``fused_conv_bn.cu``) vs their plain versions at
                every distinct (M, Cin, Cout, prologue) of the 16 fused
                sites and a ragged M, with non-zero stats cotangents; two
@@ -63,8 +68,9 @@ Phases, one JSON line each:
 12. parity_attn — the packed forward with lse (K3-qkv) and the dq/dkv
                backward pair vs their plain versions at B=1, H=16,
                d=128: T in {128, 1024, 2048} causal, T=256 non-causal
-               and T=1000 (not a multiple of the 64-row tile); two
-               launches must agree bitwise.
+               and T=1000 and 129 (not multiples of the forward's 128-row
+               tile or the backward's 64-row tile); two launches must
+               agree bitwise.
 13. lm_train — the full-width LM train step: 2 warmup + 10 timed steps
                on a fixed random batch; launch counters zeroed before the
                timed steps (8 K3-qkv + 8 dq + 8 dkv per step, no prefill
@@ -130,8 +136,13 @@ NEW_TOKENS = 32
 PROMPT_LENS = (9, 100, 300, 1000, 1500, 200, 600)   # + one over HTTP
 HTTP_PROMPT_LEN = 64
 FLASH_T = (128, 1000, 2048)           # timed
-FLASH_T_PARITY = (1, 16) + FLASH_T    # + the smallest prefill buckets
+# + the smallest prefill buckets and both sides of the 128-row q tile and
+# 128-key tile's edges (a ragged tile, a diagonal inside a tile)
+FLASH_T_PARITY = (1, 16, 127, 128, 129, 1000, 2047, 2048)
 TOL_FLASH = 2e-2    # bf16 outputs of magnitude < 4: a few bf16 ulps
+# Late rows at T=2048 are ~0.04 in magnitude, so each output row of d is
+# also held at TOL_ATTN_ULPS bf16 ulps of its own largest value
+# (row_ulps): a dropped or doubled key tile moves such a row by tens.
 TOL_PAGED = 2e-2    # f32 math on both sides, one bf16 rounding of O(1)
 # Logits of std ~0.9 after 8 bf16 layers on two devices whose matmuls
 # round differently: 0.035 measured on an H100, bound at about 3x that.
@@ -172,7 +183,7 @@ LM_E2E_BATCH, LM_E2E_SEQ = 1, 256
 ADAMW = dict(lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
 # (T, causal) of the attention parity checks at B=1, H=16, d=128.
 ATTN_PARITY = ((128, True), (1024, True), (2048, True), (256, False),
-               (1000, True))
+               (1000, True), (129, True))
 # bf16 outputs (o, dq, dk, dv): within 2 bf16 ulps of the largest value
 # (f32 sums in another order can flip a rounding of ds or of the output);
 # lse2 (f32, log2 domain): 1e-4 absolute.
@@ -272,6 +283,19 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
         torch.cuda.synchronize()
         samples.append(a.elapsed_time(b) / inner)
     return float(np.median(samples))
+
+
+def host_ms(fn, n: int = 200) -> float:
+    """Host time per call of ``fn``: the wall time of ``n`` calls that
+    enqueue without waiting (the device runs behind), over ``n``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / n * 1e3
 
 
 def bound_ms(flops: float, nbytes: float, peaks) -> tuple:
@@ -396,13 +420,21 @@ def phase_build():
     from horovod_tpu_torch.ops import _build
     t0 = time.monotonic()
     path = _build.build()
-    _build.library()
+    lib = _build.library()
     secs = time.monotonic() - t0
     with open(path + ".log") as f:
         log = f.read()
+    # ptxas names the kernels whose wgmma it had to serialize: they would
+    # still be right, at a fraction of their rate.
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "serialized" in ln]
     emit("build", seconds=secs, library=path, compiler_log=path + ".log",
          fused_conv_bn_ptxas=ptxas_summary(log, "fused_conv_bn"),
-         flash_ptxas=ptxas_summary(log, "flash"))
+         flash_ptxas=ptxas_summary(log, "flash"),
+         flash_fwd_dynamic_smem_bytes=(
+             lib.hvd_flash_attention_fwd_smem_bytes()),
+         ptxas_serialized=serialized)
+    check(not serialized, "; ".join(serialized))
 
 
 def phase_parity(seed: int):
@@ -411,7 +443,7 @@ def phase_parity(seed: int):
     from horovod_tpu_torch.ops.paged_attention import (
         paged_attention_reference, paged_decode_attention)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    errs = {}
+    errs, rows = {}, {}
     for T in FLASH_T_PARITY:
         q, k, v = flash_inputs(T, gen)
         out = flash_attention_prefill(q, k, v, causal=True)
@@ -423,9 +455,14 @@ def phase_parity(seed: int):
         errs[f"T{T}"] = err
         check(err <= TOL_FLASH, f"flash_attention T={T}: max abs err "
                                 f"{err} > {TOL_FLASH}")
+        rows[f"T{T}"] = row_ulps(out, ref)
+        check(rows[f"T{T}"] <= TOL_ATTN_ULPS,
+              f"flash_attention T={T}: a row is {rows[f'T{T}']} bf16 ulps "
+              f"of its largest value off > {TOL_ATTN_ULPS}")
     flash_err = max(errs.values())
     emit("parity", kernel="flash_attention", max_abs_err=errs,
-         tolerance=TOL_FLASH, shapes="B=1 H=16 d=128 bf16 causal")
+         tolerance=TOL_FLASH, row_ulps=rows, row_tolerance=TOL_ATTN_ULPS,
+         shapes="B=1 H=16 d=128 bf16 causal")
     rng = np.random.RandomState(seed)
     positions = [-1, 0, 15, 16, 2047] + list(rng.randint(0, MAX_LEN, 3))
     q, kp, vp, tables, pos = paged_inputs(positions, gen)
@@ -462,16 +499,17 @@ def _http_generate(port: int, tokens, out: dict) -> None:
 def profile_round(eng, prompts) -> dict:
     """Serve ``prompts`` again under ``torch.profiler`` (CUDA activity):
     device busy share = summed kernel/copy device time over the wall
-    time of the round (one stream, so device work does not overlap), and
-    the top entries by device time. Null when the profiler records no
-    device time (tracing is unavailable)."""
+    time of the round (one stream, so device work does not overlap), the
+    prefill and decode kernels' device time, and the top entries by
+    device time. Null when the profiler records no device time (tracing
+    is unavailable)."""
     def serve():
         for h in [eng.submit(p) for p in prompts]:
             h.result(600)
     wall_s, rows = device_profile(serve)
-    busy_s = sum(r[0] for r in rows) / 1e6
     return {"wall_s": wall_s,
-            "device_busy_share": busy_s / wall_s if rows else None,
+            **busy_shares(rows, wall_s, {"k3_fwd": "flash_fwd_wgmma_kernel",
+                                         "k8": "paged_decode_kernel"}),
             "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
                     for us, k, n in rows[:8]]}
 
@@ -638,7 +676,9 @@ def phase_timing(seed: int, peaks):
         bnd, by = bound_ms(flops, nbytes, peaks)
         rows[T] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                        bound_by=by)
+        host = host_ms(lambda: flash_attention_prefill(q, k, v, causal=True))
         emit("timing", kernel="flash_attention", T=T, **rows[T],
+             host_ms_per_call=host,
              library="torch.nn.functional.scaled_dot_product_attention")
     rng = np.random.RandomState(seed + 3)
     positions = rng.randint(896, 1152, MAX_SLOTS)
@@ -971,6 +1011,15 @@ def bf16_ulps(got, ref) -> float:
     return (got.float() - ref.float()).abs().max().item() / ulp
 
 
+def row_ulps(got, ref, d: int = 128) -> float:
+    """The largest over output rows of d (one head of one position) of
+    max|got - ref| in units of one bf16 ulp of that row's max|ref|."""
+    g, r = got.float().reshape(-1, d), ref.float().reshape(-1, d)
+    top = r.abs().amax(1)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7).clamp_min(2.0 ** -133)
+    return ((g - r).abs().amax(1) / ulp).max().item()
+
+
 def attn_inputs(B: int, T: int, gen: torch.Generator):
     """The packed projection output qkv [B, T, H*3*d] and a cotangent
     dO [B, T, H*d], bf16 standard normals."""
@@ -1008,13 +1057,15 @@ def parity_report(phase: str, kernels, run, plain, causal: bool,
               f"attention {what}: bad {name}")
     errs = {n: (g - r).abs().max().item() if n == "lse" else bf16_ulps(g, r)
             for n, g, r in zip(names, got, ref)}
+    errs["o_row"] = row_ulps(got[0], ref[0])
     fwd, dq, dkv = kernels
     abs_err = {fwd: _abs_err(got[0], ref[0]), dq: _abs_err(got[2], ref[2]),
                dkv: max(_abs_err(got[3], ref[3]), _abs_err(got[4], ref[4]))}
     B, T = got[0].shape[:2]
     emit(phase, B=B, T=T, causal=causal, err=errs, max_abs_err=abs_err,
          bitwise_repeatable=same,
-         note="o/dq/dk/dv in bf16 ulps of the largest value; lse abs")
+         note="o/dq/dk/dv in bf16 ulps of the largest value, o_row of "
+              "each row's; lse abs")
     check(same, f"attention {what}: two launches differ")
     for name, val in errs.items():
         tol = TOL_LSE if name == "lse" else TOL_ATTN_ULPS
@@ -1048,10 +1099,12 @@ def attn_parity(qkv, do, causal: bool, what: str):
 
 def phase_parity_attn(seed: int):
     """The edge cases at B=1: short, ragged (T not a multiple of the
-    64-row tile) and non-causal. The training shape itself is compared
+    forward's 128-row tile or the backward's 64-row tile) and
+    non-causal. The training shape itself is compared
     in :func:`phase_timing_attn`, on the inputs it times."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 30)
-    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0,
+             "dv": 0.0}
     for T, causal in ATTN_PARITY:
         qkv, do = attn_inputs(1, T, gen)
         errs, _ = attn_parity(qkv, do, causal, f"B=1 T={T} causal={causal}")
@@ -1156,7 +1209,7 @@ def phase_lm_train(seed: int, peaks):
     check(all(np.isfinite(losses)), f"LM loss not finite {losses}")
     check(losses[-1] < losses[0], f"LM loss did not fall {losses}")
     state, profiled = lm_profile(step, state, tokens, labels, {
-        "k3_qkv": "flash_fwd_kernel", "dq": "flash_bwd_dq_kernel",
+        "k3_qkv": "flash_fwd_wgmma_kernel", "dq": "flash_bwd_dq_kernel",
         "dkv": "flash_bwd_dkv_kernel"})
     emit("lm_train_profile", **profiled)
     del state
@@ -1366,7 +1419,8 @@ def bhtd_parity(q, k, v, do, causal: bool, what: str):
 
 def phase_parity_attn_bhtd(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed + 50)
-    worst = {"o": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    worst = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0,
+             "dv": 0.0}
     abs_err = None
     for B, T, causal in BHTD_PARITY:
         q, k, v, do = bhtd_inputs(B, T, gen)
@@ -1416,7 +1470,7 @@ def phase_pp_lm_train(seed: int, peaks):
     check(all(np.isfinite(losses)), f"pp LM loss not finite {losses}")
     check(losses[-1] < losses[0], f"pp LM loss did not fall {losses}")
     state, profiled = lm_profile(step, state, tokens, labels, {
-        "k3_lse": "flash_fwd_kernel", "dq": "flash_bwd_dq_kernel",
+        "k3_lse": "flash_fwd_wgmma_kernel", "dq": "flash_bwd_dq_kernel",
         "dkv": "flash_bwd_dkv_kernel", "index_add": "index"})
     emit("pp_lm_train_profile", **profiled)
     del state

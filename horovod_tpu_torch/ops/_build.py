@@ -47,8 +47,9 @@ _FLASH_BWD = [
     ctypes.POINTER(_i64),                   # 21 strides: (b, t, h) x 7
     _f32, _f32, _i32, _vp]                  # q scale, grad scale, causal,
                                             # stream
-# C entry points of csrc/*.cu: name -> argtypes (every one returns the
-# cudaError_t of its launch as an int).
+# C entry points of csrc/*.cu: name -> argtypes (every one returns an
+# int: the cudaError_t of its launch, or for *_smem_bytes a kernel's
+# dynamic shared memory).
 _SIGNATURES = {
     "hvd_flash_attention_fwd": [
         _vp, _vp, _vp, _vp, _vp,            # q, k, v, out, lse (or null)
@@ -57,6 +58,7 @@ _SIGNATURES = {
         _i64, _i64, _i64,                   # k strides
         _i64, _i64, _i64,                   # v strides
         _f32, _i32, _vp],                   # q scale, causal, stream
+    "hvd_flash_attention_fwd_smem_bytes": [],
     "hvd_flash_bwd_dq": _FLASH_BWD,
     "hvd_flash_bwd_dkv": _FLASH_BWD,
     "hvd_paged_decode_attention": [

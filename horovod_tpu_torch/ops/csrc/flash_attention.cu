@@ -2,276 +2,576 @@
 // d_head 128 in, bf16 out, and optionally the row log2-sum-exp2.
 //
 // Replaces: horovod_tpu/ops/pallas_attention.py::_attn_kernel as launched
-// by _fwd_pallas (with_lse=False) -- the TPU kernel every prefill layer of
-// the paged generation engine runs (K3-fwd) -- and as launched by
-// _fwd_pallas_qkv with its lse2 output -- the packed-qkv forward of LM
-// training (K3-qkv), whose lse2 the backward (flash_attention_bwd.cu)
-// recomputes the probabilities from.
+// by _fwd_pallas (:462; without lse -- the TPU kernel every prefill layer
+// of the paged generation engine runs, K3-fwd -- and with lse on a
+// prescaled q, the pipelined LM's forward) and by _fwd_pallas_qkv (:619,
+// the packed-qkv forward of LM training, K3-qkv), whose lse2 the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from.
 //
 // Computes, per (batch, head), o = softmax(q k^T * sm_scale) v with the
-// JAX kernel's rounding points: q is multiplied by sm_scale*log2(e) in f32
-// and rounded back to bf16 on load; scores are bf16 products accumulated in
-// f32 and exponentiated with exp2; P is rounded to bf16 before P.V; the
-// accumulator and the softmax statistics are f32; masked scores are -1e30;
-// a row whose sum is 0 divides by 1 (comes out 0). With a non-null `lse`
-// it also writes lse2 = m + log2(l) per row (-1e30 where l = 0) as one f32
-// per row of an [B*H, T] array (the TPU kernel's [BH, T, 8]
-// lane-replicated wire format is a Mosaic layout, not carried over).
+// JAX kernel's rounding points: q is multiplied by `qscale` (sm_scale *
+// log2(e), or 1 for a prescaled q) in f32 and rounded back to bf16;
+// scores are bf16 products accumulated in f32 and exponentiated with
+// exp2; P is rounded to bf16 before P.V, the row sum is taken over the f32
+// P; the accumulator and the softmax statistics are f32; masked scores
+// are -1e30; a row whose sum is 0 divides by 1 (comes out 0). With a
+// non-null `lse` it also writes lse2 = m + log2(l) per row (-1e30 where
+// l = 0) as one f32 per row of an [B*H, T] array (the TPU kernel's
+// [BH, T, 8] lane-replicated wire format is a Mosaic layout, not carried
+// over).
 //
-// Bound: at the engine's prefill shapes (T up to 2048, d = 128) the work
-// is 4*T^2*d*H/2 flops against 4*T*H*d*2 bytes, about T/2 flops per byte:
-// compute-bound on the tensor cores above T ~ 600.
+// Bound: causal work is 4*d*H*B*T(T+1)/2 flops against 4*B*T*H*d*2
+// bytes, about T/2 flops per byte: tensor-core bound above T ~ 600. At
+// the main paths' shapes (H=16, d=128, T=2048, 989 TFLOP/s):
+// 0.139 ms at B=8 (K3-qkv), 0.0695 ms at B=4 (the pipelined step's lse
+// forward), 0.0174 ms at B=1 (a prefill).
 //
-// Design: one CTA of 4 warps per (64-row q tile, batch*head); each warp
-// owns 16 q rows and keeps its q fragments, the online-softmax state and
-// the 16x128 f32 output accumulator in registers. K/V tiles of 64 rows are
-// staged in shared memory (17 KB each, rows padded by 8 elements so the
-// mma fragment reads hit 32 distinct banks); S = Q K^T and O += P V run on
-// the tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate),
-// and P goes from the S accumulators straight into the A fragments of the
-// P.V product without touching shared memory. Tiles above the diagonal are
-// never loaded; the ragged edge (T not a multiple of 64) is masked, so
-// every prompt length runs this kernel. q/k/v are read through strides,
-// so the [B,T,H,3,d] projection output is consumed without transposes,
-// and o is written as [B,T,H,d], which is the packed [B,T,H*d] input of
-// the output projection. The heaviest (last) q tiles are scheduled first.
-// Loads are synchronous (no cp.async/TMA pipelining yet): a simple kernel
-// that is right first.
+// Design (one CTA of two warpgroups per 128-row q tile and batch*head,
+// one CTA per SM):
+// - Tensor cores through wgmma, the only path to the card's full rate:
+//   S = Q K^T is m64n128k16 with both operands in shared memory; O += P V
+//   takes P from registers (the f32 S accumulator, rounded to bf16 pairs,
+//   is the A fragment of the next product, so P never touches shared
+//   memory) and V from shared memory in MN-major order (transpose bit).
+//   Each warpgroup owns 64 q rows and keeps its 64x128 f32 output
+//   accumulator and online-softmax state in registers.
+// - A TMA ring: Q (32 KB) is loaded once; K and V tiles of 128 keys (32 KB
+//   each) come through 3 stages, each with a full mbarrier for K and one
+//   for V. The last warp done with a stage refills it with the tile three
+//   ahead, so loads run two tiles ahead of the products. In place of an
+//   empty mbarrier, each warp counts itself done on a per-stage word with
+//   an acquire-release atomic (after its wgmma_wait and a __syncwarp), so
+//   every warp's completed reads of the stage are ordered before the
+//   refill TMA that the eighth issues. 128-byte swizzle
+//   makes the wgmma reads conflict-free; a 256-byte row of d=128 arrives
+//   as two 64-column boxes.
+// - Softmax off the critical path: a warpgroup issues S of tile n and P.V
+//   of tile n - 1 together and runs tile n's mask and exp2 (about half the
+//   cycles of the two products) while P.V is still on the tensor cores;
+//   and the two warpgroups take turns to issue (FlashAttention-3's
+//   ping-pong), so one's softmax runs under the other's products.
+// - No producer warp: ptxas gives every thread of a CTA the same
+//   registers (setmaxnreg does not change its allocation; measured), so a
+//   third warpgroup would cap the consumers at 168 registers, and S, P and
+//   O of a 128-key tile in flight together need about 190.
+// - Strided operands through the tensor maps: one 4-D map (d, h, t, b)
+//   per operand with the caller's strides, so slices of the packed
+//   [B,T,H,3,d] projection are read without copies. TMA zero-fills rows
+//   past T (0 * garbage would be NaN); only tiles that cross the diagonal
+//   or T are masked. Tiles above the diagonal are never loaded.
+// - Heaviest q tiles first (the block order in the kernel). The output
+//   goes through shared memory (Q's own rows, free after the last S) so
+//   that each row is written to o [B,T,H,d] as 16-byte coalesced stores.
+// - Deterministic: every sum in a fixed order (atomics only count the
+//   warps done with a stage). The output is acc / l rounded as the plain
+//   version's division rounds: acc * (1/l) and one fma correction
+//   (Markstein), since 64 divisions a thread in an epilogue that runs
+//   with the tensor cores idle slowed the kernel measurably.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using hvd_flash::kD;
-using hvd_flash::kPad;
-using hvd_flash::mma_bf16;
 using hvd_flash::pack_bf16;
-using hvd_flash::pack_raw;
+namespace hp = hvd_hopper;
 
-constexpr int kBQ = 64;      // q rows per CTA (16 per warp)
-constexpr int kBK = 64;      // keys per K/V tile
-constexpr int kWarps = 4;
+constexpr int kBQ = 128;       // q rows per CTA (64 per warpgroup)
+constexpr int kBK = 128;       // keys per K/V tile
+constexpr int kStages = 3;     // K/V ring depth (230 KB of shared memory)
+constexpr int kThreads = 256;  // two warpgroups
+static_assert(kBK == 128, "S is one m64n128 accumulator per warpgroup");
+constexpr int kSN = kBK / 2;   // S accumulator registers a thread
+constexpr int kPV = kBK / 16;  // k-steps of P.V
+// Each tile is two 64-column boxes (halves) of its rows.
+constexpr uint32_t kQHalf = kBQ * 64 * 2;
+constexpr uint32_t kQBytes = 2 * kQHalf;
+constexpr uint32_t kKVHalf = kBK * 64 * 2;
+constexpr uint32_t kKVBytes = 2 * kKVHalf;          // one K or V tile
+constexpr uint32_t kQOff = 0;
+constexpr uint32_t kKOff = kQBytes;                 // stage s: + s * K+V
+constexpr uint32_t kBarOff = kQBytes + 2 * kKVBytes * kStages;
+// mbarriers q_full, k_full[kStages], v_full[kStages], then one u32 count
+// of warps done with each stage.
+constexpr uint32_t kBars = 1 + 2 * kStages;
+constexpr uint32_t kCountOff = kBarOff + 8 * kBars;
+// + 1024: the dynamic shared memory base is aligned up to 1024 bytes.
+constexpr uint32_t kSmemBytes = kCountOff + 4 * kStages + 1024;
 
-// Three CTAs per SM (at most 168 registers a thread): at 169 the register
-// file holds only two, and a B=1, T=2048 prefill (512 CTAs) then needs two
-// waves instead of one and a third. kLse compiles the lse2 epilogue only
-// into the training instance, so the prefill instance is the lse-free
-// kernel.
+// K and V of tile kt into ring stage kt % kStages (one thread).
+__device__ __forceinline__ void load_kv(const CUtensorMap& kmap,
+                                        const CUtensorMap& vmap,
+                                        uint32_t base, int kt, int h, int b) {
+  const int s = kt % kStages;
+  const uint32_t k_full = base + kBarOff + 8 * (1 + s);
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t kdst = base + kKOff + s * 2 * kKVBytes;
+  const uint32_t vdst = kdst + kKVBytes;
+  const int k0 = kt * kBK;
+  hp::mbar_expect_tx(k_full, kKVBytes);
+  hp::tma_load_4d(kdst, &kmap, k_full, 0, h, k0, b);
+  hp::tma_load_4d(kdst + kKVHalf, &kmap, k_full, 64, h, k0, b);
+  hp::mbar_expect_tx(v_full, kKVBytes);
+  hp::tma_load_4d(vdst, &vmap, v_full, 0, h, k0, b);
+  hp::tma_load_4d(vdst + kKVHalf, &vmap, v_full, 64, h, k0, b);
+}
+
+// Warpgroup `wg` (0 or 1) of the CTA: q rows q0 + 64 * wg .. + 63.
 template <bool kLse>
-__global__ void __launch_bounds__(kWarps * 32, 3)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o,
-                 float* __restrict__ lse, int T, int H,
-                 long long qsb, long long qst, long long qsh,
-                 long long ksb, long long kst, long long ksh,
-                 long long vsb, long long vst, long long vsh,
-                 float qscale, int causal) {
-  constexpr int D = kD;
-  constexpr int LD = D + kPad;
-  constexpr int KSTEPS = D / 16;   // k-steps of Q K^T
-  constexpr int NT_D = D / 8;      // 8-wide n-tiles of the output
-  constexpr int NT_K = kBK / 8;    // 8-wide n-tiles of the score tile
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * LD];
-
-  const int n_qt = (T + kBQ - 1) / kBQ;
-  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+__device__ __forceinline__ void consume(uint8_t* smem, uint32_t base,
+                                        const CUtensorMap& kmap,
+                                        const CUtensorMap& vmap,
+                                        __nv_bfloat16* __restrict__ o,
+                                        float* __restrict__ lse, int T, int H,
+                                        int b, int h, int q0, int n_kt,
+                                        float qscale, int causal) {
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;   // mma row group / thread in group
-  const int q0 = qt * kBQ;
-  const int r0 = q0 + warp * 16 + g;        // this lane's rows: r0, r0 + 8
+  const uint32_t q_full = base + kBarOff;
+  const uint32_t k_full = q_full + 8;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t done = base + kCountOff;   // u32 count per stage
+  const int wg = tid >> 7;                  // 0 or 1: q rows 64*wg..
+  const int wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;   // row group / thread in group
+  const int r0 = q0 + wg * 64 + warp * 16 + g;   // rows r0, r0 + 8
+  const uint32_t qrows = base + kQOff + wg * 64 * 128;   // this wg's rows
 
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-
-  // Q A-fragments: q * (sm_scale*log2e) in f32, rounded back to bf16.
-  uint32_t qa[KSTEPS][4];
+  hp::mbar_wait(q_full, 0);
+  if (qscale != 1.f) {
+    // q * qscale in f32, rounded to bf16, in place (elementwise, so the
+    // swizzle does not matter); then visible to wgmma's async proxy.
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + half * 8;
-#pragma unroll
-      for (int cpart = 0; cpart < 2; ++cpart) {
-        const int col = ks * 16 + cpart * 8 + 2 * t4;
-        float x0 = 0.f, x1 = 0.f;
-        if (row < T) {
-          const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(
-              qb + row * qst + col);
-          x0 = __bfloat162float(pr.x) * qscale;
-          x1 = __bfloat162float(pr.y) * qscale;
-        }
-        qa[ks][half + 2 * cpart] = pack_bf16(x0, x1);
-      }
+    for (int i = 0; i < 8; ++i) {
+      const int c = i * 128 + wtid;          // 16-byte chunk of 1024
+      const uint32_t off = (c >> 9) * kQHalf + (c & 511) * 16;
+      uint4* p = reinterpret_cast<uint4*>(smem + kQOff + wg * 64 * 128 +
+                                          off);
+      uint4 v = *p;
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+      uint4 r;
+      r.x = pack_bf16(__bfloat162float(e[0]) * qscale,
+                      __bfloat162float(e[1]) * qscale);
+      r.y = pack_bf16(__bfloat162float(e[2]) * qscale,
+                      __bfloat162float(e[3]) * qscale);
+      r.z = pack_bf16(__bfloat162float(e[4]) * qscale,
+                      __bfloat162float(e[5]) * qscale);
+      r.w = pack_bf16(__bfloat162float(e[6]) * qscale,
+                      __bfloat162float(e[7]) * qscale);
+      *p = r;
     }
+    hp::fence_proxy_async();
+    hp::named_barrier(1 + wg, 128);
   }
 
   float m[2] = {-1e30f, -1e30f};
   float l[2] = {0.f, 0.f};
-  float acc[NT_D][4];
+  float acc[64];
+  uint32_t pa[kPV][4];
 #pragma unroll
-  for (int n = 0; n < NT_D; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int row_lo = q0 + wg * 64;           // this warpgroup's first row
+  auto k_tile = [&](int kt) {
+    return base + kKOff + (kt % kStages) * 2 * kKVBytes;
+  };
 
-  const int n_kt_all = (T + kBK - 1) / kBK;
-  const int last_row = min(q0 + kBQ, T) - 1;
-  const int n_kt = causal ? min(n_kt_all, last_row / kBK + 1) : n_kt_all;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // S = Q K^T for tile kt (log2 domain; q already scaled): 8 k-steps of
+  // 16 over d, both operands K-major; the first overwrites sc, so every
+  // tile's S starts in fresh registers. Issued, not waited for.
+  auto issue_s = [&](float (&sc)[kSN], int kt) {
+    const uint32_t kbase = k_tile(kt);
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const uint32_t col = (ks & 3) * 32;
+      hp::wgmma_ss_m64n128k16(
+          sc, hp::desc_sw128(qrows + (ks >> 2) * kQHalf + col, 16, 1024),
+          hp::desc_sw128(kbase + (ks >> 2) * kKVHalf + col, 16, 1024),
+          ks > 0);
+    }
+    hp::wgmma_commit();
+  };
+  // O += P V for tile kt: V is MN-major (keys down, d contiguous), LBO
+  // steps the 64-column halves, each k-step advances 16 key rows (2048
+  // bytes). Issued, not waited for.
+  auto issue_pv = [&](int kt) {
+    const uint32_t vbase = k_tile(kt) + kKVBytes;
+#pragma unroll
+    for (int kk = 0; kk < kPV; ++kk)
+      hp::wgmma_rs_m64n128k16_tb(
+          acc, pa[kk], hp::desc_sw128(vbase + kk * 2048, kKVHalf, 1024));
+    hp::wgmma_commit();
+  };
+  // Mask, online softmax on the finished S of tile kt: sc becomes the f32
+  // P, m the new row max; returns the rescale factors and P's row sums.
+  auto softmax = [&](float (&sc)[kSN], int kt, float (&alpha)[2],
+                     float (&rs)[2]) {
     const int k0 = kt * kBK;
-    __syncthreads();   // every warp is done with the previous tile
-    constexpr int CHUNKS = kBK * D / 8;   // 16-byte chunks per tile
-    for (int c = tid; c < CHUNKS; c += kWarps * 32) {
-      const int row = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + row < T) {   // rows past T stay zero: 0 * garbage is NaN
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + row) * kst + col);
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + row) * vst + col);
-      }
-      *reinterpret_cast<uint4*>(&Ks[row * LD + col]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[row * LD + col]) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T (log2 domain; q already scaled).
-    float s[NT_K][4];
+    // Causal / ragged mask, only on tiles that cross it. Element i of
+    // the accumulator: row r0 + 8 * ((i >> 1) & 1), key k0 + 8 * (i >> 2)
+    // + 2 * t4 + (i & 1).
+    if (k0 + kBK > T || (causal && k0 + kBK - 1 > row_lo)) {
 #pragma unroll
-    for (int j = 0; j < NT_K; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        const __nv_bfloat16* kp = &Ks[(j * 8 + g) * LD + ks * 16 + 2 * t4];
-        mma_bf16(s[j], qa[ks], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+      for (int i = 0; i < kSN; ++i) {
+        const int row = r0 + 8 * ((i >> 1) & 1);
+        const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (col >= T || (causal && col > row)) sc[i] = -1e30f;
       }
     }
-
-    // Causal / ragged mask, only on tiles that cross it.
-    if (k0 + kBK > T || (causal && k0 + kBK - 1 > q0)) {
-#pragma unroll
-      for (int j = 0; j < NT_K; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = r0 + (e >> 1) * 8;
-          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-          if (col >= T || (causal && col > row)) s[j][e] = -1e30f;
-        }
-      }
-    }
-
-    // Online softmax: row max over the quad, exp2, rescale.
-    float alpha[2];
+    // Row max over the quad, exp2, rescale factors.
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       float mx = m[hf];
 #pragma unroll
-      for (int j = 0; j < NT_K; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * hf], s[j][2 * hf + 1]));
+      for (int j = 0; j < kSN / 4; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hf], sc[4 * j + 2 * hf + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      alpha[hf] = exp2f(m[hf] - mx);
+      alpha[hf] = hp::exp2_ftz(m[hf] - mx);
       m[hf] = mx;
     }
-    float rs[2] = {0.f, 0.f};
+    rs[0] = rs[1] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NT_K; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        rs[e >> 1] += p;
-      }
+    for (int i = 0; i < kSN; ++i) {
+      const int hf = (i >> 1) & 1;
+      const float p = hp::exp2_ftz(sc[i] - m[hf]);
+      sc[i] = p;
+      rs[hf] += p;
     }
-    // Per-lane partial row sums; the quad is summed once at the end.
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
+  };
+  // P (bf16) as the A fragments of the 8 k-steps of 16 keys.
+  auto pack_p = [&](const float (&sc)[kSN]) {
 #pragma unroll
-    for (int n = 0; n < NT_D; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    for (int kk = 0; kk < kPV; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
+  };
+  // This warp's reads of tile kt's stage are done. The last of the 8
+  // warps to get there refills the stage with tile kt + kStages.
+  auto release = [&](int kt) {
+    __syncwarp();
+    if (lane == 0 &&
+        hp::atomic_add_acq_rel(done + 4 * (kt % kStages), 1u) % 8 == 7 &&
+        kt + kStages < n_kt)
+      load_kv(kmap, vmap, base, kt + kStages, h, b);
+  };
+  auto phase = [](int kt) { return static_cast<uint32_t>(kt / kStages) & 1; };
 
-    // O += P V: P (rounded to bf16) comes straight from the S fragments.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NT_D; ++n) {
-        const __nv_bfloat16* vp = &Vs[(kk * 16 + 2 * t4) * LD + n * 8 + g];
-        mma_bf16(acc[n], pa, pack_raw(vp[0], vp[LD]),
-                 pack_raw(vp[8 * LD], vp[9 * LD]));
-      }
-    }
+  // Turns: named barrier 3 + wg opens this warpgroup's; warpgroup 0 goes
+  // first, and each hands the turn over once its products are issued (the
+  // last hand-over of warpgroup 1 would have no taker).
+  auto my_turn = [&]() { hp::named_barrier(3 + wg, 256); };
+  auto your_turn = [&](bool last) {
+    if (!(last && wg == 1)) hp::named_arrive(4 - wg, 256);
+  };
+  if (wg == 1) hp::named_arrive(3, 256);
+
+  // Tile 0: S, softmax, P.
+  float alpha[2], rs[2];
+  {
+    float sc[kSN];
+    hp::mbar_wait(k_full, 0);
+    my_turn();
+    hp::wgmma_fence();
+    issue_s(sc, 0);
+    your_turn(false);
+    hp::wgmma_wait<0>();
+    hp::fence_operands(sc);
+    softmax(sc, 0, alpha, rs);
+    l[0] = rs[0];
+    l[1] = rs[1];
+    pack_p(sc);
   }
+
+  // Tile kt: S of kt and P.V of kt - 1 in flight together; the softmax of
+  // kt runs while P.V is still on the tensor cores. O is rescaled by
+  // tile kt's factors after P.V of kt - 1 has landed, so the sums are
+  // those of the plain loop, in the same order.
+  for (int kt = 1; kt < n_kt; ++kt) {
+    float sc[kSN];
+    hp::mbar_wait(k_full + 8 * (kt % kStages), phase(kt));
+    hp::mbar_wait(v_full + 8 * ((kt - 1) % kStages), phase(kt - 1));
+    hp::fence_operands(acc);
+    my_turn();
+    hp::wgmma_fence();
+    issue_s(sc, kt);
+    issue_pv(kt - 1);
+    your_turn(false);
+    hp::wgmma_wait<1>();
+    hp::fence_operands(sc);
+    softmax(sc, kt, alpha, rs);
+    hp::wgmma_wait<0>();
+    hp::fence_operands(acc);
+    release(kt - 1);
+    l[0] = l[0] * alpha[0] + rs[0];   // per-lane partial row sums; the
+    l[1] = l[1] * alpha[1] + rs[1];   // quad is summed once at the end
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    pack_p(sc);
+  }
+  hp::mbar_wait(v_full + 8 * ((n_kt - 1) % kStages), phase(n_kt - 1));
+  hp::fence_operands(acc);
+  my_turn();
+  hp::wgmma_fence();
+  issue_pv(n_kt - 1);
+  your_turn(true);
+  hp::wgmma_wait<0>();
+  hp::fence_operands(acc);
+  release(n_kt - 1);
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
     l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
   }
+  float safe[2], inv[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = r0 + hf * 8;
-    if (row >= T) continue;
-    const float safe = (l[hf] == 0.f) ? 1.f : l[hf];
-    if (kLse && t4 == 0)   // log2 domain, for the backward
-      lse[static_cast<long long>(blockIdx.y) * T + row] =
-          (l[hf] == 0.f) ? -1e30f : m[hf] + log2f(safe);
-    __nv_bfloat16* orow =
-        o + ((static_cast<long long>(b) * T + row) * H + h) * D;
+    safe[hf] = (l[hf] == 0.f) ? 1.f : l[hf];
+    inv[hf] = 1.f / safe[hf];
+    if (kLse && t4 == 0 && row < T)   // log2 domain, for the backward
+      lse[(static_cast<long long>(b) * H + h) * T + row] =
+          (l[hf] == 0.f) ? -1e30f : m[hf] + log2f(safe[hf]);
+  }
+
+  // acc / l: with inv the correctly rounded 1/l, the quotient a * inv
+  // corrected by one fma with its exact residual is the correctly rounded
+  // a / l (Markstein's theorem; away from the subnormal range).
+  auto div_l = [&](float a, int hf) {
+    const float q = a * inv[hf];
+    return fmaf(fmaf(-q, safe[hf], a), inv[hf], q);
+  };
+  // o through this warpgroup's Q rows (its last S has completed), in the
+  // same 128-byte swizzle, then 16-byte stores of whole rows.
+  uint8_t* stage = smem + kQOff + wg * 64 * 128;
 #pragma unroll
-    for (int n = 0; n < NT_D; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
-          pack_bf16(acc[n][2 * hf] / safe, acc[n][2 * hf + 1] / safe);
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int rl = warp * 16 + g + 8 * hf;
+      const uint32_t off = (j >> 3) * kQHalf + rl * 128 +
+                           (((j & 7) ^ (rl & 7)) << 4) + 4 * t4;
+      *reinterpret_cast<uint32_t*>(stage + off) =
+          pack_bf16(div_l(acc[4 * j + 2 * hf], hf),
+                    div_l(acc[4 * j + 2 * hf + 1], hf));
+    }
+  }
+  hp::named_barrier(1 + wg, 128);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = i * 128 + wtid;
+    const int rl = c >> 4, cc = c & 15;
+    const int row = row_lo + rl;
+    if (row < T) {
+      const uint32_t off = (cc >> 3) * kQHalf + rl * 128 +
+                           (((cc & 7) ^ (rl & 7)) << 4);
+      *reinterpret_cast<uint4*>(
+          o + ((static_cast<long long>(b) * T + row) * H + h) * kD +
+          cc * 8) = *reinterpret_cast<const uint4*>(stage + off);
     }
   }
 }
 
+template <bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int T, int H, int group,
+                       float qscale, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hp::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int n_qt = (T + kBQ - 1) / kBQ;
+  // Block order: groups of `group` heads; inside a group, every head's
+  // heaviest (last) q tile first, then the next, so the lightest tiles
+  // fill the tail. group = 1 is head by head, each head's tiles heaviest
+  // first and together, so that they share its K/V in L2.
+  const int bhs = static_cast<int>(gridDim.x) / n_qt;   // B * H
+  const int first = static_cast<int>(blockIdx.x) / (group * n_qt) * group;
+  const int size = min(group, bhs - first);
+  const int within = static_cast<int>(blockIdx.x) - first * n_qt;
+  const int qt = n_qt - 1 - within / size;
+  const int b = (first + within % size) / H;
+  const int h = (first + within % size) % H;
+  const int q0 = qt * kBQ;
+  const int n_kt_all = (T + kBK - 1) / kBK;
+  const int last_row = min(q0 + kBQ, T) - 1;
+  const int n_kt = causal ? min(n_kt_all, last_row / kBK + 1) : n_kt_all;
+
+  uint8_t* smem = smem_raw + (base - raw);
+  if (threadIdx.x == 0) {
+    // Barriers, then Q and the first kStages K/V tiles.
+    const uint32_t q_full = base + kBarOff;
+#pragma unroll
+    for (int i = 0; i < static_cast<int>(kBars); ++i)
+      hp::mbar_init(q_full + 8 * i, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s)
+      reinterpret_cast<uint32_t*>(smem + kCountOff)[s] = 0;
+    hp::mbar_init_fence();
+    hp::tma_prefetch_map(&qmap);
+    hp::tma_prefetch_map(&kmap);
+    hp::tma_prefetch_map(&vmap);
+    hp::mbar_expect_tx(q_full, kQBytes);
+    hp::tma_load_4d(base + kQOff, &qmap, q_full, 0, h, q0, b);
+    hp::tma_load_4d(base + kQOff + kQHalf, &qmap, q_full, 64, h, q0, b);
+    for (int kt = 0; kt < min(kStages, n_kt); ++kt)
+      load_kv(kmap, vmap, base, kt, h, b);
+  }
+  __syncthreads();
+  consume<kLse>(smem, base, kmap, vmap, o, lse, T, H, b, h, q0, n_kt,
+                qscale, causal);
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: found once through the
+// runtime's entry-point query (CUDA 12.5+), so the library needs no
+// -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                         12000, cudaEnableDefault,
+                                         &res) != cudaSuccess)
+      return nullptr;
+    return res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (d, h, t, b) over a [B, T, H, D] bf16 view with element
+// strides (sb, st, sh) and unit stride on d; boxes of 64 d x 128 rows,
+// 128-byte swizzle, zero fill past T.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
+              int T, int H, long long sb, long long st, long long sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  static_assert(kBQ == kBK, "one box shape serves Q, K and V");
+  const cuuint32_t box[4] = {64, 1, kBK, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// make_map through the last 16 maps encoded on this thread: an encode
+// costs microseconds of host time on every call, and the caching
+// allocator hands the same buffers back layer after layer and step after
+// step. A map depends on nothing but the pointer, shape and strides.
+struct MapEntry {
+  CUtensorMap map;
+  const void* ptr = nullptr;
+  long long key[6] = {};   // B, T, H, sb, st, sh
+};
+
+bool get_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
+             int T, int H, long long sb, long long st, long long sh) {
+  static thread_local MapEntry cache[16];
+  static thread_local int next = 0;
+  const long long key[6] = {B, T, H, sb, st, sh};
+  for (const MapEntry& e : cache) {
+    if (e.ptr == ptr && std::equal(key, key + 6, e.key)) {
+      *map = e.map;
+      return true;
+    }
+  }
+  if (!make_map(enc, map, ptr, B, T, H, sb, st, sh)) return false;
+  MapEntry& e = cache[next];
+  next = (next + 1) % 16;
+  e.map = *map;
+  e.ptr = ptr;
+  std::copy(key, key + 6, e.key);
+  return true;
+}
+
+template <bool kLse>
+cudaError_t allow_smem() {
+  // Once per device (the attribute is per device context).
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<kLse>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
 }  // namespace
 
-// q/k/v: [B, T, H, D] bf16 views with unit stride on D (strides in
-// elements); o: contiguous [B, T, H, D] bf16; lse: null, or contiguous
-// [B*H, T] f32. Returns cudaGetLastError().
+// q/k/v: [B, T, H, D] bf16 views with unit stride on D, 16-byte aligned,
+// other strides (in elements) multiples of 8; o: contiguous [B, T, H, D]
+// bf16; lse: null, or contiguous [B*H, T] f32. Returns a cudaError_t.
 extern "C" int hvd_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int T, int H, int D, long long qsb, long long qst, long long qsh,
     long long ksb, long long kst, long long ksh, long long vsb,
     long long vst, long long vsh, float qscale, int causal, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  const dim3 grid((T + kBQ - 1) / kBQ, B * H);
-  const dim3 block(kWarps * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(o);
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qm, km, vm;
+  if (!get_map(enc, &qm, q, B, T, H, qsb, qst, qsh) ||
+      !get_map(enc, &km, k, B, T, H, ksb, kst, ksh) ||
+      !get_map(enc, &vm, v, B, T, H, vsb, vst, vsh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // One group of all heads when their K/V (512 * T bytes a head) fit in
+  // the 50 MB L2 with room to spare, so the lightest tiles of a short
+  // grid come last (a B=1, T=2048 prefill: 256 CTAs on 132 SMs); else
+  // head by head, because heads whose tiles run apart read their K/V
+  // from DRAM again (B=8: 128 MB).
+  const long long kv_bytes = 512LL * T * B * H;
+  const int group = kv_bytes <= (32LL << 20) ? B * H : 1;
+  const dim3 grid((T + kBQ - 1) / kBQ * B * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp = static_cast<float*>(lse);
-  if (lp != nullptr)
-    flash_fwd_kernel<true><<<grid, block, 0, st>>>(
-        qp, kp, vp, op, lp, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
-        vsh, qscale, causal);
-  else
-    flash_fwd_kernel<false><<<grid, block, 0, st>>>(
-        qp, kp, vp, op, lp, T, H, qsb, qst, qsh, ksb, kst, ksh, vsb, vst,
-        vsh, qscale, causal);
+  cudaError_t err;
+  if (lp != nullptr) {
+    err = allow_smem<true>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_wgmma_kernel<true><<<grid, kThreads, kSmemBytes, st>>>(
+        qm, km, vm, op, lp, T, H, group, qscale, causal);
+  } else {
+    err = allow_smem<false>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_fwd_wgmma_kernel<false><<<grid, kThreads, kSmemBytes, st>>>(
+        qm, km, vm, op, lp, T, H, group, qscale, causal);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared memory of one forward CTA, in bytes.
+extern "C" int hvd_flash_attention_fwd_smem_bytes() {
+  return static_cast<int>(kSmemBytes);
 }

@@ -1,6 +1,7 @@
-// Helpers shared by the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): bf16 packing and the m16n8k16 tensor-core
-// product. Fragment layouts (PTX ISA, mma.m16n8k16, .bf16), with
+// Helpers of the flash-attention kernels: bf16 packing and the head
+// dimension (flash_attention.cu, flash_attention_bwd.cu), and the
+// m16n8k16 tensor-core product and row staging of the backward.
+// Fragment layouts (PTX ISA, mma.m16n8k16, .bf16), with
 // g = lane / 4 and t4 = lane % 4:
 //   A (16x16, row-major): a0 = (g, 2t4..+1), a1 = (g+8, 2t4..+1),
 //                         a2 = (g, 2t4+8..+9), a3 = (g+8, 2t4+8..+9)

@@ -75,7 +75,7 @@ def test_reference_matches_pallas_bf16(T):
                                rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("T", [16, 100])
+@pytest.mark.parametrize("T", [16, 100, 127, 129, 1000])
 def test_reference_matches_dense_untiled_lengths(T):
     """Lengths the Pallas kernel does not tile run JAX's dense f32
     attention; at f32 the flash rounding points are identities, so the
