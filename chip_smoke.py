@@ -30,7 +30,8 @@ Phases, one JSON line each:
 1. device   — require CUDA; print the card, its power limit, versions.
 2. build    — nvcc-build the kernels from ``horovod_tpu_torch/ops/csrc``;
                registers, spills and shared memory of the flash kernels
-               (fails if ptxas serialized a wgmma).
+               (fails if ptxas serialized a wgmma or a flash kernel
+               spills).
 3. parity   — each kernel vs its plain version at the engine's shapes
                (the flash forward at T in {1, 16, 127, 128, 129, 1000,
                2047, 2048}).
@@ -68,9 +69,9 @@ Phases, one JSON line each:
 12. parity_attn — the packed forward with lse (K3-qkv) and the dq/dkv
                backward pair vs their plain versions at B=1, H=16,
                d=128: T in {128, 1024, 2048} causal, T=256 non-causal
-               and T=1000 and 129 (not multiples of the forward's 128-row
-               tile or the backward's 64-row tile); two launches must
-               agree bitwise.
+               and T in {1000, 129, 2, 65, 191} causal (lengths that the
+               kernels' 64- and 128-row tiles cut raggedly); six launches
+               must agree bitwise.
 13. lm_train — the full-width LM train step: 2 warmup + 10 timed steps
                on a fixed random batch; launch counters zeroed before the
                timed steps (8 K3-qkv + 8 dq + 8 dkv per step, no prefill
@@ -82,15 +83,16 @@ Phases, one JSON line each:
                gradients and updates compared.
 16. timing_attn — K3-qkv and the dq/dkv pair at the LM step's shape
                (B=8, H=16, T=2048, causal) vs their plain versions (the
-               kernels line's max_abs_err; two launches bitwise equal),
-               then timed beside their bounds, plain versions and SDPA.
+               kernels line's max_abs_err; six launches bitwise equal),
+               then timed beside their bounds, plain versions and SDPA;
+               the Delta pass outside the kernels (``timing_delta``).
 17. parity_attn_bhtd — the [B,T,H,D] forward with lse and the dq and
                dk/dv kernels (K6's constants) vs their plain versions at
                the pp step's shape (B=4, H=16, T=2048, causal; q/k/v
                strided slices of a packed [B,T,H,3,d] projection, q
-               prescaled; the kernels line's max_abs_err) and at B=1,
-               T=1000 causal and T=256 non-causal; two launches must agree
-               bitwise.
+               prescaled; the kernels line's max_abs_err), at B=1,
+               T=1000 causal and T=256 non-causal, and at B=2, T=191
+               causal; six launches must agree bitwise.
 18. pp_lm_train — the full-width pipelined step: 2 warmup + 10 timed
                steps on lm_train's batch; counters zeroed before the timed
                steps (16 lse forwards + 16 dq + 16 dkv per step, no packed
@@ -102,7 +104,8 @@ Phases, one JSON line each:
                the CPU (gloo world) from the same weights and batch: loss,
                gradients and the update compared.
 21. timing_attn_bhtd — the three [B,T,H,D] launches and the pair at
-               B=4, T=2048 beside their bounds, plain versions and SDPA.
+               B=4, T=2048 beside their bounds, plain versions and SDPA;
+               the Delta pass (``timing_delta``).
 
 Then, before the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
@@ -183,12 +186,17 @@ LM_E2E_BATCH, LM_E2E_SEQ = 1, 256
 ADAMW = dict(lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
 # (T, causal) of the attention parity checks at B=1, H=16, d=128.
 ATTN_PARITY = ((128, True), (1024, True), (2048, True), (256, False),
-               (1000, True), (129, True))
+               (1000, True), (129, True), (2, True), (65, True),
+               (191, True))
 # bf16 outputs (o, dq, dk, dv): within 2 bf16 ulps of the largest value
 # (f32 sums in another order can flip a rounding of ds or of the output);
 # lse2 (f32, log2 domain): 1e-4 absolute.
 TOL_ATTN_ULPS = 2.0
 TOL_LSE = 1e-4
+# Launches of each attention kernel set that must agree bitwise: a fault
+# in a ring's ordering shows as launch-to-launch differences, often in
+# fewer than one launch in two.
+ATTN_REPEATS = 6
 ATTN_KERNELS = ("flash_attention_qkv_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # The pipelined LM (bench.py measure_lm's max(2, accum_steps) microbatches).
 PP_MICRO = 2
@@ -196,7 +204,7 @@ PP_E2E_BATCH, PP_E2E_SEQ = 2, 256
 # (B, T, causal) of the [B,T,H,D] parity checks; the first is the pp
 # step's own shape (one microbatch) and gives the kernels line's errors.
 BHTD_PARITY = ((LM_BATCH // PP_MICRO, LM_SEQ, True), (1, 1000, True),
-               (1, 256, False))
+               (1, 256, False), (2, 191, True))
 BHTD_KERNELS = ("flash_attention_lse", "flash_bwd_dq_bhtd",
                 "flash_bwd_dkv_bhtd")
 # Card vs CPU after one bf16 AdamW pipelined step (batch 2 as 2
@@ -428,13 +436,22 @@ def phase_build():
     # still be right, at a fraction of their rate.
     serialized = [ln.strip() for ln in log.splitlines()
                   if "serialized" in ln]
+    flash = ptxas_summary(log, "flash")
     emit("build", seconds=secs, library=path, compiler_log=path + ".log",
          fused_conv_bn_ptxas=ptxas_summary(log, "fused_conv_bn"),
-         flash_ptxas=ptxas_summary(log, "flash"),
-         flash_fwd_dynamic_smem_bytes=(
-             lib.hvd_flash_attention_fwd_smem_bytes()),
+         flash_ptxas=flash,
+         flash_dynamic_smem_bytes={
+             "flash_fwd_wgmma_kernel":
+                 lib.hvd_flash_attention_fwd_smem_bytes(),
+             "flash_bwd_dq_kernel": lib.hvd_flash_bwd_dq_smem_bytes(),
+             "flash_bwd_dkv_kernel": lib.hvd_flash_bwd_dkv_smem_bytes()},
          ptxas_serialized=serialized)
     check(not serialized, "; ".join(serialized))
+    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        check(name in flash, f"ptxas reported no {name}")
+    spilled = {k: v for k, v in flash.items()
+               if v.get("spill_stores") or v.get("spill_loads")}
+    check(not spilled, f"flash kernels spill: {spilled}")
 
 
 def phase_parity(seed: int):
@@ -1039,17 +1056,19 @@ def parity_report(phase: str, kernels, run, plain, causal: bool,
                   what: str):
     """Hold one forward-with-lse + dq/dkv kernel set against its plain
     versions. ``run()`` launches the kernels and returns ``(o, lse, dq,
-    dk, dv)``; it runs twice and the two results must agree bitwise.
+    dk, dv)``; it runs ``ATTN_REPEATS`` times and every result must agree
+    bitwise with the first.
     ``plain(o, lse)`` returns the plain versions' five, the backward's
     computed from the kernels' own o and lse2. Emits one ``phase`` line;
     returns the errors (o/dq/dk/dv in bf16 ulps of the largest value, lse
     absolute) and the max |kernel - plain| of each of ``kernels`` (the
     forward's o, dq, and dk/dv)."""
     got = run()
-    again = run()
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    del again
+    same = True
+    for _ in range(ATTN_REPEATS - 1):
+        again = run()
+        same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
     ref = plain(got[0], got[1])
     names = ("o", "lse", "dq", "dk", "dv")
     for name, g, r in zip(names, got, ref):
@@ -1063,10 +1082,10 @@ def parity_report(phase: str, kernels, run, plain, causal: bool,
                dkv: max(_abs_err(got[3], ref[3]), _abs_err(got[4], ref[4]))}
     B, T = got[0].shape[:2]
     emit(phase, B=B, T=T, causal=causal, err=errs, max_abs_err=abs_err,
-         bitwise_repeatable=same,
+         bitwise_repeatable=same, launches_compared=ATTN_REPEATS,
          note="o/dq/dk/dv in bf16 ulps of the largest value, o_row of "
               "each row's; lse abs")
-    check(same, f"attention {what}: two launches differ")
+    check(same, f"attention {what}: {ATTN_REPEATS} launches differ")
     for name, val in errs.items():
         tol = TOL_LSE if name == "lse" else TOL_ATTN_ULPS
         check(val <= tol, f"attention {what}: {name} error {val} > {tol}")
@@ -1099,9 +1118,9 @@ def attn_parity(qkv, do, causal: bool, what: str):
 
 def phase_parity_attn(seed: int):
     """The edge cases at B=1: short, ragged (T not a multiple of the
-    forward's 128-row tile or the backward's 64-row tile) and
-    non-causal. The training shape itself is compared
-    in :func:`phase_timing_attn`, on the inputs it times."""
+    kernels' 64- and 128-row tiles) and non-causal. The training shape
+    itself is compared in :func:`phase_timing_attn`, on the inputs it
+    times."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 30)
     worst = {"o": 0.0, "o_row": 0.0, "lse": 0.0, "dq": 0.0, "dk": 0.0,
              "dv": 0.0}
@@ -1312,6 +1331,15 @@ def attn_timing_row(rows: dict, shape, peaks, name: str, fn, n_mm: int,
          library=lib_name)
 
 
+def delta_row(B: int, T: int, H: int, d: int, peaks, fn) -> None:
+    """Time the backward's row statistic Delta = rowsum(dO * O) (plain
+    PyTorch outside the kernels, once per backward) and emit its
+    ``timing_delta`` line; bound: reading dO and O, writing Delta."""
+    emit("timing_delta", B=B, T=T, H=H, ms=time_ms(fn),
+         bound_ms=bound_ms(0.0, 2 * 2.0 * B * T * H * d + 4.0 * B * H * T,
+                           peaks)[0])
+
+
 def phase_timing_attn(seed: int, peaks):
     """K3-qkv, dq, dkv and the pair at the training shape: compared with
     their plain versions (:func:`attn_parity`), then timed. Bounds: FLOPs
@@ -1328,6 +1356,7 @@ def phase_timing_attn(seed: int, peaks):
     _, abs_err = attn_parity(qkv, do, True, f"B={B} T={T} causal")
     o, lse = A.flash_attention_qkv_fwd(qkv, H, causal=True)
     delta = A.attention_delta(do, o, H)
+    delta_row(B, T, H, d, peaks, lambda: A.attention_delta(do, o, H))
     g = torch.empty_like(qkv)
     rows = {}
     row = functools.partial(attn_timing_row, rows, (B, T, H, d), peaks)
@@ -1568,6 +1597,7 @@ def phase_timing_attn_bhtd(seed: int, peaks):
     q, k, v, do = bhtd_inputs(B, T, gen)
     o, lse = A.flash_attention_lse(q, k, v, causal=True)
     delta = A.attention_delta_bhtd(do, o)
+    delta_row(B, T, H, d, peaks, lambda: A.attention_delta_bhtd(do, o))
     rows = {}
     row = functools.partial(attn_timing_row, rows, (B, T, H, d), peaks)
     q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "hvd_flash_attention_fwd_smem_bytes": [],
     "hvd_flash_bwd_dq": _FLASH_BWD,
     "hvd_flash_bwd_dkv": _FLASH_BWD,
+    "hvd_flash_bwd_dq_smem_bytes": [],
+    "hvd_flash_bwd_dkv_smem_bytes": [],
     "hvd_paged_decode_attention": [
         _vp, _vp, _vp,                      # q, k_pool, v_pool
         _vp, _vp, _vp,                      # tables, positions, out

@@ -73,8 +73,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -82,6 +80,11 @@ namespace {
 
 using hvd_flash::kD;
 using hvd_flash::pack_bf16;
+using hvd_flash::scale_bf16x8;
+using hvd_flash::store_tile;
+using hvd_flash::Tile;
+using hvd_flash::tile_of;
+using hvd_flash::View;
 namespace hp = hvd_hopper;
 
 constexpr int kBQ = 128;       // q rows per CTA (64 per warpgroup)
@@ -152,21 +155,9 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base,
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int c = i * 128 + wtid;          // 16-byte chunk of 1024
-      const uint32_t off = (c >> 9) * kQHalf + (c & 511) * 16;
-      uint4* p = reinterpret_cast<uint4*>(smem + kQOff + wg * 64 * 128 +
-                                          off);
-      uint4 v = *p;
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-      uint4 r;
-      r.x = pack_bf16(__bfloat162float(e[0]) * qscale,
-                      __bfloat162float(e[1]) * qscale);
-      r.y = pack_bf16(__bfloat162float(e[2]) * qscale,
-                      __bfloat162float(e[3]) * qscale);
-      r.z = pack_bf16(__bfloat162float(e[4]) * qscale,
-                      __bfloat162float(e[5]) * qscale);
-      r.w = pack_bf16(__bfloat162float(e[6]) * qscale,
-                      __bfloat162float(e[7]) * qscale);
-      *p = r;
+      uint4* p = reinterpret_cast<uint4*>(
+          smem + kQOff + wg * 64 * 128 + (c >> 9) * kQHalf + (c & 511) * 16);
+      *p = scale_bf16x8(*p, qscale);
     }
     hp::fence_proxy_async();
     hp::named_barrier(1 + wg, 128);
@@ -352,35 +343,10 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base,
     const float q = a * inv[hf];
     return fmaf(fmaf(-q, safe[hf], a), inv[hf], q);
   };
-  // o through this warpgroup's Q rows (its last S has completed), in the
-  // same 128-byte swizzle, then 16-byte stores of whole rows.
-  uint8_t* stage = smem + kQOff + wg * 64 * 128;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int rl = warp * 16 + g + 8 * hf;
-      const uint32_t off = (j >> 3) * kQHalf + rl * 128 +
-                           (((j & 7) ^ (rl & 7)) << 4) + 4 * t4;
-      *reinterpret_cast<uint32_t*>(stage + off) =
-          pack_bf16(div_l(acc[4 * j + 2 * hf], hf),
-                    div_l(acc[4 * j + 2 * hf + 1], hf));
-    }
-  }
-  hp::named_barrier(1 + wg, 128);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = i * 128 + wtid;
-    const int rl = c >> 4, cc = c & 15;
-    const int row = row_lo + rl;
-    if (row < T) {
-      const uint32_t off = (cc >> 3) * kQHalf + rl * 128 +
-                           (((cc & 7) ^ (rl & 7)) << 4);
-      *reinterpret_cast<uint4*>(
-          o + ((static_cast<long long>(b) * T + row) * H + h) * kD +
-          cc * 8) = *reinterpret_cast<const uint4*>(stage + off);
-    }
-  }
+  // o through this warpgroup's Q rows (its last S has completed).
+  store_tile(smem + kQOff + wg * 64 * 128, kQHalf, acc, div_l,
+             View{o, static_cast<long long>(T) * H * kD, H * kD, kD}, b, h,
+             row_lo, T, 1 + wg);
 }
 
 template <bool kLse>
@@ -395,18 +361,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t raw = hp::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const int n_qt = (T + kBQ - 1) / kBQ;
-  // Block order: groups of `group` heads; inside a group, every head's
-  // heaviest (last) q tile first, then the next, so the lightest tiles
-  // fill the tail. group = 1 is head by head, each head's tiles heaviest
-  // first and together, so that they share its K/V in L2.
-  const int bhs = static_cast<int>(gridDim.x) / n_qt;   // B * H
-  const int first = static_cast<int>(blockIdx.x) / (group * n_qt) * group;
-  const int size = min(group, bhs - first);
-  const int within = static_cast<int>(blockIdx.x) - first * n_qt;
-  const int qt = n_qt - 1 - within / size;
-  const int b = (first + within % size) / H;
-  const int h = (first + within % size) % H;
-  const int q0 = qt * kBQ;
+  // Heaviest (last) q tiles first, in groups of `group` heads (tile_of).
+  const Tile tl = tile_of(n_qt, H, group, true);
+  const int b = tl.b, h = tl.h, q0 = tl.t * kBQ;
   const int n_kt_all = (T + kBK - 1) / kBK;
   const int last_row = min(q0 + kBQ, T) - 1;
   const int n_kt = causal ? min(n_kt_all, last_row / kBK + 1) : n_kt_all;
@@ -436,96 +393,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                 qscale, causal);
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: found once through the
-// runtime's entry-point query (CUDA 12.5+), so the library needs no
-// -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                         12000, cudaEnableDefault,
-                                         &res) != cudaSuccess)
-      return nullptr;
-    return res == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D map (d, h, t, b) over a [B, T, H, D] bf16 view with element
-// strides (sb, st, sh) and unit stride on d; boxes of 64 d x 128 rows,
-// 128-byte swizzle, zero fill past T.
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
-              int T, int H, long long sb, long long st, long long sh) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  static_assert(kBQ == kBK, "one box shape serves Q, K and V");
-  const cuuint32_t box[4] = {64, 1, kBK, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(ptr), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// make_map through the last 16 maps encoded on this thread: an encode
-// costs microseconds of host time on every call, and the caching
-// allocator hands the same buffers back layer after layer and step after
-// step. A map depends on nothing but the pointer, shape and strides.
-struct MapEntry {
-  CUtensorMap map;
-  const void* ptr = nullptr;
-  long long key[6] = {};   // B, T, H, sb, st, sh
-};
-
-bool get_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
-             int T, int H, long long sb, long long st, long long sh) {
-  static thread_local MapEntry cache[16];
-  static thread_local int next = 0;
-  const long long key[6] = {B, T, H, sb, st, sh};
-  for (const MapEntry& e : cache) {
-    if (e.ptr == ptr && std::equal(key, key + 6, e.key)) {
-      *map = e.map;
-      return true;
-    }
-  }
-  if (!make_map(enc, map, ptr, B, T, H, sb, st, sh)) return false;
-  MapEntry& e = cache[next];
-  next = (next + 1) % 16;
-  e.map = *map;
-  e.ptr = ptr;
-  std::copy(key, key + 6, e.key);
-  return true;
-}
-
-template <bool kLse>
-cudaError_t allow_smem() {
-  // Once per device (the attribute is per device context).
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<kLse>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
-}
-
 }  // namespace
 
 // q/k/v: [B, T, H, D] bf16 views with unit stride on D, 16-byte aligned,
@@ -538,12 +405,13 @@ extern "C" int hvd_flash_attention_fwd(
     long long vst, long long vsh, float qscale, int causal, void* stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled enc = encoder();
+  const hp::EncodeTiled enc = hp::encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  static_assert(kBQ == kBK, "one box shape serves Q, K and V");
   CUtensorMap qm, km, vm;
-  if (!get_map(enc, &qm, q, B, T, H, qsb, qst, qsh) ||
-      !get_map(enc, &km, k, B, T, H, ksb, kst, ksh) ||
-      !get_map(enc, &vm, v, B, T, H, vsb, vst, vsh))
+  if (!hp::get_map(enc, &qm, q, B, T, H, qsb, qst, qsh, kBK) ||
+      !hp::get_map(enc, &km, k, B, T, H, ksb, kst, ksh, kBK) ||
+      !hp::get_map(enc, &vm, v, B, T, H, vsb, vst, vsh, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   // One group of all heads when their K/V (512 * T bytes a head) fit in
   // the 50 MB L2 with room to spare, so the lightest tiles of a short
@@ -558,12 +426,16 @@ extern "C" int hvd_flash_attention_fwd(
   auto* lp = static_cast<float*>(lse);
   cudaError_t err;
   if (lp != nullptr) {
-    err = allow_smem<true>();
+    err = hp::allow_smem(
+        reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<true>),
+        kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_fwd_wgmma_kernel<true><<<grid, kThreads, kSmemBytes, st>>>(
         qm, km, vm, op, lp, T, H, group, qscale, causal);
   } else {
-    err = allow_smem<false>();
+    err = hp::allow_smem(
+        reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<false>),
+        kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_fwd_wgmma_kernel<false><<<grid, kThreads, kSmemBytes, st>>>(
         qm, km, vm, op, lp, T, H, group, qscale, causal);

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
 // loads, named barriers and the wgmma products with their shared-memory
-// matrix descriptors. Used by flash_attention.cu.
+// matrix descriptors; and, on the host, a kernel's shared memory limit
+// and the TMA tensor maps. Used by flash_attention.cu and
+// flash_attention_bwd.cu.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzle: a tile is
 // stored as rows of 64 bf16 (128 bytes), 16-byte chunk c of row r at
@@ -8,8 +10,12 @@
 // 1024-byte aligned. A 128-wide operand is two such 64-column halves.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace hvd_hopper {
 
@@ -31,6 +37,12 @@ __device__ __forceinline__ void mbar_init_fence() {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Arrive (release at CTA scope) without waiting.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
 // Block until the phase of `bar` with parity `parity` has completed. A
@@ -62,6 +74,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 4 bytes from global memory at `src` into shared memory at `dst`,
+// asynchronously; zeros, with nothing read, where `valid` is false.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// The current phase of the mbarrier `bar` also waits for this thread's
+// cp.async copies issued so far (one more expected arrival, made when
+// they land).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const void* map) {
@@ -145,6 +173,18 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// The same for the A fragments of a register-A wgmma, placed after the
+// wait that completes it: the compiler sees the asm that issues the
+// wgmma as the fragments' last use and may otherwise hand their registers
+// to other values while the tensor cores still read them.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]),
+                 "+r"(a[i][3]) :: "memory");
+}
+
 #define HVD_WGMMA_D64(d)                                                    \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
@@ -166,6 +206,34 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+
+#define HVD_WGMMA_D32(d)                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+  "+f"(d[31])
+
+#define HVD_WGMMA_R32                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (+)= A B for a 64x64x16 bf16 tile, f32 accumulate; A and B from
+// shared memory, both K-major. scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      HVD_WGMMA_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HVD_WGMMA_D32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
 
 // d (+)= A B for a 64x128x16 bf16 tile, f32 accumulate; A and B from
 // shared memory, both K-major. scale_d == 0 overwrites d.
@@ -192,6 +260,106 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(
       HVD_WGMMA_R64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : HVD_WGMMA_D64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// -- host ------------------------------------------------------------------
+
+// Raises `kernel`'s dynamic shared memory limit to `bytes`, once per kernel
+// and device on each thread (the attribute is per device context).
+inline cudaError_t allow_smem(const void* kernel, uint32_t bytes) {
+  struct Done {
+    const void* kernel;
+    int dev;
+  };
+  static thread_local Done done[16];
+  static thread_local int n = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n; ++i)
+    if (done[i].kernel == kernel && done[i].dev == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && n < 16) done[n++] = {kernel, dev};
+  return err;
+}
+
+// Tensor maps.
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is not in the runtime library: it is found once
+// through the runtime's entry-point query (CUDA 12.5+), so the library
+// needs no -lcuda. Null where it is missing.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                         12000, cudaEnableDefault,
+                                         &res) != cudaSuccess)
+      return nullptr;
+    return res == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (d, h, t, b) over a [B, T, H, 128] bf16 view with element
+// strides (sb, st, sh) and unit stride on d; boxes of 64 d x `rows` rows,
+// 128-byte swizzle, zero fill past T.
+inline bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                     int B, int T, int H, long long sb, long long st,
+                     long long sh, int rows) {
+  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// make_map through the last 32 maps encoded on this thread: an encode
+// costs microseconds of host time on every call, and the caching
+// allocator hands the same buffers back layer after layer and step after
+// step. A map depends on nothing but the pointer, shape, strides and box.
+struct MapEntry {
+  CUtensorMap map;
+  const void* ptr = nullptr;
+  long long key[7] = {};   // B, T, H, sb, st, sh, rows
+};
+
+inline bool get_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                    int B, int T, int H, long long sb, long long st,
+                    long long sh, int rows) {
+  static thread_local MapEntry cache[32];
+  static thread_local int next = 0;
+  const long long key[7] = {B, T, H, sb, st, sh, rows};
+  for (const MapEntry& e : cache) {
+    if (e.ptr == ptr && std::equal(key, key + 7, e.key)) {
+      *map = e.map;
+      return true;
+    }
+  }
+  if (!make_map(enc, map, ptr, B, T, H, sb, st, sh, rows)) return false;
+  MapEntry& e = cache[next];
+  next = (next + 1) % 32;
+  e.map = *map;
+  e.ptr = ptr;
+  std::copy(key, key + 7, e.key);
+  return true;
 }
 
 }  // namespace hvd_hopper

@@ -135,12 +135,15 @@ def test_autograd_function_on_cpu_is_the_references(dtype):
                   what="autograd d_qkv")
 
 
-def test_f32_gradient_agrees_with_autograd_through_dense_attention():
+@pytest.mark.parametrize("T", [256, 1, 65, 191])
+def test_f32_gradient_agrees_with_autograd_through_dense_attention(T):
     """A sanity check independent of the JAX package: at f32 the flash
     rounding points are identities, so the custom backward equals
     autograd through ``xla_attention`` up to exp2-vs-exp and summation
-    order."""
-    _, _, tq, tcot = _inputs(1, 256, seed=4, dtype="f32")
+    order. Besides a tilable length, lengths that the card kernels' 64-
+    and 128-row tiles cut raggedly (the plain version is the yardstick of
+    the card parity at those lengths)."""
+    _, _, tq, tcot = _inputs(1, T, seed=4, dtype="f32")
     a = tq.clone().requires_grad_()
     ta.flash_attention_qkv(a, H, causal=True).backward(tcot)
     b = tq.clone().requires_grad_()
