@@ -11,10 +11,13 @@ versions are comparable only inside one such call on one card.
     python3 bin/torch_ab.py --base scratch_tree/parent \\
         --out build/ab.jsonl
 
-Phases, in this order: ``host`` (only for a checkout whose
-``chip_smoke.py`` has no ``host_ms``, whose ``timing`` phase therefore
-does not report the host time of a ``flash_attention_prefill`` call:
-this checkout's ``host_ms`` at the same T), ``timing``, ``timing_attn``,
+Phases, in this order: ``train`` (the fused ResNet-50 step alone, first,
+before the timing phases' large allocations), ``host`` (only for a
+checkout whose ``chip_smoke.py`` has no ``host_ms``, whose ``timing``
+phase therefore does not report the host time of a
+``flash_attention_prefill`` call: this checkout's ``host_ms`` at the same
+T), ``timing``, ``timing_conv`` (this checkout's phase, which times K1 and
+K2 at every ResNet-50 site, run on each tree's kernels), ``timing_attn``,
 ``timing_attn_bhtd``, ``lm_train``, ``pp_lm_train``, ``engine`` (two
 rounds). Each run may take RUN_TIMEOUT seconds. Needs CUDA; exits
 non-zero if any run fails.
@@ -29,19 +32,21 @@ import os
 import subprocess
 import sys
 
-PHASES = ("host", "timing", "timing_attn", "timing_attn_bhtd", "lm_train",
-          "pp_lm_train", "engine")
+PHASES = ("train", "host", "timing", "timing_conv", "timing_attn",
+          "timing_attn_bhtd", "lm_train", "pp_lm_train", "engine")
 RUN_TIMEOUT = 600    # seconds for one run's build and phases
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def own_host_ms():
-    """``host_ms`` of this checkout's ``chip_smoke.py``."""
+def own_chip_smoke():
+    """This checkout's ``chip_smoke.py`` as a module of its own: its
+    phases import the kernels from ``sys.path``, that is from the tree
+    under test."""
     spec = importlib.util.spec_from_file_location(
         "ab_chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.host_ms
+    return mod
 
 
 def run_phases(tree: str, tag: str, out_path: str) -> None:
@@ -58,6 +63,8 @@ def run_phases(tree: str, tag: str, out_path: str) -> None:
         out.flush()
         print(line, flush=True)
     cs.emit = emit
+    own = own_chip_smoke()
+    own.emit = emit
     peaks = cs.peaks_for(cs.phase_device())
     cs.phase_build()
     seed = 0
@@ -67,7 +74,7 @@ def run_phases(tree: str, tag: str, out_path: str) -> None:
                 continue
             from horovod_tpu_torch.ops.attention import \
                 flash_attention_prefill
-            host_ms = own_host_ms()
+            host_ms = own.host_ms
             gen = torch.Generator(device="cuda").manual_seed(seed + 7)
             for T in cs.FLASH_T:
                 q, k, v = cs.flash_inputs(T, gen)
@@ -75,6 +82,16 @@ def run_phases(tree: str, tag: str, out_path: str) -> None:
                     lambda: flash_attention_prefill(q, k, v, causal=True)))
         elif name == "timing":
             cs.phase_timing(seed, peaks)
+        elif name == "timing_conv":
+            own.phase_timing_conv(seed, peaks)
+        elif name == "train":
+            import horovod_tpu_torch as hvd
+            hvd.init()
+            data = cs.synthetic_batch(cs.RN_BATCH, seed)
+            report, state = cs.train_run("fused", seed, data)
+            emit("train", **report)
+            del state, data
+            hvd.shutdown()
         elif name == "timing_attn":
             cs.phase_timing_attn(seed, peaks)
         elif name == "timing_attn_bhtd":

@@ -29,9 +29,9 @@ Phases, one JSON line each:
 
 1. device   — require CUDA; print the card, its power limit, versions.
 2. build    — nvcc-build the kernels from ``horovod_tpu_torch/ops/csrc``;
-               registers, spills and shared memory of the flash kernels
-               (fails if ptxas serialized a wgmma or a flash kernel
-               spills).
+               registers, spills and shared memory of the flash and conv
+               kernels (fails if ptxas serialized a wgmma or a flash or
+               conv kernel spills).
 3. parity   — each kernel vs its plain version at the engine's shapes
                (the flash forward at T in {1, 16, 127, 128, 129, 1000,
                2047, 2048}).
@@ -52,8 +52,11 @@ Phases, one JSON line each:
                forward's host time per call.
 7. parity_conv — K1/K2 (``fused_conv_bn.cu``) vs their plain versions at
                every distinct (M, Cin, Cout, prologue) of the 16 fused
-               sites and a ragged M, with non-zero stats cotangents; two
-               launches must agree bitwise.
+               sites and a ragged M, with non-zero stats cotangents, and
+               at a ragged M with an O(1) prologue shift and ds1 (rows past
+               M must add nothing to the sums), and at shapes that take the
+               kernels' other paths (CONV_EDGE); two launches must agree
+               bitwise.
 8. train    — the fused ResNet-50 train step: 2 warmup + 10 timed steps
                on the bench's fixed synthetic batch; launch counters
                zeroed before the timed steps (16 K1 + 16 K2 per step);
@@ -64,8 +67,9 @@ Phases, one JSON line each:
 10. e2e_train — one step of full-width ResNet-50 at batch 8 on the card
                and on the CPU from the same weights and batch: loss,
                logits, updated params and running statistics compared.
-11. timing_conv — K1 and K2 at two site shapes beside their bounds,
-               plain versions and a GEMM-only yardstick.
+11. timing_conv — K1 and K2 at each of the eight site shapes beside
+               their bounds and a GEMM-only yardstick (plain versions at
+               two of them), and the per-step sums over the 16 sites.
 12. parity_attn — the packed forward with lse (K3-qkv) and the dq/dkv
                backward pair vs their plain versions at B=1, H=16,
                d=128: T in {128, 1024, 2048} causal, T=256 non-causal
@@ -158,13 +162,28 @@ RN_BATCH, RN_IMAGE, RN_CLASSES = 128, 224, 1000
 RN_WARMUP, RN_STEPS = 2, 10
 RN_E2E_BATCH = 8
 RN_SITES = 16         # fused 1x1 sites per step with fused_stages=(0, 1)
-# The distinct (M, Cin, Cout, prologue) of the 16 sites at batch 128, and
-# a ragged M (not a multiple of the 128-row tile) both ways.
-CONV_SHAPES = ((401408, 64, 64, False), (401408, 64, 256, True),
-               (401408, 64, 256, False), (401408, 256, 64, False),
-               (401408, 256, 128, False), (100352, 128, 512, True),
-               (100352, 256, 512, False), (100352, 512, 128, False),
-               (1000, 64, 128, True), (1000, 128, 64, False))
+# The distinct (M, Cin, Cout, prologue) of the 16 sites at batch 128 with
+# their launches per step (each launches K1 once and K2 once).
+CONV_SITES = (((401408, 64, 64, False), 1), ((401408, 64, 256, True), 3),
+              ((401408, 64, 256, False), 1), ((401408, 256, 64, False), 2),
+              ((401408, 256, 128, False), 1), ((100352, 128, 512, True), 4),
+              ((100352, 256, 512, False), 1), ((100352, 512, 128, False), 3))
+# Parity: the sites, and a ragged M (not a multiple of the 64- and 128-row
+# tiles) both ways, with small stats cotangents like the sites'.
+CONV_SHAPES = tuple(site for site, _ in CONV_SITES) + (
+    (1000, 64, 128, True), (1000, 128, 64, False))
+# A ragged M with an O(1) prologue shift b and stats cotangent ds1: a row
+# past M would add relu(b) to u and bf16(ds1) to e, which moves s1, s2,
+# dW, da and db by far more than TOL_CONV.
+CONV_RAGGED_O1 = ((1000, 64, 256, True),)
+# Kernel paths the sites do not take (fwd_plan / bwd_plan): K1 streaming W
+# (Cin 2048) and resident at Cin 1280; the one pass with an odd count of
+# dx boxes; dx slices of one box with 64-wide and odd dW windows; M = 1.
+CONV_EDGE = ((4096, 2048, 512, False), (300, 1280, 128, True),
+             (1000, 192, 64, True), (2000, 64, 2048, True),
+             (777, 192, 320, True), (1, 64, 64, True))
+# Plain versions are timed at these two sites only (the first is the
+# kernels line's row).
 CONV_TIMED = ((401408, 64, 256, True), (401408, 256, 128, False))
 # Errors are max|kernel - plain| / max|plain| per output. bf16 outputs
 # (y, dx): within one bf16 ulp of the largest value (f32 sums in another
@@ -172,6 +191,14 @@ CONV_TIMED = ((401408, 64, 256, True), (401408, 256, 128, False))
 # 401408 rows: 1e-3.
 TOL_CONV = {"y": 2.0 ** -7, "dx": 2.0 ** -7, "s1": 1e-3, "s2": 1e-3,
             "dw": 1e-3, "da": 1e-3, "db": 1e-3}
+# The CUDA kernels behind K1 and K2 (fused_conv_bn.cu), by profile key:
+# K1; K2's one pass and dW windows; K2's dx where the one pass does not
+# fit; the fixed-order reduction of the partials; bf16(W) for the kernels
+# that stream W.
+CONV_KERNELS = {"k1": "conv_bn_fwd_kernel", "k2": "conv_bn_bwd_kernel",
+                "k2_dx": "conv_bn_bwd_dx_kernel",
+                "col_sum": "conv_bn_col_sum_kernel",
+                "w_round": "conv_bn_w_round_kernel"}
 # Card vs CPU after one bf16 train step of full-width ResNet-50 (batch 8,
 # flax's init), each about 3-4x the value measured on an H100 (PERF.md):
 # loss 4.9e-4, logits 2.4e-3, per-leaf update 0.10 (the last block's BN
@@ -401,11 +428,12 @@ def ptxas_summary(log: str, needle: str) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             mangled = m.group(1)
-            hit = re.search(r"\d+([a-z_]+kernel)(?:IL[ib](\d+)E)?",
-                            mangled)
+            hit = re.search(r"\d+([a-z_]+kernel)((?:L[ib]\d+E)*)",
+                            mangled.replace("IL", "L", 1))
             name = None
             if needle in mangled and hit:
-                name = hit.group(1) + (f"<{hit.group(2)}>" if hit.group(2)
+                args = re.findall(r"L[ib](\d+)E", hit.group(2))
+                name = hit.group(1) + (f"<{','.join(args)}>" if args
                                        else "")
                 out[name] = {}
             continue
@@ -437,8 +465,9 @@ def phase_build():
     serialized = [ln.strip() for ln in log.splitlines()
                   if "serialized" in ln]
     flash = ptxas_summary(log, "flash")
+    conv = ptxas_summary(log, "conv_bn")
     emit("build", seconds=secs, library=path, compiler_log=path + ".log",
-         fused_conv_bn_ptxas=ptxas_summary(log, "fused_conv_bn"),
+         fused_conv_bn_ptxas=conv,
          flash_ptxas=flash,
          flash_dynamic_smem_bytes={
              "flash_fwd_wgmma_kernel":
@@ -449,9 +478,12 @@ def phase_build():
     check(not serialized, "; ".join(serialized))
     for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
         check(name in flash, f"ptxas reported no {name}")
-    spilled = {k: v for k, v in flash.items()
+    for name in CONV_KERNELS.values():
+        check(any(k.startswith(name) for k in conv),
+              f"ptxas reported no {name}")
+    spilled = {k: v for k, v in {**flash, **conv}.items()
                if v.get("spill_stores") or v.get("spill_loads")}
-    check(not spilled, f"flash kernels spill: {spilled}")
+    check(not spilled, f"flash or conv kernels spill: {spilled}")
 
 
 def phase_parity(seed: int):
@@ -717,19 +749,21 @@ def phase_timing(seed: int, peaks):
 
 # -- ResNet-50 training (slice 2) ---------------------------------------------
 
-def conv_inputs(M, cin, cout, prologue, gen):
+def conv_inputs(M, cin, cout, prologue, gen, o1: bool = False):
     """One site's operands at the model's dtypes: bf16 x, f32 [Cout, Cin]
     weight, f32 affine, and the backward's bf16 dy with small non-zero
-    stats cotangents."""
+    stats cotangents (``o1``: b and ds1 of order 1)."""
     x = torch.randn((M, cin), generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn((cout, cin), generator=gen, device="cuda") * cin ** -0.5
     a = b = None
     if prologue:
         a = torch.rand((cin,), generator=gen, device="cuda") + 0.5
-        b = torch.randn((cin,), generator=gen, device="cuda") * 0.5
+        b = torch.randn((cin,), generator=gen, device="cuda") * (
+            1.0 if o1 else 0.5)
     dy = torch.randn((M, cout), generator=gen,
                      device="cuda").to(torch.bfloat16)
-    ds1 = torch.randn((cout,), generator=gen, device="cuda") * 1e-3
+    ds1 = torch.randn((cout,), generator=gen, device="cuda") * (
+        1.0 if o1 else 1e-3)
     ds2 = torch.randn((cout,), generator=gen, device="cuda") * 1e-4
     return x, w, a, b, dy, ds1, ds2
 
@@ -745,8 +779,10 @@ def phase_parity_conv(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed + 10)
     worst = {k: 0.0 for k in TOL_CONV}
     abs_err = {"fused_conv_bn_fwd": 0.0, "fused_conv_bn_bwd": 0.0}
-    for M, cin, cout, pro in CONV_SHAPES:
-        x, w, a, b, dy, ds1, ds2 = conv_inputs(M, cin, cout, pro, gen)
+    cases = [(shape, False) for shape in CONV_SHAPES + CONV_EDGE] + [
+        (shape, True) for shape in CONV_RAGGED_O1]
+    for (M, cin, cout, pro), o1 in cases:
+        x, w, a, b, dy, ds1, ds2 = conv_inputs(M, cin, cout, pro, gen, o1)
         fwd = fcb.fused_linear_bn_act_fwd(x, w, a, b)
         bwd = fcb.fused_linear_bn_act_bwd(x, w, a, b, fwd[0], dy, ds1, ds2)
         fwd2 = fcb.fused_linear_bn_act_fwd(x, w, a, b)
@@ -778,7 +814,7 @@ def phase_parity_conv(seed: int):
             fwd + bwd, fwd2 + bwd2) if p is not None)
         check(same, f"conv {M}x{cin}->{cout}: two launches differ")
         emit("parity_conv", M=M, cin=cin, cout=cout, prologue=pro,
-             rel_err=errs, bitwise_repeatable=same,
+             o1_cotangent=o1, rel_err=errs, bitwise_repeatable=same,
              y_max_abs_err=(fwd[0].float() - rfwd[0].float()).abs().max()
              .item())
     emit("parity_conv_summary", worst_rel_err=worst, tolerance=TOL_CONV,
@@ -872,17 +908,16 @@ def phase_train(seed: int):
 def profile_train_step(state, data) -> dict:
     """One fused step under ``torch.profiler`` (CUDA activity only):
     device busy share = summed kernel time over the step's wall time,
-    top kernels, and K1's and K2's shares (the reduction kernel they
-    share is reported on its own)."""
+    top kernels, and the shares of K1's and K2's kernels (the reduction
+    and W-rounding kernels they share are reported on their own)."""
     from horovod_tpu_torch.training import make_train_step
     step = make_train_step()
 
     def one_step():
         step(state, data)[1]["loss"].item()
     wall_s, rows = device_profile(one_step)
-    return {"wall_ms": wall_s * 1e3, **busy_shares(rows, wall_s, {
-        "k1": "conv_bn_fwd_kernel", "k2_dx": "conv_bn_bwd_dx_kernel",
-        "k2_dw": "conv_bn_bwd_dw_kernel", "col_sum": "col_sum_kernel"}),
+    return {"wall_ms": wall_s * 1e3, **busy_shares(rows, wall_s,
+                                                   CONV_KERNELS),
         "top": [{"name": k[:90], "ms": us / 1e3, "count": n}
                 for us, k, n in rows[:12]]}
 
@@ -974,22 +1009,29 @@ def phase_e2e_train(seed: int):
 
 
 def phase_timing_conv(seed: int, peaks):
-    """K1 and K2 at two site shapes. Bytes: each input read once, each
-    output written once (x, y, dy bf16; W, a, b, stats, dW f32)."""
+    """K1 and K2 at each of the eight site shapes beside their bounds and
+    a GEMM-only yardstick, with the site's launches per step; the plain
+    versions at the CONV_TIMED sites; then the per-step sums over the 16
+    sites. Bytes: each input read once, each output written once (x, y,
+    dy bf16; W, a, b, stats, dW f32)."""
     from horovod_tpu_torch.ops import fused_conv_bn as fcb
     gen = torch.Generator(device="cuda").manual_seed(seed + 20)
     rows = {}
-    for M, cin, cout, pro in CONV_TIMED:
+    step = {k: {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+            for k in ("fused_conv_bn_fwd", "fused_conv_bn_bwd")}
+    for (M, cin, cout, pro), per_step in CONV_SITES:
         x, w, a, b, dy, ds1, ds2 = conv_inputs(M, cin, cout, pro, gen)
         y = fcb.fused_linear_bn_act_fwd(x, w, a, b)[0]
         wb = w.to(torch.bfloat16)
         e = dy.clone()
         ab_bytes = 8 * cin if pro else 0
-        shape = dict(M=M, cin=cin, cout=cout, prologue=pro)
+        timed = (M, cin, cout, pro) in CONV_TIMED
+        shape = dict(M=M, cin=cin, cout=cout, prologue=pro,
+                     launches_per_step=per_step)
         # K1
         ms = time_ms(lambda: fcb.fused_linear_bn_act_fwd(x, w, a, b))
         plain = time_ms(lambda: fcb.fused_linear_bn_act_reference(
-            x, w, a, b), reps=5, inner=2)
+            x, w, a, b), reps=5, inner=2) if timed else None
         lib = time_ms(lambda: torch.matmul(x, wb.t()))
         bnd, by = bound_ms(2.0 * M * cin * cout,
                            2.0 * M * (cin + cout) + 4.0 * cin * cout
@@ -1003,7 +1045,7 @@ def phase_timing_conv(seed: int, peaks):
         ms = time_ms(lambda: fcb.fused_linear_bn_act_bwd(
             x, w, a, b, y, dy, ds1, ds2))
         plain = time_ms(lambda: fcb.fused_linear_bn_act_bwd_reference(
-            x, w, a, b, y, dy, ds1, ds2), reps=5, inner=2)
+            x, w, a, b, y, dy, ds1, ds2), reps=5, inner=2) if timed else None
         lib = time_ms(lambda: (torch.matmul(e, wb), torch.matmul(e.t(), x)))
         bnd, by = bound_ms(4.0 * M * cin * cout,
                            2.0 * M * (2 * cin + 2 * cout)
@@ -1014,8 +1056,18 @@ def phase_timing_conv(seed: int, peaks):
         emit("timing", kernel="fused_conv_bn_bwd", **shape, **k2,
              library="torch.matmul e.W and e^T.x bf16 (GEMMs only, not "
                      "the same function)")
-        rows.setdefault("fused_conv_bn_fwd", k1)
-        rows.setdefault("fused_conv_bn_bwd", k2)
+        for name, row in (("fused_conv_bn_fwd", k1), ("fused_conv_bn_bwd",
+                                                      k2)):
+            for key in step[name]:
+                step[name][key] += per_step * row[key]
+            if (M, cin, cout, pro) == CONV_TIMED[0]:
+                rows[name] = row
+        del x, w, a, b, dy, ds1, ds2, y, wb, e
+    emit("timing_conv_step", per_step=step,
+         launches_per_step=sum(n for _, n in CONV_SITES),
+         note="sums over the 16 sites of a batch-128 step: launches per "
+              "step x ms; library_ms: the GEMM-only yardstick")
+    torch.cuda.empty_cache()
     return rows
 
 

@@ -71,17 +71,18 @@ _SIGNATURES = {
         _f32, _vp],                         # scale, stream
     "hvd_conv_bn_fwd": [
         _vp, _vp, _vp, _vp,                 # x, w, a, b
-        _vp, _vp, _vp,                      # y, partial sums, stats
+        _vp, _vp, _vp, _vp,                 # y, partial sums, stats, bf16 W
         _i32, _i32, _i32,                   # M, Cin, Cout
-        _i32, _i32, _vp],                   # prologue, relu, stream
+        _i32, _i32, _i32, _i32, _vp],       # prologue, relu, Cout slice,
+                                            # row runs, stream
     "hvd_conv_bn_bwd": [
         _vp, _vp, _vp,                      # x, y, dy
         _vp, _vp, _vp, _vp, _vp,            # w, a, b, ds1, ds2
         _vp, _vp, _vp,                      # dx, dw, dab
-        _vp, _vp,                           # partial da/db, partial dw
+        _vp, _vp, _vp,                      # partial da/db, dw; bf16 W
         _i32, _i32, _i32,                   # M, Cin, Cout
-        _i32, _i32, _i32, _i32, _vp],       # prologue, relu, splits,
-                                            # rows per split, stream
+        _i32, _i32,                         # prologue, relu
+        ctypes.POINTER(_i32), _vp],         # plan (6 ints), stream
 }
 
 

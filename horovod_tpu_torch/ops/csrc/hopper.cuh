@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
 // loads, named barriers and the wgmma products with their shared-memory
 // matrix descriptors; and, on the host, a kernel's shared memory limit
-// and the TMA tensor maps. Used by flash_attention.cu and
-// flash_attention_bwd.cu.
+// and the TMA tensor maps. Used by flash_attention.cu,
+// flash_attention_bwd.cu and fused_conv_bn.cu.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzle: a tile is
 // stored as rows of 64 bf16 (128 bytes), 16-byte chunk c of row r at
@@ -74,6 +74,49 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory at `dst`, completing its
+// bytes on the mbarrier `bar`. Coordinates innermost (column) first.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box from shared memory at `src` to a 2-D tensor map; the parts of
+// the box outside the tensor are not written. Tracked by this thread's
+// bulk async-groups (bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most kPending of this thread's bulk groups still read shared
+// memory (their source may then be overwritten).
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(kPending)
+               : "memory");
+}
+
+// Until at most kPending of this thread's bulk groups are incomplete.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(kPending)
+               : "memory");
 }
 
 // 4 bytes from global memory at `src` into shared memory at `dst`,
@@ -222,17 +265,28 @@ __device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
   "%30, %31}"
 
 // d (+)= A B for a 64x64x16 bf16 tile, f32 accumulate; A and B from
-// shared memory, both K-major. scale_d == 0 overwrites d.
+// shared memory, K-major, or MN-major where kTransA / kTransB is 1.
+// scale_d == 0 overwrites d.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16_t(float (&d)[32],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      HVD_WGMMA_R32 ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : HVD_WGMMA_D32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA),
+        "n"(kTransB));
+}
+
+// The same with both operands K-major.
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
                                                    uint64_t desc_a,
                                                    uint64_t desc_b,
                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      HVD_WGMMA_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HVD_WGMMA_D32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  wgmma_ss_m64n64k16_t<0, 0>(d, desc_a, desc_b, scale_d);
 }
 
 // d (+)= A B for a 64x128x16 bf16 tile, f32 accumulate; A and B from
@@ -271,7 +325,7 @@ inline cudaError_t allow_smem(const void* kernel, uint32_t bytes) {
     const void* kernel;
     int dev;
   };
-  static thread_local Done done[16];
+  static thread_local Done done[64];
   static thread_local int n = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -281,7 +335,7 @@ inline cudaError_t allow_smem(const void* kernel, uint32_t bytes) {
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(bytes));
-  if (err == cudaSuccess && n < 16) done[n++] = {kernel, dev};
+  if (err == cudaSuccess && n < 64) done[n++] = {kernel, dev};
   return err;
 }
 
@@ -331,35 +385,64 @@ inline bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// make_map through the last 32 maps encoded on this thread: an encode
-// costs microseconds of host time on every call, and the caching
-// allocator hands the same buffers back layer after layer and step after
-// step. A map depends on nothing but the pointer, shape, strides and box.
-struct MapEntry {
-  CUtensorMap map;
-  const void* ptr = nullptr;
-  long long key[7] = {};   // B, T, H, sb, st, sh, rows
-};
-
-inline bool get_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                    int B, int T, int H, long long sb, long long st,
-                    long long sh, int rows) {
-  static thread_local MapEntry cache[32];
+// A map through the last 128 maps encoded on this thread (a training
+// step's layers use about a hundred): an encode costs microseconds of host
+// time on every call, and the caching allocator hands the same buffers
+// back layer after layer and step after step. A map depends on nothing but
+// the pointer and `key` (its shape, strides and box); `make(map)` encodes
+// one.
+template <class Make>
+inline bool cached_map(CUtensorMap* map, const void* ptr,
+                       const long long (&key)[7], Make make) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr = nullptr;
+    long long key[7] = {};
+  };
+  static thread_local Entry cache[128];
   static thread_local int next = 0;
-  const long long key[7] = {B, T, H, sb, st, sh, rows};
-  for (const MapEntry& e : cache) {
+  for (const Entry& e : cache) {
     if (e.ptr == ptr && std::equal(key, key + 7, e.key)) {
       *map = e.map;
       return true;
     }
   }
-  if (!make_map(enc, map, ptr, B, T, H, sb, st, sh, rows)) return false;
-  MapEntry& e = cache[next];
-  next = (next + 1) % 32;
+  if (!make(map)) return false;
+  Entry& e = cache[next];
+  next = (next + 1) % 128;
   e.map = *map;
   e.ptr = ptr;
   std::copy(key, key + 7, e.key);
   return true;
+}
+
+inline bool get_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                    int B, int T, int H, long long sb, long long st,
+                    long long sh, int rows) {
+  const long long key[7] = {B, T, H, sb, st, sh, rows};
+  return cached_map(map, ptr, key, [&](CUtensorMap* m) {
+    return make_map(enc, m, ptr, B, T, H, sb, st, sh, rows);
+  });
+}
+
+// A 2-D map over a contiguous [rows, cols] bf16 matrix (cols a multiple
+// of 64): boxes of 64 columns x `box_rows` rows, 128-byte swizzle, zero
+// fill past the last row (a store clips there), cached as get_map.
+inline bool get_map_2d(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                       long long rows, int cols, int box_rows) {
+  const long long key[7] = {rows, cols, box_rows, -1, -1, -1, -1};
+  return cached_map(map, ptr, key, [&](CUtensorMap* m) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                                static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+    const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t estr[2] = {1, 1};
+    return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+               const_cast<void*>(ptr), dims, strides, box, estr,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  });
 }
 
 }  // namespace hvd_hopper

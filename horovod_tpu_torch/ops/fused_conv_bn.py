@@ -24,11 +24,19 @@ anything else; on a CPU tensor they run the plain versions
 :func:`fused_linear_bn_act_bwd_reference`, the same math with the same
 rounding points. The sums are taken in a fixed order on the card, so two
 launches on the same input agree bitwise.
+
+:func:`fwd_plan` and :func:`bwd_plan` are the kernels' host-side
+planners: persistent CTAs (one per SM) over contiguous runs of row tiles
+(:func:`tile_runs`), one partial per CTA, and for K2 the choice between
+the one-pass kernel and the dx kernel plus dW windows, with the scratch
+each needs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,9 +45,12 @@ from . import _build
 KERNEL_FWD = "fused_conv_bn_fwd"
 KERNEL_BWD = "fused_conv_bn_bwd"
 
-_BM = 128           # rows of M per CTA in the row kernels (the kernel's kBM)
-_BK = 32            # rows per shared-memory stage (the kernel's kBK)
-_WAVES = 2          # CTAs per SM the dW kernel's split aims at
+# The kernels' shared-memory budget and layouts (``csrc/fused_conv_bn.cu``:
+# FwdSmem, BwdSmem, DxSmem; the kernel file is the authority, the planner
+# only asks whether a ring of two stages fits).
+SMEM_LIMIT = 232448
+_BOX = 64 * 128     # one [64 rows, 64] bf16 box, bytes
+_MAX_DW_BLOCKS = 8  # 64x64 dW blocks a CTA keeps in registers
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -143,33 +154,155 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def tile_runs(n_tiles: int, n_parts: int) -> List[Tuple[int, int]]:
+    """The kernels' row partition (``tile_run``): part ``p`` of
+    ``n_parts`` owns the contiguous tiles ``[p*n//P, (p+1)*n//P)``."""
+    return [(p * n_tiles // n_parts, (p + 1) * n_tiles // n_parts)
+            for p in range(n_parts)]
+
+
+def _fwd_smem(np_: int, cin: int, stream: bool, pro: bool,
+              stages: int) -> int:
+    stage = 2 * _BOX + (np_ * _BOX if stream else 0)
+    resident = 0 if stream else np_ * _BOX * (cin // 64)
+    return (stage * stages + resident + 2 * _BOX + (8 * cin if pro else 0)
+            + 16 * stages + 1024)
+
+
+def _bwd_smem(cin: int, cout: int, bci: int, bco: int, dx: bool,
+              pro: bool, stages: int) -> int:
+    stage = 128 * (bci + 2 * bco) + (128 * bci if dx and pro and bci > bco
+                                     else 0)
+    o = stage * stages
+    if dx:
+        o += 2 * cin * cout + 2 * _BOX + (32 * cin if pro else 0)
+    return o + (8 * bci if pro else 0) + 8 * bco + 16 * stages + 1024
+
+
+def _dx_smem(nch: int, cout: int, pro: bool, stages: int) -> int:
+    return ((4 + nch) * _BOX * stages + 2 * _BOX
+            + (8 * 64 * nch if pro else 0) + 8 * cout + 16 * stages + 1024)
+
+
+class FwdPlan(NamedTuple):
+    """K1's launch: Cout in slices of ``bn`` columns, each over
+    ``n_runs`` row runs of 128-row tiles (one CTA per slice and run);
+    ``stream_w``: W's boxes come through the ring from a bf16 copy
+    (``w_bf16`` scratch) instead of staying resident in each CTA."""
+    bn: int
+    stream_w: bool
+    n_runs: int
+    part: Tuple[int, ...]               # [2, n_runs, Cout] f32
+    w_bf16: Optional[Tuple[int, int]]   # [Cout, Cin] bf16, or None
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(m: int, cin: int, cout: int, prologue: bool,
+             sms: int) -> FwdPlan:
+    widths = [bn for bn in (256, 128, 64) if cout % bn == 0]
+    fits = [bn for bn in widths
+            if _fwd_smem(bn // 64, cin, False, prologue, 2) <= SMEM_LIMIT]
+    stream = not fits
+    bn = widths[0] if stream else fits[0]
+    n_runs = max(1, min(-(-m // 128), sms // (cout // bn)))
+    return FwdPlan(bn, stream, n_runs, (2, n_runs, cout),
+                   (cout, cin) if stream else None)
+
+
+class BwdPlan(NamedTuple):
+    """K2's launch. ``one_pass``: one CTA per row run (``n_parts`` runs
+    of 64-row tiles) computes dx, its dW partial over the whole ``[Cout,
+    Cin]`` and its da/db partial. Otherwise the dx kernel (``n_runs`` runs
+    of 128-row tiles times ``Cin / (64 nch)`` slices) and the dW kernel
+    over ``[bco, bci]`` windows, each window's rows in ``n_parts``
+    runs."""
+    one_pass: bool
+    n_parts: int
+    bco: int
+    bci: int
+    n_runs: int
+    nch: int
+    part_w: Tuple[int, int, int]                 # [n_parts, Cout, Cin]
+    part_ab: Optional[Tuple[int, int, int]]      # [2, P, Cin] (prologue)
+    w_bf16: Optional[Tuple[int, int]]            # [Cout, Cin] bf16
+
+    def ints(self) -> List[int]:
+        """The kernel's ``plan`` argument."""
+        return [int(self.one_pass), self.n_parts, self.bco, self.bci,
+                self.n_runs, self.nch]
+
+
+def _window(cin: int, cout: int, pro: bool) -> Tuple[int, int]:
+    """The dW window [bco, bci] (<= 8 blocks of 64x64, a 2-stage ring
+    that fits) that reads the fewest bytes a row: y and dy once per
+    window of Cin, x once per window of Cout."""
+    best = None
+    for bco in range(64, cout + 1, 64):
+        for bci in range(64, cin + 1, 64):
+            if (cout % bco or cin % bci
+                    or (bco // 64) * (bci // 64) > _MAX_DW_BLOCKS
+                    or _bwd_smem(cin, cout, bci, bco, False, pro, 2)
+                    > SMEM_LIMIT):
+                continue
+            key = ((cin // bci) * 2 * cout + (cout // bco) * cin,
+                   -bco * bci, -bci)
+            if best is None or key < best[0]:
+                best = (key, bco, bci)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(m: int, cin: int, cout: int, prologue: bool,
+             sms: int) -> BwdPlan:
+    tiles = -(-m // 64)
+    if ((cin // 64) * (cout // 64) <= _MAX_DW_BLOCKS
+            and _bwd_smem(cin, cout, cin, cout, True, prologue, 2)
+            <= SMEM_LIMIT):
+        n_parts = min(sms, tiles)
+        return BwdPlan(True, n_parts, cout, cin, 0, 0,
+                       (n_parts, cout, cin),
+                       (2, n_parts, cin) if prologue else None, None)
+    bco, bci = _window(cin, cout, prologue)
+    n_windows = (cout // bco) * (cin // bci)
+    n_parts = max(1, min(tiles, sms // n_windows))
+    nch = next(n for n in (4, 2, 1) if cin % (64 * n) == 0
+               and _dx_smem(n, cout, prologue, 2) <= SMEM_LIMIT)
+    n_runs = max(1, min(-(-m // 128), sms // (cin // (64 * nch))))
+    return BwdPlan(False, n_parts, bco, bci, n_runs, nch,
+                   (n_parts, cout, cin),
+                   (2, n_runs, cin) if prologue else None, (cout, cin))
+
+
+@functools.lru_cache(maxsize=256)
+def _c_plan(plan: BwdPlan):
+    """``plan.ints()`` as the C array the kernel takes (read-only there)."""
+    return (ctypes.c_int * 6)(*plan.ints())
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _fwd_cuda(x2, w, a, b, relu) -> Stats:
     m, cin, cout = _check_cuda(x2, w, a, b)
-    n_mt = -(-m // _BM)
-    y = torch.empty((m, cout), dtype=x2.dtype, device=x2.device)
-    part = torch.empty((2, n_mt, cout), dtype=torch.float32,
-                       device=x2.device)
-    stats = torch.empty((2, cout), dtype=torch.float32, device=x2.device)
+    dev = x2.device
+    plan = fwd_plan(m, cin, cout, a is not None, _sms(dev))
+    y = torch.empty((m, cout), dtype=x2.dtype, device=dev)
+    part = torch.empty(plan.part, dtype=torch.float32, device=dev)
+    stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
+    w_bf16 = None if plan.w_bf16 is None else torch.empty(
+        plan.w_bf16, dtype=torch.bfloat16, device=dev)
     lib = _build.library()
-    with torch.cuda.device(x2.device):
+    with torch.cuda.device(dev):
         err = lib.hvd_conv_bn_fwd(
             x2.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
-            part.data_ptr(), stats.data_ptr(), m, cin, cout,
-            int(a is not None), int(bool(relu)),
-            _build.current_stream(x2.device))
+            part.data_ptr(), stats.data_ptr(), _ptr(w_bf16), m, cin, cout,
+            int(a is not None), int(bool(relu)), plan.bn, plan.n_runs,
+            _build.current_stream(dev))
     _build.check_launch(err, "fused_linear_bn_act (K1)")
     _build.LAUNCHES.add(KERNEL_FWD)
     return y, stats[0], stats[1]
-
-
-def dw_split(m: int, cin: int, cout: int, sms: int) -> Tuple[int, int]:
-    """(n_splits, rows_per_split) of the dW kernel: enough CTAs for
-    ``_WAVES`` per SM, each split a multiple of the 32-row stage."""
-    tiles = (cout // (128 if cout % 128 == 0 else 64)) * (cin // 64)
-    want = max(1, -(-(_WAVES * sms) // tiles))
-    rows = -(-m // want)
-    rows = max(_BK, -(-rows // _BK) * _BK)
-    return -(-m // rows), rows
 
 
 def _bwd_cuda(x2, w, a, b, y, dy, ds1, ds2, relu):
@@ -183,25 +316,23 @@ def _bwd_cuda(x2, w, a, b, y, dy, ds1, ds2, relu):
     _check("ds1", ds1, torch.float32, (cout,), dev)
     _check("ds2", ds2, torch.float32, (cout,), dev)
     prologue = a is not None
-    n_mt = -(-m // _BM)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits, rows = dw_split(m, cin, cout, sms)
+    plan = bwd_plan(m, cin, cout, prologue, _sms(dev))
     dx = torch.empty((m, cin), dtype=x2.dtype, device=dev)
     dw = torch.empty((cout, cin), dtype=torch.float32, device=dev)
-    dab = torch.empty((2, cin), dtype=torch.float32, device=dev) \
-        if prologue else None
-    part_ab = torch.empty((2, n_mt, cin), dtype=torch.float32, device=dev) \
-        if prologue else None
-    part_w = torch.empty((n_splits, cout, cin), dtype=torch.float32,
-                         device=dev)
+    empty = lambda shape, dt=torch.float32: None if shape is None \
+        else torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    dab = empty((2, cin) if prologue else None)
+    part_ab = empty(plan.part_ab)
+    part_w = empty(plan.part_w)
+    w_bf16 = empty(plan.w_bf16, torch.bfloat16)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.hvd_conv_bn_bwd(
             x2.data_ptr(), y.data_ptr(), dy.data_ptr(), w.data_ptr(),
             _ptr(a), _ptr(b), _ptr(ds1), _ptr(ds2), dx.data_ptr(),
-            dw.data_ptr(), _ptr(dab), _ptr(part_ab), part_w.data_ptr(), m,
-            cin, cout, int(prologue), int(bool(relu)), n_splits, rows,
-            _build.current_stream(dev))
+            dw.data_ptr(), _ptr(dab), _ptr(part_ab), part_w.data_ptr(),
+            _ptr(w_bf16), m, cin, cout, int(prologue), int(bool(relu)),
+            _c_plan(plan), _build.current_stream(dev))
     _build.check_launch(err, "fused_linear_bn_act backward (K2)")
     _build.LAUNCHES.add(KERNEL_BWD)
     if not prologue:

@@ -203,8 +203,139 @@ def test_cuda_gate_and_counts_are_cpu_free():
     x, w, ab = _inputs(7, 128, 8, 8, False)
     fcb.fused_linear_bn_act(*_torch_args(x, w, ab, torch.float32))
     assert LAUNCHES.snapshot() == {}
-    # dW split: about two waves of CTAs, rows a multiple of 32.
-    splits, rows = fcb.dw_split(401408, 64, 256, 132)
-    assert rows % 32 == 0 and splits * rows >= 401408
-    tiles = (256 // 128) * (64 // 64)
-    assert 132 <= splits * tiles <= 2 * 132
+    # The kernels' planner: one persistent CTA per SM (no more CTAs than
+    # row tiles), one partial per CTA, rows covered once and in order.
+    plan = fcb.bwd_plan(401408, 64, 256, True, 132)
+    assert plan.one_pass and plan.n_parts == 132
+    assert plan.part_w == (132, 256, 64) and plan.part_ab == (2, 132, 64)
+    runs = fcb.tile_runs(-(-401408 // 64), plan.n_parts)
+    assert runs[0][0] == 0 and runs[-1][1] == 6272
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(runs, runs[1:]))
+
+
+# The eight distinct (M, Cin, Cout, prologue) of the fused ResNet-50 sites
+# at batch 128, and ragged M both ways.
+SITES = [(401408, 64, 64, False), (401408, 64, 256, True),
+         (401408, 64, 256, False), (401408, 256, 64, False),
+         (401408, 256, 128, False), (100352, 128, 512, True),
+         (100352, 256, 512, False), (100352, 512, 128, False),
+         (1000, 64, 128, True), (1000, 128, 64, False),
+         (1000, 64, 256, True), (1, 512, 128, False)]
+
+
+def _covers(n_tiles, n_parts):
+    runs = fcb.tile_runs(n_tiles, n_parts)
+    assert len(runs) == n_parts
+    assert runs[0][0] == 0 and runs[-1][1] == n_tiles
+    for (a, b), (c, _) in zip(runs, runs[1:]):
+        assert a < b == c          # non-empty, contiguous, in order
+    assert sum(b - a for a, b in runs) == n_tiles
+
+
+@pytest.mark.parametrize("m,cin,cout,prologue", SITES)
+def test_fwd_plan_partitions_rows_and_sizes_scratch(m, cin, cout, prologue):
+    """K1's plan: Cout in slices that the resident bf16 W fits beside a
+    ring of two stages, at most one CTA per SM, every 128-row tile in
+    exactly one run of each slice, one statistics partial per run."""
+    sms = 132
+    plan = fcb.fwd_plan(m, cin, cout, prologue, sms)
+    assert plan.bn in (64, 128, 256) and cout % plan.bn == 0
+    n_slices = cout // plan.bn
+    assert 1 <= plan.n_runs <= -(-m // 128)
+    assert n_slices * plan.n_runs <= max(sms, n_slices)
+    _covers(-(-m // 128), plan.n_runs)
+    assert plan.part == (2, plan.n_runs, cout)
+    assert not plan.stream_w and plan.w_bf16 is None
+    assert fcb._fwd_smem(plan.bn // 64, cin, False, prologue, 2) \
+        <= fcb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m,cin,cout,prologue", SITES)
+def test_bwd_plan_partitions_rows_and_sizes_scratch(m, cin, cout, prologue):
+    """K2's plan: the one pass wherever the whole dW fits in a CTA's
+    registers (<= 8 blocks of 64x64) and its ring in shared memory — every
+    M = 401408 site — else the dx kernel plus dW windows. Partials: one
+    per CTA (one pass) or per row split of a window; da/db partials only
+    with the prologue; a bf16 copy of W only where W streams."""
+    sms = 132
+    plan = fcb.bwd_plan(m, cin, cout, prologue, sms)
+    tiles = -(-m // 64)
+    blocks = (cin // 64) * (cout // 64)
+    assert plan.one_pass == (blocks <= 8 and fcb._bwd_smem(
+        cin, cout, cin, cout, True, prologue, 2) <= fcb.SMEM_LIMIT)
+    if m == 401408:
+        assert plan.one_pass
+    assert plan.part_w == (plan.n_parts, cout, cin)
+    _covers(tiles, plan.n_parts)
+    if plan.one_pass:
+        assert (plan.bco, plan.bci) == (cout, cin)
+        assert plan.n_parts == min(sms, tiles) and plan.w_bf16 is None
+        assert plan.part_ab == ((2, plan.n_parts, cin) if prologue
+                                else None)
+    else:
+        assert cout % plan.bco == 0 and cin % plan.bci == 0
+        assert (plan.bco // 64) * (plan.bci // 64) <= 8
+        n_windows = (cout // plan.bco) * (cin // plan.bci)
+        assert n_windows * plan.n_parts <= max(sms, n_windows)
+        assert fcb._bwd_smem(cin, cout, plan.bci, plan.bco, False, prologue,
+                             2) <= fcb.SMEM_LIMIT
+        assert plan.nch in (1, 2, 4) and cin % (64 * plan.nch) == 0
+        _covers(-(-m // 128), plan.n_runs)
+        assert plan.part_ab == ((2, plan.n_runs, cin) if prologue
+                                else None)
+        assert plan.w_bf16 == (cout, cin)
+    assert len(plan.ints()) == 6
+
+
+def test_plans_stream_w_and_window_dw_for_wide_channels():
+    """Channels past the resident limits: K1 streams W's boxes from a
+    bf16 copy (Cin 2048), K2 windows dW (512 x 2048 is 256 blocks)."""
+    fplan = fcb.fwd_plan(4096, 2048, 512, False, 132)
+    assert fplan.stream_w and fplan.w_bf16 == (512, 2048)
+    bplan = fcb.bwd_plan(4096, 2048, 512, False, 132)
+    assert not bplan.one_pass and bplan.w_bf16 == (512, 2048)
+    assert (bplan.bco // 64) * (bplan.bci // 64) == 8
+
+
+def _phantom_shift(o1):
+    """How far rows past M, as a kernel that did not mask them would see
+    them (x, y, dy zero: u = relu(b), e = bf16(ds1)), move s1, s2, dW,
+    da and db relative to their largest values, for M = 1000, 64->256
+    with the prologue padded to the 64-row tile (1024): the plain
+    versions with and without the padded rows."""
+    g = torch.Generator().manual_seed(1)
+    m, cin, cout, pad = 1000, 64, 256, 1024
+    scale = 1.0 if o1 else 1e-3
+    x = torch.randn((m, cin), generator=g).to(torch.bfloat16)
+    w = torch.randn((cout, cin), generator=g) * cin ** -0.5
+    a = torch.rand((cin,), generator=g) + 0.5
+    b = torch.randn((cin,), generator=g) * (1.0 if o1 else 0.5)
+    dy = torch.randn((m, cout), generator=g).to(torch.bfloat16)
+    ds1 = torch.randn((cout,), generator=g) * scale
+    ds2 = torch.randn((cout,), generator=g) * 1e-4
+    y, s1, s2 = fcb.fused_linear_bn_act_reference(x, w, a, b)
+    good = fcb.fused_linear_bn_act_bwd_reference(x, w, a, b, y, dy, ds1,
+                                                 ds2)
+
+    def padded(t):
+        return torch.cat([t, torch.zeros((pad - m, t.shape[1]),
+                                         dtype=t.dtype)])
+    _, s1p, s2p = fcb.fused_linear_bn_act_reference(padded(x), w, a, b)
+    bad = fcb.fused_linear_bn_act_bwd_reference(
+        padded(x), w, a, b, padded(y), padded(dy), ds1, ds2)
+
+    def rel(p, q):
+        return ((p - q).abs().max() / q.abs().max()).item()
+    return {"s1": rel(s1p, s1), "s2": rel(s2p, s2), "dw": rel(bad[1], good[1]),
+            "da": rel(bad[2], good[2]), "db": rel(bad[3], good[3])}
+
+
+def test_o1_ragged_case_sees_rows_past_m():
+    """chip_smoke.py's O(1)-cotangent ragged case (CONV_RAGGED_O1) is the
+    one where rows past M would fail TOL_CONV (1e-3) in s1, s2, dW and
+    db: with ds1 ~ 1e-3 (the other cases) dW would move by less than the
+    tolerance. da cannot move at all: x is zero past M."""
+    o1, small = _phantom_shift(True), _phantom_shift(False)
+    for key in ("s1", "s2", "dw", "db"):
+        assert o1[key] > 1e-2, (key, o1)
+    assert small["dw"] < 1e-3 and o1["da"] == 0.0
