@@ -16,8 +16,10 @@ before the timing phases' large allocations), ``host`` (only for a
 checkout whose ``chip_smoke.py`` has no ``host_ms``, whose ``timing``
 phase therefore does not report the host time of a
 ``flash_attention_prefill`` call: this checkout's ``host_ms`` at the same
-T), ``timing``, ``timing_conv`` (this checkout's phase, which times K1 and
-K2 at every ResNet-50 site, run on each tree's kernels), ``timing_attn``,
+T), ``timing``, ``timing_paged`` (this checkout's phase, which times K8
+at its four shapes, run on each tree's kernel), ``timing_conv`` (this
+checkout's phase, which times K1 and K2 at every ResNet-50 site, run on
+each tree's kernels), ``timing_attn``,
 ``timing_attn_bhtd``, ``lm_train``, ``pp_lm_train``, ``engine`` (two
 rounds). Each run may take RUN_TIMEOUT seconds. Needs CUDA; exits
 non-zero if any run fails.
@@ -32,8 +34,9 @@ import os
 import subprocess
 import sys
 
-PHASES = ("train", "host", "timing", "timing_conv", "timing_attn",
-          "timing_attn_bhtd", "lm_train", "pp_lm_train", "engine")
+PHASES = ("train", "host", "timing", "timing_paged", "timing_conv",
+          "timing_attn", "timing_attn_bhtd", "lm_train", "pp_lm_train",
+          "engine")
 RUN_TIMEOUT = 600    # seconds for one run's build and phases
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,6 +85,8 @@ def run_phases(tree: str, tag: str, out_path: str) -> None:
                     lambda: flash_attention_prefill(q, k, v, causal=True)))
         elif name == "timing":
             cs.phase_timing(seed, peaks)
+        elif name == "timing_paged":
+            own.phase_timing_paged(seed, peaks)
         elif name == "timing_conv":
             own.phase_timing_conv(seed, peaks)
         elif name == "train":

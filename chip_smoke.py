@@ -29,12 +29,18 @@ Phases, one JSON line each:
 
 1. device   — require CUDA; print the card, its power limit, versions.
 2. build    — nvcc-build the kernels from ``horovod_tpu_torch/ops/csrc``;
-               registers, spills and shared memory of the flash and conv
-               kernels (fails if ptxas serialized a wgmma or a flash or
-               conv kernel spills).
+               registers, spills and shared memory of the flash, conv
+               and paged kernels (fails if ptxas serialized a wgmma or
+               any of them spills).
 3. parity   — each kernel vs its plain version at the engine's shapes
                (the flash forward at T in {1, 16, 127, 128, 129, 1000,
-               2047, 2048}).
+               2047, 2048}); K8 against the dense and the split plain
+               versions in five cases (the engine's positions with pos
+               -1; both sides of split edges, empty splits and a
+               position past the table; repeated blocks and trash-padded
+               rows; S=1 and S=8 at the last key) and at block sizes 1,
+               8, 12 and 32, each row within TOL_ATTN_ULPS bf16 ulps of
+               its largest value, six launches bitwise equal.
 4. engine   — ``GenerationEngine`` (8 slots, max_len 2048, paged,
                block 16), ``warmup()``, 8 concurrent requests of 32 new
                tokens with prompts from 9 to 1500 tokens, one over
@@ -49,7 +55,9 @@ Phases, one JSON line each:
                the plain versions run); last logits compared.
 6. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's; the flash
-               forward's host time per call.
+               forward's and K8's host time per call. K8 at four shapes
+               (PAGED_TIMED), each launch on the next of 8 layer views
+               of the engine's pool.
 7. parity_conv — K1/K2 (``fused_conv_bn.cu``) vs their plain versions at
                every distinct (M, Cin, Cout, prologue) of the 16 fused
                sites and a ragged M, with non-zero stats cotangents, and
@@ -123,6 +131,7 @@ import argparse
 import copy
 import functools
 import http.client
+import itertools
 import json
 import math
 import os
@@ -151,6 +160,19 @@ TOL_FLASH = 2e-2    # bf16 outputs of magnitude < 4: a few bf16 ulps
 # also held at TOL_ATTN_ULPS bf16 ulps of its own largest value
 # (row_ulps): a dropped or doubled key tile moves such a row by tens.
 TOL_PAGED = 2e-2    # f32 math on both sides, one bf16 rounding of O(1)
+# K8's timed shapes (S = len(positions)): the balanced row kept from
+# earlier PRs (random positions 896-1152, drawn in phase_timing_paged),
+# the engine's 8 slots mid-decode (prompt + NEW_TOKENS / 2), one slot and
+# every slot at the table's last key.
+PAGED_TIMED = (("balanced", None),
+               ("engine_mix", tuple(n + NEW_TOKENS // 2 for n in
+                                    PROMPT_LENS + (HTTP_PROMPT_LEN,))),
+               ("one_slot", (MAX_LEN - 1,)),
+               ("full", (MAX_LEN - 1,) * MAX_SLOTS))
+# A value no key or value holds: the trash block of the trash-padded
+# parity case is filled with it, so a read of it would show.
+PAGED_TRASH = 512.0
+PAGED_PARITY_BS = (1, 8, 12, 32)
 # Logits of std ~0.9 after 8 bf16 layers on two devices whose matmuls
 # round differently: 0.035 measured on an H100, bound at about 3x that.
 TOL_E2E = 0.1
@@ -302,8 +324,12 @@ def peaks_for(name: str):
     return PEAK_DEFAULT
 
 
-def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
-    """Median per-call device time of ``fn`` (CUDA events, warmed up)."""
+def time_ms(fn, reps: int = 15, inner: int = 10,
+            queued: bool = False) -> float:
+    """Median per-call device time of ``fn`` (CUDA events, warmed up).
+    ``queued``: each sample's calls are enqueued behind a 2 ms sleep on
+    the stream, so that a kernel shorter than its host call is timed
+    back to back on the device, not at the host's pace."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -311,6 +337,8 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(4_000_000)
         a.record()
         for _ in range(inner):
             fn()
@@ -362,14 +390,15 @@ def device_profile(run) -> tuple:
 
 def busy_shares(rows, wall_s: float, patterns: dict) -> dict:
     """Device busy time and share of the wall time, and for each named
-    pattern the device time of the kernels whose name holds it and its
-    share of the busy time."""
+    pattern the device time and launches of the kernels whose name holds
+    it and their share of the busy time."""
     busy_us = sum(r[0] for r in rows)
     out = {"device_busy_ms": busy_us / 1e3,
            "device_busy_share": busy_us / 1e6 / wall_s if rows else None}
     for key, pattern in patterns.items():
-        us = sum(r[0] for r in rows if pattern in r[1])
-        out[key] = {"ms": us / 1e3,
+        hits = [r for r in rows if pattern in r[1]]
+        us = sum(r[0] for r in hits)
+        out[key] = {"ms": us / 1e3, "launches": sum(r[2] for r in hits),
                     "share": us / busy_us if busy_us else None}
     return out
 
@@ -384,18 +413,31 @@ def flash_inputs(T: int, gen: torch.Generator):
     return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
 
-def paged_inputs(positions, gen: torch.Generator):
-    """One layer's pool at the engine's size, random tables."""
-    n_blocks = MAX_SLOTS * (MAX_LEN // BLOCK) + 1
-    H = LM["n_heads"]
-    pool = lambda: torch.randn((n_blocks, BLOCK, H, 128), generator=gen,  # noqa: E731
-                               device="cuda").to(torch.bfloat16)
-    q = torch.randn((MAX_SLOTS, H, 128), generator=gen,
+def paged_inputs(positions, gen: torch.Generator, layers: int = 0,
+                 bs: int = BLOCK):
+    """The engine's pool (one layer's, or ``layers`` layers' stacked; in
+    blocks of ``bs``), random tables over blocks 1.. (block 0 is the trash
+    block) and q, for ``len(positions)`` slots."""
+    nb = -(-MAX_LEN // bs)
+    n_blocks = MAX_SLOTS * nb + 1
+    H, S = LM["n_heads"], len(positions)
+    shape = (layers,) * bool(layers) + (n_blocks, bs, H, 128)
+    pool = lambda: torch.randn(shape, generator=gen, device="cuda",  # noqa: E731
+                               dtype=torch.bfloat16)
+    q = torch.randn((S, H, 128), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    tables = torch.randint(1, n_blocks, (MAX_SLOTS, MAX_LEN // BLOCK),
-                           generator=gen, device="cuda", dtype=torch.int32)
+    tables = torch.randint(1, n_blocks, (S, nb), generator=gen,
+                           device="cuda", dtype=torch.int32)
     pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     return q, pool(), pool(), tables, pos
+
+
+def paged_chunk(S: int, bs: int = BLOCK) -> int:
+    """Keys of one chunk of the kernel's split plan at S slots."""
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops.paged_attention import split_plan
+    return split_plan(S, LM["n_heads"], -(-MAX_LEN // bs), bs,
+                      _build.sm_count(torch.device("cuda"))).chunk_keys
 
 
 # -- phases -------------------------------------------------------------------
@@ -466,9 +508,10 @@ def phase_build():
                   if "serialized" in ln]
     flash = ptxas_summary(log, "flash")
     conv = ptxas_summary(log, "conv_bn")
+    paged = ptxas_summary(log, "paged")
     emit("build", seconds=secs, library=path, compiler_log=path + ".log",
          fused_conv_bn_ptxas=conv,
-         flash_ptxas=flash,
+         flash_ptxas=flash, paged_ptxas=paged,
          flash_dynamic_smem_bytes={
              "flash_fwd_wgmma_kernel":
                  lib.hvd_flash_attention_fwd_smem_bytes(),
@@ -481,16 +524,16 @@ def phase_build():
     for name in CONV_KERNELS.values():
         check(any(k.startswith(name) for k in conv),
               f"ptxas reported no {name}")
-    spilled = {k: v for k, v in {**flash, **conv}.items()
+    check("paged_decode_split_kernel" in paged,
+          "ptxas reported no paged_decode_split_kernel")
+    spilled = {k: v for k, v in {**flash, **conv, **paged}.items()
                if v.get("spill_stores") or v.get("spill_loads")}
-    check(not spilled, f"flash or conv kernels spill: {spilled}")
+    check(not spilled, f"flash, conv or paged kernels spill: {spilled}")
 
 
 def phase_parity(seed: int):
     from horovod_tpu_torch.ops.attention import (flash_attention_prefill,
                                                  flash_attention_reference)
-    from horovod_tpu_torch.ops.paged_attention import (
-        paged_attention_reference, paged_decode_attention)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     errs, rows = {}, {}
     for T in FLASH_T_PARITY:
@@ -512,21 +555,82 @@ def phase_parity(seed: int):
     emit("parity", kernel="flash_attention", max_abs_err=errs,
          tolerance=TOL_FLASH, row_ulps=rows, row_tolerance=TOL_ATTN_ULPS,
          shapes="B=1 H=16 d=128 bf16 causal")
+    e = paged_chunk(MAX_SLOTS)
     rng = np.random.RandomState(seed)
-    positions = [-1, 0, 15, 16, 2047] + list(rng.randint(0, MAX_LEN, 3))
-    q, kp, vp, tables, pos = paged_inputs(positions, gen)
-    out = paged_decode_attention(q, kp, vp, tables, pos)
-    torch.cuda.synchronize()
-    ref = paged_attention_reference(q, kp, vp, tables, pos)
-    paged_err = (out.float() - ref.float()).abs().max().item()
-    check(not out[0].any(), "paged_decode_attention: pos=-1 row not zero")
-    check(paged_err <= TOL_PAGED, f"paged_decode_attention: max abs err "
-                                  f"{paged_err} > {TOL_PAGED}")
-    emit("parity", kernel="paged_decode_attention", max_abs_err=paged_err,
-         tolerance=TOL_PAGED, positions=[int(p) for p in positions],
-         shapes="S=8 H=16 d=128 bs=16 128 blocks/slot bf16")
+    cases = (
+        ("engine", [-1, 0, 15, 16, MAX_LEN - 1]
+         + [int(p) for p in rng.randint(0, MAX_LEN, 3)]),
+        # both sides of the first split edges; a slot whose later splits
+        # are empty; a position past the table's keys
+        ("split_edges", [e - 1, e, e + 1, 2 * e - 1, 2 * e, 3, MAX_LEN - e,
+                         2 * MAX_LEN]),
+        ("tables", [300, 40, 700, 5, 1000, 17, 64, MAX_LEN - 1]),
+        ("one_slot", [MAX_LEN - 1]),
+        ("full", [MAX_LEN - 1] * MAX_SLOTS))
+    # Block sizes the engine does not use: several boxes a tile (1, 8),
+    # 12-key tiles (12), two boxes a block (32).
+    mixed = [-1, 0, 5, 100, 1000, MAX_LEN - 1, 333, 64]
+    paged_err = max([paged_parity(name, positions, gen)
+                     for name, positions in cases]
+                    + [paged_parity(f"bs{bs}", mixed, gen, bs)
+                       for bs in PAGED_PARITY_BS])
     return {"flash_attention": flash_err,
             "paged_decode_attention": paged_err}
+
+
+def paged_parity(name: str, positions, gen, bs: int = BLOCK) -> float:
+    """K8 against the dense plain version and the split plain version at
+    the kernel's chunk: max abs error and each row's error in bf16 ulps of
+    its own largest value; ATTN_REPEATS launches bitwise equal. The
+    ``tables`` case repeats one physical block through slot 0's row,
+    alternates two through slot 1's, and trash-pads every row past pos's
+    block with block 0, which holds PAGED_TRASH."""
+    from horovod_tpu_torch.ops.paged_attention import (
+        paged_attention_reference, paged_attention_split_reference,
+        paged_decode_attention)
+    q, kp, vp, tables, pos = paged_inputs(positions, gen, bs=bs)
+    if name == "tables":
+        nb = MAX_LEN // BLOCK
+        tables[0] = tables[0, 0]
+        tables[1] = tables[1, :2].repeat(nb // 2)
+        used = torch.tensor([p // BLOCK + 1 for p in positions],
+                            device="cuda")
+        tables[torch.arange(nb, device="cuda")[None, :]
+               >= used[:, None]] = 0
+        kp[0] = PAGED_TRASH
+        vp[0] = PAGED_TRASH
+    outs = [paged_decode_attention(q, kp, vp, tables, pos)
+            for _ in range(ATTN_REPEATS)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(outs[0], o) for o in outs[1:])
+    out = outs[0]
+    chunk = paged_chunk(len(positions), bs)
+    ref = paged_attention_reference(q, kp, vp, tables, pos)
+    split = paged_attention_split_reference(q, kp, vp, tables, pos, chunk)
+    check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+          f"paged_decode_attention {name}: bad output")
+    errs = {"max_abs_err": _abs_err(out, ref), "row_ulps": row_ulps(out, ref),
+            "split_max_abs_err": _abs_err(out, split),
+            "split_row_ulps": row_ulps(out, split)}
+    emit("parity", kernel="paged_decode_attention", case=name,
+         S=len(positions), positions=list(positions), block_size=bs,
+         chunk_keys=chunk, **errs, tolerance=TOL_PAGED,
+         row_tolerance=TOL_ATTN_ULPS, bitwise_repeatable=same,
+         launches_compared=ATTN_REPEATS,
+         shapes=f"H=16 d=128 {tables.shape[1]} blocks/slot bf16")
+    for i, p in enumerate(positions):
+        if p < 0:
+            check(not out[i].any(), f"paged_decode_attention {name}: "
+                                    f"pos=-1 row not zero")
+    check(same, f"paged_decode_attention {name}: {ATTN_REPEATS} launches "
+                f"differ")
+    for key, val in errs.items():
+        tol = TOL_ATTN_ULPS if "ulps" in key else TOL_PAGED
+        check(val <= tol, f"paged_decode_attention {name}: {key} {val} > "
+                          f"{tol}")
+    del outs, out, ref, split, q, kp, vp
+    torch.cuda.empty_cache()
+    return errs["max_abs_err"]
 
 
 def _http_generate(port: int, tokens, out: dict) -> None:
@@ -558,7 +662,7 @@ def profile_round(eng, prompts) -> dict:
     wall_s, rows = device_profile(serve)
     return {"wall_s": wall_s,
             **busy_shares(rows, wall_s, {"k3_fwd": "flash_fwd_wgmma_kernel",
-                                         "k8": "paged_decode_kernel"}),
+                                         "k8": "paged_decode"}),
             "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
                     for us, k, n in rows[:8]]}
 
@@ -707,8 +811,6 @@ def phase_e2e(model, seed: int):
 def phase_timing(seed: int, peaks):
     from horovod_tpu_torch.ops.attention import (flash_attention_prefill,
                                                  flash_attention_reference)
-    from horovod_tpu_torch.ops.paged_attention import (
-        paged_attention_reference, paged_decode_attention)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     H, d = LM["n_heads"], 128
     rows = {}
@@ -729,22 +831,52 @@ def phase_timing(seed: int, peaks):
         emit("timing", kernel="flash_attention", T=T, **rows[T],
              host_ms_per_call=host,
              library="torch.nn.functional.scaled_dot_product_attention")
-    rng = np.random.RandomState(seed + 3)
-    positions = rng.randint(896, 1152, MAX_SLOTS)
-    q, kp, vp, tables, pos = paged_inputs(positions, gen)
-    ms = time_ms(lambda: paged_decode_attention(q, kp, vp, tables, pos))
-    plain = time_ms(lambda: paged_attention_reference(q, kp, vp, tables,
-                                                      pos), reps=5, inner=2)
-    keys = int((positions + 1).sum())
-    flops = 4.0 * d * H * keys
-    nbytes = keys * H * d * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4
-    bnd, by = bound_ms(flops, nbytes, peaks)
-    paged = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                 bound_by=by)
-    emit("timing", kernel="paged_decode_attention", keys=keys, **paged,
-         library=None)
     return {"flash_attention": rows[max(FLASH_T)],
-            "paged_decode_attention": paged}
+            "paged_decode_attention": phase_timing_paged(seed, peaks)}
+
+
+def phase_timing_paged(seed: int, peaks):
+    """K8 at each PAGED_TIMED shape: its median device time, launch after
+    launch through the 8 layer views of the engine's whole pool (each
+    launch, as in a decode step, finds its K/V out of L2) and queued
+    behind a sleep (the kernel is shorter than its host call), beside its
+    bound, its plain version's time and its host time per call. Returns
+    the balanced row (the kernels line's)."""
+    from horovod_tpu_torch.ops.paged_attention import (
+        paged_attention_reference, paged_decode_attention)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    H, d, L = LM["n_heads"], 128, LM["n_layers"]
+    rng = np.random.RandomState(seed + 3)
+    rows = {}
+    for name, positions in PAGED_TIMED:
+        if positions is None:
+            positions = tuple(int(p) for p in rng.randint(896, 1152,
+                                                          MAX_SLOTS))
+        q, kp, vp, tables, pos = paged_inputs(positions, gen, layers=L)
+        views = [(kp[i], vp[i]) for i in range(L)]
+        turn = itertools.cycle(views).__next__
+
+        def run():
+            k, v = turn()
+            return paged_decode_attention(q, k, v, tables, pos)
+        ms = time_ms(run, queued=True)
+        host = host_ms(run)
+        plain = time_ms(lambda: paged_attention_reference(
+            q, kp[0], vp[0], tables, pos), reps=5, inner=2)
+        keys = sum(min(p, MAX_LEN - 1) + 1 for p in positions if p >= 0)
+        flops = 4.0 * d * H * keys
+        nbytes = (keys * H * d * 2 * 2 + 2 * q.numel() * 2
+                  + tables.numel() * 4)
+        bnd, by = bound_ms(flops, nbytes, peaks)
+        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                          bound_ms=bnd, bound_by=by)
+        emit("timing", kernel="paged_decode_attention", shape=name,
+             S=len(positions), positions=list(positions), keys=keys,
+             **rows[name], share_of_bound=bnd / ms, host_ms_per_call=host,
+             library=None)
+        del q, kp, vp, views
+        torch.cuda.empty_cache()
+    return rows["balanced"]
 
 
 # -- ResNet-50 training (slice 2) ---------------------------------------------

@@ -21,6 +21,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -66,8 +67,10 @@ _SIGNATURES = {
     "hvd_paged_decode_attention": [
         _vp, _vp, _vp,                      # q, k_pool, v_pool
         _vp, _vp, _vp,                      # tables, positions, out
+        _vp, _vp, _vp,                      # tickets, part_ml, part_acc
         _i32, _i32, _i32,                   # S, H, D
         _i32, _i32, _i32,                   # block_size, max_blocks, n_blocks
+        _i32, _i32, _i32, _i32,             # the split plan
         _f32, _vp],                         # scale, stream
     "hvd_conv_bn_fwd": [
         _vp, _vp, _vp, _vp,                 # x, w, a, b
@@ -212,6 +215,12 @@ def check_launch(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA kernel launch failed with "
                            f"cudaError_t {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def current_stream(device) -> int:

@@ -279,15 +279,10 @@ def _c_plan(plan: BwdPlan):
     return (ctypes.c_int * 6)(*plan.ints())
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _fwd_cuda(x2, w, a, b, relu) -> Stats:
     m, cin, cout = _check_cuda(x2, w, a, b)
     dev = x2.device
-    plan = fwd_plan(m, cin, cout, a is not None, _sms(dev))
+    plan = fwd_plan(m, cin, cout, a is not None, _build.sm_count(dev))
     y = torch.empty((m, cout), dtype=x2.dtype, device=dev)
     part = torch.empty(plan.part, dtype=torch.float32, device=dev)
     stats = torch.empty((2, cout), dtype=torch.float32, device=dev)
@@ -316,7 +311,7 @@ def _bwd_cuda(x2, w, a, b, y, dy, ds1, ds2, relu):
     _check("ds1", ds1, torch.float32, (cout,), dev)
     _check("ds2", ds2, torch.float32, (cout,), dev)
     prologue = a is not None
-    plan = bwd_plan(m, cin, cout, prologue, _sms(dev))
+    plan = bwd_plan(m, cin, cout, prologue, _build.sm_count(dev))
     dx = torch.empty((m, cin), dtype=x2.dtype, device=dev)
     dw = torch.empty((cout, cin), dtype=torch.float32, device=dev)
     empty = lambda shape, dt=torch.float32: None if shape is None \
