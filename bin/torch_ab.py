@@ -36,8 +36,8 @@ import sys
 
 PHASES = ("train", "host", "timing", "timing_paged", "timing_conv",
           "timing_attn", "timing_attn_bhtd", "lm_train", "pp_lm_train",
-          "engine")
-RUN_TIMEOUT = 600    # seconds for one run's build and phases
+          "engine", "bench")
+RUN_TIMEOUT = 900    # seconds for one run's build and phases
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -110,6 +110,21 @@ def run_phases(tree: str, tag: str, out_path: str) -> None:
             cs.phase_engine(model, seed)
             cs.phase_engine(model, seed)
             del model
+        elif name == "bench":
+            torch.cuda.empty_cache()
+            if not os.path.exists(os.path.join(
+                    tree, "horovod_tpu_torch", "bench.py")):
+                emit("bench", absent=True)
+                continue
+            proc = subprocess.run(
+                [sys.executable, "-m", "horovod_tpu_torch.bench"],
+                cwd=tree, capture_output=True, text=True,
+                timeout=RUN_TIMEOUT)
+            if proc.returncode != 0:
+                raise RuntimeError(f"bench failed: {proc.stderr[-2000:]}")
+            for ln in proc.stdout.splitlines():
+                if ln.startswith("{"):
+                    emit("bench", **json.loads(ln))
         torch.cuda.empty_cache()
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-Drives the port's four main paths and holds every CUDA kernel on them
-against its plain PyTorch version on the card:
+Drives the port's four main paths, the training-plane knobs and the
+bench entry, and holds every CUDA kernel on them against its plain
+PyTorch version on the card:
 
 * serving — the paged generation engine serving the bench LM at full
   width (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
@@ -118,6 +119,27 @@ Phases, one JSON line each:
 21. timing_attn_bhtd — the three [B,T,H,D] launches and the pair at
                B=4, T=2048 beside their bounds, plain versions and SDPA;
                the Delta pass (``timing_delta``).
+22. train_knobs — the full-width LM, two steps per variant from the same
+               seed and batch, counters zeroed before each: accumulation
+               over 2 microbatches (16 K3-qkv + 16 dq + 16 dkv a step;
+               loss and update within TOL_E2E_LM of the plain step),
+               remat (16 K3-qkv: the recompute; its params after the
+               steps expected bitwise the plain step's), the chunked loss
+               (4096; loss within TOL_CHUNK), the bf16 and fp8 wire
+               formats (the JAX tests' tolerances, TOL_WIRE; the path
+               NCCL took), the pipelined step with the guard and a bf16
+               wire against the plain pipelined step; each variant's
+               peak memory and step time.
+23. guard   — the fused ResNet-50 at batch 128 with the bad-step guard: a
+               NaN image leaves params, momentum and BatchNorm buffers
+               bit-unchanged with bad_step 1 and loss 0 (16 K1 + 16 K2
+               still launched), the next finite step trains; the step
+               time with the guard off and on, in turns.
+24. bench   — ``python -m horovod_tpu_torch.bench`` three times (the
+               default two lines, ``--model resnet50 --conv-backend
+               fused``, ``--model transformer_lm --accum-steps 2``), each
+               in a process of its own: names, finite positive values,
+               0 < mfu <= 1, the knob fields, the peak bytes, the card.
 
 Then, before the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
@@ -176,9 +198,6 @@ PAGED_PARITY_BS = (1, 8, 12, 32)
 # Logits of std ~0.9 after 8 bf16 layers on two devices whose matmuls
 # round differently: 0.035 measured on an H100, bound at about 3x that.
 TOL_E2E = 0.1
-# Published dense peaks (bf16 tensor-core FLOP/s, memory bytes/s).
-PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H200": (989e12, 4.8e12)}
-PEAK_DEFAULT = (989e12, 3.35e12)    # H100 SXM
 # ResNet-50 training (bench.py's resnet50 config).
 RN_BATCH, RN_IMAGE, RN_CLASSES = 128, 224, 1000
 RN_WARMUP, RN_STEPS = 2, 10
@@ -272,6 +291,28 @@ TOL_E2E_PP = {"loss": 1.5e-3, "grad_rel_l2": 0.04, "update_cosine": 0.975}
 # update's cosine (0.993 measured) is held to [0.97, 1 + 1e-6].
 TOL_E2E_LM = {"loss": 1.5e-3, "logits": 0.15, "grad_rel_l2": 0.04,
               "update_cosine": 0.97}
+# The training-plane knobs (train_knobs): one full-width LM step pair per
+# variant from the same seed and batch. Chunked vs dense loss: 1e-3
+# relative. A wire format vs fp32 after two steps: the JAX tests of the
+# same name (tests/test_overlap_wire.py: bf16 loss rtol 5e-3, params rtol
+# 5e-2 / atol 4e-2; fp8 loss rtol 5e-2, params rtol 5e-1 / atol 5e-2).
+KNOB_STEPS = 2
+KNOB_CHUNK = 4096
+TOL_CHUNK = 1e-3
+TOL_WIRE = {"bf16": dict(loss_rtol=5e-3, rtol=5e-2, atol=4e-2),
+            "fp8": dict(loss_rtol=5e-2, rtol=5e-1, atol=5e-2)}
+# The bad-step guard (guard): the fused ResNet-50 at batch 128; the step
+# time with the guard off and on, in turns.
+GUARD_TIMED_PAIRS = 4
+# The bench entry (bench): python -m horovod_tpu_torch.bench with these
+# arguments, each in a process of its own; its metric names per run.
+BENCH_RUNS = (((), ("resnet50_synthetic_images_per_sec_per_gpu",
+                    "transformer_lm_tokens_per_sec_per_gpu")),
+              (("--model", "resnet50", "--conv-backend", "fused"),
+               ("resnet50_synthetic_images_per_sec_per_gpu",)),
+              (("--model", "transformer_lm", "--accum-steps", "2"),
+               ("transformer_lm_tokens_per_sec_per_gpu",)))
+BENCH_TIMEOUT = 400
 REPLACES = {
     "flash_attention": "horovod_tpu/ops/pallas_attention.py:101",
     "flash_attention_qkv_fwd": "horovod_tpu/ops/pallas_attention.py:101",
@@ -318,10 +359,10 @@ def smi_line() -> str:
 
 
 def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    return PEAK_DEFAULT
+    """Published dense peaks (bf16 tensor-core FLOP/s, memory bytes/s) of
+    the card called ``name`` (``utils/flops.py``)."""
+    from horovod_tpu_torch.utils.flops import peaks_for as peaks
+    return peaks(name)
 
 
 def time_ms(fn, reps: int = 15, inner: int = 10,
@@ -1647,12 +1688,12 @@ def phase_parity_attn_bhtd(seed: int):
     return abs_err
 
 
-def pp_step_fn(cfg, mesh, device="cuda"):
+def pp_step_fn(cfg, mesh, device="cuda", **kw):
     from horovod_tpu_torch.parallel.pp_transformer import \
         make_pp_transformer_train_step
     return make_pp_transformer_train_step(
         cfg, mesh, functools.partial(torch.optim.AdamW, **ADAMW), PP_MICRO,
-        device=device)
+        device=device, **kw)
 
 
 def phase_pp_lm_train(seed: int, peaks):
@@ -1822,6 +1863,293 @@ def phase_timing_attn_bhtd(seed: int, peaks):
     return rows
 
 
+# -- the training-plane knobs, the guard and the bench entry -----------------
+
+def _flat_params(named):
+    return {n: p.detach().float().clone() for n, p in named}
+
+
+def _update_cosine(after_a, after_b, before) -> float:
+    """Cosine of two whole-model updates, summed leaf by leaf in f64."""
+    dot = na = nb = 0.0
+    for n, p0 in before.items():
+        a = (after_a[n] - p0).double()
+        b = (after_b[n] - p0).double()
+        dot += float((a * b).sum())
+        na += float((a * a).sum())
+        nb += float((b * b).sum())
+    return dot / max(math.sqrt(na * nb), 1e-300)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _knob_run(name, make, tokens, labels, held: int):
+    """``KNOB_STEPS`` steps of the step ``make()`` builds (``(state, step,
+    named)``): the losses, the launches of the run, its peak memory, the
+    last step's seconds, and the parameters before and after. ``held``
+    is the bytes of the earlier runs' parameter copies still on the card:
+    they and this run's own copy are left out of the peak, which is
+    the step's."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, named = make()
+    before = _flat_params(named(state))
+    losses = []
+    LAUNCHES.reset()
+    for _ in range(KNOB_STEPS):
+        t0 = time.monotonic()
+        state, loss = step(state, tokens, labels)
+        losses.append(loss.item())
+        secs = time.monotonic() - t0
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated() - held - _nbytes(
+        before.values())
+    after = _flat_params(named(state))
+    report = dict(variant=name, losses=losses, step_s=secs,
+                  launches=launches, peak_mem_gb=peak / 1e9)
+    del state
+    check(all(np.isfinite(losses)), f"{name}: loss not finite {losses}")
+    return report, before, after
+
+
+def phase_train_knobs(seed: int):
+    """The bench LM at full width (8 x 2048, AdamW as bench.py), two steps
+    per variant from the same seed and batch: accumulation over 2
+    microbatches, remat, the chunked loss, the bf16 and fp8 wire formats
+    (the path NCCL takes for each), and the pipelined step with the guard
+    armed and a bf16 wire, each against its plain counterpart."""
+    import dataclasses
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.fusion import wire_path
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+    from horovod_tpu_torch.parallel.pp_transformer import named_leaves
+    from horovod_tpu_torch.parallel.transformer import \
+        make_parallel_train_step
+    from horovod_tpu_torch.utils import config as hcfg
+    hvd.init()
+    check(hvd.size() == 1, "expected a 1-rank world")
+    check(not hcfg.guard_nonfinite() and hcfg.wire_dtype_default() is None,
+          "HVD_GUARD_NONFINITE / HVD_WIRE_DTYPE are set")
+    base_cfg = lm_config()
+    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
+    adamw = functools.partial(torch.optim.AdamW, **ADAMW)
+
+    def dp(cfg=base_cfg, **kw):
+        def make():
+            init_state, step = make_parallel_train_step(cfg, adamw, **kw)
+            return (init_state(seed), step,
+                    lambda st: st.model.named_parameters())
+        return make
+
+    def pp(**kw):
+        def make():
+            init_state, step = pp_step_fn(
+                base_cfg, create_hybrid_mesh(dp=1, pp=1), **kw)
+            return init_state(seed), step, lambda st: named_leaves(
+                st.params)
+        return make
+
+    L, n = base_cfg.n_layers, KNOB_STEPS
+    dp_launches = {"flash_attention_qkv_fwd": L, "flash_bwd_dq": L,
+                   "flash_bwd_dkv": L}
+    pp_launches = {k: L * PP_MICRO for k in BHTD_KERNELS}
+    # (name, step builder, launches per step, the run it is held to)
+    variants = (
+        ("base", dp(), dp_launches, None),
+        ("accum2", dp(accum_steps=2),
+         {k: 2 * v for k, v in dp_launches.items()}, "base"),
+        # remat recomputes each layer's forward, flash kernel included.
+        ("remat", dp(dataclasses.replace(base_cfg, remat=True)),
+         dict(dp_launches, flash_attention_qkv_fwd=2 * L), "base"),
+        ("chunk", dp(dataclasses.replace(base_cfg, loss_chunk=KNOB_CHUNK)),
+         dp_launches, "base"),
+        ("wire_bf16", dp(wire_dtype="bf16"), dp_launches, "base"),
+        ("wire_fp8", dp(wire_dtype="fp8"), dp_launches, "base"),
+        ("pp", pp(), pp_launches, None),
+        ("pp_guard_bf16", pp(wire_dtype="bf16", guard_nonfinite=True),
+         pp_launches, "pp"),
+    )
+    runs, refs = {}, {}
+    for name, make, per_step, ref in variants:
+        held = sum(_nbytes(b.values()) + _nbytes(a.values())
+                   for b, a in refs.values())
+        report, before, after = _knob_run(name, make, tokens, labels, held)
+        want = {k: v * n for k, v in per_step.items()}
+        got = {k: report["launches"].get(k, 0) for k in want}
+        check(got == want, f"{name}: launches {report['launches']}, "
+                           f"expected {want}")
+        runs[name] = report
+        if ref is None:
+            refs[name] = (before, after)
+            continue
+        ref_before, ref_after = refs[ref]
+        check(all(torch.equal(p0, ref_before[k])
+                  for k, p0 in before.items()),
+              f"{name}: initial params differ from the {ref} run's")
+        report["update_cosine"] = _update_cosine(after, ref_after,
+                                                 ref_before)
+        diff = max(float((after[k] - ref_after[k]).abs().max())
+                   for k in after)
+        report["max_abs_param_diff"] = diff
+        report["bitwise_equal"] = diff == 0.0
+        report["params_within"] = {
+            w: all(torch.allclose(after[k], ref_after[k], rtol=t["rtol"],
+                                  atol=t["atol"]) for k in after)
+            for w, t in TOL_WIRE.items()}
+        del before, after
+    del refs
+    base = runs["base"]
+    paths = {w: wire_path(w) for w in ("bf16", "fp8")}
+    emit("train_knobs", batch=LM_BATCH, seq=LM_SEQ, steps=n,
+         variants=runs, wire_paths=paths,
+         nccl=".".join(map(str, torch.cuda.nccl.version())),
+         tolerance={"accum": TOL_E2E_LM, "chunk": TOL_CHUNK,
+                    "wire": TOL_WIRE},
+         note="update_cosine, max_abs_param_diff: each variant's params "
+              "after the steps against its plain run's (base; pp for the "
+              "pipelined variants)")
+    acc = runs["accum2"]
+    check(abs(acc["losses"][0] - base["losses"][0]) <= TOL_E2E_LM["loss"],
+          f"accum2 loss {acc['losses'][0]} vs {base['losses'][0]}")
+    check(acc["update_cosine"] >= TOL_E2E_LM["update_cosine"],
+          f"accum2 update cosine {acc['update_cosine']}")
+    check(runs["remat"]["update_cosine"] >= TOL_E2E_LM["update_cosine"],
+          f"remat update cosine {runs['remat']['update_cosine']}")
+    for i in range(n):
+        rel = abs(runs["chunk"]["losses"][i] / base["losses"][i] - 1)
+        check(rel <= TOL_CHUNK, f"chunked loss differs by {rel}")
+    for w in ("bf16", "fp8"):
+        got, tol = runs[f"wire_{w}"], TOL_WIRE[w]
+        rel = abs(got["losses"][-1] / base["losses"][-1] - 1)
+        check(rel <= tol["loss_rtol"], f"wire {w}: loss differs by {rel}")
+        check(got["params_within"][w], f"wire {w}: params beyond {tol}")
+    got = runs["pp_guard_bf16"]
+    rel = abs(got["losses"][-1] / runs["pp"]["losses"][-1] - 1)
+    check(rel <= TOL_WIRE["bf16"]["loss_rtol"]
+          and got["params_within"]["bf16"],
+          f"pp with guard and bf16 wire: loss differs by {rel}")
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+
+
+def phase_guard(seed: int):
+    """The bad-step guard on the fused ResNet-50 at batch 128 (SGD 0.1,
+    momentum 0.9): a finite step, a step whose batch holds a NaN image
+    (params, momentum and BatchNorm buffers bit-unchanged, bad_step 1,
+    loss 0, the kernels still run), a finite step that trains; then the
+    step time with the guard off and on, in turns."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+    hvd.init()
+    model = build_resnet("fused", seed)
+    state = create_train_state(model, functools.partial(
+        torch.optim.SGD, lr=0.1, momentum=0.9))
+    guarded = make_train_step(guard_nonfinite=True)
+    x, y = synthetic_batch(RN_BATCH, seed)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("nan")
+
+    def bits():
+        opt = state.optimizer
+        return ([p.detach().clone() for p in model.parameters()]
+                + [opt.state[p]["momentum_buffer"].clone()
+                   for p in model.parameters()]
+                + [b.detach().clone() for b in model.buffers()])
+    state, m0 = guarded(state, (x, y))
+    before = bits()
+    LAUNCHES.reset()
+    state, m1 = guarded(state, (bad, y))
+    skipped = {k: float(v) for k, v in m1.items()}
+    skip_launches = LAUNCHES.snapshot()
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, bits()))
+    LAUNCHES.reset()
+    state, m2 = guarded(state, (x, y))
+    after = {k: float(v) for k, v in m2.items()}
+    trained = not all(torch.equal(a, b) for a, b in
+                      zip(before[:len(list(model.parameters()))],
+                          bits()))
+    rec_launches = LAUNCHES.snapshot()
+    del before
+    plain = make_train_step()
+    times = {"off": [], "on": []}
+    for _ in range(GUARD_TIMED_PAIRS):
+        for key, step in (("off", plain), ("on", guarded)):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = step(state, (x, y))
+            m["loss"].item()
+            times[key].append((time.monotonic() - t0) * 1e3)
+    p50 = {k: float(np.median(v)) for k, v in times.items()}
+    emit("guard", batch=RN_BATCH, first_loss=float(m0["loss"]),
+         skipped=skipped, unchanged=unchanged, recovery=after,
+         trained=trained, skip_launches=skip_launches,
+         recovery_launches=rec_launches, step_ms=times, step_ms_p50=p50,
+         guard_cost_ms=p50["on"] - p50["off"],
+         decision="one host read of the all-finite flag per step")
+    check(skipped["bad_step"] == 1.0 and skipped["loss"] == 0.0,
+          f"NaN step not skipped: {skipped}")
+    check(unchanged, "a skipped step changed params, momentum or BN stats")
+    check(after["bad_step"] == 0.0 and np.isfinite(after["loss"])
+          and trained, f"the step after the skip did not train: {after}")
+    for launches in (skip_launches, rec_launches):
+        check(launches.get("fused_conv_bn_fwd") == RN_SITES
+              and launches.get("fused_conv_bn_bwd") == RN_SITES,
+              f"guarded step launches {launches}")
+    del state, model, x, y, bad
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+
+
+def phase_bench(smi: str):
+    """``python -m horovod_tpu_torch.bench`` in a process of its own for
+    each of BENCH_RUNS: every line named as expected, finite positive
+    values, 0 < mfu <= 1, the knob fields, the peak bytes and the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    for args, names in BENCH_RUNS:
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.bench", *args],
+            cwd=root, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT)
+        secs = time.monotonic() - t0
+        check(proc.returncode == 0, f"bench {args} exited "
+                                    f"{proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+                 if ln.startswith("{")]
+        emit("bench", args=list(args), seconds=secs, lines=lines)
+        check([ln["metric"] for ln in lines] == list(names),
+              f"bench {args} printed {[ln['metric'] for ln in lines]}")
+        accum = int(args[args.index("--accum-steps") + 1]) \
+            if "--accum-steps" in args else 1
+        for ln in lines:
+            check(np.isfinite(ln["value"]) and ln["value"] > 0
+                  and ln["vs_baseline"] > 0, f"bench value {ln}")
+            check(0 < ln["mfu"] <= 1 and ln["tflops_per_gpu"] > 0,
+                  f"bench mfu {ln}")
+            check(isinstance(ln["peak_bytes_per_gpu"], int)
+                  and ln["peak_bytes_per_gpu"] > 0, f"bench peak {ln}")
+            check({k: ln[k] for k in ("accum_steps", "zero", "overlap",
+                                      "wire_dtype", "tp", "pp", "mesh",
+                                      "world")}
+                  == {"accum_steps": accum, "zero": False,
+                      "overlap": False, "wire_dtype": "fp32", "tp": 1,
+                      "pp": 1, "mesh": "dp1", "world": 1},
+                  f"bench knob fields {ln}")
+            check(ln["gpu"] == smi, f"bench card {ln['gpu']} vs {smi}")
+        if "--conv-backend" in args:
+            check(lines[0]["conv_backend"] == "fused", "bench backend")
+        if "images" in names[0]:
+            check(0 < lines[0]["phases"]["backward_share"] <= 1,
+                  f"bench phases {lines[0]['phases']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1863,6 +2191,9 @@ def main() -> int:
         launches.update(phase_pp_lm_train(args.seed, peaks))
         phase_e2e_pp_lm_train(args.seed)
         times.update(phase_timing_attn_bhtd(args.seed, peaks))
+        phase_train_knobs(args.seed)
+        phase_guard(args.seed)
+        phase_bench(smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1

@@ -1,12 +1,14 @@
-"""ResNet-50 (bottleneck ResNet v1) in PyTorch, with the fused 1x1
-conv + BatchNorm backend.
+"""ResNet v1 in PyTorch (ResNet-50 and the CIFAR ResNet-20 family), with
+the fused 1x1 conv + BatchNorm backend.
 
 Port of the JAX package's ``models/resnet.py``: ``_FusedConv1x1`` and
-``_FoldedBN`` (:35-119), ``BottleneckBlock`` (:146-279), ``ResNet``
-(:310-401) and ``resnet50`` (:431). Modules are named after the flax
-scopes (``stem``, ``stem_bn``, ``BottleneckBlock_<i>`` numbered across
-stages, ``Conv_0..2``, ``BatchNorm_0..2``, ``shortcut``, ``shortcut_bn``,
-``head``), so :mod:`horovod_tpu_torch.convert` is a name map. Conv kernels
+``_FoldedBN`` (:35-119), ``BasicBlock`` (:122-143), ``BottleneckBlock``
+(:146-279, with ``fused_parts``), ``ResNet`` (:310-401, with the CIFAR
+stem), ``cifar_resnet_v1`` (:409) and ``resnet50`` (:431). Modules are
+named after the flax scopes (``stem``, ``stem_bn``, ``BottleneckBlock_<i>``
+or ``BasicBlock_<i>`` numbered across stages, ``Conv_0..2``,
+``BatchNorm_0..2``, ``shortcut``, ``shortcut_bn``, ``head``), so
+:mod:`horovod_tpu_torch.convert` is a name map. Conv kernels
 are ``[Cout, Cin, kh, kw]`` (flax's ``[kh, kw, Cin, Cout]`` transposed);
 the head kernel stays ``[in, out]``.
 
@@ -51,16 +53,24 @@ from ..ops.fused_conv_bn import fused_linear_bn_act
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
+# The bottleneck block's 1x1 conv sites the fused kernels can take.
+FUSED_PARTS = ("reduce", "expand", "shortcut")
 
 
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
     """What the JAX ``ResNet`` module's fields say about the network.
 
-    ``stage_sizes`` counts bottleneck blocks per stage; ``conv_backend``
-    is ``"xla"`` (stock convs; the JAX name is kept) or ``"fused"`` (the
-    training-mode 1x1 convs of ``fused_stages`` through
-    :func:`~horovod_tpu_torch.ops.fused_conv_bn.fused_linear_bn_act`)."""
+    ``stage_sizes`` counts blocks per stage; ``block`` is
+    ``"bottleneck"`` (``BottleneckBlock``) or ``"basic"``
+    (``BasicBlock``); ``cifar_stem`` takes the 3x3 stride-1 stem with no
+    max-pool. ``conv_backend`` is ``"xla"`` (stock convs; the JAX name is
+    kept) or ``"fused"`` (the training-mode 1x1 convs of the bottleneck
+    blocks of ``fused_stages`` through
+    :func:`~horovod_tpu_torch.ops.fused_conv_bn.fused_linear_bn_act`);
+    ``fused_parts`` names which of a block's 1x1 convs (``reduce``,
+    ``expand``, ``shortcut``) take the kernels — the others run stock
+    convs inside the fused branch."""
 
     stage_sizes: Tuple[int, ...] = (3, 4, 6, 3)
     num_classes: int = 1000
@@ -68,11 +78,21 @@ class ResNetConfig:
     dtype: torch.dtype = torch.bfloat16
     conv_backend: str = "xla"
     fused_stages: Tuple[int, ...] = (0, 1)
+    fused_parts: Tuple[str, ...] = FUSED_PARTS
+    block: str = "bottleneck"
+    cifar_stem: bool = False
 
     def __post_init__(self):
         if self.conv_backend not in ("xla", "fused"):
             raise ValueError(f"conv_backend must be 'xla' or 'fused', got "
                              f"{self.conv_backend!r}")
+        if self.block not in ("bottleneck", "basic"):
+            raise ValueError(f"block must be 'bottleneck' or 'basic', got "
+                             f"{self.block!r}")
+        unknown = set(self.fused_parts) - set(FUSED_PARTS)
+        if unknown:
+            raise ValueError(f"fused_parts {sorted(unknown)} are not among "
+                             f"{FUSED_PARTS}")
 
 
 def jax_fusable(m: int) -> bool:
@@ -208,11 +228,13 @@ class BottleneckBlock(nn.Module):
     One parameter per conv serves both branches."""
 
     def __init__(self, cin: int, filters: int, stride: int, fused: bool,
-                 dtype: torch.dtype, device):
+                 dtype: torch.dtype, device,
+                 fused_parts: Sequence[str] = FUSED_PARTS):
         super().__init__()
         f = filters
         self.filters, self.stride, self.fused, self.dtype = (f, stride,
                                                              fused, dtype)
+        self.fused_parts = tuple(fused_parts)
         self.Conv_0 = Conv(cin, f, 1, device)
         self.BatchNorm_0 = BatchNorm(f, device)
         self.Conv_1 = Conv(f, f, 3, device)
@@ -254,32 +276,84 @@ class BottleneckBlock(nn.Module):
         return torch.relu(y + residual)
 
     def _fused(self, x):
-        dtype, f, s = self.dtype, self.filters, self.stride
+        """The JAX ``_fused_call``: each 1x1 conv in ``fused_parts`` through
+        the kernels (statistics from their epilogue), the others as stock
+        convs with one statistics pass; BatchNorm folded into affines."""
+        dtype, f, s, parts = self.dtype, self.filters, self.stride, \
+            self.fused_parts
         n, h, w, cin = x.shape
         x2 = x.reshape(-1, cin).to(dtype)
         # 1x1 reduce: raw input, statistics epilogue.
-        y, s1, s2, cnt = fused_conv1x1(self.Conv_0, x2)
-        a1, b1 = self.BatchNorm_0.fold(s1, s2, cnt)
+        if "reduce" in parts:
+            y, s1, s2, cnt = fused_conv1x1(self.Conv_0, x2)
+            a1, b1 = self.BatchNorm_0.fold(s1, s2, cnt)
+        else:
+            y = self.Conv_0(x)
+            a1, b1 = self.BatchNorm_0.fold(x=y)
         z = _relu_affine(a1, y, b1, dtype).view(n, h, w, f)
         # 3x3 (stock conv, carries the stride); its statistics are one
         # reduction pass, folded into the expand conv's prologue.
         y = self._conv3x3(z)
         a2, b2 = self.BatchNorm_1.fold(x=y)
         n2, h2, w2, _ = y.shape
-        y3, s1, s2, cnt = fused_conv1x1(self.Conv_2, y.reshape(-1, f),
-                                        a2, b2)
-        a3, b3 = self.BatchNorm_2.fold(s1, s2, cnt)
+        if "expand" in parts:
+            y3, s1, s2, cnt = fused_conv1x1(self.Conv_2, y.reshape(-1, f),
+                                            a2, b2)
+            a3, b3 = self.BatchNorm_2.fold(s1, s2, cnt)
+        else:
+            y3 = self.Conv_2(_relu_affine(a2, y, b2, dtype))
+            a3, b3 = self.BatchNorm_2.fold(x=y3)
+            y3 = y3.reshape(-1, 4 * f)
         if self.has_shortcut:
-            # The strided input is copied to a contiguous [M/s², Cin].
-            xs = x[:, ::s, ::s, :].contiguous() if s != 1 else x
-            ys, s1, s2, cnt = fused_conv1x1(self.shortcut,
-                                            xs.reshape(-1, cin).to(dtype))
-            a4, b4 = self.shortcut_bn.fold(s1, s2, cnt)
+            if "shortcut" in parts:
+                # The strided input is copied to a contiguous [M/s², Cin].
+                xs = x[:, ::s, ::s, :].contiguous() if s != 1 else x
+                ys, s1, s2, cnt = fused_conv1x1(
+                    self.shortcut, xs.reshape(-1, cin).to(dtype))
+                a4, b4 = self.shortcut_bn.fold(s1, s2, cnt)
+            else:
+                ys = self.shortcut(x, s)
+                a4, b4 = self.shortcut_bn.fold(x=ys)
+                ys = ys.reshape(-1, 4 * f)
             residual = a4 * ys.float() + b4
         else:
             residual = x2.float()
         out = torch.relu(a3 * y3.float() + b3 + residual).to(dtype)
         return out.view(n2, h2, w2, 4 * f)
+
+
+class BasicBlock(nn.Module):
+    """ResNet v1 basic block (JAX ``BasicBlock``): 3x3 conv (carries the
+    stride) -> BN -> ReLU -> 3x3 conv -> BN (scale initialised to 0), plus
+    a projection shortcut when the shape changes, -> add -> ReLU. Stock
+    convs only: the fused kernels take 1x1 convs."""
+
+    def __init__(self, cin: int, filters: int, stride: int,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        f = filters
+        self.stride = stride
+        self.Conv_0 = Conv(cin, f, 3, device)
+        self.BatchNorm_0 = BatchNorm(f, device)
+        self.Conv_1 = Conv(f, f, 3, device)
+        self.BatchNorm_1 = BatchNorm(f, device, zero_scale=True)
+        self.has_shortcut = cin != f or stride != 1
+        if self.has_shortcut:
+            self.shortcut = Conv(cin, f, 1, device)
+            self.shortcut_bn = BatchNorm(f, device)
+
+    def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        s = self.stride
+        y = self.Conv_0(x, s, (same_pads(h, 3, s), same_pads(w, 3, s)))
+        y = torch.relu(self.BatchNorm_0(y, train))
+        _, h2, w2, _ = y.shape
+        y = self.Conv_1(y, 1, (same_pads(h2, 3, 1), same_pads(w2, 3, 1)))
+        y = self.BatchNorm_1(y, train)
+        residual = x
+        if self.has_shortcut:
+            residual = self.shortcut_bn(self.shortcut(x, s), train)
+        return torch.relu(y + residual)
 
 
 class Dense(nn.Module):
@@ -301,8 +375,9 @@ class Dense(nn.Module):
 
 
 class ResNet(nn.Module):
-    """The ImageNet ResNet (7x7/2 stem + 3x3/2 max-pool, bottleneck
-    stages, global average pool, f32 head). Input: ``[N, H, W, 3]``."""
+    """ResNet v1: the ImageNet stem (7x7/2 conv + 3x3/2 max-pool) or the
+    CIFAR stem (3x3/1 conv, no pool), bottleneck or basic stages, global
+    average pool, f32 head. Input: ``[N, H, W, 3]``."""
 
     def __init__(self, cfg: ResNetConfig, *, device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None):
@@ -310,20 +385,29 @@ class ResNet(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         nf = cfg.num_filters
-        self.stem = Conv(3, nf, 7, dev)
+        self.stem = Conv(3, nf, 3 if cfg.cifar_stem else 7, dev)
         self.stem_bn = BatchNorm(nf, dev)
         self.block_names = []
+        basic = cfg.block == "basic"
+        expansion = 1 if basic else 4
         cin, i = nf, 0
         for stage, count in enumerate(cfg.stage_sizes):
-            fused = (cfg.conv_backend == "fused"
+            fused = (cfg.conv_backend == "fused" and not basic
                      and stage in cfg.fused_stages)
             for j in range(count):
                 stride = 2 if stage > 0 and j == 0 else 1
-                name = f"BottleneckBlock_{i}"
-                self.add_module(name, BottleneckBlock(
-                    cin, nf * 2 ** stage, stride, fused, cfg.dtype, dev))
+                filters = nf * 2 ** stage
+                if basic:
+                    name = f"BasicBlock_{i}"
+                    block = BasicBlock(cin, filters, stride, cfg.dtype, dev)
+                else:
+                    name = f"BottleneckBlock_{i}"
+                    block = BottleneckBlock(cin, filters, stride, fused,
+                                            cfg.dtype, dev,
+                                            cfg.fused_parts)
+                self.add_module(name, block)
                 self.block_names.append(name)
-                cin, i = 4 * nf * 2 ** stage, i + 1
+                cin, i = expansion * filters, i + 1
         self.head = Dense(cin, cfg.num_classes, dev)
         self.reset_parameters(generator)
 
@@ -340,13 +424,18 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         dtype = self.cfg.dtype
         x = x.to(dtype)
-        x = self.stem(x, 2, ((3, 3), (3, 3)))
-        x = torch.relu(self.stem_bn(x, train))
-        _, h, w, _ = x.shape
-        (pt, pb), (pl, pr) = same_pads(h, 3, 2), same_pads(w, 3, 2)
-        xc = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb),
-                   value=float("-inf"))
-        x = F.max_pool2d(xc, 3, 2).permute(0, 2, 3, 1).contiguous()
+        if self.cfg.cifar_stem:
+            _, h, w, _ = x.shape
+            x = self.stem(x, 1, (same_pads(h, 3, 1), same_pads(w, 3, 1)))
+            x = torch.relu(self.stem_bn(x, train))
+        else:
+            x = self.stem(x, 2, ((3, 3), (3, 3)))
+            x = torch.relu(self.stem_bn(x, train))
+            _, h, w, _ = x.shape
+            (pt, pb), (pl, pr) = same_pads(h, 3, 2), same_pads(w, 3, 2)
+            xc = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb),
+                       value=float("-inf"))
+            x = F.max_pool2d(xc, 3, 2).permute(0, 2, 3, 1).contiguous()
         for name in self.block_names:
             x = getattr(self, name)(x, train)
         x = x.float().mean(dim=(1, 2)).to(dtype)
@@ -356,11 +445,29 @@ class ResNet(nn.Module):
 def resnet50(num_classes: int = 1000, *, dtype: torch.dtype = torch.bfloat16,
              conv_backend: str = "xla",
              fused_stages: Sequence[int] = (0, 1),
+             fused_parts: Sequence[str] = FUSED_PARTS,
              device: DeviceLike = "cuda",
              generator: Optional[torch.Generator] = None) -> ResNet:
     """ImageNet ResNet-50: stages ``[3, 4, 6, 3]``, 64 base filters."""
     return ResNet(ResNetConfig(stage_sizes=(3, 4, 6, 3),
                                num_classes=num_classes, num_filters=64,
                                dtype=dtype, conv_backend=conv_backend,
-                               fused_stages=tuple(fused_stages)),
+                               fused_stages=tuple(fused_stages),
+                               fused_parts=tuple(fused_parts)),
+                  device=device, generator=generator)
+
+
+def cifar_resnet_v1(depth: int = 20, num_classes: int = 10, *,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: DeviceLike = "cuda",
+                    generator: Optional[torch.Generator] = None) -> ResNet:
+    """ResNet v1 for CIFAR (``keras-cifar10-resnet.py`` resnet_v1): depth
+    ``6n + 2`` (20, 56, 110), three stages of ``n`` basic blocks with 16,
+    32 and 64 filters behind the CIFAR stem."""
+    if (depth - 2) % 6:
+        raise ValueError("v1 depth must be 6n+2 (e.g. 20, 56, 110)")
+    n = (depth - 2) // 6
+    return ResNet(ResNetConfig(stage_sizes=(n, n, n),
+                               num_classes=num_classes, num_filters=16,
+                               dtype=dtype, block="basic", cifar_stem=True),
                   device=device, generator=generator)

@@ -1,11 +1,12 @@
 """``DistributedOptimizer`` and the parameter/optimizer-state broadcasts.
 
 Port of the JAX package's ``optimizer.py`` plain plane:
-``DistributedOptimizer`` (:583) wraps any ``torch.optim.Optimizer``; its
-``step()`` fused-allreduces the ``.grad`` of every parameter, bucket by
-bucket in the order of ``named_parameters`` (:func:`.ops.fusion.
-fused_allreduce`), and then runs the wrapped step. ``allreduce_gradients``
-(:788) is the exchange alone. ``broadcast_parameters`` (the counterpart
+``DistributedOptimizer`` (:583-640) wraps any ``torch.optim.Optimizer``;
+its ``step()`` fused-allreduces the ``.grad`` of every parameter, bucket
+by bucket in the order of ``named_parameters`` (:func:`.ops.fusion.
+fused_allreduce`, with its ``accum_steps`` prescale and ``wire_dtype``),
+and then runs the wrapped step. ``allreduce_gradients`` (:788) is the
+exchange alone. ``broadcast_parameters`` (the counterpart
 of ``broadcast_global_variables`` :877) sends rank 0's parameters AND
 buffers (BatchNorm running statistics) to every rank;
 ``broadcast_optimizer_state`` (:895) does the same for the optimizer's
@@ -25,7 +26,8 @@ import torch
 import torch.distributed as dist
 
 from . import runtime
-from .ops.fusion import fused_allreduce
+from .ops.fusion import fused_allreduce, resolve_wire_dtype
+from .utils import config as _config
 
 NamedParams = Sequence[Tuple[str, torch.nn.Parameter]]
 
@@ -33,22 +35,33 @@ NamedParams = Sequence[Tuple[str, torch.nn.Parameter]]
 def allreduce_gradients(params: Iterable[torch.nn.Parameter],
                         average: bool = True,
                         fusion_threshold: Optional[int] = None,
-                        group=None) -> None:
+                        group=None, accum_steps: int = 1,
+                        wire_dtype=None, return_finite: bool = False):
     """Replace each parameter's ``.grad`` with its average (or sum) over
     ``group`` (the world when None) through the fused bucket allreduce,
-    in the order given."""
+    in the order given. ``accum_steps > 1`` divides by the local
+    microbatch count (the caller's ``.grad`` holds a SUM over that many
+    backward passes) as a prescale fused into each bucket; ``wire_dtype``
+    passes through to :func:`~.ops.fusion.fused_allreduce`.
+    ``return_finite=True`` returns the world-wide all-finite flag (a
+    0-dim bool tensor) read from the reduced buckets; None otherwise."""
     params = list(params)
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
-    reduced = fused_allreduce(grads, average=average,
-                              fusion_threshold=fusion_threshold,
-                              group=group)
+    out = fused_allreduce(grads, average=average,
+                          fusion_threshold=fusion_threshold,
+                          prescale=None if accum_steps <= 1
+                          else 1.0 / accum_steps,
+                          group=group, wire_dtype=wire_dtype,
+                          return_finite=return_finite)
+    reduced, finite = out if return_finite else (out, None)
     with torch.no_grad():
         for p, g, r in zip(params, grads, reduced):
             if p.grad is None:
                 p.grad = r.clone()
             else:
                 g.copy_(r)
+    return finite
 
 
 class DistributedOptimizer:
@@ -57,19 +70,34 @@ class DistributedOptimizer:
     averaging denominator is then that group's size).
 
     ``named_parameters`` fixes the bucket order (default: the wrapped
-    optimizer's parameter groups in order). Every other attribute —
-    ``param_groups``, ``state``, ``zero_grad``, ``state_dict`` … — is the
-    wrapped optimizer's, so its state is exactly the plain optimizer's."""
+    optimizer's parameter groups in order). ``accum_steps`` is the
+    reference's ``backward_passes_per_step``: the caller's ``.grad``
+    holds the SUM of that many microbatch gradients and the exchange
+    divides by it, folded into each bucket's prescale (do not also set
+    ``make_train_step(accum_steps=)``, which owns its own ``1/N``).
+    ``wire_dtype`` (``"bf16"``, ``"fp8"``; default ``HVD_WIRE_DTYPE``)
+    puts float gradient buckets on the wire in reduced precision with
+    f32 scales and f32 results (:func:`~.ops.fusion.fused_allreduce`).
+    Every other attribute — ``param_groups``, ``state``, ``zero_grad``,
+    ``state_dict`` … — is the wrapped optimizer's, so its state is
+    exactly the plain optimizer's."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters: Optional[NamedParams] = None,
                  average: bool = True,
                  fusion_threshold: Optional[int] = None,
-                 process_group=None):
+                 process_group=None, accum_steps: int = 1,
+                 wire_dtype=None):
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.optimizer = optimizer
         self.average = average
         self.fusion_threshold = fusion_threshold
         self.process_group = process_group
+        self.accum_steps = accum_steps
+        self.wire_dtype = resolve_wire_dtype(
+            wire_dtype if wire_dtype is not None
+            else _config.wire_dtype_default())
         owned = [p for g in optimizer.param_groups for p in g["params"]]
         if named_parameters is None:
             named_parameters = [(f"param_{i}", p) for i, p in
@@ -84,12 +112,15 @@ class DistributedOptimizer:
             raise ValueError("named_parameters has duplicate names")
         self.named_parameters = named_parameters
 
-    def synchronize(self) -> None:
-        """The gradient exchange alone."""
-        allreduce_gradients([p for _, p in self.named_parameters],
-                            average=self.average,
-                            fusion_threshold=self.fusion_threshold,
-                            group=self.process_group)
+    def synchronize(self, return_finite: bool = False):
+        """The gradient exchange alone; with ``return_finite`` it returns
+        the world-wide all-finite flag of the reduced gradients (the
+        bad-step guard's signal, no extra collective)."""
+        return allreduce_gradients(
+            [p for _, p in self.named_parameters], average=self.average,
+            fusion_threshold=self.fusion_threshold,
+            group=self.process_group, accum_steps=self.accum_steps,
+            wire_dtype=self.wire_dtype, return_finite=return_finite)
 
     def step(self, closure=None):
         self.synchronize()

@@ -17,6 +17,10 @@ flash_attention` under ``cfg.attn_backend``: at the default "pallas" a
 tilable layer runs the ``[B, T, H, D]`` flash forward with lse and the dq
 and dk/dv kernels in the backward's recompute.
 
+``cfg.remat`` checkpoints each block inside the stage (keeping its matmul
+outputs) and ``cfg.loss_chunk`` takes the head's loss in vocab chunks
+(:func:`~.transformer.chunked_nll`).
+
 Gradient sync follows the spec-grouped plan (:func:`~..ops.fusion.
 plan_grad_sync` over :func:`pp_param_specs` with ``pp`` skipped: each
 stage owns its weights); without tp every leaf sums over dp, one group,
@@ -34,9 +38,11 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.fusion import plan_grad_sync
 from ..optimizer import DistributedOptimizer
+from ..utils import config as _config
 from .pipeline import one_f_one_b
-from .transformer import (TransformerConfig, _layer, attend_heads,
-                          check_dense, dense_nll, rms_norm, unembed)
+from .transformer import (TransformerConfig, _layer, _logits, attend_heads,
+                          check_dense, chunked_nll, dense_nll, remat_layer,
+                          rms_norm)
 
 _STAGE_KEYS = ("ln1", "ln2", "w1", "w2", "wo", "wqkv")   # JAX (sorted) order
 _PROJ = ("wqkv", "wo", "w1", "w2")
@@ -114,6 +120,8 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
                                    optimizer: Callable[...,
                                                        torch.optim.Optimizer],
                                    n_microbatches: int, *,
+                                   wire_dtype=None,
+                                   guard_nonfinite: Optional[bool] = None,
                                    fusion_threshold: Optional[int] = None,
                                    device: DeviceLike = "cuda"):
     """Build ``(init_state, step)``: the pipelined LM's 1F1B train step.
@@ -133,11 +141,22 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
     ``n_microbatches``), runs one 1F1B update in place, and returns the
     mean loss averaged over dp.
 
-    The JAX function's ``zero``, ``wire_dtype``, ``overlap`` and
-    ``guard_nonfinite`` keywords and the tp axis are not ported yet:
-    passing one of those keywords is a ``TypeError``."""
+    ``wire_dtype`` (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``)
+    puts the dp gradient buckets on the wire in reduced precision.
+    ``guard_nonfinite`` (default ``HVD_GUARD_NONFINITE``) skips the
+    update when any rank's gradients are non-finite: the flag of the dp
+    exchange is folded over pp with one scalar MIN — the only collective
+    the guard adds — and read on the host once; a skipped step returns
+    loss 0 and leaves params and optimizer state bit-unchanged.
+    Accumulation is native: the microbatches are the accumulation.
+
+    The JAX function's ``zero`` and ``overlap`` keywords and the tp axis
+    are not ported yet: passing one of those keywords is a
+    ``TypeError``."""
     check_dense(cfg, "make_pp_transformer_train_step")
     dev = resolve_device(device)
+    guard = (_config.guard_nonfinite() if guard_nonfinite is None
+             else bool(guard_nonfinite))
     S = mesh.shape["pp"]
     stage = mesh.coords["pp"]
     M = n_microbatches
@@ -161,16 +180,18 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
         # whole stack. (JAX casts per layer; the values are the same.)
         per_layer = {k: (st[k].to(cfg.dtype) if k in _PROJ else st[k])
                      .unbind(0) for k in _STAGE_KEYS}
+        run = remat_layer if cfg.remat else _layer
         for i in range(lps):
             layer = {k: per_layer[k][i] for k in _STAGE_KEYS}
-            x = _layer(layer, x, cfg, lambda qkv: attend_heads(qkv, cfg))
+            x = run(layer, x, cfg, lambda qkv: attend_heads(qkv, cfg))
         return x
 
     def head_loss(act, labels, head):
         h = rms_norm(act, head["lnf"])
-        logits = unembed({"unembed": head["embed"].to(cfg.unembed_dtype)},
-                         h, cfg)
-        return dense_nll(logits, labels).mean()
+        u = head["embed"].to(cfg.unembed_dtype)
+        if cfg.loss_chunk:
+            return chunked_nll(h, u, labels, cfg).mean()
+        return dense_nll(_logits(h, u, cfg), labels).mean()
 
     def init_state(seed: int = 0, params: Optional[Dict] = None
                    ) -> PPTrainState:
@@ -180,7 +201,8 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
         named = named_leaves(params)
         opt = DistributedOptimizer(
             optimizer([p for _, p in named]), named_parameters=named,
-            fusion_threshold=fusion_threshold, process_group=dp_group)
+            fusion_threshold=fusion_threshold, process_group=dp_group,
+            wire_dtype=wire_dtype)
         return PPTrainState(params=params, optimizer=opt)
 
     def step(state: PPTrainState, tokens: torch.Tensor,
@@ -215,7 +237,18 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
                  **{f"stages.{k}": sg[k] for k in _STAGE_KEYS}}
         for name, p in named_leaves(params):
             p.grad = grads[name]
-        state.optimizer.step()
+        if guard:
+            finite = state.optimizer.synchronize(return_finite=True)
+            if S > 1:   # the dp exchange never reduces over pp: fold it
+                f = finite.to(torch.int32).reshape(1)
+                torch.distributed.all_reduce(
+                    f, op=torch.distributed.ReduceOp.MIN, group=pp_group)
+                finite = f[0] > 0
+            if bool(finite):        # the guard's one host read
+                state.optimizer.optimizer.step()
+            loss = torch.where(finite, loss, torch.zeros_like(loss))
+        else:
+            state.optimizer.step()
         state.step += 1
         loss = loss.reshape(1)
         torch.distributed.all_reduce(loss, group=dp_group)

@@ -15,6 +15,9 @@ projection runs in ``cfg.dtype`` (weights cast once by
 :func:`gen_weights`), RMSNorm statistics are f32, the FFN is tanh-GELU,
 residuals add in ``cfg.dtype`` and logits are f32 from a
 ``cfg.unembed_dtype`` product with f32 accumulation (:func:`unembed`).
+``cfg.remat`` checkpoints each layer keeping only its matmul outputs
+(the counterpart of ``dots_saveable``), and ``cfg.loss_chunk`` computes
+the loss in vocab chunks with an online log-sum-exp (:func:`chunked_nll`).
 Attention in training (:func:`forward_hidden`) routes as the JAX
 function does: the packed flash kernels
 (:func:`~..ops.attention.flash_attention_qkv`) where
@@ -30,11 +33,14 @@ steps a caller-supplied ``mix`` (the paged pool read in
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import (flash_attention, flash_attention_prefill,
@@ -54,9 +60,17 @@ class TransformerConfig:
     # is tilable (the JAX name for the kernel route), "xla" the dense
     # attention, "auto" the kernels only past 4 GiB of scores.
     attn_backend: str = "pallas"
+    # Rematerialize each layer in the backward, saving only its matmul
+    # outputs (JAX's dots_saveable): the rest, attention included, is
+    # recomputed.
+    remat: bool = False
     # The tied-head unembed matmul dtype; logits are f32 (and accumulated
     # in f32) either way.
     unembed_dtype: torch.dtype = torch.float32
+    # >0: the LM loss in vocab chunks of this width with an online
+    # log-sum-exp (chunked_nll), never materializing the [B, T, vocab]
+    # f32 logits; each chunk is checkpointed. Must divide vocab. 0 = dense.
+    loss_chunk: int = 0
 
     @property
     def d_head(self) -> int:
@@ -163,6 +177,33 @@ def _layer(layer: Dict, x: torch.Tensor, cfg: TransformerConfig,
     return x + up @ layer["w2"]
 
 
+# The matmuls whose outputs a rematerialized layer keeps (JAX's
+# ``dots_saveable``): everything else in the layer — norms, GELU, casts,
+# residual adds and the flash kernels, which run outside the dispatcher —
+# is recomputed in the backward.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(layer: Dict, x: torch.Tensor, cfg: TransformerConfig,
+                attend: Callable) -> torch.Tensor:
+    """:func:`_layer` under a selective checkpoint that saves only the
+    matmul outputs (``cfg.remat``; JAX ``jax.checkpoint(_layer_fwd,
+    policy=dots_saveable)``). Without autograd it is :func:`_layer`."""
+    if not torch.is_grad_enabled():
+        return _layer(layer, x, cfg, attend)
+    return checkpoint(
+        lambda h: _layer(layer, h, cfg, attend), x, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_saveable))
+
+
 class _MatmulF32Out(torch.autograd.Function):
     """``x @ w.T`` for low-precision CUDA operands, accumulated and
     returned in f32 (cuBLAS through ``torch.mm(..., out_dtype=float32)``):
@@ -186,22 +227,29 @@ class _MatmulF32Out(torch.autograd.Function):
         return dx, dw
 
 
-def unembed(w: Dict, x: torch.Tensor, cfg: TransformerConfig
+def _logits(x: torch.Tensor, u: torch.Tensor, cfg: TransformerConfig
             ) -> torch.Tensor:
-    """Tied-head logits ``[..., vocab]`` f32 from the final hidden states
-    (already through the final norm): the product runs in
+    """``x @ u.T`` f32 ``[..., rows of u]``: the product runs in
     ``cfg.unembed_dtype`` and accumulates in f32 with no rounding of its
     output, as JAX's ``preferred_element_type=jnp.float32`` does. On the
-    CPU a bf16 unembed multiplies the bf16-valued operands in f32, which
+    CPU a bf16 product multiplies the bf16-valued operands in f32, which
     is exact per product."""
     xu = x.to(cfg.unembed_dtype)
-    u = w["unembed"]
+    u = u.to(cfg.unembed_dtype)
     if cfg.unembed_dtype == torch.float32:
         return xu @ u.t()
     if xu.device.type == "cuda":
         out = _MatmulF32Out.apply(xu.reshape(-1, xu.shape[-1]), u)
         return out.view(*xu.shape[:-1], u.shape[0])
     return xu.float() @ u.float().t()
+
+
+def unembed(w: Dict, x: torch.Tensor, cfg: TransformerConfig
+            ) -> torch.Tensor:
+    """Tied-head logits ``[..., vocab]`` f32 from the final hidden states
+    (already through the final norm; :func:`_logits` of the tied
+    unembedding)."""
+    return _logits(x, w["unembed"], cfg)
 
 
 def attend_heads(qkv: torch.Tensor, cfg: TransformerConfig
@@ -229,8 +277,9 @@ def _hidden(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig
             ) -> torch.Tensor:
     x = w["embed"][tokens.long()].to(cfg.dtype)                 # [B, T, D]
     attend = _train_attend(cfg, tokens.shape[-1])
+    run = remat_layer if cfg.remat else _layer
     for layer in w["layers"]:
-        x = _layer(layer, x, cfg, attend)
+        x = run(layer, x, cfg, attend)
     return rms_norm(x, w["lnf"])
 
 
@@ -261,6 +310,61 @@ def dense_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     return lse - picked
+
+
+def _nll_chunk(xf, w, lab, off: int, m, s, ll, cfg: TransformerConfig):
+    """One vocab chunk of :func:`chunked_nll`: the chunk's logits, the
+    running max and sum updated, and the picked logit where the label
+    falls in the chunk."""
+    logits = _logits(xf, w, cfg)                                # [N, C]
+    chunk = w.shape[0]
+    m_new = torch.maximum(m, logits.amax(-1))
+    s = s * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[:, None]).sum(-1)
+    in_chunk = (lab >= off) & (lab < off + chunk)
+    idx = (lab - off).clamp(0, chunk - 1)
+    picked = logits.gather(-1, idx[:, None])[:, 0]
+    ll = ll + torch.where(in_chunk, picked, torch.zeros_like(picked))
+    return m_new, s, ll
+
+
+def chunked_nll(x: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor,
+                cfg: TransformerConfig) -> torch.Tensor:
+    """Per-token −log p(label) over the tied unembedding ``embed [vocab,
+    d]``, computed in vocab chunks of ``cfg.loss_chunk`` with an online
+    log-sum-exp, so the ``[N, vocab]`` f32 logits never exist at once.
+    Each chunk is checkpointed: the backward recomputes its logits (one
+    more ``[N, d] × [d, C]`` product a chunk) instead of keeping them.
+    Each chunk's product runs in ``cfg.unembed_dtype`` with f32 output
+    (:func:`_logits`). Labels are clamped into ``[0, vocab)``, as the
+    dense path's gather of a clipped index reads a real logit. Raises
+    ``ValueError`` when the chunk does not divide vocab."""
+    orig_shape = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    vocab = embed.shape[0]
+    chunk = cfg.loss_chunk
+    if chunk <= 0 or vocab % chunk:
+        raise ValueError(f"loss_chunk={chunk} must divide vocab={vocab}")
+    lab = labels.reshape(-1).long().clamp(0, vocab - 1)
+    n = xf.shape[0]
+    m = torch.full((n,), -1e30, dtype=torch.float32, device=x.device)
+    s = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    ll = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    for i, w in enumerate(embed.split(chunk)):
+        m, s, ll = checkpoint(_nll_chunk, xf, w, lab, i * chunk, m, s, ll,
+                              cfg, use_reentrant=False)
+    return (m + torch.log(s) - ll).reshape(orig_shape)
+
+
+def lm_loss(w: Dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """The LM training loss ``mean(−log p(label))`` from the weights
+    ``w`` (:func:`gen_weights`): :func:`chunked_nll` when
+    ``cfg.loss_chunk``, else :func:`dense_nll` of the full logits."""
+    x = _hidden(w, tokens, cfg)
+    if cfg.loss_chunk:
+        return chunked_nll(x, w["unembed"], labels, cfg).mean()
+    return dense_nll(unembed(w, x, cfg), labels).mean()
 
 
 def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -297,7 +401,9 @@ def step_forward(w: Dict, last_tokens: torch.Tensor,
 
 def make_parallel_train_step(cfg: TransformerConfig,
                              optimizer: Callable[..., torch.optim.Optimizer],
-                             *, fusion_threshold: Optional[int] = None,
+                             *, wire_dtype=None, accum_steps: int = 1,
+                             guard_nonfinite: Optional[bool] = None,
+                             fusion_threshold: Optional[int] = None,
                              device: DeviceLike = "cuda"):
     """Build ``(init_state, step)``: the LM's data-parallel train step.
 
@@ -317,25 +423,33 @@ def make_parallel_train_step(cfg: TransformerConfig,
     :func:`~horovod_tpu_torch.broadcast_parameters` on ``state.model`` to
     start every rank from rank 0's weights. ``step(state, tokens,
     labels) -> (state, loss)`` takes this rank's ``[B_local, T]`` shard
-    and updates the state in place; the loss is ``mean(dense_nll)``
-    averaged over the world (the dense model has no MoE auxiliary loss,
-    so the JAX function's ``aux_weight`` has nothing to weigh).
+    and updates the state in place; the loss is :func:`lm_loss` averaged
+    over the world (the dense model has no MoE auxiliary loss, so the JAX
+    function's ``aux_weight`` has nothing to weigh).
 
-    The JAX function's ``aux_weight``, ``wire_dtype``, ``zero``,
-    ``accum_steps``, ``guard_nonfinite`` and ``overlap`` keywords, the
-    chunked loss and the tp/sp/ep axes are not ported yet: passing one of
-    those keywords is a ``TypeError``."""
+    The knobs run on the core step (:func:`~horovod_tpu_torch.training.
+    make_train_step`): ``accum_steps`` microbatches with one exchange,
+    ``guard_nonfinite`` (default ``HVD_GUARD_NONFINITE``; on a skipped
+    step the loss is 0 and the state bit-unchanged) and ``wire_dtype``
+    (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``). ``cfg.remat`` and
+    ``cfg.loss_chunk`` act in the forward and the loss.
+
+    The JAX function's ``aux_weight``, ``zero`` and ``overlap`` keywords
+    and the tp/sp/ep axes are not ported yet: passing one of those
+    keywords is a ``TypeError``."""
     check_dense(cfg, "make_parallel_train_step")
     from .. import training
     dev = resolve_device(device)
 
-    def value_and_grad(model: Transformer, batch) -> torch.Tensor:
+    def value_and_grad(model: Transformer, batch):
         tokens, labels = batch
-        loss = dense_nll(forward(model, tokens), labels).mean()
+        loss = lm_loss(gen_weights(model), tokens, labels, model.cfg)
         loss.backward()
-        return loss
+        return loss.detach(), None
 
-    core = training.make_train_step(_value_and_grad=value_and_grad)
+    core = training.make_train_step(
+        _value_and_grad=value_and_grad, accum_steps=accum_steps,
+        guard_nonfinite=guard_nonfinite)
 
     def init_state(seed: int = 0, model: Optional[Transformer] = None):
         if model is None:
@@ -344,7 +458,8 @@ def make_parallel_train_step(cfg: TransformerConfig,
         elif model.cfg != cfg:
             raise ValueError(f"model.cfg {model.cfg} is not {cfg}")
         return training.create_train_state(
-            model, optimizer, fusion_threshold=fusion_threshold, device=dev)
+            model, optimizer, fusion_threshold=fusion_threshold,
+            wire_dtype=wire_dtype, device=dev)
 
     def step(state, tokens: torch.Tensor, labels: torch.Tensor):
         state, metrics = core(state, (tokens, labels))

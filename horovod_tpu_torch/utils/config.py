@@ -6,6 +6,10 @@ imported here). The names and defaults are the same:
 
 * ``HOROVOD_FUSION_THRESHOLD`` — the tensor-fusion bucket size in bytes,
   64 MiB by default; 0 disables fusion (one bucket per tensor).
+* ``HVD_GUARD_NONFINITE`` — the default of the bad-step guard
+  (:func:`guard_nonfinite`).
+* ``HVD_WIRE_DTYPE`` — the default low-precision wire format of the
+  gradient exchange (:func:`wire_dtype_default`).
 * The launcher's process environment: rank from ``HVD_RANK`` /
   ``PMI_RANK`` / ``OMPI_COMM_WORLD_RANK``, size from ``HVD_SIZE`` /
   ``PMI_SIZE`` / ``OMPI_COMM_WORLD_SIZE``, local rank from
@@ -34,6 +38,26 @@ def _int_env(name: str, default: int) -> int:
 def fusion_threshold_bytes() -> int:
     """``HOROVOD_FUSION_THRESHOLD`` (bytes; 0 disables fusion)."""
     return _int_env("HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD)
+
+
+def guard_nonfinite() -> bool:
+    """``HVD_GUARD_NONFINITE`` — default for the bad-step guard
+    (``make_train_step(guard_nonfinite=...)``): skip the optimizer update
+    (params, optimizer state and BatchNorm running statistics
+    bit-unchanged) whenever any rank's gradients carry NaN/Inf. Off unless
+    set to 1/true/yes/on."""
+    return os.environ.get("HVD_GUARD_NONFINITE", "").lower() in (
+        "1", "true", "yes", "on")
+
+
+def wire_dtype_default():
+    """``HVD_WIRE_DTYPE`` — default low-precision wire format for gradient
+    collectives (``DistributedOptimizer(wire_dtype=...)``): ``bf16`` or
+    ``fp8`` (e4m3, per-bucket dynamic scaling); empty/``fp32`` means full
+    precision. Resolution and validation live in
+    :func:`horovod_tpu_torch.ops.fusion.resolve_wire_dtype`."""
+    raw = os.environ.get("HVD_WIRE_DTYPE", "").strip().lower()
+    return raw or None
 
 
 _RANK_VARS = ("HVD_RANK", "PMI_RANK", "OMPI_COMM_WORLD_RANK")

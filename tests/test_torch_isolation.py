@@ -68,7 +68,8 @@ def test_every_submodule_is_importable_here():
             "horovod_tpu_torch.utils.flops",
             "horovod_tpu_torch.parallel.mesh",
             "horovod_tpu_torch.parallel.pipeline",
-            "horovod_tpu_torch.parallel.pp_transformer"} <= set(names)
+            "horovod_tpu_torch.parallel.pp_transformer",
+            "horovod_tpu_torch.bench"} <= set(names)
 
 
 def test_no_file_names_jax_or_the_jax_package():
@@ -159,3 +160,14 @@ def test_pp_train_step_defaults_to_cuda(monkeypatch):
         assert init_state(0).params["embed"].device.type == "cpu"
     finally:
         runtime.shutdown()
+
+
+def test_bench_entry_defaults_to_cuda(monkeypatch):
+    """The bench entry runs on the card unless ``--device cpu`` is given:
+    without CUDA it exits before building a world, and never falls back
+    to the CPU."""
+    from horovod_tpu_torch import bench
+    _without_cuda(monkeypatch)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        bench.main([])
+    assert not runtime.is_initialized()

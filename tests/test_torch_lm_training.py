@@ -295,17 +295,19 @@ def test_leaf_order_and_buckets_match_jax_for_12_layers(threshold):
 
 def test_unported_options_raise():
     """The JAX function's keywords this slice does not port are refused,
-    not silently ignored."""
+    not silently ignored; the ported knobs are accepted."""
     _, tcfg = _configs("f32", "f32")
-    for kw in (dict(zero=True), dict(accum_steps=2), dict(wire_dtype="bf16"),
-               dict(overlap=True), dict(guard_nonfinite=True),
-               dict(aux_weight=0.01)):
+    for kw in (dict(zero=True), dict(overlap=True), dict(aux_weight=0.01)):
         with pytest.raises(TypeError, match=next(iter(kw))):
             ttr.make_parallel_train_step(tcfg, _adamw_torch(), device="cpu",
                                          **kw)
-    for field in ("loss_chunk", "remat"):
-        with pytest.raises(TypeError, match=field):
-            ttr.TransformerConfig(**DIMS, **{field: 1})
+    for kw in (dict(accum_steps=2), dict(wire_dtype="bf16"),
+               dict(guard_nonfinite=True)):
+        ttr.make_parallel_train_step(tcfg, _adamw_torch(), device="cpu",
+                                     **kw)
+    for field, value in (("loss_chunk", 64), ("remat", True)):
+        cfg = ttr.TransformerConfig(**DIMS, **{field: value})
+        assert getattr(cfg, field) == value
 
 
 # -- two ranks ----------------------------------------------------------------

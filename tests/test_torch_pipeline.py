@@ -358,18 +358,21 @@ def test_mesh_layout_and_validation(one_rank_world):
 
 
 def test_unported_keywords_raise(one_rank_world):
-    """The JAX step's ZeRO, wire, overlap and guard keywords are refused,
-    not ignored; so is a batch that does not split into microbatches."""
+    """The JAX step's ZeRO and overlap keywords are refused, not ignored
+    (its wire and guard keywords are ported); so is a batch that does not
+    split into microbatches."""
     w = WIDTHS["f32"]
     cfg = ttr.TransformerConfig(**w["dims"], dtype=torch.float32,
                                 attn_backend="xla")
     mesh = tmesh.create_hybrid_mesh(dp=1, pp=1)
     sgd = functools.partial(torch.optim.SGD, lr=LR)
-    for kw in (dict(zero=True), dict(wire_dtype="bf16"), dict(overlap=True),
-               dict(guard_nonfinite=True)):
+    for kw in (dict(zero=True), dict(overlap=True)):
         with pytest.raises(TypeError, match=next(iter(kw))):
             tpp.make_pp_transformer_train_step(cfg, mesh, sgd, 2,
                                                device="cpu", **kw)
+    for kw in (dict(wire_dtype="bf16"), dict(guard_nonfinite=True)):
+        tpp.make_pp_transformer_train_step(cfg, mesh, sgd, 2, device="cpu",
+                                           **kw)
     init_state, step = tpp.make_pp_transformer_train_step(cfg, mesh, sgd, 3,
                                                           device="cpu")
     with pytest.raises(ValueError, match="microbatches"):
