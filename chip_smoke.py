@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-Drives the port's four main paths, the training-plane knobs and the
-bench entry, and holds every CUDA kernel on them against its plain
+Drives the port's four main paths, the training-plane knobs (ZeRO-1
+and the overlapped exchange among them) and the bench entry, and holds every CUDA kernel on them against its plain
 PyTorch version on the card:
 
 * serving — the paged generation engine serving the bench LM at full
@@ -135,11 +135,23 @@ Phases, one JSON line each:
                bit-unchanged with bad_step 1 and loss 0 (16 K1 + 16 K2
                still launched), the next finite step trains; the step
                time with the guard off and on, in turns.
-24. bench   — ``python -m horovod_tpu_torch.bench`` three times (the
-               default two lines, ``--model resnet50 --conv-backend
-               fused``, ``--model transformer_lm --accum-steps 2``), each
-               in a process of its own: names, finite positive values,
-               0 < mfu <= 1, the knob fields, the peak bytes, the card.
+24. zero_overlap — ZeRO-1 and the backward-overlapped exchange on the
+               1-rank NCCL world: the full-width LM (AdamW as bench.py,
+               foreach pinned) plain, ``zero``, ``overlap`` and both, and
+               the fused ResNet-50 at batch 128 plain and with both, 3
+               steps each from one seed, counters zeroed before each
+               step: every step launches 8 K3-qkv + 8 dq + 8 dkv (LM) or
+               16 K1 + 16 K2 (ResNet), every variant's params after the
+               steps bitwise equal to the plain run's; step ms p50 and
+               peak bytes of each; then one ZeRO step with the guard on
+               a NaN batch leaves params, the shards' state and the
+               BatchNorm buffers bit-unchanged.
+25. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
+               default two lines, the same with ``--zero --overlap``,
+               ``--model resnet50 --conv-backend fused``, ``--model
+               transformer_lm --accum-steps 2``), each in a process of
+               its own: names, finite positive values, 0 < mfu <= 1, the
+               knob fields, the peak bytes, the card.
 
 Then, before the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
@@ -152,6 +164,7 @@ from __future__ import annotations
 import argparse
 import copy
 import functools
+import gc
 import http.client
 import itertools
 import json
@@ -308,11 +321,24 @@ GUARD_TIMED_PAIRS = 4
 # arguments, each in a process of its own; its metric names per run.
 BENCH_RUNS = (((), ("resnet50_synthetic_images_per_sec_per_gpu",
                     "transformer_lm_tokens_per_sec_per_gpu")),
+              (("--zero", "--overlap"),
+               ("resnet50_synthetic_images_per_sec_per_gpu",
+                "transformer_lm_tokens_per_sec_per_gpu")),
               (("--model", "resnet50", "--conv-backend", "fused"),
                ("resnet50_synthetic_images_per_sec_per_gpu",)),
               (("--model", "transformer_lm", "--accum-steps", "2"),
                ("transformer_lm_tokens_per_sec_per_gpu",)))
 BENCH_TIMEOUT = 400
+# ZeRO-1 and overlap (zero_overlap): ZO_STEPS steps per variant from one
+# seed on a 1-rank NCCL world, where the reduce-scatter and all-gather
+# move nothing: every variant's params must equal the plain run's
+# bitwise. The full-width LM in four variants, the fused ResNet-50 at
+# batch 128 in two; then one ZeRO step with the guard on a NaN batch.
+ZO_STEPS = 3
+ZO_LM = (("plain", {}), ("zero", dict(zero=True)),
+         ("overlap", dict(overlap=True)),
+         ("zero_overlap", dict(zero=True, overlap=True)))
+ZO_RN = (("plain", {}), ("zero_overlap", dict(zero=True, overlap=True)))
 REPLACES = {
     "flash_attention": "horovod_tpu/ops/pallas_attention.py:101",
     "flash_attention_qkv_fwd": "horovod_tpu/ops/pallas_attention.py:101",
@@ -2105,6 +2131,153 @@ def phase_guard(seed: int):
     hvd.shutdown()
 
 
+def _zo_variant(name, make, data, steps, per_step, held: int):
+    """``steps`` steps of ``make()``'s ``(state, step, model)``, the
+    launch counters zeroed before each step and checked against
+    ``per_step``; the step ms (p50 of the steps after the first, which
+    pays first-use costs and, under overlap, the order probe), losses,
+    peak bytes (less ``held``: the bytes of the plain run's parameter
+    copy) and the state."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    gc.collect()        # the overlap hooks tie params and optimizer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step, model = make()
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.monotonic()
+        state, loss = step(state, *data)
+        losses.append(loss.item())
+        times.append((time.monotonic() - t0) * 1e3)
+        got = {k: LAUNCHES.snapshot().get(k, 0) for k in per_step}
+        check(got == per_step, f"zero_overlap {name}: step {i} launched "
+                               f"{LAUNCHES.snapshot()}, expected {per_step}")
+    check(all(np.isfinite(losses)), f"zero_overlap {name}: {losses}")
+    opt = state.optimizer
+    report = dict(variant=name, losses=losses, step_ms=times,
+                  step_ms_p50=float(np.median(times[1:])),
+                  peak_bytes=int(torch.cuda.max_memory_allocated() - held),
+                  launches_per_step=per_step, zero=opt.zero,
+                  overlap=opt.overlap, overlap_order=opt.grad_order_source)
+    if opt.zero:
+        plan = opt.plan
+        report.update(buckets=len(plan.buckets),
+                      state_elems=sum(plan.shard_len(i) for i in
+                                      range(len(plan.buckets))))
+    return report, state, model
+
+
+def phase_zero_overlap(seed: int):
+    """ZeRO-1 and the backward-overlapped exchange (``zero``, ``overlap``
+    on ``make_parallel_train_step`` and ``create_train_state``) at full
+    width on a 1-rank NCCL world, each variant held bitwise to its plain
+    run; then the ZeRO guard's skip on a NaN batch."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.transformer import \
+        make_parallel_train_step
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+    hvd.init()
+    check(hvd.size() == 1, "expected a 1-rank world")
+    cfg = lm_config()
+    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
+    adamw = functools.partial(torch.optim.AdamW, **ADAMW, foreach=True)
+    lm_launch = {k: cfg.n_layers for k in ATTN_KERNELS}
+
+    def lm(kw):
+        def make():
+            init_state, step = make_parallel_train_step(cfg, adamw, **kw)
+            state = init_state(seed)
+            return state, step, state.model
+        return make
+
+    x, y = synthetic_batch(RN_BATCH, seed)
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
+                            foreach=True)
+    rn_launch = {"fused_conv_bn_fwd": RN_SITES,
+                 "fused_conv_bn_bwd": RN_SITES}
+
+    def rn(kw):
+        def make():
+            model = build_resnet("fused", seed)
+            state = create_train_state(model, sgd, **kw)
+            core = make_train_step()
+
+            def step(st, xb, yb):
+                st, m = core(st, (xb, yb))
+                return st, m["loss"]
+            return state, step, model
+        return make
+
+    out = {}
+    for family, variants, make, data, per_step in (
+            ("lm", ZO_LM, lm, (tokens, labels), lm_launch),
+            ("resnet50", ZO_RN, rn, (x, y), rn_launch)):
+        ref, rows = None, {}
+        for name, kw in variants:
+            held = 0 if ref is None else _nbytes(ref)
+            report, state, model = _zo_variant(
+                f"{family} {name}", make(kw), data, ZO_STEPS, per_step,
+                held)
+            params = [p.detach() for p in model.parameters()]
+            if ref is None:
+                ref = [p.clone() for p in params]
+            report["params_bitwise_equal_to_plain"] = all(
+                torch.equal(a, b) for a, b in zip(ref, params))
+            rows[name] = report
+            if family == "resnet50" and name == "zero_overlap":
+                out["guard"] = _zo_guard(state, model, x, y)
+            del state, model, params
+        out[family] = rows
+        del ref
+    emit("zero_overlap", batch={"lm": LM_BATCH, "resnet50": RN_BATCH},
+         seq=LM_SEQ, steps=ZO_STEPS, **out,
+         note="world 1: the reduce-scatter and all-gather move nothing; "
+              "peak_bytes is each variant's own (the plain run's param "
+              "copy left out)")
+    for family in ("lm", "resnet50"):
+        for name, r in out[family].items():
+            check(r["params_bitwise_equal_to_plain"],
+                  f"zero_overlap {family} {name}: params differ from plain")
+            if r["overlap"]:
+                check(r["overlap_order"] == "probed",
+                      f"zero_overlap {family} {name}: order "
+                      f"{r['overlap_order']}")
+    g = out["guard"]
+    check(g["bad_step"] == 1.0 and g["loss"] == 0.0 and g["unchanged"],
+          f"zero_overlap guard: {g}")
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+
+
+def _zo_guard(state, model, x, y) -> dict:
+    """One ZeRO step with the guard on a batch holding a NaN image:
+    params, the shards' optimizer state and the BatchNorm buffers must
+    come back bit-unchanged."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.training import make_train_step
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("nan")
+
+    def bits():
+        return ([p.detach().clone() for p in model.parameters()]
+                + [v.clone() for st in state.optimizer.zero_state().inner
+                   for v in st.values() if torch.is_tensor(v)]
+                + [b.detach().clone() for b in model.buffers()])
+    before = bits()
+    LAUNCHES.reset()
+    state, m = make_train_step(guard_nonfinite=True)(state, (bad, y))
+    launches = LAUNCHES.snapshot()
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, bits()))
+    check(launches.get("fused_conv_bn_fwd") == RN_SITES
+          and launches.get("fused_conv_bn_bwd") == RN_SITES,
+          f"zero guard launches {launches}")
+    return dict(unchanged=unchanged, bad_step=float(m["bad_step"]),
+                loss=float(m["loss"]), launches=launches)
+
+
 def phase_bench(smi: str):
     """``python -m horovod_tpu_torch.bench`` in a process of its own for
     each of BENCH_RUNS: every line named as expected, finite positive
@@ -2128,6 +2301,7 @@ def phase_bench(smi: str):
               f"bench {args} printed {[ln['metric'] for ln in lines]}")
         accum = int(args[args.index("--accum-steps") + 1]) \
             if "--accum-steps" in args else 1
+        zero, overlap = "--zero" in args, "--overlap" in args
         for ln in lines:
             check(np.isfinite(ln["value"]) and ln["value"] > 0
                   and ln["vs_baseline"] > 0, f"bench value {ln}")
@@ -2136,11 +2310,13 @@ def phase_bench(smi: str):
             check(isinstance(ln["peak_bytes_per_gpu"], int)
                   and ln["peak_bytes_per_gpu"] > 0, f"bench peak {ln}")
             check({k: ln[k] for k in ("accum_steps", "zero", "overlap",
-                                      "wire_dtype", "tp", "pp", "mesh",
-                                      "world")}
-                  == {"accum_steps": accum, "zero": False,
-                      "overlap": False, "wire_dtype": "fp32", "tp": 1,
-                      "pp": 1, "mesh": "dp1", "world": 1},
+                                      "overlap_order", "wire_dtype", "tp",
+                                      "pp", "mesh", "world")}
+                  == {"accum_steps": accum, "zero": zero,
+                      "overlap": overlap,
+                      "overlap_order": "probed" if overlap else None,
+                      "wire_dtype": "fp32", "tp": 1, "pp": 1,
+                      "mesh": "dp1", "world": 1},
                   f"bench knob fields {ln}")
             check(ln["gpu"] == smi, f"bench card {ln['gpu']} vs {smi}")
         if "--conv-backend" in args:
@@ -2193,6 +2369,7 @@ def main() -> int:
         times.update(phase_timing_attn_bhtd(args.seed, peaks))
         phase_train_knobs(args.seed)
         phase_guard(args.seed)
+        phase_zero_overlap(args.seed)
         phase_bench(smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

@@ -8,6 +8,7 @@ with the metrics per GPU. Run it as::
     python -m horovod_tpu_torch.bench                  # both lines, card
     python -m horovod_tpu_torch.bench --model resnet50 --conv-backend fused
     python -m horovod_tpu_torch.bench --model transformer_lm --accum-steps 2
+    python -m horovod_tpu_torch.bench --zero --overlap  # ZeRO-1 + overlap
     python -m horovod_tpu_torch.bench --device cpu     # smoke sizes, CPU
 
 The default run prints TWO JSON lines: ``resnet50_synthetic_images_per_
@@ -17,10 +18,14 @@ the card's published dense bf16 peak, ``utils/flops.py``),
 ``peak_bytes_per_gpu`` (``torch.cuda.max_memory_allocated`` over that
 line's run), the knob fields as ``bench.py`` names them (``accum_steps``,
 ``zero``, ``overlap``, ``wire_dtype``, ``tp``, ``pp``, ``mesh``; the LM
-line also ``ep``), the world size and the card's ``name, power.limit``
-as ``nvidia-smi`` prints them. The ResNet line also carries ``phases``:
-the backward's, the exposed exchange's and the update's shares of a
-step.
+line also ``ep``; ``overlap_order``: the order the overlapped exchange
+grouped or emitted its buckets in, ``"probed"`` from the first step's
+backward or ``"flatten"``, null without ``--overlap``), the world size
+and the card's ``name, power.limit`` as ``nvidia-smi`` prints them. The
+ResNet line also carries ``phases``: the backward's, the exposed
+exchange's and the update's shares of a step; the exchange is the
+step's own (reduce-scatter and all-gather under ``--zero``, buckets
+emitted during the backward under ``--overlap``).
 
 Timing: each of ``rounds`` regions runs ``iters × steps_per_call`` plain
 steps (``bench.py``'s count; torch has no scan to amortise dispatch)
@@ -32,8 +37,8 @@ regions. Warmup runs ``warmup × steps_per_call`` steps first.
 CPU, where the line is labelled per CPU and every device-only field is
 null. ``HVD_FUSED_PARTS`` and ``HVD_LM_LOSS_CHUNK`` act as in
 ``bench.py``. Without a GPU and without ``--device cpu`` the bench exits
-non-zero: it never falls back. The knobs not ported yet
-(``--zero``, ``--overlap``, ``--tp`` > 1, ``--scaling``, the models
+non-zero: it never falls back. The knobs not ported yet (``--tp`` > 1,
+``--scaling``, ``--pp`` with ``--zero`` or ``--overlap``, the models
 other than resnet50) exit non-zero naming their ``ROADMAP.md`` item.
 """
 
@@ -195,27 +200,35 @@ def _measure_phases(state, data, accum: int, rate: float, iters: int,
                     device: torch.device) -> dict:
     """Per-phase wall attribution (``bench.py``'s ``_measure_phases``):
     forward + backward alone, then the same plus the step's gradient
-    exchange (same buckets and wire), and the full step from the
-    measured rate. The exchange's EXPOSED time is ``t(exchange) -
-    t(backward)``; the update's is what the full step adds."""
+    exchange — the same buckets, wire and plane: the fused all-reduce,
+    or the reduce-scatter and the all-gather of the reduced shards under
+    ZeRO, with the buckets emitted during the backward under overlap —
+    and the full step from the measured rate. The exchange's EXPOSED
+    time is ``t(exchange) - t(backward)``; the update's is what the full
+    step adds."""
     vag = training._build_value_and_grad(training.cross_entropy_loss,
                                          False)
     model, opt = state.model, state.optimizer
 
-    def grads():
+    def grads(arm: bool = False):
         opt.zero_grad(set_to_none=True)
         if accum == 1:
+            if arm:
+                opt.arm()
             vag(model, data)
         else:
-            training._accumulate_grads(vag, model, data, accum, None)
+            training._accumulate_grads(
+                vag, model, data, accum, None,
+                (lambda: opt.arm(1.0 / accum)) if arm else None)
 
     def grads_exchange():
-        grads()
+        grads(arm=opt.overlap)
         opt.synchronize()
 
     reps = max(3, iters)
     t_bwd = _time_median(grads, device, reps)
     t_exch = _time_median(grads_exchange, device, reps)
+    opt.zero_grad(set_to_none=True)
     t_step = data[0].shape[0] / rate
     t_coll = max(0.0, t_exch - t_bwd)
     t_upd = max(0.0, t_step - t_exch)
@@ -233,7 +246,7 @@ def _measure_phases(state, data, accum: int, rate: float, iters: int,
 def measure(cfg: dict, device: torch.device, seed: int = 0):
     """Images/sec of the data-parallel train step over this process's
     world (one GPU, or a gloo world of one on the CPU), and its phases.
-    Returns ``(total rate, phases)``."""
+    Returns ``(total rate, phases, overlap order)``."""
     accum = int(cfg.get("accum_steps", 1))
     if cfg["batch_per_gpu"] % accum:
         raise SystemExit(
@@ -245,7 +258,8 @@ def measure(cfg: dict, device: torch.device, seed: int = 0):
     state = training.create_train_state(
         model, functools.partial(torch.optim.SGD, lr=cfg.get("lr", 0.1),
                                  momentum=0.9),
-        wire_dtype=cfg.get("wire_dtype"), device=device)
+        wire_dtype=cfg.get("wire_dtype"), zero=bool(cfg.get("zero")),
+        overlap=bool(cfg.get("overlap")), device=device)
     hvd.broadcast_parameters(model)
     step = training.make_train_step(accum_steps=accum)
     data = _synthetic_batch(cfg, device, seed + hvd.rank())
@@ -262,7 +276,7 @@ def measure(cfg: dict, device: torch.device, seed: int = 0):
                         cfg["batch_per_gpu"] * hvd.size() * cfg["iters"] * k,
                         int(cfg.get("rounds", 1)))
     phases = _measure_phases(state, data, accum, rate, cfg["iters"], device)
-    return rate, phases
+    return rate, phases, state.optimizer.grad_order_source
 
 
 def _lm_config(device: str) -> dict:
@@ -273,10 +287,11 @@ def _lm_config(device: str) -> dict:
     return cfg
 
 
-def measure_lm(cfg: dict, device: torch.device, seed: int = 0) -> float:
+def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
     """Tokens/sec of the transformer-LM train step over this process's
     world: the data-parallel step (``make_parallel_train_step``), or the
-    pipelined 1F1B step with ``cfg["pp"] > 1``. Returns the total rate."""
+    pipelined 1F1B step with ``cfg["pp"] > 1``. Returns the total rate
+    and the overlap order (None without overlap)."""
     from horovod_tpu_torch.parallel.transformer import (
         TransformerConfig, make_parallel_train_step)
     n = hvd.size()
@@ -321,7 +336,9 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0) -> float:
     else:
         init_state, step = make_parallel_train_step(
             tcfg, opt, wire_dtype=cfg.get("wire_dtype"),
-            accum_steps=int(cfg.get("accum_steps", 1)), device=device)
+            accum_steps=int(cfg.get("accum_steps", 1)),
+            zero=bool(cfg.get("zero")), overlap=bool(cfg.get("overlap")),
+            device=device)
         state = init_state(seed)
         hvd.broadcast_parameters(state.model)
     B, T = cfg["batch_per_gpu"], cfg["seq"]
@@ -339,18 +356,20 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0) -> float:
         return loss
 
     float(run(cfg["warmup"] * k))
-    return _median_rate(lambda: run(cfg["iters"] * k),
+    rate = _median_rate(lambda: run(cfg["iters"] * k),
                         B * dp * T * cfg["iters"] * k,
                         int(cfg.get("rounds", 1)))
+    return rate, getattr(state.optimizer, "grad_order_source", None)
 
 
 def lm_line(device: torch.device, wire_dtype=None, tp: int = 1,
             pp: int = 1, accum_steps: int = 1, mesh_dp=None,
-            seed: int = 0) -> dict:
+            seed: int = 0, zero: bool = False,
+            overlap: bool = False) -> dict:
     cfg = _lm_config(device.type)
     cfg.update(wire_dtype=wire_dtype, tp=tp, pp=pp, accum_steps=accum_steps,
-               mesh_dp=mesh_dp)
-    rate = measure_lm(cfg, device, seed)
+               mesh_dp=mesh_dp, zero=zero, overlap=overlap)
+    rate, order = measure_lm(cfg, device, seed)
     n = hvd.size()
     per_gpu = rate / n
     gflop_tok = lm_train_gflop_per_token(cfg)
@@ -360,8 +379,9 @@ def lm_line(device: torch.device, wire_dtype=None, tp: int = 1,
     return {"metric": f"transformer_lm_tokens_per_sec_per_{per}",
             "value": round(per_gpu, 1), "unit": f"tokens/sec/{per}",
             "vs_baseline": round(per_gpu / baseline, 3),
-            "accum_steps": int(accum_steps), "zero": False,
-            "overlap": False, "wire_dtype": wire_dtype_name(wire_dtype),
+            "accum_steps": int(accum_steps), "zero": bool(zero),
+            "overlap": bool(overlap), "overlap_order": order,
+            "wire_dtype": wire_dtype_name(wire_dtype),
             "tp": int(tp), "pp": int(pp), "ep": 1,
             "mesh": _mesh_desc(n, tp, pp),
             "loss_chunk": int(cfg.get("loss_chunk", 0)), "world": n,
@@ -369,14 +389,15 @@ def lm_line(device: torch.device, wire_dtype=None, tp: int = 1,
 
 
 def resnet_line(cfg: dict, device: torch.device, seed: int = 0) -> dict:
-    rate, phases = measure(cfg, device, seed)
+    rate, phases, order = measure(cfg, device, seed)
     per_gpu = rate / hvd.size()
     per = _per(device)
     return {"metric": f"{cfg['model']}_synthetic_images_per_sec_per_{per}",
             "value": round(per_gpu, 2), "unit": f"images/sec/{per}",
             "vs_baseline": round(per_gpu / _baseline_for(cfg["model"]), 3),
-            "accum_steps": int(cfg.get("accum_steps", 1)), "zero": False,
-            "overlap": False,
+            "accum_steps": int(cfg.get("accum_steps", 1)),
+            "zero": bool(cfg.get("zero")),
+            "overlap": bool(cfg.get("overlap")), "overlap_order": order,
             "wire_dtype": wire_dtype_name(cfg.get("wire_dtype")),
             "tp": 1, "pp": 1, "mesh": _mesh_desc(hvd.size()),
             "conv_backend": cfg.get("conv_backend", "xla"),
@@ -400,17 +421,14 @@ def _parse_mesh(spec: str, tp: int, pp: int):
     return sizes.get("tp", 1), sizes.get("pp", 1), sizes.get("dp")
 
 
-def _refuse_unported(args, tp: int) -> None:
+def _refuse_unported(args, tp: int, pp: int) -> None:
     """The knobs not ported yet exit loudly, naming the
     ``ROADMAP.md`` item that brings them."""
-    if args.zero:
+    if pp > 1 and (args.zero or args.overlap):
         raise SystemExit(
-            "--zero (ZeRO-1 sharded optimizer updates) is not ported yet: "
-            "ROADMAP.md Queue 1 item 8 (it needs reducescatter, item 7)")
-    if args.overlap:
-        raise SystemExit(
-            "--overlap (backward-overlapped bucket collectives) is not "
-            "ported yet: ROADMAP.md Queue 1 item 9 (its second half)")
+            "--zero and --overlap on the pipelined step (ZeRO over dp with "
+            "pp as a non-scatter axis) are the hybrid plan of ROADMAP.md "
+            "Queue 1 item 11, not ported yet")
     if tp > 1:
         raise SystemExit(
             f"--tp {tp} (the tensor-parallel axis) is not ported yet: "
@@ -446,10 +464,12 @@ def main(argv=None) -> int:
                    help="in-step gradient accumulation over N microbatches "
                         "of the per-GPU batch, one exchange per step")
     p.add_argument("--zero", action="store_true",
-                   help="ZeRO-1 sharded optimizer updates (not ported yet)")
+                   help="ZeRO-1: reduce-scatter, the update on this GPU's "
+                        "shard of the optimizer state, all-gather")
     p.add_argument("--overlap", action="store_true",
-                   help="backward-overlapped bucket collectives (not "
-                        "ported yet)")
+                   help="backward-overlapped bucket collectives (each "
+                        "bucket's collective starts when its last "
+                        "gradient lands)")
     p.add_argument("--wire-dtype", default=None,
                    choices=["fp32", "bf16", "fp8"],
                    help="wire format of the gradient exchange (f32 scales "
@@ -476,7 +496,7 @@ def main(argv=None) -> int:
         tp, pp, mesh_dp = _parse_mesh(args.mesh, tp, pp)
     if tp < 1 or pp < 1:
         raise SystemExit(f"--tp and --pp must be >= 1, got {tp}, {pp}")
-    _refuse_unported(args, tp)
+    _refuse_unported(args, tp, pp)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "horovod_tpu_torch.bench runs on a CUDA device, but "
@@ -488,14 +508,16 @@ def main(argv=None) -> int:
     try:
         if args.model == "transformer_lm":
             print(json.dumps(lm_line(device, wire, tp, pp, args.accum_steps,
-                                     mesh_dp, args.seed)), flush=True)
+                                     mesh_dp, args.seed, args.zero,
+                                     args.overlap)), flush=True)
             return 0
         if pp > 1:
             raise SystemExit(
                 "--pp/--mesh beyond pure dp applies to --model "
                 "transformer_lm: the conv models are not staged")
         cfg = _bench_config(args.model or "resnet50", args.device)
-        cfg.update(accum_steps=args.accum_steps, wire_dtype=wire)
+        cfg.update(accum_steps=args.accum_steps, wire_dtype=wire,
+                   zero=args.zero, overlap=args.overlap)
         if args.conv_backend:
             if cfg["model"] != "resnet50":
                 raise SystemExit(
@@ -507,7 +529,8 @@ def main(argv=None) -> int:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
             print(json.dumps(lm_line(device, wire, accum_steps=1,
-                                     seed=args.seed)), flush=True)
+                                     seed=args.seed, zero=args.zero,
+                                     overlap=args.overlap)), flush=True)
         return 0
     finally:
         hvd.shutdown()

@@ -73,3 +73,14 @@ def create_hybrid_mesh(dp: int = 1, pp: int = 1) -> Mesh:
                 ranks[axis], groups[axis] = grp, handle
     return Mesh(axis_names=AXES, shape={"dp": dp, "pp": pp},
                 coords=coords, ranks=ranks, groups=groups)
+
+
+def dp_mesh() -> Mesh:
+    """The world as a mesh with one ``dp`` axis (the JAX helper's mesh
+    at ``dp=size``, where every other axis is dropped): the mesh of the
+    LM's data-parallel step and its spec-grouped ZeRO plan."""
+    world = runtime.world()
+    return Mesh(axis_names=("dp",), shape={"dp": world.size},
+                coords={"dp": world.rank},
+                ranks={"dp": tuple(range(world.size))},
+                groups={"dp": dist.group.WORLD})

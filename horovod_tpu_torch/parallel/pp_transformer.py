@@ -150,9 +150,10 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
     loss 0 and leaves params and optimizer state bit-unchanged.
     Accumulation is native: the microbatches are the accumulation.
 
-    The JAX function's ``zero`` and ``overlap`` keywords and the tp axis
-    are not ported yet: passing one of those keywords is a
-    ``TypeError``."""
+    The JAX function's ``zero`` and ``overlap`` keywords (ZeRO over dp
+    with pp as a non-scatter axis: ``ROADMAP.md`` Queue 1 item 11) and
+    the tp axis are not ported yet: passing one of those keywords is a
+    ``TypeError``, and ``HVD_OVERLAP`` does not arm this step."""
     check_dense(cfg, "make_pp_transformer_train_step")
     dev = resolve_device(device)
     guard = (_config.guard_nonfinite() if guard_nonfinite is None
@@ -202,7 +203,7 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
         opt = DistributedOptimizer(
             optimizer([p for _, p in named]), named_parameters=named,
             fusion_threshold=fusion_threshold, process_group=dp_group,
-            wire_dtype=wire_dtype)
+            wire_dtype=wire_dtype, overlap=False)
         return PPTrainState(params=params, optimizer=opt)
 
     def step(state: PPTrainState, tokens: torch.Tensor,

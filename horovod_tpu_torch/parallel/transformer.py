@@ -404,16 +404,18 @@ def make_parallel_train_step(cfg: TransformerConfig,
                              *, wire_dtype=None, accum_steps: int = 1,
                              guard_nonfinite: Optional[bool] = None,
                              fusion_threshold: Optional[int] = None,
+                             zero: bool = False,
+                             overlap: Optional[bool] = None,
                              device: DeviceLike = "cuda"):
     """Build ``(init_state, step)``: the LM's data-parallel train step.
 
     Port of the JAX function for a 1-D data-parallel world (the world of
-    :func:`horovod_tpu_torch.init`; one process per GPU). ``optimizer``
-    builds the wrapped optimizer from the parameter list, e.g.
-    ``functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9, 0.95),
-    eps=1e-8, weight_decay=0.1)`` for ``optax.adamw(1e-4, b1=0.9,
-    b2=0.95, weight_decay=0.1)`` (decay on every leaf, as optax's
-    ``mask=None``).
+    :func:`horovod_tpu_torch.init`; one process per GPU, the mesh of
+    :func:`~.mesh.dp_mesh`). ``optimizer`` builds the wrapped optimizer
+    from the parameter list, e.g. ``functools.partial(torch.optim.AdamW,
+    lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)`` for
+    ``optax.adamw(1e-4, b1=0.9, b2=0.95, weight_decay=0.1)`` (decay on
+    every leaf, as optax's ``mask=None``).
 
     ``init_state(seed=0, model=None)`` builds a :class:`Transformer` from
     ``seed`` (or takes ``model``, e.g. from
@@ -430,15 +432,20 @@ def make_parallel_train_step(cfg: TransformerConfig,
     The knobs run on the core step (:func:`~horovod_tpu_torch.training.
     make_train_step`): ``accum_steps`` microbatches with one exchange,
     ``guard_nonfinite`` (default ``HVD_GUARD_NONFINITE``; on a skipped
-    step the loss is 0 and the state bit-unchanged) and ``wire_dtype``
-    (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``). ``cfg.remat`` and
-    ``cfg.loss_chunk`` act in the forward and the loss.
+    step the loss is 0 and the state bit-unchanged), ``wire_dtype``
+    (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``), ``zero`` (ZeRO-1
+    over the spec-grouped plan of the dp mesh, as the JAX step builds it;
+    off by default, as there) and ``overlap`` (default ``HVD_OVERLAP``;
+    the tied embedding is one leaf, so its hook fires once).
+    ``cfg.remat`` and ``cfg.loss_chunk`` act in the forward and the loss.
 
-    The JAX function's ``aux_weight``, ``zero`` and ``overlap`` keywords
-    and the tp/sp/ep axes are not ported yet: passing one of those
-    keywords is a ``TypeError``."""
+    The JAX function's ``aux_weight`` keyword (it weighs the experts of
+    ``ROADMAP.md`` Queue 1 item 11) and the tp/sp/ep axes are not ported
+    yet: passing ``aux_weight`` is a ``TypeError``."""
     check_dense(cfg, "make_parallel_train_step")
-    from .. import training
+    from .. import convert, training
+    from ..optimizer import DistributedOptimizer
+    from .mesh import dp_mesh
     dev = resolve_device(device)
 
     def value_and_grad(model: Transformer, batch):
@@ -449,7 +456,7 @@ def make_parallel_train_step(cfg: TransformerConfig,
 
     core = training.make_train_step(
         _value_and_grad=value_and_grad, accum_steps=accum_steps,
-        guard_nonfinite=guard_nonfinite)
+        guard_nonfinite=guard_nonfinite, zero=zero, overlap=overlap)
 
     def init_state(seed: int = 0, model: Optional[Transformer] = None):
         if model is None:
@@ -457,9 +464,17 @@ def make_parallel_train_step(cfg: TransformerConfig,
             model = Transformer(cfg, generator=gen, device=dev)
         elif model.cfg != cfg:
             raise ValueError(f"model.cfg {model.cfg} is not {cfg}")
-        return training.create_train_state(
-            model, optimizer, fusion_threshold=fusion_threshold,
-            wire_dtype=wire_dtype, device=dev)
+        model.to(dev)
+        named = convert.jax_leaf_order(model)
+        # Every leaf is replicated over dp: one spec group, so the plan's
+        # buckets are the 1-D plan's and it adds the per-bucket fields.
+        spec_kw = dict(mesh=dp_mesh(), param_specs=[None] * len(named)) \
+            if zero else {}
+        opt = DistributedOptimizer(
+            optimizer([p for _, p in named]), named_parameters=named,
+            fusion_threshold=fusion_threshold, wire_dtype=wire_dtype,
+            zero=zero, overlap=overlap, **spec_kw)
+        return training.TrainState(model=model, optimizer=opt)
 
     def step(state, tokens: torch.Tensor, labels: torch.Tensor):
         state, metrics = core(state, (tokens, labels))

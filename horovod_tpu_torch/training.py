@@ -5,8 +5,9 @@ Port of the plain plane of the JAX package's ``training.py``:
 ``create_train_state`` (:227), ``make_train_step`` (:324-754, with its
 ``_value_and_grad`` hook, in-step accumulation (``_acc_dtype`` :74,
 ``_split_microbatches`` :83, ``_accumulate_grads`` :100,
-``_check_accum_batch`` :185), ``remat`` and the bad-step guard; no ZeRO,
-overlap or hybrid mesh) and ``make_eval_step`` (:1264).
+``_check_accum_batch`` :185), ``remat``, the bad-step guard, ZeRO-1 and
+backward-overlapped bucket collectives; no hybrid mesh) and
+``make_eval_step`` (:1264).
 
 One step: forward in training mode (BatchNorm updates its running
 statistics in place), the loss, backward, the fused-bucket gradient
@@ -64,7 +65,8 @@ def create_train_state(model: torch.nn.Module,
                        optimizer: Callable[..., torch.optim.Optimizer],
                        *, average: bool = True,
                        fusion_threshold: Optional[int] = None,
-                       wire_dtype=None,
+                       wire_dtype=None, zero: Optional[bool] = None,
+                       overlap: Optional[bool] = None,
                        device: DeviceLike = "cuda") -> TrainState:
     """Move ``model`` to ``device`` and wrap ``optimizer(params)`` (e.g.
     ``functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)``) in a
@@ -72,14 +74,21 @@ def create_train_state(model: torch.nn.Module,
     order. Every rank must call it on identically built models; call
     :func:`~horovod_tpu_torch.optimizer.broadcast_parameters` to start
     them from rank 0's weights. ``wire_dtype`` is the optimizer's
-    gradient wire format (default ``HVD_WIRE_DTYPE``)."""
+    gradient wire format (default ``HVD_WIRE_DTYPE``); ``zero`` (default
+    ``HVD_ZERO``) shards its state ZeRO-1 style over the world (the
+    wrapped optimizer then runs over flat f32 shards: pin ``foreach`` in
+    the factory where the replicated and the ZeRO runs must agree
+    bitwise, since its default differs between CPU and CUDA); ``overlap``
+    (default ``HVD_OVERLAP``) arms the backward-overlapped exchange."""
     dev = resolve_device(device)
     model.to(dev)
     named = convert.jax_leaf_order(model)
-    opt = DistributedOptimizer(optimizer([p for _, p in named]),
-                               named_parameters=named, average=average,
-                               fusion_threshold=fusion_threshold,
-                               wire_dtype=wire_dtype)
+    opt = DistributedOptimizer(
+        optimizer([p for _, p in named]), named_parameters=named,
+        average=average, fusion_threshold=fusion_threshold,
+        wire_dtype=wire_dtype,
+        zero=_config.zero_enabled() if zero is None else zero,
+        overlap=overlap)
     return TrainState(model=model, optimizer=opt)
 
 
@@ -113,7 +122,8 @@ def _check_accum_batch(inputs: torch.Tensor, accum_steps: int) -> None:
 
 
 def _accumulate_grads(vag: Callable, model: torch.nn.Module, batch,
-                      accum_steps: int, metrics_fn: Optional[Callable]):
+                      accum_steps: int, metrics_fn: Optional[Callable],
+                      before_last: Optional[Callable] = None):
     """Run ``vag`` over ``accum_steps`` microbatches of ``batch``, summing
     the gradients into each parameter's ``.grad``. Returns ``(mean loss,
     mean extras)``; on return each ``.grad`` holds the microbatch MEAN.
@@ -123,14 +133,18 @@ def _accumulate_grads(vag: Callable, model: torch.nn.Module, batch,
     backward and are cast back after the mean. BatchNorm's running
     statistics thread through the microbatches (N momentum updates per
     step). Integer metric leaves keep the microbatch SUM — the
-    full-batch value of a count — instead of a flooring integer mean."""
+    full-batch value of a count — instead of a flooring integer mean.
+    ``before_last()`` runs before the last microbatch's backward (the
+    overlapped exchange arms there)."""
     n = accum_steps
     inputs, labels = batch
     params = [p for p in model.parameters() if p.requires_grad]
     acc: Dict[int, torch.Tensor] = {}
     lacc = macc = None
-    for x, y in zip(_split_microbatches(inputs, n),
-                    _split_microbatches(labels, n)):
+    for i, (x, y) in enumerate(zip(_split_microbatches(inputs, n),
+                                   _split_microbatches(labels, n))):
+        if i == n - 1 and before_last is not None:
+            before_last()
         loss, logits = vag(model, (x, y))
         for p in params:
             g = p.grad
@@ -206,6 +220,8 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss, *,
                     metrics_fn: Optional[Callable] = None,
                     accum_steps: int = 1, remat: bool = False,
                     guard_nonfinite: Optional[bool] = None,
+                    zero: Optional[bool] = None,
+                    overlap: Optional[bool] = None,
                     _value_and_grad: Optional[Callable] = None):
     """Build ``step(state, (inputs, labels)) -> (state, metrics)``. The
     batch is this rank's shard; ``metrics`` (the loss, plus
@@ -234,6 +250,24 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss, *,
     read 0 on a skipped step. With the guard off the step launches
     nothing more than without it.
 
+    ``zero`` (default: the optimizer's ``zero``, or ``HVD_ZERO``) runs
+    the ZeRO-1 plane of a ``DistributedOptimizer(zero=True)``
+    (``create_train_state(zero=True)``): one reduce-scatter and one
+    all-gather per bucket, the optimizer state sharded 1/size() per
+    rank. It must agree with the optimizer, both ways (checked at each
+    call). Under the guard the world-wide verdict rides the all-gather
+    and a skip puts the shards' optimizer state back.
+
+    ``overlap`` (default: the optimizer's ``overlap``, or
+    ``HVD_OVERLAP``) starts each bucket's collective during the backward
+    as its last gradient lands (the optimizer's hooks, armed before the
+    backward — before the LAST microbatch's under ``accum_steps``, with
+    the ``1/N`` folded into each bucket's prescale). The same
+    collectives as without it; on the ZeRO plane only their order
+    changes. Accumulation with overlap needs f32 gradients (a narrower
+    gradient leaves ``.grad`` for an f32 accumulator after each
+    microbatch).
+
     ``_value_and_grad(model, batch) -> (loss, logits)`` (the counterpart
     of the JAX hook of the same name) replaces the default loss of
     ``loss_fn(model(inputs, train=True), labels)``: it computes the loss
@@ -251,12 +285,30 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss, *,
             "make_train_step(remat=) applies to the model's forward only")
     guard = (_config.guard_nonfinite() if guard_nonfinite is None
              else bool(guard_nonfinite))
+    env_zero, env_overlap = _config.zero_enabled(), _config.overlap_enabled()
 
     vag = _build_value_and_grad(loss_fn, remat) \
         if _value_and_grad is None else _value_and_grad
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, dict]:
-        opt = state.optimizer
+    def resolve(opt: DistributedOptimizer) -> bool:
+        """Check the step's knobs against the optimizer's stamps; returns
+        whether this step arms the overlapped exchange."""
+        want_zero = (opt.zero or env_zero) if zero is None else zero
+        if want_zero and not opt.zero:
+            raise ValueError(
+                "zero=True (or HVD_ZERO=1) requires a ZeRO-sharded "
+                "optimizer: build it with DistributedOptimizer(opt, "
+                "zero=True) (create_train_state(zero=True) does this for "
+                "you)")
+        if opt.zero and not want_zero:
+            raise ValueError(
+                "this DistributedOptimizer was built with zero=True — its "
+                "state is rank-sharded and the step must be built with "
+                "make_train_step(zero=True) (leave zero unset to "
+                "auto-detect)")
+        arm = (opt.overlap or env_overlap) if overlap is None else overlap
+        if arm:
+            opt.enable_overlap()
         if accum_steps > 1:
             if opt.accum_steps > 1:
                 raise ValueError(
@@ -264,22 +316,37 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss, *,
                     "DistributedOptimizer — the gradients would be divided "
                     "by N twice; set it in one place (make_train_step owns "
                     "the microbatch loop and its 1/N)")
+            if arm and any(p.dtype != torch.float32
+                           for _, p in opt.named_parameters):
+                raise ValueError(
+                    "overlap with accum_steps > 1 needs f32 gradients: a "
+                    "narrower gradient moves to an f32 accumulator after "
+                    "each microbatch, before its bucket could be emitted")
+        return arm
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, dict]:
+        opt = state.optimizer
+        arm = resolve(opt)
+        if accum_steps > 1:
             _check_accum_batch(batch[0], accum_steps)
         state.model.train()
         opt.zero_grad(set_to_none=True)
         saved = _snapshot(state.model) if guard else None
         if accum_steps == 1:
+            if arm:
+                opt.arm()
             loss, logits = vag(state.model, batch)
             extras = (metrics_fn(logits, batch[1])
                       if metrics_fn is not None else None)
         else:
+            before_last = (lambda: opt.arm(1.0 / accum_steps)) if arm \
+                else None
             loss, extras = _accumulate_grads(vag, state.model, batch,
-                                             accum_steps, metrics_fn)
+                                             accum_steps, metrics_fn,
+                                             before_last)
         if guard:
-            finite = opt.synchronize(return_finite=True)
-            if bool(finite):        # the guard's one host read
-                opt.optimizer.step()
-            else:
+            finite, applied = opt.guarded_step()
+            if not applied:
                 _restore(state.model, saved)
         else:
             opt.step()

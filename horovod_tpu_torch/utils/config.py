@@ -10,6 +10,9 @@ imported here). The names and defaults are the same:
   (:func:`guard_nonfinite`).
 * ``HVD_WIRE_DTYPE`` — the default low-precision wire format of the
   gradient exchange (:func:`wire_dtype_default`).
+* ``HVD_ZERO`` and ``HVD_OVERLAP`` — the defaults of ZeRO-1 sharded
+  updates (:func:`zero_enabled`) and of backward-overlapped bucket
+  collectives (:func:`overlap_enabled`).
 * The launcher's process environment: rank from ``HVD_RANK`` /
   ``PMI_RANK`` / ``OMPI_COMM_WORLD_RANK``, size from ``HVD_SIZE`` /
   ``PMI_SIZE`` / ``OMPI_COMM_WORLD_SIZE``, local rank from
@@ -35,6 +38,10 @@ def _int_env(name: str, default: int) -> int:
         return default
 
 
+def _flag(name: str) -> bool:
+    return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
+
+
 def fusion_threshold_bytes() -> int:
     """``HOROVOD_FUSION_THRESHOLD`` (bytes; 0 disables fusion)."""
     return _int_env("HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD)
@@ -46,8 +53,7 @@ def guard_nonfinite() -> bool:
     (params, optimizer state and BatchNorm running statistics
     bit-unchanged) whenever any rank's gradients carry NaN/Inf. Off unless
     set to 1/true/yes/on."""
-    return os.environ.get("HVD_GUARD_NONFINITE", "").lower() in (
-        "1", "true", "yes", "on")
+    return _flag("HVD_GUARD_NONFINITE")
 
 
 def wire_dtype_default():
@@ -58,6 +64,24 @@ def wire_dtype_default():
     :func:`horovod_tpu_torch.ops.fusion.resolve_wire_dtype`."""
     raw = os.environ.get("HVD_WIRE_DTYPE", "").strip().lower()
     return raw or None
+
+
+def zero_enabled() -> bool:
+    """``HVD_ZERO`` — default for ZeRO-1 sharded optimizer updates
+    (``create_train_state(zero=...)`` / ``make_train_step(zero=...)``):
+    the gradient exchange becomes reduce-scatter + all-gather over the
+    fused buckets and each rank holds 1/size() of the optimizer state.
+    Off unless set to 1/true/yes/on."""
+    return _flag("HVD_ZERO")
+
+
+def overlap_enabled() -> bool:
+    """``HVD_OVERLAP`` — default for backward-overlapped bucket
+    collectives (``make_train_step(overlap=...)``): each bucket's
+    collective starts as soon as the backward has produced its last
+    gradient, in a fixed emission order. Off unless set to
+    1/true/yes/on."""
+    return _flag("HVD_OVERLAP")
 
 
 _RANK_VARS = ("HVD_RANK", "PMI_RANK", "OMPI_COMM_WORLD_RANK")

@@ -13,9 +13,10 @@ model pieces its model builder reaches, on the CPU.
 * The bench's formulas and configs against the root ``bench.py``'s.
 * The bench at smoke size in a subprocess (``--device cpu``): the two
   default lines, their names and knob fields, null device fields; the
-  knobs it runs (accumulation, the wire formats, ``HVD_LM_LOSS_CHUNK``)
-  recorded in the line; and the knobs not ported yet refused with a
-  non-zero exit naming their ``ROADMAP.md`` item.
+  knobs it runs (accumulation, the wire formats, ``HVD_LM_LOSS_CHUNK``,
+  ZeRO and overlap with the order overlap used) recorded in the line;
+  and the knobs not ported yet refused with a non-zero exit naming
+  their ``ROADMAP.md`` item.
 """
 
 import importlib.util
@@ -274,6 +275,11 @@ def test_default_run_prints_both_lines():
     (("--model", "resnet50", "--accum-steps", "2", "--wire-dtype", "bf16"),
      {}, {"accum_steps": 2, "wire_dtype": "bf16",
           "metric": "cifar20_synthetic_images_per_sec_per_cpu"}),
+    (("--model", "transformer_lm", "--zero", "--overlap"), {},
+     {"zero": True, "overlap": True, "overlap_order": "probed"}),
+    (("--model", "resnet50", "--zero", "--accum-steps", "2"), {},
+     {"zero": True, "overlap": False, "overlap_order": None,
+      "accum_steps": 2}),
 ])
 def test_knobs_are_run_and_recorded(args, env, want):
     (line,) = _lines(_bench(*args, "--device", "cpu", env=env))
@@ -282,8 +288,8 @@ def test_knobs_are_run_and_recorded(args, env, want):
 
 
 @pytest.mark.parametrize("args,needle", [
-    (("--zero",), "item 8"),
-    (("--overlap",), "item 9"),
+    (("--pp", "2", "--zero"), "item 11"),
+    (("--pp", "2", "--overlap"), "item 11"),
     (("--tp", "2"), "item 11"),
     (("--scaling",), "item 4"),
 ])

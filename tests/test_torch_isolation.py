@@ -32,6 +32,7 @@ _PROBE = """
 import importlib, pkgutil, sys
 import horovod_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert "horovod_tpu_torch.ops.sparse" in names, names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -60,6 +61,7 @@ def test_every_submodule_is_importable_here():
             "horovod_tpu_torch.ops.fused_conv_bn",
             "horovod_tpu_torch.ops.collectives",
             "horovod_tpu_torch.ops.fusion",
+            "horovod_tpu_torch.ops.sparse",
             "horovod_tpu_torch.models.resnet",
             "horovod_tpu_torch.runtime",
             "horovod_tpu_torch.optimizer",

@@ -1,7 +1,10 @@
 """One rank of a spawned gloo world for tests/test_torch_training.py
 (:func:`run`), tests/test_torch_lm_training.py (:func:`run_lm`),
 tests/test_torch_pipeline.py (:func:`run_pp`), tests/test_torch_wire.py
-(:func:`run_wire`) and tests/test_torch_guard.py (:func:`run_guard`).
+(:func:`run_wire`), tests/test_torch_guard.py (:func:`run_guard`),
+tests/test_torch_collectives.py (:func:`run_collectives`),
+tests/test_torch_zero.py (:func:`run_zero`) and
+tests/test_torch_overlap.py (:func:`run_overlap`).
 
 Started by ``torch.multiprocessing.spawn`` with the launcher's environment
 contract (``HVD_RANK``/``HVD_SIZE``/``HVD_LOCAL_RANK``); it imports only
@@ -379,3 +382,411 @@ def _pp_named(params):
     """The pipelined step's parameters by name (JAX leaf order)."""
     from horovod_tpu_torch.parallel.pp_transformer import named_leaves
     return named_leaves(params)
+
+
+def _raises(fn) -> str:
+    """The message of the ValueError or NotImplementedError ``fn()``
+    raises ("" when it raises none)."""
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def run_collectives(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of tests/test_torch_collectives.py's world: every eager
+    collective on this rank's slice of ``<workdir>/coll_inputs.pkl``,
+    the async handles redeemed in reverse order, the object collectives,
+    the sparse path (``IndexedSlices`` and an ``nn.Embedding(sparse=
+    True)`` gradient) and the refusals; writes
+    ``<workdir>/coll_rank<r>.pkl``."""
+    _join(rank, world, port)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops.sparse import IndexedSlices
+
+    with open(os.path.join(workdir, "coll_inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+
+    def mine(name):
+        return torch.from_numpy(np.ascontiguousarray(inp[name][rank]))
+
+    def raw(t):
+        return t.detach().cpu().numpy().copy()
+    out = {}
+    x = mine("f32")
+    out["allreduce"] = {op.name: raw(C.allreduce(x, op=op)) for op in C.Op}
+    out["bool"] = {op: raw(C.allreduce(mine("bools"), op=C.Op[op]))
+                   for op in ("SUM", "AVERAGE", "MIN", "MAX")}
+    out["i16"] = {op: raw(C.allreduce(mine("i16"), op=C.Op[op]))
+                  for op in ("SUM", "MAX")}
+    out["allgather"] = raw(C.allgather(x))
+    out["allgather_var"] = raw(C.allgather(
+        torch.from_numpy(inp["var"][rank])))
+    out["allgather_scalar"] = raw(C.allgather(torch.tensor(rank + 0.5)))
+    out["ragged"] = [raw(t) for t in C.allgather_ragged(
+        mine("ragged"), int(inp["valid"][rank]), inp["ragged"].shape[1])]
+    out["broadcast"] = [raw(C.broadcast(x, root_rank=r))
+                        for r in range(world)]
+    out["broadcast_bool"] = raw(C.broadcast(mine("bools"), root_rank=1))
+    out["alltoall"] = raw(C.alltoall(mine("a2a")))
+    out["reducescatter"] = {op: raw(C.reducescatter(mine("rs"), op=C.Op[op]))
+                            for op in ("SUM", "AVERAGE", "MAX")}
+    handles = [C.allreduce_async_(x), C.allgather_async_(
+        torch.from_numpy(inp["var"][rank])),
+        C.broadcast_async_(x, root_rank=world - 1)]
+    out["async"] = [raw(C.synchronize(h)) for h in reversed(handles)][::-1]
+    out["async_again"] = raw(C.synchronize(handles[0]))
+    out["broadcast_object"] = C.broadcast_object(
+        {"rank": rank, "epoch": 7 * rank}, root_rank=1)
+    out["allgather_object"] = C.allgather_object(["x"] * rank)
+    out["grouped"] = [raw(t) for t in C.grouped_allreduce(
+        [torch.from_numpy(np.ascontiguousarray(a[rank]))
+         for a in inp["group"]], fusion_threshold=64)]
+    sl = IndexedSlices(mine("values"), mine("indices"), inp["dense_shape"])
+    red = C.allreduce(sl)
+    out["slices"] = (raw(red.values), raw(red.indices), red.dense_shape)
+    out["slices_sum"] = raw(C.allreduce(sl, average=False).values)
+
+    emb = torch.nn.Embedding(10, 4, sparse=True)
+    with torch.no_grad():
+        emb.weight.copy_(torch.from_numpy(inp["emb"]))
+    emb(torch.from_numpy(inp["tokens"][rank])).pow(2).sum().backward()
+    g = emb.weight.grad
+    s = IndexedSlices.from_sparse_coo(g)
+    out["emb"] = {"is_sparse": g.is_sparse,
+                  "roundtrip": torch.equal(s.to_sparse_coo().to_dense(),
+                                           g.to_dense()),
+                  "sparse_avg": raw(C.allreduce(s).to_dense()),
+                  "dense_avg": raw(C.allreduce(g.to_dense()))}
+
+    ref = {}
+    ref["bad_root"] = _raises(lambda: C.broadcast(x, root_rank=world))
+    ref["bad_root_async"] = _raises(
+        lambda: C.broadcast_async_(x, root_rank=-1))
+    ref["bad_root_object"] = _raises(
+        lambda: C.broadcast_object(1, root_rank=world))
+    ref["ragged_shapes"] = _raises(
+        lambda: C.allgather(torch.zeros(2, 3 + rank)))
+    ref["ragged_rows"] = _raises(
+        lambda: C.allgather_ragged(torch.zeros(5, 3), 2, 4))
+    ref["ragged_valid"] = _raises(
+        lambda: C.allgather_ragged(torch.zeros(4, 3), 5, 4))
+    ref["sparse_op"] = _raises(lambda: C.allreduce(sl, op=C.Op.MAX))
+    ref["alltoall_rows"] = _raises(
+        lambda: C.alltoall(torch.zeros(world + 1, 2)))
+    ref["alltoall_axis"] = _raises(
+        lambda: C.alltoall(torch.zeros(world, 2), split_axis=1))
+    ref["reducescatter_rows"] = _raises(
+        lambda: C.reducescatter(torch.zeros(world + 1, 2)))
+    out["refusals"] = ref
+    out["after_refusals"] = raw(C.allreduce(x, average=False))
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"coll_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+class _Counter:
+    """Counts the calls of each ``torch.distributed`` collective the port
+    makes while it is entered (module attributes are patched; the port
+    looks them up at call time)."""
+
+    NAMES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+             "all_gather", "broadcast", "all_to_all_single")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self._saved = {n: getattr(dist, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def counted(*a, **k):
+                self.counts[name] += 1
+                return fn(*a, **k)
+            return counted
+        for n, fn in self._saved.items():
+            setattr(dist, n, wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self._saved.items():
+            setattr(dist, n, fn)
+
+
+class _MLP(torch.nn.Module):
+    """Dense layers of ``widths`` with relu between them over 8 features
+    (default Dense(16) → relu → Dense(10): the JAX ZeRO tests' model;
+    the overlap tests take three Dense(64) before it, as JAX's), f32,
+    from a seed."""
+
+    def __init__(self, seed: int = 0, widths=(16, 10)):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        dims = (8,) + tuple(widths)
+        self.layers = torch.nn.ModuleList(
+            torch.nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
+
+    def forward(self, x, train=True):
+        for i, layer in enumerate(self.layers):
+            x = layer(x) if i == 0 else layer(torch.relu(x))
+        return x
+
+
+OPTS = {
+    "sgd": functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
+                             foreach=False),
+    "adam": functools.partial(torch.optim.Adam, lr=1e-2, foreach=False),
+    "adamw": functools.partial(torch.optim.AdamW, lr=1e-2,
+                               weight_decay=0.01, foreach=False),
+}
+
+
+def _mlp_run(opt, zero, batches, rows, accum=1, guard=False, threshold=300,
+             overlap=False, wire=None, widths=(16, 10), remat=False,
+             count=False, nan_step=None):
+    """Steps of the MLP from seed 0 on this rank's ``rows`` of each
+    global batch (rank 0's first row NaN at step ``nan_step``); returns
+    (state, per-step metrics) — with ``count``, each step's collective
+    counts under "counts" and whether it left params and optimizer state
+    bit-unchanged under "unchanged"."""
+    from horovod_tpu_torch.training import create_train_state, make_train_step
+    state = create_train_state(_MLP(widths=widths), OPTS[opt], zero=zero,
+                               overlap=overlap, fusion_threshold=threshold,
+                               wire_dtype=wire, device="cpu")
+    step = make_train_step(accum_steps=accum, guard_nonfinite=guard,
+                           remat=remat)
+    ms = []
+    for i, (x, y) in enumerate(batches):
+        x = x[rows].copy()
+        if i == nan_step and torch.distributed.get_rank() == 0:
+            x[0, 0] = np.nan
+        before = _state_words(state) if count else None
+        with _Counter() as c:
+            state, m = step(state, (torch.from_numpy(x),
+                                    torch.from_numpy(y[rows])))
+        ms.append({k: float(v) for k, v in m.items()})
+        if count:
+            ms[-1]["counts"] = c.counts
+            ms[-1]["unchanged"] = all(torch.equal(a, b) for a, b in
+                                      zip(before, _state_words(state)))
+    return state, ms
+
+
+def _state_words(state):
+    """Params and every optimizer-state tensor (either plane), copied."""
+    opt = state.optimizer
+    st = (opt.zero_state().inner if opt.zero
+          else [opt.state.get(p, {}) for p in state.model.parameters()])
+    return ([p.detach().clone() for p in state.model.parameters()]
+            + [v.clone() for d in st for v in d.values()
+               if torch.is_tensor(v)])
+
+
+def _params_np(model):
+    return {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
+
+
+def run_zero(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of tests/test_torch_zero.py's world: ``fused_reduce_
+    scatter`` and ``fused_allgather_params`` on this rank's slice of each
+    case of ``<workdir>/zero_inputs.pkl``; the MLP's ZeRO and replicated
+    steps under three optimizers, with accumulation, and with the guard
+    (a NaN on rank 0's rows), with the collectives of a step counted; the
+    tiny LM's ZeRO and replicated steps; the canonical form (saved to
+    ``<workdir>/canonical.pkl``, or restored from ``inp["restore"]``);
+    writes ``<workdir>/zero_rank<r>.pkl``."""
+    _join(rank, world, port)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import fusion as F
+    from horovod_tpu_torch.optimizer import (zero_from_canonical,
+                                             zero_to_canonical)
+    from horovod_tpu_torch.parallel.transformer import (
+        TransformerConfig, make_parallel_train_step)
+
+    with open(os.path.join(workdir, "zero_inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {"cases": {}}
+    for name, case in inp["cases"].items():
+        ts = [torch.from_numpy(np.ascontiguousarray(a[rank]))
+              for a in case["arrays"]]
+        plan = F.plan_zero(ts, world, case["threshold"])
+        shards, local = F.fused_reduce_scatter(
+            ts, plan, average=case["average"], prescale=case["prescale"],
+            return_finite=True, wire_dtype=case["wire"])
+        leaves, everywhere = F.fused_allgather_params(shards, plan,
+                                                      and_finite=local)
+        out["cases"][name] = {"shards": [_np(s) for s in shards],
+                              "local": bool(local),
+                              "gathered": [_np(t) for t in leaves],
+                              "all_finite": bool(everywhere)}
+
+    n = inp["x"].shape[1] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    batches = list(zip(inp["x"], inp["y"]))
+    runs = {}
+    for opt in OPTS:
+        for zero in (False, True):
+            state, ms = _mlp_run(opt, zero, batches, rows)
+            runs[(opt, zero)] = {"params": _params_np(state.model),
+                                 "losses": [m["loss"] for m in ms]}
+            if zero:
+                st = state.optimizer.zero_state()
+                runs[(opt, zero)]["state_elems"] = {
+                    k: sum(s[k].numel() for s in st.inner)
+                    for k in st.inner[0] if st.inner[0][k].dim() == 1}
+                runs[(opt, zero)]["shard_len"] = [
+                    st.plan.shard_len(i) for i in range(len(st.plan.buckets))]
+                if opt == "adamw":
+                    adamw_state = state
+    for zero in (False, True):
+        state, ms = _mlp_run("adamw", zero, batches[:1], rows, accum=2)
+        runs[("accum", zero)] = {"params": _params_np(state.model),
+                                 "losses": [m["loss"] for m in ms]}
+    out["runs"] = runs
+
+    # The guard: finite, NaN on rank 0's rows, finite.
+    from horovod_tpu_torch.training import create_train_state, make_train_step
+    state = create_train_state(_MLP(), OPTS["adamw"], zero=True,
+                               fusion_threshold=300, device="cpu")
+    guarded = make_train_step(guard_nonfinite=True)
+    steps = []
+    for i, (x, y) in enumerate(batches):
+        x = x[rows].copy()
+        if i == 1 and rank == 0:
+            x[0, 0] = np.nan
+        before = _state_words(state)
+        with _Counter() as c:
+            state, m = guarded(state, (torch.from_numpy(x),
+                                       torch.from_numpy(y[rows])))
+        steps.append({"bad_step": float(m["bad_step"]),
+                      "loss": float(m["loss"]), "counts": c.counts,
+                      "unchanged": all(torch.equal(a, b) for a, b in
+                                       zip(before, _state_words(state)))})
+    plain = make_train_step()
+    with _Counter() as c:
+        plain(state, (torch.from_numpy(batches[0][0][rows]),
+                      torch.from_numpy(batches[0][1][rows])))
+    out["guard"] = {"steps": steps, "plain_counts": c.counts,
+                    "n_buckets": len(state.optimizer.plan.buckets)}
+
+    # The tiny LM: the spec-grouped plan of the dp mesh.
+    cfg = TransformerConfig(**inp["lm_dims"], dtype=torch.float32,
+                            attn_backend="xla")
+    lm = {}
+    for zero in (False, True):
+        init_state, lm_step = make_parallel_train_step(
+            cfg, OPTS["adamw"], zero=zero, fusion_threshold=20_000,
+            device="cpu")
+        st = init_state(0)
+        for toks in inp["tokens"]:
+            st, loss = lm_step(st, torch.from_numpy(toks[rows]),
+                               torch.from_numpy(toks[rows]))
+        lm[zero] = {"params": _params_np(st.model), "loss": float(loss)}
+        if zero:
+            plan = st.optimizer.plan
+            lm["plan"] = (plan.scatter_axis, plan.denoms, len(plan.buckets))
+    out["lm"] = lm
+
+    # The canonical form: round trip, then save or restore.
+    opt = adamw_state.optimizer
+    canon = zero_to_canonical(opt.zero_state())
+    opt.load_zero_state(zero_from_canonical(canon, opt.zero_state()))
+    out["roundtrip"] = all(
+        torch.equal(a, b) for a, b in zip(
+            [v for st in zero_to_canonical(opt.zero_state()).inner
+             for v in st.values()],
+            [v for st in canon.inner for v in st.values()]))
+    out["canonical"] = [{k: _np(v) for k, v in st.items()}
+                        for st in canon.inner]
+    if inp.get("restore"):
+        with open(inp["restore"], "rb") as f:
+            saved = pickle.load(f)
+        from horovod_tpu_torch.optimizer import ZeroShardedState
+        state, _ = _mlp_run("adamw", True, [], rows)
+        opt = state.optimizer
+        loaded = zero_from_canonical(
+            ZeroShardedState(inner=[{k: torch.from_numpy(v)
+                                     for k, v in st.items()}
+                                    for st in saved], plan=opt.plan),
+            opt.zero_state())
+        opt.load_zero_state(loaded)
+        out["restored"] = {
+            "shards": [{k: _np(v) for k, v in st.items()}
+                       for st in opt.zero_state().inner],
+            "canonical": [{k: _np(v) for k, v in st.items()} for st in
+                          zero_to_canonical(opt.zero_state()).inner],
+            "plan": (opt.plan.padded, [opt.plan.shard_len(i) for i in
+                                       range(len(opt.plan.buckets))])}
+    elif rank == 0:
+        with open(os.path.join(workdir, "canonical.pkl"), "wb") as f:
+            pickle.dump(out["canonical"], f)
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"zero_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_overlap(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of tests/test_torch_overlap.py's world: the overlapped
+    step against the plain one on the MLP of three Dense(64) (f32,
+    AdamW) — regrouped buckets and one bucket per leaf, with ZeRO, with
+    accumulation, with remat, with the guard and a bf16 wire (a NaN on
+    rank 0's rows) — the collectives of each step counted, the probed
+    order, and a backward left in flight then drained; writes
+    ``<workdir>/overlap_rank<r>.pkl``."""
+    _join(rank, world, port)
+    import horovod_tpu_torch as hvd
+
+    with open(os.path.join(workdir, "overlap_inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    n = inp["x"].shape[1] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    batches = list(zip(inp["x"], inp["y"]))
+    wide = dict(widths=(64, 64, 64, 10), threshold=inp["threshold"])
+    variants = {
+        "plain": dict(), "overlap": dict(overlap=True),
+        "plain_t0": dict(threshold=0), "overlap_t0": dict(threshold=0,
+                                                          overlap=True),
+        "zero": dict(zero=True), "zero_overlap": dict(zero=True,
+                                                      overlap=True),
+        "accum": dict(accum=2), "accum_overlap": dict(accum=2,
+                                                      overlap=True),
+        "accum_t0": dict(accum=2, threshold=0),
+        "accum_overlap_t0": dict(accum=2, threshold=0, overlap=True),
+        "remat": dict(remat=True), "remat_overlap": dict(remat=True,
+                                                         overlap=True),
+        "guard_bf16": dict(guard=True, wire="bf16", nan_step=1),
+        "guard_bf16_overlap": dict(guard=True, wire="bf16", nan_step=1,
+                                   overlap=True),
+        "zero_guard_bf16_overlap": dict(zero=True, guard=True, wire="bf16",
+                                        nan_step=1, overlap=True),
+    }
+    out = {}
+    for name, kw in variants.items():
+        kw = {**wide, **kw}
+        zero = kw.pop("zero", False)
+        state, ms = _mlp_run("adamw", zero, batches, rows, count=True, **kw)
+        opt = state.optimizer
+        out[name] = {"params": _params_np(state.model), "steps": ms,
+                     "order": opt.grad_order,
+                     "source": opt.grad_order_source}
+    # A backward armed with no exchange after it, drained at zero_grad.
+    state, _ = _mlp_run("adamw", False, batches[:1], rows, overlap=True,
+                        widths=(64, 64, 64, 10),
+                        threshold=inp["threshold"])
+    opt = state.optimizer
+    opt.zero_grad()
+    opt.arm()
+    state.model(torch.from_numpy(batches[0][0][rows])).sum().backward()
+    in_flight = len(opt._overlap._pending)
+    opt.zero_grad()
+    out["drain"] = {"in_flight": in_flight,
+                    "after": len(opt._overlap._pending),
+                    "armed": opt._overlap.armed}
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"overlap_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
