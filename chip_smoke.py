@@ -2,8 +2,10 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
 Drives the port's four main paths, the training-plane knobs (ZeRO-1
-and the overlapped exchange among them) and the bench entry, and holds every CUDA kernel on them against its plain
-PyTorch version on the card:
+and the overlapped exchange among them), the Trainer with its
+checkpoints and the checkpoint-to-serving chain, and the bench entry, and
+holds every CUDA kernel on them against its plain PyTorch version on the
+card:
 
 * serving — the paged generation engine serving the bench LM at full
   width (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
@@ -146,7 +148,42 @@ Phases, one JSON line each:
                peak bytes of each; then one ZeRO step with the guard on
                a NaN batch leaves params, the shards' state and the
                BatchNorm buffers bit-unchanged.
-25. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
+25. trainer — the fused ResNet-50 at batch 128 through ``Trainer.fit``
+               (2 epochs of 4 steps on the fixed synthetic batch, prefetch
+               2) with ``BroadcastGlobalVariablesCallback``,
+               ``MetricAverageCallback``, ``LearningRateWarmupCallback`` and
+               a save per epoch through ``AsyncCheckpointer`` +
+               ``save_checkpoint(max_to_keep=2)``; counters zeroed before
+               the fit (16 K1 + 16 K2 per step); the lr per batch against
+               the warmup formula; ``verify_checkpoint``; a fresh state
+               restored bitwise equal to the live one (params, buffers,
+               momentum, lr, step); one more epoch from each, bitwise
+               equal (``torch.backends.cudnn.deterministic`` pinned for
+               it); a flipped and a truncated leaf raise
+               ``CheckpointCorruptError`` naming the checkpoint and the
+               leaf, a manifest-less copy restores unverified; the
+               snapshot, write, manifest and restore times and bytes; the
+               step loop's stall after a synchronous and an async save;
+               the Trainer's step p50 (fed host batches, and batches
+               already on the card) against the bare loop's, in turns;
+               with ``HVD_MAX_BAD_STEPS=2`` NaN batches under the guard
+               raise ``NonFiniteGradError`` after two skipped steps with
+               the state bit-unchanged.
+26. lm_ckpt_serve — the full-width LM with ``zero=True``: 2 steps (8
+               K3-qkv + 8 dq + 8 dkv each), ``save_sharded``,
+               ``verify_checkpoint``, ``restore_sharded`` into a fresh
+               state bitwise equal to the live one, one more step from
+               each with bitwise-equal params; ``restore_for_inference``
+               (reads only the params' files) through
+               ``convert.params_from_jax`` into a paged engine (8 slots,
+               max_len 2048, block 16): 4 greedy requests of 16 new tokens
+               give the same tokens as an engine built from the live
+               weights, the flash kernel running n_layers times per
+               prefill and K8 n_layers times per decode step; bytes,
+               save, verify, restore and ``restore_for_inference`` times.
+               Checkpoints go to a temporary directory removed after each
+               of these two phases.
+27. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
                default two lines, the same with ``--zero --overlap``,
                ``--model resnet50 --conv-backend fused``, ``--model
                transformer_lm --accum-steps 2``), each in a process of
@@ -162,6 +199,7 @@ no result line. Run: ``python3 chip_smoke.py`` from the repository root.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import gc
@@ -339,6 +377,24 @@ ZO_LM = (("plain", {}), ("zero", dict(zero=True)),
          ("overlap", dict(overlap=True)),
          ("zero_overlap", dict(zero=True, overlap=True)))
 ZO_RN = (("plain", {}), ("zero_overlap", dict(zero=True, overlap=True)))
+# The Trainer and its checkpoints (trainer): the fused ResNet-50 at batch
+# 128 through Trainer.fit, TR_EPOCHS epochs of TR_STEPS steps on the
+# bench's fixed synthetic batch, a save per epoch (max_to_keep
+# TR_KEEP); then the round trip, one resumed epoch from the restored and
+# from the live state, three corruptions and the bad-step budget
+# (HVD_MAX_BAD_STEPS=TR_BAD_BUDGET). TR_TIMED steps of the bare loop and
+# of the Trainer, in turns, for the Trainer's overhead; TR_STALL_STEPS
+# steps after a synchronous and after an async save for the stall.
+TR_EPOCHS, TR_STEPS, TR_KEEP, TR_PREFETCH = 2, 4, 2, 2
+TR_BAD_BUDGET = 2
+TR_TIMED, TR_STALL_STEPS = 10, 4
+# The LM checkpoint to serving chain (lm_ckpt_serve): CK_STEPS ZeRO steps
+# of the full-width LM, save_sharded, restore into a fresh state, one more
+# step from each; restore_for_inference into engines of CK_SLOTS slots,
+# CK_REQUESTS greedy requests of CK_NEW_TOKENS new tokens.
+CK_STEPS = 2
+CK_SLOTS, CK_REQUESTS, CK_NEW_TOKENS = 8, 4, 16
+CK_PROMPT_LENS = (37, 300, 900, 1500)
 REPLACES = {
     "flash_attention": "horovod_tpu/ops/pallas_attention.py:101",
     "flash_attention_qkv_fwd": "horovod_tpu/ops/pallas_attention.py:101",
@@ -2326,6 +2382,502 @@ def phase_bench(smi: str):
                   f"bench phases {lines[0]['phases']}")
 
 
+def want_launches(got: dict, want: dict, what: str) -> None:
+    """Every kernel of ``want`` launched exactly that many times."""
+    seen = {k: got.get(k, 0) for k in want}
+    check(seen == want, f"{what}: launched {got}, expected {want}")
+
+
+def host_batch(batch: int, seed: int):
+    """synthetic_batch's data on the host (numpy): what a Trainer's data
+    iterable yields, staged to the card by its prefetch thread."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((batch, RN_IMAGE, RN_IMAGE, 3)).astype(
+        np.float32)
+    return x, rng.randint(0, RN_CLASSES, size=(batch,))
+
+
+def _state_bits(state) -> list:
+    """Params, buffers, every optimizer-state tensor and the
+    hyperparameters of a train state (copies, either plane)."""
+    opt = state.optimizer
+    st = (opt.zero_state().inner if opt.zero else
+          [opt.state.get(p, {}) for _, p in opt.named_parameters])
+    return ([t.detach().clone() for t in state.model.parameters()]
+            + [b.detach().clone() for b in state.model.buffers()]
+            + [v.detach().clone() for d in st for _, v in sorted(d.items())
+               if torch.is_tensor(v)]
+            + [torch.tensor([float(v) for k, v in sorted(g.items())
+                             if isinstance(v, float)], dtype=torch.float64)
+               for g in opt.param_groups]
+            + [torch.tensor(int(state.step))])
+
+
+def _bits_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def _ckpt_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _leaf_file(path: str, prefix: str):
+    """(leaf file, key path) of the largest leaf under ``prefix`` (a key
+    path prefix such as ``.params``) in the checkpoint's index."""
+    from horovod_tpu_torch.parallel import checkpoint as ckpt
+    leaves = [(s.file, ckpt.keystr(kp)) for kp, s in
+              ckpt._flatten(ckpt.read_index(path))]
+    cands = [(f, k) for f, k in leaves if k.startswith(prefix)]
+    return max(cands, key=lambda fk: os.path.getsize(
+        os.path.join(path, fk[0])))
+
+
+def _corruption_checks(ckdir: str, step: int, make_state) -> dict:
+    """A flipped byte and a truncated leaf raise CheckpointCorruptError
+    naming the checkpoint and the leaf; a checkpoint without a manifest
+    restores unverified. Each case works on its own copy."""
+    import shutil
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.checkpoint import (MANIFEST_NAME,
+                                                       verify_checkpoint)
+    from horovod_tpu_torch.trainer import restore_checkpoint
+    src = os.path.join(ckdir, f"ckpt_{step}")
+    out = {}
+    for case in ("flip", "truncate", "no_manifest"):
+        root = tempfile.mkdtemp(prefix=f"hvd_ckpt_{case}_")
+        try:
+            path = os.path.join(root, f"ckpt_{step}")
+            shutil.copytree(src, path)
+            leaf_file, leaf = _leaf_file(path, ".params")
+            victim = os.path.join(path, leaf_file)
+            size = os.path.getsize(victim)
+            if case == "flip":
+                with open(victim, "r+b") as f:
+                    f.seek(size // 2)
+                    b = f.read(1)
+                    f.seek(size // 2)
+                    f.write(bytes([(b[0] + 1) & 0xFF]))
+            elif case == "truncate":
+                with open(victim, "r+b") as f:
+                    f.truncate(size // 2)
+            else:
+                os.unlink(os.path.join(path, MANIFEST_NAME))
+            if case == "no_manifest":
+                check(verify_checkpoint(path) is False,
+                      "manifest-less checkpoint reported as verified")
+                state = make_state()
+                restore_checkpoint(root, state)
+                out[case] = dict(restored_step=int(state.step))
+                del state
+                continue
+            for what, call in (("verify_checkpoint",
+                                lambda: verify_checkpoint(path)),
+                               ("restore_checkpoint",
+                                lambda: restore_checkpoint(root,
+                                                           make_state()))):
+                try:
+                    call()
+                    raised = None
+                except hvd.CheckpointCorruptError as e:
+                    raised = str(e)
+                check(raised is not None and path in raised
+                      and leaf in raised,
+                      f"{case}: {what} raised {raised!r}, expected "
+                      f"CheckpointCorruptError naming {path} and {leaf}")
+                out[f"{case}_{what}"] = raised[:240]
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _loop_times(run_step, n: int) -> list:
+    """Completion-to-completion host times (ms) of ``n`` calls of
+    ``run_step`` — no synchronize inside, as the Trainer's loop has none —
+    then one synchronize; the last interval includes the drain."""
+    stamps = [time.monotonic()]
+    for _ in range(n):
+        run_step()
+        stamps.append(time.monotonic())
+    torch.cuda.synchronize()
+    stamps[-1] = time.monotonic()
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
+def phase_trainer(seed: int):
+    """The fused ResNet-50 at full width through ``Trainer.fit`` with the
+    callbacks and a save per epoch through ``AsyncCheckpointer``; the
+    checkpoint's round trip, a resumed epoch, corruption, the bad-step
+    budget; the Trainer's overhead and the checkpoint's costs."""
+    import shutil
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks as cb
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.checkpoint import (snapshot_to_host,
+                                                       state_tree,
+                                                       verify_checkpoint,
+                                                       write_manifest,
+                                                       write_tree)
+    from horovod_tpu_torch.trainer import (AsyncCheckpointer, Trainer,
+                                           restore_checkpoint,
+                                           save_checkpoint)
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+    hvd.init()
+    check(hvd.size() == 1, "expected a 1-rank world")
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+
+    def make_state(s=seed + 1):
+        return create_train_state(build_resnet("fused", s), sgd)
+    x, y = host_batch(RN_BATCH, seed)
+    data = lambda: [(x, y)] * TR_STEPS  # noqa: E731
+    state = make_state(seed)
+    step = make_train_step()
+    ckdir = tempfile.mkdtemp(prefix="hvd_trainer_ckpt_")
+    out = {}
+    try:
+        writer = AsyncCheckpointer(max_pending=2)
+        lrs, snap_ms = [], []
+
+        class Probe(cb.Callback):
+            def on_batch_begin(self, batch, logs=None):
+                lrs.append(self.trainer.state.optimizer.param_groups[0]["lr"])
+
+            def on_epoch_end(self, epoch, logs=None):
+                t0 = time.monotonic()
+                save_checkpoint(ckdir, self.trainer.state,
+                                max_to_keep=TR_KEEP, writer=writer)
+                snap_ms.append((time.monotonic() - t0) * 1e3)
+        warmup = cb.LearningRateWarmupCallback(warmup_epochs=1)
+        trainer = Trainer(step, state, steps_per_epoch=TR_STEPS,
+                          prefetch=TR_PREFETCH)
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.monotonic()
+        history = trainer.fit(
+            data, epochs=TR_EPOCHS,
+            callbacks=[cb.BroadcastGlobalVariablesCallback(0),
+                       cb.MetricAverageCallback(), warmup, Probe()])
+        torch.cuda.synchronize()
+        fit_s = time.monotonic() - t0
+        launches = LAUNCHES.snapshot()
+        steps = TR_EPOCHS * TR_STEPS
+        want_launches(launches, {"fused_conv_bn_fwd": RN_SITES * steps,
+                                 "fused_conv_bn_bwd": RN_SITES * steps},
+                      "trainer fit")
+        writer.wait()
+        check(all(np.isfinite(h["loss"]) for h in history),
+              f"trainer loss {history}")
+        size = hvd.size()
+        want_lr = [0.1 / size * ((e + (b + 1) / TR_STEPS) * (size - 1) + 1)
+                   if e < 1 else 0.1
+                   for e in range(TR_EPOCHS) for b in range(TR_STEPS)]
+        check(lrs == want_lr, f"warmup lr per batch {lrs} vs {want_lr}")
+        kept = sorted(os.listdir(ckdir))
+        check(kept == [f"ckpt_{TR_STEPS * (e + 1)}"
+                       for e in range(TR_EPOCHS - TR_KEEP, TR_EPOCHS)],
+              f"retention kept {kept}")
+        last = os.path.join(ckdir, f"ckpt_{steps}")
+        check(verify_checkpoint(last) is True, "verify_checkpoint")
+        out.update(fit_s=fit_s, history=history, lr_per_batch=lrs,
+                   launches=launches, kept=kept,
+                   snapshot_ms_async=snap_ms)
+
+        # Round trip: a fresh state (other weights) restored from disk is
+        # bitwise the live one: params, buffers, momentum, lr, step.
+        live_bits = _state_bits(state)
+        fresh = make_state()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        restore_checkpoint(ckdir, fresh)
+        torch.cuda.synchronize()
+        restore_ms = (time.monotonic() - t0) * 1e3
+        check(_bits_equal(live_bits, _state_bits(fresh)),
+              "restore_checkpoint: restored state differs from the live one")
+
+        # Resume: one more epoch from each, cuDNN pinned deterministic
+        # (the stock 3x3 convs' algorithms; K1 and K2 use no atomics).
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            resumed = []
+            for st in (state, fresh):
+                tr = Trainer(step, st, steps_per_epoch=TR_STEPS,
+                             prefetch=TR_PREFETCH)
+                tr.fit(data, epochs=TR_EPOCHS + 1, initial_epoch=TR_EPOCHS,
+                       callbacks=[cb.LearningRateWarmupCallback(
+                           warmup_epochs=1)])
+                resumed.append(_state_bits(st))
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_det
+        check(_bits_equal(*resumed), "resumed epoch: restored and live "
+                                     "states diverged")
+        del fresh, resumed
+        out["corruption"] = _corruption_checks(ckdir, steps, make_state)
+
+        # Costs: snapshot, write (leaf files + rename), manifest (CRCs),
+        # the bytes; the stall of a synchronous vs an async save.
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        host = snapshot_to_host(state_tree(state))
+        t1 = time.monotonic()
+        path = os.path.join(ckdir, "ckpt_cost")
+        write_tree(path, host)
+        t2 = time.monotonic()
+        write_manifest(path, host, step=int(state.step))
+        t3 = time.monotonic()
+        nbytes = _ckpt_bytes(path)
+        shutil.rmtree(path)
+        del host
+        dev = hvd.runtime.device()
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        bare = lambda: step(state, (xd, yd))  # noqa: E731
+        bare_ms = _loop_times(bare, TR_TIMED)
+        stall = {}
+        for mode in ("sync", "async"):
+            torch.cuda.synchronize()
+            t_0 = time.monotonic()
+            save_checkpoint(ckdir, state, max_to_keep=TR_KEEP,
+                            writer=writer if mode == "async" else None)
+            call_ms = (time.monotonic() - t_0) * 1e3
+            for _ in range(TR_STALL_STEPS):
+                bare()
+            torch.cuda.synchronize()
+            window = (time.monotonic() - t_0) * 1e3
+            writer.wait()
+            stall[mode] = dict(
+                save_call_ms=call_ms, window_ms=window,
+                stall_ms=window - TR_STALL_STEPS * float(
+                    np.median(bare_ms[1:])))
+        writer.close()
+
+        # The Trainer's per-step overhead against the bare loop, in turns:
+        # fed host batches (staged by the prefetch thread) and batches
+        # already on the card (the loop alone).
+        def trainer_times(batch):
+            tr = Trainer(step, state, steps_per_epoch=TR_TIMED,
+                         prefetch=TR_PREFETCH, verbose=False)
+            stamps = []
+
+            class Stamp(cb.Callback):
+                def on_batch_end(self, batch, logs=None):
+                    stamps.append(time.monotonic())
+            torch.cuda.synchronize()
+            stamps.append(time.monotonic())
+            tr.fit(lambda: [batch] * TR_TIMED, epochs=1,
+                   callbacks=[Stamp()])
+            torch.cuda.synchronize()
+            return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])][1:]
+        trainer_ms, resident_ms = [], []
+        for _ in range(2):
+            trainer_ms += trainer_times((x, y))
+            bare_ms += _loop_times(bare, TR_TIMED)[1:]
+            resident_ms += trainer_times((xd, yd))
+        out.update(
+            restore_ms=restore_ms, checkpoint_bytes=nbytes,
+            snapshot_ms=(t1 - t0) * 1e3, write_ms=(t2 - t1) * 1e3,
+            write_mb_per_s=nbytes / 1e6 / (t2 - t1),
+            manifest_ms=(t3 - t2) * 1e3, stall=stall,
+            bare_step_ms_p50=float(np.median(bare_ms)),
+            trainer_step_ms_p50=float(np.median(trainer_ms)),
+            trainer_resident_step_ms_p50=float(np.median(resident_ms)),
+            trainer_overhead_ms=float(np.median(trainer_ms)
+                                      - np.median(bare_ms)))
+
+        # The bad-step budget: NaN batches under the guard raise
+        # NonFiniteGradError after TR_BAD_BUDGET skips, state unchanged.
+        bad_x = x.copy()
+        bad_x[0, 0, 0, 0] = np.nan
+        before = _state_bits(state)
+        os.environ["HVD_MAX_BAD_STEPS"] = str(TR_BAD_BUDGET)
+        try:
+            tr = Trainer(make_train_step(guard_nonfinite=True), state,
+                         steps_per_epoch=TR_STEPS, prefetch=TR_PREFETCH)
+            LAUNCHES.reset()
+            try:
+                tr.fit(lambda: [(bad_x, y)] * TR_STEPS, epochs=1)
+                raised = None
+            except hvd.NonFiniteGradError as e:
+                raised = str(e)
+        finally:
+            del os.environ["HVD_MAX_BAD_STEPS"]
+        want_launches(LAUNCHES.snapshot(),
+                      {"fused_conv_bn_fwd": RN_SITES * TR_BAD_BUDGET,
+                       "fused_conv_bn_bwd": RN_SITES * TR_BAD_BUDGET},
+                      "trainer guard")
+        check(raised is not None and raised.startswith(
+            f"{TR_BAD_BUDGET} consecutive non-finite-gradient steps at "
+            f"global step {TR_BAD_BUDGET - 1}"),
+              f"guard raised {raised!r}")
+        after = _state_bits(state)
+        # The step counter advances on a skipped step; nothing else moves.
+        check(_bits_equal(before[:-1], after[:-1])
+              and int(after[-1]) == int(before[-1]) + TR_BAD_BUDGET,
+              "guard: state changed on skipped steps")
+        out["guard"] = dict(raised=raised[:160], skipped=TR_BAD_BUDGET)
+        emit("trainer", batch=RN_BATCH, epochs=TR_EPOCHS,
+             steps_per_epoch=TR_STEPS, cudnn_deterministic_for_resume=True,
+             **out)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return launches
+
+
+@contextlib.contextmanager
+def _count_loads():
+    """Count the ``.npy`` files ``numpy.load`` opens in the block."""
+    opened = []
+    real = np.load
+
+    def counting(file, *a, **k):
+        opened.append(str(file))
+        return real(file, *a, **k)
+    np.load = counting
+    try:
+        yield opened
+    finally:
+        np.load = real
+
+
+def _greedy_tokens(model, prompts) -> tuple:
+    """CK_REQUESTS greedy requests through a paged engine of CK_SLOTS
+    slots; the tokens, and the launches of the round."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
+    eng = GenerationEngine(model, GenerationConfig(
+        max_slots=CK_SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        default_max_new_tokens=CK_NEW_TOKENS), device="cuda")
+    try:
+        eng.warmup()
+        torch.cuda.synchronize()
+        steps0 = eng.stats()["batches_total"]
+        LAUNCHES.reset()
+        results = [h.result(600) for h in [eng.submit(p) for p in prompts]]
+        torch.cuda.synchronize()
+        launches = LAUNCHES.snapshot()
+        steps = eng.stats()["batches_total"] - steps0
+    finally:
+        eng.shutdown()
+    return [r["tokens"] for r in results], launches, steps
+
+
+def phase_lm_ckpt_serve(seed: int):
+    """The full-width LM: ZeRO steps, save_sharded, verify, restore into a
+    fresh state (bitwise), one more step from each (bitwise), then
+    restore_for_inference into the paged engine, whose greedy tokens must
+    equal those of an engine built from the live weights."""
+    import shutil
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.checkpoint import (
+        read_index, restore_for_inference, restore_sharded, save_sharded,
+        verify_checkpoint)
+    from horovod_tpu_torch.parallel.transformer import (
+        TransformerConfig, make_parallel_train_step)
+    hvd.init()
+    check(hvd.size() == 1, "expected a 1-rank world")
+    cfg = lm_config()
+    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
+    adamw = functools.partial(torch.optim.AdamW, **ADAMW, foreach=True)
+    init_state, step = make_parallel_train_step(cfg, adamw, zero=True)
+    per_step = {k: cfg.n_layers for k in ATTN_KERNELS}
+    state = init_state(seed)
+    losses = []
+    for i in range(CK_STEPS):
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        state, loss = step(state, tokens, labels)
+        losses.append(loss.item())
+        want_launches(LAUNCHES.snapshot(), per_step, f"lm_ckpt step {i}")
+    check(all(np.isfinite(losses)), f"lm_ckpt losses {losses}")
+    ckdir = tempfile.mkdtemp(prefix="hvd_lm_ckpt_")
+    out = dict(losses=losses)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        path = save_sharded(ckdir, state.step, state.model, state.optimizer)
+        save_ms = (time.monotonic() - t0) * 1e3
+        live_params = convert.params_to_numpy(state.model)   # as saved
+        nbytes = _ckpt_bytes(path)
+        t0 = time.monotonic()
+        check(verify_checkpoint(path) is True, "lm verify_checkpoint")
+        verify_ms = (time.monotonic() - t0) * 1e3
+        fresh = init_state(seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, _, got_step = restore_sharded(ckdir, fresh.model, fresh.optimizer)
+        fresh.step = got_step
+        torch.cuda.synchronize()
+        restore_ms = (time.monotonic() - t0) * 1e3
+        check(_bits_equal(_state_bits(state), _state_bits(fresh)),
+              "restore_sharded: restored state differs from the live one")
+        for st in (state, fresh):
+            LAUNCHES.reset()
+            step(st, tokens, labels)
+            want_launches(LAUNCHES.snapshot(), per_step, "lm_ckpt resume")
+        check(all(torch.equal(a, b) for a, b in zip(
+            state.model.parameters(), fresh.model.parameters())),
+              "resumed LM step: params of the restored and live states "
+              "differ")
+        del state, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        from horovod_tpu_torch.parallel import checkpoint as ckpt
+        n_params = sum(1 for kp, _ in ckpt._flatten(read_index(path))
+                       if ckpt.keystr(kp).startswith("['params']"))
+        with _count_loads() as opened:
+            t0 = time.monotonic()
+            variables = restore_for_inference(ckdir)
+            rfi_ms = (time.monotonic() - t0) * 1e3
+        check(sorted(variables) == ["params"] and len(opened) == n_params,
+              f"restore_for_inference read {len(opened)} files, "
+              f"{n_params} params leaves")
+        serve_cfg = TransformerConfig(**LM, dtype=torch.bfloat16,
+                                      unembed_dtype=torch.float32)
+        rng = np.random.RandomState(seed)
+        prompts = [rng.randint(0, cfg.vocab, n) for n in CK_PROMPT_LENS]
+        runs = {}
+        for name, tree in (("restored", variables["params"]),
+                           ("live", live_params)):
+            model = convert.params_from_jax(tree, serve_cfg)
+            toks, launches, dsteps = _greedy_tokens(model, prompts)
+            want_launches(launches, {
+                "flash_attention": cfg.n_layers * len(prompts),
+                "paged_decode_attention": cfg.n_layers * dsteps},
+                f"lm_ckpt engine {name}")
+            runs[name] = dict(tokens=toks, launches=launches,
+                              decode_steps=dsteps)
+            del model
+            torch.cuda.empty_cache()
+        check(runs["restored"]["tokens"] == runs["live"]["tokens"],
+              "greedy tokens of the restored LM differ from the live one's")
+        check(all(len(t) == CK_NEW_TOKENS for t in runs["live"]["tokens"]),
+              "engine requests did not finish")
+        out.update(checkpoint_bytes=nbytes, save_ms=save_ms,
+                   save_mb_per_s=nbytes / 1e6 / (save_ms / 1e3),
+                   verify_ms=verify_ms, restore_ms=restore_ms,
+                   restore_for_inference_ms=rfi_ms,
+                   restore_for_inference_files=len(opened),
+                   engine=runs)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    emit("lm_ckpt_serve", batch=LM_BATCH, seq=LM_SEQ, zero=True, **out)
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    return runs["restored"]["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2370,6 +2922,8 @@ def main() -> int:
         phase_train_knobs(args.seed)
         phase_guard(args.seed)
         phase_zero_overlap(args.seed)
+        phase_trainer(args.seed)
+        phase_lm_ckpt_serve(args.seed)
         phase_bench(smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

@@ -24,13 +24,23 @@ The ported slices:
   ``parallel.pp_transformer.make_pp_transformer_train_step`` (1F1B over
   a ``parallel.mesh.create_hybrid_mesh`` dp × pp mesh), with the
   ``[B, T, H, D]`` flash-attention forward (with lse) and backward
-  kernels.
+  kernels;
+* the training state a user can save, verify, resume and serve —
+  ``trainer.Trainer`` with ``callbacks`` and ``hooks``, the rank-0
+  ``save_checkpoint``/``restore_checkpoint`` and the sharded
+  ``parallel.checkpoint.save_sharded``/``restore_sharded`` behind per-leaf
+  CRC32 manifests, ``restore_for_inference`` into the serving engine, and
+  the telemetry plane (``obs``, ``utils.timeline``).
 
 Importing the package never imports JAX or the JAX package.
 """
 
-from .exceptions import (DeadlineExceededError, HorovodError,
-                         ServerClosedError, ServerOverloadedError)
+from .exceptions import (CheckpointCorruptError, CheckpointTimeoutError,
+                         DeadlineExceededError, FailedPreconditionError,
+                         HorovodError, NonFiniteGradError,
+                         NotInitializedError, ServerClosedError,
+                         ServerOverloadedError, StalledError, TransportError,
+                         WorkerFailureError)
 from .ops.collectives import (Op, allgather, allgather_async_,
                               allgather_object, allgather_ragged, allreduce,
                               allreduce_async_, alltoall, broadcast,
@@ -39,17 +49,24 @@ from .ops.collectives import (Op, allgather, allgather_async_,
 from .ops.fusion import (BucketSchedule, GradSync, plan_grad_sync,
                          plan_schedule, probe_grad_order, resolve_wire_dtype)
 from .ops.sparse import IndexedSlices
-from .optimizer import (DistributedOptimizer, ZeroShardedState,
-                        allreduce_gradients, broadcast_optimizer_state,
-                        broadcast_parameters, partition_optimizer,
-                        zero_from_canonical, zero_to_canonical)
-from .runtime import (init, is_initialized, local_rank, rank, shutdown,
-                      size)
+from .optimizer import (Compression, DistributedOptimizer, ZeroShardedState,
+                        allreduce_gradients, broadcast_global_variables,
+                        broadcast_optimizer_state, broadcast_parameters,
+                        partition_optimizer, zero_from_canonical,
+                        zero_to_canonical)
+from .runtime import (init, is_initialized, local_rank, process_count,
+                      process_index, rank, shutdown, size)
+from .trainer import (AsyncCheckpointer, Trainer, latest_checkpoint_step,
+                      restore_checkpoint, save_checkpoint)
 from .version import __version__
 
 __all__ = ["__version__", "HorovodError", "ServerOverloadedError",
-           "DeadlineExceededError", "ServerClosedError", "init", "shutdown",
-           "is_initialized", "size", "rank", "local_rank", "Op",
+           "DeadlineExceededError", "ServerClosedError",
+           "NotInitializedError", "FailedPreconditionError",
+           "TransportError", "WorkerFailureError", "CheckpointCorruptError",
+           "CheckpointTimeoutError", "NonFiniteGradError", "StalledError",
+           "init", "shutdown", "is_initialized", "size", "rank",
+           "local_rank", "process_index", "process_count", "Op",
            "allreduce", "allgather", "allgather_ragged", "broadcast",
            "alltoall", "reducescatter", "grouped_allreduce",
            "allreduce_async_", "allgather_async_", "broadcast_async_",
@@ -59,4 +76,7 @@ __all__ = ["__version__", "HorovodError", "ServerOverloadedError",
            "DistributedOptimizer", "ZeroShardedState",
            "partition_optimizer", "zero_to_canonical",
            "zero_from_canonical", "allreduce_gradients",
-           "broadcast_parameters", "broadcast_optimizer_state"]
+           "broadcast_parameters", "broadcast_optimizer_state",
+           "broadcast_global_variables", "Compression", "Trainer",
+           "AsyncCheckpointer", "save_checkpoint", "restore_checkpoint",
+           "latest_checkpoint_step"]

@@ -10,7 +10,8 @@ The JAX tree is ``{"embed", "lnf", "layers": [{"ln1", "wqkv", "wo",
 "ln2", "w1", "w2"}, ...]}`` with every projection ``[in, out]`` and used
 as ``h @ W``; the port keeps exactly that layout, so the map is one to
 one with no transposes. Leaves arrive as numpy arrays (convert JAX
-arrays with ``np.asarray`` first): this module never imports JAX.
+arrays with ``np.asarray`` first) or CPU tensors (the bf16 leaves of
+``restore_for_inference``): this module never imports JAX.
 
 Float leaves (f32, bf16) are carried as f32. The JAX package's int8
 inference format (a ``(q, scale)`` pair per quantized weight, from
@@ -33,6 +34,10 @@ _LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
 
 
 def _float_leaf(leaf: Any, name: str) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        # restore_for_inference(dtype="bf16") returns torch.bfloat16
+        # leaves: numpy has no bfloat16.
+        leaf = leaf.detach().float().cpu().numpy()
     if isinstance(leaf, tuple) or np.asarray(leaf).dtype.kind in "iub":
         raise NotImplementedError(
             f"{name}: int8-quantized weights come in a later slice of the "

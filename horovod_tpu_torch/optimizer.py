@@ -18,7 +18,10 @@ ZeRO state to and from its world-agnostic form. ``broadcast_parameters``
 (the counterpart of ``broadcast_global_variables`` :877) sends rank 0's
 parameters AND buffers (BatchNorm running statistics) to every rank;
 ``broadcast_optimizer_state`` (:895) does the same for the optimizer's
-state and hyperparameters.
+state and hyperparameters, and ``broadcast_global_variables`` (:877) for
+a whole training state (params, buffers, optimizer state, step).
+``Compression`` (:61) is the reference's gradient compression:
+``Compression.bf16`` rides the bf16 wire format of the exchange.
 
 Bucket order is the plan's contract: every rank must hand the same
 parameters in the same order. A parameter whose ``.grad`` is None takes
@@ -47,6 +50,60 @@ from .ops.sparse import IndexedSlices, allreduce_indexed_slices
 from .utils import config as _config
 
 NamedParams = Sequence[Tuple[str, torch.nn.Parameter]]
+
+
+class Compression:
+    """Gradient compression for the exchange (the JAX package's
+    ``Compression``, :61). ``Compression.bf16`` puts float gradients wider
+    than 16 bits on the wire as bfloat16 and restores their dtype after;
+    in this port it IS the bf16 wire format (``wire_dtype="bf16"``): the
+    same bucket-level path, f32 scales and f32 results. On the all-reduce
+    plane it cannot be combined with an explicit ``wire_dtype``; on the
+    ZeRO plane it is accepted as the alias of ``wire_dtype="bf16"``, as
+    in the JAX package."""
+
+    class none:  # noqa: N801 — enum-style namespace
+        @staticmethod
+        def compress(t):
+            return t, None
+
+        @staticmethod
+        def decompress(t, ctx):
+            return t
+
+    class bf16:  # noqa: N801
+        @staticmethod
+        def compress(t):
+            if (torch.is_tensor(t) and t.is_floating_point()
+                    and t.element_size() > 2):
+                return t.to(torch.bfloat16), t.dtype
+            return t, None
+
+        @staticmethod
+        def decompress(t, ctx):
+            return t.to(ctx) if ctx is not None else t
+
+
+def _wire_of(compression, wire_dtype, zero: bool):
+    """The wire dtype of ``DistributedOptimizer(compression=,
+    wire_dtype=)``, with the JAX package's rules (:642, :721)."""
+    wire = resolve_wire_dtype(wire_dtype if wire_dtype is not None
+                              else _config.wire_dtype_default())
+    if compression is Compression.none:
+        return wire
+    if compression is not Compression.bf16:
+        raise ValueError(
+            f"unsupported compression {compression!r}: Compression.none "
+            f"or Compression.bf16 (or wire_dtype='bf16'/'fp8')")
+    if not zero and wire is not None:
+        raise ValueError(
+            "compression= and wire_dtype= both set: pick one (wire_dtype "
+            "is the recommended form)")
+    if wire is not None and wire != torch.bfloat16:
+        raise ValueError(
+            f"compression=Compression.bf16 (the bf16 wire alias) conflicts "
+            f"with wire_dtype={wire_dtype!r} — set wire_dtype alone")
+    return torch.bfloat16
 
 
 def _prescale_of(accum_steps: int) -> Optional[float]:
@@ -333,7 +390,8 @@ class DistributedOptimizer:
     ``make_train_step(accum_steps=)``, which owns its own ``1/N``).
     ``wire_dtype`` (``"bf16"``, ``"fp8"``; default ``HVD_WIRE_DTYPE``)
     puts float gradient buckets on the wire in reduced precision with
-    f32 scales and f32 results. ``sparse_as_dense`` densifies sparse COO
+    f32 scales and f32 results; ``compression=Compression.bf16`` is the
+    same bf16 wire (:class:`Compression`). ``sparse_as_dense`` densifies sparse COO
     gradients into the buckets; without it they ride the two-allgather
     sparse path (the all-reduce plane only).
 
@@ -370,7 +428,7 @@ class DistributedOptimizer:
                  wire_dtype=None, *, zero: bool = False,
                  overlap: Optional[bool] = None,
                  sparse_as_dense: bool = False, mesh=None,
-                 param_specs=None):
+                 param_specs=None, compression=Compression.none):
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if mesh is not None:
@@ -400,9 +458,8 @@ class DistributedOptimizer:
         self.process_group = process_group
         self.accum_steps = accum_steps
         self.sparse_as_dense = sparse_as_dense
-        self.wire_dtype = resolve_wire_dtype(
-            wire_dtype if wire_dtype is not None
-            else _config.wire_dtype_default())
+        self.compression = compression
+        self.wire_dtype = _wire_of(compression, wire_dtype, bool(zero))
         owned = [p for g in optimizer.param_groups for p in g["params"]]
         if named_parameters is None:
             named_parameters = [(f"param_{i}", p) for i, p in
@@ -731,3 +788,39 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
                         dist.broadcast(t, src=root_rank)
                 else:
                     state[key] = desc
+
+
+def broadcast_global_variables(variables, root_rank: int = 0):
+    """Give every rank ``root_rank``'s training state, in place, and
+    return it (the JAX package's ``broadcast_global_variables``, :877;
+    the reference's ``hvd.broadcast_global_variables``, used right after
+    initialization or a checkpoint restore).
+
+    ``variables`` is a training state — an object with ``model`` (or a
+    ``params`` mapping), ``optimizer`` and ``step``, whose parameters and
+    buffers (BatchNorm statistics), optimizer state and hyperparameters
+    and step are broadcast — or a module, state dict or ``(name, tensor)``
+    pairs (:func:`broadcast_parameters`). A ZeRO optimizer's state is
+    rank-sharded by design: only its hyperparameters are broadcast."""
+    model = getattr(variables, "model", None)
+    params = getattr(variables, "params", None) if model is None else model
+    opt = getattr(variables, "optimizer", None)
+    if params is None and opt is None:
+        broadcast_parameters(variables, root_rank)
+        return variables
+    if params is not None:
+        broadcast_parameters(params, root_rank)
+    if opt is not None:
+        if getattr(opt, "zero", False):
+            groups = broadcast_object(
+                [{k: v for k, v in g.items() if k != "params"}
+                 for g in opt.param_groups], root_rank=root_rank)
+            for g, hyper in zip(opt.param_groups, groups):
+                g.update(hyper)
+        else:
+            broadcast_optimizer_state(opt, root_rank)
+    if hasattr(variables, "step"):
+        variables.step = broadcast_object(int(variables.step),
+                                          root_rank=root_rank)
+    return variables
+

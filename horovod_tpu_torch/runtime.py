@@ -13,6 +13,12 @@ in-memory ``HashStore``. Larger worlds rendezvous through ``env://``
 (``MASTER_ADDR``/``MASTER_PORT``). A process group the caller built
 before ``init`` is adopted as it is, and left to its owner at
 ``shutdown``.
+
+``init`` also brings the telemetry plane up, as the reference's does:
+the flight recorder's init event and fatal-signal dump, the world-shape
+gauges of the process-default metrics registry, the per-rank
+``/metrics`` listener when ``HVD_METRICS_PORT`` is set, and the
+Chrome-trace timeline on rank 0 when ``HOROVOD_TIMELINE`` is set.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import threading
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -39,10 +45,13 @@ class World:
     device: torch.device
     backend: str
     owns_group: bool
+    timeline: Any = None        # Timeline writer (rank 0 only)
 
 
 _world: Optional[World] = None
 _lock = threading.Lock()
+# Per-rank metrics HTTP listener (HVD_METRICS_PORT; obs.http).
+_metrics_listener = None
 
 
 def init(device: DeviceLike = "cuda", *,
@@ -88,18 +97,56 @@ def init(device: DeviceLike = "cuda", *,
                                         **kw)
         else:
             backend = dist.get_backend()
+        timeline = None
+        tl_path = _config.timeline_path()
+        if tl_path and rank_ == 0:
+            from .utils.timeline import Timeline
+            timeline = Timeline(tl_path)
         _world = World(rank=rank_, size=size_, local_rank=local,
-                       device=dev, backend=backend, owns_group=owns)
+                       device=dev, backend=backend, owns_group=owns,
+                       timeline=timeline)
+        _start_observability(_world)
         return _world
 
 
-def shutdown() -> None:
+def _start_observability(w: World) -> None:
+    """The flight recorder's init event and fatal-signal dump, the
+    world-shape gauges, the ``/metrics`` listener (when
+    ``HVD_METRICS_PORT`` asks for one) and the timeline's crash flush."""
+    global _metrics_listener
+    from .obs import flightrec, http as _obs_http
+    from .obs.registry import registry as _registry
+    flightrec.install_signal_dump()
+    flightrec.record("init", rank=w.rank, world=w.size)
+    reg = _registry()
+    reg.gauge("hvd_world_size",
+              "Number of ranks (chips) in the world").set(w.size)
+    reg.gauge("hvd_rank", "This process's rank").set(w.rank)
+    if _metrics_listener is None:
+        _metrics_listener = _obs_http.start_from_env(w.rank)
+    if w.timeline is not None:
+        flightrec.add_crash_hook(w.timeline.flush)
+
+
+def shutdown(error: Optional[BaseException] = None) -> None:
     """Tear the world down (destroying the process group if ``init``
-    built it). Safe to call more than once."""
-    global _world
+    built it). Safe to call more than once. ``error=`` marks a failure
+    path: the flight recorder's ring is dumped first."""
+    global _world, _metrics_listener
+    from .obs import flightrec
+    if error is not None:
+        flightrec.record("shutdown_error", error=repr(error))
+        flightrec.dump(reason=f"runtime.shutdown(error={error!r})")
+        flightrec.run_crash_hooks()
     with _lock:
         if _world is None:
             return
+        if _metrics_listener is not None:
+            _metrics_listener.stop()
+            _metrics_listener = None
+        if _world.timeline is not None:
+            flightrec.remove_crash_hook(_world.timeline.flush)
+            _world.timeline.close()
         if _world.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         _world = None
@@ -126,6 +173,16 @@ def rank() -> int:
 
 def local_rank() -> int:
     return world().local_rank
+
+
+def process_index() -> int:
+    """This process's index: one process per GPU, so :func:`rank`."""
+    return world().rank
+
+
+def process_count() -> int:
+    """The number of processes: one per GPU, so :func:`size`."""
+    return world().size
 
 
 def device() -> torch.device:

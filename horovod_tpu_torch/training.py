@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from . import convert
 from .device import DeviceLike, resolve_device
 from .ops.collectives import allreduce
-from .optimizer import DistributedOptimizer
+from .optimizer import Compression, DistributedOptimizer
 from .utils import config as _config
 
 
@@ -67,6 +67,7 @@ def create_train_state(model: torch.nn.Module,
                        fusion_threshold: Optional[int] = None,
                        wire_dtype=None, zero: Optional[bool] = None,
                        overlap: Optional[bool] = None,
+                       compression=Compression.none,
                        device: DeviceLike = "cuda") -> TrainState:
     """Move ``model`` to ``device`` and wrap ``optimizer(params)`` (e.g.
     ``functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)``) in a
@@ -79,7 +80,9 @@ def create_train_state(model: torch.nn.Module,
     wrapped optimizer then runs over flat f32 shards: pin ``foreach`` in
     the factory where the replicated and the ZeRO runs must agree
     bitwise, since its default differs between CPU and CUDA); ``overlap``
-    (default ``HVD_OVERLAP``) arms the backward-overlapped exchange."""
+    (default ``HVD_OVERLAP``) arms the backward-overlapped exchange;
+    ``compression`` is :class:`~horovod_tpu_torch.optimizer.Compression`
+    (``Compression.bf16`` is the bf16 wire)."""
     dev = resolve_device(device)
     model.to(dev)
     named = convert.jax_leaf_order(model)
@@ -88,7 +91,7 @@ def create_train_state(model: torch.nn.Module,
         average=average, fusion_threshold=fusion_threshold,
         wire_dtype=wire_dtype,
         zero=_config.zero_enabled() if zero is None else zero,
-        overlap=overlap)
+        overlap=overlap, compression=compression)
     return TrainState(model=model, optimizer=opt)
 
 

@@ -13,6 +13,11 @@ imported here). The names and defaults are the same:
 * ``HVD_ZERO`` and ``HVD_OVERLAP`` — the defaults of ZeRO-1 sharded
   updates (:func:`zero_enabled`) and of backward-overlapped bucket
   collectives (:func:`overlap_enabled`).
+* ``HVD_MAX_BAD_STEPS`` — the Trainer's budget of consecutive skipped
+  steps (:func:`max_bad_steps`).
+* ``HOROVOD_TIMELINE`` (:func:`timeline_path`), ``HVD_RESTART_EPOCH``
+  (:func:`restart_epoch`) and ``HVD_METRICS_PORT`` (:func:`metrics_port`)
+  — the telemetry plane and the fault injector's epoch gate.
 * The launcher's process environment: rank from ``HVD_RANK`` /
   ``PMI_RANK`` / ``OMPI_COMM_WORLD_RANK``, size from ``HVD_SIZE`` /
   ``PMI_SIZE`` / ``OMPI_COMM_WORLD_SIZE``, local rank from
@@ -82,6 +87,42 @@ def overlap_enabled() -> bool:
     gradient, in a fixed emission order. Off unless set to
     1/true/yes/on."""
     return _flag("HVD_OVERLAP")
+
+
+# Consecutive skipped (non-finite) steps tolerated before Trainer.fit
+# raises NonFiniteGradError.
+DEFAULT_MAX_BAD_STEPS: int = 5
+
+
+def max_bad_steps() -> int:
+    """``HVD_MAX_BAD_STEPS`` — consecutive bad-step budget of
+    ``Trainer.fit`` (default 5, floor 1): a NaN burst shorter than this is
+    absorbed by skipped steps alone; a longer one raises
+    :class:`~horovod_tpu_torch.exceptions.NonFiniteGradError`."""
+    return max(1, _int_env("HVD_MAX_BAD_STEPS", DEFAULT_MAX_BAD_STEPS))
+
+
+def timeline_path():
+    """``HOROVOD_TIMELINE`` — path of the Chrome-tracing file, written by
+    rank 0 only (None when unset)."""
+    return os.environ.get("HOROVOD_TIMELINE") or None
+
+
+def restart_epoch() -> int:
+    """``HVD_RESTART_EPOCH`` — which (re)launch of the world this is (0 on
+    the first launch or when unset); the fault injector's ``@epoch``
+    gate reads it."""
+    try:
+        return int(os.environ.get("HVD_RESTART_EPOCH", "0") or 0)
+    except ValueError:
+        return 0
+
+
+def metrics_port() -> int:
+    """``HVD_METRICS_PORT`` — base port of the per-rank metrics HTTP
+    listeners (rank *r* serves ``GET /metrics`` on ``base + r``;
+    :mod:`horovod_tpu_torch.obs.http`). 0/unset disables."""
+    return max(0, _int_env("HVD_METRICS_PORT", 0))
 
 
 _RANK_VARS = ("HVD_RANK", "PMI_RANK", "OMPI_COMM_WORLD_RANK")

@@ -24,7 +24,14 @@ the whole inputs:
 * the refusals: a bad root, shapes that differ past the first
   dimension, rows past ``max_size`` or a bad ``valid_size``, an op other
   than SUM/AVERAGE on slices, indivisible rows — and the world still
-  works after them.
+  works after them;
+* the rest of the core API: ``Compression.bf16`` is bitwise
+  ``wire_dtype="bf16"`` on the all-reduce and the ZeRO planes and
+  matches JAX's ``allreduce_gradients(compression=Compression.bf16)``
+  within 2^-7 of each leaf's largest value (bf16 rounding of the wire,
+  in other orders: ``tests/test_torch_wire.py``'s bf16 limit), with
+  JAX's refusals; ``process_index``/``process_count``; the exceptions'
+  names, bases and messages.
 
 Tolerance: f32 sums and averages rtol 1e-6 (other summation orders);
 everything else exact.
@@ -42,8 +49,11 @@ from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
 import torch_dist_worker
+from horovod_tpu import exceptions as jexc
+from horovod_tpu import optimizer as jopt
 from horovod_tpu.ops import collectives as jc
 from horovod_tpu.ops import sparse as jsparse
+from horovod_tpu_torch import exceptions as texc
 
 WORLDS = (2, 4)
 F32 = dict(rtol=1e-6, atol=1e-6)
@@ -70,6 +80,9 @@ def _inputs(world):
         "dense_shape": (10, 4),
         "emb": rng.randn(10, 4).astype(np.float32),
         "tokens": rng.randint(0, 10, (world, 6)).astype(np.int64),
+        "comp": [rng.randn(world, 37).astype(np.float32) * 3,
+                 rng.randn(world, 5, 7).astype(np.float32) * 1e-3,
+                 rng.randn(world, 300).astype(np.float32)],
     }
 
 
@@ -274,3 +287,55 @@ def test_refusals(world, case, needle):
         assert needle in got["refusals"][case], got["refusals"][case]
         np.testing.assert_allclose(got["after_refusals"],
                                    inp["f32"].sum(0), **F32)
+
+
+def test_compression_bf16_is_the_bf16_wire_and_matches_jax(world):
+    n, inp, ranks = world
+    want = _jax(lambda *xs: jopt.allreduce_gradients(
+        list(xs), compression=jopt.Compression.bf16,
+        fusion_threshold=1 << 20), n, *inp["comp"])
+    for got in ranks:
+        c = got["compression"]
+        for zero in (False, True):
+            for a, b in zip(c[zero]["compression"], c[zero]["wire"]):
+                assert a.tobytes() == b.tobytes()
+            for a, w in zip(c[zero]["compression"], want):
+                np.testing.assert_allclose(
+                    a, w, rtol=0, atol=2.0 ** -7 * np.abs(w).max())
+            # Compression.none keeps full precision: the bf16 rounding
+            # shows against it.
+            assert any(not np.array_equal(a, b) for a, b in
+                       zip(c[zero]["none"], c[zero]["compression"]))
+        for a, b in zip(c["alias"], c[True]["wire"]):
+            assert a.tobytes() == b.tobytes()
+        ref = c["refusals"]
+        assert "compression= and wire_dtype= both set" in ref["both"]
+        assert "conflicts with wire_dtype" in ref["zero_fp8"]
+        assert "unsupported compression" in ref["unknown"]
+
+
+def test_process_index_and_count(world):
+    n, _, ranks = world
+    assert [r["process"] for r in ranks] == [(i, n) for i in range(n)]
+
+
+def test_exceptions_match_jax():
+    names = ("HorovodError", "NotInitializedError", "FailedPreconditionError",
+             "TransportError", "WorkerFailureError",
+             "CheckpointCorruptError", "CheckpointTimeoutError",
+             "NonFiniteGradError", "StalledError", "ServerOverloadedError",
+             "DeadlineExceededError", "ServerClosedError")
+    for name in names:
+        t, j = getattr(texc, name), getattr(jexc, name)
+        assert [b.__name__ for b in t.__mro__] == \
+            [b.__name__ for b in j.__mro__], name
+    e_t = texc.CheckpointCorruptError("/ck/ckpt_3", "leaf .step bad")
+    e_j = jexc.CheckpointCorruptError("/ck/ckpt_3", "leaf .step bad")
+    assert str(e_t) == str(e_j)
+    assert (e_t.path, e_t.detail) == (e_j.path, e_j.detail)
+    assert str(texc.CheckpointCorruptError("/p")) == \
+        str(jexc.CheckpointCorruptError("/p"))
+    assert str(texc.NotInitializedError()) == str(
+        jexc.NotInitializedError()).replace("horovod_tpu.", "horovod_tpu_torch.")
+    import horovod_tpu_torch as hvd
+    assert all(getattr(hvd, name) is getattr(texc, name) for name in names)

@@ -3,8 +3,9 @@
 tests/test_torch_pipeline.py (:func:`run_pp`), tests/test_torch_wire.py
 (:func:`run_wire`), tests/test_torch_guard.py (:func:`run_guard`),
 tests/test_torch_collectives.py (:func:`run_collectives`),
-tests/test_torch_zero.py (:func:`run_zero`) and
-tests/test_torch_overlap.py (:func:`run_overlap`).
+tests/test_torch_zero.py (:func:`run_zero`),
+tests/test_torch_overlap.py (:func:`run_overlap`) and the checkpoint,
+Trainer and callback tests (:func:`run_ckpt`).
 
 Started by ``torch.multiprocessing.spawn`` with the launcher's environment
 contract (``HVD_RANK``/``HVD_SIZE``/``HVD_LOCAL_RANK``); it imports only
@@ -482,9 +483,46 @@ def run_collectives(rank: int, world: int, port: int, workdir: str) -> None:
         lambda: C.reducescatter(torch.zeros(world + 1, 2)))
     out["refusals"] = ref
     out["after_refusals"] = raw(C.allreduce(x, average=False))
+    out["process"] = (hvd.process_index(), hvd.process_count())
+    out["compression"] = _compression_cases(inp, rank)
     hvd.shutdown()
     with open(os.path.join(workdir, f"coll_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def _compression_cases(inp, rank) -> dict:
+    """``Compression.bf16`` against ``wire_dtype="bf16"`` on both planes:
+    the exchanged gradients of the same per-rank inputs, and the
+    refusals of a contradicting ``wire_dtype``."""
+    import horovod_tpu_torch as hvd
+
+    def exchange(zero, **kw):
+        params = [torch.nn.Parameter(torch.zeros(a.shape[1:]))
+                  for a in inp["comp"]]
+        for p, a in zip(params, inp["comp"]):
+            p.grad = torch.from_numpy(a[rank].copy())   # reduced in place
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(params, lr=0.0),
+            [(f"p{i}", p) for i, p in enumerate(params)],
+            fusion_threshold=1 << 20, zero=zero, **kw)
+        opt.synchronize()
+        return [p.grad.detach().numpy().copy() for p in params]
+    out = {}
+    for zero in (False, True):
+        out[zero] = {
+            "compression": exchange(zero,
+                                    compression=hvd.Compression.bf16),
+            "wire": exchange(zero, wire_dtype="bf16"),
+            "none": exchange(zero, compression=hvd.Compression.none)}
+    out["alias"] = exchange(True, compression=hvd.Compression.bf16,
+                            wire_dtype="bf16")
+    out["refusals"] = {
+        "both": _raises(lambda: exchange(
+            False, compression=hvd.Compression.bf16, wire_dtype="bf16")),
+        "zero_fp8": _raises(lambda: exchange(
+            True, compression=hvd.Compression.bf16, wire_dtype="fp8")),
+        "unknown": _raises(lambda: exchange(False, compression=object()))}
+    return out
 
 
 class _Counter:
@@ -789,4 +827,124 @@ def run_overlap(rank: int, world: int, port: int, workdir: str) -> None:
                     "armed": opt._overlap.armed}
     hvd.shutdown()
     with open(os.path.join(workdir, f"overlap_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn_ckpt(world: int, workdir, inp: dict) -> list:
+    """Write ``inp`` to ``<workdir>/ckpt_inputs.pkl``, run :func:`run_ckpt`
+    in a gloo world of ``world`` spawned processes, and return each
+    rank's output."""
+    import socket
+    import torch.multiprocessing as mp
+    with open(os.path.join(workdir, "ckpt_inputs.pkl"), "wb") as f:
+        pickle.dump(inp, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(run_ckpt, args=(world, port, str(workdir)), nprocs=world,
+             join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"ckpt_rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def zero_canonical_for(plan, seed: int = 7):
+    """A seeded canonical AdamW ZeRO state for ``plan``'s buckets (the
+    same bytes at every world size: only the unpadded sizes are read)."""
+    rng = np.random.RandomState(seed)
+    return [{"exp_avg": rng.randn(n).astype(np.float32),
+             "exp_avg_sq": rng.rand(n).astype(np.float32),
+             "step": np.asarray(3.0, np.float32)} for n in plan.sizes]
+
+
+def run_ckpt(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of the checkpoint/Trainer tests' world, each part gated
+    by ``<workdir>/ckpt_inputs.pkl``: ``Trainer.fit`` with the warmup
+    callback on the CIFAR ResNet (history and lr per batch);
+    ``MetricAverageCallback``; ``restore_checkpoint`` where each rank
+    reads its own directory; a ZeRO MLP state loaded from a seeded
+    canonical form and written with ``save_sharded`` (and, with
+    ``restore_from``, another world's checkpoint restored with
+    ``restore_sharded``); ``process_index``/``process_count``. Writes
+    ``<workdir>/ckpt_rank<r>.pkl``."""
+    _join(rank, world, port)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks as cb
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models.resnet import ResNetConfig
+    from horovod_tpu_torch.optimizer import (ZeroShardedState,
+                                             zero_from_canonical)
+    from horovod_tpu_torch.parallel.checkpoint import (read_manifest,
+                                                       restore_sharded,
+                                                       save_sharded)
+    from horovod_tpu_torch.trainer import Trainer, restore_checkpoint
+    from horovod_tpu_torch.training import create_train_state, make_train_step
+
+    with open(os.path.join(workdir, "ckpt_inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {"process": (hvd.process_index(), hvd.process_count())}
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+
+    def resnet_state(variables, opt=sgd):
+        model = convert.resnet_from_jax(variables,
+                                        ResNetConfig(**inp["cfg"]),
+                                        device="cpu")
+        return create_train_state(model, opt, device="cpu")
+
+    if "fit" in inp:
+        state = resnet_state(inp["variables"], functools.partial(
+            torch.optim.SGD, **inp["fit"]["sgd"]))
+        lrs = []
+
+        class Spy(cb.Callback):
+            def on_batch_begin(self, batch, logs=None):
+                g = self.trainer.state.optimizer.param_groups[0]
+                lrs.append((g["lr"], g["momentum"]))
+        trainer = Trainer(make_train_step(), state,
+                          steps_per_epoch=inp["fit"]["steps"], verbose=False)
+        out["history"] = trainer.fit(
+            lambda: inp["fit"]["batches"], epochs=inp["fit"]["epochs"],
+            callbacks=[cb.BroadcastGlobalVariablesCallback(0),
+                       cb.LearningRateWarmupCallback(
+                           warmup_epochs=inp["fit"]["warmup"]), Spy()])
+        out["lrs"] = lrs
+
+    logs = {"loss": float(rank + 1), "acc": 0.25 * rank, "name": "x"}
+    cb.MetricAverageCallback().on_epoch_end(0, logs)
+    out["metric_average"] = logs
+
+    if "restore_dirs" in inp:
+        state = resnet_state(inp["variables"])
+        restore_checkpoint(inp["restore_dirs"][rank], state)
+        out["restored"] = {
+            "variables": convert.resnet_to_numpy(state.model),
+            "momentum": [_np(state.optimizer.state[p]["momentum_buffer"])
+                         for _, p in state.optimizer.named_parameters],
+            "lr": state.optimizer.param_groups[0]["lr"],
+            "step": state.step}
+
+    state = create_train_state(_MLP(), OPTS["adamw"], zero=True,
+                               fusion_threshold=300, device="cpu")
+    opt = state.optimizer
+    canon = ZeroShardedState(
+        inner=[{k: torch.from_numpy(v) for k, v in st.items()}
+               for st in zero_canonical_for(opt.plan)], plan=opt.plan)
+    opt.load_zero_state(zero_from_canonical(canon, opt.zero_state()))
+    path = save_sharded(os.path.join(workdir, f"zero_w{world}"), 5,
+                        state.model, opt)
+    out["zero_manifest"] = read_manifest(path)
+    if "restore_from" in inp:
+        fresh = create_train_state(_MLP(seed=1), OPTS["adamw"], zero=True,
+                                   fusion_threshold=300, device="cpu")
+        _, _, step = restore_sharded(inp["restore_from"], fresh.model,
+                                     fresh.optimizer)
+        out["zero_restored"] = {
+            "step": step, "params": _params_np(fresh.model),
+            "shards": [{k: _np(v) for k, v in st.items()}
+                       for st in fresh.optimizer.zero_state().inner],
+            "padded": fresh.optimizer.plan.padded}
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"ckpt_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
