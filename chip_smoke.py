@@ -3,7 +3,8 @@
 
 Drives the port's four main paths, the training-plane knobs (ZeRO-1
 and the overlapped exchange among them), the Trainer with its
-checkpoints and the checkpoint-to-serving chain, and the bench entry, and
+checkpoints, the launcher with elastic recovery, the checkpoint-to-serving
+chain, and the bench entry, and
 holds every CUDA kernel on them against its plain PyTorch version on the
 card:
 
@@ -169,7 +170,30 @@ Phases, one JSON line each:
                with ``HVD_MAX_BAD_STEPS=2`` NaN batches under the guard
                raise ``NonFiniteGradError`` after two skipped steps with
                the state bit-unchanged.
-26. lm_ckpt_serve — the full-width LM with ``zero=True``: 2 steps (8
+26. elastic — the launcher and elastic recovery: the fused ResNet-50 at
+               batch 128 through ``Trainer.fit`` under
+               ``run_with_recovery`` with ``ElasticState(commit_every=2,
+               writer=AsyncCheckpointer)`` (durable at each epoch's end),
+               2 epochs of 4 steps, cuDNN pinned deterministic, run by
+               ``python -m horovod_tpu_torch.launcher -np 1`` as this
+               script's ``--elastic-worker`` mode: (a) a clean run; (b)
+               the same with ``--restarts 1``,
+               ``HVD_RESTART_BACKOFF_MAX=0`` and
+               ``HVD_FAULT_SPEC=rank=0:kill@step=5``: one relaunch, epoch
+               1 logs ``resumed from committed step 4`` (markers 2 and 4
+               only: the step-6 commit in flight at the kill left none),
+               the final params and state bitwise (a)'s, each process
+               16 K1 + 16 K2 a step; (c) in this process, commits at
+               steps 2 and 4 with ``ckpt:flip@step=4``, then NaN batches
+               until ``HVD_MAX_BAD_STEPS=2`` runs out: the walk discards
+               step 4, the Trainer rolls back to step 2 (bitwise the
+               commit), and 2 finite steps equal those of a restore of
+               that commit. Time to recover (kill → the launcher's reap,
+               relaunch → ``init``, the walk and restore, the first step
+               after the resume), the commit's stall on the step loop
+               (sync and async) and bytes, run (a)'s step p50 against
+               the bare loop's.
+27. lm_ckpt_serve — the full-width LM with ``zero=True``: 2 steps (8
                K3-qkv + 8 dq + 8 dkv each), ``save_sharded``,
                ``verify_checkpoint``, ``restore_sharded`` into a fresh
                state bitwise equal to the live one, one more step from
@@ -183,12 +207,14 @@ Phases, one JSON line each:
                save, verify, restore and ``restore_for_inference`` times.
                Checkpoints go to a temporary directory removed after each
                of these two phases.
-27. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
+28. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
                default two lines, the same with ``--zero --overlap``,
                ``--model resnet50 --conv-backend fused``, ``--model
                transformer_lm --accum-steps 2``), each in a process of
                its own: names, finite positive values, 0 < mfu <= 1, the
-               knob fields, the peak bytes, the card.
+               knob fields, the peak bytes, the card; then ``--scaling
+               --model resnet50`` (a launcher world of 1: the scaling
+               line of 1 GPU, then the per-GPU line).
 
 Then, before the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
@@ -215,8 +241,10 @@ import threading
 import time
 import traceback
 
-import numpy as np
-import torch
+_T_START = time.time()   # before torch's import: an elastic worker's start
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 import torch.nn.functional as F
 
 LM = dict(vocab=32768, d_model=2048, n_heads=16, n_layers=8, d_ff=8192)
@@ -367,6 +395,8 @@ BENCH_RUNS = (((), ("resnet50_synthetic_images_per_sec_per_gpu",
               (("--model", "transformer_lm", "--accum-steps", "2"),
                ("transformer_lm_tokens_per_sec_per_gpu",)))
 BENCH_TIMEOUT = 400
+# The --scaling sweep through the launcher: one world of 1 on one card.
+BENCH_SCALING = ("--scaling", "--model", "resnet50")
 # ZeRO-1 and overlap (zero_overlap): ZO_STEPS steps per variant from one
 # seed on a 1-rank NCCL world, where the reduce-scatter and all-gather
 # move nothing: every variant's params must equal the plain run's
@@ -395,6 +425,24 @@ TR_TIMED, TR_STALL_STEPS = 10, 4
 CK_STEPS = 2
 CK_SLOTS, CK_REQUESTS, CK_NEW_TOKENS = 8, 4, 16
 CK_PROMPT_LENS = (37, 300, 900, 1500)
+# The launcher and elastic recovery (elastic): the fused ResNet-50 at
+# batch 128 through Trainer.fit under run_with_recovery, EL_EPOCHS
+# epochs of EL_EPOCH_STEPS steps, an async commit every EL_COMMIT_EVERY
+# steps (durable at each epoch's end), in a world of 1 started by the
+# launcher: (a) clean; (b) killed after global step EL_KILL_STEP of
+# restart epoch 0 and relaunched once (--restarts 1, no backoff), which
+# must resume from EL_RESUME and end bitwise as (a); (c) in this process,
+# commits at steps 2 and 4, the step-4 commit's bytes flipped, then NaN
+# batches until HVD_MAX_BAD_STEPS=EL_BAD_BUDGET runs out: the rollback
+# walks past step 4 to step 2, then EL_AFTER finite steps. EL_STALL_STEPS
+# steps after a sync and after an async commit give the stall.
+EL_EPOCHS, EL_EPOCH_STEPS, EL_COMMIT_EVERY = 2, 4, 2
+EL_KILL_STEP, EL_RESUME = 5, 4
+EL_BAD_BUDGET, EL_AFTER, EL_STALL_STEPS = 2, 2, 4
+EL_TIMEOUT = 300
+# The trainer phase's bare-loop step p50, which the elastic phase prints
+# beside its launched Trainer's.
+TRAINER_BARE_P50 = {}
 REPLACES = {
     "flash_attention": "horovod_tpu/ops/pallas_attention.py:101",
     "flash_attention_qkv_fwd": "horovod_tpu/ops/pallas_attention.py:101",
@@ -2380,6 +2428,25 @@ def phase_bench(smi: str):
         if "images" in names[0]:
             check(0 < lines[0]["phases"]["backward_share"] <= 1,
                   f"bench phases {lines[0]['phases']}")
+    # --scaling: one launcher world per size up to this host's GPUs (a
+    # world of 1 here), then the largest world's per-GPU line.
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.bench", *BENCH_SCALING],
+        cwd=root, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    secs = time.monotonic() - t0
+    check(proc.returncode == 0, f"bench --scaling exited {proc.returncode}:"
+                                f" {proc.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    emit("bench", args=list(BENCH_SCALING), seconds=secs, lines=lines)
+    check([ln["metric"] for ln in lines]
+          == ["resnet50_scaling_efficiency_1gpus",
+              "resnet50_synthetic_images_per_sec_per_gpu"],
+          f"bench --scaling printed {[ln['metric'] for ln in lines]}")
+    check(lines[0]["value"] == 1.0 and lines[0]["world"] == 1
+          and lines[0]["images_per_sec_total"] > 0
+          and lines[1]["gpu"] == smi, f"bench --scaling lines {lines}")
 
 
 def want_launches(got: dict, want: dict, what: str) -> None:
@@ -2677,6 +2744,7 @@ def phase_trainer(seed: int):
             trainer_ms += trainer_times((x, y))
             bare_ms += _loop_times(bare, TR_TIMED)[1:]
             resident_ms += trainer_times((xd, yd))
+        TRAINER_BARE_P50["ms"] = float(np.median(bare_ms))
         out.update(
             restore_ms=restore_ms, checkpoint_bytes=nbytes,
             snapshot_ms=(t1 - t0) * 1e3, write_ms=(t2 - t1) * 1e3,
@@ -2729,6 +2797,406 @@ def phase_trainer(seed: int):
     torch.cuda.empty_cache()
     hvd.shutdown()
     return launches
+
+
+def _digest(bits: list) -> str:
+    """sha256 over the bytes of a list of tensors (``_state_bits``)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in bits:
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def elastic_worker(seed: int) -> int:
+    """One rank of the elastic phase's launched world (``--elastic-worker``,
+    started by ``python -m horovod_tpu_torch.launcher``): the fused
+    ResNet-50 through ``Trainer.fit`` under ``run_with_recovery`` with an
+    async commit every EL_COMMIT_EVERY steps, made durable at each
+    epoch's end. Writes its record to ``$HVD_SMOKE_OUT/epoch<e>.json``
+    (also from the flight recorder's crash hook, which runs just before
+    an injected kill)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks as cb
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.obs import flightrec
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.trainer import AsyncCheckpointer, Trainer
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+    epoch = elastic.restart_epoch()
+    rec = dict(epoch=epoch, t_start=_T_START)
+    out = os.path.join(os.environ["HVD_SMOKE_OUT"], f"epoch{epoch}.json")
+
+    def dump():
+        with open(out, "w") as f:
+            json.dump(rec, f)
+
+    def on_kill():
+        # The injected kill runs the crash hooks first: this process's
+        # launches up to the kill, and the time of it.
+        rec["t_kill"] = time.time()
+        rec["launches"] = LAUNCHES.snapshot()
+        print(f"elastic_worker epoch {epoch}: launches {rec['launches']} "
+              f"at the kill", flush=True)
+        dump()
+    flightrec.add_crash_hook(on_kill)
+    hvd.init()
+    rec["t_init"] = time.time()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+    state = create_train_state(build_resnet("fused", seed), sgd)
+    step = make_train_step()
+    x, y = host_batch(RN_BATCH, seed)
+    base = os.environ["HVD_ELASTIC_DIR"]
+    rec["markers_at_start"] = sorted(
+        n for n in (os.listdir(base) if os.path.isdir(base) else [])
+        if n.endswith(".committed"))
+    writer = AsyncCheckpointer()
+    es = elastic.ElasticState(state.model, state.optimizer, directory=base,
+                              commit_every=EL_COMMIT_EVERY, writer=writer)
+    commit_ms, wait_ms, stamps = [], [], []
+
+    class Commit(cb.Callback):
+        def on_batch_end(self, batch, logs=None):
+            if not stamps:
+                torch.cuda.synchronize()   # the first step, completed
+                rec["t_first"] = time.time()
+            t0 = time.monotonic()
+            es.advance()
+            if es.step % EL_COMMIT_EVERY == 0:
+                commit_ms.append((time.monotonic() - t0) * 1e3)
+            stamps.append(time.monotonic())
+
+        def on_epoch_end(self, ep, logs=None):
+            t0 = time.monotonic()
+            es.wait()
+            wait_ms.append((time.monotonic() - t0) * 1e3)
+
+    def train(es):
+        rec["t_restored"] = time.time()
+        rec["resumed_from"] = es.step
+        check(es.step % EL_EPOCH_STEPS == 0,
+              f"resumed mid-epoch at step {es.step}")
+        state.step = es.step
+        tr = Trainer(step, state, steps_per_epoch=EL_EPOCH_STEPS,
+                     prefetch=TR_PREFETCH)
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        tr.fit(lambda: [(x, y)] * EL_EPOCH_STEPS, epochs=EL_EPOCHS,
+               initial_epoch=es.step // EL_EPOCH_STEPS,
+               callbacks=[Commit()])
+        torch.cuda.synchronize()
+        rec["launches"] = LAUNCHES.snapshot()
+        return es
+    rec["t_walk"] = time.time()
+    es = elastic.run_with_recovery(train, state=es)
+    writer.close()
+    steps = EL_EPOCHS * EL_EPOCH_STEPS - rec["resumed_from"]
+    print(f"elastic_worker epoch {epoch}: launches {rec['launches']}",
+          flush=True)
+    want_launches(rec["launches"], {"fused_conv_bn_fwd": RN_SITES * steps,
+                                    "fused_conv_bn_bwd": RN_SITES * steps},
+                  f"elastic worker epoch {epoch}")
+    bits = _state_bits(state)
+    rec.update(
+        step=int(state.step), es_step=es.step, commit_call_ms=commit_ms,
+        epoch_end_wait_ms=wait_ms,
+        step_ms=[(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])],
+        params_digest=_digest(bits[:len(list(state.model.parameters()))]),
+        state_digest=_digest(bits),
+        loss_finite=bool(all(torch.isfinite(p).all()
+                             for p in state.model.parameters())),
+        t_end=time.time())
+    dump()
+    hvd.shutdown()
+    return 0
+
+
+def elastic_worker_cmd(seed: int) -> list:
+    """The command the launcher runs for each rank of the elastic phase."""
+    return [sys.executable, os.path.abspath(__file__), "--elastic-worker",
+            "--seed", str(seed)]
+
+
+def _launch_elastic(tag: str, root: str, seed: int, extra_env: dict,
+                    restarts: int) -> dict:
+    """Run ``--elastic-worker`` through the launcher (-np 1) with
+    ``extra_env``; the launcher's output lines stamped with the wall
+    clock as they arrive, and each epoch's record."""
+    out_dir = os.path.join(root, tag)
+    os.makedirs(out_dir)
+    env = dict(os.environ, HVD_SMOKE_OUT=out_dir,
+               HVD_ELASTIC_DIR=os.path.join(out_dir, "commits"),
+               HVD_FLIGHTREC_DIR=out_dir, HVD_RESTART_BACKOFF_MAX="0",
+               **extra_env)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.launcher", "-np", "1",
+           "--restarts", str(restarts), *elastic_worker_cmd(seed)]
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines = []
+
+    def pump(stream, name):
+        for ln in stream:
+            lines.append((time.time(), name, ln.rstrip("\n")))
+    pumps = [threading.Thread(target=pump, args=(proc.stdout, "out")),
+             threading.Thread(target=pump, args=(proc.stderr, "err"))]
+    for t in pumps:
+        t.start()
+    try:
+        rc = proc.wait(timeout=EL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        proc.wait(timeout=30)
+        raise AssertionError(f"elastic {tag}: the launcher ran past "
+                             f"{EL_TIMEOUT} s")
+    finally:
+        for t in pumps:
+            t.join(timeout=30)
+    text = "\n".join(ln for _, _, ln in lines)
+    check(rc == 0, f"elastic {tag}: launcher exited {rc}:\n{text[-4000:]}")
+    epochs = {}
+    for e in range(restarts + 1):
+        path = os.path.join(out_dir, f"epoch{e}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                epochs[e] = json.load(f)
+    return dict(t_launch=t0, seconds=time.time() - t0, lines=lines,
+                text=text, epochs=epochs, out_dir=out_dir)
+
+
+def phase_elastic(seed: int):
+    """The launcher and elastic recovery on the card at full width: a
+    clean launched run, a killed-and-relaunched run that must resume
+    from EL_RESUME and end bitwise as the clean one, the time to
+    recover, and in this process the Trainer's rollback past a corrupt
+    commit plus the commit's stall and bytes."""
+    import shutil
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks as cb
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.testing import faults
+    from horovod_tpu_torch.trainer import AsyncCheckpointer, Trainer
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+    root = tempfile.mkdtemp(prefix="hvd_elastic_")
+    out = {}
+    torch.cuda.empty_cache()
+    try:
+        # (a) clean and (b) killed after global step EL_KILL_STEP, then
+        # relaunched once.
+        clean = _launch_elastic("clean", root, seed, {}, restarts=0)
+        killed = _launch_elastic(
+            "killed", root, seed,
+            {"HVD_FAULT_SPEC": f"rank=0:kill@step={EL_KILL_STEP}"},
+            restarts=1)
+        a = clean["epochs"].get(0)
+        check(a is not None and a["resumed_from"] == 0
+              and a["step"] == EL_EPOCHS * EL_EPOCH_STEPS,
+              f"elastic clean run: {a}")
+        relaunches = [ln for _, _, ln in killed["lines"]
+                      if ln.startswith("tpurun: world failed")]
+        check(len(relaunches) == 1, f"elastic: relaunched "
+                                    f"{len(relaunches)} times")
+        k0, k1 = killed["epochs"].get(0), killed["epochs"].get(1)
+        check(k0 is not None and "t_kill" in k0 and k1 is not None,
+              f"elastic killed run records: {sorted(killed['epochs'])}")
+        # The kill fires after global step EL_KILL_STEP, its batch done.
+        killed_steps = EL_KILL_STEP + 1
+        want_launches(k0["launches"],
+                      {"fused_conv_bn_fwd": RN_SITES * killed_steps,
+                       "fused_conv_bn_bwd": RN_SITES * killed_steps},
+                      "elastic killed process (epoch 0)")
+        check(f"[elastic] recovery: resumed from committed step {EL_RESUME}"
+              in killed["text"], "elastic: epoch 1 did not log 'resumed "
+                                 f"from committed step {EL_RESUME}'")
+        check(k1["resumed_from"] == EL_RESUME,
+              f"elastic: resumed from {k1['resumed_from']}")
+        check(k1["markers_at_start"] == [
+            f"ckpt_{s}.committed" for s in range(
+                EL_COMMIT_EVERY, EL_RESUME + 1, EL_COMMIT_EVERY)],
+              f"elastic: markers at relaunch {k1['markers_at_start']}")
+        check(k1["params_digest"] == a["params_digest"]
+              and k1["state_digest"] == a["state_digest"],
+              "elastic: the relaunched run's final state is not bitwise "
+              "the clean run's")
+        for what, r in (("clean", a), ("killed epoch 0", k0),
+                        ("killed epoch 1", k1)):
+            print(f"elastic {what}: launches {r['launches']}", flush=True)
+        t_reap = next(t for t, _, ln in killed["lines"]
+                      if ln.startswith("tpurun: world failed"))
+        recover = dict(
+            kill_to_reap_ms=(t_reap - k0["t_kill"]) * 1e3,
+            relaunch_to_init_ms=(k1["t_init"] - t_reap) * 1e3,
+            process_start_to_init_ms=(k1["t_init"] - k1["t_start"]) * 1e3,
+            init_to_state_built_ms=(k1["t_walk"] - k1["t_init"]) * 1e3,
+            walk_and_restore_ms=(k1["t_restored"] - k1["t_walk"]) * 1e3,
+            first_step_ms=(k1["t_first"] - k1["t_restored"]) * 1e3,
+            kill_to_first_step_ms=(k1["t_first"] - k0["t_kill"]) * 1e3)
+        commits = os.path.join(clean["out_dir"], "commits")
+        last = EL_EPOCHS * EL_EPOCH_STEPS
+        # a["step_ms"][i] ends at step i + 2; the intervals that carry no
+        # commit and no epoch-end wait.
+        quiet = [ms for i, ms in enumerate(a["step_ms"])
+                 if (i + 2) % EL_COMMIT_EVERY and (i + 1) % EL_EPOCH_STEPS]
+        out.update(
+            clean=dict(seconds=clean["seconds"], launches=a["launches"],
+                       step_ms=a["step_ms"],
+                       step_ms_p50=float(np.median(a["step_ms"])),
+                       step_ms_without_commit=quiet,
+                       commit_call_ms=a["commit_call_ms"],
+                       epoch_end_wait_ms=a["epoch_end_wait_ms"],
+                       first_step_ms=(a["t_first"] - a["t_restored"]) * 1e3,
+                       start_to_init_ms=(a["t_init"] - a["t_start"]) * 1e3),
+            killed=dict(seconds=killed["seconds"],
+                        launches_epoch0=k0["launches"],
+                        launches=k1["launches"],
+                        resumed_from=k1["resumed_from"],
+                        markers_at_relaunch=k1["markers_at_start"]),
+            time_to_recover=recover,
+            commit_bytes=_ckpt_bytes(os.path.join(commits, f"ckpt_{last}")),
+            params_bitwise=True)
+
+        # (c) In this process: commits at 2 and 4 (the step-4 bytes
+        # flipped), NaN batches until the budget runs out, the rollback
+        # past step 4 to step 2, then EL_AFTER finite steps.
+        hvd.init()
+        check(hvd.size() == 1, "expected a 1-rank world")
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        os.environ["HVD_FAULT_SPEC"] = f"ckpt:flip@step={EL_RESUME}"
+        os.environ["HVD_MAX_BAD_STEPS"] = str(EL_BAD_BUDGET)
+        faults.reset()
+        try:
+            sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+            state = create_train_state(build_resnet("fused", seed), sgd)
+            step = make_train_step(guard_nonfinite=True)
+            x, y = host_batch(RN_BATCH, seed)
+            bad_x = x.copy()
+            bad_x[0, 0, 0, 0] = np.nan
+            cdir = os.path.join(root, "rollback")
+            es = elastic.ElasticState(state.model, state.optimizer,
+                                      directory=cdir,
+                                      commit_every=EL_COMMIT_EVERY)
+            at = {}
+
+            class Commit(cb.Callback):
+                def on_batch_end(self, batch, logs=None):
+                    es.advance()
+                    if es.step % EL_COMMIT_EVERY == 0:
+                        at[es.step] = _state_bits(state)
+            Trainer(step, state, steps_per_epoch=EL_RESUME,
+                    prefetch=TR_PREFETCH).fit(
+                lambda: [(x, y)] * EL_RESUME, epochs=1,
+                callbacks=[Commit()])
+            check(sorted(at) == [2, 4], f"rollback commits {sorted(at)}")
+            rolled = {}
+
+            class Watch(cb.Callback):
+                def on_batch_end(self, batch, logs=None):
+                    if batch == EL_BAD_BUDGET - 1:
+                        rolled["bits"] = _state_bits(state)
+                        rolled["step"] = int(state.step)
+            data = [(bad_x, y)] * EL_BAD_BUDGET + [(x, y)] * EL_AFTER
+            tr = Trainer(step, state, elastic=es, steps_per_epoch=len(data),
+                         prefetch=TR_PREFETCH)
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            t0 = time.monotonic()
+            hist = tr.fit(lambda: data, epochs=1, callbacks=[Watch()])
+            torch.cuda.synchronize()
+            fit_ms = (time.monotonic() - t0) * 1e3
+            launches = LAUNCHES.snapshot()
+            want_launches(launches,
+                          {"fused_conv_bn_fwd": RN_SITES * len(data),
+                           "fused_conv_bn_bwd": RN_SITES * len(data)},
+                          "elastic rollback fit")
+            check(es.discarded_corrupt == 1,
+                  f"rollback walk discarded {es.discarded_corrupt}")
+            check(rolled.get("step") == 2 and _bits_equal(
+                rolled["bits"], at[2]),
+                  "rollback: the state after the rollback is not bitwise "
+                  "the step-2 commit")
+            check(hist[0]["bad_steps"] == EL_BAD_BUDGET
+                  and np.isfinite(hist[0]["loss"])
+                  and int(state.step) == 2 + EL_AFTER,
+                  f"rollback: history {hist}, step {int(state.step)}")
+            # The two finite steps after the rollback are those of a fresh
+            # state restored from the step-2 commit.
+            after = _state_bits(state)
+            ref = create_train_state(build_resnet("fused", seed + 7), sgd)
+            elastic.ElasticState(ref.model, ref.optimizer, directory=cdir
+                                 ).restore(step=2)
+            ref.step = 2
+            dev = hvd.runtime.device()
+            for _ in range(EL_AFTER):
+                ref, _m = step(ref, tuple(torch.from_numpy(a).to(dev)
+                                          for a in (x, y)))
+            check(_bits_equal(after, _state_bits(ref)),
+                  "rollback: training after the rollback diverged from a "
+                  "restore of the step-2 commit")
+            del ref, at, rolled
+            out["rollback"] = dict(
+                discarded_corrupt=es.discarded_corrupt, rolled_back_to=2,
+                bad_steps=hist[0]["bad_steps"], loss=hist[0]["loss"],
+                launches=launches, fit_ms=fit_ms)
+
+            # The commit's stall on the step loop: EL_STALL_STEPS steps
+            # after a synchronous and after an async commit, against the
+            # bare loop's p50; then the bare loop against the run (a)
+            # Trainer's step p50.
+            del os.environ["HVD_FAULT_SPEC"]
+            faults.reset()
+            xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+            plain = make_train_step()
+            bare = lambda: plain(state, (xd, yd))  # noqa: E731
+            bare_ms = _loop_times(bare, TR_TIMED)[1:]
+            stall = {}
+            writer = AsyncCheckpointer()
+            for mode in ("sync", "async"):
+                es_s = elastic.ElasticState(
+                    state.model, state.optimizer, int(state.step),
+                    directory=os.path.join(root, f"stall_{mode}"),
+                    writer=writer if mode == "async" else None)
+                torch.cuda.synchronize()
+                t_0 = time.monotonic()
+                es_s.commit()
+                call_ms = (time.monotonic() - t_0) * 1e3
+                for _ in range(EL_STALL_STEPS):
+                    bare()
+                torch.cuda.synchronize()
+                window = (time.monotonic() - t_0) * 1e3
+                es_s.wait()
+                stall[mode] = dict(
+                    commit_call_ms=call_ms, window_ms=window,
+                    stall_ms=window - EL_STALL_STEPS * float(
+                        np.median(bare_ms)))
+            writer.close()
+            bare_ms += _loop_times(bare, TR_TIMED)[1:]
+            out.update(stall=stall, bare_step_ms_p50=float(
+                np.median(bare_ms)),
+                trainer_phase_bare_step_ms_p50=TRAINER_BARE_P50.get("ms"),
+                clean_step_ms_p50_minus_bare=float(
+                    np.median(a["step_ms"]) - np.median(bare_ms)))
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_det
+            os.environ.pop("HVD_FAULT_SPEC", None)
+            del os.environ["HVD_MAX_BAD_STEPS"]
+            faults.reset()
+        emit("elastic", batch=RN_BATCH, epochs=EL_EPOCHS,
+             steps_per_epoch=EL_EPOCH_STEPS, commit_every=EL_COMMIT_EVERY,
+             kill_step=EL_KILL_STEP, **out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hvd.shutdown()
 
 
 @contextlib.contextmanager
@@ -2881,6 +3349,9 @@ def phase_lm_ckpt_serve(seed: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--elastic-worker", action="store_true",
+                    help="run as one rank of the elastic phase's launched "
+                         "world (started by the launcher, not by hand)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2893,6 +3364,8 @@ def main() -> int:
         print(f"chip_smoke: cannot import horovod_tpu_torch ({e}); run "
               f"from the repository root", file=sys.stderr)
         return 2
+    if args.elastic_worker:
+        return elastic_worker(args.seed)
     errs, launches, times = {}, {}, {}
     try:
         smi = phase_device()
@@ -2923,6 +3396,7 @@ def main() -> int:
         phase_guard(args.seed)
         phase_zero_overlap(args.seed)
         phase_trainer(args.seed)
+        phase_elastic(args.seed)
         phase_lm_ckpt_serve(args.seed)
         phase_bench(smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run

@@ -30,11 +30,16 @@ The ported slices:
   ``save_checkpoint``/``restore_checkpoint`` and the sharded
   ``parallel.checkpoint.save_sharded``/``restore_sharded`` behind per-leaf
   CRC32 manifests, ``restore_for_inference`` into the serving engine, and
-  the telemetry plane (``obs``, ``utils.timeline``).
+  the telemetry plane (``obs``, ``utils.timeline``);
+* the per-GPU launcher (``python -m horovod_tpu_torch.launcher``, one
+  process per GPU, supervised, ``--restarts``) and elastic recovery
+  (``elastic.ElasticState`` two-phase commits with the verified fallback
+  walk, ``elastic.run_with_recovery``, the Trainer's rollback).
 
 Importing the package never imports JAX or the JAX package.
 """
 
+from . import elastic  # noqa: F401
 from .exceptions import (CheckpointCorruptError, CheckpointTimeoutError,
                          DeadlineExceededError, FailedPreconditionError,
                          HorovodError, NonFiniteGradError,
@@ -79,4 +84,4 @@ __all__ = ["__version__", "HorovodError", "ServerOverloadedError",
            "broadcast_parameters", "broadcast_optimizer_state",
            "broadcast_global_variables", "Compression", "Trainer",
            "AsyncCheckpointer", "save_checkpoint", "restore_checkpoint",
-           "latest_checkpoint_step"]
+           "latest_checkpoint_step", "elastic"]

@@ -38,8 +38,17 @@ CPU, where the line is labelled per CPU and every device-only field is
 null. ``HVD_FUSED_PARTS`` and ``HVD_LM_LOSS_CHUNK`` act as in
 ``bench.py``. Without a GPU and without ``--device cpu`` the bench exits
 non-zero: it never falls back. The knobs not ported yet (``--tp`` > 1,
-``--scaling``, ``--pp`` with ``--zero`` or ``--overlap``, the models
-other than resnet50) exit non-zero naming their ``ROADMAP.md`` item.
+``--pp`` with ``--zero`` or ``--overlap``, the models other than
+resnet50) exit non-zero naming their ``ROADMAP.md`` item.
+
+``--scaling`` runs the conv model's line in worlds of 1, 2, 4, ... up to
+the GPUs this host shows (gloo worlds of 1 and 2 under ``--device cpu``),
+each started through the port's launcher (``python -m
+horovod_tpu_torch.launcher -np N``, one process per GPU) running this
+bench, and prints ``bench.py``'s scaling line per world
+(``<model>_scaling_efficiency_<N>gpus``: the world's images/s over N
+times the world of 1's, with ``images_per_sec_total`` and the knobs;
+``cpus`` on the CPU), then the largest world's per-device line.
 """
 
 from __future__ import annotations
@@ -433,15 +442,81 @@ def _refuse_unported(args, tp: int, pp: int) -> None:
         raise SystemExit(
             f"--tp {tp} (the tensor-parallel axis) is not ported yet: "
             f"ROADMAP.md Queue 1 item 11")
-    if args.scaling:
-        raise SystemExit(
-            "--scaling measures world sizes 1, 2, 4, ... and needs the "
-            "per-GPU launcher, which is not ported yet: ROADMAP.md Queue 1 "
-            "item 4")
     if args.model in _UNPORTED_MODELS:
         raise SystemExit(
             f"--model {args.model} has no port model yet: ROADMAP.md "
             f"Queue 1 item 14")
+
+
+def _emit(line: dict) -> None:
+    """Print a result line, on rank 0 only (every rank measures the same
+    world), in one write: the ranks of a launched world share one stdout,
+    and two writes could interleave with another rank's."""
+    if not runtime.is_initialized() or runtime.rank() == 0:
+        sys.stdout.write(json.dumps(line) + "\n")
+        sys.stdout.flush()
+
+
+# The launcher's exit is bounded per world of the --scaling sweep.
+SCALING_TIMEOUT = 900
+
+
+def _child_args(args) -> list:
+    """This run's arguments for one world of the --scaling sweep."""
+    out = ["--model", args.model or "resnet50", "--device", args.device,
+           "--seed", str(args.seed), "--accum-steps", str(args.accum_steps)]
+    if args.conv_backend:
+        out += ["--conv-backend", args.conv_backend]
+    if args.wire_dtype:
+        out += ["--wire-dtype", args.wire_dtype]
+    return out + [f for f, on in (("--zero", args.zero),
+                                  ("--overlap", args.overlap)) if on]
+
+
+def scaling(args) -> int:
+    """The --scaling sweep: a launcher world per size, its (rank 0's)
+    line, one scaling-efficiency line per size."""
+    from horovod_tpu_torch.utils import config as _config
+    if _config.launcher_size() > 1:
+        raise SystemExit(
+            "--scaling starts its own worlds through the launcher; run it "
+            "as one process, not under the launcher")
+    cpu = args.device == "cpu"
+    top = 2 if cpu else _config.visible_gpus()
+    sizes = sorted({2 ** p for p in range(8) if 2 ** p <= top} | {top})
+    per = "cpu" if cpu else "gpu"
+    rate1, line = None, None
+    for n in sizes:
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.launcher", "-np",
+               str(n)] + (["--cpu"] if cpu else []) + [
+            sys.executable, "-m", "horovod_tpu_torch.bench"] \
+            + _child_args(args)
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=SCALING_TIMEOUT)
+        if proc.returncode != 0:
+            raise SystemExit(f"--scaling: the world of {n} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+                 if ln.startswith("{")]
+        if len(lines) != 1:
+            raise SystemExit(f"--scaling: the world of {n} printed "
+                             f"{len(lines)} lines: {proc.stdout[-2000:]}")
+        line = lines[0]
+        rate = line["value"] * n
+        if n == 1:
+            rate1 = rate
+        eff = rate / (n * rate1)
+        _emit({
+            "metric": f"{line['metric'].split('_synthetic')[0]}"
+                      f"_scaling_efficiency_{n}{per}s",
+            "value": round(eff, 4), "unit": "fraction",
+            "vs_baseline": round(eff / 0.90, 3),  # ref: 90% at 128 GPUs
+            "images_per_sec_total": round(rate, 2),
+            **{k: line[k] for k in ("accum_steps", "zero", "overlap",
+                                    "wire_dtype", "tp", "pp", "mesh",
+                                    "world")}})
+    _emit(line)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -449,7 +524,10 @@ def main(argv=None) -> int:
         description="Synthetic training throughput of the port "
                     "(ResNet-50 + transformer LM), one JSON line each.")
     p.add_argument("--scaling", action="store_true",
-                   help="world sizes 1, 2, 4, ... (not ported yet)")
+                   help="the conv model in worlds of 1, 2, 4, ... GPUs "
+                        "(gloo worlds of 1 and 2 with --device cpu), each "
+                        "through the launcher: one scaling-efficiency "
+                        "line per world")
     p.add_argument("--model", default=None,
                    choices=sorted(_GPU_CONFIGS) + list(_UNPORTED_MODELS)
                    + ["transformer_lm"],
@@ -502,14 +580,23 @@ def main(argv=None) -> int:
             "horovod_tpu_torch.bench runs on a CUDA device, but "
             "torch.cuda.is_available() is False; pass --device cpu for "
             "the smoke configs")
+    if args.scaling:
+        if args.model == "transformer_lm":
+            raise SystemExit(
+                "--scaling is not supported for transformer_lm (the conv "
+                "family's re-init-with-device-subsets machinery does not "
+                "apply); run it without --scaling")
+        if pp > 1 or args.mesh:
+            raise SystemExit("--scaling sweeps pure dp worlds: drop "
+                             "--pp/--mesh")
+        return scaling(args)
     wire = None if args.wire_dtype in (None, "fp32") else args.wire_dtype
     hvd.init(device=args.device)
     device = runtime.device()
     try:
         if args.model == "transformer_lm":
-            print(json.dumps(lm_line(device, wire, tp, pp, args.accum_steps,
-                                     mesh_dp, args.seed, args.zero,
-                                     args.overlap)), flush=True)
+            _emit(lm_line(device, wire, tp, pp, args.accum_steps, mesh_dp,
+                          args.seed, args.zero, args.overlap))
             return 0
         if pp > 1:
             raise SystemExit(
@@ -524,13 +611,12 @@ def main(argv=None) -> int:
                     "--conv-backend has no effect in smoke/CPU mode (the "
                     "smoke config swaps the model to cifar20)")
             cfg["conv_backend"] = args.conv_backend
-        print(json.dumps(resnet_line(cfg, device, args.seed)), flush=True)
+        _emit(resnet_line(cfg, device, args.seed))
         if args.model is None:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-            print(json.dumps(lm_line(device, wire, accum_steps=1,
-                                     seed=args.seed, zero=args.zero,
-                                     overlap=args.overlap)), flush=True)
+            _emit(lm_line(device, wire, accum_steps=1, seed=args.seed,
+                          zero=args.zero, overlap=args.overlap))
         return 0
     finally:
         hvd.shutdown()

@@ -11,7 +11,9 @@
   recent structured events dumped to ``hvd_flightrec.rank{N}.json`` when
   a rank dies badly.
 
-The fleet poller (``summary.py``) is ``ROADMAP.md`` Queue 1 item 12.
+* :mod:`.summary` — the launcher's ``--metrics-summary`` fleet line:
+  every rank's ``/metrics`` scraped and aggregated into one line (the
+  serving fleet's line is ``ROADMAP.md`` Queue 1 item 12).
 """
 
 from . import flightrec  # noqa: F401

@@ -119,6 +119,7 @@ def _own_copy(tensor: torch.Tensor) -> torch.Tensor:
     return tensor.detach().clone(memory_format=torch.contiguous_format)
 
 
+@runtime.maps_peer_failures
 def allreduce(tensor, average: bool = True, name: Optional[str] = None,
               op: Optional[Op] = None):
     """Sum (or average, or ``op``) ``tensor`` across all ranks. An
@@ -203,6 +204,7 @@ def _allgather(tensor: torch.Tensor, async_op: bool):
     return work, finish
 
 
+@runtime.maps_peer_failures
 def allgather(tensor: torch.Tensor,
               name: Optional[str] = None) -> torch.Tensor:
     """Concatenate each rank's tensor along dim 0, in rank order. Ranks
@@ -214,6 +216,7 @@ def allgather(tensor: torch.Tensor,
     return finish()
 
 
+@runtime.maps_peer_failures
 def allgather_ragged(tensor: torch.Tensor, valid_size: int, max_size: int,
                      name: Optional[str] = None):
     """Variable-first-dim allgather in fixed shapes: each rank holds
@@ -245,6 +248,7 @@ def allgather_ragged(tensor: torch.Tensor, valid_size: int, max_size: int,
     return torch.cat(parts), torch.cat(sizes)
 
 
+@runtime.maps_peer_failures
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
               name: Optional[str] = None) -> torch.Tensor:
     """Every rank receives the root's tensor."""
@@ -255,6 +259,7 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
     return out
 
 
+@runtime.maps_peer_failures
 def alltoall(tensor: torch.Tensor, split_axis: int = 0,
              concat_axis: int = 0,
              name: Optional[str] = None) -> torch.Tensor:
@@ -278,6 +283,7 @@ def alltoall(tensor: torch.Tensor, split_axis: int = 0,
     return out.view(t.dtype).reshape(t.shape)
 
 
+@runtime.maps_peer_failures
 def reducescatter(tensor: torch.Tensor, average: bool = False,
                   name: Optional[str] = None,
                   op: Optional[Op] = None) -> torch.Tensor:
@@ -305,6 +311,7 @@ def reducescatter(tensor: torch.Tensor, average: bool = False,
 # order; on NCCL the wait makes the current stream wait for the
 # collective.
 
+@runtime.maps_peer_failures
 def allreduce_async_(tensor: torch.Tensor, average: bool = True,
                      name: Optional[str] = None,
                      op: Optional[Op] = None) -> _Handle:
@@ -318,6 +325,7 @@ def allreduce_async_(tensor: torch.Tensor, average: bool = True,
     return _Handle(work, lambda: _finish(buf, resolved, n, result_dtype))
 
 
+@runtime.maps_peer_failures
 def allgather_async_(tensor: torch.Tensor,
                      name: Optional[str] = None) -> _Handle:
     """Non-blocking :func:`allgather` (the shape exchange runs before it
@@ -326,6 +334,7 @@ def allgather_async_(tensor: torch.Tensor,
     return _Handle(*_allgather(tensor, True))
 
 
+@runtime.maps_peer_failures
 def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0,
                      name: Optional[str] = None) -> _Handle:
     """Non-blocking :func:`broadcast`; returns a handle."""
@@ -336,6 +345,7 @@ def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0,
     return _Handle(work, lambda: out)
 
 
+@runtime.maps_peer_failures
 def synchronize(handle: _Handle):
     """Block until an async handle's collective completes; returns its
     result."""
@@ -351,6 +361,7 @@ def _payload(obj) -> torch.Tensor:
                             dtype=torch.uint8).to(runtime.device())
 
 
+@runtime.maps_peer_failures
 def broadcast_object(obj=None, root_rank: int = 0,
                      name: Optional[str] = None):
     """Every rank receives the root's picklable object (other ranks may
@@ -371,6 +382,7 @@ def broadcast_object(obj=None, root_rank: int = 0,
     return pickle.loads(payload.cpu().numpy().tobytes())
 
 
+@runtime.maps_peer_failures
 def allgather_object(obj, name: Optional[str] = None) -> list:
     """Every rank's picklable object, in rank order, on every rank (the
     ragged payloads ride the variable-first-dim :func:`allgather`)."""
@@ -388,6 +400,7 @@ def allgather_object(obj, name: Optional[str] = None) -> list:
     return out
 
 
+@runtime.maps_peer_failures
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average: bool = True,
                       name: Optional[str] = None,
                       fusion_threshold: Optional[int] = None

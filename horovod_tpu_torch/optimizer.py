@@ -110,6 +110,7 @@ def _prescale_of(accum_steps: int) -> Optional[float]:
     return None if accum_steps <= 1 else 1.0 / accum_steps
 
 
+@runtime.maps_peer_failures
 def allreduce_gradients(params: Iterable[torch.nn.Parameter],
                         average: bool = True,
                         fusion_threshold: Optional[int] = None,
@@ -229,6 +230,7 @@ def _shard_keys(st: Mapping[str, Any], n: int) -> List[str]:
                   if torch.is_tensor(v) and tuple(v.shape) == (n,))
 
 
+@runtime.maps_peer_failures
 def zero_to_canonical(state: ZeroShardedState,
                       group=None) -> ZeroShardedState:
     """The world-agnostic form of a ZeRO state: every shard tensor
@@ -625,6 +627,7 @@ class DistributedOptimizer:
             return shards, None
         return shards, _all_finite(shards, shards[0].device)
 
+    @runtime.maps_peer_failures
     def synchronize(self, return_finite: bool = False):
         """The gradient exchange alone: every ``.grad`` becomes the world
         average. On the ZeRO plane that is the step's reduce-scatter and
@@ -641,6 +644,7 @@ class DistributedOptimizer:
                 p.grad = g.clone()
         return finite
 
+    @runtime.maps_peer_failures
     def step(self, closure=None):
         if not self.zero:
             self.synchronize()
@@ -719,6 +723,7 @@ def _tensors_of(params) -> List[Tuple[str, torch.Tensor]]:
     return [(str(n), t) for n, t in params]
 
 
+@runtime.maps_peer_failures
 def broadcast_parameters(params: Union[torch.nn.Module,
                                        Mapping[str, torch.Tensor],
                                        Sequence[Tuple[str, torch.Tensor]]],
@@ -737,6 +742,7 @@ def broadcast_parameters(params: Union[torch.nn.Module,
                 t.data.copy_(buf)
 
 
+@runtime.maps_peer_failures
 def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
     """Give every rank ``root_rank``'s optimizer state (per-parameter
     tensors such as momentum buffers, and the hyperparameters of each
@@ -790,6 +796,7 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
                     state[key] = desc
 
 
+@runtime.maps_peer_failures
 def broadcast_global_variables(variables, root_rank: int = 0):
     """Give every rank ``root_rank``'s training state, in place, and
     return it (the JAX package's ``broadcast_global_variables``, :877;

@@ -29,6 +29,14 @@ inside the directory, so retention removes it with its bytes. bf16
 tensors are stored as f32 (numpy has no bfloat16); every other dtype as
 it is.
 
+**One rank's own commit.** Elastic recovery (:mod:`horovod_tpu_torch.
+elastic`) commits without a collective: each rank writes its own tree
+(:func:`local_tree`, :func:`save_local`) into its own directory and
+loads it back (:func:`restore_local`). A ZeRO optimizer contributes this
+rank's physical shard, not the canonical form, so such a commit restores
+at the same world size only (the JAX package's rule for its env-world
+commits).
+
 The hybrid meshes' 2-D canonical form (a ``ZeroPlan`` with a non-scatter
 axis) and ``restore_for_inference(mesh=)`` are ``ROADMAP.md`` Queue 1
 item 11; int8 serving weights and LoRA adapters are item 12.
@@ -662,6 +670,7 @@ def load_state_(state, tree: Any) -> None:
 
 # -- the sharded flavour -----------------------------------------------------
 
+@runtime.maps_peer_failures
 def save_sharded(directory: str, step: int, params: Any, opt_state: Any,
                  max_to_keep: Optional[int] = None) -> str:
     """Write ``{"params", "opt_state"}`` at ``step``: ``params`` a model,
@@ -701,6 +710,7 @@ def _resolve_step(directory: str, step: Optional[int]) -> int:
     return int(step)
 
 
+@runtime.maps_peer_failures
 def restore_sharded(directory: str, params_template: Any,
                     opt_state_template: Any, step: Optional[int] = None,
                     verify: bool = True) -> Tuple[Any, Any, int]:
@@ -727,6 +737,100 @@ def restore_sharded(directory: str, params_template: Any,
     load_opt_(opt_state_template, tree["opt_state"],
               broadcast=runtime.is_initialized() and runtime.size() > 1)
     return params_template, opt_state_template, step
+
+
+# -- one rank's own commit ----------------------------------------------------
+
+def local_tree(params: Any, opt_state: Any) -> Dict[str, Any]:
+    """This rank's commit of a model and its ``DistributedOptimizer``
+    (or None), with no collective: ``{"params", "opt_state"}`` as
+    :func:`save_sharded` names them, plus ``"batch_stats"`` when the
+    model has buffers. A ZeRO optimizer's state is this rank's own shard
+    (``"zero_shard"``: per bucket ``{key: shard}``), not the canonical
+    form."""
+    model = _model_of(params)
+    opt = None
+    if opt_state is not None and getattr(opt_state, "zero", False):
+        _check_plan(opt_state.plan)
+        opt = {"hyperparams": _hyper_tree(opt_state),
+               "zero_shard": [{k: _Live(v) for k, v in st.items()
+                               if torch.is_tensor(v)}
+                              for st in opt_state.zero_state().inner]}
+    elif opt_state is not None:
+        opt = opt_tree(opt_state)
+    tree = {"params": module_tree(model.named_parameters()),
+            "opt_state": opt}
+    stats = module_tree(model.named_buffers())
+    if stats is not None:
+        tree["batch_stats"] = stats
+    return tree
+
+
+def local_meta(opt_state: Any) -> Optional[dict]:
+    """Manifest metadata of a rank's commit: the ZeRO plan's layout and
+    the rank whose shard it holds (None without ZeRO)."""
+    zero_mesh = _zero_mesh_meta(opt_state)
+    if zero_mesh is None:
+        return None
+    return {"zero_mesh": zero_mesh,
+            "zero_rank": runtime.rank() if runtime.is_initialized() else 0}
+
+
+def save_local(directory: str, step: int, host: Any,
+               max_to_keep: Optional[int] = None,
+               extra_meta: Optional[dict] = None) -> str:
+    """Write ``host`` (a :func:`snapshot_to_host` of :func:`local_tree`)
+    as ``<directory>/ckpt_<step>``: leaf files and the rename, the
+    manifest, then the retention of ``directory``. No collective: every
+    rank writes its own directory. Returns the path."""
+    from ..trainer import apply_retention
+    path = _ckpt_path(directory, step)
+    write_tree(path, host)
+    write_manifest(path, host, step=step, extra_meta=extra_meta)
+    apply_retention(directory, path, max_to_keep)
+    return path
+
+
+def restore_local(directory: str, step: int, params: Any, opt_state: Any,
+                  verify: bool = True) -> None:
+    """Load this rank's commit at ``step`` into ``params`` (the model:
+    parameters and buffers) and ``opt_state`` (its
+    ``DistributedOptimizer``, or None) in place, verified against the
+    manifest first when ``verify``. A ZeRO shard loads only into the
+    rank of the world size that wrote it."""
+    from ..optimizer import ZeroShardedState
+    path = _ckpt_path(directory, step)
+    tree = read_checkpoint(path, verify=verify)
+    model = _model_of(params)
+    load_module_(model.named_parameters(), tree["params"], "params")
+    load_module_(model.named_buffers(), tree.get("batch_stats"),
+                 "batch_stats")
+    saved = tree.get("opt_state")
+    if opt_state is None:
+        return
+    if saved is None:
+        raise ValueError(f"{path} holds no optimizer state")
+    if "zero_shard" not in saved:
+        load_opt_(opt_state, saved)
+        return
+    if not getattr(opt_state, "zero", False):
+        raise ValueError(f"{path} holds a ZeRO shard; the optimizer has "
+                         f"zero=False")
+    manifest = read_manifest(path) or {}
+    here = (runtime.size(), runtime.rank()) if runtime.is_initialized() \
+        else (1, 0)
+    there = (manifest.get("world_size", 1), manifest.get("zero_rank", 0))
+    if there != here:
+        raise ValueError(
+            f"{path} holds the ZeRO shard of rank {there[1]} of a world of "
+            f"{there[0]}; a rank's own commit restores at the same world "
+            f"size and rank only (this is rank {here[1]} of {here[0]})")
+    _load_hyper(opt_state, saved.get("hyperparams") or [])
+    template = opt_state.zero_state()
+    inner = [{k: torch.from_numpy(np.array(v)) for k, v in st.items()}
+             for st in saved["zero_shard"]]
+    opt_state.load_zero_state(ZeroShardedState(inner=inner,
+                                               plan=template.plan))
 
 
 # -- serving restore ----------------------------------------------------------

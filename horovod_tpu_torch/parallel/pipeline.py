@@ -31,6 +31,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import runtime
+
 
 def _flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
     """The tensors of a tree of dicts (in sorted key order, as JAX
@@ -59,6 +61,7 @@ def _flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
     return [x for leaves, _ in parts for x in leaves], rebuild
 
 
+@runtime.maps_peer_failures
 def one_f_one_b(stage_fn: Callable, stage_params, x_micro, y_micro,
                 loss_fn: Callable, *, mesh, axis_name: str = "pp",
                 head_params=None, inject_fn: Optional[Callable] = None,

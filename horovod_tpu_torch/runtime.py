@@ -14,6 +14,19 @@ in-memory ``HashStore``. Larger worlds rendezvous through ``env://``
 before ``init`` is adopted as it is, and left to its owner at
 ``shutdown``.
 
+``init()`` without a device reads ``HVD_DEVICE`` (``cuda`` unless the
+launcher's ``--cpu`` exported ``cpu``), the counterpart of the JAX
+package's ``JAX_PLATFORMS=cpu``; there is no silent fallback to the CPU.
+
+A dead or silent peer surfaces as the framework's errors, mapped in one
+place (:func:`peer_failures`) on the collectives' path: what gloo raises
+when a peer's socket closes becomes :class:`~.exceptions.
+WorkerFailureError`, a collective that waited past the process group's
+timeout (gloo's, or NCCL's watchdog) :class:`~.exceptions.StalledError`,
+any other ``torch.distributed`` failure :class:`~.exceptions.
+TransportError` — the errors ``elastic.run_with_recovery`` recovers
+from.
+
 ``init`` also brings the telemetry plane up, as the reference's does:
 the flight recorder's init event and fatal-signal dump, the world-shape
 gauges of the process-default metrics registry, the per-rank
@@ -23,15 +36,19 @@ Chrome-trace timeline on rank 0 when ``HOROVOD_TIMELINE`` is set.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import functools
+import re
 import threading
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
 
 from .device import DeviceLike, resolve_device
+from .exceptions import StalledError, TransportError, WorkerFailureError
 from .utils import config as _config
 
 
@@ -54,15 +71,16 @@ _lock = threading.Lock()
 _metrics_listener = None
 
 
-def init(device: DeviceLike = "cuda", *,
+def init(device: DeviceLike = None, *,
          timeout: Optional[datetime.timedelta] = None) -> World:
     """Initialize the world. Idempotent: a second call returns the world
     the first one built.
 
-    ``device="cuda"`` (the default) binds this process to
-    ``cuda:local_rank`` and uses NCCL, raising when CUDA is missing;
-    ``device="cpu"`` uses gloo. ``timeout`` bounds the rendezvous and
-    every collective (``torch.distributed``'s default otherwise)."""
+    ``device="cuda"`` binds this process to ``cuda:local_rank`` and uses
+    NCCL, raising when CUDA is missing; ``device="cpu"`` uses gloo. With
+    no ``device``, ``HVD_DEVICE`` decides (``cuda`` when unset).
+    ``timeout`` bounds the rendezvous and every collective
+    (``torch.distributed``'s default otherwise)."""
     global _world
     with _lock:
         if _world is not None:
@@ -74,7 +92,8 @@ def init(device: DeviceLike = "cuda", *,
             rank_ = _config.launcher_rank()
             size_ = _config.launcher_size()
         local = _config.launcher_local_rank(default=rank_)
-        dev = resolve_device(device)
+        dev = resolve_device(_config.device_default() if device is None
+                             else device)
         if dev.type == "cuda":
             dev = torch.device("cuda", local % torch.cuda.device_count())
             torch.cuda.set_device(dev)
@@ -131,7 +150,10 @@ def _start_observability(w: World) -> None:
 def shutdown(error: Optional[BaseException] = None) -> None:
     """Tear the world down (destroying the process group if ``init``
     built it). Safe to call more than once. ``error=`` marks a failure
-    path: the flight recorder's ring is dumped first."""
+    path: the flight recorder's ring is dumped first, and a dead peer
+    cannot hang the teardown (an NCCL group is aborted, not destroyed:
+    its destroy would wait on work the dead peer never finishes; gloo's
+    destroy returns at once)."""
     global _world, _metrics_listener
     from .obs import flightrec
     if error is not None:
@@ -148,7 +170,10 @@ def shutdown(error: Optional[BaseException] = None) -> None:
             flightrec.remove_crash_hook(_world.timeline.flush)
             _world.timeline.close()
         if _world.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+            if error is not None and _world.backend == "nccl":
+                dist.distributed_c10d._abort_process_group()
+            else:
+                dist.destroy_process_group()
         _world = None
 
 
@@ -188,3 +213,58 @@ def process_count() -> int:
 def device() -> torch.device:
     """The device this process's world drives."""
     return world().device
+
+
+# -- a dead or silent peer ----------------------------------------------------
+
+_TIMEOUT = re.compile(r"timed? ?out|timing out|timeout", re.I)
+_PEER_GONE = re.compile(r"connection (reset|closed)|closed by peer|"
+                        r"broken pipe|remote process", re.I)
+
+
+def _peer_error(e: RuntimeError):
+    """The framework error a ``torch.distributed`` failure stands for, or
+    None when ``e`` is not one. Gloo raises a plain ``RuntimeError`` from
+    its transport (``gloo/transport/...``, "Application timeout caused
+    pair closure"); NCCL and the stores raise ``DistBackendError``,
+    ``DistNetworkError`` and ``DistStoreError``."""
+    msg = str(e)
+    if not (isinstance(e, dist.DistError) or "gloo/transport" in msg
+            or "pair closure" in msg):
+        return None
+    where = (f"rank {_world.rank} of a world of {_world.size}"
+             if _world is not None else "this rank")
+    if _TIMEOUT.search(msg):
+        return StalledError(
+            f"a collective on {where} waited past the process group's "
+            f"timeout (a peer is wedged or gone): {msg}")
+    if isinstance(e, dist.DistNetworkError) or _PEER_GONE.search(msg):
+        return WorkerFailureError(
+            f"worker failure: a peer of {where} closed its connection "
+            f"in a collective (it died or was torn down): {msg}")
+    return TransportError(f"collective failed on {where}: {msg}")
+
+
+@contextlib.contextmanager
+def peer_failures():
+    """Re-raise a dead or silent peer's ``torch.distributed`` failure as
+    :class:`WorkerFailureError`, :class:`StalledError` or
+    :class:`TransportError` (the original chained); every other error
+    passes through unchanged."""
+    try:
+        yield
+    except RuntimeError as e:
+        mapped = _peer_error(e)
+        if mapped is None:
+            raise
+        raise mapped from e
+
+
+def maps_peer_failures(fn: Callable) -> Callable:
+    """Decorate an entry point that runs collectives with
+    :func:`peer_failures`."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with peer_failures():
+            return fn(*args, **kwargs)
+    return wrapper

@@ -38,10 +38,11 @@ REQUIRE ``@step`` (a clause that could never fire is rejected loudly);
 on the first launch and NOT again after ``tpurun --restarts`` relaunches
 the world.
 
-``ckpt``, ``resize`` and serving-plane clauses belong to planes the
-port has not ported yet (elastic recovery's commit marker, live resize,
-the serving fleet): they parse, so one spec serves both packages, and
-fire once those planes call their hooks.
+``ckpt`` clauses fire from :func:`ckpt_hook`, which
+``elastic.ElasticState`` calls right after each two-phase commit. The
+``resize`` and serving-plane clauses belong to planes the port has not
+ported yet (live resize, the serving fleet): they parse, so one spec
+serves both packages, and fire once those planes call their hooks.
 
 Actions:
 
@@ -59,15 +60,22 @@ Actions:
 * ``mute`` on the ``coord`` target — rank 0 stops acking heartbeats, so
   every client independently detects a dead coordinator.
 
-Hook: :func:`step_hook` is called once per training step by
-``Trainer.fit``, a near-zero-cost no-op when ``HVD_FAULT_SPEC`` is unset.
+* ``truncate`` / ``flip`` (``ckpt`` target) — cut the committed
+  checkpoint's largest params leaf file to half its size, or add one to
+  the middle byte of its array data: either fails
+  ``verify_checkpoint``. ``drop_marker`` deletes the commit marker.
+
+Hooks: :func:`step_hook` is called once per training step by
+``Trainer.fit``, :func:`ckpt_hook` after each elastic commit; both are
+near-zero-cost no-ops when ``HVD_FAULT_SPEC`` is unset.
 
 This is a copy of the JAX package's ``testing/faults.py``. The parser
 takes the whole grammar, so one spec serves both packages; the hooks of
-the planes the port has not ported yet (the checkpoint commit marker of
-elastic recovery, live resize, the serving fleet, the coordination
-plane) come with those planes, and until then their clauses never fire.
-The port has no heartbeat plane yet, so ``mute`` parks the rank like
+the planes the port has not ported yet (live resize, the serving fleet,
+the coordination plane) come with those planes, and until then their
+clauses never fire. The corruption acts on the port's checkpoint format
+(one ``.npy`` file a leaf) where the JAX package's acts on its own. The
+port has no heartbeat plane yet, so ``mute`` parks the rank like
 ``hang`` does.
 """
 
@@ -358,6 +366,90 @@ def step_hook(step: int) -> None:
             continue
         _fired.add(key)
         _fire(f)
+
+
+def _ckpt_data_file(ckpt_dir: str) -> Optional[str]:
+    """The corruption target: the largest ``.params`` leaf file of the
+    checkpoint's index (the first of equal sizes, in the index's leaf
+    order), or None when the checkpoint is unreadable or has none."""
+    from ..exceptions import CheckpointCorruptError
+    from ..parallel import checkpoint as _ckpt
+    try:
+        leaves = _ckpt._flatten(_ckpt.read_index(ckpt_dir))
+    except CheckpointCorruptError:
+        return None
+    files = [os.path.join(ckpt_dir, stub.file) for kp, stub in leaves
+             if _ckpt.keystr(kp).startswith(("['params']", ".params"))]
+    files = [f for f in files if os.path.isfile(f)]
+    return max(files, key=os.path.getsize, default=None)
+
+
+def _data_offset(path: str) -> int:
+    """Where a ``.npy`` file's array bytes begin (past its header)."""
+    import numpy as np
+    with open(path, "rb") as f:
+        if np.lib.format.read_magic(f) == (1, 0):
+            np.lib.format.read_array_header_1_0(f)
+        else:
+            np.lib.format.read_array_header_2_0(f)
+        return f.tell()
+
+
+def _corrupt_checkpoint(fault: Fault, ckpt_dir: str, marker: str) -> None:
+    tag = f"epoch {_restart_epoch()} step {fault.step}"
+    if fault.action == "drop_marker":
+        print(f"[faults] rank {_my_rank()}: dropping commit marker "
+              f"{os.path.basename(marker)} at {tag}", flush=True)
+        try:
+            os.unlink(marker)
+        except OSError:
+            pass
+        return
+    victim = _ckpt_data_file(ckpt_dir)
+    if victim is None:
+        print(f"[faults] rank {_my_rank()}: no data file to corrupt "
+              f"under {ckpt_dir} at {tag}", flush=True)
+        return
+    size = os.path.getsize(victim)
+    rel = os.path.relpath(victim, ckpt_dir)
+    if fault.action == "truncate":
+        print(f"[faults] rank {_my_rank()}: truncating {rel} "
+              f"{size}->{size // 2} bytes at {tag}", flush=True)
+        with open(victim, "r+b") as f:
+            f.truncate(size // 2)
+        return
+    start = _data_offset(victim)
+    off = start + (size - start) // 2
+    with open(victim, "r+b") as f:
+        f.seek(off)
+        b = f.read(1) or b"\x00"
+        f.seek(off)
+        # Increment, not XOR, as the JAX package's hook does.
+        f.write(bytes([(b[0] + 1) & 0xFF]))
+    print(f"[faults] rank {_my_rank()}: flipped byte {off} of {rel} at "
+          f"{tag}", flush=True)
+
+
+def ckpt_hook(step: int, ckpt_dir: str, marker: str) -> None:
+    """Fire any ``ckpt:*`` clause scoped to the checkpoint just committed
+    at ``step``. Called by ``ElasticState`` right after the two-phase
+    commit finished (bytes, manifest and marker all durable), so the
+    corruption models post-commit rot: the marker keeps promising bytes
+    the disk no longer holds, which the verified fallback walk must
+    survive. A no-op (one dict lookup) unless ``HVD_FAULT_SPEC`` has a
+    ``ckpt:`` clause."""
+    faults = _active()
+    if not faults:
+        return
+    epoch = _restart_epoch()
+    for i, f in enumerate(faults):
+        if f.target != "ckpt" or f.step != step or f.epoch != epoch:
+            continue
+        key = (i, epoch)
+        if key in _fired:
+            continue
+        _fired.add(key)
+        _corrupt_checkpoint(f, ckpt_dir, marker)
 
 
 def reset() -> None:

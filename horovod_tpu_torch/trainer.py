@@ -14,8 +14,10 @@ The step loop reads nothing back from the device per step: the running
 metric sums stay on the device and are read once per epoch; the one
 per-step host read is the consecutive bad-step count, and only when the
 step emits ``bad_step`` (a step built with ``guard_nonfinite``).
-Elastic rollback (``elastic=``) comes after the launcher (``ROADMAP.md``
-Queue 1 items 4 and 10) and live resize (``resize=``) is item 15.
+With ``elastic=`` (an :class:`~horovod_tpu_torch.elastic.ElasticState`)
+an exhausted bad-step budget rolls back to the newest verified commit
+instead of raising (the JAX package's ``Trainer._contain`` :178-226);
+live resize (``resize=``) is ``ROADMAP.md`` Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -59,11 +61,6 @@ class Trainer:
                  max_bad_steps: Optional[int] = None,
                  elastic: Any = None,
                  resize: Any = None):
-        if elastic is not None:
-            raise NotImplementedError(
-                "Trainer(elastic=) — rollback to a verified elastic commit "
-                "comes after the launcher: ROADMAP.md Queue 1 item 4 (then "
-                "elastic.py, item 10)")
         if resize is not None:
             raise NotImplementedError(
                 "Trainer(resize=) — live elastic resize is ROADMAP.md "
@@ -85,6 +82,8 @@ class Trainer:
                               if max_bad_steps is None
                               else max(1, int(max_bad_steps)))
         self._bad_counter: Optional[torch.Tensor] = None
+        # The ElasticState a budget overrun rolls back onto (None: raise).
+        self.elastic = elastic
         # Hot-path metrics: registered once here. Names are API.
         reg = _metrics_registry()
         self._m_steps = reg.counter(
@@ -141,8 +140,7 @@ class Trainer:
         consecutive-skip counter; returns True when the step was skipped.
         The ``int()`` read of one scalar per step is the whole host-side
         cost of containment. Reaching ``max_bad_steps`` consecutive skips
-        raises :class:`~horovod_tpu_torch.exceptions.NonFiniteGradError`
-        (:meth:`_contain`)."""
+        rolls back or raises (:meth:`_contain`)."""
         flag = torch.as_tensor(bad_flag)
         if self._bad_counter is None:
             self._bad_counter = torch.zeros((), dtype=torch.int32,
@@ -170,16 +168,44 @@ class Trainer:
     def _contain(self, consec: int) -> None:
         """The bad-step budget is exhausted: the params (or the data
         feeding them) are presumed poisoned beyond what skipped steps can
-        absorb — skipping forever would burn the reservation training
-        nothing."""
+        absorb. With an attached :class:`~horovod_tpu_torch.elastic.
+        ElasticState`, roll back to the newest commit that passes
+        verification (the fallback walk) and keep training; without one,
+        raise :class:`~horovod_tpu_torch.exceptions.NonFiniteGradError` —
+        skipping forever would burn the reservation training nothing."""
         from .exceptions import NonFiniteGradError
-        raise NonFiniteGradError(
-            f"{consec} consecutive non-finite-gradient steps at global "
-            f"step {self._global_step} and no elastic state to roll back "
-            f"to — a persistent NaN source (bad data shard, broken loss "
-            f"scale, flaky chip) will not fix itself. Raise "
-            f"HVD_MAX_BAD_STEPS if longer transients are expected "
-            f"(elastic rollback is ROADMAP.md Queue 1 item 10)")
+        if self.elastic is None:
+            raise NonFiniteGradError(
+                f"{consec} consecutive non-finite-gradient steps at "
+                f"global step {self._global_step} and no elastic state "
+                f"to roll back to — a persistent NaN source (bad data "
+                f"shard, broken loss scale, flaky chip) will not fix "
+                f"itself. Attach Trainer(elastic=ElasticState(...)) for "
+                f"automatic rollback, or raise HVD_MAX_BAD_STEPS if "
+                f"longer transients are expected")
+        es = self.elastic
+        # The live model and optimizer are the restore's templates: it
+        # overwrites their parameters, buffers and state in place.
+        es.params, es.opt_state = self.state.model, self.state.optimizer
+        try:
+            es.restore()   # latest_committed's walk skips corrupt steps
+        except FileNotFoundError as e:
+            # Nothing committed, or every commit corrupt: the same
+            # terminal diagnosis as without elastic state.
+            raise NonFiniteGradError(
+                f"{consec} consecutive non-finite-gradient steps at "
+                f"global step {self._global_step} and no verified "
+                f"committed checkpoint to roll back to ({e}) — commit "
+                f"via ElasticState before the storm, or fix the NaN "
+                f"source (bad data shard, broken loss scale, flaky "
+                f"chip)") from e
+        self.state.step = es.step
+        self._bad_counter = torch.zeros_like(self._bad_counter)
+        _flightrec.record("rollback", step=es.step, consecutive_bad=consec)
+        if self.verbose:
+            print(f"[trainer] bad-step budget exhausted ({consec} "
+                  f"consecutive skips) — rolled back to verified "
+                  f"elastic step {es.step}", file=sys.stderr, flush=True)
 
     def fit(self, data: Callable[[], Iterable], epochs: int = 1,
             callbacks: Optional[List] = None,

@@ -23,6 +23,13 @@ imported here). The names and defaults are the same:
   ``PMI_SIZE`` / ``OMPI_COMM_WORLD_SIZE``, local rank from
   ``HVD_LOCAL_RANK`` / ``OMPI_COMM_WORLD_LOCAL_RANK`` — the first one set
   wins, and a process started by hand is rank 0 of a world of 1.
+* ``HVD_DEVICE`` — the device ``init()`` takes when its caller names
+  none (:func:`device_default`; the launcher's ``--cpu`` exports
+  ``cpu``).
+* The launcher's and elastic recovery's own knobs: ``HVD_ELASTIC_DIR``
+  (:func:`elastic_dir`), ``HVD_RESTART_BACKOFF_MAX``
+  (:func:`restart_backoff_max`) and ``HVD_CHIPS_PER_HOST``
+  (:func:`visible_gpus`).
 """
 
 from __future__ import annotations
@@ -151,3 +158,65 @@ def launcher_size(default: int = 1) -> int:
 
 def launcher_local_rank(default: int = 0) -> int:
     return _first_env(_LOCAL_RANK_VARS, default)
+
+
+def device_default() -> str:
+    """``HVD_DEVICE`` — the device ``runtime.init()`` uses when its caller
+    passes none: ``cuda`` (the default) or ``cpu`` (what the launcher's
+    ``--cpu`` exports, the counterpart of the JAX package's
+    ``JAX_PLATFORMS=cpu``). Any other value raises ``ValueError``."""
+    raw = os.environ.get("HVD_DEVICE", "").strip().lower() or "cuda"
+    if raw not in ("cuda", "cpu"):
+        raise ValueError(f"HVD_DEVICE={raw!r}: expected 'cuda' or 'cpu'")
+    return raw
+
+
+def elastic_dir():
+    """``HVD_ELASTIC_DIR`` — the default directory of
+    ``elastic.ElasticState`` commits (None when unset)."""
+    return os.environ.get("HVD_ELASTIC_DIR") or None
+
+
+# Cap of the launcher's exponential restart backoff, in seconds.
+DEFAULT_RESTART_BACKOFF_MAX: float = 30.0
+
+
+def restart_backoff_max() -> float:
+    """``HVD_RESTART_BACKOFF_MAX`` — the cap, in seconds, of the
+    launcher's jittered exponential backoff between restarts (default 30,
+    clamped at 0; an unparsable value takes the default)."""
+    raw = os.environ.get("HVD_RESTART_BACKOFF_MAX", "")
+    try:
+        cap = float(raw or DEFAULT_RESTART_BACKOFF_MAX)
+    except ValueError:
+        cap = DEFAULT_RESTART_BACKOFF_MAX
+    return max(0.0, cap)
+
+
+def visible_gpus() -> int:
+    """The GPUs this host offers its ranks (0 when none).
+
+    Never creates a CUDA context: the launcher would otherwise hold
+    memory on every card it then hands to a rank. In order: the
+    ``HVD_CHIPS_PER_HOST`` override, the entries of a set
+    ``CUDA_VISIBLE_DEVICES`` (set and empty: none), the
+    ``/dev/nvidia<N>`` device nodes this process may open (a container
+    can show the nodes of cards its device cgroup denies it)."""
+    import glob
+    override = os.environ.get("HVD_CHIPS_PER_HOST")
+    if override:
+        try:
+            return max(1, int(override))
+        except ValueError:
+            pass
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return len([d for d in visible.split(",") if d.strip()])
+    n = 0
+    for node in glob.glob("/dev/nvidia[0-9]*"):
+        try:
+            os.close(os.open(node, os.O_RDWR))
+        except OSError:
+            continue
+        n += 1
+    return n

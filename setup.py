@@ -47,6 +47,6 @@ setup(
                       "numpy"],
     # "digits" real-dataset loader (data.load_dataset) needs sklearn.
     extras_require={"datasets": ["scikit-learn"], "torch": ["torch"]},
-    scripts=["bin/tpurun"],
+    scripts=["bin/tpurun", "bin/tpurun_torch"],
     cmdclass={"build_py": BuildWithNativeCore},
 )

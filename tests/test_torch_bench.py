@@ -287,11 +287,35 @@ def test_knobs_are_run_and_recorded(args, env, want):
     assert line["value"] > 0
 
 
+def test_scaling_runs_gloo_worlds_through_the_launcher():
+    """``--scaling --device cpu``: the launcher runs the bench in gloo
+    worlds of 1 and 2; one scaling line each (bench.py's, per CPU here),
+    then the world of 2's per-CPU line."""
+    lines = _lines(_bench("--scaling", "--device", "cpu"))
+    assert [ln["metric"] for ln in lines] == [
+        "cifar20_scaling_efficiency_1cpus",
+        "cifar20_scaling_efficiency_2cpus",
+        "cifar20_synthetic_images_per_sec_per_cpu"]
+    one, two, per = lines
+    assert one["value"] == 1.0 and one["vs_baseline"] == round(1 / 0.9, 3)
+    assert (one["world"], one["mesh"], two["world"], two["mesh"]) == \
+        (1, "dp1", 2, "dp2")
+    assert two["value"] == pytest.approx(
+        two["images_per_sec_total"] / (2 * one["images_per_sec_total"]),
+        abs=1e-3)
+    for ln in (one, two):
+        assert ln["unit"] == "fraction" and ln["images_per_sec_total"] > 0
+        assert {k: ln[k] for k in KNOBS} == {
+            "accum_steps": 1, "zero": False, "overlap": False,
+            "wire_dtype": "fp32", "tp": 1, "pp": 1, "mesh": ln["mesh"]}
+    assert per["world"] == 2 and per["value"] * 2 == pytest.approx(
+        two["images_per_sec_total"], rel=1e-3)
+
+
 @pytest.mark.parametrize("args,needle", [
     (("--pp", "2", "--zero"), "item 11"),
     (("--pp", "2", "--overlap"), "item 11"),
     (("--tp", "2"), "item 11"),
-    (("--scaling",), "item 4"),
 ])
 def test_refusals_exit_nonzero_naming_the_roadmap_item(args, needle):
     proc = _bench(*args, "--device", "cpu")
@@ -310,6 +334,9 @@ def test_refusals_exit_nonzero_naming_the_roadmap_item(args, needle):
     (("--mesh", "dp=1,ep=2"), "--mesh expects"),
     (("--model", "transformer_lm", "--pp", "2"), "must divide the world"),
     (("--pp", "2"), "conv models are not staged"),
+    (("--scaling", "--model", "transformer_lm"),
+     "--scaling is not supported for transformer_lm"),
+    (("--scaling", "--pp", "2"), "pure dp worlds"),
 ])
 def test_other_refusals_name_why(args, needle, monkeypatch):
     for var in ("HVD_RANK", "HVD_SIZE", "HVD_LOCAL_RANK"):

@@ -32,9 +32,12 @@ _PROBE = """
 import importlib, pkgutil, sys
 import horovod_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-assert "horovod_tpu_torch.ops.sparse" in names, names
+for needed in ("horovod_tpu_torch.ops.sparse", "horovod_tpu_torch.elastic",
+               "horovod_tpu_torch.launcher", "horovod_tpu_torch.obs.summary"):
+    assert needed in names, names
 for name in names:
-    importlib.import_module(name)
+    if not name.endswith(".__main__"):   # running it would launch
+        importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "horovod_tpu" or m.startswith("horovod_tpu."))
@@ -71,7 +74,11 @@ def test_every_submodule_is_importable_here():
             "horovod_tpu_torch.parallel.mesh",
             "horovod_tpu_torch.parallel.pipeline",
             "horovod_tpu_torch.parallel.pp_transformer",
-            "horovod_tpu_torch.bench"} <= set(names)
+            "horovod_tpu_torch.bench",
+            "horovod_tpu_torch.elastic",
+            "horovod_tpu_torch.launcher",
+            "horovod_tpu_torch.launcher.__main__",
+            "horovod_tpu_torch.obs.summary"} <= set(names)
 
 
 def test_no_file_names_jax_or_the_jax_package():

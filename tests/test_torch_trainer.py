@@ -296,10 +296,15 @@ def test_eval_logs_are_row_weighted(world1):
 
 
 def test_elastic_and_resize_are_refused():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ttrainer.Trainer(lambda s, b: (s, {}), None, elastic=object())
+    """Live resize stays refused naming item 15; an ElasticState is
+    accepted since the launcher and elastic recovery landed (the rollback
+    itself: tests/test_torch_elastic.py)."""
+    from horovod_tpu_torch.elastic import ElasticState
     with pytest.raises(NotImplementedError, match="item 15"):
         ttrainer.Trainer(lambda s, b: (s, {}), None, resize=object())
+    es = ElasticState(None, directory="unused")
+    assert ttrainer.Trainer(lambda s, b: (s, {}), None,
+                            elastic=es).elastic is es
 
 
 # -- AsyncCheckpointer (mirrors tests/test_async_checkpoint.py) ------------------
