@@ -207,7 +207,26 @@ Phases, one JSON line each:
                save, verify, restore and ``restore_for_inference`` times.
                Checkpoints go to a temporary directory removed after each
                of these two phases.
-28. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
+28. lm_mesh — the mesh axes of the full-width LM on one card, counters
+               zeroed before each run's steps: (a) the four-axis step on
+               a hand-built one-rank mesh naming dp, pp, ep and tp
+               (``make_mesh``; the spec-grouped all-reduce plane, tp's
+               sum all-reduces on a group of one) against the dp-only
+               ``make_parallel_train_step``, MESH_STEPS steps each from
+               one seed: params bitwise equal, 8 K3-qkv + 8 dq + 8 dkv a
+               step each; (b) the ring path with a named sp axis of size
+               1 at MESH_RING_BATCH (f32 dense blocks, no flash launch):
+               first-step loss within TOL_RING_LOSS of the flash step's
+               at the same batch; (c) a one-expert MoE on a named ep axis
+               of size 1 (capacity 20480 slots of [1, 20480, 2048] bf16)
+               and its aux loss; step p50 and peak bytes of each; (d)
+               K3-qkv and the dq/dkv pair at the per-rank shapes of tp in
+               MESH_TP (8 and 4 heads, qkv rows of 3·1024 and 3·512; B=8,
+               T=2048) and K3-lse with the dq/dk/dv kernels at 8 heads
+               (pp × tp=2: B=4) against their plain versions
+               (TOL_ATTN_ULPS, TOL_LSE), then timed beside their bounds
+               and SDPA. Multi-rank tp/sp/ep need more than one card.
+29. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
                default two lines, the same with ``--zero --overlap``,
                ``--model resnet50 --conv-backend fused``, ``--model
                transformer_lm --accum-steps 2``), each in a process of
@@ -227,6 +246,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import functools
 import gc
 import http.client
@@ -440,6 +460,11 @@ EL_EPOCHS, EL_EPOCH_STEPS, EL_COMMIT_EVERY = 2, 4, 2
 EL_KILL_STEP, EL_RESUME = 5, 4
 EL_BAD_BUDGET, EL_AFTER, EL_STALL_STEPS = 2, 2, 4
 EL_TIMEOUT = 300
+# The mesh axes (slice 13) on one card.
+MESH_STEPS = 5
+MESH_RING_BATCH = 2      # the ring's f32 [B,16,2048,2048] blocks: B=8 OOMs
+MESH_TP = (2, 4)         # tp sizes whose per-rank flash shapes are timed
+TOL_RING_LOSS = 5e-3     # ring (f32 blocks) vs flash (bf16 P) loss, rel
 # The trainer phase's bare-loop step p50, which the elastic phase prints
 # beside its launched Trainer's.
 TRAINER_BARE_P50 = {}
@@ -1392,10 +1417,11 @@ def row_ulps(got, ref, d: int = 128) -> float:
     return ((g - r).abs().amax(1) / ulp).max().item()
 
 
-def attn_inputs(B: int, T: int, gen: torch.Generator):
+def attn_inputs(B: int, T: int, gen: torch.Generator, H: int = 0):
     """The packed projection output qkv [B, T, H*3*d] and a cotangent
-    dO [B, T, H*d], bf16 standard normals."""
-    H, d = LM["n_heads"], 128
+    dO [B, T, H*d], bf16 standard normals (H: the LM's heads, or this
+    many)."""
+    H, d = H or LM["n_heads"], 128
     qkv = torch.randn((B, T, H * 3 * d), generator=gen,
                       device="cuda").to(torch.bfloat16)
     do = torch.randn((B, T, H * d), generator=gen,
@@ -1449,12 +1475,13 @@ def parity_report(phase: str, kernels, run, plain, causal: bool,
     return errs, abs_err
 
 
-def attn_parity(qkv, do, causal: bool, what: str):
+def attn_parity(qkv, do, causal: bool, what: str, H: int = 0,
+                phase: str = "parity_attn"):
     """K3-qkv (o, lse2) and the dq/dkv pair (the packed d_qkv) on
-    ``qkv``/``do`` against their plain versions (:func:`parity_report`,
-    one ``parity_attn`` line)."""
+    ``qkv``/``do`` (H heads: the LM's by default) against their plain
+    versions (:func:`parity_report`, one ``phase`` line)."""
     from horovod_tpu_torch.ops import attention as A
-    H, d = LM["n_heads"], 128
+    H, d = H or LM["n_heads"], 128
     B, T = qkv.shape[:2]
 
     def run():
@@ -1467,8 +1494,7 @@ def attn_parity(qkv, do, causal: bool, what: str):
         rg = A.flash_attention_qkv_bwd_reference(qkv, o, lse, do, H,
                                                  causal=causal)
         return (ro, rl, *rg.view(B, T, H, 3, d).unbind(3))
-    return parity_report("parity_attn", ATTN_KERNELS, run, plain, causal,
-                         what)
+    return parity_report(phase, ATTN_KERNELS, run, plain, causal, what)
 
 
 def phase_parity_attn(seed: int):
@@ -1695,7 +1721,12 @@ def delta_row(B: int, T: int, H: int, d: int, peaks, fn) -> None:
                            peaks)[0])
 
 
-def phase_timing_attn(seed: int, peaks):
+def _suffixed_row(suffix: str, rows: dict, shape, peaks, name: str, *args):
+    attn_timing_row(rows, shape, peaks, name + suffix, *args)
+
+
+def phase_timing_attn(seed: int, peaks, H: int = 0, suffix: str = "",
+                      unembed: bool = True):
     """K3-qkv, dq, dkv and the pair at the training shape: compared with
     their plain versions (:func:`attn_parity`), then timed. Bounds: FLOPs
     of the causal (q, key) pairs, T(T+1)/2 per head, at 2d per pair per
@@ -1703,18 +1734,19 @@ def phase_timing_attn(seed: int, peaks):
     kernels split it); bytes: each input read once, each output written
     once (q, k, v, o, dO, dq, dk, dv bf16; lse2, Delta f32)."""
     from horovod_tpu_torch.ops import attention as A
-    B, T, H, d = LM_BATCH, LM_SEQ, LM["n_heads"], 128
+    B, T, H, d = LM_BATCH, LM_SEQ, H or LM["n_heads"], 128
     gen = torch.Generator(device="cuda").manual_seed(seed + 40)
-    qkv, do = attn_inputs(B, T, gen)
+    qkv, do = attn_inputs(B, T, gen, H)
     # The kernels against their plain versions at the shape the LM step
     # gives them; this is the kernels line's max_abs_err.
-    _, abs_err = attn_parity(qkv, do, True, f"B={B} T={T} causal")
+    _, abs_err = attn_parity(qkv, do, True, f"B={B} T={T} H={H} causal", H,
+                             "parity_attn" + suffix)
     o, lse = A.flash_attention_qkv_fwd(qkv, H, causal=True)
     delta = A.attention_delta(do, o, H)
     delta_row(B, T, H, d, peaks, lambda: A.attention_delta(do, o, H))
     g = torch.empty_like(qkv)
     rows = {}
-    row = functools.partial(attn_timing_row, rows, (B, T, H, d), peaks)
+    row = functools.partial(_suffixed_row, suffix, rows, (B, T, H, d), peaks)
     q4, k4, v4 = (x.transpose(1, 2) for x in A._split_qkv(qkv, H))
     plain_fwd = time_ms(lambda: A.flash_attention_qkv_reference(
         qkv, H, causal=True), reps=3, inner=1)
@@ -1748,6 +1780,8 @@ def phase_timing_attn(seed: int, peaks):
         "scaled_dot_product_attention forward + backward (autograd)")
     del qkv, do, o, lse, delta, g, ql, kl, vl, gl
     torch.cuda.empty_cache()
+    if not unembed:
+        return rows, abs_err
     # The LM step's bf16 unembed (not a kernel of the port): the cuBLAS
     # product with f32 output it uses, beside the f32 upcast of the same
     # bf16 values that the CPU path computes.
@@ -1765,12 +1799,12 @@ def phase_timing_attn(seed: int, peaks):
 
 # -- the pipelined LM (slice 4) -----------------------------------------------
 
-def bhtd_inputs(B: int, T: int, gen: torch.Generator):
+def bhtd_inputs(B: int, T: int, gen: torch.Generator, H: int = 0):
     """q/k/v as the pipelined block hands them to the kernels: strided
     slices of a packed [B, T, H, 3, d] projection, q prescaled by
     sm_scale*log2(e) (contiguous); and a cotangent dO [B, T, H, d]."""
     from horovod_tpu_torch.ops.attention import LOG2E
-    H, d = LM["n_heads"], 128
+    H, d = H or LM["n_heads"], 128
     qkv = torch.randn((B, T, H, 3, d), generator=gen,
                       device="cuda").to(torch.bfloat16)
     q = (qkv[..., 0, :].float() * (d ** -0.5 * LOG2E)).to(torch.bfloat16)
@@ -1779,10 +1813,11 @@ def bhtd_inputs(B: int, T: int, gen: torch.Generator):
     return q, qkv[..., 1, :], qkv[..., 2, :], do
 
 
-def bhtd_parity(q, k, v, do, causal: bool, what: str):
+def bhtd_parity(q, k, v, do, causal: bool, what: str,
+                phase: str = "parity_attn_bhtd"):
     """The forward with lse and the dq and dk/dv kernels on [B,T,H,D]
     operands against their plain versions (:func:`parity_report`, one
-    ``parity_attn_bhtd`` line)."""
+    ``phase`` line)."""
     from horovod_tpu_torch.ops import attention as A
 
     def run():
@@ -1797,8 +1832,7 @@ def bhtd_parity(q, k, v, do, causal: bool, what: str):
         return (*A.flash_attention_lse_reference(q, k, v, causal=causal),
                 *A.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                  causal=causal))
-    return parity_report("parity_attn_bhtd", BHTD_KERNELS, run, plain,
-                         causal, what)
+    return parity_report(phase, BHTD_KERNELS, run, plain, causal, what)
 
 
 def phase_parity_attn_bhtd(seed: int):
@@ -1942,19 +1976,20 @@ def phase_e2e_pp_lm_train(seed: int):
           f"e2e pp whole-model update cosine {cosine}")
 
 
-def phase_timing_attn_bhtd(seed: int, peaks):
-    """The [B,T,H,D] launches at the pp step's shape (B=4, H=16, T=2048,
-    causal), timed beside their bounds (as :func:`phase_timing_attn`
-    counts them), plain versions and SDPA."""
+def phase_timing_attn_bhtd(seed: int, peaks, H: int = 0, suffix: str = ""):
+    """The [B,T,H,D] launches at the pp step's shape (B=4, H=16 or
+    ``H``, T=2048, causal), timed beside their bounds (as
+    :func:`phase_timing_attn` counts them), plain versions and SDPA;
+    ``suffix`` names the rows of another shape."""
     from horovod_tpu_torch.ops import attention as A
-    B, T, H, d = LM_BATCH // PP_MICRO, LM_SEQ, LM["n_heads"], 128
+    B, T, H, d = LM_BATCH // PP_MICRO, LM_SEQ, H or LM["n_heads"], 128
     gen = torch.Generator(device="cuda").manual_seed(seed + 60)
-    q, k, v, do = bhtd_inputs(B, T, gen)
+    q, k, v, do = bhtd_inputs(B, T, gen, H)
     o, lse = A.flash_attention_lse(q, k, v, causal=True)
     delta = A.attention_delta_bhtd(do, o)
     delta_row(B, T, H, d, peaks, lambda: A.attention_delta_bhtd(do, o))
     rows = {}
-    row = functools.partial(attn_timing_row, rows, (B, T, H, d), peaks)
+    row = functools.partial(_suffixed_row, suffix, rows, (B, T, H, d), peaks)
     q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
     plain_fwd = time_ms(lambda: A.flash_attention_lse_reference(
         q, k, v, causal=True), reps=3, inner=1)
@@ -3346,6 +3381,130 @@ def phase_lm_ckpt_serve(seed: int):
     return runs["restored"]["launches"]
 
 
+# -- the mesh axes on one card (slice 13) ------------------------------------
+
+def _mesh_run(cfg, mesh, batch: int, seed: int, steps: int = MESH_STEPS):
+    """``steps`` four-axis (or, ``mesh`` None, dp-only) LM steps from
+    ``seed`` on the LM batch cut to ``batch`` rows, counters zeroed just
+    before them. Returns the state, the losses, the step seconds (host
+    clock, each step ending in a read of its loss), the launches and the
+    peak bytes."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.transformer import \
+        make_parallel_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, step = make_parallel_train_step(
+        cfg, functools.partial(torch.optim.AdamW, **ADAMW), mesh=mesh)
+    state = init_state(seed)
+    tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
+    tokens, labels = tokens[:batch], labels[:batch]
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        state, loss = step(state, tokens, labels)
+        losses.append(loss.item())
+        times.append(time.monotonic() - t0)
+    return (state, losses, times, LAUNCHES.snapshot(),
+            torch.cuda.max_memory_allocated())
+
+
+def _mesh_line(name, losses, times, launches, peak, **kw) -> dict:
+    line = dict(losses=losses, step_ms=[t * 1e3 for t in times],
+                step_ms_p50=float(np.median(times)) * 1e3,
+                peak_bytes=int(peak), launches=launches, **kw)
+    emit("lm_mesh", part=name, **line)
+    check(all(np.isfinite(losses)), f"lm_mesh {name}: loss {losses}")
+    return line
+
+
+def phase_lm_mesh(seed: int, peaks, smi: str):
+    """(a) the spec-grouped plane bitwise against the dp-only step, (b)
+    the ring path, (c) the one-expert MoE, (d) the flash kernels at the
+    tp-local shapes."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+    from horovod_tpu_torch.parallel.transformer import forward_hidden
+    hvd.init()
+    check(hvd.size() == 1, "expected a 1-rank world")
+    cfg = lm_config()
+    per_step = {k: cfg.n_layers for k in ATTN_KERNELS}
+    # (a) dp-only, then the hand-built one-rank mesh with tp named.
+    st, l_dp, t_dp, n_dp, pk_dp = _mesh_run(cfg, None, LM_BATCH, seed)
+    # On the host: a card copy (1.9 GB) would count in the next run's peak.
+    dp_params = [p.detach().cpu() for p in st.model.parameters()]
+    del st
+    mesh = make_mesh({"dp": 1, "pp": 1, "ep": 1, "tp": 1})
+    st, l_m, t_m, n_m, pk_m = _mesh_run(cfg, mesh, LM_BATCH, seed)
+    groups = sorted({s.psum for s in st.optimizer._grouped.syncs})
+    bitwise = all(torch.equal(a, b.detach().cpu()) for a, b in
+                  zip(dp_params, st.model.parameters()))
+    del st, dp_params
+    want = {k: v * MESH_STEPS for k, v in per_step.items()}
+    _mesh_line("a_dp_only", l_dp, t_dp, n_dp, pk_dp, batch=LM_BATCH,
+               gpu=smi)
+    _mesh_line("a_spec_grouped", l_m, t_m, n_m, pk_m, batch=LM_BATCH,
+               mesh=dict(mesh.shape), groups=[list(g) for g in groups],
+               params_bitwise_equal_dp_only=bitwise, gpu=smi)
+    check(bitwise and l_m == l_dp, "lm_mesh (a): the spec-grouped step's "
+          "params or losses differ from the dp-only step's")
+    want_launches(n_dp, want, "lm_mesh (a) dp-only")
+    want_launches(n_m, want, "lm_mesh (a) spec-grouped")
+    # (b) the ring with sp named at size 1, against flash at its batch.
+    _, l_fl, _, _, _ = _mesh_run(cfg, None, MESH_RING_BATCH, seed, steps=1)
+    ring_mesh = make_mesh({"dp": 1, "pp": 1, "sp": 1})
+    st, l_r, t_r, n_r, pk_r = _mesh_run(cfg, ring_mesh, MESH_RING_BATCH,
+                                        seed)
+    del st
+    rel = abs(l_r[0] - l_fl[0]) / abs(l_fl[0])
+    _mesh_line("b_ring_sp1", l_r, t_r, n_r, pk_r, batch=MESH_RING_BATCH,
+               flash_first_loss=l_fl[0], first_loss_rel_diff=rel,
+               tolerance=TOL_RING_LOSS, gpu=smi,
+               cut="batch 8 -> 2: one f32 [B,16,2048,2048] block a layer, "
+                   "several kept for the backward")
+    check(rel <= TOL_RING_LOSS, f"lm_mesh (b): ring loss {l_r[0]} vs "
+          f"flash {l_fl[0]} (rel {rel} > {TOL_RING_LOSS})")
+    want_launches(n_r, {k: 0 for k in ATTN_KERNELS}, "lm_mesh (b) ring")
+    # (c) one expert on ep of size 1.
+    moe_cfg = dataclasses.replace(cfg, n_experts=1)
+    ep_mesh = make_mesh({"dp": 1, "pp": 1, "ep": 1})
+    st, l_e, t_e, n_e, pk_e = _mesh_run(moe_cfg, ep_mesh, LM_BATCH, seed)
+    tokens, _ = lm_batch(LM_BATCH, LM_SEQ, seed)
+    with torch.no_grad():
+        _, aux = forward_hidden(st.model, tokens)
+    aux = aux.item()
+    del st
+    _mesh_line("c_moe_ep1", l_e, t_e, n_e, pk_e, batch=LM_BATCH, aux=aux,
+               capacity=20480, dispatch_bytes=20480 * LM["d_model"] * 2,
+               gpu=smi)
+    check(abs(aux - cfg.n_layers) < 1e-3, f"lm_mesh (c): aux {aux}, "
+          f"expected {cfg.n_layers} (one expert takes every token)")
+    want_launches(n_e, want, "lm_mesh (c) MoE")
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    # (d) the kernels at the per-rank shapes of tp > 1.
+    rows = {}
+    for tp in MESH_TP:
+        H = LM["n_heads"] // tp
+        got, _ = phase_timing_attn(seed + tp, peaks, H=H, suffix=f"_tp{tp}",
+                                   unembed=False)
+        rows.update(got)
+    H = LM["n_heads"] // 2
+    gen = torch.Generator(device="cuda").manual_seed(seed + 70)
+    q, k, v, do = bhtd_inputs(LM_BATCH // PP_MICRO, LM_SEQ, gen, H)
+    bhtd_parity(q, k, v, do, True, f"[B,T,H,D] B={LM_BATCH // PP_MICRO} "
+                f"T={LM_SEQ} H={H} causal", phase="parity_attn_bhtd_tp2")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    rows.update(phase_timing_attn_bhtd(seed, peaks, H=H, suffix="_pptp2"))
+    emit("lm_mesh_kernels", gpu=smi, rows=rows,
+         note="per-rank shapes of tp=2/4 (K3-qkv, dq, dkv: B=8, T=2048) "
+              "and pp x tp=2 (K3-lse, dq/dk/dv [B,T,H,D]: B=4); launches "
+              "a step at any tp: n_layers of each")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3398,6 +3557,7 @@ def main() -> int:
         phase_trainer(args.seed)
         phase_elastic(args.seed)
         phase_lm_ckpt_serve(args.seed)
+        phase_lm_mesh(args.seed, peaks, smi)
         phase_bench(smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

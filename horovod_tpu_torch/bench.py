@@ -10,6 +10,9 @@ with the metrics per GPU. Run it as::
     python -m horovod_tpu_torch.bench --model transformer_lm --accum-steps 2
     python -m horovod_tpu_torch.bench --zero --overlap  # ZeRO-1 + overlap
     python -m horovod_tpu_torch.bench --device cpu     # smoke sizes, CPU
+    python -m horovod_tpu_torch.launcher -np 4 --cpu python -m \
+        horovod_tpu_torch.bench --device cpu --model transformer_lm \
+        --mesh dp=2,tp=2                               # a mesh world
 
 The default run prints TWO JSON lines: ``resnet50_synthetic_images_per_
 sec_per_gpu`` first, then ``transformer_lm_tokens_per_sec_per_gpu``. Each
@@ -37,9 +40,17 @@ regions. Warmup runs ``warmup × steps_per_call`` steps first.
 CPU, where the line is labelled per CPU and every device-only field is
 null. ``HVD_FUSED_PARTS`` and ``HVD_LM_LOSS_CHUNK`` act as in
 ``bench.py``. Without a GPU and without ``--device cpu`` the bench exits
-non-zero: it never falls back. The knobs not ported yet (``--tp`` > 1,
-``--pp`` with ``--zero`` or ``--overlap``, the models other than
-resnet50) exit non-zero naming their ``ROADMAP.md`` item.
+non-zero: it never falls back.
+
+``--tp`` and ``--mesh dp=…,tp=…[,pp=…]`` run the LM's four-axis step
+(tp > 1) or its pipelined step with tp inside the stages (pp > 1) over
+a mesh of the launched world, whose size must be ``dp·tp·pp`` (``bench.
+py``'s rule and wording: ``--tp`` × ``--pp`` must divide the visible
+device count, here the world). The tp ranks of a dp group train on the
+same rows, so the global batch scales with dp only. The knobs not ported
+yet (``--zero`` or ``--overlap`` with ``--pp`` or ``--tp`` > 1, the
+models other than resnet50) exit non-zero naming their ``ROADMAP.md``
+item.
 
 ``--scaling`` runs the conv model's line in worlds of 1, 2, 4, ... up to
 the GPUs this host shows (gloo worlds of 1 and 2 under ``--device cpu``),
@@ -301,15 +312,21 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
     world: the data-parallel step (``make_parallel_train_step``), or the
     pipelined 1F1B step with ``cfg["pp"] > 1``. Returns the total rate
     and the overlap order (None without overlap)."""
+    from horovod_tpu_torch.parallel.mesh import (batch_block,
+                                                 create_hybrid_mesh)
     from horovod_tpu_torch.parallel.transformer import (
         TransformerConfig, make_parallel_train_step)
     n = hvd.size()
     tp, pp = int(cfg.get("tp", 1)), int(cfg.get("pp", 1))
+    if tp > 1 and (tp * pp > n or n % (tp * pp)):
+        raise SystemExit(
+            f"--tp {tp} × --pp {pp} must divide the visible device count "
+            f"{n} (the mesh is dp={n}//(tp·pp) × tp × pp)")
     if pp < 1 or n % pp:
         raise SystemExit(
             f"--pp {pp} must divide the world size {n} (the mesh is "
             f"dp={n}//pp × pp)")
-    dp = n // pp
+    dp = n // (pp * tp)
     want_dp = cfg.get("mesh_dp")
     if want_dp is not None and int(want_dp) != dp:
         raise SystemExit(
@@ -324,8 +341,8 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
         unembed_dtype=torch.bfloat16, remat=bool(cfg.get("remat", False)),
         loss_chunk=int(cfg.get("loss_chunk", 0)))
     opt = functools.partial(torch.optim.AdamW, **ADAMW)
+    mesh = None
     if pp > 1:
-        from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
         from horovod_tpu_torch.parallel.pp_transformer import \
             make_pp_transformer_train_step
         if cfg["n_layers"] % pp:
@@ -338,9 +355,16 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
             raise SystemExit(
                 f"batch_per_gpu={cfg['batch_per_gpu']} must divide into "
                 f"--accum-steps {micro} microbatches for the pipelined path")
+        mesh = create_hybrid_mesh(dp=dp, pp=pp, tp=tp)
         init_state, step = make_pp_transformer_train_step(
-            tcfg, create_hybrid_mesh(dp=dp, pp=pp), opt, micro,
-            wire_dtype=cfg.get("wire_dtype"), device=device)
+            tcfg, mesh, opt, micro, wire_dtype=cfg.get("wire_dtype"),
+            device=device)
+        state = init_state(seed)
+    elif tp > 1:
+        mesh = create_hybrid_mesh(dp=dp, tp=tp)
+        init_state, step = make_parallel_train_step(
+            tcfg, opt, mesh=mesh, wire_dtype=cfg.get("wire_dtype"),
+            accum_steps=int(cfg.get("accum_steps", 1)), device=device)
         state = init_state(seed)
     else:
         init_state, step = make_parallel_train_step(
@@ -352,10 +376,19 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
         hvd.broadcast_parameters(state.model)
     B, T = cfg["batch_per_gpu"], cfg["seq"]
     rng = np.random.RandomState(seed)
-    tokens = torch.from_numpy(rng.randint(0, cfg["vocab"], size=(B, T))
-                              ).to(device)
-    labels = torch.from_numpy(rng.randint(0, cfg["vocab"], size=(B, T))
-                              ).to(device)
+    if tp > 1:
+        # One global batch of B rows per dp index; each rank feeds its
+        # dp group's rows (the tp ranks of a group the same ones).
+        rows = (B * dp, T)
+        tokens, labels = (batch_block(torch.from_numpy(
+            rng.randint(0, cfg["vocab"], size=rows)), mesh,
+            batch_axes=("dp",), seq_axis=None).contiguous().to(device)
+            for _ in range(2))
+    else:
+        tokens = torch.from_numpy(rng.randint(0, cfg["vocab"],
+                                              size=(B, T))).to(device)
+        labels = torch.from_numpy(rng.randint(0, cfg["vocab"],
+                                              size=(B, T))).to(device)
     k = int(cfg.get("steps_per_call", 1))
 
     def run(n_steps: int):
@@ -438,10 +471,11 @@ def _refuse_unported(args, tp: int, pp: int) -> None:
             "--zero and --overlap on the pipelined step (ZeRO over dp with "
             "pp as a non-scatter axis) are the hybrid plan of ROADMAP.md "
             "Queue 1 item 11, not ported yet")
-    if tp > 1:
+    if tp > 1 and (args.zero or args.overlap):
         raise SystemExit(
-            f"--tp {tp} (the tensor-parallel axis) is not ported yet: "
-            f"ROADMAP.md Queue 1 item 11")
+            "--zero and --overlap with --tp > 1 (ZeRO with tp as a "
+            "non-scatter axis, overlap on the spec-grouped plane) are "
+            "ROADMAP.md Queue 1 item 11, not ported yet")
     if args.model in _UNPORTED_MODELS:
         raise SystemExit(
             f"--model {args.model} has no port model yet: ROADMAP.md "
@@ -554,7 +588,8 @@ def main(argv=None) -> int:
                         "and results; fp8 is e4m3 with per-bucket dynamic "
                         "scaling)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel axis size (only 1 is ported)")
+                   help="tensor-parallel axis size (transformer_lm; "
+                        "tp × pp must divide the world size)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel axis size (transformer_lm; "
                         "must divide the world size)")
@@ -586,9 +621,9 @@ def main(argv=None) -> int:
                 "--scaling is not supported for transformer_lm (the conv "
                 "family's re-init-with-device-subsets machinery does not "
                 "apply); run it without --scaling")
-        if pp > 1 or args.mesh:
+        if pp > 1 or tp > 1 or args.mesh:
             raise SystemExit("--scaling sweeps pure dp worlds: drop "
-                             "--pp/--mesh")
+                             "--pp/--tp/--mesh")
         return scaling(args)
     wire = None if args.wire_dtype in (None, "fp32") else args.wire_dtype
     hvd.init(device=args.device)
@@ -598,9 +633,9 @@ def main(argv=None) -> int:
             _emit(lm_line(device, wire, tp, pp, args.accum_steps, mesh_dp,
                           args.seed, args.zero, args.overlap))
             return 0
-        if pp > 1:
+        if pp > 1 or tp > 1:
             raise SystemExit(
-                "--pp/--mesh beyond pure dp applies to --model "
+                "--pp/--tp/--mesh beyond pure dp applies to --model "
                 "transformer_lm: the conv models are not staged")
         cfg = _bench_config(args.model or "resnet50", args.device)
         cfg.update(accum_steps=args.accum_steps, wire_dtype=wire,

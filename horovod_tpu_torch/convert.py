@@ -1,7 +1,8 @@
 """Weight carry between the JAX package's parameter trees and the port's
 models: the transformer (:func:`params_from_jax`,
-:func:`params_to_numpy`), the pipelined transformer's stage slices
-(:func:`pp_params_from_jax`, :func:`pp_params_to_numpy`), the ResNet
+:func:`params_to_numpy`, and across a mesh :func:`params_to_global`),
+the pipelined transformer's stage slices (:func:`pp_params_from_jax`,
+:func:`pp_params_to_numpy`, :func:`pp_params_to_global`), the ResNet
 (:func:`resnet_from_jax`,
 :func:`resnet_to_numpy`), and the JAX leaf order both train steps plan
 their gradient buckets in (:func:`jax_leaf_order`).
@@ -9,7 +10,10 @@ their gradient buckets in (:func:`jax_leaf_order`).
 The JAX tree is ``{"embed", "lnf", "layers": [{"ln1", "wqkv", "wo",
 "ln2", "w1", "w2"}, ...]}`` with every projection ``[in, out]`` and used
 as ``h @ W``; the port keeps exactly that layout, so the map is one to
-one with no transposes. Leaves arrive as numpy arrays (convert JAX
+one with no transposes. On a mesh each rank takes its block of every
+global leaf under the parameter specs (:func:`~.parallel.mesh.
+local_slice`), and the blocks all-gather back into the global leaves
+(:func:`~.parallel.mesh.gather_global`). Leaves arrive as numpy arrays (convert JAX
 arrays with ``np.asarray`` first) or CPU tensors (the bf16 leaves of
 ``restore_for_inference``): this module never imports JAX.
 
@@ -28,9 +32,15 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models.resnet import ResNet, ResNetConfig
-from .parallel.transformer import Transformer, TransformerConfig
+from .parallel.mesh import gather_global, local_slice
+from .parallel.transformer import (Transformer, TransformerConfig,
+                                   param_specs)
 
 _LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+
+
+def _layer_keys(cfg: TransformerConfig) -> Tuple[str, ...]:
+    return _LAYER_KEYS + (("gate",) if cfg.n_experts else ())
 
 
 def _float_leaf(leaf: Any, name: str) -> np.ndarray:
@@ -45,35 +55,60 @@ def _float_leaf(leaf: Any, name: str) -> np.ndarray:
     return np.asarray(leaf, dtype=np.float32)
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy().copy()
+
+
 def params_to_numpy(model: Transformer) -> Dict[str, Any]:
     """The model's weights as the JAX parameter tree ``{"embed", "lnf",
     "layers": [{...}, ...]}`` of f32 numpy arrays (the inverse of
-    :func:`params_from_jax`)."""
-    def np_(t):
-        return t.detach().float().cpu().numpy().copy()
-    return {"embed": np_(model.embed), "lnf": np_(model.lnf),
-            "layers": [{key: np_(getattr(blk, key)) for key in _LAYER_KEYS}
+    :func:`params_from_jax`); on a mesh, this rank's blocks."""
+    keys = _layer_keys(model.cfg)
+    return {"embed": _np(model.embed), "lnf": _np(model.lnf),
+            "layers": [{key: _np(getattr(blk, key)) for key in keys}
                        for blk in model.layers]}
 
 
+def params_to_global(model: Transformer) -> Dict[str, Any]:
+    """The global (canonical) JAX tree of a model on a mesh: each
+    rank's blocks all-gathered under :func:`~.parallel.transformer.
+    param_specs`, as f32 numpy arrays. Collective: every rank of the
+    mesh must call it. Off a mesh it is :func:`params_to_numpy`."""
+    if model.mesh is None:
+        return params_to_numpy(model)
+    specs = param_specs(model.cfg, model.mesh)
+    keys = _layer_keys(model.cfg)
+
+    def g(t, spec):
+        return _np(gather_global(t, spec, model.mesh))
+    return {"embed": _np(model.embed), "lnf": _np(model.lnf),
+            "layers": [{key: g(getattr(blk, key), sp[key]) for key in keys}
+                       for blk, sp in zip(model.layers, specs["layers"])]}
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
-                    device: DeviceLike = "cuda") -> Transformer:
+                    device: DeviceLike = "cuda", mesh=None) -> Transformer:
     """Build a :class:`Transformer` on ``device`` holding ``tree``'s
-    weights (as f32). Raises ``ValueError`` on a missing leaf or a shape
-    that does not match ``cfg``."""
+    weights (as f32): on a ``mesh``, this rank's block of each global
+    leaf (:func:`~.parallel.transformer.param_specs`). Raises
+    ``ValueError`` on a missing leaf or a shape that does not match
+    ``cfg``."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, mesh=mesh)
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, cfg "
                          f"{cfg.n_layers}")
-    pairs = [(model.embed, tree["embed"], "embed"),
-             (model.lnf, tree["lnf"], "lnf")]
+    specs = param_specs(cfg, mesh)
+    pairs = [(model.embed, tree["embed"], "embed", ()),
+             (model.lnf, tree["lnf"], "lnf", ())]
     for i, (blk, leaves) in enumerate(zip(model.layers, tree["layers"])):
-        pairs += [(getattr(blk, key), leaves[key], f"layers[{i}].{key}")
-                  for key in _LAYER_KEYS]
+        pairs += [(getattr(blk, key), leaves[key], f"layers[{i}].{key}",
+                   specs["layers"][i][key]) for key in _layer_keys(cfg)]
     with torch.no_grad():
-        for param, leaf, name in pairs:
+        for param, leaf, name, spec in pairs:
             arr = _float_leaf(leaf, name)
+            if mesh is not None:
+                arr = np.ascontiguousarray(local_slice(arr, spec, mesh))
             if tuple(arr.shape) != tuple(param.shape):
                 raise ValueError(f"{name}: shape {arr.shape} does not match "
                                  f"{tuple(param.shape)}")
@@ -86,11 +121,14 @@ def pp_params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, mesh,
     """This rank's parameters of the pipelined transformer from a JAX
     ``init_pp_params`` tree ``{"embed", "lnf", "stages": {leaf: [S, lps,
     ...]}}`` of numpy arrays: the head whole and the stacks' slice at this
-    rank's pp index, as f32 ``nn.Parameter``s on ``device`` in the layout
+    rank's pp index (its tp blocks when the mesh has tp), as f32
+    ``nn.Parameter``s on ``device`` in the layout
     :func:`~.parallel.pp_transformer.init_pp_params` returns. Raises
     ``ValueError`` when a leaf's shape is not that of ``mesh``'s stages of
     ``cfg``'s layers."""
+    from .parallel.pp_transformer import pp_param_specs
     dev = resolve_device(device)
+    specs = pp_param_specs(mesh)["stages"]
     S, stage = mesh.shape["pp"], mesh.coords["pp"]
     if cfg.n_layers % S:
         raise ValueError(f"n_layers={cfg.n_layers} must divide into "
@@ -99,20 +137,21 @@ def pp_params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, mesh,
     stacks = {"ln1": (lps, d), "ln2": (lps, d), "w1": (lps, d, f),
               "w2": (lps, f, d), "wo": (lps, d, d), "wqkv": (lps, d, 3 * d)}
 
-    def param(leaf, name, shape, index=None):
+    def param(leaf, name, shape, key=None):
         arr = _float_leaf(leaf, name)
-        want = shape if index is None else (S, *shape)
+        want = shape if key is None else (S, *shape)
         if tuple(arr.shape) != want:
             raise ValueError(f"{name}: shape {arr.shape} does not match "
                              f"{want}")
-        if index is not None:
-            arr = arr[index]
+        if key is not None:
+            arr = np.ascontiguousarray(
+                local_slice(arr[stage], specs[key][1:], mesh))
         return torch.nn.Parameter(torch.tensor(arr, device=dev))
 
     return {"embed": param(tree["embed"], "embed", (cfg.vocab, d)),
             "lnf": param(tree["lnf"], "lnf", (d,)),
-            "stages": {k: param(tree["stages"][k], f"stages.{k}", shape,
-                                stage) for k, shape in stacks.items()}}
+            "stages": {k: param(tree["stages"][k], f"stages.{k}", shape, k)
+                       for k, shape in stacks.items()}}
 
 
 def pp_params_to_numpy(params: Dict[str, Any], mesh
@@ -121,10 +160,21 @@ def pp_params_to_numpy(params: Dict[str, Any], mesh
     tree's shape, ``{"embed", "lnf", "stages": {leaf: [lps, ...]}}``,
     with its stage index: stacking the stages of every pp rank in index
     order gives the JAX ``[S, lps, ...]`` leaves."""
-    def np_(t):
-        return t.detach().float().cpu().numpy().copy()
-    return ({"embed": np_(params["embed"]), "lnf": np_(params["lnf"]),
-             "stages": {k: np_(v) for k, v in params["stages"].items()}},
+    return ({"embed": _np(params["embed"]), "lnf": _np(params["lnf"]),
+             "stages": {k: _np(v) for k, v in params["stages"].items()}},
+            mesh.coords["pp"])
+
+
+def pp_params_to_global(params: Dict[str, Any], mesh
+                        ) -> Tuple[Dict[str, Any], int]:
+    """As :func:`pp_params_to_numpy`, with each stage leaf's tp blocks
+    all-gathered into the stage's global slice. Collective over the
+    mesh."""
+    from .parallel.pp_transformer import pp_param_specs
+    specs = pp_param_specs(mesh)["stages"]
+    return ({"embed": _np(params["embed"]), "lnf": _np(params["lnf"]),
+             "stages": {k: _np(gather_global(v, specs[k][1:], mesh))
+                        for k, v in sorted(params["stages"].items())}},
             mesh.coords["pp"])
 
 

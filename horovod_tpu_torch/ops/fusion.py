@@ -406,7 +406,7 @@ class GradSync:
     mesh axes the gradient is summed over (the leaf is replicated across
     exactly these); ``shard``, the axes the leaf itself is sharded over;
     ``denom``, the averaging denominator (the product of the ``psum``
-    axis sizes)."""
+    axis sizes, times tp for a tp-sharded leaf)."""
 
     psum: Tuple[str, ...]
     shard: Tuple[str, ...]
@@ -429,9 +429,12 @@ def plan_grad_sync(specs: Sequence[Any], mesh, *,
     leaf naming the mesh axis each dimension is sharded over, or None)
     over ``mesh`` (:class:`~..parallel.mesh.Mesh`): the gradient is
     summed over every mesh axis the leaf is replicated across, minus
-    ``skip_axes``, and averaged by the product of those axes' sizes. The
-    JAX rule's tp correction has no counterpart until the port has a tp
-    axis."""
+    ``skip_axes``, and averaged by the product of those axes' sizes —
+    times the tp size for a leaf sharded over ``tp``: the backward of
+    the row-parallel all-reduce is a sum all-reduce, so such a leaf's
+    gradient arrives tp times too large (the JAX rule,
+    ``parallel.mesh.grad_sync_by_spec``), and the correction rides the
+    bucket's one prescale."""
     out = []
     for spec in specs:
         leaf_axes = _spec_axes(spec)
@@ -439,8 +442,10 @@ def plan_grad_sync(specs: Sequence[Any], mesh, *,
                      if a not in leaf_axes and a not in skip_axes)
         shard = tuple(a for a in mesh.axis_names
                       if a in leaf_axes and a not in skip_axes)
-        out.append(GradSync(psum=over, shard=shard,
-                            denom=math.prod(mesh.shape[a] for a in over)))
+        denom = math.prod(mesh.shape[a] for a in over)
+        if "tp" in leaf_axes and "tp" in mesh.shape:
+            denom *= int(mesh.shape["tp"])
+        out.append(GradSync(psum=over, shard=shard, denom=int(denom)))
     return out
 
 

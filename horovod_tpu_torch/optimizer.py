@@ -41,9 +41,10 @@ import torch.distributed as dist
 from . import runtime
 from .ops.collectives import Op, broadcast_object
 from .ops.fusion import (OverlapExchange, ZeroPlan, _all_finite, _fold,
-                         _fuse_bucket, _reduce_bucket, _scatter_bucket,
-                         _unfuse_buckets, fused_allgather_params,
-                         fused_allreduce, fused_reduce_scatter,
+                         _fuse, _fuse_bucket, _prescale_array,
+                         _reduce_bucket, _scatter_bucket, _unfuse_buckets,
+                         fused_allgather_params, fused_allreduce,
+                         fused_reduce_scatter, plan_buckets, plan_grad_sync,
                          plan_schedule, plan_zero, resolve_wire_dtype,
                          shard_params, zero_emit_order)
 from .ops.sparse import IndexedSlices, allreduce_indexed_slices
@@ -406,8 +407,25 @@ class DistributedOptimizer:
     the shards and all-gathers them into the parameters, which end
     bit-identical on every rank. Only an elementwise optimizer with one
     parameter group and no state yet can be rebuilt so (refused eagerly
-    otherwise); ``process_group`` and a mesh with more than the
-    data-parallel axis are ``ROADMAP.md`` Queue 1 item 11.
+    otherwise); ``process_group`` and a mesh with an axis of size above
+    1 besides the data-parallel one are ``ROADMAP.md`` Queue 1 item 11.
+
+    ``mesh=`` and ``param_specs=`` without ``zero`` are the spec-grouped
+    all-reduce plane (the JAX package's ``_grouped_allreduce``): each
+    parameter's gradient sync is its :class:`~.ops.fusion.GradSync`
+    (:func:`~.ops.fusion.plan_grad_sync` of its spec over the mesh,
+    minus ``skip_axes``), leaves fuse only within a group, and each
+    bucket runs one sum all-reduce over its group's process group
+    (:meth:`~.parallel.mesh.Mesh.group`), prescaled by ``1/denom`` (with
+    ``accum_steps``' ``1/N`` and ``wire_dtype`` as on the world plane).
+    The groups are created at construction, in plan order, so every
+    rank must build the optimizer alike. A bucket reduced over less than
+    the reduce set (the mesh's axes minus ``skip_axes``; the world when
+    nothing is skipped) leaves its all-finite flag local to its group:
+    the guard's verdict is then folded over the reduce set with one
+    scalar MIN, the only collective the guard adds (a caller that skips
+    an axis folds over it itself, as the pipelined step does over pp).
+    ``overlap`` on this plane is ``ROADMAP.md`` Queue 1 item 11.
 
     ``overlap`` (default ``HVD_OVERLAP``) starts each bucket's collective
     during the backward, when its last gradient lands, once the step has
@@ -430,7 +448,8 @@ class DistributedOptimizer:
                  wire_dtype=None, *, zero: bool = False,
                  overlap: Optional[bool] = None,
                  sparse_as_dense: bool = False, mesh=None,
-                 param_specs=None, compression=Compression.none):
+                 param_specs=None, compression=Compression.none,
+                 skip_axes: Tuple[str, ...] = ()):
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if mesh is not None:
@@ -446,11 +465,9 @@ class DistributedOptimizer:
             if sparse_as_dense:
                 raise ValueError("the spec-grouped (mesh=) plane supports "
                                  "dense gradients only")
-            if not zero:
-                raise NotImplementedError(
-                    "the spec-grouped all-reduce plane (mesh= without "
-                    "zero=True) comes with the tp axis: ROADMAP.md Queue 1 "
-                    "item 11")
+            if process_group is not None:
+                raise ValueError("mesh= and process_group= both set: the "
+                                 "mesh's plan picks each bucket's group")
         if process_group is not None and zero:
             raise NotImplementedError(
                 "zero= over a process group (the dp group of a hybrid "
@@ -478,9 +495,21 @@ class DistributedOptimizer:
         self._params = [p for _, p in named_parameters]
         self.zero = bool(zero)
         self._zero = None
+        self.mesh = mesh
+        self.param_specs = None if param_specs is None else list(param_specs)
+        self._grouped = None
+        if mesh is not None and len(self.param_specs) != len(self._params):
+            raise ValueError(
+                f"param_specs has {len(self.param_specs)} specs for "
+                f"{len(self._params)} parameters — they must mirror "
+                f"named_parameters")
+        if mesh is not None and not self.zero:
+            self._grouped = _GroupedPlan(self._params, self.param_specs,
+                                         mesh, fusion_threshold, skip_axes)
         if self.zero:
             plan = plan_zero(self._params, runtime.size(), fusion_threshold,
-                             specs=param_specs, mesh=mesh)
+                             specs=param_specs, mesh=mesh,
+                             skip_axes=skip_axes)
             self._zero = _ZeroUpdate(optimizer, self._params, plan,
                                      runtime.rank())
             optimizer = self._zero.inner
@@ -511,6 +540,10 @@ class DistributedOptimizer:
         backward."""
         if self._overlap is not None:
             return
+        if self._grouped is not None:
+            raise NotImplementedError(
+                "overlap= on the spec-grouped all-reduce plane (mesh= "
+                "without zero) is ROADMAP.md Queue 1 item 11")
         if self.process_group is not None:
             raise NotImplementedError(
                 "overlap= over a process group (the dp group of a hybrid "
@@ -590,6 +623,8 @@ class DistributedOptimizer:
     def _exchange(self, return_finite: bool):
         """The all-reduce plane's exchange: reduced gradients in
         ``.grad``; the world-wide all-finite flag or None."""
+        if self._grouped is not None:
+            return self._grouped.exchange(self, return_finite)
         got = self._collect()
         if got is None:
             order = self.grad_order if self.overlap else None
@@ -703,6 +738,70 @@ class DistributedOptimizer:
     def __getattr__(self, name):
         # Only reached for attributes this wrapper does not define.
         return getattr(self.__dict__["optimizer"], name)
+
+
+class _GroupedPlan:
+    """The spec-grouped all-reduce plane's plan: per parameter its
+    :class:`~.ops.fusion.GradSync`, the buckets (fused within a sync
+    group, in parameter order) and each bucket's process group (None
+    where the sync sums over no axis)."""
+
+    def __init__(self, params, specs, mesh, fusion_threshold, skip_axes):
+        self.syncs = plan_grad_sync(specs, mesh, skip_axes=skip_axes)
+        self.buckets = plan_buckets(params, fusion_threshold,
+                                    groups=self.syncs)
+        self.groups = []
+        reduce_set = tuple(a for a in mesh.axis_names if a not in skip_axes)
+        partial = False
+        for b in self.buckets:
+            axes = self.syncs[b[0]].psum
+            self.groups.append(mesh.group(axes) if axes else None)
+            partial = partial or axes != reduce_set
+        # The group the guard's verdict folds over (None: the flags of
+        # the reduced buckets already agree across the reduce set).
+        self.fold_group = None
+        if partial and mesh.subset_size(reduce_set) > 1:
+            self.fold_group = mesh.group(reduce_set)
+
+    def exchange(self, opt, return_finite: bool):
+        """Sum each bucket over its group with its ``1/denom`` (and the
+        optimizer's ``1/accum_steps``) prescaled in; the reduced
+        gradients land in ``.grad``. Returns the world-wide all-finite
+        flag (folded with one scalar MIN when a bucket summed over less
+        than the reduce set), or None."""
+        acc = _prescale_of(opt.accum_steps)
+        params = opt._params
+        flats = []
+        for b, group in zip(self.buckets, self.groups):
+            denom = self.syncs[b[0]].denom
+            scale = _fold(1.0 / denom if denom > 1 else None, acc)
+            members = [opt._grad_of(params[j]) for j in b]
+            if group is None:
+                flat = _fuse([m.detach() for m in members])
+                flats.append(_prescale_array(flat, scale))
+                continue
+            flats.append(_reduce_bucket(members, Op.SUM, scale,
+                                        opt.wire_dtype, group).wait())
+        reduced = _unfuse_buckets(flats, self.buckets, params)
+        with torch.no_grad():
+            # Into the gradients' own storage, as the world plane does:
+            # the flat buckets are freed here, not held to the next step.
+            for p, r in zip(params, reduced):
+                if p.grad is None or p.grad.is_sparse:
+                    p.grad = r.clone()
+                else:
+                    p.grad.copy_(r)
+        finite = None
+        if return_finite:
+            finite = _all_finite(flats, params[0].device)
+        del flats, reduced
+        if finite is None:
+            return None
+        if self.fold_group is not None:
+            f = finite.to(torch.int32).reshape(1)
+            dist.all_reduce(f, op=dist.ReduceOp.MIN, group=self.fold_group)
+            finite = f[0] > 0
+        return finite
 
 
 def partition_optimizer(optimizer: torch.optim.Optimizer,

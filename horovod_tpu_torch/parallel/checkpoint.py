@@ -37,9 +37,21 @@ rank's physical shard, not the canonical form, so such a commit restores
 at the same world size only (the JAX package's rule for its env-world
 commits).
 
-The hybrid meshes' 2-D canonical form (a ``ZeroPlan`` with a non-scatter
-axis) and ``restore_for_inference(mesh=)`` are ``ROADMAP.md`` Queue 1
-item 11; int8 serving weights and LoRA adapters are item 12.
+**Across a mesh.** A model on a mesh (the transformer's tp/ep blocks,
+:mod:`.transformer`) is saved in the canonical form: every rank's blocks
+of each parameter, and of each parameter-shaped optimizer state tensor
+of the spec-grouped plane, are all-gathered into the global leaf (a
+collective every rank enters), so the bytes are those of the world-1
+model and restore onto another mesh shape, each rank slicing its block
+back out. The manifest records the writing mesh's axis names
+(``mesh_axes``); a restore onto a mesh with other axis names raises,
+naming them (sizes may change). A rank's own commit
+(:func:`local_tree`) keeps its blocks.
+
+The hybrid meshes' 2-D canonical ZeRO form (a ``ZeroPlan`` with a
+non-scatter axis), the pipelined stages' parameter dicts and
+``restore_for_inference(mesh=)`` are ``ROADMAP.md`` Queue 1 item 11;
+int8 serving weights and LoRA adapters are item 12.
 """
 
 from __future__ import annotations
@@ -166,6 +178,74 @@ def _build(entries) -> Any:
     return listify(root) if root else None
 
 
+def _mesh_of(obj):
+    return getattr(obj, "mesh", None)
+
+
+def _model_specs(model) -> Optional[Dict[str, Any]]:
+    """Parameter name -> spec of a model on a mesh (None off a mesh)."""
+    mesh = _mesh_of(model)
+    if mesh is None:
+        return None
+    from .transformer import param_specs, spec_of
+    specs = param_specs(model.cfg, mesh)
+    return {n: spec_of(specs, n) for n, _ in model.named_parameters()}
+
+
+def _opt_specs(optimizer) -> Optional[Dict[int, Any]]:
+    """``id(parameter)`` -> spec on the spec-grouped all-reduce plane
+    (None elsewhere)."""
+    if _mesh_of(optimizer) is None or getattr(optimizer, "zero", False):
+        return None
+    return {id(p): spec for (_, p), spec in
+            zip(optimizer.named_parameters, optimizer.param_specs)}
+
+
+def _global(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    from .mesh import gather_global
+    return gather_global(t, spec, mesh) if t.dim() else t
+
+
+def _local(arr: np.ndarray, spec, mesh) -> np.ndarray:
+    from .mesh import local_slice
+    return _contiguous(local_slice(arr, spec, mesh)) if arr.ndim else arr
+
+
+def _mesh_axes_meta(model) -> Optional[dict]:
+    mesh = _mesh_of(model)
+    return None if mesh is None else {"mesh_axes": list(mesh.axis_names)}
+
+
+def check_mesh_axes(path: str, model) -> None:
+    """Raise when the checkpoint at ``path`` was written on a mesh whose
+    axis names differ from ``model``'s (a dp-only model's are
+    ``("dp",)``): a reshape may change axis sizes, not names."""
+    manifest = read_manifest(path) or {}
+    saved = manifest.get("mesh_axes")
+    if saved is None:
+        return
+    mesh = _mesh_of(model)
+    here = list(mesh.axis_names) if mesh is not None else ["dp"]
+    if list(saved) != here:
+        raise ValueError(
+            f"mesh AXIS NAMES mismatch: {path} was written on a mesh with "
+            f"axes {tuple(saved)}, this model is on {tuple(here)}; a "
+            f"checkpoint restores onto another mesh shape only with the "
+            f"same axis names (sizes may change)")
+
+
+def params_tree(model, canonical: bool = True) -> Any:
+    """The model's parameters as a flax-form tree of live leaves; on a
+    mesh with ``canonical``, every leaf gathered into its global form
+    (collective)."""
+    specs = _model_specs(model) if canonical else None
+    if specs is None:
+        return module_tree(model.named_parameters())
+    mesh = _mesh_of(model)
+    return module_tree((n, _global(p, specs[n], mesh))
+                       for n, p in model.named_parameters())
+
+
 def module_tree(named) -> Any:
     """``(dotted name, tensor)`` pairs (``named_parameters()``,
     ``named_buffers()``, or the per-parameter optimizer state under the
@@ -218,13 +298,15 @@ def _zero_mesh_meta(optimizer) -> Optional[dict]:
     return meta
 
 
-def opt_tree(optimizer) -> Dict[str, Any]:
+def opt_tree(optimizer, canonical: bool = True) -> Dict[str, Any]:
     """A ``DistributedOptimizer``'s state in canonical form:
     ``{"hyperparams": [per group], "state": {key: flax tree}}`` on the
     all-reduce plane (one flax tree of the parameters per state key, e.g.
-    ``momentum_buffer``), ``{"hyperparams", "zero": [per bucket {key:
-    flat vector}]}`` on the ZeRO plane (:func:`~horovod_tpu_torch.
-    optimizer.zero_to_canonical`: a collective every rank must enter)."""
+    ``momentum_buffer``; on a mesh, each parameter-shaped tensor gathered
+    into its global form, a collective), ``{"hyperparams", "zero": [per
+    bucket {key: flat vector}]}`` on the ZeRO plane
+    (:func:`~horovod_tpu_torch.optimizer.zero_to_canonical`: a
+    collective every rank must enter)."""
     from ..optimizer import zero_to_canonical
     hyper = _hyper_tree(optimizer)
     if getattr(optimizer, "zero", False):
@@ -237,10 +319,13 @@ def opt_tree(optimizer) -> Dict[str, Any]:
     if named is None:
         raise TypeError("checkpointing an optimizer needs its parameter "
                         "names: wrap it in DistributedOptimizer")
+    specs = _opt_specs(optimizer) if canonical else None
     per_key: Dict[str, list] = {}
     for name, p in named:
-        for k, v in optimizer.state.get(p, {}).items():
+        for k, v in sorted(optimizer.state.get(p, {}).items()):
             if torch.is_tensor(v):
+                if specs is not None and v.shape == p.shape:
+                    v = _global(v, specs[id(p)], optimizer.mesh)
                 per_key.setdefault(k, []).append((name, v))
     return {"hyperparams": hyper,
             "state": {k: module_tree(v) for k, v in per_key.items()}}
@@ -263,7 +348,7 @@ def state_tree(state) -> Fields:
     model = _model_of(getattr(state, "model", None))
     return Fields(
         step=np.asarray(int(state.step), np.int32),
-        params=module_tree(model.named_parameters()),
+        params=params_tree(model),
         opt_state=opt_tree(state.optimizer),
         batch_stats=module_tree(model.named_buffers()))
 
@@ -585,10 +670,27 @@ def _match(template: Any, saved: Any, what: str):
     return [(want[k], got[k]) for k in want]
 
 
-def load_module_(named, saved: Any, what: str) -> None:
-    """Copy a saved flax-form tree into the tensors ``named`` lists."""
+def _key_of(name: str) -> str:
+    """The key path string of a dotted parameter name in a
+    :func:`module_tree` (numeric parts are list indices)."""
+    return keystr(tuple(("idx", k) if isinstance(k, int) else ("key", k)
+                        for k in _flax_path(name)))
+
+
+def load_module_(named, saved: Any, what: str, specs=None,
+                 mesh=None) -> None:
+    """Copy a saved flax-form tree into the tensors ``named`` lists;
+    with ``specs`` (name -> spec) and ``mesh`` the saved leaves are
+    global and each tensor takes its block."""
+    named = list(named)
+    template = module_tree(named)
+    spec_at = None if specs is None else {_key_of(n): specs[n]
+                                          for n, _ in named}
     with torch.no_grad():
-        for live, arr in _match(module_tree(named), saved, what):
+        for key, (live, arr) in zip(_leaves_by_path(template),
+                                    _match(template, saved, what)):
+            if spec_at is not None:
+                arr = _local(np.asarray(arr), spec_at[key], mesh)
             live.tensor.copy_(_to_tensor(arr, live.perm, live.tensor))
 
 
@@ -636,6 +738,7 @@ def load_opt_(optimizer, saved: Dict[str, Any], broadcast: bool = False
         raise ValueError("a replicated optimizer restores from a checkpoint "
                          "of replicated state (the saving run had zero=True)")
     params = dict(optimizer.named_parameters)
+    specs = _opt_specs(optimizer)
     group = optimizer.param_groups[0]
     on_device = group.get("capturable") or group.get("fused")
     for p in params.values():
@@ -648,6 +751,9 @@ def load_opt_(optimizer, saved: Dict[str, Any], broadcast: bool = False
                 continue
             p = live.tensor
             if arr.ndim:
+                if specs is not None:
+                    arr = _local(np.asarray(arr), specs[id(p)],
+                                 optimizer.mesh)
                 t = _to_tensor(arr, live.perm, p)
             else:
                 t = torch.from_numpy(np.array(arr)).to(
@@ -660,7 +766,8 @@ def load_state_(state, tree: Any) -> None:
     BatchNorm buffers, the optimizer's state and hyperparameters, the
     step."""
     model = _model_of(state.model)
-    load_module_(model.named_parameters(), tree["params"], "params")
+    load_module_(model.named_parameters(), tree["params"], "params",
+                 _model_specs(model), _mesh_of(model))
     load_module_(model.named_buffers(), tree.get("batch_stats"),
                  "batch_stats")
     load_opt_(state.optimizer, tree["opt_state"],
@@ -681,17 +788,18 @@ def save_sharded(directory: str, step: int, params: Any, opt_state: Any,
     writing plan's layout (``zero_mesh``)."""
     from ..trainer import apply_retention
     path = _ckpt_path(directory, step)
-    live = {"params": module_tree(_model_of(params).named_parameters()),
-            "opt_state": opt_tree(opt_state)}
+    model = _model_of(params)
+    live = {"params": params_tree(model), "opt_state": opt_tree(opt_state)}
+    meta = _mesh_axes_meta(model) or {}
     zero_mesh = _zero_mesh_meta(opt_state)
+    if zero_mesh:
+        meta["zero_mesh"] = zero_mesh
     if not runtime.is_initialized() or runtime.rank() == 0:
         tl = runtime.world().timeline if runtime.is_initialized() else None
         host = snapshot_to_host(live, timeline=tl)
         with _tl.maybe_op(tl, "ckpt.write", _tl.CKPT_WRITE):
             write_tree(path, host)
-            write_manifest(path, host, step=step,
-                           extra_meta={"zero_mesh": zero_mesh}
-                           if zero_mesh else None)
+            write_manifest(path, host, step=step, extra_meta=meta or None)
             apply_retention(directory, path, max_to_keep)
     if runtime.is_initialized() and runtime.size() > 1:
         dist.barrier()
@@ -723,6 +831,8 @@ def restore_sharded(directory: str, params_template: Any,
     and ``HOROVOD_FUSION_THRESHOLD`` (the bucket plan) are unchanged."""
     step = _resolve_step(directory, step)
     path = _ckpt_path(directory, step)
+    model = _model_of(params_template)
+    check_mesh_axes(path, model)
     tree = read_checkpoint(path, verify=verify)
     if getattr(opt_state_template, "zero", False):
         manifest = read_manifest(path)
@@ -732,8 +842,8 @@ def restore_sharded(directory: str, params_template: Any,
             print(f"[ckpt] re-sharding ZeRO optimizer state: checkpoint "
                   f"written by a world of {saved_world}, restoring into "
                   f"{runtime.size()}", file=sys.stderr, flush=True)
-    model = _model_of(params_template)
-    load_module_(model.named_parameters(), tree["params"], "params")
+    load_module_(model.named_parameters(), tree["params"], "params",
+                 _model_specs(model), _mesh_of(model))
     load_opt_(opt_state_template, tree["opt_state"],
               broadcast=runtime.is_initialized() and runtime.size() > 1)
     return params_template, opt_state_template, step
@@ -757,7 +867,7 @@ def local_tree(params: Any, opt_state: Any) -> Dict[str, Any]:
                                if torch.is_tensor(v)}
                               for st in opt_state.zero_state().inner]}
     elif opt_state is not None:
-        opt = opt_tree(opt_state)
+        opt = opt_tree(opt_state, canonical=False)
     tree = {"params": module_tree(model.named_parameters()),
             "opt_state": opt}
     stats = module_tree(model.named_buffers())

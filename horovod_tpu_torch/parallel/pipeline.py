@@ -1,7 +1,7 @@
-"""Pipeline parallelism over ``pp``: the 1F1B training schedule.
+"""Pipeline parallelism over ``pp``: GPipe and the 1F1B training schedule.
 
-Port of the JAX package's ``parallel/pipeline.py`` ``one_f_one_b``
-(:84-236). Layers are partitioned into S stages, one per rank of the
+Port of the JAX package's ``parallel/pipeline.py``: ``gpipe`` (:37) and
+``one_f_one_b`` (:84-236). Layers are partitioned into S stages, one per rank of the
 mesh's ``pp`` group; activations go to the next stage and cotangents to
 the previous one by point-to-point sends over that group
 (``batch_isend_irecv``), where the JAX function rides ``ppermute``.
@@ -21,7 +21,16 @@ output the cyclic handoff gives to stage 0, which drops it. Eager
 PyTorch computes neither: bubble ticks do no work, and the last stage
 runs its forward only inside the backward's recompute. The results are
 those of the JAX function; at one stage this saves a whole forward per
-microbatch. ``gpipe`` is not ported yet.
+microbatch.
+
+:func:`gpipe` runs microbatches forward through the stages in ``M + S
+- 1`` ticks and gives the last stage's outputs to every pp rank (the JAX
+function's one-hot sum over pp). It is differentiable: one autograd
+function whose backward runs the ticks in reverse, recomputing each
+stage forward from its saved input and sending each input cotangent to
+the previous stage; the closing sum's backward is a sum of the
+cotangents over pp, as JAX transposes ``psum`` under its full-manual
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -59,6 +68,110 @@ def _flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
             return dict(zip(keys, out))
         return type(tree)(out)
     return [x for leaves, _ in parts for x in leaves], rebuild
+
+
+def _exchange(sends, recvs, group) -> None:
+    """Post every ``(tensor, peer)`` send and receive of one tick
+    together and wait on them."""
+    ops = [dist.P2POp(dist.isend, t, peer, group) for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, t, peer, group) for t, peer in recvs]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
+class _GPipe(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, stage_fn, tree, mesh, axis_name, x_micro, *leaves):
+        S = mesh.shape[axis_name]
+        r = mesh.coords[axis_name]
+        peers, group = mesh.ranks[axis_name], mesh.groups[axis_name]
+        M = x_micro.shape[0]
+        params = tree(list(leaves))
+        outs = torch.zeros_like(x_micro)
+        saved, buf = {}, None
+        for t in range(M + S - 1):
+            m, act = t - r, None
+            if 0 <= m < M:
+                inp = x_micro[m] if r == 0 else buf
+                saved[m] = inp
+                act = stage_fn(params, inp).contiguous()
+                if r == S - 1:
+                    outs[m] = act
+            sends, recvs, buf = [], [], None
+            if act is not None and r < S - 1:
+                sends.append((act, peers[r + 1]))
+            if r > 0 and 0 <= t + 1 - r < M:
+                buf = torch.empty_like(x_micro[0])
+                recvs.append((buf, peers[r - 1]))
+            _exchange(sends, recvs, group)
+        if S > 1:   # the last stage's outputs to every rank: a one-hot sum
+            if r != S - 1:
+                outs.zero_()
+            dist.all_reduce(outs, group=group)
+        ctx.args = (stage_fn, tree, mesh, axis_name, saved, M)
+        ctx.save_for_backward(*leaves)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_outs):
+        stage_fn, tree, mesh, axis_name, saved, M = ctx.args
+        leaves = ctx.saved_tensors
+        S = mesh.shape[axis_name]
+        r = mesh.coords[axis_name]
+        peers, group = mesh.ranks[axis_name], mesh.groups[axis_name]
+        g = g_outs.contiguous().clone()
+        if S > 1:   # the sum's transpose is a sum of the cotangents
+            dist.all_reduce(g, group=group)
+        grads = [None] * len(leaves)
+        dx = torch.zeros_like(g) if ctx.needs_input_grad[4] else None
+        ct_in = None
+        for t in reversed(range(M + S - 1)):
+            m, din_out = t - r, None
+            if 0 <= m < M:
+                ct = g[m] if r == S - 1 else ct_in
+                want_in = r > 0 or dx is not None
+                inp = saved.pop(m).detach().requires_grad_(want_in)
+                ps = [p.detach().requires_grad_() for p in leaves]
+                with torch.enable_grad():
+                    out = stage_fn(tree(ps), inp)
+                    gs = torch.autograd.grad(
+                        out, ps + ([inp] if want_in else []),
+                        grad_outputs=ct, allow_unused=True)
+                for i, gi in enumerate(gs[:len(ps)]):
+                    if gi is not None:
+                        grads[i] = gi if grads[i] is None else grads[i] + gi
+                if r == 0 and dx is not None:
+                    dx[m] = gs[-1]
+                elif r > 0:
+                    din_out = gs[-1].contiguous()
+            sends, recvs, ct_in = [], [], None
+            if din_out is not None:
+                sends.append((din_out, peers[r - 1]))
+            if r < S - 1 and 0 <= t - 1 - r < M:
+                ct_in = torch.empty_like(g[0])
+                recvs.append((ct_in, peers[r + 1]))
+            _exchange(sends, recvs, group)
+        grads = [torch.zeros_like(p) if gi is None else gi
+                 for gi, p in zip(grads, leaves)]
+        return (None, None, None, None, dx, *grads)
+
+
+@runtime.maps_peer_failures
+def gpipe(stage_fn: Callable, stage_params, x_micro: torch.Tensor, *,
+          mesh, axis_name: str = "pp") -> torch.Tensor:
+    """Run microbatches through the pipeline (JAX ``gpipe``).
+
+    ``stage_fn(params, act) -> act`` is one stage's computation (the
+    same structure on every rank; the output has the input's shape and
+    dtype), ``stage_params`` this rank's stage parameters (a tensor, or
+    dicts, lists and tuples of tensors), ``x_micro`` the ``[M, mb, ...]``
+    microbatches (the same on every pp rank; stage 0 reads them).
+    Returns ``[M, mb, ...]``: the last stage's outputs, on every pp rank.
+    Differentiable in ``stage_params`` and ``x_micro`` (the latter's
+    gradient lands on stage 0); every pp rank must run the backward."""
+    leaves, tree = _flatten(stage_params)
+    return _GPipe.apply(stage_fn, tree, mesh, axis_name, x_micro, *leaves)
 
 
 @runtime.maps_peer_failures

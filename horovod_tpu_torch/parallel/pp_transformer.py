@@ -1,8 +1,7 @@
-"""The pipelined transformer LM: dp × pp over one mesh.
+"""The pipelined transformer LM: dp × pp × tp over one mesh.
 
 Port of the JAX package's ``parallel/pp_transformer.py`` for the dp × pp
-mesh (:func:`~.mesh.create_hybrid_mesh`; tp inside the stages comes with
-its slice). The layers are split into ``pp`` stages driven by the 1F1B
+× tp mesh (:func:`~.mesh.create_hybrid_mesh`). The layers are split into ``pp`` stages driven by the 1F1B
 schedule (:func:`~.pipeline.one_f_one_b`); data parallelism splits the
 batch over ``dp``. The embedding and the loss head (final RMSNorm and
 the tied unembedding) live outside the pipeline: stage 0 embeds each
@@ -15,17 +14,22 @@ _layer`: bf16 projections of f32 weights, f32 RMSNorm statistics,
 tanh-GELU) with its attention on :func:`~..ops.attention.
 flash_attention` under ``cfg.attn_backend``: at the default "pallas" a
 tilable layer runs the ``[B, T, H, D]`` flash forward with lse and the dq
-and dk/dv kernels in the backward's recompute.
+and dk/dv kernels in the backward's recompute. Under tp each stage holds
+the Megatron blocks of its layers (:func:`pp_param_specs`), attends over
+its ``n_heads / tp`` heads and sums the products of ``wo`` and ``w2``
+over the stage's tp group (:mod:`.tp`).
 
 ``cfg.remat`` checkpoints each block inside the stage (keeping its matmul
 outputs) and ``cfg.loss_chunk`` takes the head's loss in vocab chunks
 (:func:`~.transformer.chunked_nll`).
 
-Gradient sync follows the spec-grouped plan (:func:`~..ops.fusion.
-plan_grad_sync` over :func:`pp_param_specs` with ``pp`` skipped: each
-stage owns its weights); without tp every leaf sums over dp, one group,
-bucketed in the JAX leaf order by the
-:class:`~horovod_tpu_torch.DistributedOptimizer` on the dp group.
+Gradient sync is the spec-grouped all-reduce plane
+(``DistributedOptimizer(mesh=, param_specs=, skip_axes=("pp",))``:
+:func:`~..ops.fusion.plan_grad_sync` over :func:`pp_param_specs`, each
+stage owning its weights). Without tp every leaf sums over dp, one
+group; with tp the replicated head and norm leaves sum over ``(dp,
+tp)`` and the tp-sharded matrices over dp with the tp correction in
+their prescale — two groups, bucketed in the JAX leaf order.
 """
 
 from __future__ import annotations
@@ -36,10 +40,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..ops.fusion import plan_grad_sync
 from ..optimizer import DistributedOptimizer
 from ..utils import config as _config
+from .mesh import local_slice
 from .pipeline import one_f_one_b
+from .tp import tp_reduce
 from .transformer import (TransformerConfig, _layer, _logits, attend_heads,
                           check_dense, chunked_nll, dense_nll, remat_layer,
                           rms_norm)
@@ -49,7 +54,7 @@ _PROJ = ("wqkv", "wo", "w1", "w2")
 
 
 def init_pp_params(generator: torch.Generator, cfg: TransformerConfig,
-                   n_stages: int, stage: int, *,
+                   n_stages: int, stage: int, *, mesh=None,
                    device: DeviceLike = "cuda") -> Dict:
     """This stage's parameters in the pipeline layout (JAX
     ``init_pp_params``): ``{"embed", "lnf", "stages": {leaf: [lps,
@@ -57,7 +62,9 @@ def init_pp_params(generator: torch.Generator, cfg: TransformerConfig,
     ``[n_stages, lps, ...]``, with the JAX scales (embedding N(0, 0.02²),
     projections N(0, 1/fan_in), norm scales 1). Every rank draws the full
     stacks from ``generator`` (a ``torch.Generator`` on ``device``, seeded
-    alike on every rank), so the head is the same on every stage."""
+    alike on every rank), so the head is the same on every stage. On a
+    ``mesh`` with tp the stage's projections are this rank's tp blocks
+    (:func:`pp_param_specs`)."""
     check_dense(cfg, "init_pp_params")
     if cfg.n_layers % n_stages:
         raise ValueError(f"n_layers={cfg.n_layers} must divide into "
@@ -79,8 +86,11 @@ def init_pp_params(generator: torch.Generator, cfg: TransformerConfig,
               "wo": norm((n_stages, lps, d, d), d ** -0.5),
               "w1": norm((n_stages, lps, d, f), d ** -0.5),
               "w2": norm((n_stages, lps, f, d), f ** -0.5)}
-    stages = {k: torch.nn.Parameter(v[stage].clone())
-              for k, v in stacks.items()}
+    specs = pp_param_specs(mesh)["stages"]
+    stages = {k: torch.nn.Parameter(
+        (v[stage] if mesh is None
+         else local_slice(v[stage], specs[k][1:], mesh)).clone())
+        for k, v in stacks.items()}
     stages["ln1"] = torch.nn.Parameter(ones(lps, d))
     stages["ln2"] = torch.nn.Parameter(ones(lps, d))
     return {"embed": torch.nn.Parameter(embed),
@@ -91,12 +101,22 @@ def init_pp_params(generator: torch.Generator, cfg: TransformerConfig,
 def pp_param_specs(mesh) -> Dict:
     """The sharded axis of each leaf of the stacked layout (JAX
     ``pp_param_specs``), as plain data: per dimension the mesh axis it is
-    split over, or None. The stage dimension is split over pp; the head
-    is replicated."""
-    del mesh   # no tp axis yet: the specs do not depend on the mesh
+    split over, or None. The stage dimension is split over pp, the
+    Megatron column (``wqkv``, ``w1``) and row (``wo``, ``w2``)
+    dimensions over tp when the mesh has it; the head is replicated."""
+    tp = "tp" if mesh is not None and "tp" in mesh.shape else None
+    column, row = ("pp", None, None, tp), ("pp", None, tp, None)
     return {"embed": (), "lnf": (),
-            "stages": {k: ("pp", None, None) if k in ("ln1", "ln2")
-                       else ("pp", None, None, None) for k in _STAGE_KEYS}}
+            "stages": {"ln1": ("pp", None, None), "ln2": ("pp", None, None),
+                       "w1": column, "w2": row, "wo": row,
+                       "wqkv": column}}
+
+
+def named_specs(specs: Dict) -> list:
+    """The specs of :func:`pp_param_specs` in :func:`named_leaves`
+    order."""
+    return [specs["embed"], specs["lnf"]] + [specs["stages"][k]
+                                             for k in _STAGE_KEYS]
 
 
 def named_leaves(params: Dict) -> List[Tuple[str, torch.Tensor]]:
@@ -123,37 +143,49 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
                                    wire_dtype=None,
                                    guard_nonfinite: Optional[bool] = None,
                                    fusion_threshold: Optional[int] = None,
+                                   zero: bool = False,
+                                   overlap: Optional[bool] = None,
                                    device: DeviceLike = "cuda"):
     """Build ``(init_state, step)``: the pipelined LM's 1F1B train step.
 
-    ``mesh`` is a :func:`~.mesh.create_hybrid_mesh` dp × pp mesh over the
-    world; ``optimizer`` builds the wrapped optimizer from the parameter
-    list (e.g. ``functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9,
-    0.95), eps=1e-8, weight_decay=0.1)``).
+    ``mesh`` is a :func:`~.mesh.create_hybrid_mesh` dp × pp (× tp) mesh
+    over the world; ``optimizer`` builds the wrapped optimizer from the
+    parameter list (e.g. ``functools.partial(torch.optim.AdamW, lr=1e-4,
+    betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)``).
 
-    ``init_state(seed=0, params=None)`` draws this rank's stage and head
-    from ``seed`` (:func:`init_pp_params`; or takes ``params``, e.g. from
-    :func:`~horovod_tpu_torch.convert.pp_params_from_jax`) and wraps the
-    optimizer in a :class:`~horovod_tpu_torch.DistributedOptimizer` over
-    the dp group, bucketed in the JAX leaf order. ``step(state, tokens,
-    labels) -> (state, loss)`` takes this dp rank's ``[B_local, T]`` rows
-    (the same on every stage of a pipeline; ``B_local`` divisible by
-    ``n_microbatches``), runs one 1F1B update in place, and returns the
-    mean loss averaged over dp.
+    ``init_state(seed=0, params=None)`` draws this rank's stage (its tp
+    blocks under tp) and head from ``seed`` (:func:`init_pp_params`; or
+    takes ``params``, e.g. from :func:`~horovod_tpu_torch.convert.
+    pp_params_from_jax`) and wraps the optimizer in a
+    :class:`~horovod_tpu_torch.DistributedOptimizer` on the spec-grouped
+    plane of :func:`pp_param_specs` (pp skipped), bucketed in the JAX
+    leaf order. ``step(state, tokens, labels) -> (state, loss)`` takes
+    this dp rank's ``[B_local, T]`` rows (the same on every stage and tp
+    rank of a pipeline; ``B_local`` divisible by ``n_microbatches``),
+    runs one 1F1B update in place, and returns the mean loss averaged
+    over dp.
 
     ``wire_dtype`` (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``)
-    puts the dp gradient buckets on the wire in reduced precision.
+    puts the gradient buckets on the wire in reduced precision.
     ``guard_nonfinite`` (default ``HVD_GUARD_NONFINITE``) skips the
-    update when any rank's gradients are non-finite: the flag of the dp
-    exchange is folded over pp with one scalar MIN — the only collective
-    the guard adds — and read on the host once; a skipped step returns
-    loss 0 and leaves params and optimizer state bit-unchanged.
-    Accumulation is native: the microbatches are the accumulation.
+    update when any rank's gradients are non-finite: the plan never sums
+    over pp, so its flag is folded over pp with one scalar MIN (with tp,
+    the plane first folds its tp-sharded buckets' flags over (dp, tp):
+    one more) and read on the host once; a skipped step returns loss 0
+    and leaves params and optimizer state bit-unchanged. Accumulation is native: the microbatches are the
+    accumulation.
 
-    The JAX function's ``zero`` and ``overlap`` keywords (ZeRO over dp
-    with pp as a non-scatter axis: ``ROADMAP.md`` Queue 1 item 11) and
-    the tp axis are not ported yet: passing one of those keywords is a
-    ``TypeError``, and ``HVD_OVERLAP`` does not arm this step."""
+    ``zero`` and ``overlap`` (ZeRO over dp with pp as a non-scatter
+    axis, and overlapped emission on this plane) are ``ROADMAP.md``
+    Queue 1 item 11: setting either raises ``TypeError``, and
+    ``HVD_OVERLAP`` does not arm this step."""
+    for name, value in (("zero", zero), ("overlap", overlap)):
+        if value:
+            raise TypeError(
+                f"make_pp_transformer_train_step({name}=True): {name} on "
+                f"the pipelined step (the hybrid plan with pp as a "
+                f"non-scatter axis) is ROADMAP.md Queue 1 item 11, not "
+                f"ported yet")
     check_dense(cfg, "make_pp_transformer_train_step")
     dev = resolve_device(device)
     guard = (_config.guard_nonfinite() if guard_nonfinite is None
@@ -164,15 +196,16 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
     if cfg.n_layers % S:
         raise ValueError(f"n_layers={cfg.n_layers} must divide into "
                          f"pp={S} stages")
+    tp = mesh.shape.get("tp", 1)
+    if cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} and d_ff={cfg.d_ff} must "
+                         f"divide by tp={tp}")
+    heads = cfg.n_heads // tp
     lps = cfg.n_layers // S
-    specs = pp_param_specs(mesh)
-    spec_leaves = [specs["embed"], specs["lnf"]] + [
-        specs["stages"][k] for k in _STAGE_KEYS]
-    (sync_axes,) = {s.psum for s in plan_grad_sync(spec_leaves, mesh,
-                                                   skip_axes=("pp",))}
-    (sync_axis,) = sync_axes            # without tp: every leaf over dp
-    dp_group = mesh.groups[sync_axis]
+    specs = named_specs(pp_param_specs(mesh))
+    dp_group = mesh.groups["dp"]
     pp_group = mesh.groups["pp"]
+    reduce = tp_reduce(mesh)
 
     def stage_fn(st, x):
         # Cast each stacked projection once and unbind it into its layers:
@@ -184,7 +217,8 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
         run = remat_layer if cfg.remat else _layer
         for i in range(lps):
             layer = {k: per_layer[k][i] for k in _STAGE_KEYS}
-            x = run(layer, x, cfg, lambda qkv: attend_heads(qkv, cfg))
+            x = run(layer, x, cfg,
+                    lambda qkv: attend_heads(qkv, cfg, heads), reduce)
         return x
 
     def head_loss(act, labels, head):
@@ -198,12 +232,13 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
                    ) -> PPTrainState:
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
-            params = init_pp_params(gen, cfg, S, stage, device=dev)
+            params = init_pp_params(gen, cfg, S, stage, mesh=mesh,
+                                    device=dev)
         named = named_leaves(params)
         opt = DistributedOptimizer(
             optimizer([p for _, p in named]), named_parameters=named,
-            fusion_threshold=fusion_threshold, process_group=dp_group,
-            wire_dtype=wire_dtype, overlap=False)
+            fusion_threshold=fusion_threshold, wire_dtype=wire_dtype,
+            overlap=False, mesh=mesh, param_specs=specs, skip_axes=("pp",))
         return PPTrainState(params=params, optimizer=opt)
 
     def step(state: PPTrainState, tokens: torch.Tensor,
@@ -240,7 +275,7 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
             p.grad = grads[name]
         if guard:
             finite = state.optimizer.synchronize(return_finite=True)
-            if S > 1:   # the dp exchange never reduces over pp: fold it
+            if S > 1:   # the plan never sums over pp: fold the verdict
                 f = finite.to(torch.int32).reshape(1)
                 torch.distributed.all_reduce(
                     f, op=torch.distributed.ReduceOp.MIN, group=pp_group)

@@ -1,10 +1,15 @@
 """The transformer LM of the port: model, the training forward and its
-data-parallel train step, and the prompt/decode-step forwards the paged
-generation engine runs.
+train step (data-parallel, or dp × tp × sp × ep over a mesh), and the
+prompt/decode-step forwards the paged generation engine runs.
 
-Port of the JAX package's ``parallel/transformer.py`` for a 1-D
-data-parallel world (the tp/sp/ep mesh variants and MoE belong to later
-slices). The weights keep the JAX layout: every projection is ``[in,
+Port of the JAX package's ``parallel/transformer.py``. On a mesh
+(:mod:`.mesh`) the model holds this rank's blocks of the JAX global
+parameters (:func:`param_specs`): ``wqkv``/``w1`` column-sharded and
+``wo``/``w2`` row-sharded over ``tp`` with one sum all-reduce after each
+row product (:mod:`.tp`), the experts of a MoE FFN sharded over ``ep``
+(:func:`~.moe.moe_ffn`), the sequence split over ``sp`` with
+:func:`~.ring.ring_attention`; the batch splits over ``(dp, ep)``. The
+weights keep the JAX layout: every projection is ``[in,
 out]`` and applied as ``h @ W``, ``wqkv``'s columns are head-major
 (``[D, H, 3, dh]``), and the unembedding is tied to the embedding — so a
 JAX parameter tree maps onto :class:`Transformer` one to one
@@ -45,6 +50,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import (flash_attention, flash_attention_prefill,
                              flash_attention_qkv, qkv_flash_tilable)
+from .mesh import local_slice
+from .moe import moe_ffn
+from .ring import ring_attention
+from .tp import tp_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +63,7 @@ class TransformerConfig:
     n_heads: int = 8
     n_layers: int = 2
     d_ff: int = 512
-    n_experts: int = 0          # 0 = dense MLP (the only kind ported yet)
+    n_experts: int = 0          # 0 = dense MLP; >0 = MoE over the ep axis
     dtype: torch.dtype = torch.bfloat16
     # Training attention: "pallas" takes the flash kernels where the shape
     # is tilable (the JAX name for the kernel route), "xla" the dense
@@ -78,24 +87,94 @@ class TransformerConfig:
 
 
 def check_dense(cfg: TransformerConfig, what: str) -> None:
+    """Refuse a MoE config where only dense FFNs run: serving (the MoE
+    dispatch has no incremental decode, in JAX either) and the pipelined
+    family."""
     if cfg.n_experts:
         raise NotImplementedError(
             f"{what} supports dense FFNs only (cfg.n_experts="
-            f"{cfg.n_experts}); the MoE layers are not ported yet")
+            f"{cfg.n_experts}); MoE layers train through "
+            f"make_parallel_train_step on a mesh with an ep axis")
+
+
+def check_mesh(cfg: TransformerConfig, mesh) -> None:
+    """The JAX step's shape rules on ``mesh``: heads and d_ff divide by
+    tp; a MoE config needs an ep axis of ``n_experts`` ranks."""
+    if mesh is None:
+        if cfg.n_experts:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} needs an ep mesh axis (one "
+                f"expert per ep rank): pass mesh=")
+        return
+    tp = mesh.shape.get("tp", 1)
+    if cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(f"n_heads={cfg.n_heads} and d_ff={cfg.d_ff} must "
+                         f"divide by tp={tp}")
+    if cfg.n_experts:
+        if "ep" not in mesh.shape:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} needs an ep mesh axis (one "
+                f"expert per ep rank); the mesh has {mesh.axis_names}")
+        if cfg.n_experts != mesh.shape["ep"]:
+            raise ValueError(
+                f"n_experts={cfg.n_experts} must equal the ep mesh axis "
+                f"size {mesh.shape['ep']} (one expert per ep rank)")
+
+
+def param_specs(cfg: TransformerConfig, mesh) -> Dict:
+    """The spec tree matching the JAX ``init_params`` tree (JAX
+    ``param_specs``): per dimension the mesh axis it is split over, or
+    None. Megatron column (out-dim) sharding of ``wqkv``/``w1`` and row
+    (in-dim) sharding of ``wo``/``w2`` over tp; experts over ep; every
+    other leaf replicated (dp and sp replicate the parameters)."""
+    axes = set(mesh.axis_names) if mesh is not None else set()
+    tp = "tp" if "tp" in axes else None
+    ep = "ep" if "ep" in axes else None
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {"ln1": (), "wqkv": (None, tp), "wo": (tp, None),
+                 "ln2": ()}
+        if cfg.n_experts:
+            layer.update(gate=(), w1=(ep, None, None), w2=(ep, None, None))
+        else:
+            layer.update(w1=(None, tp), w2=(tp, None))
+        layers.append(layer)
+    return {"embed": (), "lnf": (), "layers": layers}
+
+
+def spec_of(specs: Dict, name: str):
+    """The spec of the parameter named ``name`` (``"layers.3.wo"``) in a
+    :func:`param_specs` tree."""
+    node = specs
+    for part in name.split("."):
+        node = node[int(part)] if part.isdigit() else node[part]
+    return node
 
 
 class Block(nn.Module):
-    """One pre-norm layer's parameters (JAX names and layouts)."""
+    """One pre-norm layer's parameters (JAX names and layouts), this
+    rank's blocks of them under ``take`` (identity off a mesh)."""
 
-    def __init__(self, cfg: TransformerConfig, normal: Callable):
+    def __init__(self, cfg: TransformerConfig, normal: Callable,
+                 take: Callable = lambda name, t: t):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
-        self.ln1 = nn.Parameter(normal((d,), None))
-        self.wqkv = nn.Parameter(normal((d, 3 * d), d ** -0.5))
-        self.wo = nn.Parameter(normal((d, d), d ** -0.5))
-        self.ln2 = nn.Parameter(normal((d,), None))
-        self.w1 = nn.Parameter(normal((d, ff), d ** -0.5))
-        self.w2 = nn.Parameter(normal((ff, d), ff ** -0.5))
+
+        def param(name, shape, std):
+            setattr(self, name, nn.Parameter(take(name, normal(shape, std))))
+
+        param("ln1", (d,), None)
+        param("wqkv", (d, 3 * d), d ** -0.5)
+        param("wo", (d, d), d ** -0.5)
+        param("ln2", (d,), None)
+        if cfg.n_experts:
+            E = cfg.n_experts
+            param("gate", (d, E), d ** -0.5)
+            param("w1", (E, d, ff), d ** -0.5)
+            param("w2", (E, ff, d), ff ** -0.5)
+        else:
+            param("w1", (d, ff), d ** -0.5)
+            param("w2", (ff, d), ff ** -0.5)
 
 
 class Transformer(nn.Module):
@@ -104,13 +183,18 @@ class Transformer(nn.Module):
     Weights are drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; a fresh one seeded with 0 when omitted) with the JAX
     ``init_params`` scales: embedding N(0, 0.02²), projections
-    N(0, 1/fan_in), norm scales 1. ``device`` defaults to ``"cuda"``."""
+    N(0, 1/fan_in), norm scales 1. ``device`` defaults to ``"cuda"``.
+
+    On a ``mesh`` every rank draws the same global weights and keeps its
+    block of each under :func:`param_specs` (so the model computes the
+    function of the unsharded one; seed alike on every rank), and the
+    forwards run the mesh's axes."""
 
     def __init__(self, cfg: TransformerConfig, *,
                  generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         super().__init__()
-        check_dense(cfg, "Transformer")
+        check_mesh(cfg, mesh)
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -121,9 +205,17 @@ class Transformer(nn.Module):
             return torch.randn(shape, generator=generator, device=dev) * std
 
         self.cfg = cfg
+        self.mesh = mesh
+        specs = param_specs(cfg, mesh)["layers"][0] if cfg.n_layers else {}
+
+        def take(name, t):
+            if mesh is None:
+                return t
+            return local_slice(t, specs[name], mesh).clone()
+
         self.embed = nn.Parameter(normal((cfg.vocab, cfg.d_model), 0.02))
         self.lnf = nn.Parameter(normal((cfg.d_model,), None))
-        self.layers = nn.ModuleList(Block(cfg, normal)
+        self.layers = nn.ModuleList(Block(cfg, normal, take)
                                     for _ in range(cfg.n_layers))
 
     @property
@@ -142,14 +234,16 @@ def gen_weights(model: Transformer) -> Dict:
     (no copy). Call under ``torch.no_grad()`` for inference."""
     cfg = model.cfg
     dt = cfg.dtype
-    return {
-        "embed": model.embed,
-        "unembed": model.embed.to(cfg.unembed_dtype),
-        "lnf": model.lnf,
-        "layers": [{"ln1": b.ln1, "wqkv": b.wqkv.to(dt), "wo": b.wo.to(dt),
-                    "ln2": b.ln2, "w1": b.w1.to(dt), "w2": b.w2.to(dt)}
-                   for b in model.layers],
-    }
+    layers = []
+    for b in model.layers:
+        layer = {"ln1": b.ln1, "wqkv": b.wqkv.to(dt), "wo": b.wo.to(dt),
+                 "ln2": b.ln2, "w1": b.w1.to(dt), "w2": b.w2.to(dt)}
+        if cfg.n_experts:
+            layer["gate"] = b.gate.to(dt)
+        layers.append(layer)
+    return {"embed": model.embed,
+            "unembed": model.embed.to(cfg.unembed_dtype),
+            "lnf": model.lnf, "layers": layers}
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -158,23 +252,37 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return ((x32 / rms) * scale).to(x.dtype)
 
 
-def _split_heads(qkv: torch.Tensor, cfg: TransformerConfig):
+def _split_heads(qkv: torch.Tensor, cfg: TransformerConfig,
+                 n_heads: Optional[int] = None):
     """q, k, v ``[..., H, dh]`` views of the head-major projection (one
-    ``unbind``, whose backward stacks the three gradients in one pass)."""
-    return qkv.unflatten(-1, (cfg.n_heads, 3, cfg.d_head)).unbind(-2)
+    ``unbind``, whose backward stacks the three gradients in one pass);
+    ``n_heads`` is the projection's head count (this rank's under tp)."""
+    return qkv.unflatten(-1, (n_heads or cfg.n_heads, 3,
+                              cfg.d_head)).unbind(-2)
 
 
 def _layer(layer: Dict, x: torch.Tensor, cfg: TransformerConfig,
-           attend: Callable) -> torch.Tensor:
+           attend: Callable, reduce: Optional[Callable] = None,
+           ffn: Optional[Callable] = None) -> torch.Tensor:
     """One pre-norm layer over ``x [..., d_model]``. ``attend(qkv)`` maps
     the head-major projection ``[..., H·3·dh]`` to the attention output
-    ``[..., H·dh]``."""
+    ``[..., H·dh]``; ``reduce`` (tp's row-parallel sum) combines the
+    products of ``wo`` and ``w2``; ``ffn(layer, h)`` replaces the dense
+    FFN (the MoE's)."""
     h = rms_norm(x, layer["ln1"])
     attn = attend(h @ layer["wqkv"])
-    x = x + attn.to(cfg.dtype) @ layer["wo"]
+    proj = attn.to(cfg.dtype) @ layer["wo"]
+    if reduce is not None:
+        proj = reduce(proj)
+    x = x + proj
     h2 = rms_norm(x, layer["ln2"])
+    if ffn is not None:
+        return x + ffn(layer, h2)
     up = F.gelu(h2 @ layer["w1"], approximate="tanh")
-    return x + up @ layer["w2"]
+    down = up @ layer["w2"]
+    if reduce is not None:
+        down = reduce(down)
+    return x + down
 
 
 # The matmuls whose outputs a rematerialized layer keeps (JAX's
@@ -192,14 +300,16 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def remat_layer(layer: Dict, x: torch.Tensor, cfg: TransformerConfig,
-                attend: Callable) -> torch.Tensor:
+                attend: Callable, reduce: Optional[Callable] = None,
+                ffn: Optional[Callable] = None) -> torch.Tensor:
     """:func:`_layer` under a selective checkpoint that saves only the
     matmul outputs (``cfg.remat``; JAX ``jax.checkpoint(_layer_fwd,
     policy=dots_saveable)``). Without autograd it is :func:`_layer`."""
     if not torch.is_grad_enabled():
-        return _layer(layer, x, cfg, attend)
+        return _layer(layer, x, cfg, attend, reduce, ffn)
     return checkpoint(
-        lambda h: _layer(layer, h, cfg, attend), x, use_reentrant=False,
+        lambda h: _layer(layer, h, cfg, attend, reduce, ffn), x,
+        use_reentrant=False,
         context_fn=functools.partial(create_selective_checkpoint_contexts,
                                      _dots_saveable))
 
@@ -252,55 +362,101 @@ def unembed(w: Dict, x: torch.Tensor, cfg: TransformerConfig
     return _logits(x, w["unembed"], cfg)
 
 
-def attend_heads(qkv: torch.Tensor, cfg: TransformerConfig
-                 ) -> torch.Tensor:
+def attend_heads(qkv: torch.Tensor, cfg: TransformerConfig,
+                 n_heads: Optional[int] = None) -> torch.Tensor:
     """Causal attention over the head-major projection ``[B, T,
-    H·3·dh]`` through :func:`~..ops.attention.flash_attention` with
-    ``cfg.attn_backend``; returns ``[B, T, H·dh]``."""
-    q, k, v = _split_heads(qkv, cfg)
+    H·3·dh]`` (``n_heads`` heads, default ``cfg.n_heads``) through
+    :func:`~..ops.attention.flash_attention` with ``cfg.attn_backend``;
+    returns ``[B, T, H·dh]``."""
+    q, k, v = _split_heads(qkv, cfg, n_heads)
     return flash_attention(q, k, v, causal=True,
                            backend=cfg.attn_backend).flatten(-2)
 
 
-def _train_attend(cfg: TransformerConfig, T: int) -> Callable:
+def _train_attend(cfg: TransformerConfig, T: int, mesh=None) -> Callable:
     """The training forward's attention for sequences of length ``T``
-    (JAX ``forward_hidden`` :165-185 without sp): the packed flash
-    kernels when ``cfg.attn_backend`` is ``"pallas"`` and the shape is
-    tilable, :func:`attend_heads` otherwise."""
+    (JAX ``forward_hidden`` :165-185) over this rank's ``n_heads / tp``
+    heads: :func:`~.ring.ring_attention` when the mesh has ``sp``, the
+    packed flash kernels when ``cfg.attn_backend`` is ``"pallas"`` and
+    the shape is tilable, :func:`attend_heads` otherwise."""
+    heads = cfg.n_heads // (mesh.shape.get("tp", 1) if mesh else 1)
+    if mesh is not None and "sp" in mesh.shape:
+        def ring(qkv):
+            q, k, v = _split_heads(qkv, cfg, heads)
+            return ring_attention(q, k, v, mesh=mesh,
+                                  causal=True).flatten(-2)
+        return ring
     if cfg.attn_backend == "pallas" and qkv_flash_tilable(T, cfg.d_head):
-        return lambda qkv: flash_attention_qkv(qkv, cfg.n_heads,
-                                               causal=True)
-    return lambda qkv: attend_heads(qkv, cfg)
+        return lambda qkv: flash_attention_qkv(qkv, heads, causal=True)
+    return lambda qkv: attend_heads(qkv, cfg, heads)
 
 
-def _hidden(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig
-            ) -> torch.Tensor:
+def _moe_ffn(mesh, aux: list) -> Callable:
+    """The MoE FFN of a layer on ``mesh``'s ep axis (JAX
+    ``forward_hidden`` :194-200); each call appends its load-balance
+    loss to ``aux``."""
+    def ffn(layer, h):
+        B, T, D = h.shape
+        y, a = moe_ffn(h.reshape(-1, D), layer["gate"], layer["w1"][0],
+                       layer["w2"][0], mesh=mesh)
+        aux.append(a)
+        return y.reshape(B, T, D)
+    return ffn
+
+
+def _hidden(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            mesh=None, aux: Optional[list] = None) -> torch.Tensor:
+    """The final hidden states; on a mesh the layers run its axes and a
+    MoE layer appends its load-balance loss to ``aux``."""
     x = w["embed"][tokens.long()].to(cfg.dtype)                 # [B, T, D]
-    attend = _train_attend(cfg, tokens.shape[-1])
+    attend = _train_attend(cfg, tokens.shape[-1], mesh)
     run = remat_layer if cfg.remat else _layer
+    kw = {}
+    if mesh is not None:
+        kw["reduce"] = tp_reduce(mesh)
+        if cfg.n_experts:
+            kw["ffn"] = _moe_ffn(mesh, aux if aux is not None else [])
     for layer in w["layers"]:
-        x = run(layer, x, cfg, attend)
+        x = run(layer, x, cfg, attend, **kw)
     return rms_norm(x, w["lnf"])
 
 
-def forward_hidden(model: Transformer, tokens: torch.Tensor
-                   ) -> torch.Tensor:
+def _hidden_aux(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                mesh):
+    """``(hidden states, MoE aux loss)`` on a mesh; the aux is the f32
+    sum of the layers' (0 for a dense model), read right after the
+    forward (a rematerialized layer appends again in the backward)."""
+    aux: list = []
+    x = _hidden(w, tokens, cfg, mesh, aux)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    return x, total
+
+
+def forward_hidden(model: Transformer, tokens: torch.Tensor):
     """The final hidden states ``[B, T, d_model]`` (through the final
     norm, before the unembedding) of ``tokens [B, T]``; differentiable.
-    The dense model has no MoE auxiliary loss, so unlike the JAX function
-    it returns the states alone."""
+    A model on a mesh takes this rank's ``[B_local, T_local]`` block and
+    returns ``(states, aux)`` as the JAX function does (aux: the MoE
+    load-balance loss, 0 for a dense model); a model off a mesh has no
+    aux and returns the states alone."""
     cfg = model.cfg
-    check_dense(cfg, "forward_hidden")
+    if model.mesh is not None:
+        return _hidden_aux(gen_weights(model), tokens, cfg, model.mesh)
     return _hidden(gen_weights(model), tokens, cfg)
 
 
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+def forward(model: Transformer, tokens: torch.Tensor):
     """Full causal forward: ``tokens [B, T]`` → logits ``[B, T, vocab]``
     f32 (:func:`forward_hidden` and the tied :func:`unembed`);
-    differentiable."""
+    differentiable. On a mesh it returns ``(logits, aux)``, as
+    :func:`forward_hidden`."""
     cfg = model.cfg
-    check_dense(cfg, "forward")
     w = gen_weights(model)
+    if model.mesh is not None:
+        x, aux = _hidden_aux(w, tokens, cfg, model.mesh)
+        return unembed(w, x, cfg), aux
     return unembed(w, _hidden(w, tokens, cfg), cfg)
 
 
@@ -357,14 +513,25 @@ def chunked_nll(x: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_loss(w: Dict, tokens: torch.Tensor, labels: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, mesh=None,
+            aux_weight: float = 0.0) -> torch.Tensor:
     """The LM training loss ``mean(−log p(label))`` from the weights
     ``w`` (:func:`gen_weights`): :func:`chunked_nll` when
-    ``cfg.loss_chunk``, else :func:`dense_nll` of the full logits."""
-    x = _hidden(w, tokens, cfg)
+    ``cfg.loss_chunk``, else :func:`dense_nll` of the full logits. On a
+    ``mesh`` the forward runs its axes, and a MoE model adds
+    ``aux_weight`` times its load-balance loss (JAX ``_loss_fn``)."""
+    aux = None
+    if mesh is not None:
+        x, aux = _hidden_aux(w, tokens, cfg, mesh)
+    else:
+        x = _hidden(w, tokens, cfg)
     if cfg.loss_chunk:
-        return chunked_nll(x, w["unembed"], labels, cfg).mean()
-    return dense_nll(unembed(w, x, cfg), labels).mean()
+        loss = chunked_nll(x, w["unembed"], labels, cfg).mean()
+    else:
+        loss = dense_nll(unembed(w, x, cfg), labels).mean()
+    if cfg.n_experts and aux is not None:
+        loss = loss + aux_weight * aux
+    return loss
 
 
 def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -399,50 +566,71 @@ def step_forward(w: Dict, last_tokens: torch.Tensor,
     return unembed(w, rms_norm(x, w["lnf"]), cfg)
 
 
+def named_param_specs(model: Transformer) -> list:
+    """``model``'s parameter specs in the JAX leaf order of its
+    parameters (:func:`~horovod_tpu_torch.convert.jax_leaf_order`): the
+    spec list a :class:`~horovod_tpu_torch.DistributedOptimizer` on its
+    mesh takes."""
+    from .. import convert
+    specs = param_specs(model.cfg, model.mesh)
+    return [spec_of(specs, n) for n, _ in convert.jax_leaf_order(model)]
+
+
 def make_parallel_train_step(cfg: TransformerConfig,
                              optimizer: Callable[..., torch.optim.Optimizer],
-                             *, wire_dtype=None, accum_steps: int = 1,
+                             *, mesh=None, aux_weight: float = 0.01,
+                             wire_dtype=None, accum_steps: int = 1,
                              guard_nonfinite: Optional[bool] = None,
                              fusion_threshold: Optional[int] = None,
                              zero: bool = False,
                              overlap: Optional[bool] = None,
                              device: DeviceLike = "cuda"):
-    """Build ``(init_state, step)``: the LM's data-parallel train step.
+    """Build ``(init_state, step)``: the LM's train step.
 
-    Port of the JAX function for a 1-D data-parallel world (the world of
-    :func:`horovod_tpu_torch.init`; one process per GPU, the mesh of
-    :func:`~.mesh.dp_mesh`). ``optimizer`` builds the wrapped optimizer
-    from the parameter list, e.g. ``functools.partial(torch.optim.AdamW,
-    lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)`` for
-    ``optax.adamw(1e-4, b1=0.9, b2=0.95, weight_decay=0.1)`` (decay on
-    every leaf, as optax's ``mask=None``).
+    ``optimizer`` builds the wrapped optimizer from the parameter list,
+    e.g. ``functools.partial(torch.optim.AdamW, lr=1e-4, betas=(0.9,
+    0.95), eps=1e-8, weight_decay=0.1)`` for ``optax.adamw(1e-4, b1=0.9,
+    b2=0.95, weight_decay=0.1)`` (decay on every leaf, as optax's
+    ``mask=None``).
 
-    ``init_state(seed=0, model=None)`` builds a :class:`Transformer` from
-    ``seed`` (or takes ``model``, e.g. from
+    Without ``mesh`` it is the data-parallel step over the world of
+    :func:`horovod_tpu_torch.init` (one process per GPU, the mesh of
+    :func:`~.mesh.dp_mesh`): ``init_state(seed=0, model=None)`` builds a
+    :class:`Transformer` from ``seed`` (or takes ``model``, e.g. from
     :func:`~horovod_tpu_torch.convert.params_from_jax`) and wraps the
-    optimizer in a :class:`~horovod_tpu_torch.DistributedOptimizer` whose
-    buckets follow the JAX leaf order; call
+    optimizer in a :class:`~horovod_tpu_torch.DistributedOptimizer`
+    whose buckets follow the JAX leaf order; call
     :func:`~horovod_tpu_torch.broadcast_parameters` on ``state.model`` to
     start every rank from rank 0's weights. ``step(state, tokens,
     labels) -> (state, loss)`` takes this rank's ``[B_local, T]`` shard
     and updates the state in place; the loss is :func:`lm_loss` averaged
-    over the world (the dense model has no MoE auxiliary loss, so the JAX
-    function's ``aux_weight`` has nothing to weigh).
+    over the world.
+
+    With ``mesh`` (:func:`~.mesh.create_hybrid_mesh`) it is the JAX
+    function's multi-axis step: the model holds this rank's blocks
+    (:func:`param_specs`; every rank draws the same global weights from
+    ``seed``, so no broadcast is needed — a ``model`` passed in must be
+    built on ``mesh``), the optimizer runs the spec-grouped all-reduce
+    plane (``DistributedOptimizer(mesh=, param_specs=)``: tp-sharded
+    leaves sum over dp only with the tp correction, replicated ones over
+    the whole mesh), and ``step`` takes this rank's ``[B/(dp·ep),
+    T/sp]`` block (:func:`~.mesh.batch_block`). The loss is
+    ``mean(nll) + aux_weight · aux`` with the MoE load-balance loss
+    ``aux`` (``cfg.n_experts`` must equal the ep size). ``zero`` with an
+    axis of size above 1 besides dp and ``overlap`` on a mesh are
+    ``ROADMAP.md`` Queue 1 item 11 and raise.
 
     The knobs run on the core step (:func:`~horovod_tpu_torch.training.
     make_train_step`): ``accum_steps`` microbatches with one exchange,
     ``guard_nonfinite`` (default ``HVD_GUARD_NONFINITE``; on a skipped
-    step the loss is 0 and the state bit-unchanged), ``wire_dtype``
-    (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``), ``zero`` (ZeRO-1
-    over the spec-grouped plan of the dp mesh, as the JAX step builds it;
-    off by default, as there) and ``overlap`` (default ``HVD_OVERLAP``;
-    the tied embedding is one leaf, so its hook fires once).
-    ``cfg.remat`` and ``cfg.loss_chunk`` act in the forward and the loss.
-
-    The JAX function's ``aux_weight`` keyword (it weighs the experts of
-    ``ROADMAP.md`` Queue 1 item 11) and the tp/sp/ep axes are not ported
-    yet: passing ``aux_weight`` is a ``TypeError``."""
-    check_dense(cfg, "make_parallel_train_step")
+    step the loss is 0 and the state bit-unchanged on every rank),
+    ``wire_dtype`` (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``),
+    ``zero`` (ZeRO-1 over the spec-grouped plan of the dp mesh, as the
+    JAX step builds it; off by default, as there) and ``overlap``
+    (default ``HVD_OVERLAP``; the tied embedding is one leaf, so its hook
+    fires once). ``cfg.remat`` and ``cfg.loss_chunk`` act in the forward
+    and the loss."""
+    check_mesh(cfg, mesh)
     from .. import convert, training
     from ..optimizer import DistributedOptimizer
     from .mesh import dp_mesh
@@ -450,7 +638,8 @@ def make_parallel_train_step(cfg: TransformerConfig,
 
     def value_and_grad(model: Transformer, batch):
         tokens, labels = batch
-        loss = lm_loss(gen_weights(model), tokens, labels, model.cfg)
+        loss = lm_loss(gen_weights(model), tokens, labels, model.cfg,
+                       mesh=mesh, aux_weight=aux_weight)
         loss.backward()
         return loss.detach(), None
 
@@ -461,15 +650,22 @@ def make_parallel_train_step(cfg: TransformerConfig,
     def init_state(seed: int = 0, model: Optional[Transformer] = None):
         if model is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
-            model = Transformer(cfg, generator=gen, device=dev)
+            model = Transformer(cfg, generator=gen, device=dev, mesh=mesh)
         elif model.cfg != cfg:
             raise ValueError(f"model.cfg {model.cfg} is not {cfg}")
+        elif model.mesh is not mesh:
+            raise ValueError("the model was built on another mesh than "
+                             "the step's")
         model.to(dev)
         named = convert.jax_leaf_order(model)
-        # Every leaf is replicated over dp: one spec group, so the plan's
-        # buckets are the 1-D plan's and it adds the per-bucket fields.
-        spec_kw = dict(mesh=dp_mesh(), param_specs=[None] * len(named)) \
-            if zero else {}
+        if mesh is not None:
+            spec_kw = dict(mesh=mesh, param_specs=named_param_specs(model))
+        else:
+            # Every leaf is replicated over dp: one spec group, so the
+            # plan's buckets are the 1-D plan's and it adds the
+            # per-bucket fields.
+            spec_kw = dict(mesh=dp_mesh(),
+                           param_specs=[None] * len(named)) if zero else {}
         opt = DistributedOptimizer(
             optimizer([p for _, p in named]), named_parameters=named,
             fusion_threshold=fusion_threshold, wire_dtype=wire_dtype,

@@ -451,10 +451,14 @@ def save_checkpoint(directory: str, state: Any,
     checkpoints beyond the newest ``max_to_keep``. With ``writer`` (an
     :class:`AsyncCheckpointer`) only the device→host snapshot happens
     here; the write and retention run on the writer's thread, and the
-    path is durable only after ``writer.wait()``."""
-    from .parallel.checkpoint import (snapshot_to_host, state_tree,
-                                      write_manifest, write_tree)
+    path is durable only after ``writer.wait()``. A model on a mesh is
+    saved in its canonical (world-1) form, gathered from every rank's
+    blocks (a collective), with the mesh's axis names in the manifest."""
+    from .parallel.checkpoint import (_mesh_axes_meta, snapshot_to_host,
+                                      state_tree, write_manifest,
+                                      write_tree)
     tree = state_tree(state)
+    meta = _mesh_axes_meta(state.model)
     if runtime.is_initialized() and runtime.rank() != 0:
         return None
     step = int(state.step) if step is None else int(step)
@@ -467,7 +471,7 @@ def save_checkpoint(directory: str, state: Any,
         # killed mid-write never leaves a visible ckpt_<step>; the
         # manifest lands right after the rename.
         write_tree(path, host)
-        write_manifest(path, host, step=step)
+        write_manifest(path, host, step=step, extra_meta=meta)
         apply_retention(directory, path, max_to_keep)
 
     if writer is None:
@@ -530,15 +534,20 @@ def restore_checkpoint(directory: str, state: Any,
     before anything is loaded and raises
     :class:`~horovod_tpu_torch.exceptions.CheckpointCorruptError` naming
     the offending leaf; a manifest-less checkpoint restores unverified.
-    Returns ``state``."""
+    A model on a mesh takes its blocks of the canonical leaves on every
+    rank (no broadcast: the ranks' blocks differ), onto a mesh with the
+    writing mesh's axis names. Returns ``state``."""
     from .optimizer import broadcast_global_variables
-    from .parallel.checkpoint import load_state_, read_checkpoint
+    from .parallel.checkpoint import (check_mesh_axes, load_state_,
+                                      read_checkpoint)
     if step is None:
         step = latest_checkpoint_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(os.path.abspath(directory), f"ckpt_{step}")
+    check_mesh_axes(path, state.model)
     load_state_(state, read_checkpoint(path, verify=verify))
-    if runtime.is_initialized() and runtime.size() > 1:
+    on_mesh = getattr(state.model, "mesh", None) is not None
+    if runtime.is_initialized() and runtime.size() > 1 and not on_mesh:
         broadcast_global_variables(state, root_rank=0)
     return state

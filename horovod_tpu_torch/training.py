@@ -7,7 +7,9 @@ Port of the plain plane of the JAX package's ``training.py``:
 ``_split_microbatches`` :83, ``_accumulate_grads`` :100,
 ``_check_accum_batch`` :185), ``remat``, the bad-step guard, ZeRO-1 and
 backward-overlapped bucket collectives; no hybrid mesh) and
-``make_eval_step`` (:1264).
+``make_eval_step`` (:1264). On a mesh (the transformer family's
+dp × tp × sp × ep step) each rank feeds its block of the global batch
+(:func:`shard_for_mesh`).
 
 One step: forward in training mode (BatchNorm updates its running
 statistics in place), the loss, backward, the fused-bucket gradient
@@ -365,6 +367,20 @@ def make_train_step(loss_fn: Callable = cross_entropy_loss, *,
         return state, metrics
 
     return step
+
+
+def shard_for_mesh(batch, mesh):
+    """This rank's block of a global batch (a tensor or a tuple/list of
+    ``[B, T, ...]`` tensors, e.g. ``(tokens, labels)``) under the
+    transformer family's batch spec on ``mesh``: rows over ``(dp, ep)``,
+    the sequence over ``sp`` (:func:`~.parallel.mesh.batch_block`; the
+    JAX step's ``P(("dp", "ep"), "sp")``). Every rank feeds ``[B/(dp·ep),
+    T/sp]``; the tp ranks of a block feed the same one."""
+    from .parallel.mesh import batch_block
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(batch_block(torch.as_tensor(x), mesh)
+                           for x in batch)
+    return batch_block(torch.as_tensor(batch), mesh)
 
 
 def make_eval_step(loss_fn: Callable = cross_entropy_loss):

@@ -315,7 +315,7 @@ def test_scaling_runs_gloo_worlds_through_the_launcher():
 @pytest.mark.parametrize("args,needle", [
     (("--pp", "2", "--zero"), "item 11"),
     (("--pp", "2", "--overlap"), "item 11"),
-    (("--tp", "2"), "item 11"),
+    (("--tp", "2", "--zero"), "item 11"),
 ])
 def test_refusals_exit_nonzero_naming_the_roadmap_item(args, needle):
     proc = _bench(*args, "--device", "cpu")
@@ -326,7 +326,8 @@ def test_refusals_exit_nonzero_naming_the_roadmap_item(args, needle):
 
 
 @pytest.mark.parametrize("args,needle", [
-    (("--mesh", "dp=1,tp=2"), "item 11"),
+    (("--model", "transformer_lm", "--mesh", "dp=1,tp=2"),
+     "must divide the visible device count 1"),
     (("--model", "vgg16"), "item 14"),
     (("--conv-backend", "fused"), "smoke"),
     (("--accum-steps", "3"), "does not divide"),
@@ -345,6 +346,29 @@ def test_other_refusals_name_why(args, needle, monkeypatch):
         tbench.main([*args, "--device", "cpu"])
     from horovod_tpu_torch import runtime
     assert not runtime.is_initialized()
+
+
+@pytest.mark.parametrize("np_,args,mesh", [
+    (2, ("--tp", "2"), "dp1,tp2"),
+    (4, ("--mesh", "dp=2,tp=2"), "dp2,tp2"),
+    (4, ("--mesh", "dp=1,tp=2,pp=2"), "dp1,tp2,pp2"),
+])
+def test_tp_and_mesh_run_in_a_launched_world(np_, args, mesh):
+    """``--tp`` and ``--mesh`` run the LM's four-axis step (or, with pp,
+    the pipelined one with tp in the stages) in a launched gloo world of
+    dp·tp·pp ranks; rank 0 prints one line with the mesh and world."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.launcher", "-np",
+         str(np_), "--cpu", sys.executable, "-m", "horovod_tpu_torch.bench",
+         "--device", "cpu", "--model", "transformer_lm", *args],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = _lines(proc)
+    assert line["metric"] == "transformer_lm_tokens_per_sec_per_cpu"
+    assert (line["mesh"], line["world"], line["tp"]) == (mesh, np_, 2)
+    assert line["pp"] == (2 if "pp" in mesh else 1)
+    assert line["value"] > 0
 
 
 def test_no_gpu_and_no_cpu_flag_exits_nonzero():

@@ -19,6 +19,7 @@ with ``params_from_jax``; batches are numpy draws.
 """
 
 import functools
+import inspect
 import pickle
 import socket
 
@@ -293,14 +294,27 @@ def test_leaf_order_and_buckets_match_jax_for_12_layers(threshold):
         assert 12 < len(tplan) < len(jnames)
 
 
-def test_unported_options_raise():
-    """The JAX function's keyword this port does not have (aux_weight,
-    which weighs the experts of ROADMAP.md Queue 1 item 11) is refused,
-    not silently ignored; the ported knobs are accepted."""
+def test_unported_options_raise(one_rank_world):
+    """The JAX function's keywords are all accepted now (``aux_weight``
+    weighs the MoE load-balance loss, and a dense model has none: the
+    same step at any weight); a MoE config without an ep mesh axis is
+    refused, naming the axis, not silently run dense."""
     _, tcfg = _configs("f32", "f32")
-    with pytest.raises(TypeError, match="aux_weight"):
-        ttr.make_parallel_train_step(tcfg, _adamw_torch(), device="cpu",
-                                     aux_weight=0.01)
+    assert "aux_weight" in inspect.signature(
+        ttr.make_parallel_train_step).parameters
+    toks, labels = _batch(2, 128, seed=3)
+    losses = []
+    for weight in (0.01, 0.5):
+        init_state, step = ttr.make_parallel_train_step(
+            tcfg, _adamw_torch(), device="cpu", aux_weight=weight)
+        _, loss = step(init_state(0), torch.from_numpy(toks),
+                       torch.from_numpy(labels))
+        losses.append(float(loss))
+    assert losses[0] == losses[1]
+    with pytest.raises(ValueError, match="ep mesh axis"):
+        ttr.make_parallel_train_step(
+            ttr.TransformerConfig(**DIMS, n_experts=2), _adamw_torch(),
+            device="cpu")
     for kw in (dict(accum_steps=2), dict(wire_dtype="bf16"),
                dict(guard_nonfinite=True), dict(zero=True),
                dict(overlap=True)):

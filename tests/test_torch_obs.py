@@ -15,6 +15,7 @@ the same framework-neutral modules, on the CPU.
   registry over HTTP on localhost.
 """
 
+import contextlib
 import importlib
 import json
 import os
@@ -106,17 +107,36 @@ def test_exposition_is_byte_identical():
     assert treg.render(*tr.collect()) == jreg.render(*jr.collect())
 
 
+@contextlib.contextmanager
+def _trainer_metrics_unregistered(reg):
+    """The process-default registry without the Trainer's metrics for the
+    block (restored after): the first registration of a name keeps its
+    help text, so a test that read a counter earlier in this worker
+    (``registry().counter(name)``, no help) would otherwise decide what
+    the Trainer's registration shows."""
+    saved = dict(reg._metrics)
+    for name in TRAINER_METRICS:
+        reg._metrics.pop(name, None)
+    try:
+        yield
+    finally:
+        reg._metrics.clear()
+        reg._metrics.update(saved)
+
+
 def test_trainer_metric_names_match_jax(world1):
     state = create_train_state(torch_dist_worker._MLP(),
                                torch_dist_worker.OPTS["sgd"], device="cpu")
-    ttrainer.Trainer(make_train_step(), state, verbose=False)
-    tmeta, _ = treg.registry().collect()
+    with _trainer_metrics_unregistered(treg.registry()):
+        ttrainer.Trainer(make_train_step(), state, verbose=False)
+        tmeta, _ = treg.registry().collect()
     jstate, opt = jtraining.create_train_state(
         _JaxDense(), jax.random.PRNGKey(0), jnp.zeros((2, 8)),
         optax.sgd(0.1))
-    jtrainer.Trainer(jtraining.make_train_step(_JaxDense(), opt), jstate,
-                     verbose=False)
-    jmeta, _ = jreg.registry().collect()
+    with _trainer_metrics_unregistered(jreg.registry()):
+        jtrainer.Trainer(jtraining.make_train_step(_JaxDense(), opt),
+                         jstate, verbose=False)
+        jmeta, _ = jreg.registry().collect()
     for name in TRAINER_METRICS:
         assert tmeta[name] == jmeta[name], name
     for name in ("hvd_world_size", "hvd_rank"):

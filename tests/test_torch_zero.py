@@ -529,9 +529,11 @@ def test_zero_refusals(one_rank_world):
     with pytest.raises(ValueError, match="dense gradients"):
         DistributedOptimizer(fresh(), zero=True, mesh=tmesh.dp_mesh(),
                              param_specs=[None] * 4, sparse_as_dense=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DistributedOptimizer(fresh(), mesh=tmesh.dp_mesh(),
-                             param_specs=[None] * 4)
+    # mesh= without zero is the spec-grouped all-reduce plane: on the dp
+    # mesh every leaf sums over dp, one group.
+    grouped = DistributedOptimizer(fresh(), mesh=tmesh.dp_mesh(),
+                                   param_specs=[None] * 4)
+    assert {s.psum for s in grouped._grouped.syncs} == {("dp",)}
     x, y = torch.ones(4, 8), torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="requires a ZeRO-sharded"):
         make_train_step(zero=True)(_mlp_state("sgd"), (x, y))
