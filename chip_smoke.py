@@ -226,7 +226,26 @@ Phases, one JSON line each:
                (pp × tp=2: B=4) against their plain versions
                (TOL_ATTN_ULPS, TOL_LSE), then timed beside their bounds
                and SDPA. Multi-rank tp/sp/ep need more than one card.
-29. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
+29. lm_mesh_zero — ZeRO-1 and overlap on every axis of the full-width
+               LM on one card, AdamW with ``foreach`` pinned, counters
+               zeroed before each step: (a) the four-axis step on the
+               one-rank ``make_mesh({"dp", "pp", "ep", "tp"})`` (the
+               hybrid ZeRO plane with every non-scatter axis at size 1)
+               plain, ``zero``, ``overlap`` and both, MZ_STEPS steps
+               each, params and losses bitwise the dp-only ``zero=True``
+               step's and the plain step's, 8 K3-qkv + 8 dq + 8 dkv a
+               step; (b) the pipelined step on ``make_mesh({"dp", "pp",
+               "tp"})`` (2 microbatches of 4) plain, ``zero``,
+               ``overlap`` and both, bitwise the plain step's, 16
+               K3-lse + 16 + 16 of its dq/dkv pair a step; step p50,
+               peak bytes, optimizer-state elements and buckets per spec
+               group of each; (c) ``save_sharded`` of (a)'s and (b)'s
+               ZeRO states in the 2-D canonical form, verify, restore
+               into a fresh state, one more step from each, bitwise;
+               ``restore_for_inference(mesh=, spec_fn=)`` of (a)'s leaf
+               for leaf the live model's; bytes, save, verify and
+               restore times.
+30. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
                default two lines, the same with ``--zero --overlap``,
                ``--model resnet50 --conv-backend fused``, ``--model
                transformer_lm --accum-steps 2``), each in a process of
@@ -462,6 +481,14 @@ EL_BAD_BUDGET, EL_AFTER, EL_STALL_STEPS = 2, 2, 4
 EL_TIMEOUT = 300
 # The mesh axes (slice 13) on one card.
 MESH_STEPS = 5
+MZ_STEPS = 4             # lm_mesh_zero: steps of each variant (p50 of the last 3)
+MZ_FOUR = (("dp_zero", False, dict(zero=True)), ("plain", True, {}),
+           ("zero", True, dict(zero=True)),
+           ("overlap", True, dict(overlap=True)),
+           ("zero_overlap", True, dict(zero=True, overlap=True)))
+MZ_PP = (("plain", {}), ("zero", dict(zero=True)),
+         ("overlap", dict(overlap=True)),
+         ("zero_overlap", dict(zero=True, overlap=True)))
 MESH_RING_BATCH = 2      # the ring's f32 [B,16,2048,2048] blocks: B=8 OOMs
 MESH_TP = (2, 4)         # tp sizes whose per-rank flash shapes are timed
 TOL_RING_LOSS = 5e-3     # ring (f32 blocks) vs flash (bf16 P) loss, rel
@@ -3505,6 +3532,245 @@ def phase_lm_mesh(seed: int, peaks, smi: str):
               "a step at any tp: n_layers of each")
 
 
+# -- ZeRO and overlap on every axis (slice 14) ---------------------------------
+
+def _mz_steps(state, step, data, per_step, what: str):
+    """MZ_STEPS steps, the launch counters zeroed before each and held to
+    ``per_step``. Returns the state, the losses and the step ms (host
+    clock, each step ending in a read of its loss)."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    losses, times = [], []
+    for i in range(MZ_STEPS):
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.monotonic()
+        state, loss = step(state, *data)
+        losses.append(loss.item())
+        times.append((time.monotonic() - t0) * 1e3)
+        want_launches(LAUNCHES.snapshot(), per_step,
+                      f"lm_mesh_zero {what} step {i}")
+    check(all(np.isfinite(losses)), f"lm_mesh_zero {what}: {losses}")
+    return state, losses, times
+
+
+def _mz_report(opt, losses, times, peak, smi) -> dict:
+    """A variant's line: losses, step p50, peak bytes, the optimizer
+    state elements this rank holds (one state tensor's) and the buckets
+    of each spec group."""
+    if opt.zero:
+        plan = opt.plan
+        elems = sum(plan.shard_len(i) for i in range(len(plan.buckets)))
+        groups: dict = {}
+        for i in range(len(plan.buckets)):
+            key = f"shard{list(plan.bucket_shard_axes(i))}" \
+                  f"+extra{list(plan.bucket_extra(i))}"
+            groups[key] = groups.get(key, 0) + 1
+    else:
+        elems = sum(p.numel() for _, p in opt.named_parameters)
+        groups = {"world": None}
+        if opt._grouped is not None:
+            groups = {}
+            for b in opt._grouped.buckets:
+                key = f"psum{list(opt._grouped.syncs[b[0]].psum)}"
+                groups[key] = groups.get(key, 0) + 1
+    return dict(losses=losses, step_ms=times,
+                step_ms_p50=float(np.median(times[1:])),
+                peak_bytes=int(peak), state_elems_per_rank=int(elems),
+                buckets_per_group=groups, zero=opt.zero,
+                overlap=opt.overlap, overlap_order=opt.grad_order_source,
+                gpu=smi)
+
+
+def _mz_checkpoint(name, state, params, init, step, data, per_step,
+                   seed: int, infer=None) -> dict:
+    """``save_sharded`` of a ZeRO state (2-D canonical form), verify,
+    restore into a fresh state from another seed (its parameters and
+    shards bitwise the live ones), one more step from each (bitwise);
+    ``infer(ckdir)`` checks the serving restore. Bytes and times."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.parallel.checkpoint import (
+        restore_sharded, save_sharded, verify_checkpoint)
+
+    def bits(st):
+        return ([p.detach().clone() for p in _leaf_list(params(st))]
+                + [v.clone() for d in st.optimizer.zero_state().inner
+                   for _, v in sorted(d.items()) if torch.is_tensor(v)])
+    ckdir = tempfile.mkdtemp(prefix=f"hvd_mz_{name}_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        path = save_sharded(ckdir, MZ_STEPS, params(state), state.optimizer)
+        save_ms = (time.monotonic() - t0) * 1e3
+        nbytes = _ckpt_bytes(path)
+        t0 = time.monotonic()
+        check(verify_checkpoint(path) is True, f"{name} verify_checkpoint")
+        verify_ms = (time.monotonic() - t0) * 1e3
+        extra = infer(ckdir) if infer is not None else {}
+        fresh = init(seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        restore_sharded(ckdir, params(fresh), fresh.optimizer)
+        torch.cuda.synchronize()
+        restore_ms = (time.monotonic() - t0) * 1e3
+        check(_bits_equal(bits(state), bits(fresh)),
+              f"lm_mesh_zero {name}: the restored state differs")
+        from horovod_tpu_torch.ops import LAUNCHES
+        losses = []
+        for st in (state, fresh):
+            LAUNCHES.reset()
+            st, loss = step(st, *data)
+            losses.append(loss.item())
+            want_launches(LAUNCHES.snapshot(), per_step,
+                          f"lm_mesh_zero {name} resume")
+        resumed = losses[0] == losses[1] and all(
+            torch.equal(a, b) for a, b in zip(_leaf_list(params(state)),
+                                              _leaf_list(params(fresh))))
+        check(resumed, f"lm_mesh_zero {name}: the resumed step differs from "
+                       f"the uninterrupted one")
+        del fresh
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return dict(checkpoint_bytes=nbytes, save_ms=save_ms,
+                save_mb_per_s=nbytes / 1e6 / (save_ms / 1e3),
+                verify_ms=verify_ms, restore_ms=restore_ms,
+                resumed_bitwise=resumed, **extra)
+
+
+def _leaf_list(params) -> list:
+    """The parameters of a module or of the pipelined stages' dict."""
+    from horovod_tpu_torch.parallel.pp_transformer import named_leaves
+    if isinstance(params, torch.nn.Module):
+        return list(params.parameters())
+    return [t for _, t in named_leaves(params)]
+
+
+def phase_lm_mesh_zero(seed: int, smi: str):
+    """ZeRO-1 and overlap on the four-axis and the pipelined steps at
+    full width on one-rank meshes naming every axis, bitwise their plain
+    steps; the hybrid ZeRO checkpoints and the sharded serving
+    restore."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.parallel.checkpoint import restore_for_inference
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+    from horovod_tpu_torch.parallel.pp_transformer import (
+        make_pp_transformer_train_step, named_leaves)
+    from horovod_tpu_torch.parallel.transformer import (
+        make_parallel_train_step, param_specs)
+    hvd.init()
+    check(hvd.size() == 1, "expected a 1-rank world")
+    cfg = lm_config()
+    data = lm_batch(LM_BATCH, LM_SEQ, seed)
+    adamw = functools.partial(torch.optim.AdamW, **ADAMW, foreach=True)
+    out: dict = {"a": {}, "b": {}}
+
+    # (a) the four-axis step.
+    mesh4 = make_mesh({"dp": 1, "pp": 1, "ep": 1, "tp": 1})
+    per4 = {k: cfg.n_layers for k in ATTN_KERNELS}
+    refs: dict = {}
+    for name, on_mesh, kw in MZ_FOUR:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init, step = make_parallel_train_step(
+            cfg, adamw, mesh=mesh4 if on_mesh else None, **kw)
+        state = init(seed)
+        state, losses, times = _mz_steps(state, step, data, per4,
+                                         f"(a) {name}")
+        peak = torch.cuda.max_memory_allocated()
+        host = [p.detach().cpu() for p in state.model.parameters()]
+        row = _mz_report(state.optimizer, losses, times, peak, smi)
+        for ref in ("dp_zero", "plain"):
+            if ref in refs and ref != name:
+                r_losses, r_host = refs[ref]
+                row[f"bitwise_{ref}"] = losses == r_losses and all(
+                    torch.equal(a, b) for a, b in zip(host, r_host))
+                check(row[f"bitwise_{ref}"], f"lm_mesh_zero (a) {name}: "
+                      f"params or losses differ from the {ref} step's")
+        if name in ("dp_zero", "plain"):
+            refs[name] = (losses, host)
+        if name == "zero":
+            specs = param_specs(cfg, mesh4)
+
+            def spec_fn(path, leaf):
+                node = specs
+                for k in path[1:]:
+                    node = node[k]
+                return node
+
+            def infer(ckdir, live=convert.params_to_numpy(state.model)):
+                t0 = time.monotonic()
+                got = restore_for_inference(ckdir, mesh=mesh4,
+                                            spec_fn=spec_fn)
+                ms = (time.monotonic() - t0) * 1e3
+                flat = dict(_tree_leaves(got["params"]))
+                same = flat.keys() == dict(_tree_leaves(live)).keys() and \
+                    all(np.array_equal(flat[k], v)
+                        for k, v in _tree_leaves(live))
+                check(same, "lm_mesh_zero (c): restore_for_inference(mesh=) "
+                            "differs from the live model")
+                return dict(restore_for_inference_ms=ms,
+                            restore_for_inference_equal=same)
+            row["checkpoint"] = _mz_checkpoint(
+                "four_axis", state, lambda st: st.model, init, step, data,
+                per4, seed, infer)
+        del state, host
+        out["a"][name] = row
+    del refs
+
+    # (b) the pipelined step.
+    mesh3 = make_mesh({"dp": 1, "pp": 1, "tp": 1})
+    perpp = {k: cfg.n_layers * PP_MICRO for k in BHTD_KERNELS}
+    base = None
+    for name, kw in MZ_PP:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init, step = make_pp_transformer_train_step(
+            cfg, mesh3, adamw, PP_MICRO, **kw)
+        state = init(seed)
+        state, losses, times = _mz_steps(state, step, data, perpp,
+                                         f"(b) {name}")
+        peak = torch.cuda.max_memory_allocated()
+        host = [t.detach().cpu() for _, t in named_leaves(state.params)]
+        row = _mz_report(state.optimizer, losses, times, peak, smi)
+        if base is None:
+            base = (losses, host)
+        else:
+            row["bitwise_plain"] = losses == base[0] and all(
+                torch.equal(a, b) for a, b in zip(host, base[1]))
+            check(row["bitwise_plain"], f"lm_mesh_zero (b) {name}: params "
+                  f"or losses differ from the plain pipelined step's")
+        if name == "zero":
+            row["checkpoint"] = _mz_checkpoint(
+                "pipelined", state, lambda st: st.params, init, step, data,
+                perpp, seed)
+        del state, host
+        out["b"][name] = row
+    emit("lm_mesh_zero", batch=LM_BATCH, seq=LM_SEQ, steps=MZ_STEPS,
+         microbatches=PP_MICRO, four_axis_mesh=dict(mesh4.shape),
+         pp_mesh=dict(mesh3.shape), gpu=smi, **out,
+         note="one card: every non-scatter axis has size 1, so the "
+              "exchange moves nothing; step_ms_p50 leaves out the first "
+              "step (first use, and the overlap probe)")
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+
+
+def _tree_leaves(tree, prefix=""):
+    """``(key path, numpy leaf)`` of a flax-form tree of dicts and
+    lists."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], f"{prefix}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, np.asarray(tree)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3558,6 +3824,7 @@ def main() -> int:
         phase_elastic(args.seed)
         phase_lm_ckpt_serve(args.seed)
         phase_lm_mesh(args.seed, peaks, smi)
+        phase_lm_mesh_zero(args.seed, smi)
         phase_bench(smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()

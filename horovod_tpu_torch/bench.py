@@ -23,7 +23,9 @@ line's run), the knob fields as ``bench.py`` names them (``accum_steps``,
 ``zero``, ``overlap``, ``wire_dtype``, ``tp``, ``pp``, ``mesh``; the LM
 line also ``ep``; ``overlap_order``: the order the overlapped exchange
 grouped or emitted its buckets in, ``"probed"`` from the first step's
-backward or ``"flatten"``, null without ``--overlap``), the world size
+backward, ``"flatten"``, or ``"plan"`` on the pipelined step, whose
+gradients come out of its schedule whole; null without ``--overlap``),
+the world size
 and the card's ``name, power.limit`` as ``nvidia-smi`` prints them. The
 ResNet line also carries ``phases``: the backward's, the exposed
 exchange's and the update's shares of a step; the exchange is the
@@ -47,10 +49,10 @@ non-zero: it never falls back.
 a mesh of the launched world, whose size must be ``dp·tp·pp`` (``bench.
 py``'s rule and wording: ``--tp`` × ``--pp`` must divide the visible
 device count, here the world). The tp ranks of a dp group train on the
-same rows, so the global batch scales with dp only. The knobs not ported
-yet (``--zero`` or ``--overlap`` with ``--pp`` or ``--tp`` > 1, the
-models other than resnet50) exit non-zero naming their ``ROADMAP.md``
-item.
+same rows, so the global batch scales with dp only. ``--zero`` and
+``--overlap`` compose with both: ZeRO over dp with the other axes as
+non-scatter axes (the hybrid plan), overlap on either plane. The models
+other than resnet50 exit non-zero naming their ``ROADMAP.md`` item.
 
 ``--scaling`` runs the conv model's line in worlds of 1, 2, 4, ... up to
 the GPUs this host shows (gloo worlds of 1 and 2 under ``--device cpu``),
@@ -358,13 +360,16 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
         mesh = create_hybrid_mesh(dp=dp, pp=pp, tp=tp)
         init_state, step = make_pp_transformer_train_step(
             tcfg, mesh, opt, micro, wire_dtype=cfg.get("wire_dtype"),
+            zero=bool(cfg.get("zero")), overlap=bool(cfg.get("overlap")),
             device=device)
         state = init_state(seed)
     elif tp > 1:
         mesh = create_hybrid_mesh(dp=dp, tp=tp)
         init_state, step = make_parallel_train_step(
             tcfg, opt, mesh=mesh, wire_dtype=cfg.get("wire_dtype"),
-            accum_steps=int(cfg.get("accum_steps", 1)), device=device)
+            accum_steps=int(cfg.get("accum_steps", 1)),
+            zero=bool(cfg.get("zero")), overlap=bool(cfg.get("overlap")),
+            device=device)
         state = init_state(seed)
     else:
         init_state, step = make_parallel_train_step(
@@ -463,19 +468,9 @@ def _parse_mesh(spec: str, tp: int, pp: int):
     return sizes.get("tp", 1), sizes.get("pp", 1), sizes.get("dp")
 
 
-def _refuse_unported(args, tp: int, pp: int) -> None:
-    """The knobs not ported yet exit loudly, naming the
-    ``ROADMAP.md`` item that brings them."""
-    if pp > 1 and (args.zero or args.overlap):
-        raise SystemExit(
-            "--zero and --overlap on the pipelined step (ZeRO over dp with "
-            "pp as a non-scatter axis) are the hybrid plan of ROADMAP.md "
-            "Queue 1 item 11, not ported yet")
-    if tp > 1 and (args.zero or args.overlap):
-        raise SystemExit(
-            "--zero and --overlap with --tp > 1 (ZeRO with tp as a "
-            "non-scatter axis, overlap on the spec-grouped plane) are "
-            "ROADMAP.md Queue 1 item 11, not ported yet")
+def _refuse_unported(args) -> None:
+    """The models not ported yet exit loudly, naming the ``ROADMAP.md``
+    item that brings them."""
     if args.model in _UNPORTED_MODELS:
         raise SystemExit(
             f"--model {args.model} has no port model yet: ROADMAP.md "
@@ -609,7 +604,7 @@ def main(argv=None) -> int:
         tp, pp, mesh_dp = _parse_mesh(args.mesh, tp, pp)
     if tp < 1 or pp < 1:
         raise SystemExit(f"--tp and --pp must be >= 1, got {tp}, {pp}")
-    _refuse_unported(args, tp, pp)
+    _refuse_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "horovod_tpu_torch.bench runs on a CUDA device, but "

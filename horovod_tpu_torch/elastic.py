@@ -91,7 +91,11 @@ class ElasticState:
 
     A ZeRO optimizer commits this rank's own shard (not N copies of the
     canonical state), so such a commit restores at the same world size
-    only, as the JAX package's env-world commits do."""
+    only, as the JAX package's env-world commits do; on a hybrid mesh
+    the shard is the rank's dp row of its non-scatter block, so it
+    restores on the same mesh only (the manifest's ``zero_mesh`` and
+    ``zero_coords`` say which). A reshape goes through
+    :func:`~.parallel.checkpoint.save_sharded`'s 2-D canonical form."""
 
     def __init__(self, params: Any, opt_state: Any = None, step: int = 0,
                  *, directory: Optional[str] = None, commit_every: int = 1,

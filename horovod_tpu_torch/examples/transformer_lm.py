@@ -73,8 +73,10 @@ def main(argv=None) -> int:
         raise SystemExit("--pp composes with dp/tp, not sp")
     if args.pp > 1 and (args.checkpoint_dir or args.resume):
         raise SystemExit("--checkpoint-dir/--resume cover the non-pp "
-                         "family for now (the pipelined stages' canonical "
-                         "form is ROADMAP.md Queue 1 item 11)")
+                         "family, as in the JAX package's example "
+                         "(examples/transformer_lm.py); the pipelined "
+                         "stages checkpoint through parallel.checkpoint."
+                         "save_sharded")
     if args.resume and not args.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
 

@@ -10,10 +10,15 @@ Port of the JAX package's ``ops/fusion.py``: ``_greedy_scan``/
 ``plan_grad_sync`` (:434-487), ``fused_allreduce`` (:599) with its wire,
 its all-finite flag and its schedule, the overlap plan
 (``BucketSchedule``/``plan_schedule`` :152-201, ``probe_grad_order``
-:204, ``zero_emit_order`` :249) and the ZeRO plane (``ZeroPlan`` :771,
-``plan_zero`` :882, ``_fuse_bucket`` :999, ``fused_reduce_scatter``
-:1008, ``shard_params`` :1105, ``_unfuse_flat`` :1126,
-``fused_allgather_params`` :1234), over the world or one process group.
+:204, ``zero_emit_order`` :249) and the ZeRO plane (``ZeroPlan`` :771 with
+its hybrid fields, ``_local_shape`` :861, ``plan_zero`` :882,
+``_fuse_bucket`` :999, ``fused_reduce_scatter`` :1008, ``shard_params``
+:1105, ``_unfuse_flat`` :1126, ``_ns_coords``/``_block_index``/
+``zero_stack_global``/``zero_unstack_global`` :1153-1232,
+``fused_allgather_params`` :1234), over the world or a mesh's groups:
+on a hybrid mesh each bucket is reduce-scattered over the rank's dp
+group, a replicated bucket is summed over its other axes on the shard,
+and the updated shards are all-gathered over dp.
 
 The plan walks the tensors in request order and fuses while the dtype
 matches and the bucket stays within the byte threshold, closing the
@@ -29,10 +34,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 import weakref
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -668,11 +675,15 @@ class ZeroPlan:
     The spec-grouped plan (``plan_zero(specs=, mesh=)``) groups buckets
     by each leaf's :class:`GradSync` and records per bucket the
     averaging denominator (``denoms``), the axes of an extra sum
-    (``extra_axes``) and the axes the bucket's leaves are sharded over
+    (``extra_axes``: the axes the bucket is replicated across besides
+    the scatter axis) and the axes the bucket's leaves are sharded over
     (``shard_axes``); ``nonscatter`` are the mesh axes besides
-    ``scatter_axis``. The port plans only meshes whose one axis is the
-    scatter axis (the non-scatter axes are Queue 1 item 11), so these
-    are all empty and ``global_shapes`` equals ``shapes``."""
+    ``scatter_axis`` and the skipped ones, with their sizes, whatever
+    they are. Membership is scanned on the GLOBAL shapes
+    (``global_shapes``), so the plan, and the canonical checkpoint form
+    defined on it, are the same across (dp, tp) reshapes of one set of
+    axis names; ``shapes``/``sizes``/``padded`` describe the LOCAL
+    blocks a rank holds (its tp, pp or ep block of each leaf)."""
 
     buckets: Tuple[Tuple[int, ...], ...]
     sizes: Tuple[int, ...]
@@ -698,16 +709,38 @@ class ZeroPlan:
     def bucket_denom(self, i: int) -> int:
         return self.nshards if self.denoms is None else self.denoms[i]
 
+    def bucket_extra(self, i: int) -> Tuple[str, ...]:
+        return () if self.extra_axes is None else self.extra_axes[i]
+
+    def bucket_shard_axes(self, i: int) -> Tuple[str, ...]:
+        return () if self.shard_axes is None else self.shard_axes[i]
+
+    def bucket_ns(self, i: int) -> int:
+        """Product of the sizes of the non-scatter axes bucket ``i``'s
+        leaves are sharded over: how many different local blocks of the
+        bucket the mesh holds."""
+        sizes = dict(self.nonscatter)
+        return math.prod(int(sizes[a]) for a in self.bucket_shard_axes(i))
+
     def shard_shapes(self) -> Tuple[Tuple[int, int], ...]:
-        """Per-bucket stacked shape ``(nshards, shard_len)``: the rank
-        holds row ``rank``."""
-        return tuple((self.nshards, self.shard_len(i))
+        """Per-bucket stacked shape: ``(nshards, shard_len)`` on the 1-D
+        world; ``(nshards, ns · shard_len)`` on a hybrid mesh, where
+        block ``[:, c·s:(c+1)·s]`` is non-scatter coordinate ``c``'s dp
+        stack (:func:`zero_stack_global`). The rank at dp coordinate
+        ``d`` and coordinate ``c`` holds ``[d, c·s:(c+1)·s]``; a
+        replicated bucket (``ns == 1``) is held alike by every rank of
+        its extra axes."""
+        return tuple((self.nshards, self.bucket_ns(i) * self.shard_len(i))
                      for i in range(len(self.buckets)))
 
     def canonical_sizes(self) -> Tuple[int, ...]:
-        """Per-bucket length of the world-agnostic canonical form (the
-        bucket's unpadded flat length)."""
-        return self.sizes
+        """Per-bucket length of the world- and mesh-agnostic canonical
+        form: the bucket's unpadded flat length on the 1-D world, the
+        flat concatenation of its GLOBAL leaves on a hybrid mesh."""
+        if not self.hybrid:
+            return self.sizes
+        return tuple(sum(int(math.prod(self.global_shapes[j])) for j in b)
+                     for b in self.buckets)
 
 
 def _refuse_sparse(tensors: Sequence[Any]) -> None:
@@ -721,75 +754,173 @@ def _refuse_sparse(tensors: Sequence[Any]) -> None:
             "replicated DistributedOptimizer for sparse models)")
 
 
+def _local_shape(shape, spec, axis_sizes) -> Tuple[int, ...]:
+    """The block shape of a global leaf laid out by ``spec`` (one mesh
+    axis per dimension at most)."""
+    out = list(shape)
+    for d, s in enumerate(spec or ()):
+        if s is None:
+            continue
+        axes = (s,) if isinstance(s, str) else tuple(s)
+        if len(axes) > 1:
+            raise ValueError(
+                f"ZeRO spec-grouped plans support one mesh axis per tensor "
+                f"dim; got {spec} (dim {d} sharded over {axes})")
+        n = int(axis_sizes[axes[0]])
+        if out[d] % n:
+            raise ValueError(
+                f"dim {d} of shape {tuple(shape)} does not divide by the "
+                f"{axes[0]}={n} mesh axis (spec {spec})")
+        out[d] //= n
+    return tuple(out)
+
+
+def _global_shape(shape, spec, axis_sizes) -> Tuple[int, ...]:
+    """The global shape of a rank's block ``shape`` under ``spec``: each
+    sharded dimension times its axis' size."""
+    out = list(shape)
+    for d, s in enumerate(spec or ()):
+        if s is not None:
+            if d >= len(out):
+                raise ValueError(
+                    f"spec {spec} names more dimensions than the block "
+                    f"{tuple(shape)}: pass global_shapes=")
+            out[d] *= int(axis_sizes[s if isinstance(s, str) else s[0]])
+    return tuple(out)
+
+
 def plan_zero(tensors: Sequence[torch.Tensor], nshards: int,
               fusion_threshold: Optional[int] = None, *, specs=None,
               mesh=None, scatter_axis: str = "dp",
-              skip_axes: Tuple[str, ...] = ()) -> ZeroPlan:
+              skip_axes: Tuple[str, ...] = (),
+              global_shapes: Optional[Sequence[Sequence[int]]] = None
+              ) -> ZeroPlan:
     """The sharded-update layout of ``tensors`` over ``nshards`` ranks.
 
     ``specs=`` (one spec per tensor, as :func:`plan_grad_sync` takes)
-    and ``mesh=`` build the spec-grouped plan, as the JAX LM step does
-    even on a dp-only mesh: buckets group within a spec group and the
-    state shards over ``scatter_axis``, whose size must be ``nshards``.
-    A mesh axis besides the scatter axis (tp; pp unless in
-    ``skip_axes``) raises ``NotImplementedError``: the hybrid plan is
-    ``ROADMAP.md`` Queue 1 item 11."""
+    and ``mesh=`` build the spec-grouped (hybrid) plan, as the JAX steps
+    do on any mesh: buckets group within a spec group and the state
+    shards over ``scatter_axis``, whose size must be ``nshards``, for
+    sharded and replicated leaves alike; every other mesh axis not in
+    ``skip_axes`` is a non-scatter axis, whatever its size. ``tensors``
+    are this rank's blocks; the plan is made on the GLOBAL shapes, which
+    ``global_shapes`` gives (default: each block's sharded dimensions
+    times their axis sizes), so it equals the JAX plan of the global
+    tree on the same specs and mesh shape, field for field."""
     tensors = list(tensors)
     _refuse_sparse(tensors)
     if nshards < 1:
         raise ValueError(f"nshards must be >= 1, got {nshards}")
-    shapes = tuple(tuple(t.shape) for t in tensors)
     dtypes = tuple(_dtype_name(t.dtype) for t in tensors)
-    groups = syncs = None
-    if specs is not None:
-        if mesh is None:
-            raise ValueError("plan_zero(specs=...) requires mesh= (the "
-                             "named mesh the specs refer to)")
-        if scatter_axis not in mesh.shape:
+    if specs is None:
+        shapes = tuple(tuple(t.shape) for t in tensors)
+        buckets = plan_buckets(tensors, fusion_threshold)
+        sizes = tuple(sum(int(math.prod(shapes[j])) for j in b)
+                      for b in buckets)
+        return ZeroPlan(buckets=tuple(tuple(b) for b in buckets),
+                        sizes=sizes,
+                        padded=tuple(-(-n // nshards) * nshards
+                                     for n in sizes),
+                        shapes=shapes, dtypes=dtypes, nshards=nshards)
+    if mesh is None:
+        raise ValueError("plan_zero(specs=...) requires mesh= (the "
+                         "named mesh the specs refer to)")
+    if scatter_axis not in mesh.shape:
+        raise ValueError(
+            f"scatter_axis {scatter_axis!r} is not an axis of the mesh "
+            f"{dict(mesh.shape)} — ZeRO shards the optimizer state over "
+            f"the data-parallel axis")
+    if nshards != int(mesh.shape[scatter_axis]):
+        raise ValueError(
+            f"nshards={nshards} does not match the mesh's "
+            f"{scatter_axis}={mesh.shape[scatter_axis]} — the ZeRO "
+            f"shard count IS the {scatter_axis} axis size")
+    specs = list(specs)
+    if len(specs) != len(tensors):
+        raise ValueError(
+            f"param_specs has {len(specs)} specs for {len(tensors)} "
+            f"parameter leaves — they must mirror")
+    axis_sizes = dict(mesh.shape)
+    for spec in specs:
+        unknown = _spec_axes(spec) - set(axis_sizes)
+        if unknown:
+            raise ValueError(f"spec {spec} names axes {sorted(unknown)} "
+                             f"that are not on the mesh {mesh.axis_names}")
+    if global_shapes is None:
+        global_shapes = [_global_shape(t.shape, spec, axis_sizes)
+                         for t, spec in zip(tensors, specs)]
+    global_shapes = tuple(tuple(int(n) for n in g) for g in global_shapes)
+    if len(global_shapes) != len(tensors):
+        raise ValueError(f"global_shapes has {len(global_shapes)} shapes "
+                         f"for {len(tensors)} parameter leaves")
+    syncs = plan_grad_sync(specs, mesh, skip_axes=skip_axes)
+    for spec, sync in zip(specs, syncs):
+        if scatter_axis not in sync.psum:
             raise ValueError(
-                f"scatter_axis {scatter_axis!r} is not an axis of the mesh "
-                f"{dict(mesh.shape)} — ZeRO shards the optimizer state over "
-                f"the data-parallel axis")
-        if nshards != int(mesh.shape[scatter_axis]):
+                f"a parameter with spec {spec} is sharded over the "
+                f"scatter axis {scatter_axis!r} — ZeRO-over-"
+                f"{scatter_axis} requires params replicated across it")
+    shapes = tuple(_local_shape(g, spec, axis_sizes)
+                   for g, spec in zip(global_shapes, specs))
+    for j, (t, shape) in enumerate(zip(tensors, shapes)):
+        if t.numel() != math.prod(shape):
             raise ValueError(
-                f"nshards={nshards} does not match the mesh's "
-                f"{scatter_axis}={mesh.shape[scatter_axis]} — the ZeRO "
-                f"shard count IS the {scatter_axis} axis size")
-        specs = list(specs)
-        if len(specs) != len(tensors):
-            raise ValueError(
-                f"param_specs has {len(specs)} specs for {len(tensors)} "
-                f"parameter leaves — they must mirror")
-        groups = syncs = plan_grad_sync(specs, mesh, skip_axes=skip_axes)
-        for spec, sync in zip(specs, syncs):
-            if scatter_axis not in sync.psum:
-                raise ValueError(
-                    f"a parameter with spec {spec} is sharded over the "
-                    f"scatter axis {scatter_axis!r} — ZeRO-over-"
-                    f"{scatter_axis} requires params replicated across it")
-        nonscatter = [a for a in mesh.axis_names
-                      if a != scatter_axis and a not in skip_axes]
-        if nonscatter:
-            raise NotImplementedError(
-                f"ZeRO over a mesh with the non-scatter axes {nonscatter} "
-                f"(tp, or pp outside skip_axes) is the hybrid plan of "
-                f"ROADMAP.md Queue 1 item 11, not ported yet")
-    buckets = plan_buckets(tensors, fusion_threshold, groups=groups)
+                f"tensor {j} holds {t.numel()} elements, but its block of "
+                f"the global shape {global_shapes[j]} under spec "
+                f"{specs[j]} on {dict(mesh.shape)} is {shape}")
+    key = tuple((g, d, s) for g, d, s in zip(global_shapes, dtypes, syncs))
+    if fusion_threshold is None:
+        fusion_threshold = _config.fusion_threshold_bytes()
+    buckets = _plan_cached(key, int(fusion_threshold))
     sizes = tuple(sum(int(math.prod(shapes[j])) for j in b)
                   for b in buckets)
-    padded = tuple(-(-n // nshards) * nshards for n in sizes)
-    plan = ZeroPlan(buckets=tuple(tuple(b) for b in buckets), sizes=sizes,
-                    padded=padded, shapes=shapes, dtypes=dtypes,
-                    nshards=nshards)
-    if syncs is None:
-        return plan
-    return dataclasses.replace(
-        plan, scatter_axis=scatter_axis,
+    return ZeroPlan(
+        buckets=buckets, sizes=sizes,
+        padded=tuple(-(-n // nshards) * nshards for n in sizes),
+        shapes=shapes, dtypes=dtypes, nshards=nshards,
+        scatter_axis=scatter_axis,
         denoms=tuple(syncs[b[0]].denom for b in buckets),
         extra_axes=tuple(tuple(a for a in syncs[b[0]].psum
                                if a != scatter_axis) for b in buckets),
         shard_axes=tuple(syncs[b[0]].shard for b in buckets),
-        leaf_specs=tuple(specs), global_shapes=shapes)
+        nonscatter=tuple((a, int(axis_sizes[a])) for a in mesh.axis_names
+                         if a != scatter_axis and a not in skip_axes),
+        leaf_specs=tuple(specs), global_shapes=global_shapes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroGroups:
+    """The process groups a hybrid plan's exchange runs over on one
+    rank: ``scatter``, its slice along the scatter axis (None: the
+    world); per bucket, ``extra[i]``, its slice along the bucket's extra
+    axes (None where they span one rank); ``fold``, its slice along the
+    non-scatter axes, which the guard's verdict folds over (None: one
+    rank)."""
+
+    scatter: Any = None
+    extra: Tuple[Any, ...] = ()
+    fold: Any = None
+
+
+def zero_groups(plan: ZeroPlan, mesh=None) -> ZeroGroups:
+    """The :class:`ZeroGroups` of ``plan`` on ``mesh`` (the world's for a
+    1-D plan). Creates the groups the plan needs in plan order — the
+    canonical form's too, each bucket's slice along the scatter axis and
+    its shard axes (:func:`~..optimizer.zero_to_canonical`) —, which is
+    collective: every rank must call it alike."""
+    nb = len(plan.buckets)
+    if not plan.hybrid or mesh is None:
+        return ZeroGroups(extra=(None,) * nb)
+
+    def sub(axes):
+        return mesh.group(axes) if axes and mesh.subset_size(axes) > 1 \
+            else None
+    scatter = mesh.group((plan.scatter_axis,))
+    extra = tuple(sub(plan.bucket_extra(i)) for i in range(nb))
+    for i in range(nb):
+        mesh.group((plan.scatter_axis,) + plan.bucket_shard_axes(i))
+    return ZeroGroups(scatter=scatter, extra=extra,
+                      fold=sub(tuple(a for a, _ in plan.nonscatter)))
 
 
 def _fuse_bucket(members: Sequence[torch.Tensor], plan: ZeroPlan,
@@ -805,22 +936,31 @@ def _fuse_bucket(members: Sequence[torch.Tensor], plan: ZeroPlan,
 
 def _scatter_bucket(flat: torch.Tensor, plan: ZeroPlan, i: int,
                     average: bool, prescale: Optional[float], wire, group,
-                    async_op: bool = False) -> _Handle:
-    """Start bucket ``i``'s reduce-scatter of the padded ``flat``: the
-    average's ``1/denom`` and ``prescale`` fold into one multiply before
-    it; a world of one reduces nothing (no collective, no wire cast)."""
+                    async_op: bool = False, extra_group=None) -> _Handle:
+    """Start bucket ``i``'s reduce-scatter of the padded ``flat`` over
+    ``group``: the average's ``1/denom`` and ``prescale`` fold into one
+    multiply before it; a scatter over one rank reduces nothing (no
+    collective, no wire cast). ``extra_group`` (a hybrid plan's bucket
+    replicated across non-scatter axes) sums the received shard over
+    those axes once it lands: the cheap place for that sum, on 1/dp of
+    the bucket."""
     denom = plan.bucket_denom(i)
     scale = _fold(1.0 / denom if average and denom > 1 else None, prescale)
+
+    def finish(shard):
+        if extra_group is not None:
+            dist.all_reduce(shard, group=extra_group)
+        return shard
     if plan.nshards == 1:
         shard = _prescale_array(flat, scale)
-        return _Handle(None, lambda: shard)
+        return _Handle(None, lambda: finish(shard))
     if _wire_applies(flat.dtype, wire):
         shard = _wire_scatter(flat, wire, group, prescale=scale)
-        return _Handle(None, lambda: shard)
+        return _Handle(None, lambda: finish(shard))
     x = _prescale_array(flat, scale)
     out = x.new_empty(plan.shard_len(i))
     work = dist.reduce_scatter_tensor(out, x, group=group, async_op=async_op)
-    return _Handle(work, lambda: out)
+    return _Handle(work, lambda: finish(out))
 
 
 def _check_world(plan: ZeroPlan, group) -> None:
@@ -832,27 +972,46 @@ def _check_world(plan: ZeroPlan, group) -> None:
             f"group the step runs over")
 
 
+def fold_finite(finite: torch.Tensor, group) -> torch.Tensor:
+    """``finite`` ANDed over ``group`` with one scalar MIN (unchanged for
+    None): the hybrid plane's guard fold over its non-scatter axes,
+    where a sharded bucket's NaN reaches one block's ranks only."""
+    if group is None:
+        return finite
+    f = finite.to(torch.int32).reshape(1)
+    dist.all_reduce(f, op=dist.ReduceOp.MIN, group=group)
+    return f[0] > 0
+
+
 def fused_reduce_scatter(tensors: Sequence[torch.Tensor], plan: ZeroPlan,
                          *, average: bool = True,
                          prescale: Optional[float] = None,
                          return_finite: bool = False, wire_dtype=None,
                          emit_order: Optional[Sequence[int]] = None,
-                         group=None):
+                         group=None, groups: Optional[ZeroGroups] = None):
     """Reduce-scatter ``tensors`` into this rank's flat bucket shards
     (plan order): each bucket is flattened, zero-padded to ``padded[i]``,
     scaled once (the average's ``1/denom`` times ``prescale``) and fed to
-    one ``reduce_scatter_tensor`` — rank ``r`` receives the reduced
-    ``flat[r·s:(r+1)·s]``.
+    one ``reduce_scatter_tensor`` over ``group`` (the world when None) —
+    the rank at scatter coordinate ``r`` receives the reduced
+    ``flat[r·s:(r+1)·s]``. ``groups`` (a hybrid plan's
+    :class:`ZeroGroups`) replaces ``group`` with its scatter group and
+    adds each replicated bucket's sum over its extra axes.
 
-    ``return_finite=True`` also returns a RANK-LOCAL all-finite flag of
-    the reduced shards (a rank's NaN lands in one rank's shard only);
-    :func:`fused_allgather_params` ANDs it over the world on the gather
-    the updated shards already take (``and_finite=``). ``wire_dtype``
-    runs the scatter in reduced precision (:func:`_wire_scatter`).
-    ``emit_order`` (a bucket permutation, :func:`zero_emit_order`)
-    issues the scatters in that order; membership and the returned
-    order never change."""
+    ``return_finite=True`` also returns the all-finite flag of the
+    reduced shards, local to the scatter group's rank (a rank's NaN
+    lands in one rank's shard only; on a hybrid mesh it is first folded
+    over the non-scatter axes with one scalar MIN, the only collective
+    the guard adds there); :func:`fused_allgather_params` ANDs it over
+    the scatter group on the gather the updated shards already take
+    (``and_finite=``). ``wire_dtype`` runs the scatter in reduced
+    precision (:func:`_wire_scatter`). ``emit_order`` (a bucket
+    permutation, :func:`zero_emit_order`) starts every bucket's scatter
+    in that order before waiting on the first; membership and the
+    returned order never change."""
     _refuse_sparse(tensors)
+    if groups is not None:
+        group = groups.scatter
     _check_world(plan, group)
     wire = resolve_wire_dtype(wire_dtype)
     nb = len(plan.buckets)
@@ -861,15 +1020,25 @@ def fused_reduce_scatter(tensors: Sequence[torch.Tensor], plan: ZeroPlan,
     if sorted(order) != list(range(nb)):
         raise ValueError(f"emit_order must be a permutation of the {nb} "
                          f"bucket indices; got {order}")
+    handles: dict = {}
     shards: List[Optional[torch.Tensor]] = [None] * nb
     for i in order:
         flat = _fuse_bucket([tensors[j] for j in plan.buckets[i]], plan, i)
-        shards[i] = _scatter_bucket(flat, plan, i, average, prescale, wire,
-                                    group).wait()
+        handles[i] = _scatter_bucket(
+            flat, plan, i, average, prescale, wire, group,
+            async_op=emit_order is not None,
+            extra_group=None if groups is None else groups.extra[i])
+        if emit_order is None:
+            shards[i] = handles.pop(i).wait()
+    for i in order:
+        if i in handles:
+            shards[i] = handles.pop(i).wait()
     if not return_finite:
         return shards
     dev = shards[0].device if shards else torch.device("cpu")
-    return shards, _all_finite(shards, dev)
+    finite = _all_finite(shards, dev)
+    return shards, fold_finite(finite, None if groups is None
+                               else groups.fold)
 
 
 def shard_params(tensors: Sequence[torch.Tensor], plan: ZeroPlan,
@@ -963,13 +1132,130 @@ def _emit_order_cached(buckets, grad_order):
     return tuple(sorted(range(len(buckets)), key=lambda i: (ready[i], i)))
 
 
+def emit_order(buckets: Sequence[Sequence[int]],
+               grad_order: Optional[Sequence[int]]) -> Tuple[int, ...]:
+    """Emission order of fixed ``buckets`` under overlap: sorted by
+    readiness (the latest backward-completion position among the
+    bucket's members); plan order for no ``grad_order``. Membership
+    never changes: the ZeRO plane's (:func:`zero_emit_order`) and the
+    spec-grouped all-reduce plane's."""
+    if grad_order is None:
+        return tuple(range(len(buckets)))
+    return _emit_order_cached(tuple(tuple(b) for b in buckets),
+                              tuple(int(i) for i in grad_order))
+
+
 def zero_emit_order(plan: ZeroPlan, grad_order: Optional[Sequence[int]]
                     ) -> Tuple[int, ...]:
-    """Emission order of a :class:`ZeroPlan`'s buckets under overlap:
-    sorted by readiness (the latest backward-completion position among
-    the bucket's members); plan order for no ``grad_order``. Membership
-    never changes."""
-    if grad_order is None:
-        return tuple(range(len(plan.buckets)))
-    return _emit_order_cached(plan.buckets,
-                              tuple(int(i) for i in grad_order))
+    """Emission order of a :class:`ZeroPlan`'s buckets under overlap
+    (:func:`emit_order` of its buckets)."""
+    return emit_order(plan.buckets, grad_order)
+
+
+# -- the hybrid plan's stacked layout, on the host ----------------------------
+# The JAX package lays a hybrid bucket's optimizer state out as one global
+# [nshards, ns·shard_len] array; the port's rank holds one row's block of
+# it. These build and take apart that array from the GLOBAL leaves (the
+# canonical checkpoint form) on numpy arrays or CPU tensors.
+
+def _ns_coords(plan: ZeroPlan, i: int):
+    """Non-scatter coordinates of bucket ``i``'s shard axes, row-major in
+    the plan's (mesh) axis order: block ``[:, c·s:(c+1)·s]`` of the
+    stacked array is coordinate ``c``'s dp stack."""
+    axes = plan.bucket_shard_axes(i)
+    sizes = dict(plan.nonscatter)
+    for coord in itertools.product(*[range(int(sizes[a])) for a in axes]):
+        yield dict(zip(axes, coord))
+
+
+def ns_index(plan: ZeroPlan, i: int, coords) -> int:
+    """The index ``c`` of the non-scatter coordinates ``coords`` (a mesh's
+    ``coords``) among bucket ``i``'s :func:`_ns_coords`."""
+    sizes = dict(plan.nonscatter)
+    c = 0
+    for a in plan.bucket_shard_axes(i):
+        c = c * int(sizes[a]) + int(coords[a])
+    return c
+
+
+def _block_index(shape, spec, coord, axis_sizes):
+    """The slice tuple of the block of a global array at non-scatter
+    coordinate ``coord`` under ``spec``."""
+    idx = []
+    for d in range(len(shape)):
+        s = spec[d] if spec is not None and d < len(spec) else None
+        if s is None:
+            idx.append(slice(None))
+            continue
+        a = s if isinstance(s, str) else tuple(s)[0]
+        if a not in coord:
+            idx.append(slice(None))
+            continue
+        w = shape[d] // int(axis_sizes[a])
+        idx.append(slice(coord[a] * w, (coord[a] + 1) * w))
+    return tuple(idx)
+
+
+def _cat(parts):
+    if torch.is_tensor(parts[0]):
+        return torch.cat(parts)
+    return np.concatenate(parts)
+
+
+def zero_stack_global(leaves, plan: ZeroPlan, i: int):
+    """Bucket ``i``'s stacked ``[nshards, ns·shard_len]`` array from
+    GLOBAL leaves (numpy arrays or CPU tensors, indexed like the plan's
+    tensors): for each non-scatter coordinate, the members' blocks
+    flattened, rank-padded and stacked ``[nshards, shard_len]``, and the
+    coordinates concatenated along the trailing dim. A 1-D plan gives
+    the plain flatten-pad-stack."""
+    axis_sizes = dict(plan.nonscatter)
+    s = plan.shard_len(i)
+    pad = plan.padded[i] - plan.sizes[i]
+    cols = []
+    for coord in (_ns_coords(plan, i) if plan.hybrid else ({},)):
+        parts = []
+        for j in plan.buckets[i]:
+            arr = leaves[j]
+            if plan.hybrid:
+                arr = arr[_block_index(arr.shape, plan.leaf_specs[j],
+                                       coord, axis_sizes)]
+            parts.append(arr.reshape(-1))
+        flat = _cat(parts) if len(parts) > 1 else parts[0]
+        if pad:
+            zeros = (flat.new_zeros(pad) if torch.is_tensor(flat)
+                     else np.zeros((pad,), flat.dtype))
+            flat = _cat([flat, zeros])
+        cols.append(flat.reshape(plan.nshards, s))
+    if len(cols) == 1:
+        return cols[0]
+    return (torch.cat(cols, 1) if torch.is_tensor(cols[0])
+            else np.concatenate(cols, axis=1))
+
+
+def zero_unstack_global(stacked, plan: ZeroPlan, i: int) -> list:
+    """Inverse of :func:`zero_stack_global`: bucket ``i``'s GLOBAL leaves
+    from its stacked ``[nshards, ns·shard_len]`` array."""
+    axis_sizes = dict(plan.nonscatter)
+    s = plan.shard_len(i)
+    tensor = torch.is_tensor(stacked)
+    if not tensor:
+        stacked = np.asarray(stacked)
+    shapes = [plan.global_shapes[j] if plan.hybrid else plan.shapes[j]
+              for j in plan.buckets[i]]
+    out = [stacked.new_zeros(g) if tensor else np.zeros(g, stacked.dtype)
+           for g in shapes]
+    for ci, coord in enumerate(_ns_coords(plan, i) if plan.hybrid
+                               else ({},)):
+        flat = stacked[:, ci * s:(ci + 1) * s].reshape(-1)[:plan.sizes[i]]
+        off = 0
+        for k, j in enumerate(plan.buckets[i]):
+            n = int(math.prod(plan.shapes[j]))
+            block = flat[off:off + n].reshape(plan.shapes[j])
+            off += n
+            if plan.hybrid:
+                out[k][_block_index(out[k].shape, plan.leaf_specs[j],
+                                    coord, axis_sizes)] = block
+            else:
+                out[k] = block
+    return out

@@ -12,9 +12,13 @@ fused all-reduce (:func:`.ops.fusion.fused_allreduce`, with its
 optimizer's update of this rank's flat shard of every bucket, and an
 all-gather of the updated shards back into the parameters. With
 ``overlap=True`` each bucket's collective starts during the backward
-(:class:`.ops.fusion.OverlapExchange`). ``ZeroShardedState`` (:113),
+(:class:`.ops.fusion.OverlapExchange`). On a mesh (``mesh=``,
+``param_specs=``) the exchange runs each bucket over its own group: the
+spec-grouped all-reduce, or the hybrid ZeRO plane over dp
+(``partition_optimizer(mesh=)``). ``ZeroShardedState`` (:113),
 ``zero_to_canonical`` (:166) and ``zero_from_canonical`` (:205) move a
-ZeRO state to and from its world-agnostic form. ``broadcast_parameters``
+ZeRO state to and from its world- and mesh-agnostic form (2-D on a
+hybrid mesh: the global leaves of each bucket). ``broadcast_parameters``
 (the counterpart of ``broadcast_global_variables`` :877) sends rank 0's
 parameters AND buffers (BatchNorm running statistics) to every rank;
 ``broadcast_optimizer_state`` (:895) does the same for the optimizer's
@@ -32,6 +36,8 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import itertools
+import math
 from typing import (Any, Dict, Iterable, List, Mapping, Optional, Sequence,
                     Tuple, Union)
 
@@ -40,13 +46,14 @@ import torch.distributed as dist
 
 from . import runtime
 from .ops.collectives import Op, broadcast_object
-from .ops.fusion import (OverlapExchange, ZeroPlan, _all_finite, _fold,
-                         _fuse, _fuse_bucket, _prescale_array,
-                         _reduce_bucket, _scatter_bucket, _unfuse_buckets,
+from .ops.fusion import (OverlapExchange, ZeroGroups, ZeroPlan, _all_finite,
+                         _fold, _fuse, _fuse_bucket, _Handle,
+                         _prescale_array, _reduce_bucket, _scatter_bucket,
+                         _unfuse_buckets, emit_order, fold_finite,
                          fused_allgather_params, fused_allreduce,
                          fused_reduce_scatter, plan_buckets, plan_grad_sync,
                          plan_schedule, plan_zero, resolve_wire_dtype,
-                         shard_params, zero_emit_order)
+                         shard_params, zero_groups)
 from .ops.sparse import IndexedSlices, allreduce_indexed_slices
 from .utils import config as _config
 
@@ -105,6 +112,13 @@ def _wire_of(compression, wire_dtype, zero: bool):
             f"compression=Compression.bf16 (the bf16 wire alias) conflicts "
             f"with wire_dtype={wire_dtype!r} — set wire_dtype alone")
     return torch.bfloat16
+
+
+_PROCESS_GROUP_REFUSAL = (
+    "{0}= over a process_group: the JAX package has no process-group "
+    "argument, and its route to {0} on part of the world is mesh= — pass "
+    "DistributedOptimizer(mesh=, param_specs=, {0}=True), which runs "
+    "each bucket over its own group of the mesh")
 
 
 def _prescale_of(accum_steps: int) -> Optional[float]:
@@ -218,17 +232,73 @@ def _shard_optimizer(optimizer: torch.optim.Optimizer,
 class ZeroShardedState:
     """A ZeRO optimizer's state: ``inner[i]`` is the wrapped optimizer's
     state of bucket ``i``'s flat shard (``{"exp_avg": [shard_len], ...,
-    "step": scalar}``), ``plan`` the layout. In the canonical form
+    "step": scalar}``), ``plan`` the layout and ``mesh`` the mesh a
+    hybrid plan shards over (None: the world). In the canonical form
     (:func:`zero_to_canonical`) every shard tensor is the bucket's whole
-    UNPADDED flat vector instead, the same at every world size."""
+    flat vector instead — on a hybrid mesh the concatenation of its
+    GLOBAL leaves —, the same at every world size and mesh shape of one
+    set of axis names."""
 
     inner: List[Dict[str, Any]]
     plan: ZeroPlan
+    mesh: Any = None
 
 
 def _shard_keys(st: Mapping[str, Any], n: int) -> List[str]:
     return sorted(k for k, v in st.items()
                   if torch.is_tensor(v) and tuple(v.shape) == (n,))
+
+
+def _zero_mesh(state: ZeroShardedState):
+    """The mesh of a hybrid state with non-scatter axes (None where the
+    1-D form applies: no such axis)."""
+    if not state.plan.hybrid or not state.plan.nonscatter:
+        return None
+    if state.mesh is None:
+        raise ValueError(
+            "a hybrid ZeRO state with the non-scatter axes "
+            f"{state.plan.nonscatter} needs its mesh (ZeroShardedState."
+            f"mesh): take it from DistributedOptimizer.zero_state()")
+    return state.mesh
+
+
+def _canonical_2d(stacked: torch.Tensor, plan: ZeroPlan, i: int,
+                  mesh) -> torch.Tensor:
+    """The canonical vectors of bucket ``i`` (one row per state key)
+    from this rank's ``stacked`` ``[keys, shard_len]``: one all-gather
+    over the rank's slice along the scatter axis and the bucket's shard
+    axes, the gathered blocks laid into the JAX stacked layout and taken
+    apart into the global leaves (:func:`~.ops.fusion.
+    zero_unstack_global`)."""
+    from .ops.fusion import ns_index, zero_unstack_global
+    s = plan.shard_len(i)
+    key = mesh.key((plan.scatter_axis,) + plan.bucket_shard_axes(i))
+    sizes = [mesh.shape[a] for a in key]
+    n = math.prod(sizes)
+    gathered = stacked[None]
+    if n > 1:
+        gathered = stacked.new_empty((n,) + tuple(stacked.shape))
+        dist.all_gather_into_tensor(gathered.view(-1),
+                                    stacked.contiguous().view(-1),
+                                    group=mesh.group(key))
+    gathered = gathered.cpu()
+    if plan.bucket_ns(i) == 1:
+        # Every shard axis has size 1: the rank's blocks are the global
+        # leaves, so the dp rows in order are the canonical vector.
+        return gathered.transpose(0, 1).reshape(stacked.shape[0], -1)[
+            :, :plan.sizes[i]]
+    out = []
+    for k in range(stacked.shape[0]):
+        full = gathered.new_zeros(plan.shard_shapes()[i])
+        for idx, coord in enumerate(itertools.product(
+                *(range(m) for m in sizes))):
+            coords = dict(zip(key, coord))
+            c = ns_index(plan, i, coords)
+            full[coords[plan.scatter_axis], c * s:(c + 1) * s] = \
+                gathered[idx, k]
+        out.append(torch.cat([g.reshape(-1) for g in
+                              zero_unstack_global(full, plan, i)]))
+    return torch.stack(out)
 
 
 @runtime.maps_peer_failures
@@ -237,10 +307,15 @@ def zero_to_canonical(state: ZeroShardedState,
     """The world-agnostic form of a ZeRO state: every shard tensor
     becomes the bucket's flat UNPADDED vector (on the CPU), byte for byte
     the JAX package's canonical form of the same plan and values; scalars
-    (a step count) pass through. One process per GPU holds only its own
-    shard, so this all-gathers: one all-gather per bucket (its state
-    tensors stacked), which every rank must call."""
+    (a step count) pass through. On a hybrid mesh that is the 2-D form:
+    the concatenation of the bucket's GLOBAL leaves, the same at every
+    (dp, tp) split of the mesh's axis names. One process per GPU holds
+    only its own shard, so this all-gathers: one all-gather per bucket
+    (its state tensors stacked) over ``group`` (the world) or, on a
+    hybrid mesh, over the rank's slice along dp and the bucket's shard
+    axes; every rank must call it."""
     plan = state.plan
+    mesh = _zero_mesh(state)
     out = []
     for i, st in enumerate(state.inner):
         s = plan.shard_len(i)
@@ -249,6 +324,12 @@ def zero_to_canonical(state: ZeroShardedState,
                  for k, v in st.items() if k not in keys}
         if keys:
             stacked = torch.stack([st[k].detach() for k in keys])
+            if mesh is not None:
+                rows = _canonical_2d(stacked, plan, i, mesh)
+                for k_i, k in enumerate(keys):
+                    canon[k] = rows[k_i].clone()
+                out.append(canon)
+                continue
             gathered = stacked[None]
             if plan.nshards > 1:
                 gathered = stacked.new_empty(
@@ -259,29 +340,40 @@ def zero_to_canonical(state: ZeroShardedState,
                 canon[k] = gathered[:, k_i].reshape(-1)[:plan.sizes[i]] \
                     .cpu().clone()
         out.append(canon)
-    return ZeroShardedState(inner=out, plan=plan)
+    return ZeroShardedState(inner=out, plan=plan, mesh=state.mesh)
 
 
 def zero_from_canonical(canonical: ZeroShardedState,
                         template: ZeroShardedState,
                         rank: Optional[int] = None) -> ZeroShardedState:
     """Re-shard a canonical ZeRO state onto ``template``'s plan and
-    world (``rank``: this process's by default): each flat vector is
-    zero-padded to the template bucket's padded length and this rank's
-    shard sliced out (CPU tensors; :meth:`DistributedOptimizer.
-    load_zero_state` places them). A state saved at one world size
-    restores at another; the bucket plan must be the saving run's."""
+    world: each flat vector is zero-padded to the template bucket's
+    padded length and the shard at ``rank`` (this process's dp
+    coordinate by default) sliced out (CPU tensors;
+    :meth:`DistributedOptimizer.load_zero_state` places them). On a
+    hybrid mesh the vector is split into the bucket's global leaves,
+    stacked for the template's mesh (:func:`~.ops.fusion.
+    zero_stack_global`) and this rank's block taken. A state saved at
+    one world size or (dp, tp) split restores at another; the bucket
+    plan (the model, ``HOROVOD_FUSION_THRESHOLD`` and the mesh's axis
+    names) must be the saving run's."""
+    from .ops.fusion import ns_index, zero_stack_global
     plan = template.plan
-    rank = runtime.rank() if rank is None else rank
+    mesh = _zero_mesh(template)
+    if rank is None:
+        rank = (template.mesh.coords[plan.scatter_axis]
+                if plan.hybrid and template.mesh is not None
+                else runtime.rank())
     if len(canonical.inner) != len(plan.buckets):
         raise ValueError(
             f"ZeRO state mismatch: the checkpoint has "
             f"{len(canonical.inner)} buckets, this world's plan "
-            f"{len(plan.buckets)} — HOROVOD_FUSION_THRESHOLD and the model "
-            f"must match the saving run")
+            f"{len(plan.buckets)} — HOROVOD_FUSION_THRESHOLD, the model "
+            f"and the mesh AXIS NAMES must match the saving run")
+    sizes = plan.canonical_sizes()
     out = []
     for i, st in enumerate(canonical.inner):
-        s, size = plan.shard_len(i), plan.canonical_sizes()[i]
+        s, size = plan.shard_len(i), sizes[i]
         shard = {}
         for k, v in st.items():
             if not torch.is_tensor(v) or v.dim() == 0:
@@ -293,14 +385,28 @@ def zero_from_canonical(canonical: ZeroShardedState,
                     f"ZeRO shard length mismatch: checkpoint leaf {k!r} of "
                     f"bucket {i} has {flat.numel()} elements, this world's "
                     f"bucket expects {size} — the fusion bucket plan "
-                    f"differs (HOROVOD_FUSION_THRESHOLD and the model must "
-                    f"match the saving run)")
+                    f"differs (HOROVOD_FUSION_THRESHOLD, the model and the "
+                    f"mesh AXIS NAMES must match the saving run; dp/tp "
+                    f"size reshapes are fine)")
+            if mesh is not None and plan.bucket_ns(i) > 1:
+                leaves: List[Optional[torch.Tensor]] = [None] * len(
+                    plan.shapes)
+                off = 0
+                for j in plan.buckets[i]:
+                    n = int(math.prod(plan.global_shapes[j]))
+                    leaves[j] = flat[off:off + n].reshape(
+                        plan.global_shapes[j])
+                    off += n
+                c = ns_index(plan, i, mesh.coords)
+                shard[k] = zero_stack_global(leaves, plan, i)[
+                    rank, c * s:(c + 1) * s].clone()
+                continue
             pad = plan.padded[i] - size
             if pad:
                 flat = torch.cat([flat, flat.new_zeros(pad)])
             shard[k] = flat[rank * s:(rank + 1) * s].clone()
         out.append(shard)
-    return ZeroShardedState(inner=out, plan=plan)
+    return ZeroShardedState(inner=out, plan=plan, mesh=template.mesh)
 
 
 class _ZeroUpdate:
@@ -310,8 +416,9 @@ class _ZeroUpdate:
     all-gather of the updated shards back into the parameters."""
 
     def __init__(self, optimizer, params: List[torch.Tensor], plan: ZeroPlan,
-                 rank: int):
+                 rank: int, groups: ZeroGroups, mesh=None):
         self.params, self.plan, self.rank = params, plan, rank
+        self.groups, self.mesh = groups, mesh
         self.shards = shard_params(params, plan, rank)
         self.inner = _shard_optimizer(optimizer, self.shards)
 
@@ -343,20 +450,21 @@ class _ZeroUpdate:
         for p in self.shards:
             p.grad = None
         out = fused_allgather_params(self.shards, self.plan,
-                                     and_finite=local_finite)
+                                     and_finite=local_finite,
+                                     group=self.groups.scatter)
         leaves, finite = out if local_finite is not None else (out, None)
         if finite is not None and not bool(finite):   # one host read
             self._restore(saved)
             return finite, False
         with torch.no_grad():
             for p, v in zip(self.params, leaves):
-                p.copy_(v)
+                p.copy_(v.view(p.shape))
         return finite, True
 
     def state(self) -> ZeroShardedState:
         return ZeroShardedState(
             inner=[dict(self.inner.state.get(p, {})) for p in self.shards],
-            plan=self.plan)
+            plan=self.plan, mesh=self.mesh)
 
     def load(self, state: ZeroShardedState) -> None:
         if state.plan.buckets != self.plan.buckets \
@@ -401,14 +509,25 @@ class DistributedOptimizer:
     ``zero=True`` is ZeRO-1 (``partition_optimizer`` in the JAX
     package): the wrapped optimizer is rebuilt, with its class and
     hyperparameters, over this rank's flat f32 shard of every bucket
-    (:func:`~.ops.fusion.plan_zero`; ``mesh=`` and ``param_specs=`` give
-    the spec-grouped plan), so its state holds ``Σ shard_len`` elements
-    per state tensor; ``step()`` reduce-scatters the gradients, updates
-    the shards and all-gathers them into the parameters, which end
-    bit-identical on every rank. Only an elementwise optimizer with one
-    parameter group and no state yet can be rebuilt so (refused eagerly
-    otherwise); ``process_group`` and a mesh with an axis of size above
-    1 besides the data-parallel one are ``ROADMAP.md`` Queue 1 item 11.
+    (:func:`~.ops.fusion.plan_zero`), so its state holds ``Σ shard_len``
+    elements per state tensor; ``step()`` reduce-scatters the gradients,
+    updates the shards and all-gathers them into the parameters, which
+    end bit-identical on every rank. Only an elementwise optimizer with
+    one parameter group and no state yet can be rebuilt so (refused
+    eagerly otherwise). With ``mesh=`` and ``param_specs=`` it is the
+    hybrid plane (the JAX package's ``partition_optimizer(mesh=)``): the
+    plan is made on the parameters' GLOBAL shapes (``global_shapes``,
+    default: each block's sharded dimensions times their axis sizes),
+    the state shards over the mesh's ``dp`` axis — the shard count is
+    its size and this rank's shard is at its dp coordinate — for
+    sharded and replicated leaves alike, every other axis not in
+    ``skip_axes`` is a non-scatter axis, each bucket is reduce-scattered
+    over the rank's dp group with its ``1/denom`` prescaled in, a
+    bucket replicated across non-scatter axes is summed over them on its
+    shard, and the updated shards are all-gathered over dp. A rank of a
+    tp-sharded bucket holds 1/(dp·tp) of its global state, a rank of a
+    replicated one 1/dp. The guard's verdict is folded over the
+    non-scatter axes with one scalar MIN, then rides the dp all-gather.
 
     ``mesh=`` and ``param_specs=`` without ``zero`` are the spec-grouped
     all-reduce plane (the JAX package's ``_grouped_allreduce``): each
@@ -425,15 +544,23 @@ class DistributedOptimizer:
     the guard's verdict is then folded over the reduce set with one
     scalar MIN, the only collective the guard adds (a caller that skips
     an axis folds over it itself, as the pipelined step does over pp).
-    ``overlap`` on this plane is ``ROADMAP.md`` Queue 1 item 11.
+
+    ``process_group`` averages over one group instead of the world, on
+    the all-reduce plane only: the JAX package has no such argument, and
+    its route to ZeRO or overlap on part of the world is ``mesh=``.
 
     ``overlap`` (default ``HVD_OVERLAP``) starts each bucket's collective
     during the backward, when its last gradient lands, once the step has
     :meth:`arm`-ed it. The first armed backward emits in flatten order
     and records the order gradients land in; rank 0's record is broadcast
-    once (``grad_order``, ``grad_order_source``) and from then on the
-    all-reduce plane groups its buckets along it, and the ZeRO plane
-    emits its fixed buckets in readiness order.
+    once over the world (``grad_order``, ``grad_order_source``), so every
+    group sees the same order, and from then on the world all-reduce
+    plane groups its buckets along it while the ZeRO and spec-grouped
+    planes keep their plan's buckets and emit them in readiness order,
+    each on its own group. On those two planes a step that never arms
+    (the pipelined one, whose gradients come out of its schedule whole)
+    starts every bucket in plan order before waiting on the first: the
+    same collectives, bitwise the same result.
 
     Every other attribute — ``param_groups``, ``state``, ``state_dict``
     … — is the wrapped optimizer's (with ``zero=True``, the one over the
@@ -449,7 +576,7 @@ class DistributedOptimizer:
                  overlap: Optional[bool] = None,
                  sparse_as_dense: bool = False, mesh=None,
                  param_specs=None, compression=Compression.none,
-                 skip_axes: Tuple[str, ...] = ()):
+                 skip_axes: Tuple[str, ...] = (), global_shapes=None):
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if mesh is not None:
@@ -469,9 +596,7 @@ class DistributedOptimizer:
                 raise ValueError("mesh= and process_group= both set: the "
                                  "mesh's plan picks each bucket's group")
         if process_group is not None and zero:
-            raise NotImplementedError(
-                "zero= over a process group (the dp group of a hybrid "
-                "mesh) is ROADMAP.md Queue 1 item 11")
+            raise ValueError(_PROCESS_GROUP_REFUSAL.format("zero"))
         self.average = average
         self.fusion_threshold = fusion_threshold
         self.process_group = process_group
@@ -507,11 +632,16 @@ class DistributedOptimizer:
             self._grouped = _GroupedPlan(self._params, self.param_specs,
                                          mesh, fusion_threshold, skip_axes)
         if self.zero:
-            plan = plan_zero(self._params, runtime.size(), fusion_threshold,
+            nshards = runtime.size() if mesh is None else int(
+                mesh.shape.get("dp", 1))
+            plan = plan_zero(self._params, nshards, fusion_threshold,
                              specs=param_specs, mesh=mesh,
-                             skip_axes=skip_axes)
-            self._zero = _ZeroUpdate(optimizer, self._params, plan,
-                                     runtime.rank())
+                             skip_axes=skip_axes,
+                             global_shapes=global_shapes)
+            rank = runtime.rank() if mesh is None \
+                else mesh.coords[plan.scatter_axis]
+            self._zero = _ZeroUpdate(optimizer, self._params, plan, rank,
+                                     zero_groups(plan, mesh), mesh)
             optimizer = self._zero.inner
         self.optimizer = optimizer
         self.overlap = False
@@ -540,15 +670,12 @@ class DistributedOptimizer:
         backward."""
         if self._overlap is not None:
             return
-        if self._grouped is not None:
-            raise NotImplementedError(
-                "overlap= on the spec-grouped all-reduce plane (mesh= "
-                "without zero) is ROADMAP.md Queue 1 item 11")
         if self.process_group is not None:
-            raise NotImplementedError(
-                "overlap= over a process group (the dp group of a hybrid "
-                "mesh) is ROADMAP.md Queue 1 item 11")
-        if self.zero:
+            raise ValueError(_PROCESS_GROUP_REFUSAL.format("overlap"))
+        if self._grouped is not None:
+            buckets = self._grouped.buckets
+            start = self._grouped.start_fn(self)
+        elif self.zero:
             buckets = self.plan.buckets
             start = self._start_scatter
         else:
@@ -585,10 +712,12 @@ class DistributedOptimizer:
             self.wire_dtype, None, async_op=True)
 
     def _start_scatter(self, b: int, members, prescale):
+        groups = self._zero.groups
         return _scatter_bucket(
             _fuse_bucket(members, self.plan, b), self.plan, b, self.average,
             _fold(prescale, _prescale_of(self.accum_steps)),
-            self.wire_dtype, None, async_op=True)
+            self.wire_dtype, groups.scatter, async_op=True,
+            extra_group=groups.extra[b])
 
     def _collect(self):
         """``(flat results in plan order, the buckets)`` of an armed
@@ -610,9 +739,11 @@ class DistributedOptimizer:
         self.grad_order_source = "flatten" if order is None else "probed"
         if order is None:
             return
-        if self.zero:
-            self._overlap.set_schedule(self.plan.buckets,
-                                       zero_emit_order(self.plan, order))
+        if self.zero or self._grouped is not None:
+            # Membership is the plan's: only the emission order follows
+            # the landing order.
+            buckets = self._overlap.buckets
+            self._overlap.set_schedule(buckets, emit_order(buckets, order))
         else:
             buckets = plan_schedule(self._params, order,
                                     self.fusion_threshold).buckets
@@ -647,20 +778,22 @@ class DistributedOptimizer:
         """The ZeRO plane's reduce-scatter: this rank's reduced shard of
         every bucket, and its rank-local all-finite flag (or None)."""
         got = self._collect()
+        groups = self._zero.groups
         if got is None:
-            emit = zero_emit_order(self.plan, self.grad_order) \
+            emit = emit_order(self.plan.buckets, self.grad_order) \
                 if self.overlap else None
             out = fused_reduce_scatter(
                 [self._grad_of(p) for p in self._params], self.plan,
                 average=self.average,
                 prescale=_prescale_of(self.accum_steps),
                 return_finite=return_finite, wire_dtype=self.wire_dtype,
-                emit_order=emit)
+                emit_order=emit, groups=groups)
             return out if return_finite else (out, None)
         shards, _ = got
         if not return_finite:
             return shards, None
-        return shards, _all_finite(shards, shards[0].device)
+        return shards, fold_finite(_all_finite(shards, shards[0].device),
+                                   groups.fold)
 
     @runtime.maps_peer_failures
     def synchronize(self, return_finite: bool = False):
@@ -672,11 +805,12 @@ class DistributedOptimizer:
         if not self.zero:
             return self._exchange(return_finite)
         shards, local = self._scatter(return_finite)
-        out = fused_allgather_params(shards, self.plan, and_finite=local)
+        out = fused_allgather_params(shards, self.plan, and_finite=local,
+                                     group=self._zero.groups.scatter)
         grads, finite = out if return_finite else (out, None)
         with torch.no_grad():
             for p, g in zip(self._params, grads):
-                p.grad = g.clone()
+                p.grad = g.reshape(p.shape).clone()
         return finite
 
     @runtime.maps_peer_failures
@@ -763,25 +897,54 @@ class _GroupedPlan:
         if partial and mesh.subset_size(reduce_set) > 1:
             self.fold_group = mesh.group(reduce_set)
 
+    def start(self, opt, b: int, members, prescale=None):
+        """Start bucket ``b``'s sum over its group (asynchronously; the
+        wire format runs synchronously) with its ``1/denom``, the
+        optimizer's ``1/accum_steps`` and ``prescale`` folded into one
+        prescale. A bucket that sums over no axis is scaled in place of
+        its collective."""
+        group = self.groups[b]
+        denom = self.syncs[self.buckets[b][0]].denom
+        scale = _fold(1.0 / denom if denom > 1 else None,
+                      _prescale_of(opt.accum_steps), prescale)
+        if group is None:
+            flat = _prescale_array(_fuse([m.detach() for m in members]),
+                                   scale)
+            return _Handle(None, lambda: flat)
+        return _reduce_bucket(members, Op.SUM, scale, opt.wire_dtype, group,
+                              async_op=True)
+
+    def start_fn(self, opt):
+        """The overlapped exchange's ``start`` for this plan."""
+        return lambda b, members, prescale: self.start(opt, b, members,
+                                                       prescale)
+
     def exchange(self, opt, return_finite: bool):
         """Sum each bucket over its group with its ``1/denom`` (and the
         optimizer's ``1/accum_steps``) prescaled in; the reduced
-        gradients land in ``.grad``. Returns the world-wide all-finite
-        flag (folded with one scalar MIN when a bucket summed over less
-        than the reduce set), or None."""
-        acc = _prescale_of(opt.accum_steps)
+        gradients land in ``.grad``. An armed overlapped backward has
+        started the buckets already; with overlap and no armed backward
+        every bucket is started, in the schedule's order, before the
+        first is waited on. Returns the world-wide all-finite flag
+        (folded with one scalar MIN when a bucket summed over less than
+        the reduce set), or None."""
         params = opt._params
-        flats = []
-        for b, group in zip(self.buckets, self.groups):
-            denom = self.syncs[b[0]].denom
-            scale = _fold(1.0 / denom if denom > 1 else None, acc)
-            members = [opt._grad_of(params[j]) for j in b]
-            if group is None:
-                flat = _fuse([m.detach() for m in members])
-                flats.append(_prescale_array(flat, scale))
-                continue
-            flats.append(_reduce_bucket(members, Op.SUM, scale,
-                                        opt.wire_dtype, group).wait())
+        got = opt._collect()
+        if got is not None:
+            flats = got[0]
+        else:
+            order = emit_order(self.buckets, opt.grad_order) \
+                if opt.overlap else range(len(self.buckets))
+            flats = [None] * len(self.buckets)
+            handles = {}
+            for b in order:
+                handles[b] = self.start(
+                    opt, b, [opt._grad_of(params[j]) for j in self.buckets[b]])
+                if not opt.overlap:
+                    flats[b] = handles.pop(b).wait()
+            for b in order:
+                if b in handles:
+                    flats[b] = handles.pop(b).wait()
         reduced = _unfuse_buckets(flats, self.buckets, params)
         with torch.no_grad():
             # Into the gradients' own storage, as the world plane does:
@@ -797,11 +960,7 @@ class _GroupedPlan:
         del flats, reduced
         if finite is None:
             return None
-        if self.fold_group is not None:
-            f = finite.to(torch.int32).reshape(1)
-            dist.all_reduce(f, op=dist.ReduceOp.MIN, group=self.fold_group)
-            finite = f[0] > 0
-        return finite
+        return fold_finite(finite, self.fold_group)
 
 
 def partition_optimizer(optimizer: torch.optim.Optimizer,

@@ -38,20 +38,27 @@ at the same world size only (the JAX package's rule for its env-world
 commits).
 
 **Across a mesh.** A model on a mesh (the transformer's tp/ep blocks,
-:mod:`.transformer`) is saved in the canonical form: every rank's blocks
-of each parameter, and of each parameter-shaped optimizer state tensor
-of the spec-grouped plane, are all-gathered into the global leaf (a
-collective every rank enters), so the bytes are those of the world-1
-model and restore onto another mesh shape, each rank slicing its block
-back out. The manifest records the writing mesh's axis names
-(``mesh_axes``); a restore onto a mesh with other axis names raises,
-naming them (sizes may change). A rank's own commit
-(:func:`local_tree`) keeps its blocks.
+:mod:`.transformer`, or the pipelined stages' parameter dict,
+:mod:`.pp_transformer`) is saved in the canonical form: every rank's
+blocks of each parameter, and of each parameter-shaped optimizer state
+tensor of the spec-grouped plane, are all-gathered into the global leaf
+(a collective every rank enters) — a stage's slice of a ``[S, lps,
+...]`` stack joins the other stages' —, so the bytes are those of the
+world-1 model (the JAX ``init_pp_params`` layout for the stages) and
+restore onto another mesh shape, each rank slicing its block back out.
+A hybrid ZeRO state is saved in its 2-D canonical form
+(:func:`~horovod_tpu_torch.optimizer.zero_to_canonical`: each bucket's
+global leaves), and the manifest records its layout (``zero_mesh``: the
+shard count, the scatter axis and the non-scatter sizes); a restore
+onto another (dp, tp) split logs the re-shard. The manifest records the
+writing mesh's axis names (``mesh_axes``); a restore onto a mesh with
+other axis names raises, naming them (sizes may change, but not the
+pipelined stages' count: a restore onto another pp size raises, giving
+both). A rank's own commit (:func:`local_tree`) keeps its blocks.
 
-The hybrid meshes' 2-D canonical ZeRO form (a ``ZeroPlan`` with a
-non-scatter axis), the pipelined stages' parameter dicts and
-``restore_for_inference(mesh=)`` are ``ROADMAP.md`` Queue 1 item 11;
-int8 serving weights and LoRA adapters are item 12.
+``restore_for_inference(mesh=, spec_fn=)`` returns each leaf as this
+rank's block under ``spec_fn``'s spec on ``mesh``. int8 serving weights
+and LoRA adapters are ``ROADMAP.md`` Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -182,11 +189,38 @@ def _mesh_of(obj):
     return getattr(obj, "mesh", None)
 
 
+class _Stages:
+    """The pipelined stages' parameter dict (``{"embed", "lnf",
+    "stages": {leaf: [lps, ...]}}``, :func:`~.pp_transformer.
+    init_pp_params`) as the checkpoint sees a model: its parameters by
+    dotted name in the JAX leaf order, no buffers, and the mesh its
+    optimizer runs on."""
+
+    def __init__(self, params: Dict, mesh):
+        self.params, self.mesh = params, mesh
+
+    def named_parameters(self):
+        from .pp_transformer import named_leaves
+        return named_leaves(self.params)
+
+    def named_buffers(self):
+        return []
+
+
+def _is_stages(params) -> bool:
+    return isinstance(params, dict) and {"embed", "lnf", "stages"} <= set(
+        params)
+
+
 def _model_specs(model) -> Optional[Dict[str, Any]]:
     """Parameter name -> spec of a model on a mesh (None off a mesh)."""
     mesh = _mesh_of(model)
     if mesh is None:
         return None
+    if isinstance(model, _Stages):
+        from .pp_transformer import named_specs, pp_param_specs
+        return dict(zip((n for n, _ in model.named_parameters()),
+                        named_specs(pp_param_specs(mesh))))
     from .transformer import param_specs, spec_of
     specs = param_specs(model.cfg, mesh)
     return {n: spec_of(specs, n) for n, _ in model.named_parameters()}
@@ -201,14 +235,54 @@ def _opt_specs(optimizer) -> Optional[Dict[int, Any]]:
             zip(optimizer.named_parameters, optimizer.param_specs)}
 
 
+def _stage_slice(spec, ndim: int) -> bool:
+    """Whether a tensor of ``ndim`` dims under ``spec`` is one stage's
+    slice of a stack whose leading dimension is split over pp (the
+    pipelined layout keeps only its own stage, without that dim)."""
+    return bool(spec) and len(spec) == ndim + 1 and spec[0] == "pp"
+
+
 def _global(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     from .mesh import gather_global
-    return gather_global(t, spec, mesh) if t.dim() else t
+    if not t.dim():
+        return t
+    if not _stage_slice(spec, t.dim()):
+        return gather_global(t, spec, mesh)
+    block = gather_global(t, spec[1:], mesh)
+    if mesh.shape["pp"] == 1:
+        return block[None]
+    parts = [torch.empty_like(block) for _ in range(mesh.shape["pp"])]
+    dist.all_gather(parts, block.contiguous(), group=mesh.groups["pp"])
+    return torch.stack(parts)
 
 
-def _local(arr: np.ndarray, spec, mesh) -> np.ndarray:
+def _local(arr: np.ndarray, spec, mesh, ndim: int) -> np.ndarray:
     from .mesh import local_slice
-    return _contiguous(local_slice(arr, spec, mesh)) if arr.ndim else arr
+    if not arr.ndim:
+        return arr
+    if _stage_slice(spec, ndim):
+        _check_stages(arr.shape[0], mesh)
+        arr, spec = arr[mesh.coords["pp"]], spec[1:]
+    return _contiguous(local_slice(arr, spec, mesh))
+
+
+def _check_stages(saved: int, mesh) -> None:
+    if saved != mesh.shape["pp"]:
+        raise ValueError(
+            f"pipeline stage count mismatch: the checkpoint holds the "
+            f"stages of pp={saved}, this mesh has pp={mesh.shape['pp']}; "
+            f"the stages restore onto the same pp size only (dp and tp "
+            f"may change)")
+
+
+def _check_saved_stages(model, saved_params) -> None:
+    """Raise before anything is loaded when a pipelined checkpoint's
+    stage count is not ``model``'s mesh's pp size."""
+    if isinstance(model, _Stages) and isinstance(saved_params, dict):
+        first = next(iter((saved_params.get("stages") or {}).values()),
+                     None)
+        if first is not None:
+            _check_stages(int(np.shape(first)[0]), model.mesh)
 
 
 def _mesh_axes_meta(model) -> Optional[dict]:
@@ -279,13 +353,6 @@ def _hyper_tree(optimizer) -> List[Dict[str, np.ndarray]]:
     return out
 
 
-def _check_plan(plan) -> None:
-    if any(plan.extra_axes or ()) or plan.nonscatter:
-        raise NotImplementedError(
-            "the hybrid meshes' 2-D canonical ZeRO form (a plan with a "
-            "non-scatter axis) is ROADMAP.md Queue 1 item 11")
-
-
 def _zero_mesh_meta(optimizer) -> Optional[dict]:
     """The ZeRO plan's layout (diagnostic manifest metadata), or None."""
     plan = getattr(optimizer, "plan", None)
@@ -310,7 +377,6 @@ def opt_tree(optimizer, canonical: bool = True) -> Dict[str, Any]:
     from ..optimizer import zero_to_canonical
     hyper = _hyper_tree(optimizer)
     if getattr(optimizer, "zero", False):
-        _check_plan(optimizer.plan)
         canon = zero_to_canonical(optimizer.zero_state())
         return {"hyperparams": hyper,
                 "zero": [{k: _Live(v, owned=True) for k, v in st.items()
@@ -331,13 +397,27 @@ def opt_tree(optimizer, canonical: bool = True) -> Dict[str, Any]:
             "state": {k: module_tree(v) for k, v in per_key.items()}}
 
 
-def _model_of(params):
+def _model_of(params, optimizer=None):
+    """The model a checkpoint saves: an ``nn.Module``, or the pipelined
+    stages' parameter dict on the mesh of ``optimizer`` (its
+    ``DistributedOptimizer``)."""
     if isinstance(params, torch.nn.Module):
         return params
-    raise NotImplementedError(
-        "checkpoints hold a model's parameters (an nn.Module); the "
-        "pipelined stages' parameter dicts need the hybrid canonical form "
-        "of ROADMAP.md Queue 1 item 11")
+    if _is_stages(params):
+        return _Stages(params, _mesh_of(optimizer))
+    raise TypeError(
+        "checkpoints hold a model's parameters: an nn.Module, or the "
+        "pipelined stages' parameter dict ({'embed', 'lnf', 'stages'}) "
+        "with its DistributedOptimizer")
+
+
+def state_model(state):
+    """The model of a training state (``TrainState.model``, or a
+    ``PPTrainState``'s stages with its optimizer's mesh)."""
+    model = getattr(state, "model", None)
+    if model is None:
+        model = getattr(state, "params", None)
+    return _model_of(model, getattr(state, "optimizer", None))
 
 
 def state_tree(state) -> Fields:
@@ -345,7 +425,7 @@ def state_tree(state) -> Fields:
     canonical tree the JAX package saves for its ``TrainState``: ``.step``
     (0-d int32), ``.params``, ``.opt_state``, ``.batch_stats`` (None when
     the model has no buffers)."""
-    model = _model_of(getattr(state, "model", None))
+    model = state_model(state)
     return Fields(
         step=np.asarray(int(state.step), np.int32),
         params=params_tree(model),
@@ -690,7 +770,8 @@ def load_module_(named, saved: Any, what: str, specs=None,
         for key, (live, arr) in zip(_leaves_by_path(template),
                                     _match(template, saved, what)):
             if spec_at is not None:
-                arr = _local(np.asarray(arr), spec_at[key], mesh)
+                arr = _local(np.asarray(arr), spec_at[key], mesh,
+                             live.tensor.dim())
             live.tensor.copy_(_to_tensor(arr, live.perm, live.tensor))
 
 
@@ -753,7 +834,7 @@ def load_opt_(optimizer, saved: Dict[str, Any], broadcast: bool = False
             if arr.ndim:
                 if specs is not None:
                     arr = _local(np.asarray(arr), specs[id(p)],
-                                 optimizer.mesh)
+                                 optimizer.mesh, p.dim())
                 t = _to_tensor(arr, live.perm, p)
             else:
                 t = torch.from_numpy(np.array(arr)).to(
@@ -765,7 +846,8 @@ def load_state_(state, tree: Any) -> None:
     """Load a saved ``TrainState`` tree into ``state`` in place: params,
     BatchNorm buffers, the optimizer's state and hyperparameters, the
     step."""
-    model = _model_of(state.model)
+    model = state_model(state)
+    _check_saved_stages(model, tree["params"])
     load_module_(model.named_parameters(), tree["params"], "params",
                  _model_specs(model), _mesh_of(model))
     load_module_(model.named_buffers(), tree.get("batch_stats"),
@@ -780,15 +862,18 @@ def load_state_(state, tree: Any) -> None:
 @runtime.maps_peer_failures
 def save_sharded(directory: str, step: int, params: Any, opt_state: Any,
                  max_to_keep: Optional[int] = None) -> str:
-    """Write ``{"params", "opt_state"}`` at ``step``: ``params`` a model,
-    ``opt_state`` its ``DistributedOptimizer``. Every rank must call it
-    (ZeRO state is gathered to its canonical form, a collective); rank 0
-    writes the bytes, the manifest and the retention, and every rank
-    returns once the checkpoint is durable. The manifest records the
-    writing plan's layout (``zero_mesh``)."""
+    """Write ``{"params", "opt_state"}`` at ``step``: ``params`` a model
+    (or the pipelined stages' parameter dict), ``opt_state`` its
+    ``DistributedOptimizer``. Every rank must call it (a model on a mesh
+    is gathered to its global leaves and ZeRO state to its canonical
+    form, both collectives); rank 0 writes the bytes, the manifest and
+    the retention, and every rank returns once the checkpoint is
+    durable. The manifest records the writing plan's layout
+    (``zero_mesh``: on a hybrid mesh its scatter axis and non-scatter
+    sizes)."""
     from ..trainer import apply_retention
     path = _ckpt_path(directory, step)
-    model = _model_of(params)
+    model = _model_of(params, opt_state)
     live = {"params": params_tree(model), "opt_state": opt_tree(opt_state)}
     meta = _mesh_axes_meta(model) or {}
     zero_mesh = _zero_mesh_meta(opt_state)
@@ -804,6 +889,22 @@ def save_sharded(directory: str, step: int, params: Any, opt_state: Any,
     if runtime.is_initialized() and runtime.size() > 1:
         dist.barrier()
     return path
+
+
+def _log_reshard(manifest: Optional[dict], optimizer) -> None:
+    """Say on stderr what a ZeRO restore re-shards across: another world
+    size, and (2-D canonical form) another split of the mesh."""
+    if not manifest or not runtime.is_initialized():
+        return
+    saved_world = manifest.get("world_size")
+    if saved_world is not None and saved_world != runtime.size():
+        print(f"[ckpt] re-sharding ZeRO optimizer state: checkpoint "
+              f"written by a world of {saved_world}, restoring into "
+              f"{runtime.size()}", file=sys.stderr, flush=True)
+    saved, here = manifest.get("zero_mesh"), _zero_mesh_meta(optimizer)
+    if saved is not None and here is not None and saved != here:
+        print(f"[ckpt] re-sharding ZeRO optimizer state across mesh "
+              f"reshape: {saved} -> {here}", file=sys.stderr, flush=True)
 
 
 def _resolve_step(directory: str, step: Optional[int]) -> int:
@@ -828,20 +929,18 @@ def restore_sharded(directory: str, params_template: Any,
     (broadcast), so every rank resumes the same step. ``verify`` checks
     the manifest before anything is loaded. ZeRO state is re-sharded onto
     this world, which may differ from the writing one, provided the model
-    and ``HOROVOD_FUSION_THRESHOLD`` (the bucket plan) are unchanged."""
+    and ``HOROVOD_FUSION_THRESHOLD`` (the bucket plan) are unchanged; a
+    hybrid state (2-D canonical form) restores onto another (dp, tp)
+    split of the same axis names. The pipelined stages restore onto the
+    same pp size only (another raises, giving both)."""
     step = _resolve_step(directory, step)
     path = _ckpt_path(directory, step)
-    model = _model_of(params_template)
+    model = _model_of(params_template, opt_state_template)
     check_mesh_axes(path, model)
     tree = read_checkpoint(path, verify=verify)
+    _check_saved_stages(model, tree["params"])
     if getattr(opt_state_template, "zero", False):
-        manifest = read_manifest(path)
-        saved_world = manifest.get("world_size") if manifest else None
-        if (runtime.is_initialized() and saved_world is not None
-                and saved_world != runtime.size()):
-            print(f"[ckpt] re-sharding ZeRO optimizer state: checkpoint "
-                  f"written by a world of {saved_world}, restoring into "
-                  f"{runtime.size()}", file=sys.stderr, flush=True)
+        _log_reshard(read_manifest(path), opt_state_template)
     load_module_(model.named_parameters(), tree["params"], "params",
                  _model_specs(model), _mesh_of(model))
     load_opt_(opt_state_template, tree["opt_state"],
@@ -858,10 +957,9 @@ def local_tree(params: Any, opt_state: Any) -> Dict[str, Any]:
     model has buffers. A ZeRO optimizer's state is this rank's own shard
     (``"zero_shard"``: per bucket ``{key: shard}``), not the canonical
     form."""
-    model = _model_of(params)
+    model = _model_of(params, opt_state)
     opt = None
     if opt_state is not None and getattr(opt_state, "zero", False):
-        _check_plan(opt_state.plan)
         opt = {"hyperparams": _hyper_tree(opt_state),
                "zero_shard": [{k: _Live(v) for k, v in st.items()
                                if torch.is_tensor(v)}
@@ -878,12 +976,19 @@ def local_tree(params: Any, opt_state: Any) -> Dict[str, Any]:
 
 def local_meta(opt_state: Any) -> Optional[dict]:
     """Manifest metadata of a rank's commit: the ZeRO plan's layout and
-    the rank whose shard it holds (None without ZeRO)."""
+    the world rank whose shard it holds (None without ZeRO). On a
+    hybrid mesh a rank's shard is its dp row of its non-scatter block,
+    so the world rank names it only on the same mesh: the commit also
+    records the rank's mesh coordinates (``zero_coords``)."""
     zero_mesh = _zero_mesh_meta(opt_state)
     if zero_mesh is None:
         return None
-    return {"zero_mesh": zero_mesh,
+    meta = {"zero_mesh": zero_mesh,
             "zero_rank": runtime.rank() if runtime.is_initialized() else 0}
+    mesh = getattr(opt_state.zero_state(), "mesh", None)
+    if mesh is not None:
+        meta["zero_coords"] = {a: int(c) for a, c in mesh.coords.items()}
+    return meta
 
 
 def save_local(directory: str, step: int, host: Any,
@@ -911,7 +1016,7 @@ def restore_local(directory: str, step: int, params: Any, opt_state: Any,
     from ..optimizer import ZeroShardedState
     path = _ckpt_path(directory, step)
     tree = read_checkpoint(path, verify=verify)
-    model = _model_of(params)
+    model = _model_of(params, opt_state)
     load_module_(model.named_parameters(), tree["params"], "params")
     load_module_(model.named_buffers(), tree.get("batch_stats"),
                  "batch_stats")
@@ -930,6 +1035,12 @@ def restore_local(directory: str, step: int, params: Any, opt_state: Any,
     here = (runtime.size(), runtime.rank()) if runtime.is_initialized() \
         else (1, 0)
     there = (manifest.get("world_size", 1), manifest.get("zero_rank", 0))
+    saved_mesh = manifest.get("zero_mesh")
+    if saved_mesh is not None and saved_mesh != _zero_mesh_meta(opt_state):
+        raise ValueError(
+            f"{path} holds a ZeRO shard of the layout {saved_mesh}; this "
+            f"optimizer's is {_zero_mesh_meta(opt_state)}: a rank's own "
+            f"commit restores on the same mesh only")
     if there != here:
         raise ValueError(
             f"{path} holds the ZeRO shard of rank {there[1]} of a world of "
@@ -985,8 +1096,16 @@ def restore_for_inference(directory: str, step: Optional[int] = None, *,
     a manifest is present the read leaves are CRC-checked against it as
     a subset.
 
-    ``dtype="int8"`` is ``ROADMAP.md`` Queue 1 item 12; ``mesh=``/
-    ``spec_fn=`` (sharded serving placement) item 11."""
+    With ``mesh`` set, every leaf comes back as this rank's block of it
+    under ``spec_fn(path, leaf)``'s spec on ``mesh`` (per dimension the
+    axis it is split over, or None; ``path`` is the leaf's key tuple,
+    e.g. ``("params", "layers", 0, "wqkv")``): the port's counterpart of
+    the JAX function's global arrays placed by ``named_sharding_tree``.
+    A spec of None, and every leaf without ``spec_fn``, is fully
+    replicated; without ``mesh`` ``spec_fn`` is unused, as in JAX.
+    Verification runs first, on the stored leaves.
+
+    ``dtype="int8"`` is ``ROADMAP.md`` Queue 1 item 12."""
     if dtype == "int8":
         raise NotImplementedError(
             "restore_for_inference(dtype='int8') — int8 serving weights "
@@ -995,11 +1114,6 @@ def restore_for_inference(directory: str, step: Optional[int] = None, *,
         raise ValueError(
             f"restore_for_inference dtype={dtype!r} is not supported; "
             f"supported: {INFERENCE_DTYPES} (None = as stored)")
-    if mesh is not None or spec_fn is not None:
-        raise NotImplementedError(
-            "restore_for_inference(mesh=, spec_fn=) — sharded serving "
-            "placement comes with the hybrid meshes, ROADMAP.md Queue 1 "
-            "item 11")
     from ..trainer import latest_checkpoint_step
     if step is None:
         step = latest_checkpoint_step(directory)
@@ -1021,7 +1135,25 @@ def restore_for_inference(directory: str, step: Optional[int] = None, *,
     if manifest is not None:
         _verify_leaves(path, manifest,
                        (Fields if attrs else dict)(variables), subset=True)
+    if mesh is not None:
+        variables = {k: _place(v, mesh, spec_fn, (k,))
+                     for k, v in variables.items()}
     return _inference_cast(variables, dtype)
+
+
+def _place(tree: Any, mesh, spec_fn, prefix: Tuple) -> Any:
+    """Each leaf of a loaded serving subtree as this rank's block under
+    ``spec_fn(key tuple, leaf)`` on ``mesh`` (replicated for None)."""
+    from .mesh import local_slice
+
+    def one(kp, leaf):
+        path = prefix + tuple(k for _, k in kp)
+        spec = spec_fn(path, leaf) if spec_fn is not None else None
+        arr = np.asarray(leaf)
+        if spec is None or not arr.ndim:
+            return arr
+        return _contiguous(local_slice(arr, spec, mesh))
+    return _map(one, tree, with_path=True)
 
 
 def save_adapter(*args, **kwargs):

@@ -29,7 +29,12 @@ Gradient sync is the spec-grouped all-reduce plane
 stage owning its weights). Without tp every leaf sums over dp, one
 group; with tp the replicated head and norm leaves sum over ``(dp,
 tp)`` and the tp-sharded matrices over dp with the tp correction in
-their prescale — two groups, bucketed in the JAX leaf order.
+their prescale — two groups, bucketed in the JAX leaf order. Under
+``zero`` it is the hybrid ZeRO plane with nothing skipped, as JAX
+builds it: pp rides as a real shard axis of the state, so on (dp, pp,
+tp) there are three groups — the replicated head (reduced over dp, then
+summed over (pp, tp) on its shard), the pp-owned norms and the pp×tp
+matrices —, one reduce-scatter and one all-gather over dp each.
 """
 
 from __future__ import annotations
@@ -112,6 +117,18 @@ def pp_param_specs(mesh) -> Dict:
                        "wqkv": column}}
 
 
+def pp_global_shapes(cfg: TransformerConfig, n_stages: int) -> list:
+    """The global shapes of the stacked layout's leaves (JAX
+    ``init_pp_params``: the stages ``[n_stages, lps, ...]``), in
+    :func:`named_leaves` order: what the ZeRO plan is made on, whatever
+    the tp split."""
+    lps, d, f = cfg.n_layers // n_stages, cfg.d_model, cfg.d_ff
+    stages = {"ln1": (lps, d), "ln2": (lps, d), "w1": (lps, d, f),
+              "w2": (lps, f, d), "wo": (lps, d, d), "wqkv": (lps, d, 3 * d)}
+    return [(cfg.vocab, d), (d,)] + [(n_stages,) + stages[k]
+                                     for k in _STAGE_KEYS]
+
+
 def named_specs(specs: Dict) -> list:
     """The specs of :func:`pp_param_specs` in :func:`named_leaves`
     order."""
@@ -175,21 +192,24 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
     and leaves params and optimizer state bit-unchanged. Accumulation is native: the microbatches are the
     accumulation.
 
-    ``zero`` and ``overlap`` (ZeRO over dp with pp as a non-scatter
-    axis, and overlapped emission on this plane) are ``ROADMAP.md``
-    Queue 1 item 11: setting either raises ``TypeError``, and
-    ``HVD_OVERLAP`` does not arm this step."""
-    for name, value in (("zero", zero), ("overlap", overlap)):
-        if value:
-            raise TypeError(
-                f"make_pp_transformer_train_step({name}=True): {name} on "
-                f"the pipelined step (the hybrid plan with pp as a "
-                f"non-scatter axis) is ROADMAP.md Queue 1 item 11, not "
-                f"ported yet")
+    ``zero`` is ZeRO-1 over dp with pp and tp as non-scatter axes (the
+    JAX step's ``skip_axes=()`` plan over the stacked layout's global
+    shapes, :func:`pp_global_shapes`): the head leaves take the full
+    (dp, pp, tp) reduce — the step's pp sum has already made them the
+    same on every stage, and the plan's ``1/(dp·pp·tp)`` gives their
+    pp-skip mean —, and the guard's verdict folds over the plan's
+    non-scatter axes (one scalar MIN) instead of over pp. ``overlap``
+    (default ``HVD_OVERLAP``): the gradients come out of the 1F1B
+    schedule whole, after its last backward tick, so every bucket is
+    started in plan order before the first is waited on — a pure
+    reorder of the plain step, bitwise the same (``grad_order_source``
+    reads ``"plan"``)."""
     check_dense(cfg, "make_pp_transformer_train_step")
     dev = resolve_device(device)
     guard = (_config.guard_nonfinite() if guard_nonfinite is None
              else bool(guard_nonfinite))
+    if overlap is None:
+        overlap = _config.overlap_enabled()
     S = mesh.shape["pp"]
     stage = mesh.coords["pp"]
     M = n_microbatches
@@ -235,10 +255,17 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
             params = init_pp_params(gen, cfg, S, stage, mesh=mesh,
                                     device=dev)
         named = named_leaves(params)
+        zero_kw = dict(skip_axes=("pp",))
+        if zero:
+            zero_kw = dict(zero=True, skip_axes=(),
+                           global_shapes=pp_global_shapes(cfg, S))
         opt = DistributedOptimizer(
             optimizer([p for _, p in named]), named_parameters=named,
             fusion_threshold=fusion_threshold, wire_dtype=wire_dtype,
-            overlap=False, mesh=mesh, param_specs=specs, skip_axes=("pp",))
+            overlap=bool(overlap), mesh=mesh, param_specs=specs,
+            **zero_kw)
+        if overlap:
+            opt.grad_order_source = "plan"
         return PPTrainState(params=params, optimizer=opt)
 
     def step(state: PPTrainState, tokens: torch.Tensor,
@@ -273,7 +300,12 @@ def make_pp_transformer_train_step(cfg: TransformerConfig, mesh,
                  **{f"stages.{k}": sg[k] for k in _STAGE_KEYS}}
         for name, p in named_leaves(params):
             p.grad = grads[name]
-        if guard:
+        if guard and zero:
+            # The verdict folds over the plan's non-scatter axes and rides
+            # the dp all-gather; a skip puts the shards' state back.
+            finite, _ = state.optimizer.guarded_step()
+            loss = torch.where(finite, loss, torch.zeros_like(loss))
+        elif guard:
             finite = state.optimizer.synchronize(return_finite=True)
             if S > 1:   # the plan never sums over pp: fold the verdict
                 f = finite.to(torch.int32).reshape(1)

@@ -616,19 +616,23 @@ def make_parallel_train_step(cfg: TransformerConfig,
     the whole mesh), and ``step`` takes this rank's ``[B/(dp·ep),
     T/sp]`` block (:func:`~.mesh.batch_block`). The loss is
     ``mean(nll) + aux_weight · aux`` with the MoE load-balance loss
-    ``aux`` (``cfg.n_experts`` must equal the ep size). ``zero`` with an
-    axis of size above 1 besides dp and ``overlap`` on a mesh are
-    ``ROADMAP.md`` Queue 1 item 11 and raise.
+    ``aux`` (``cfg.n_experts`` must equal the ep size). ``zero`` on a
+    mesh is the hybrid ZeRO plane over the model's
+    :func:`named_param_specs` with nothing skipped, as the JAX step
+    builds it: the state shards over dp, each bucket is reduce-scattered
+    over dp, a replicated bucket is summed over its other axes on the
+    shard. ``overlap`` on a mesh starts each bucket of either plane on
+    its own group as the backward lands it, in the order rank 0 probed.
 
     The knobs run on the core step (:func:`~horovod_tpu_torch.training.
     make_train_step`): ``accum_steps`` microbatches with one exchange,
     ``guard_nonfinite`` (default ``HVD_GUARD_NONFINITE``; on a skipped
     step the loss is 0 and the state bit-unchanged on every rank),
     ``wire_dtype`` (``"bf16"``/``"fp8"``; default ``HVD_WIRE_DTYPE``),
-    ``zero`` (ZeRO-1 over the spec-grouped plan of the dp mesh, as the
-    JAX step builds it; off by default, as there) and ``overlap``
-    (default ``HVD_OVERLAP``; the tied embedding is one leaf, so its hook
-    fires once). ``cfg.remat`` and ``cfg.loss_chunk`` act in the forward
+    ``zero`` (ZeRO-1 over the spec-grouped plan of the dp mesh, or of
+    ``mesh``, as the JAX step builds it; off by default, as there) and
+    ``overlap`` (default ``HVD_OVERLAP``; the tied embedding is one
+    leaf, so its hook fires once). ``cfg.remat`` and ``cfg.loss_chunk`` act in the forward
     and the loss."""
     check_mesh(cfg, mesh)
     from .. import convert, training

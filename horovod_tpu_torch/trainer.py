@@ -443,7 +443,8 @@ def save_checkpoint(directory: str, state: Any,
                     writer: Optional[AsyncCheckpointer] = None
                     ) -> Optional[str]:
     """Write a checkpoint of ``state`` (a ``TrainState``: ``model``,
-    ``optimizer``, ``step``) — rank 0 only, like the reference. Returns
+    ``optimizer``, ``step``; or the pipelined step's ``PPTrainState``) —
+    rank 0 only, like the reference. Returns
     the path written, or None on other ranks. A ZeRO optimizer's state is
     gathered to its canonical form first, a collective every rank enters.
 
@@ -455,10 +456,10 @@ def save_checkpoint(directory: str, state: Any,
     saved in its canonical (world-1) form, gathered from every rank's
     blocks (a collective), with the mesh's axis names in the manifest."""
     from .parallel.checkpoint import (_mesh_axes_meta, snapshot_to_host,
-                                      state_tree, write_manifest,
-                                      write_tree)
+                                      state_model, state_tree,
+                                      write_manifest, write_tree)
     tree = state_tree(state)
-    meta = _mesh_axes_meta(state.model)
+    meta = _mesh_axes_meta(state_model(state))
     if runtime.is_initialized() and runtime.rank() != 0:
         return None
     step = int(state.step) if step is None else int(step)
@@ -539,15 +540,16 @@ def restore_checkpoint(directory: str, state: Any,
     writing mesh's axis names. Returns ``state``."""
     from .optimizer import broadcast_global_variables
     from .parallel.checkpoint import (check_mesh_axes, load_state_,
-                                      read_checkpoint)
+                                      read_checkpoint, state_model)
     if step is None:
         step = latest_checkpoint_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(os.path.abspath(directory), f"ckpt_{step}")
-    check_mesh_axes(path, state.model)
+    model = state_model(state)
+    check_mesh_axes(path, model)
     load_state_(state, read_checkpoint(path, verify=verify))
-    on_mesh = getattr(state.model, "mesh", None) is not None
+    on_mesh = getattr(model, "mesh", None) is not None
     if runtime.is_initialized() and runtime.size() > 1 and not on_mesh:
         broadcast_global_variables(state, root_rank=0)
     return state

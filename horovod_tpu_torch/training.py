@@ -6,7 +6,8 @@ Port of the plain plane of the JAX package's ``training.py``:
 ``_value_and_grad`` hook, in-step accumulation (``_acc_dtype`` :74,
 ``_split_microbatches`` :83, ``_accumulate_grads`` :100,
 ``_check_accum_batch`` :185), ``remat``, the bad-step guard, ZeRO-1 and
-backward-overlapped bucket collectives; no hybrid mesh) and
+backward-overlapped bucket collectives, on the world or, through a
+``DistributedOptimizer(mesh=, param_specs=)``, on a hybrid mesh) and
 ``make_eval_step`` (:1264). On a mesh (the transformer family's
 dp × tp × sp × ep step) each rank feeds its block of the global batch
 (:func:`shard_for_mesh`).

@@ -313,11 +313,15 @@ def test_scaling_runs_gloo_worlds_through_the_launcher():
 
 
 @pytest.mark.parametrize("args,needle", [
-    (("--pp", "2", "--zero"), "item 11"),
-    (("--pp", "2", "--overlap"), "item 11"),
-    (("--tp", "2", "--zero"), "item 11"),
+    (("--model", "resnet101"), "item 14"),
+    (("--model", "inception3"), "item 14"),
+    (("--model", "vgg16", "--zero"), "item 14"),
 ])
 def test_refusals_exit_nonzero_naming_the_roadmap_item(args, needle):
+    """What stays refused exits non-zero naming its ``ROADMAP.md`` item
+    and prints no line (``--zero``/``--overlap`` with ``--pp`` or
+    ``--tp`` > 1 run now: :func:`test_zero_and_overlap_on_the_mesh_
+    steps`)."""
     proc = _bench(*args, "--device", "cpu")
     assert proc.returncode != 0
     assert needle in proc.stderr and "ROADMAP.md" in proc.stderr, \
@@ -369,6 +373,29 @@ def test_tp_and_mesh_run_in_a_launched_world(np_, args, mesh):
     assert (line["mesh"], line["world"], line["tp"]) == (mesh, np_, 2)
     assert line["pp"] == (2 if "pp" in mesh else 1)
     assert line["value"] > 0
+
+
+@pytest.mark.parametrize("args,mesh,order", [
+    (("--pp", "2", "--zero", "--overlap"), "dp1,pp2", "plan"),
+    (("--tp", "2", "--zero"), "dp1,tp2", None),
+    (("--tp", "2", "--overlap"), "dp1,tp2", "probed"),
+])
+def test_zero_and_overlap_on_the_mesh_steps(args, mesh, order):
+    """``--zero`` and ``--overlap`` run with ``--pp`` and with ``--tp`` >
+    1 in a launched gloo world of 2 (the hybrid ZeRO plane, overlap on
+    either plane); the line records the knobs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.launcher", "-np", "2",
+         "--cpu", sys.executable, "-m", "horovod_tpu_torch.bench",
+         "--device", "cpu", "--model", "transformer_lm", *args],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (line,) = _lines(proc)
+    assert (line["mesh"], line["world"]) == (mesh, 2)
+    assert line["zero"] == ("--zero" in args)
+    assert line["overlap"] == ("--overlap" in args)
+    assert line["overlap_order"] == order and line["value"] > 0
 
 
 def test_no_gpu_and_no_cpu_flag_exits_nonzero():

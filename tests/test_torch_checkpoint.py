@@ -23,6 +23,9 @@ and ``trainer.save_checkpoint``/``restore_checkpoint``/``apply_retention``/
   JAX's own function fails here, see ``ROADMAP.md`` Queue 3), the
   sharded flavour into the engine (greedy tokens equal the live model's),
   and the refusals naming their ``ROADMAP.md`` items.
+* The hybrid ZeRO state of a one-rank dp×tp mesh in its 2-D canonical
+  form, round trip bitwise (the multi-rank cases are
+  ``tests/test_torch_mesh_zero_ckpt.py``).
 
 Every comparison here is exact (bytes, CRCs, strings): a checkpoint
 moves bits, it computes nothing.
@@ -326,14 +329,40 @@ def test_zero_bytes_equal_jax_canonicalize(zero_worlds):
 
 
 def test_hybrid_zero_plan_refused(world1):
-    import dataclasses
-    state = create_train_state(torch_dist_worker._MLP(),
-                               torch_dist_worker.OPTS["adamw"], zero=True,
-                               fusion_threshold=300, device="cpu")
-    opt = state.optimizer
-    opt._zero.plan = dataclasses.replace(opt.plan, nonscatter=(("tp", 2),))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tckpt.opt_tree(opt)
+    """A ZeRO plan with a non-scatter axis is no longer refused: on a
+    one-rank dp×tp mesh its state goes to the 2-D canonical form (the
+    global leaves of each bucket), the manifest metadata names the
+    layout, and ``zero_from_canonical`` gives the shards back bit for
+    bit."""
+    from horovod_tpu_torch.optimizer import (DistributedOptimizer,
+                                             zero_from_canonical)
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+    model = torch_dist_worker._MLP()
+    named = list(model.named_parameters())
+    specs = [(None, "tp") if p.dim() == 2 else () for _, p in named]
+    opt = DistributedOptimizer(
+        torch_dist_worker.OPTS["adamw"]([p for _, p in named]),
+        named_parameters=named, zero=True, fusion_threshold=300,
+        mesh=make_mesh({"dp": 1, "tp": 1}), param_specs=specs)
+    model(torch.ones(4, 8)).sum().backward()
+    opt.step()
+    assert opt.plan.nonscatter == (("tp", 1),)
+    tree = tckpt.opt_tree(opt)
+    sizes = opt.plan.canonical_sizes()
+    for st, n in zip(tree["zero"], sizes):
+        for leaf in st.values():
+            if leaf.tensor.dim():
+                assert leaf.tensor.numel() == n
+    assert tckpt._zero_mesh_meta(opt) == {
+        "nshards": 1, "scatter_axis": "dp", "nonscatter": {"tp": 1}}
+    live = opt.zero_state()
+    canon = type(live)(inner=[{k: v.tensor for k, v in st.items()}
+                              for st in tree["zero"]], plan=live.plan)
+    back = zero_from_canonical(canon, live)
+    for a, b in zip(live.inner, back.inner):
+        for k in a:
+            if torch.is_tensor(a[k]) and a[k].dim():
+                assert torch.equal(a[k], b[k]), k
 
 
 # -- restore_for_inference ------------------------------------------------------
@@ -426,7 +455,7 @@ def test_restore_for_inference_refusals(tmp_path):
         tckpt.restore_for_inference(str(tmp_path), dtype="int8")
     with pytest.raises(ValueError, match="not supported"):
         tckpt.restore_for_inference(str(tmp_path), dtype="fp16")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(FileNotFoundError):      # mesh= is served now
         tckpt.restore_for_inference(str(tmp_path), mesh=object())
     with pytest.raises(FileNotFoundError):
         tckpt.restore_for_inference(str(tmp_path))

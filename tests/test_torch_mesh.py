@@ -14,8 +14,10 @@ package, on the CPU.
 * ``plan_grad_sync`` and the spec-grouped bucket plan against JAX's,
   field for field, on dp×tp, dp×ep, sp×tp and dp×pp×tp meshes (pp
   skipped), and the MoE capacity expression.
-* The mesh helpers at one rank, and the refusals that stay (each names
-  ``ROADMAP.md`` Queue 1 item 11).
+* The mesh helpers at one rank, and what the hybrid plane now runs
+  there (the hybrid plan of a size-1 non-scatter axis, overlap on the
+  spec-grouped plane, ``zero``/``overlap`` on the pipelined and
+  four-axis steps).
 """
 
 import functools
@@ -354,27 +356,52 @@ def test_batch_block_follows_the_batch_spec():
 
 
 def test_refusals_that_stay_name_item_11(one_rank_world):
+    """What these refusals pinned runs now, at one rank: the hybrid plan
+    of a non-scatter axis of any size, overlap on the spec-grouped
+    plane, and ``zero``/``overlap`` on the pipelined and four-axis steps
+    (bitwise the plain steps at world 1). No refusal of the port names
+    the item any more."""
     m = _hand_mesh(("dp", "tp"), (2, 2))
     params = [torch.zeros(4, 4), torch.zeros(4)]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfusion.plan_zero(params, 2, specs=[(None, "tp"), ()], mesh=m)
+    plan = tfusion.plan_zero(params, 2, specs=[(None, "tp"), ()], mesh=m)
+    assert plan.nonscatter == (("tp", 2),)
+    assert plan.global_shapes == ((4, 8), (4,))
+    assert plan.extra_axes == ((), ("tp",)) and plan.denoms == (4, 4)
     one = tmesh.make_mesh({"dp": 1, "tp": 1})
     ps = [torch.nn.Parameter(torch.zeros(4, 4))]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DistributedOptimizer(torch.optim.SGD(ps, lr=0.1), mesh=one,
-                             param_specs=[(None, "tp")], overlap=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfusion.plan_zero(params, 1, specs=[(None, "tp"), ()], mesh=one)
+    opt = DistributedOptimizer(torch.optim.SGD(ps, lr=0.1), mesh=one,
+                               param_specs=[(None, "tp")], overlap=True)
+    assert opt.overlap and opt._grouped is not None
+    assert tfusion.plan_zero(params, 1, specs=[(None, "tp"), ()],
+                             mesh=one).nonscatter == (("tp", 1),)
     cfg = ttr.TransformerConfig(vocab=64, d_model=32, n_heads=4,
-                                n_layers=2, d_ff=64, dtype=torch.float32)
-    sgd = functools.partial(torch.optim.SGD, lr=0.1)
+                                n_layers=2, d_ff=64, dtype=torch.float32,
+                                attn_backend="xla")
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9,
+                            foreach=False)
+    tok = torch.arange(64).reshape(4, 16) % 64
+    lab = torch.roll(tok, -1, 1)
+
+    def pp_run(**kw):
+        init, step = tpp.make_pp_transformer_train_step(
+            cfg, tmesh.create_hybrid_mesh(), sgd, 2, device="cpu", **kw)
+        st = init(0)
+        for _ in range(2):
+            st, loss = step(st, tok, lab)
+        return float(loss), [p.detach().clone()
+                             for _, p in tpp.named_leaves(st.params)], st
+    base = pp_run()
     for kw in (dict(zero=True), dict(overlap=True)):
-        with pytest.raises(TypeError, match="item 11"):
-            tpp.make_pp_transformer_train_step(
-                cfg, tmesh.create_hybrid_mesh(), sgd, 2, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttr.make_parallel_train_step(cfg, sgd, mesh=one, overlap=True,
-                                     device="cpu")[0]()
+        loss, got, st = pp_run(**kw)
+        assert loss == base[0] and all(torch.equal(a, b) for a, b in
+                                       zip(got, base[1])), kw
+        assert st.optimizer.zero == kw.get("zero", False)
+    init, step = ttr.make_parallel_train_step(cfg, sgd, mesh=one,
+                                              overlap=True, device="cpu")
+    st = init(0)
+    st, loss = step(st, tok, lab)
+    assert st.optimizer.grad_order_source == "probed"
+    assert np.isfinite(float(loss))
 
 
 def test_tp_init_folds_the_tp_rank_into_the_seed():

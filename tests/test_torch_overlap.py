@@ -337,7 +337,7 @@ def test_env_defaults_arm_overlap_and_zero(monkeypatch, one_rank_world):
 
 def test_overlap_refusals(one_rank_world):
     model = torch_dist_worker._MLP()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="no process-group argument.*mesh="):
         DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.1),
                              overlap=True,
                              process_group=torch.distributed.group.WORLD)

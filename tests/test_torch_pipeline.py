@@ -358,18 +358,32 @@ def test_mesh_layout_and_validation(one_rank_world):
 
 
 def test_unported_keywords_raise(one_rank_world):
-    """The JAX step's ZeRO and overlap keywords are refused, not ignored
-    (its wire and guard keywords are ported); so is a batch that does not
-    split into microbatches."""
+    """Every keyword of the JAX step is ported now: ZeRO and overlap (at
+    world 1 bitwise the plain step), the wire and the guard; what raises
+    is a batch that does not split into microbatches."""
     w = WIDTHS["f32"]
     cfg = ttr.TransformerConfig(**w["dims"], dtype=torch.float32,
                                 attn_backend="xla")
     mesh = tmesh.create_hybrid_mesh(dp=1, pp=1)
-    sgd = functools.partial(torch.optim.SGD, lr=LR)
-    for kw in (dict(zero=True), dict(overlap=True)):
-        with pytest.raises(TypeError, match=next(iter(kw))):
-            tpp.make_pp_transformer_train_step(cfg, mesh, sgd, 2,
-                                               device="cpu", **kw)
+    sgd = functools.partial(torch.optim.SGD, lr=LR, momentum=0.9,
+                            foreach=False)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab, (4, 8)))
+    runs = {}
+    for name, kw in (("plain", {}), ("zero", dict(zero=True)),
+                     ("overlap", dict(overlap=True))):
+        init_state, step = tpp.make_pp_transformer_train_step(
+            cfg, mesh, sgd, 2, device="cpu", **kw)
+        state = init_state(0)
+        for _ in range(2):
+            state, loss = step(state, toks, torch.roll(toks, -1, 1))
+        runs[name] = (float(loss), [p.detach().clone() for _, p in
+                                    tpp.named_leaves(state.params)])
+        assert state.optimizer.zero == (name == "zero")
+    for name in ("zero", "overlap"):
+        assert runs[name][0] == runs["plain"][0]
+        assert all(torch.equal(a, b) for a, b in
+                   zip(runs[name][1], runs["plain"][1])), name
     for kw in (dict(wire_dtype="bf16"), dict(guard_nonfinite=True)):
         tpp.make_pp_transformer_train_step(cfg, mesh, sgd, 2, device="cpu",
                                            **kw)

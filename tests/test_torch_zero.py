@@ -7,8 +7,9 @@
 * ``plan_zero``'s fields equal JAX's for ResNet-50's and the 12-layer
   tiny LM's leaves, in the 1-D and the dp-only spec-grouped form, at
   several thresholds and shard counts, and after a
-  ``HOROVOD_FUSION_THRESHOLD`` flip; a non-scatter mesh axis is refused
-  naming Queue 1 item 11; sparse leaves are refused. (ResNet-50's
+  ``HOROVOD_FUSION_THRESHOLD`` flip; a non-scatter mesh axis (of any
+  size) plans the hybrid form (``tests/test_torch_zero_plan.py`` holds
+  it to JAX's); sparse leaves are refused. (ResNet-50's
   leaf shapes are each framework's own layout and agree in size.)
 * ``fused_reduce_scatter`` (its shards and rank-local finite flag) and
   ``fused_allgather_params`` (the leaves and the world verdict that
@@ -176,18 +177,28 @@ def test_init_shard_math():
 
 
 def test_plan_zero_refusals():
+    """A non-scatter axis plans (the hybrid plan), whatever its size;
+    what stays refused is a leaf sharded over the scatter axis and specs
+    without a mesh."""
     tm = tmesh.Mesh(axis_names=("dp", "pp"), shape={"dp": 2, "pp": 1},
                     coords={}, ranks={}, groups={})
     ts = [torch.zeros(4), torch.zeros(2, 3)]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfusion.plan_zero(ts, 2, specs=[None, None], mesh=tm)
+    size1 = tfusion.plan_zero(ts, 2, specs=[None, None], mesh=tm)
+    assert size1.nonscatter == (("pp", 1),) and size1.denoms == (2,)
+    assert size1.extra_axes == (("pp",),) and size1.shard_axes == ((),)
     ok = tfusion.plan_zero(ts, 2, specs=[None, None], mesh=tm,
                            skip_axes=("pp",))
-    assert ok.denoms == (2,)
+    assert ok.denoms == (2,) and ok.nonscatter == ()
+    assert ok.buckets == size1.buckets
     tp = tmesh.Mesh(axis_names=("dp", "tp"), shape={"dp": 2, "tp": 2},
                     coords={}, ranks={}, groups={})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfusion.plan_zero(ts, 2, specs=[(None,), (None, "tp")], mesh=tp)
+    hyb = tfusion.plan_zero(ts, 2, specs=[(None,), (None, "tp")], mesh=tp)
+    assert hyb.buckets == ((0,), (1,)) and hyb.nonscatter == (("tp", 2),)
+    assert hyb.global_shapes == ((4,), (2, 6)) and hyb.shapes == ((4,),
+                                                                  (2, 3))
+    assert hyb.denoms == (4, 4) and hyb.extra_axes == (("tp",), ())
+    assert hyb.shard_shapes() == ((2, 2), (2, 6))
+    assert hyb.canonical_sizes() == (4, 12)
     with pytest.raises(ValueError, match="scatter axis"):
         tfusion.plan_zero(ts, 2, specs=[("dp",), None], mesh=tm,
                           skip_axes=("pp",))
@@ -518,7 +529,7 @@ def test_zero_refusals(one_rank_world):
     with pytest.raises(ValueError, match="before its first step"):
         DistributedOptimizer(used, zero=True)
     fresh = functools.partial(torch.optim.SGD, params, lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="no process-group argument.*mesh="):
         DistributedOptimizer(fresh(), zero=True,
                              process_group=torch.distributed.group.WORLD)
     with pytest.raises(ValueError, match="param_specs"):
