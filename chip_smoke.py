@@ -8,8 +8,9 @@ chain, and the bench entry, and
 holds every CUDA kernel on them against its plain PyTorch version on the
 card:
 
-* serving — the paged generation engine serving the bench LM at full
-  width (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
+* serving — the generation engine serving the bench LM at full width
+  (paged and contiguous layouts, prefix reuse with the chunked prefill,
+  the host tier, speculative decoding) (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
   of 128, 8 layers, d_ff 8192; random weights from a seed);
 * training — ``bench.py``'s ResNet-50 train step with
   ``--conv-backend fused`` at full width (``[3,4,6,3]`` bottlenecks, 64
@@ -44,7 +45,9 @@ Phases, one JSON line each:
                position past the table; repeated blocks and trash-padded
                rows; S=1 and S=8 at the last key) and at block sizes 1,
                8, 12 and 32, each row within TOL_ATTN_ULPS bf16 ulps of
-               its largest value, six launches bitwise equal.
+               its largest value, six launches bitwise equal; and as the
+               speculative verify launches it (S·W rows, ``plan_rows=S``),
+               each column bitwise the S-row decode launch.
 4. engine   — ``GenerationEngine`` (8 slots, max_len 2048, paged,
                block 16), ``warmup()``, 8 concurrent requests of 32 new
                tokens with prompts from 9 to 1500 tokens, one over
@@ -57,72 +60,93 @@ Phases, one JSON line each:
 5. e2e      — a 256-token prompt + 4 decode steps through the port on
                the card and, from the same weights, on the CPU (where
                the plain versions run); last logits compared.
-6. timing   — each kernel's median time beside its bound, its plain
+6. engine_kv — the KV and decoding plane on the same model, launch
+               counters zeroed before each run and read after: (a) the
+               contiguous layout on the engine phase's 7 prompts (n_layers
+               K3-fwd a prefill, no K8; token agreement with the paged
+               streams and the first step's logits against the paged
+               functions', reported); (b) prefix reuse with the chunked
+               prefill (chunks of 128): a 1536-token system prompt with 8
+               suffixes of 64–300 tokens, each cold on a fresh engine, then
+               one by one and all together on a warm one: every hit's
+               stream equal to its cold one, the hits and skipped chunks in
+               ``stats()``, no block held by a stream after the drain, TTFT
+               p50 of hits and colds; (c) the host tier: a prompt that
+               fills the pool offloads the registered prefix, the next
+               admission waits for its prefetch; fetched bytes equal the
+               offloaded ones, the stream the resident one's, offload and
+               prefetch ms a block; (d) speculation (k = 4) on repetitive
+               prompts in both layouts, spec off and on: n_layers K8 a
+               decode or verify step (paged), acceptance, decode tokens/s,
+               the greedy streams' agreement and the verify rows against
+               sequential decode rows (bitwise or max |Δ|, and which GEMM
+               shapes give a row other bits at M = S·W than at M = S).
+7. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's; the flash
                forward's and K8's host time per call. K8 at four shapes
                (PAGED_TIMED), each launch on the next of 8 layer views
                of the engine's pool.
-7. parity_conv — K1/K2 (``fused_conv_bn.cu``) vs their plain versions at
+8. parity_conv — K1/K2 (``fused_conv_bn.cu``) vs their plain versions at
                every distinct (M, Cin, Cout, prologue) of the 16 fused
                sites and a ragged M, with non-zero stats cotangents, and
                at a ragged M with an O(1) prologue shift and ds1 (rows past
                M must add nothing to the sums), and at shapes that take the
                kernels' other paths (CONV_EDGE); two launches must agree
                bitwise.
-8. train    — the fused ResNet-50 train step: 2 warmup + 10 timed steps
+9. train    — the fused ResNet-50 train step: 2 warmup + 10 timed steps
                on the bench's fixed synthetic batch; launch counters
                zeroed before the timed steps (16 K1 + 16 K2 per step);
                the loss must be finite and fall. Then the same with the
                stock backend (cuDNN convs, PyTorch BatchNorm) as the
                model-level yardstick.
-9. train_profile — one fused step under ``torch.profiler``.
-10. e2e_train — one step of full-width ResNet-50 at batch 8 on the card
+10. train_profile — one fused step under ``torch.profiler``.
+11. e2e_train — one step of full-width ResNet-50 at batch 8 on the card
                and on the CPU from the same weights and batch: loss,
                logits, updated params and running statistics compared.
-11. timing_conv — K1 and K2 at each of the eight site shapes beside
+12. timing_conv — K1 and K2 at each of the eight site shapes beside
                their bounds and a GEMM-only yardstick (plain versions at
                two of them), and the per-step sums over the 16 sites.
-12. parity_attn — the packed forward with lse (K3-qkv) and the dq/dkv
+13. parity_attn — the packed forward with lse (K3-qkv) and the dq/dkv
                backward pair vs their plain versions at B=1, H=16,
                d=128: T in {128, 1024, 2048} causal, T=256 non-causal
                and T in {1000, 129, 2, 65, 191} causal (lengths that the
                kernels' 64- and 128-row tiles cut raggedly); six launches
                must agree bitwise.
-13. lm_train — the full-width LM train step: 2 warmup + 10 timed steps
+14. lm_train — the full-width LM train step: 2 warmup + 10 timed steps
                on a fixed random batch; launch counters zeroed before the
                timed steps (8 K3-qkv + 8 dq + 8 dkv per step, no prefill
                K3-fwd); step p50, tokens/s, MFU, peak memory; the loss
                must be finite and fall.
-14. lm_train_profile — one LM step under ``torch.profiler``.
-15. e2e_lm_train — one full-width step at batch 1, T=256 on the card and
+15. lm_train_profile — one LM step under ``torch.profiler``.
+16. e2e_lm_train — one full-width step at batch 1, T=256 on the card and
                on the CPU from the same weights and batch: loss, logits,
                gradients and updates compared.
-16. timing_attn — K3-qkv and the dq/dkv pair at the LM step's shape
+17. timing_attn — K3-qkv and the dq/dkv pair at the LM step's shape
                (B=8, H=16, T=2048, causal) vs their plain versions (the
                kernels line's max_abs_err; six launches bitwise equal),
                then timed beside their bounds, plain versions and SDPA;
                the Delta pass outside the kernels (``timing_delta``).
-17. parity_attn_bhtd — the [B,T,H,D] forward with lse and the dq and
+18. parity_attn_bhtd — the [B,T,H,D] forward with lse and the dq and
                dk/dv kernels (K6's constants) vs their plain versions at
                the pp step's shape (B=4, H=16, T=2048, causal; q/k/v
                strided slices of a packed [B,T,H,3,d] projection, q
                prescaled; the kernels line's max_abs_err), at B=1,
                T=1000 causal and T=256 non-causal, and at B=2, T=191
                causal; six launches must agree bitwise.
-18. pp_lm_train — the full-width pipelined step: 2 warmup + 10 timed
+19. pp_lm_train — the full-width pipelined step: 2 warmup + 10 timed
                steps on lm_train's batch; counters zeroed before the timed
                steps (16 lse forwards + 16 dq + 16 dkv per step, no packed
                K3-qkv and no forward without lse); step p50, tokens/s,
                MFU, peak memory; the loss must be finite and fall.
-19. pp_lm_train_profile — one pipelined step under ``torch.profiler``.
-20. e2e_pp_lm_train — one full-width pipelined step at batch 2 (2
+20. pp_lm_train_profile — one pipelined step under ``torch.profiler``.
+21. e2e_pp_lm_train — one full-width pipelined step at batch 2 (2
                microbatches of 1), T=256, on the card (NCCL world) and on
                the CPU (gloo world) from the same weights and batch: loss,
                gradients and the update compared.
-21. timing_attn_bhtd — the three [B,T,H,D] launches and the pair at
+22. timing_attn_bhtd — the three [B,T,H,D] launches and the pair at
                B=4, T=2048 beside their bounds, plain versions and SDPA;
                the Delta pass (``timing_delta``).
-22. train_knobs — the full-width LM, two steps per variant from the same
+23. train_knobs — the full-width LM, two steps per variant from the same
                seed and batch, counters zeroed before each: accumulation
                over 2 microbatches (16 K3-qkv + 16 dq + 16 dkv a step;
                loss and update within TOL_E2E_LM of the plain step),
@@ -133,12 +157,12 @@ Phases, one JSON line each:
                NCCL took), the pipelined step with the guard and a bf16
                wire against the plain pipelined step; each variant's
                peak memory and step time.
-23. guard   — the fused ResNet-50 at batch 128 with the bad-step guard: a
+24. guard   — the fused ResNet-50 at batch 128 with the bad-step guard: a
                NaN image leaves params, momentum and BatchNorm buffers
                bit-unchanged with bad_step 1 and loss 0 (16 K1 + 16 K2
                still launched), the next finite step trains; the step
                time with the guard off and on, in turns.
-24. zero_overlap — ZeRO-1 and the backward-overlapped exchange on the
+25. zero_overlap — ZeRO-1 and the backward-overlapped exchange on the
                1-rank NCCL world: the full-width LM (AdamW as bench.py,
                foreach pinned) plain, ``zero``, ``overlap`` and both, and
                the fused ResNet-50 at batch 128 plain and with both, 3
@@ -149,7 +173,7 @@ Phases, one JSON line each:
                peak bytes of each; then one ZeRO step with the guard on
                a NaN batch leaves params, the shards' state and the
                BatchNorm buffers bit-unchanged.
-25. trainer — the fused ResNet-50 at batch 128 through ``Trainer.fit``
+26. trainer — the fused ResNet-50 at batch 128 through ``Trainer.fit``
                (2 epochs of 4 steps on the fixed synthetic batch, prefetch
                2) with ``BroadcastGlobalVariablesCallback``,
                ``MetricAverageCallback``, ``LearningRateWarmupCallback`` and
@@ -170,7 +194,7 @@ Phases, one JSON line each:
                with ``HVD_MAX_BAD_STEPS=2`` NaN batches under the guard
                raise ``NonFiniteGradError`` after two skipped steps with
                the state bit-unchanged.
-26. elastic — the launcher and elastic recovery: the fused ResNet-50 at
+27. elastic — the launcher and elastic recovery: the fused ResNet-50 at
                batch 128 through ``Trainer.fit`` under
                ``run_with_recovery`` with ``ElasticState(commit_every=2,
                writer=AsyncCheckpointer)`` (durable at each epoch's end),
@@ -193,7 +217,7 @@ Phases, one JSON line each:
                after the resume), the commit's stall on the step loop
                (sync and async) and bytes, run (a)'s step p50 against
                the bare loop's.
-27. lm_ckpt_serve — the full-width LM with ``zero=True``: 2 steps (8
+28. lm_ckpt_serve — the full-width LM with ``zero=True``: 2 steps (8
                K3-qkv + 8 dq + 8 dkv each), ``save_sharded``,
                ``verify_checkpoint``, ``restore_sharded`` into a fresh
                state bitwise equal to the live one, one more step from
@@ -207,7 +231,7 @@ Phases, one JSON line each:
                save, verify, restore and ``restore_for_inference`` times.
                Checkpoints go to a temporary directory removed after each
                of these two phases.
-28. lm_mesh — the mesh axes of the full-width LM on one card, counters
+29. lm_mesh — the mesh axes of the full-width LM on one card, counters
                zeroed before each run's steps: (a) the four-axis step on
                a hand-built one-rank mesh naming dp, pp, ep and tp
                (``make_mesh``; the spec-grouped all-reduce plane, tp's
@@ -226,7 +250,7 @@ Phases, one JSON line each:
                (pp × tp=2: B=4) against their plain versions
                (TOL_ATTN_ULPS, TOL_LSE), then timed beside their bounds
                and SDPA. Multi-rank tp/sp/ep need more than one card.
-29. lm_mesh_zero — ZeRO-1 and overlap on every axis of the full-width
+30. lm_mesh_zero — ZeRO-1 and overlap on every axis of the full-width
                LM on one card, AdamW with ``foreach`` pinned, counters
                zeroed before each step: (a) the four-axis step on the
                one-rank ``make_mesh({"dp", "pp", "ep", "tp"})`` (the
@@ -245,7 +269,7 @@ Phases, one JSON line each:
                ``restore_for_inference(mesh=, spec_fn=)`` of (a)'s leaf
                for leaf the live model's; bytes, save, verify and
                restore times.
-30. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
+31. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
                default two lines, the same with ``--zero --overlap``,
                ``--model resnet50 --conv-backend fused``, ``--model
                transformer_lm --accum-steps 2``), each in a process of
@@ -492,6 +516,22 @@ MZ_PP = (("plain", {}), ("zero", dict(zero=True)),
 MESH_RING_BATCH = 2      # the ring's f32 [B,16,2048,2048] blocks: B=8 OOMs
 MESH_TP = (2, 4)         # tp sizes whose per-rank flash shapes are timed
 TOL_RING_LOSS = 5e-3     # ring (f32 blocks) vs flash (bf16 P) loss, rel
+# engine_kv: the KV and decoding plane on the bench LM. A shared system
+# prompt with 8 suffixes (prefix reuse, chunks of KV_CHUNK_BLOCKS blocks);
+# a host-tier engine with a pool of KV_HOST_POOL blocks that a
+# KV_PRESSURE_LEN-token prompt fills; speculation at k = KV_SPEC_K on
+# prompts of a random KV_SPEC_PERIOD-token period repeated.
+KV_NEW_TOKENS = 16
+KV_SYSTEM_LEN = 1536
+KV_SUFFIX_LENS = (64, 300, 100, 180, 240, 128, 77, 211)
+KV_CHUNK_BLOCKS = 8
+KV_HOST_POOL = 128
+KV_PRESSURE_LEN = 2033
+KV_SPEC_K = 4
+KV_SPEC_PERIOD, KV_SPEC_REPEATS, KV_SPEC_NEW = 37, 8, 64
+# The engine phase's paged streams and decode step p50, which engine_kv's
+# contiguous run is set beside.
+PAGED_STREAMS = {}
 # The trainer phase's bare-loop step p50, which the elastic phase prints
 # beside its launched Trainer's.
 TRAINER_BARE_P50 = {}
@@ -796,7 +836,8 @@ def phase_parity(seed: int):
     paged_err = max([paged_parity(name, positions, gen)
                      for name, positions in cases]
                     + [paged_parity(f"bs{bs}", mixed, gen, bs)
-                       for bs in PAGED_PARITY_BS])
+                       for bs in PAGED_PARITY_BS]
+                    + [paged_verify_parity(gen)])
     return {"flash_attention": flash_err,
             "paged_decode_attention": paged_err}
 
@@ -852,6 +893,47 @@ def paged_parity(name: str, positions, gen, bs: int = BLOCK) -> float:
         check(val <= tol, f"paged_decode_attention {name}: {key} {val} > "
                           f"{tol}")
     del outs, out, ref, split, q, kp, vp
+    torch.cuda.empty_cache()
+    return errs["max_abs_err"]
+
+
+def paged_verify_parity(gen) -> float:
+    """K8 launched as the speculative verify launches it: S·W rows, each
+    slot's table repeated W times, positions pos + j (past the table's
+    last key for the last slots), ``plan_rows=S``. Held against the
+    dense plain version (max abs error, row ulps), and each column's
+    rows bitwise equal to an S-row decode launch at pos + j: the verify
+    sums every row's keys in the decode step's chunks and order."""
+    from horovod_tpu_torch.ops.paged_attention import (
+        paged_attention_reference, paged_decode_attention)
+    S, W, H = MAX_SLOTS, KV_SPEC_K + 1, LM["n_heads"]
+    base = [0, 5, 127, 128, 1000, 1500, MAX_LEN - 3, MAX_LEN - 1]
+    _, kp, vp, tables, pos = paged_inputs(base, gen)
+    q = torch.randn((S * W, H, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    tw = tables.repeat_interleave(W, dim=0)
+    offs = torch.arange(W, dtype=torch.int32, device="cuda")
+    pw = (pos[:, None] + offs[None, :]).reshape(-1).contiguous()
+    out = paged_decode_attention(q, kp, vp, tw, pw, plan_rows=S)
+    cols = [paged_decode_attention(q.view(S, W, H, 128)[:, j].contiguous(),
+                                   kp, vp, tables, (pos + j).contiguous())
+            for j in range(W)]
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(q, kp, vp, tw, pw)
+    same = [bool(torch.equal(out.view(S, W, H, 128)[:, j], c))
+            for j, c in enumerate(cols)]
+    errs = {"max_abs_err": _abs_err(out, ref), "row_ulps": row_ulps(out, ref)}
+    emit("parity", kernel="paged_decode_attention", case="verify_rows",
+         S=S, W=W, plan_rows=S, positions=pw.tolist(), **errs,
+         tolerance=TOL_PAGED, row_tolerance=TOL_ATTN_ULPS,
+         columns_bitwise_decode=same,
+         shapes=f"H=16 d=128 {tables.shape[1]} blocks/slot bf16")
+    check(all(same), f"paged_decode_attention verify_rows: columns differ "
+                     f"from the decode launches: {same}")
+    check(errs["max_abs_err"] <= TOL_PAGED
+          and errs["row_ulps"] <= TOL_ATTN_ULPS,
+          f"paged_decode_attention verify_rows: {errs}")
+    del q, kp, vp, out, cols, ref
     torch.cuda.empty_cache()
     return errs["max_abs_err"]
 
@@ -932,6 +1014,9 @@ def phase_engine(model, seed: int):
         wall_s = time.monotonic() - t0
         launches = LAUNCHES.snapshot()
         stats = eng.stats()
+        PAGED_STREAMS.update(
+            tokens=[r["tokens"] for r in results],
+            decode_step_ms_p50=stats["latency_ms"]["execute_p50"])
         profiled = profile_round(eng, prompts + [http_prompt])
     finally:
         if srv is not None:
@@ -978,6 +1063,408 @@ def phase_engine(model, seed: int):
          blocks=blocks)
     emit("engine_profile", **profiled)
     return launches
+
+
+def _kv_engine(model, **kw):
+    from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
+    kw.setdefault("max_slots", MAX_SLOTS)
+    kw.setdefault("max_len", MAX_LEN)
+    kw.setdefault("block_size", BLOCK)
+    kw.setdefault("default_max_new_tokens", KV_NEW_TOKENS)
+    kw.setdefault("max_queue", 64)
+    spec = kw.pop("spec", None)
+    return GenerationEngine(model, GenerationConfig(**kw), device="cuda",
+                            spec=spec)
+
+
+def _kv_serve(eng, prompts, one_by_one: bool = False):
+    """Serve ``prompts`` (all at once, or each alone) with the launch
+    counters zeroed just before and read just after; returns the
+    results, the launches, the decode and verify steps run and the wall
+    time."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    torch.cuda.synchronize()
+    steps0 = eng.stats()["batches_total"]
+    LAUNCHES.reset()
+    t0 = time.monotonic()
+    if one_by_one:
+        results = [eng.submit(p).result(600) for p in prompts]
+    else:
+        results = [h.result(600) for h in [eng.submit(p) for p in prompts]]
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = LAUNCHES.snapshot()
+    return results, launches, eng.stats()["batches_total"] - steps0, wall_s
+
+
+def _add_launches(total: dict, launches: dict) -> None:
+    for k in ("flash_attention", "paged_decode_attention"):
+        total[k] = total.get(k, 0) + launches.get(k, 0)
+
+
+def _first_step_delta(model, prompt) -> float:
+    """One prompt's prefill and first decode step through the paged
+    functions (K3-fwd, K8) and the contiguous ones (K3-fwd, torch): the
+    first decode step's logits' max |Δ|."""
+    from horovod_tpu_torch.parallel import kv_blocks as kv
+    from horovod_tpu_torch.parallel import transformer as tr
+    cfg = model.cfg
+    T = len(prompt)
+    nb = MAX_LEN // BLOCK
+    row = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    toks = torch.tensor(prompt, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        w = tr.gen_weights(model)
+        pc = kv.init_paged_kv_cache(cfg, nb + 1, BLOCK, 1, device="cuda")
+        cc = tr.init_kv_cache(cfg, 1, MAX_LEN, device="cuda")
+        _, lp = kv.paged_prefill(w, toks, pc, 0, row, cfg)
+        _, lc = tr.prefill(w, toks, cc, 0, cfg)
+        nxt = lp[T - 1].argmax()[None].to(torch.int32)
+        pos = torch.tensor([T], dtype=torch.int32, device="cuda")
+        _, dp = kv.paged_decode_step(w, nxt, pc, pos, row[None], cfg)
+        _, dc = tr.decode_step(w, nxt, cc, pos, cfg)
+    return {"prefill_logits_bitwise": bool(torch.equal(lp[T - 1],
+                                                       lc[T - 1])),
+            "first_step_max_abs_diff": (dp - dc).abs().max().item()}
+
+
+def _verify_vs_sequential(model, layout: str, prompts) -> dict:
+    """MAX_SLOTS prompts prefilled, then KV_SPEC_K + 1 greedy decode steps
+    one at a time against one verify of the same tokens from the same
+    cache: whether the verify rows' logits are bitwise the decode rows'
+    (max |Δ| otherwise), and for each of the step's GEMM shapes whether
+    a row's bits at M = S·W equal its bits at M = S (cuBLAS's choice of
+    algorithm by M)."""
+    from horovod_tpu_torch.parallel import kv_blocks as kv
+    from horovod_tpu_torch.parallel import transformer as tr
+    cfg = model.cfg
+    S, W = len(prompts), KV_SPEC_K + 1
+    nb = MAX_LEN // BLOCK
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        w = tr.gen_weights(model)
+        if layout == "paged":
+            cache = kv.init_paged_kv_cache(cfg, S * nb + 1, BLOCK, S,
+                                           device=dev)
+            tables = (1 + torch.arange(S * nb, dtype=torch.int32,
+                                       device=dev)).reshape(S, nb)
+        else:
+            cache = tr.init_kv_cache(cfg, S, MAX_LEN, device=dev)
+        last = []
+        for s, p in enumerate(prompts):
+            toks = torch.tensor(p, dtype=torch.int32, device=dev)
+            if layout == "paged":
+                _, lg = kv.paged_prefill(w, toks, cache, s, tables[s], cfg)
+            else:
+                _, lg = tr.prefill(w, toks, cache, s, cfg)
+            last.append(int(lg[-1].argmax()))
+        pos0 = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                            device=dev)
+        seq = {n: x.clone() for n, x in cache.items()}
+        cur = torch.tensor(last, dtype=torch.int32, device=dev)
+        pos, drafts, logs = pos0.clone(), [], []
+        for _ in range(W):
+            drafts.append(cur.clone())
+            if layout == "paged":
+                _, lg = kv.paged_decode_step(w, cur, seq, pos, tables, cfg)
+            else:
+                _, lg = tr.decode_step(w, cur, seq, pos, cfg)
+            logs.append(lg)
+            cur = lg.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        drafts = torch.stack(drafts, dim=1)
+        if layout == "paged":
+            _, vl = kv.paged_verify_step(w, drafts, cache, pos0, tables, cfg)
+        else:
+            _, vl = tr.verify_step(w, drafts, cache, pos0, cfg)
+        ref = torch.stack(logs, dim=1)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        layer = w["layers"][0]
+        gemm = {}
+        for name, mat in (("wqkv", layer["wqkv"]), ("wo", layer["wo"]),
+                          ("w1", layer["w1"]), ("w2", layer["w2"])):
+            x = torch.randn((S * W, mat.shape[0]), generator=gen,
+                            device="cuda").to(mat.dtype)
+            gemm[name] = bool(torch.equal((x @ mat)[:S], x[:S] @ mat))
+        x = torch.randn((S * W, cfg.d_model), generator=gen, device="cuda")
+        gemm["unembed_f32"] = bool(torch.equal(
+            tr.unembed(w, x, cfg)[:S], tr.unembed(w, x[:S], cfg)))
+    return {"logits_bitwise": bool(torch.equal(vl, ref)),
+            "max_abs_diff": (vl - ref).abs().max().item(),
+            "argmax_equal": bool(torch.equal(vl.argmax(-1),
+                                             ref.argmax(-1))),
+            "gemm_rows_invariant": gemm}
+
+
+def phase_engine_kv(model, seed: int) -> dict:
+    """The engine's KV and decoding plane on the full-width model: (a) the
+    contiguous layout; (b) prefix reuse with the chunked prefill, cold
+    then warm; (c) the host tier's offload and prefetch; (d) speculative
+    decoding on both layouts. Returns the K3-fwd and K8 launches of the
+    driven runs."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    rng = np.random.RandomState(seed + 15)
+    total: dict = {}
+    out: dict = {}
+    t_phase = time.monotonic()
+
+    # (a) contiguous: the engine phase's PROMPT_LENS prompts, greedy;
+    # K3-fwd for every prefill, no K8
+    rng0 = np.random.RandomState(seed)
+    prompts = [rng0.randint(0, cfg.vocab, n) for n in PROMPT_LENS]
+    eng = _kv_engine(model, kv_layout="contiguous",
+                     default_max_new_tokens=NEW_TOKENS)
+    try:
+        res, launches, steps, wall_s = _kv_serve(eng, prompts)
+        stats = eng.stats()
+    finally:
+        eng.shutdown()
+    del eng
+    _add_launches(total, launches)
+    check(launches.get("flash_attention", 0) == L * len(prompts),
+          f"contiguous: flash_attention launched {launches}, expected "
+          f"{L} x {len(prompts)} prefills")
+    check(launches.get("paged_decode_attention", 0) == 0,
+          f"contiguous: paged_decode_attention launched {launches}")
+    for r in res:
+        check(r["n_tokens"] == NEW_TOKENS and all(
+            0 <= t < cfg.vocab for t in r["tokens"]),
+              f"contiguous request did not finish: {r}")
+    paged = PAGED_STREAMS.get("tokens")
+    agree = ([a == b["tokens"] for a, b in zip(paged, res)]
+             if paged else None)
+    out["contiguous"] = dict(
+        launches=launches, decode_steps=steps, wall_s=wall_s,
+        decode_step_ms_p50=stats["latency_ms"]["execute_p50"],
+        paged_decode_step_ms_p50=PAGED_STREAMS.get("decode_step_ms_p50"),
+        decode_tokens_per_s=(stats["batch_live_rows_total"]
+                             / stats["execute_seconds_total"]),
+        streams_equal_paged=agree,
+        tokens_equal_paged=(sum(x == y for a, b in zip(paged, res)
+                                for x, y in zip(a, b["tokens"]))
+                            if paged else None),
+        **_first_step_delta(model, prompts[2]))
+    torch.cuda.empty_cache()
+
+    # (b) prefix reuse + chunked prefill: each prompt cold on a fresh
+    # engine, then twice on one warm engine (one by one, then together)
+    system = rng.randint(0, cfg.vocab, KV_SYSTEM_LEN)
+    kv_prompts = [np.concatenate([system, rng.randint(0, cfg.vocab, n)])
+                  for n in KV_SUFFIX_LENS]
+    chunked = dict(prefix_reuse=True, chunked_prefill=True,
+                   chunk_blocks=KV_CHUNK_BLOCKS)
+    ct = KV_CHUNK_BLOCKS * BLOCK
+    cold, cold_ttft = [], []
+    warm = _kv_engine(model, **chunked)
+    try:
+        t0 = time.monotonic()
+        warm.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        for p in kv_prompts:
+            eng = _kv_engine(model, **chunked)
+            try:
+                r, launches, _, _ = _kv_serve(eng, [p])
+                check(eng.stats()["generation"]["prefix_misses_total"] == 1,
+                      "chunked: a cold admission hit")
+            finally:
+                eng.shutdown()
+            del eng
+            _add_launches(total, launches)
+            cold.append(r[0]["tokens"])
+            cold_ttft.append(r[0]["ttft_ms"])
+        g0 = warm.stats()["generation"]
+        first, launches, _, _ = _kv_serve(warm, kv_prompts[:1])
+        _add_launches(total, launches)
+        g1 = warm.stats()["generation"]
+        hit, launches, steps, _ = _kv_serve(warm, kv_prompts,
+                                            one_by_one=True)
+        _add_launches(total, launches)
+        g2 = warm.stats()["generation"]
+        together, launches2, steps2, _ = _kv_serve(warm, kv_prompts)
+        _add_launches(total, launches2)
+        g3 = warm.stats()["generation"]
+        blocks = warm.stats()["blocks"]
+    finally:
+        warm.shutdown()
+    del warm
+    check(first[0]["tokens"] == cold[0],
+          "chunked: the warm engine's cold admission differs from a fresh "
+          "engine's")
+    hit_equal = [h["tokens"] == c for h, c in zip(hit, cold)]
+    together_equal = [h["tokens"] == c for h, c in zip(together, cold)]
+    # Expected hits: the prompt registered before it (the first: its own
+    # full blocks; the others: the system prompt's), capped to whole
+    # chunks short of the prompt's last token.
+    want_skipped = 0
+    for i, p in enumerate(kv_prompts):
+        reg = len(p) // BLOCK if i == 0 else KV_SYSTEM_LEN // BLOCK
+        cap = ((len(p) - 1) // ct) * KV_CHUNK_BLOCKS
+        n_hit = min(reg, cap)
+        want_skipped += (n_hit - n_hit % KV_CHUNK_BLOCKS) * BLOCK // ct
+    got = {k: g2[k] - g1[k] for k in ("prefix_hits_total",
+                                      "prefix_misses_total",
+                                      "prefill_chunks_skipped_total")}
+    check(g1["prefix_misses_total"] - g0["prefix_misses_total"] == 1,
+          "chunked: the warm engine's first admission was not a miss")
+    check(got == {"prefix_hits_total": len(kv_prompts),
+                  "prefix_misses_total": 0,
+                  "prefill_chunks_skipped_total": want_skipped},
+          f"chunked: stats {got}, expected {len(kv_prompts)} hits and "
+          f"{want_skipped} skipped chunks")
+    check(g3["prefix_hits_total"] - g2["prefix_hits_total"]
+          == len(kv_prompts), "chunked: the batched round missed")
+    check(all(hit_equal) and all(together_equal),
+          f"chunked: hit streams differ from the cold ones: {hit_equal}, "
+          f"{together_equal}")
+    check(blocks["used"] == blocks["registered_prefix_blocks"],
+          f"chunked: blocks still held by streams after the drain: "
+          f"{blocks}")
+    check(launches.get("flash_attention", 0) == 0,
+          "chunked: a prefill took the flash kernel")
+    check(launches2.get("paged_decode_attention", 0) == L * steps2,
+          f"chunked: K8 launched {launches2}, expected {L} x {steps2}")
+    hit_ttft = [h["ttft_ms"] for h in hit]
+    out["chunked"] = dict(
+        system_len=KV_SYSTEM_LEN, suffix_lens=list(KV_SUFFIX_LENS),
+        chunk_tokens=ct, warmup_s=warm_s,
+        ttft_cold_ms=cold_ttft, ttft_hit_ms=hit_ttft,
+        ttft_cold_p50_ms=float(np.median(cold_ttft)),
+        ttft_hit_p50_ms=float(np.median(hit_ttft)),
+        stats_delta=got, hit_streams_equal_cold=hit_equal,
+        batched_streams_equal_cold=together_equal,
+        blocks_after_drain=blocks)
+    torch.cuda.empty_cache()
+
+    # (c) the host tier: a pressure prompt as long as the pool offloads
+    # the whole registered prefix; the next admission of the prompt waits
+    # for its prefetch
+    p = kv_prompts[2]
+    pressure = rng.randint(0, cfg.vocab, KV_PRESSURE_LEN)
+    eng = _kv_engine(model, max_slots=1, n_blocks=KV_HOST_POOL + 1,
+                     host_blocks=KV_HOST_POOL, host_admission="wait",
+                     **chunked)
+    try:
+        r_cold, launches, _, _ = _kv_serve(eng, [p])
+        _add_launches(total, launches)
+        r_res, launches, _, _ = _kv_serve(eng, [p])
+        _add_launches(total, launches)
+        r_pres, launches, _, _ = _kv_serve(eng, [pressure])
+        _add_launches(total, launches)
+        g0 = eng.stats()["generation"]
+        keys = [eng._blocks._key(p, j, b"\x00")
+                for j in range(len(p) // BLOCK)]
+        staged = {k: eng._blocks._host[k] for k in keys
+                  if k in eng._blocks._host}
+        r_back, launches, _, _ = _kv_serve(eng, [p])
+        _add_launches(total, launches)
+        g1 = eng.stats()["generation"]
+        landed = {k: eng._blocks._registry[k] for k in staged
+                  if k in eng._blocks._registry}
+        bytes_equal = all(torch.equal(eng._cache[n][:, blk].cpu(),
+                                      staged[k][n])
+                          for k, blk in landed.items() for n in ("k", "v"))
+        blocks = eng.stats()["blocks"]
+        # the copies the tier makes, one block at a time, timed alone
+        blks = list(landed.values())
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        copies = [{n: eng._cache[n][:, b].to("cpu", copy=True)
+                   for n in ("k", "v")} for b in blks]
+        off_ms = (time.monotonic() - t0) * 1e3 / max(1, len(blks))
+        t0 = time.monotonic()
+        for b, c in zip(blks, copies):
+            for n in ("k", "v"):
+                eng._cache[n][:, b] = c[n].to("cuda")
+        torch.cuda.synchronize()
+        pre_ms = (time.monotonic() - t0) * 1e3 / max(1, len(blks))
+    finally:
+        eng.shutdown()
+    del eng
+    check(g0["kv_offload_blocks_total"] >= len(keys) and len(staged)
+          == len(keys), f"host tier: {len(staged)} of the prompt's "
+                        f"{len(keys)} blocks offloaded")
+    check(g1["kv_prefetch_blocks_total"] - g0["kv_prefetch_blocks_total"]
+          >= len(keys) and len(landed) == len(keys),
+          f"host tier: {len(landed)} of {len(keys)} blocks fetched back")
+    check(g1["prefix_hits_total"] - g0["prefix_hits_total"] == 1,
+          "host tier: the fetched-back admission missed")
+    check(bytes_equal, "host tier: fetched blocks differ from the "
+                       "offloaded bytes")
+    check(r_back[0]["tokens"] == r_res[0]["tokens"] == r_cold[0]["tokens"],
+          "host tier: the fetched-back stream differs from the resident "
+          "one's")
+    out["host_tier"] = dict(
+        prompt_len=len(p), pressure_len=KV_PRESSURE_LEN,
+        pool_blocks=KV_HOST_POOL, offloaded_blocks=g0[
+            "kv_offload_blocks_total"],
+        prefetched_blocks=g1["kv_prefetch_blocks_total"],
+        prefetch_wait_ms_p50=g1["kv_prefetch_ms_p50"],
+        block_bytes=2 * L * BLOCK * cfg.d_model * 2,
+        offload_ms_per_block=off_ms, prefetch_ms_per_block=pre_ms,
+        ttft_fetched_back_ms=r_back[0]["ttft_ms"],
+        ttft_resident_ms=r_res[0]["ttft_ms"], blocks_after=blocks)
+    torch.cuda.empty_cache()
+
+    # (d) speculative decoding on repetitive prompts, both layouts
+    from horovod_tpu_torch.serve.spec import SpecConfig
+    spec_prompts = [np.tile(rng.randint(0, cfg.vocab, KV_SPEC_PERIOD),
+                            KV_SPEC_REPEATS) for _ in range(MAX_SLOTS)]
+    runs, agree = {}, {}
+    for layout in ("paged", "contiguous"):
+        for name, spec in (("off", None),
+                           ("on", SpecConfig(k=KV_SPEC_K))):
+            eng = _kv_engine(model, kv_layout=layout, spec=spec,
+                             default_max_new_tokens=KV_SPEC_NEW)
+            try:
+                eng.warmup()
+                res, launches, steps, wall_s = _kv_serve(eng, spec_prompts)
+                stats = eng.stats()
+            finally:
+                eng.shutdown()
+            del eng
+            _add_launches(total, launches)
+            k8 = launches.get("paged_decode_attention", 0)
+            check(k8 == (L * steps if layout == "paged" else 0),
+                  f"spec {layout}/{name}: K8 launched {k8}, expected "
+                  f"{L} x {steps} steps")
+            for r in res:
+                check(r["n_tokens"] == KV_SPEC_NEW and all(
+                    0 <= t < cfg.vocab for t in r["tokens"]),
+                      f"spec {layout}/{name}: request did not finish: {r}")
+            tokens = sum(r["n_tokens"] - 1 for r in res)
+            runs[(layout, name)] = dict(
+                launches=launches, steps=steps, wall_s=wall_s,
+                decode_tokens_per_s=tokens / stats["execute_seconds_total"],
+                step_ms_p50=stats["latency_ms"]["execute_p50"],
+                spec=stats["spec"] if spec is not None else None,
+                tokens=[r["tokens"] for r in res])
+            torch.cuda.empty_cache()
+        off, on = runs[(layout, "off")], runs[(layout, "on")]
+        agree[layout] = dict(
+            streams_equal=[a == b for a, b in zip(off["tokens"],
+                                                  on["tokens"])],
+            tokens_equal=sum(x == y for a, b in zip(off["tokens"],
+                                                    on["tokens"])
+                             for x, y in zip(a, b)),
+            tokens_total=sum(len(a) for a in off["tokens"]),
+            verify_vs_sequential=_verify_vs_sequential(
+                model, layout, spec_prompts))
+        torch.cuda.empty_cache()
+    out["spec"] = {
+        f"{layout}_{name}": {k: v for k, v in r.items() if k != "tokens"}
+        for (layout, name), r in runs.items()}
+    # Greedy spec-on streams equal spec-off ones only where every GEMM of
+    # the verify (M = S·W rows) gives a row the bits it has at M = S: on
+    # the card cuBLAS picks another algorithm for some shapes
+    # (gemm_rows_invariant), so the agreement is reported, not checked.
+    out["spec"]["agreement"] = agree
+    out["spec"]["k"] = KV_SPEC_K
+    out["launches"] = total
+    out["phase_s"] = time.monotonic() - t_phase
+    emit("engine_kv", **out)
+    return total
 
 
 def phase_e2e(model, seed: int):
@@ -3800,6 +4287,8 @@ def main() -> int:
         model = build_model(args.seed)
         launches.update(phase_engine(model, args.seed))
         phase_e2e(model, args.seed)
+        for name, n in phase_engine_kv(model, args.seed).items():
+            launches[name] = launches.get(name, 0) + n
         del model
         torch.cuda.empty_cache()
         times.update(phase_timing(args.seed, peaks))

@@ -221,7 +221,8 @@ def _workspace(device, stream: int, pairs: int, n_splits: int) -> tuple:
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
-                           sm_scale: Optional[float] = None):
+                           sm_scale: Optional[float] = None,
+                           plan_rows: Optional[int] = None):
     """Decode attention straight from the paged pool.
 
     Args:
@@ -233,6 +234,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
       positions: ``[S]`` int32 — attend keys ``0..positions[s]``
         inclusive; ``< 0`` = inactive row (output zeros).
       sm_scale: softmax scale (default ``1/sqrt(d)``).
+      plan_rows: the row count :func:`split_plan` cuts the keys for
+        (default ``S``). The speculative verify launches ``S·W`` rows
+        with ``plan_rows=S``, so each row sums its keys in the decode
+        step's chunks and order. The plain version has no split and
+        ignores it.
 
     Returns ``[S, H, d]`` in q's dtype. CUDA tensors run the kernel (bf16,
     d_head 128); CPU tensors run :func:`paged_attention_reference`."""
@@ -249,7 +255,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, positions, *,
     dev = q.device
     n_blocks, bs = k_pool.shape[:2]
     max_blocks = block_tables.shape[1]
-    plan = split_plan(S, H, max_blocks, bs, _build.sm_count(dev))
+    plan = split_plan(S if plan_rows is None else int(plan_rows), H,
+                      max_blocks, bs, _build.sm_count(dev))
     stream = _build.current_stream(dev)
     _, tickets, part_ml, part_acc = _workspace(dev, stream, S * H,
                                                plan.n_splits)

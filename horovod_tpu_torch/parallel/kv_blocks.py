@@ -1,8 +1,10 @@
 """Paged KV cache: a fixed pool of blocks plus per-slot block tables.
 
-Port of the JAX package's ``parallel/kv_blocks.py`` (the paged prefill
-and decode step, and the core of ``BlockManager``; the prefix registry,
-the host tier, tenant budgets and chunked prefill belong to later slices).
+Port of the JAX package's ``parallel/kv_blocks.py``: the paged prefill,
+the chunked prefill that reads a shared prefix back out of the pool, the
+decode and speculative verify steps, and the host-side
+:class:`BlockManager` with its copy-on-write prefix registry and host
+tier.
 
 The pool is ``{"k", "v": [n_layers, n_blocks, block_size, n_heads,
 d_head], "lengths": [max_slots] int32}``; a slot owns a list of blocks
@@ -12,24 +14,29 @@ entry of every table row and the target of every padding or
 inactive-slot write, masked out of every attention by the per-slot
 positions.
 
-Unlike the JAX functions, which return a new pool, :func:`paged_prefill`
-and :func:`paged_decode_step` write the pool **in place** (a full-width
-pool is a gigabyte; copying it per step would double the memory and
-the traffic) and return the same dict.
+Unlike the JAX functions, which return a new pool, the device functions
+write the pool **in place** (a full-width pool is a gigabyte; copying it
+per step would double the memory and the traffic) and return the same
+dict. Both paged steps, decode and verify, read the pool through the
+paged decode-attention kernel on a CUDA device, so a speculated stream
+never mixes two attention numerics; the JAX verify gathers the pool
+(``ROADMAP.md`` Queue 3 logs the difference).
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
-from typing import Dict, List, Optional, Tuple
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.paged_attention import paged_decode_attention
-from .transformer import (TransformerConfig, check_dense, prompt_forward,
-                          step_forward)
+from .transformer import (TransformerConfig, _clamped, check_dense,
+                          prompt_forward, step_forward)
 
 #: Physical block 0 — reserved, never allocated; see module docstring.
 TRASH_BLOCK = 0
@@ -108,6 +115,87 @@ def paged_prefill(w: Dict, tokens: torch.Tensor, cache: Dict, slot: int,
     return cache, logits
 
 
+def paged_chunked_prefill(w: Dict, tokens: torch.Tensor, cache: Dict,
+                          slot: int, write_rows: torch.Tensor,
+                          read_row: torch.Tensor, start: int,
+                          cfg: TransformerConfig,
+                          length: Optional[int] = None,
+                          chunk_blocks: int = 1
+                          ) -> Tuple[Dict, torch.Tensor]:
+    """Chunked prefill: chunks of ``C = chunk_blocks · block_size`` tokens,
+    one after the other, whose attention reads K/V back out of the pool
+    through ``read_row``. A prefix-hit admission runs only the suffix's
+    chunks (the shared blocks are never recomputed); a cold admission is
+    the same loop started at block 0.
+
+    Args:
+      tokens: ``[B]`` int at a chunked bucket (``B % C == 0`` and
+        ``B >= 2·C``, the JAX function's rules).
+      write_rows: ``[B // C, chunk_blocks]`` int32 physical block per
+        chunk position; shared-prefix and padding entries point at
+        :data:`TRASH_BLOCK`.
+      read_row: ``[max_blocks]`` int32, the slot's whole chain (hit
+        blocks, then the fresh blocks ``write_rows`` names),
+        trash-padded.
+      start: absolute position of ``tokens[0]`` (``hits · block_size``,
+        a whole number of chunks; 0 for a cold admission).
+      length: the true total sequence length (prefix + suffix; default
+        ``B``).
+
+    Returns ``(cache, logits [B, vocab] f32)``; row ``i`` scores
+    absolute position ``start + i``. Each chunk stores its K/V, then
+    attends (f32 scores, -1e30 mask, f32 softmax, as JAX's scan body)
+    over the gathered ``[max_blocks · block_size]`` view of the pool at
+    the same shapes whatever the hit depth, so a hit's suffix logits and
+    the pool bytes it writes are bitwise those of the cold loop."""
+    check_dense(cfg, "paged_chunked_prefill")
+    B = tokens.shape[0]
+    bs = cache["k"].shape[2]
+    C = int(chunk_blocks) * bs
+    if B % C or B < 2 * C:
+        raise ValueError(
+            f"chunked bucket {B} must be a multiple of chunk size {C} "
+            f"and at least 2 chunks (the reference's one-trip rule, which "
+            f"the engine's chunked buckets keep)")
+    max_blocks = read_row.shape[0]
+    if B > max_blocks * bs:
+        raise ValueError(
+            f"chunked bucket {B} exceeds the table depth "
+            f"{max_blocks} blocks × {bs}")
+    M = max_blocks * bs
+    H, dh = cfg.n_heads, cfg.d_head
+    sm_scale = float(dh) ** -0.5
+    dev = cache["k"].device
+    rr = read_row.to(device=dev, dtype=torch.long)
+    wr = write_rows.to(device=dev, dtype=torch.long)
+    kpos = torch.arange(M, device=dev)
+    outs = []
+    for c in range(B // C):
+        wblocks = wr[c]
+        qpos = int(start) + c * C + torch.arange(C, device=dev)
+        hidden = (qpos[:, None] < kpos[None, :])[None, None]
+
+        def store(li, k, v, wblocks=wblocks):
+            for pool, x in ((cache["k"][li], k), (cache["v"][li], v)):
+                pool[wblocks] = x.to(pool.dtype).reshape(
+                    chunk_blocks, bs, H, dh)
+
+        def attend(li, q, hidden=hidden):
+            # Gathers after store: the chunk attends everything written
+            # so far (hit blocks included) and itself.
+            kg = cache["k"][li][rr].reshape(M, H, dh)[None]
+            vg = cache["v"][li][rr].reshape(M, H, dh)[None]
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                             kg.float()) * sm_scale
+            p = torch.softmax(s.masked_fill(hidden, -1e30), dim=-1)
+            return torch.einsum("bhqk,bkhd->bqhd", p, vg.float())
+
+        outs.append(prompt_forward(w, tokens[c * C:(c + 1) * C], cfg,
+                                   store, attend=attend))
+    cache["lengths"][slot] = B if length is None else int(length)
+    return cache, torch.cat(outs)
+
+
 def paged_decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
                       positions: torch.Tensor, block_tables: torch.Tensor,
                       cfg: TransformerConfig) -> Tuple[Dict, torch.Tensor]:
@@ -129,9 +217,7 @@ def paged_decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
     check_dense(cfg, "paged_decode_step")
     S = last_tokens.shape[0]
     bs = cache["k"].shape[2]
-    active = positions >= 0
-    pos = torch.where(active, positions,
-                      torch.zeros_like(positions)).to(torch.int32)
+    active, pos = _clamped(positions)
     rows = torch.arange(S, device=positions.device)
     phys = block_tables[rows, (pos // bs).long()].long()
     off = (pos % bs).long()
@@ -148,14 +234,111 @@ def paged_decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
     return cache, logits
 
 
-class BlockManager:
-    """Host-side allocator for the paged pool: a free list and per-block
-    refcounts. An allocated block starts at refcount 1 (its stream) and
-    returns to the free list at refcount 0. Thread-safe; the engine loop
-    is the only allocating thread, concurrent readers see consistent
-    gauges."""
+def paged_verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
+                      positions: torch.Tensor, block_tables: torch.Tensor,
+                      cfg: TransformerConfig) -> Tuple[Dict, torch.Tensor]:
+    """Paged speculative verify: score ``W = k + 1`` positions per slot
+    in one forward against the pool (the paged sibling of
+    :func:`~.transformer.verify_step`).
 
-    def __init__(self, n_blocks: int, block_size: int):
+    Column ``j`` writes its K/V at logical position ``positions[s] + j``
+    through the slot's table; positions at or past the table's capacity
+    go to :data:`TRASH_BLOCK`. Speculated writes land in the slot's
+    private blocks only (admission reserves every position a stream may
+    write, and shared prefix blocks cover whole prompt blocks), so a
+    rejected draft needs no rollback. The ``S·W`` flattened rows run
+    :func:`~..ops.paged_attention.paged_decode_attention` over the
+    slot's table repeated ``W`` times, with the decode step's split plan
+    (``plan_rows=S``): on a CUDA device each row sums its keys in the
+    decode step's chunks and order. Returns ``(cache, logits [S, W,
+    vocab] f32)``."""
+    check_dense(cfg, "paged_verify_step")
+    S, W = draft_tokens.shape
+    bs = cache["k"].shape[2]
+    max_blocks = block_tables.shape[1]
+    active, pos = _clamped(positions)
+    wpos = pos[:, None] + torch.arange(W, dtype=torch.int32,
+                                       device=pos.device)[None, :]
+    valid = wpos < max_blocks * bs
+    bidx = torch.clamp(wpos // bs, max=max_blocks - 1).long()
+    rows = torch.arange(S, device=pos.device)[:, None]
+    phys = torch.where(valid, block_tables[rows, bidx],
+                       torch.full_like(bidx, TRASH_BLOCK,
+                                       dtype=block_tables.dtype)).long()
+    off = (wpos % bs).long()
+    flat_pos = wpos.reshape(S * W).contiguous()
+    tables_w = block_tables.repeat_interleave(W, dim=0)
+
+    def mix(li, q, k, v):
+        k_pool, v_pool = cache["k"][li], cache["v"][li]
+        k_pool[phys, off] = k.reshape(S, W, *k.shape[1:]).to(k_pool.dtype)
+        v_pool[phys, off] = v.reshape(S, W, *v.shape[1:]).to(v_pool.dtype)
+        return paged_decode_attention(q.contiguous(), k_pool, v_pool,
+                                      tables_w, flat_pos,
+                                      plan_rows=S).to(q.dtype)
+
+    logits = step_forward(w, draft_tokens.reshape(S * W), cfg, mix)
+    cache["lengths"].copy_(torch.where(active, pos + 1, cache["lengths"]))
+    return cache, logits.reshape(S, W, -1)
+
+
+# -- host-side block accounting: free list, refcounts, prefix registry --------
+
+
+def prefix_route_digest(tokens, block_size: int,
+                        adapter: Optional[str] = None) -> Optional[str]:
+    """Stable 16-hex digest of a prompt's first full block under the
+    tenant frame (``\\x00`` for base, ``"{adapter}\\x00"`` for a tenant):
+    the prefix-affine routing key, the JAX function's exact strings.
+    ``None`` when the prompt has no full first block."""
+    if len(tokens) < block_size:
+        return None
+    frame = b"\x00" if adapter is None else f"{adapter}\x00".encode()
+    blk = np.ascontiguousarray(tokens[:block_size], dtype=np.int32)
+    return hashlib.sha256(frame + blk.tobytes()).hexdigest()[:16]
+
+
+class BlockManager:
+    """Host-side allocator for the paged pool: free list + per-block
+    refcounts + a prefix registry for copy-on-write prompt sharing (the
+    JAX class, host-side numpy, ported whole).
+
+    Refcount semantics: an allocated block starts at 1 (its owning
+    stream); sharing a prefix block retains it (+1 per sharing stream);
+    registering a block in the prefix registry pins it with one more
+    ref, so a registered prefix survives its streams and serves future
+    hits. A block returns to the free list only at refcount 0;
+    :meth:`reclaim` evicts LRU registry entries (dropping their pin)
+    when the pool runs dry. All methods are thread-safe, but the
+    allocate/lookup/register flow assumes a single admitting thread (the
+    engine loop) — concurrent readers only see consistent gauges.
+
+    The registry keys are the raw token bytes of each block-aligned
+    prefix (``tokens[:j·block_size].tobytes()``), so a hit requires the
+    ENTIRE preceding prefix to match — exactly the condition under which
+    the cached K/V (a causal function of the preceding tokens) is valid
+    for the new stream. ``salt`` extends that condition to everything
+    else the K/V is a function of: a multi-tenant engine passes the
+    request's (adapter, load-generation) identity, because a LoRA
+    delta changes the K/V a prompt writes — two tenants' identical
+    token prefixes are NOT interchangeable bytes, and neither are one
+    tenant's before/after a hot-reload.
+
+    **Per-tenant ownership and budgets.** Every allocated block can
+    carry an ``owner`` (the allocating tenant); the tenant salt already
+    makes prefix sharing tenant-scoped, so a block has exactly ONE
+    owner for its whole allocated life — shared-prefix retains are
+    always same-tenant. :meth:`set_budget` caps a tenant's owned
+    blocks; enforcement belongs to the engine's admission path, which
+    takes it with the tenants (``ROADMAP.md`` Queue 1 item 12). The
+    manager only does the ledger: :meth:`owned_count`, owner-filtered
+    :meth:`offload_candidates` (a tenant over budget offloads its OWN
+    coldest blocks first) and owner-filtered :meth:`reclaim` (it
+    evicts its own registry residue, never another tenant's cache).
+    """
+
+    def __init__(self, n_blocks: int, block_size: int,
+                 host_blocks: int = 0):
         if n_blocks < 2:
             raise ValueError(
                 f"n_blocks must be >= 2 (block 0 is reserved), got "
@@ -165,7 +348,24 @@ class BlockManager:
         self._ref = np.zeros(self._n, np.int64)
         self._ref[TRASH_BLOCK] = 1          # never allocated, never freed
         self._free: List[int] = list(range(self._n - 1, 0, -1))
+        self._registry: "OrderedDict[bytes, int]" = OrderedDict()
+        # Host tier: registry key -> opaque payload (the engine stages
+        # the block's K/V bytes; the manager only does LRU accounting).
+        self._host_cap = int(host_blocks)
+        self._host: "OrderedDict[bytes, Any]" = OrderedDict()
+        # First-block registry key -> advisory routing digest; kept
+        # while the chain head lives in EITHER tier.
+        self._route: Dict[bytes, str] = {}
+        # Tenant ownership ledger: block -> owning tenant for the
+        # block's allocated lifetime (registry pins included — a
+        # tenant's cache residue counts against its budget), plus the
+        # per-tenant owned counts and budgets the engine enforces.
+        self._owner: Dict[int, str] = {}
+        self._owned: Dict[str, int] = {}
+        self._budgets: Dict[str, int] = {}
         self._lock = threading.Lock()
+
+    # -- gauges ------------------------------------------------------------
 
     @property
     def block_size(self) -> int:
@@ -186,30 +386,102 @@ class BlockManager:
         with self._lock:
             return self.usable - len(self._free)
 
+    @property
+    def registry_size(self) -> int:
+        with self._lock:
+            return len(self._registry)
+
     def gauges(self) -> Dict:
-        """The /stats block-pool block: plain ints, json-ready."""
+        """The /stats block-pool block: plain ints, json-ready (the
+        router sums these across replicas, so every value stays
+        numeric). Host-tier keys are present even at ``host_blocks=0``
+        so the exposition is stable across configurations."""
         with self._lock:
             free = len(self._free)
+            host_used = len(self._host)
             return {"total": self.usable, "free": free,
-                    "used": self.usable - free}
+                    "used": self.usable - free,
+                    "registered_prefix_blocks": len(self._registry),
+                    "host_total": self._host_cap,
+                    "host_used": host_used,
+                    "host_free": max(0, self._host_cap - host_used)}
 
-    def alloc(self, n: int) -> List[int]:
-        """Take ``n`` fresh blocks (refcount 1 each). Callers check
-        :attr:`free_count` first; an empty pool here is a bookkeeping
+    def tenant_gauges(self) -> Dict:
+        """Per-tenant ownership view, SEPARATE from :meth:`gauges`
+        (whose values the fleet router sums across replicas — they must
+        stay scalar): owned device blocks and configured budgets by
+        tenant, json-ready."""
+        with self._lock:
+            return {"owned": dict(sorted(self._owned.items())),
+                    "budgets": dict(sorted(self._budgets.items()))}
+
+    # -- tenant ownership / budgets -----------------------------------------
+
+    def _own(self, b: int, owner: Optional[str]) -> None:
+        """Stamp ``owner`` on block ``b`` (caller holds the lock)."""
+        if owner is None:
+            return
+        self._owner[b] = owner
+        self._owned[owner] = self._owned.get(owner, 0) + 1
+
+    def _disown(self, b: int) -> None:
+        """Clear block ``b``'s owner as it frees (caller holds the
+        lock)."""
+        owner = self._owner.pop(b, None)
+        if owner is None:
+            return
+        n = self._owned.get(owner, 1) - 1
+        if n > 0:
+            self._owned[owner] = n
+        else:
+            self._owned.pop(owner, None)
+
+    def set_budget(self, tenant: str, budget: Optional[int]) -> None:
+        """Cap ``tenant``'s owned device blocks (``None`` = unlimited).
+        Budget vs quota: a quota caps in-flight STREAMS, a budget caps
+        the tenant's slice of the device pool — the resource that one
+        long-context tenant can exhaust for everyone with a handful of
+        streams."""
+        if budget is not None and budget < 1:
+            raise ValueError(
+                f"block budget must be >= 1 or None, got {budget}")
+        with self._lock:
+            if budget is None:
+                self._budgets.pop(tenant, None)
+            else:
+                self._budgets[tenant] = int(budget)
+
+    def budget(self, tenant: str) -> Optional[int]:
+        with self._lock:
+            return self._budgets.get(tenant)
+
+    def owned_count(self, tenant: str) -> int:
+        """Device blocks currently owned by ``tenant`` — live stream
+        allocations AND its registry-pinned prefix residue."""
+        with self._lock:
+            return self._owned.get(tenant, 0)
+
+    # -- allocation --------------------------------------------------------
+
+    def alloc(self, n: int, owner: Optional[str] = None) -> List[int]:
+        """Take ``n`` fresh blocks (refcount 1 each), owned by
+        ``owner`` when given. Callers check :attr:`free_count` (and
+        :meth:`reclaim`) first; an empty pool here is a bookkeeping
         bug, not backpressure."""
         with self._lock:
             if n > len(self._free):
                 raise RuntimeError(
                     f"block pool exhausted: asked {n}, free "
                     f"{len(self._free)} — admission must check "
-                    f"free_count first")
+                    f"free_count/reclaim first")
             out = [self._free.pop() for _ in range(n)]
             for b in out:
                 self._ref[b] = 1
+                self._own(b, owner)
             return out
 
     def retain(self, blocks: List[int]) -> None:
-        """One more reference on each of ``blocks``."""
+        """One more stream reference on each of ``blocks`` (prefix hit)."""
         with self._lock:
             for b in blocks:
                 if self._ref[b] <= 0:
@@ -229,4 +501,172 @@ class BlockManager:
                 if self._ref[b] < 0:
                     raise RuntimeError(f"double free of block {b}")
                 if self._ref[b] == 0:
+                    self._disown(b)
                     self._free.append(b)
+
+    # -- prefix registry ---------------------------------------------------
+
+    def _key(self, tokens: np.ndarray, j: int, salt: bytes) -> bytes:
+        return salt + np.ascontiguousarray(
+            tokens[:(j + 1) * self._bs], dtype=np.int32).tobytes()
+
+    def lookup_prefix(self, tokens: np.ndarray,
+                      salt: bytes = b"") -> List[int]:
+        """Longest chain of registered full blocks matching the prompt's
+        block-aligned prefix UNDER ``salt`` (the writer-identity key —
+        see class docstring); touches hits MRU so reclaim evicts cold
+        prefixes first."""
+        with self._lock:
+            hits: List[int] = []
+            for j in range(len(tokens) // self._bs):
+                key = self._key(tokens, j, salt)
+                blk = self._registry.get(key)
+                if blk is None:
+                    break
+                self._registry.move_to_end(key)
+                hits.append(blk)
+            return hits
+
+    def register_prefix(self, tokens: np.ndarray, blocks: List[int],
+                        n_full: int, salt: bytes = b"",
+                        route_digest: Optional[str] = None) -> None:
+        """Pin the prompt's first ``n_full`` blocks in the registry
+        under ``salt`` (idempotent for already-registered chains).
+        ``route_digest`` tags the chain's FIRST block key for
+        prefix-affine routing. A cold re-registration supersedes any
+        host-tier copy of the same key (bitwise-identical bytes by the
+        chunked-prefill contract, so the device copy wins and the host
+        slot frees up)."""
+        with self._lock:
+            for j in range(n_full):
+                key = self._key(tokens, j, salt)
+                if j == 0 and route_digest:
+                    self._route[key] = route_digest
+                self._host.pop(key, None)
+                if key in self._registry:
+                    self._registry.move_to_end(key)
+                    continue
+                self._registry[key] = blocks[j]
+                self._ref[blocks[j]] += 1
+
+    def reclaim(self, need_free: int,
+                owner: Optional[str] = None) -> bool:
+        """Evict registered prefixes, LRU-first, until ``need_free``
+        blocks are free. Only entries whose block's SOLE reference is
+        the registry pin are evicted — popping a stream-referenced entry
+        frees nothing and would just wipe the cache for future
+        admissions (a transiently starved request must not disable
+        prefix reuse for everyone else). ``owner`` restricts the sweep
+        to blocks that tenant owns: an over-budget tenant reclaims its
+        OWN cache residue, never another tenant's. Returns whether the
+        target was met; entries skipped here free up for a later sweep
+        when their streams end."""
+        with self._lock:
+            if len(self._free) >= need_free:
+                return True
+            for key in list(self._registry):        # LRU → MRU order
+                if len(self._free) >= need_free:
+                    break
+                blk = self._registry[key]
+                if owner is not None and self._owner.get(blk) != owner:
+                    continue
+                if self._ref[blk] == 1:
+                    del self._registry[key]
+                    if key not in self._host:
+                        self._route.pop(key, None)
+                    self._ref[blk] = 0
+                    self._disown(blk)
+                    self._free.append(blk)
+            return len(self._free) >= need_free
+
+    # -- host tier ---------------------------------------------------------
+
+    def host_lookup(self, tokens: np.ndarray, start_block: int,
+                    salt: bytes = b"") -> List[Tuple[bytes, Any]]:
+        """Contiguous run of host-tier entries continuing the device
+        chain from logical block ``start_block`` — ``[(key, payload),
+        ...]`` in chain order, touched MRU. The engine kicks an async
+        prefetch for these; they are NOT readable by this admission."""
+        with self._lock:
+            out: List[Tuple[bytes, Any]] = []
+            for j in range(int(start_block), len(tokens) // self._bs):
+                key = self._key(tokens, j, salt)
+                payload = self._host.get(key)
+                if payload is None:
+                    break
+                self._host.move_to_end(key)
+                out.append((key, payload))
+            return out
+
+    def offload_candidates(self, n: int,
+                           owner: Optional[str] = None
+                           ) -> List[Tuple[bytes, int]]:
+        """Up to ``n`` coldest registry entries whose block's SOLE
+        reference is the registry pin — the only ones whose device bytes
+        are stable to copy (no stream can be writing them) and whose
+        eviction frees a block. ``owner`` restricts the sweep to that
+        tenant's blocks (the over-budget path: a tenant offloads its
+        OWN coldest blocks first). Read-only: the engine snapshots the
+        bytes, then :meth:`offload_commit` re-validates under the lock,
+        so a hit that lands mid-copy simply cancels the offload."""
+        if self._host_cap <= 0 or n <= 0:
+            return []
+        with self._lock:
+            out: List[Tuple[bytes, int]] = []
+            for key, blk in self._registry.items():     # LRU → MRU
+                if len(out) >= n:
+                    break
+                if owner is not None and self._owner.get(blk) != owner:
+                    continue
+                if self._ref[blk] == 1:
+                    out.append((key, blk))
+            return out
+
+    def offload_commit(self, key: bytes, payload: Any) -> bool:
+        """Move a candidate to the host tier: drop the registry pin,
+        free the device block, stage ``payload`` LRU-tracked. Refuses
+        (returns False) if the entry was hit or evicted since
+        :meth:`offload_candidates` — the payload would be stale
+        bookkeeping, never a stale read, but we don't keep it."""
+        with self._lock:
+            blk = self._registry.get(key)
+            if blk is None or self._ref[blk] != 1 or self._host_cap <= 0:
+                return False
+            del self._registry[key]
+            self._ref[blk] = 0
+            self._disown(blk)
+            self._free.append(blk)
+            self._host[key] = payload
+            self._host.move_to_end(key)
+            while len(self._host) > self._host_cap:
+                old, _ = self._host.popitem(last=False)
+                if old not in self._registry:
+                    self._route.pop(old, None)
+            return True
+
+    def promote(self, key: bytes, blk: int) -> bool:
+        """Install a prefetched payload's freshly written device block
+        back into the registry, transferring the caller's alloc ref to
+        the registry pin (the block arrives at refcount 1 from
+        :meth:`alloc` and stays at 1 — registry-pinned, stream-free).
+        Idempotent against the admission race: if the key was re-
+        registered cold while the prefetch was in flight, the new block
+        is freed and False returned — both copies hold bitwise-identical
+        bytes, so either outcome is correct and no reader ever sees a
+        stale row."""
+        with self._lock:
+            self._host.pop(key, None)
+            if key in self._registry:
+                self._ref[blk] = 0
+                self._disown(blk)
+                self._free.append(blk)
+                return False
+            self._registry[key] = blk
+            return True
+
+    def route_digests(self) -> Tuple[str, ...]:
+        """Sorted unique advisory routing digests of every prefix chain
+        resident in EITHER tier — what the replica advertises through
+        /stats for prefix-affine dispatch."""
+        with self._lock:
+            return tuple(sorted(set(self._route.values())))

@@ -1,6 +1,8 @@
 """The transformer LM of the port: model, the training forward and its
-train step (data-parallel, or dp × tp × sp × ep over a mesh), and the
-prompt/decode-step forwards the paged generation engine runs.
+train step (data-parallel, or dp × tp × sp × ep over a mesh), the
+prompt/decode-step forwards the generation engine runs, and the
+contiguous KV cache (:func:`init_kv_cache`, :func:`prefill`,
+:func:`decode_step`, :func:`verify_step`).
 
 Port of the JAX package's ``parallel/transformer.py``. On a mesh
 (:mod:`.mesh`) the model holds this rank's blocks of the JAX global
@@ -30,9 +32,12 @@ function does: the packed flash kernels
 :func:`~..ops.attention.flash_attention` with that backend otherwise
 (which takes the dense :func:`~..ops.attention.xla_attention` for
 untilable shapes). Prompts run
-:func:`~..ops.attention.flash_attention_prefill` at every length, decode
-steps a caller-supplied ``mix`` (the paged pool read in
-:mod:`.kv_blocks`).
+:func:`~..ops.attention.flash_attention_prefill` at every length (or a
+caller's ``attend``, the chunked prefill's pool read), decode steps a
+caller-supplied ``mix``: the paged pool read in :mod:`.kv_blocks`, or
+the contiguous cache's :func:`cached_attention`, plain PyTorch as the
+JAX function is plain XLA. The contiguous functions write the cache in
+place, as the paged ones write the pool.
 """
 
 from __future__ import annotations
@@ -535,21 +540,27 @@ def lm_loss(w: Dict, tokens: torch.Tensor, labels: torch.Tensor,
 
 
 def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
-                   store_kv: Callable) -> torch.Tensor:
+                   store_kv: Callable,
+                   attend: Optional[Callable] = None) -> torch.Tensor:
     """Prompt-phase forward (``w`` from :func:`gen_weights`): per layer
     the computed K/V (``[T, H, dh]``) is handed to ``store_kv(li, k, v)``
     and the attention is the self-contained causal
     :func:`~..ops.attention.flash_attention_prefill` over the prompt (the
-    kernel at every length). Returns logits
-    ``[T, vocab]`` f32."""
+    kernel at every length). ``attend(li, q)`` replaces that attention
+    with a caller-supplied read (q ``[1, T, H, dh]`` → attention of the
+    same shape), the chunked prefill's hook: ``store_kv`` runs first, so
+    the hook may gather the just-stored rows back out of a paged pool.
+    Returns logits ``[T, vocab]`` f32."""
     x = w["embed"][tokens.long()][None].to(cfg.dtype)           # [1, T, D]
     for li, layer in enumerate(w["layers"]):
-        def attend(qkv, li=li):
+        def attn(qkv, li=li):
             q, k, v = _split_heads(qkv, cfg)
             store_kv(li, k[0], v[0])
+            if attend is not None:
+                return attend(li, q).to(cfg.dtype).flatten(-2)
             return flash_attention_prefill(q, k, v,
                                            causal=True).flatten(-2)
-        x = _layer(layer, x, cfg, attend)
+        x = _layer(layer, x, cfg, attn)
     return unembed(w, rms_norm(x, w["lnf"]), cfg)[0]
 
 
@@ -564,6 +575,138 @@ def step_forward(w: Dict, last_tokens: torch.Tensor,
         x = _layer(layer, x, cfg, lambda qkv, li=li: mix(
             li, *_split_heads(qkv, cfg)).flatten(-2))
     return unembed(w, rms_norm(x, w["lnf"]), cfg)
+
+
+# -- the contiguous KV cache --------------------------------------------------
+
+def init_kv_cache(cfg: TransformerConfig, max_slots: int, max_len: int,
+                  dtype: Optional[torch.dtype] = None, *,
+                  device: DeviceLike = "cuda") -> Dict:
+    """Fresh (zeroed) contiguous K/V cache on ``device``: ``{"k", "v":
+    [n_layers, max_slots, max_len, n_heads, d_head], "lengths":
+    [max_slots] int32}``. Every slot reserves ``max_len`` rows up front;
+    rows past a slot's length are garbage by contract (padded prefill
+    writes land there) and are masked out of every attention."""
+    check_dense(cfg, "init_kv_cache")
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, max_slots, max_len, cfg.n_heads, cfg.d_head)
+    kv_dtype = cfg.dtype if dtype is None else dtype
+    return {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
+            "lengths": torch.zeros((max_slots,), dtype=torch.int32,
+                                   device=dev)}
+
+
+def prefill(w: Dict, tokens: torch.Tensor, cache: Dict, slot: int,
+            cfg: TransformerConfig, length: Optional[int] = None):
+    """Full-prompt forward writing every position's K/V into slot
+    ``slot`` of the contiguous cache, in place. ``tokens`` is ``[T]`` at
+    a bucket width (padded positions' K/V are written but masked by
+    ``length``). Returns ``(cache, logits [T, vocab] f32)``; the logits
+    read nothing from the cache (the same self-contained attention as
+    the paged prefill)."""
+    check_dense(cfg, "prefill")
+    T = tokens.shape[0]
+    if T > cache["k"].shape[2]:
+        raise ValueError(f"prompt bucket {T} exceeds the cache max_len "
+                         f"{cache['k'].shape[2]}")
+
+    def store(li, k, v):
+        cache["k"][li, slot, :T] = k.to(cache["k"].dtype)
+        cache["v"][li, slot, :T] = v.to(cache["v"].dtype)
+
+    logits = prompt_forward(w, tokens, cfg, store)
+    cache["lengths"][slot] = T if length is None else int(length)
+    return cache, logits
+
+
+def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """One query token per row against that row's cache: q ``[S, H, d]``,
+    k/v_cache ``[S, M, H, d]``, positions ``[S]`` (attends keys
+    ``0..position`` inclusive). f32 scores, ``1/sqrt(d)`` scale, -1e30
+    mask, f32 softmax and value product, cast back to q's dtype (JAX
+    ``_cached_attention``)."""
+    d = q.shape[-1]
+    s = torch.einsum("shd,smhd->shm", q.float(),
+                     k_cache.float()) * (float(d) ** -0.5)
+    m = torch.arange(k_cache.shape[1], device=q.device)
+    s = s.masked_fill(m[None, None, :] > positions.long()[:, None, None],
+                      -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("shm,smhd->shd", p, v_cache.float())
+    return out.to(q.dtype)
+
+
+def _clamped(positions: torch.Tensor):
+    """``(active, pos)``: which slots are live, and their positions with
+    inactive slots (``-1``) clamped to 0, as the JAX steps do."""
+    active = positions >= 0
+    pos = torch.where(active, positions,
+                      torch.zeros_like(positions)).to(torch.int32)
+    return active, pos
+
+
+def decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
+                positions: torch.Tensor, cfg: TransformerConfig):
+    """One autoregressive step for every slot of the contiguous cache:
+    each slot's K/V is written at ``positions[s]`` (``-1`` = inactive: its
+    scratch write lands at row 0 of its own slot, its output row is
+    garbage), then :func:`cached_attention` over the slot's rows. Writes
+    in place; returns ``(cache, logits [S, vocab] f32)``. Every slot's
+    row depends only on that slot's token, position and cache row."""
+    check_dense(cfg, "decode_step")
+    S = last_tokens.shape[0]
+    active, pos = _clamped(positions)
+    rows = torch.arange(S, device=positions.device)
+    at = pos.long()
+
+    def mix(li, q, k, v):
+        kc, vc = cache["k"][li], cache["v"][li]
+        kc[rows, at] = k.to(kc.dtype)
+        vc[rows, at] = v.to(vc.dtype)
+        return cached_attention(q, kc, vc, pos)
+
+    logits = step_forward(w, last_tokens, cfg, mix)
+    cache["lengths"].copy_(torch.where(active, pos + 1, cache["lengths"]))
+    return cache, logits
+
+
+def verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
+                positions: torch.Tensor, cfg: TransformerConfig):
+    """Speculative verify: score ``W = k + 1`` positions per slot in one
+    forward. ``draft_tokens [S, W]`` holds, per slot, its last sampled
+    token then the drafted continuation; column ``j`` writes its K/V at
+    ``positions[s] + j`` (writes at or past ``max_len`` are dropped, as
+    JAX's scatter drops them) and attends the slot's rows up to there.
+
+    The ``W`` columns are flattened onto the slot axis, so each row runs
+    the decode step's per-row math over the slot's cache (repeated ``W``
+    times). Returns ``(cache, logits [S, W, vocab] f32)``; row ``j`` is
+    the next-token distribution after ``draft_tokens[s, :j + 1]``. Only
+    column 0's position is claimed in ``lengths``."""
+    check_dense(cfg, "verify_step")
+    S, W = draft_tokens.shape
+    max_len = cache["k"].shape[2]
+    active, pos = _clamped(positions)
+    wpos = pos[:, None] + torch.arange(W, dtype=torch.int32,
+                                       device=pos.device)[None, :]
+    keep = wpos < max_len
+    rows = torch.arange(S, device=pos.device)[:, None].expand(S, W)
+    r_keep, p_keep = rows[keep], wpos[keep].long()
+    flat_pos = wpos.reshape(S * W)
+
+    def mix(li, q, k, v):
+        kc, vc = cache["k"][li], cache["v"][li]
+        kc[r_keep, p_keep] = k.reshape(S, W, *k.shape[1:])[keep].to(kc.dtype)
+        vc[r_keep, p_keep] = v.reshape(S, W, *v.shape[1:])[keep].to(vc.dtype)
+        return cached_attention(q, kc.repeat_interleave(W, dim=0),
+                                vc.repeat_interleave(W, dim=0), flat_pos)
+
+    logits = step_forward(w, draft_tokens.reshape(S * W), cfg, mix)
+    cache["lengths"].copy_(torch.where(active, pos + 1, cache["lengths"]))
+    return cache, logits.reshape(S, W, -1)
 
 
 def named_param_specs(model: Transformer) -> list:

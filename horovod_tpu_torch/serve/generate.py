@@ -1,21 +1,33 @@
-"""Continuous-batching autoregressive generation over the paged KV pool.
+"""Continuous-batching autoregressive generation over the KV cache.
 
-Port of the JAX package's ``serve/generate.py`` ``GenerationEngine`` in
-its paged layout. Orca-style iteration-level scheduling over vLLM-style
-paged KV memory:
+Port of the JAX package's ``serve/generate.py`` ``GenerationEngine``.
+Orca-style iteration-level scheduling over vLLM-style paged KV memory:
 
 * **Slots, not batches.** The decode step always runs at the fixed
   ``[max_slots]`` shape and requests join/leave the batch at every step
   boundary: a new request prefills into a free slot while its neighbours
   are mid-stream. Slot rows are numerically independent, so a request's
   greedy stream is the same whether it runs alone or in a busy batch.
-* **Paged KV.** A fixed pool of ``block_size``-position blocks
-  (:mod:`..parallel.kv_blocks`); a stream reserves at admission every
-  block it can write and holds only those, admission tracks free blocks
-  next to free slots (``blocks_exhausted`` vs ``slots_full``).
-* **Kernels.** Prompts run the flash-attention prefill kernel and decode
-  steps the paged decode-attention kernel on a CUDA device (their plain
-  PyTorch versions on the CPU). Prompts pad to power-of-two buckets, so
+* **Two KV layouts.** ``"paged"`` (the default): a fixed pool of
+  ``block_size``-position blocks (:mod:`..parallel.kv_blocks`); a stream
+  reserves at admission every block it can write and holds only those,
+  admission tracks free blocks next to free slots (``blocks_exhausted``
+  vs ``slots_full``). ``"contiguous"``: every slot reserves ``max_len``
+  rows of :func:`~..parallel.transformer.init_kv_cache`.
+* **Prefix reuse, chunked prefill, host tier** (paged): full prompt
+  blocks are registered and shared copy-on-write by later prompts with
+  the same prefix; ``chunked_prefill`` runs every admission as chunks
+  that read the shared prefix out of the pool, so a hit computes only
+  its suffix; ``host_blocks`` offloads cold registered prefixes to host
+  memory and fetches them back at the loop's top, never inside a step.
+* **Speculative decoding** (``spec=SpecConfig(k)``): a host-side drafter
+  proposes up to ``k`` tokens a slot and one verify forward scores all
+  ``k + 1`` positions (:mod:`.spec`).
+* **Kernels.** Prompts run the flash-attention prefill kernel, paged
+  decode and verify steps the paged decode-attention kernel on a CUDA
+  device (their plain PyTorch versions on the CPU); the contiguous decode
+  and the chunked prefill's pool read are plain PyTorch, as the JAX
+  functions are plain XLA. Prompts pad to power-of-two buckets, so
   :meth:`GenerationEngine.warmup` can run every shape the engine will
   see before traffic.
 * **Sampling is per-request and host-side** (numpy, seeded per request:
@@ -31,9 +43,8 @@ paged KV memory:
 
 The loop is one background thread: one consumer keeps slot assignment and
 the queue's FIFO order trivially correct. Not ported yet (each raises
-``NotImplementedError`` when asked for): the contiguous layout, prefix
-reuse, chunked prefill, the host tier, tenants and preemption, LoRA
-adapters and speculative decoding.
+``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 12): tenants,
+their budgets and preemption, LoRA adapters.
 """
 
 from __future__ import annotations
@@ -53,15 +64,22 @@ from ..exceptions import (DeadlineExceededError, ServerClosedError,
                           ServerOverloadedError)
 from ..ops.paged_attention import paged_attention_supported
 from ..parallel.kv_blocks import (TRASH_BLOCK, BlockManager, blocks_for,
-                                  init_paged_kv_cache, paged_decode_step,
-                                  paged_prefill)
-from ..parallel.transformer import Transformer, check_dense, gen_weights
+                                  init_paged_kv_cache, paged_chunked_prefill,
+                                  paged_decode_step, paged_prefill,
+                                  paged_verify_step, prefix_route_digest)
+from ..parallel.transformer import (Transformer, check_dense, decode_step,
+                                    gen_weights, init_kv_cache, prefill,
+                                    verify_step)
 from .batcher import RequestQueue, bucket_for
 from .engine import ReadinessMixin
 from .metrics import ServeMetrics
+from .spec import SpecConfig, accept_greedy, accept_sampled
 
 _DEFAULT = object()    # "knob not passed" sentinel (None is a real value)
-_LATER = "a later slice of the PyTorch port"
+_LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1 item 12)"
+# The prefix registry's salt of base-model traffic: the JAX engine's
+# reserved NUL frame, so a base key can never equal a tenant's.
+_BASE_SALT = b"\x00"
 
 
 def prefill_buckets(max_len: int) -> Tuple[int, ...]:
@@ -92,18 +110,40 @@ class SamplingParams:
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
-    """Engine knobs (the paged subset of the JAX ``GenerationConfig``).
+    """Engine knobs (the JAX ``GenerationConfig`` without the tenants).
 
     ``max_slots`` is the decode batch width and ``max_len`` the per-
-    request cache depth (prompt + generated tokens). The pool holds
-    ``n_blocks`` blocks of ``block_size`` positions, the reserved trash
-    block included; ``None`` sizes it for every slot at full depth
-    (``max_slots · ceil(max_len/block_size) + 1``).
+    request cache depth (prompt + generated tokens). ``kv_layout``:
 
-    The remaining fields are the JAX engine's knobs this slice does not
-    port; a non-default value raises ``NotImplementedError``. ``preempt``
-    defaults to False here: without tenant priority classes the JAX
-    engine's preemption never fires, which is this engine's behaviour.
+    * ``"paged"`` (the default): a pool of ``n_blocks`` blocks of
+      ``block_size`` positions, the reserved trash block included;
+      ``None`` sizes it for every slot at full depth (``max_slots ·
+      ceil(max_len/block_size) + 1``). ``prefix_reuse`` shares full
+      block-aligned prompt prefixes copy-on-write across streams.
+    * ``"contiguous"``: every slot reserves ``max_len`` rows up front.
+
+    ``chunked_prefill`` (paged + prefix_reuse) runs every admission
+    through :func:`~..parallel.kv_blocks.paged_chunked_prefill`: a
+    prefix-hit admission computes only its suffix, reading the hit
+    blocks' K/V out of the pool, and a cold admission is the same loop
+    from block 0, so hit and cold streams are bitwise equal.
+    ``chunk_blocks`` is the chunk's width in blocks; ``max_len`` must
+    hold at least two chunks and divide evenly by the chunk.
+
+    ``host_blocks`` (paged + prefix_reuse) adds a host-memory tier of
+    that many blocks: cold registered prefixes offload there instead of
+    being dropped at reclaim, and an admission whose chain continues in
+    the host tier stages a prefetch, applied at the loop's top (never
+    inside a decode step). ``host_admission`` picks what that admission
+    does meanwhile: ``"wait"`` holds it in the queue until the prefetch
+    lands (FIFO kept), ``"miss"`` admits it at once on the device-tier
+    hits only (a recompute, never a stale read).
+
+    The tenant knobs (``tenant_*``, ``preempt``) come with the tenants
+    and LoRA: a non-default value raises ``NotImplementedError``.
+    ``preempt`` defaults to False here: without tenant priority classes
+    the JAX engine's preemption never fires, which is this engine's
+    behaviour.
     """
 
     max_slots: int = 8
@@ -117,7 +157,9 @@ class GenerationConfig:
     n_blocks: Optional[int] = None
     prefix_reuse: bool = False
     chunked_prefill: bool = False
+    chunk_blocks: int = 1
     host_blocks: int = 0
+    host_admission: str = "wait"
     tenant_weights: Optional[Dict[str, float]] = None
     tenant_priorities: Optional[Dict[str, int]] = None
     tenant_block_budgets: Optional[Dict[str, int]] = None
@@ -131,27 +173,63 @@ class GenerationConfig:
             raise ValueError(f"max_len must be >= 1, got {self.max_len}")
         if self.default_max_new_tokens < 1:
             raise ValueError("default_max_new_tokens must be >= 1")
-        if self.kv_layout == "contiguous":
-            raise NotImplementedError(
-                f"kv_layout='contiguous' comes in {_LATER}; this engine "
-                f"serves the paged layout")
-        if self.kv_layout != "paged":
+        if self.kv_layout not in ("contiguous", "paged"):
             raise ValueError(
-                f"kv_layout must be 'paged', got {self.kv_layout!r}")
+                f"kv_layout must be 'contiguous' or 'paged', got "
+                f"{self.kv_layout!r}")
         if self.block_size < 1 or (self.block_size & (self.block_size - 1)):
             raise ValueError(
                 f"block_size must be a power of two, got {self.block_size}")
-        if self.n_blocks is not None and self.n_blocks < 2:
+        if self.chunk_blocks < 1 or (self.chunk_blocks
+                                     & (self.chunk_blocks - 1)):
+            raise ValueError(
+                f"chunk_blocks must be a power of two, got "
+                f"{self.chunk_blocks}")
+        if self.host_blocks < 0:
+            raise ValueError(
+                f"host_blocks must be >= 0, got {self.host_blocks}")
+        if self.host_admission not in ("wait", "miss"):
+            raise ValueError(
+                f"host_admission must be 'wait' or 'miss', got "
+                f"{self.host_admission!r}")
+        if self.kv_layout != "paged":
+            for knob in ("prefix_reuse", "chunked_prefill", "host_blocks"):
+                if getattr(self, knob):
+                    raise ValueError(f"{knob} requires kv_layout='paged'")
+            if self.n_blocks is not None:
+                raise ValueError(
+                    "n_blocks applies to kv_layout='paged' only")
+        elif self.n_blocks is not None and self.n_blocks < 2:
             raise ValueError(
                 f"n_blocks must be >= 2 (block 0 is the reserved trash "
                 f"block), got {self.n_blocks}")
-        for knob in ("prefix_reuse", "chunked_prefill", "host_blocks",
-                     "tenant_weights", "tenant_priorities",
+        if self.chunked_prefill:
+            if not self.prefix_reuse:
+                raise ValueError(
+                    "chunked_prefill=True requires prefix_reuse=True "
+                    "(its whole point is skipping prefix-hit compute)")
+            c = self.chunk_tokens
+            if self.max_len % c or self.max_len < 2 * c:
+                raise ValueError(
+                    f"chunked_prefill needs max_len divisible by the "
+                    f"chunk ({self.chunk_blocks} blocks × "
+                    f"{self.block_size} = {c} tokens) and at least two "
+                    f"chunks, got max_len={self.max_len}")
+        if self.host_blocks and not self.prefix_reuse:
+            raise ValueError(
+                "host_blocks > 0 requires prefix_reuse=True (only "
+                "registered prefixes ever offload)")
+        for knob in ("tenant_weights", "tenant_priorities",
                      "tenant_block_budgets", "tenant_slo_ttft_ms",
                      "preempt"):
             if getattr(self, knob):
                 raise NotImplementedError(
                     f"GenerationConfig.{knob} comes in {_LATER}")
+
+    @property
+    def chunk_tokens(self) -> int:
+        """Tokens per chunked-prefill chunk."""
+        return self.chunk_blocks * self.block_size
 
     @property
     def blocks_per_slot(self) -> int:
@@ -247,6 +325,12 @@ class _GenRequest:
     t_first: Optional[float] = None     # first token sampled
     # Whether this request holds a max_queue admission ticket.
     held_ticket: bool = False
+    # Host-tier keys this request staged prefetches for (dropped if it
+    # leaves the held line unserved).
+    prefetch_keys: set = dataclasses.field(default_factory=set)
+    # Speculation accounting: drafts proposed for / accepted into it.
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     def expired(self, now: Optional[float] = None) -> bool:
         if self.deadline_at is None:
@@ -294,22 +378,22 @@ class GenerationEngine(ReadinessMixin):
       model: the :class:`~..parallel.transformer.Transformer` to serve
         (dense FFN only), already on ``device``.
       config: :class:`GenerationConfig`.
-      device: where the pool lives and the model runs; ``"cuda"`` (the
+      device: where the cache lives and the model runs; ``"cuda"`` (the
         default) raises on a host without CUDA, ``"cpu"`` runs the
         kernels' plain PyTorch versions.
-      adapters, spec: LoRA adapters and speculative decoding are not
-        ported yet; anything but ``None`` raises ``NotImplementedError``.
+      spec: :class:`~.spec.SpecConfig` turns on speculative decoding
+        (``None``: off). A step where no slot drafted anything is the
+        plain decode step.
+      adapters: LoRA adapters are not ported yet; anything but ``None``
+        raises ``NotImplementedError``.
     """
 
     def __init__(self, model: Transformer,
                  config: GenerationConfig = GenerationConfig(), *,
                  device: DeviceLike = "cuda", adapters: Any = None,
-                 spec: Any = None):
+                 spec: Optional[SpecConfig] = None):
         if adapters is not None:
             raise NotImplementedError(f"LoRA adapters come in {_LATER}")
-        if spec is not None:
-            raise NotImplementedError(
-                f"speculative decoding comes in {_LATER}")
         cfg = model.cfg
         check_dense(cfg, "GenerationEngine")
         self._device = resolve_device(device)
@@ -321,6 +405,9 @@ class GenerationEngine(ReadinessMixin):
             raise ValueError(
                 f"the CUDA kernels take bf16 with d_head 128; got "
                 f"{cfg.dtype} with d_head {cfg.d_head}")
+        if spec is not None and spec.k + 1 > config.max_len:
+            raise ValueError(
+                f"spec k={spec.k} needs k+1 <= max_len={config.max_len}")
         self._model_cfg = cfg
         self._cfg = config
         with torch.no_grad():
@@ -328,19 +415,39 @@ class GenerationEngine(ReadinessMixin):
         self._queue = RequestQueue(config.max_queue)
         self._metrics = ServeMetrics()
         s = config.max_slots
-        self._n_blocks = config.resolved_n_blocks
-        self._cache = init_paged_kv_cache(cfg, self._n_blocks,
-                                          config.block_size, s,
-                                          device=self._device)
-        self._blocks = BlockManager(self._n_blocks, config.block_size)
-        self._tables = np.full((s, config.blocks_per_slot), TRASH_BLOCK,
-                               np.int32)
-        self._slot_blocks: List[List[int]] = [[] for _ in range(s)]
+        self._paged = config.kv_layout == "paged"
+        if self._paged:
+            self._n_blocks = config.resolved_n_blocks
+            self._cache = init_paged_kv_cache(cfg, self._n_blocks,
+                                              config.block_size, s,
+                                              device=self._device)
+            self._blocks = BlockManager(self._n_blocks, config.block_size,
+                                        host_blocks=config.host_blocks)
+            self._tables = np.full((s, config.blocks_per_slot),
+                                   TRASH_BLOCK, np.int32)
+            self._slot_blocks: List[List[int]] = [[] for _ in range(s)]
+        else:
+            self._cache = init_kv_cache(cfg, s, config.max_len,
+                                        device=self._device)
+            self._blocks = None
+        self._chunked = self._paged and config.chunked_prefill
+        # Host-tier prefetches staged by admissions, applied at the top
+        # of the loop: a decode step never waits on a host→device copy.
+        self._host_cap = config.host_blocks if self._paged else 0
+        self._prefetch_q: deque = deque()
+        self._prefetch_inflight: set = set()
+        self._spec = spec
+        self._drafter = spec.make_drafter() if spec is not None else None
         self._buckets = prefill_buckets(config.max_len)
+        # Chunked buckets: the same grid restricted to multiples of the
+        # chunk holding at least two chunks.
+        c = config.chunk_tokens
+        self._chunked_buckets = tuple(
+            b for b in self._buckets if b % c == 0 and b >= 2 * c)
         self._last_prefill_bucket: Optional[int] = None
         # Requests popped from the admission queue but not yet in a slot
-        # (block-starved); FIFO: a head request short on blocks holds the
-        # line.
+        # (block-starved, or waiting on a host-tier prefetch); FIFO: the
+        # head request holds the line.
         self._held: deque = deque()
         self._peak_active = 0
         self._slots: List[Optional[_GenRequest]] = [None] * s
@@ -354,7 +461,7 @@ class GenerationEngine(ReadinessMixin):
                                         daemon=True)
         self._thread.start()
 
-    # -- the two device programs --------------------------------------------
+    # -- the device programs -----------------------------------------------
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         # A copy, never a view: the loop mutates these host arrays.
@@ -362,38 +469,93 @@ class GenerationEngine(ReadinessMixin):
 
     @torch.no_grad()
     def _prefill(self, tokens: np.ndarray, slot: int, length: int,
-                 write_row: np.ndarray) -> np.ndarray:
+                 write_row: Optional[np.ndarray]) -> np.ndarray:
         """Prefill one padded prompt; returns the logits row of its last
         real position (the only row sampling reads)."""
-        _, logits = paged_prefill(
-            self._weights, self._to_device(tokens), self._cache, slot,
-            self._to_device(write_row), self._model_cfg, length=length)
+        toks = self._to_device(tokens)
+        if self._paged:
+            _, logits = paged_prefill(
+                self._weights, toks, self._cache, slot,
+                self._to_device(write_row), self._model_cfg, length=length)
+        else:
+            _, logits = prefill(self._weights, toks, self._cache, slot,
+                                self._model_cfg, length=length)
         return logits[length - 1].cpu().numpy()
 
     @torch.no_grad()
+    def _chunked_prefill(self, tokens: np.ndarray, slot: int, length: int,
+                         start: int, write_rows: np.ndarray,
+                         read_row: np.ndarray) -> np.ndarray:
+        """The chunked prefill of a suffix starting at ``start``; returns
+        the logits row of the last prompt position."""
+        _, logits = paged_chunked_prefill(
+            self._weights, self._to_device(tokens), self._cache, slot,
+            self._to_device(write_rows), self._to_device(read_row), start,
+            self._model_cfg, length=length,
+            chunk_blocks=self._cfg.chunk_blocks)
+        return logits[length - start - 1].cpu().numpy()
+
+    @torch.no_grad()
     def _decode(self, last: np.ndarray, positions: np.ndarray,
-                tables: np.ndarray) -> np.ndarray:
+                tables: Optional[np.ndarray]) -> np.ndarray:
         """One decode step for every slot; returns ``[S, vocab]`` logits."""
-        _, logits = paged_decode_step(
-            self._weights, self._to_device(last), self._cache,
-            self._to_device(positions), self._to_device(tables),
-            self._model_cfg)
+        toks, pos = self._to_device(last), self._to_device(positions)
+        if self._paged:
+            _, logits = paged_decode_step(
+                self._weights, toks, self._cache, pos,
+                self._to_device(tables), self._model_cfg)
+        else:
+            _, logits = decode_step(self._weights, toks, self._cache, pos,
+                                    self._model_cfg)
+        return logits.cpu().numpy()
+
+    @torch.no_grad()
+    def _verify(self, drafts: np.ndarray, positions: np.ndarray,
+                tables: Optional[np.ndarray]) -> np.ndarray:
+        """One verify forward over ``[S, k + 1]`` draft columns; returns
+        ``[S, k + 1, vocab]`` logits."""
+        toks, pos = self._to_device(drafts), self._to_device(positions)
+        if self._paged:
+            _, logits = paged_verify_step(
+                self._weights, toks, self._cache, pos,
+                self._to_device(tables), self._model_cfg)
+        else:
+            _, logits = verify_step(self._weights, toks, self._cache, pos,
+                                    self._model_cfg)
         return logits.cpu().numpy()
 
     def warmup(self) -> Tuple[Any, ...]:
-        """Run the decode step and every prefill bucket once before
-        traffic (all writes land in the trash block, so the pool stays
-        pristine). Returns the shapes warmed."""
+        """Run the decode step, the verify step (with ``spec``) and every
+        prefill bucket (the chunked ones on a chunked engine) once before
+        traffic. Paged writes land in the trash block, contiguous ones in
+        rows past every slot's length, so the cache stays usable.
+        Returns the shapes warmed."""
         s = self._cfg.max_slots
         nb = self._cfg.blocks_per_slot
-        self._decode(np.zeros((s,), np.int32), np.full((s,), -1, np.int32),
-                     np.full((s, nb), TRASH_BLOCK, np.int32))
-        for t in self._buckets:
-            self._prefill(np.zeros((t,), np.int32), 0, 1,
-                          np.full((nb,), TRASH_BLOCK, np.int32))
+        tables = np.full((s, nb), TRASH_BLOCK, np.int32)
+        idle = np.full((s,), -1, np.int32)
+        self._decode(np.zeros((s,), np.int32), idle, tables)
+        spec_keys: Tuple[Any, ...] = ()
+        if self._spec is not None:
+            w = self._spec.k + 1
+            self._verify(np.zeros((s, w), np.int32), idle, tables)
+            spec_keys = (("verify", w),)
+        trash_row = np.full((nb,), TRASH_BLOCK, np.int32)
+        if self._chunked:
+            ct, cb = self._cfg.chunk_tokens, self._cfg.chunk_blocks
+            for t in self._chunked_buckets:
+                self._chunked_prefill(
+                    np.zeros((t,), np.int32), 0, 1, 0,
+                    np.full((t // ct, cb), TRASH_BLOCK, np.int32),
+                    trash_row)
+            buckets = self._chunked_buckets
+        else:
+            for t in self._buckets:
+                self._prefill(np.zeros((t,), np.int32), 0, 1, trash_row)
+            buckets = self._buckets
         self._cache["lengths"].zero_()
         self._warmed = True
-        return ("decode",) + tuple(self._buckets)
+        return ("decode",) + spec_keys + tuple(buckets)
 
     # -- client API --------------------------------------------------------
 
@@ -433,14 +595,15 @@ class GenerationEngine(ReadinessMixin):
         # Token t+1's K/V lands at position L+t; the last sampled token
         # needs no cache write, so room caps new tokens at max_len-L+1.
         max_new = min(max_new, self._cfg.max_len - toks.size + 1)
-        need = self._blocks_needed(toks.size, max_new)
-        if need > self._blocks.usable:
-            raise ValueError(
-                f"request needs {need} KV blocks (prompt {toks.size} + up "
-                f"to {max_new} generated, block_size="
-                f"{self._cfg.block_size}) but the pool holds only "
-                f"{self._blocks.usable} usable blocks — raise n_blocks or "
-                f"lower max_new_tokens")
+        if self._paged:
+            need = self._blocks_needed(toks.size, max_new)
+            if need > self._blocks.usable:
+                raise ValueError(
+                    f"request needs {need} KV blocks (prompt {toks.size} "
+                    f"+ up to {max_new} generated, block_size="
+                    f"{self._cfg.block_size}) but the pool holds only "
+                    f"{self._blocks.usable} usable blocks — raise "
+                    f"n_blocks or lower max_new_tokens")
         sampling = SamplingParams() if sampling is None else sampling
         eos = self._cfg.eos_id if eos_id is _DEFAULT else eos_id
         if deadline_ms is None:
@@ -482,22 +645,23 @@ class GenerationEngine(ReadinessMixin):
                          max_new: int) -> Tuple[str, str]:
         """Name the scarce resource behind a full admission queue (racy
         reads: this labels an error and a counter, it gates nothing)."""
-        free_slots = sum(r is None for r in self._slots)
-        need = self._blocks_needed(prompt_len, max_new)
-        free_blocks = self._blocks.free_count
-        if free_slots > 0 and free_blocks < need:
-            return ("blocks_exhausted",
-                    f"{free_blocks}/{self._blocks.usable} KV blocks free, "
-                    f"next request needs {need} — raise n_blocks or lower "
-                    f"max_new_tokens")
+        if self._paged:
+            free_slots = sum(r is None for r in self._slots)
+            need = self._blocks_needed(prompt_len, max_new)
+            free_blocks = self._blocks.free_count
+            if free_slots > 0 and free_blocks < need:
+                return ("blocks_exhausted",
+                        f"{free_blocks}/{self._blocks.usable} KV blocks "
+                        f"free, next request needs {need} — raise "
+                        f"n_blocks or lower max_new_tokens")
         return ("slots_full",
                 f"all {self._cfg.max_slots} decode slots busy and the "
                 f"queue is full — raise max_slots/max_queue or shed load")
 
     def stats(self) -> Dict:
         """The ``/stats`` snapshot: :class:`ServeMetrics` plus the slot,
-        bucket and block-pool view (``batch_fill_ratio`` is decode-slot
-        occupancy)."""
+        bucket and (paged) block-pool view (``batch_fill_ratio`` is
+        decode-slot occupancy)."""
         snap = self._metrics.snapshot()
         snap["max_slots"] = self._cfg.max_slots
         snap["max_len"] = self._cfg.max_len
@@ -505,12 +669,34 @@ class GenerationEngine(ReadinessMixin):
         snap["peak_active_slots"] = self._peak_active
         snap["prefill_buckets"] = list(self._buckets)
         snap["kv_layout"] = self._cfg.kv_layout
-        snap["block_size"] = self._cfg.block_size
-        snap["blocks"] = self._blocks.gauges()
+        if self._paged:
+            snap["block_size"] = self._cfg.block_size
+            snap["blocks"] = self._blocks.gauges()
+            hits = snap["generation"]["prefix_hits_total"]
+            misses = snap["generation"]["prefix_misses_total"]
+            snap["prefix_hit_rate"] = (hits / (hits + misses)
+                                       if hits + misses else None)
+            snap["chunked_prefill"] = self._cfg.chunked_prefill
+            snap["prefix_digests"] = list(self.prefix_digests())
         snap["last_prefill_bucket"] = self._last_prefill_bucket
+        snap["spec_k"] = self._spec.k if self._spec is not None else 0
         snap["device"] = str(self._device)
         snap["max_queue"] = self._cfg.max_queue
         return snap
+
+    def prefix_digests(self) -> Tuple[str, ...]:
+        """Advisory routing digests of the prefix chains this engine
+        holds (either tier), the residency signal a prefix-affine
+        dispatcher sorts on. Empty without a prefix registry."""
+        if not (self._paged and self._cfg.prefix_reuse):
+            return ()
+        return self._blocks.route_digests()
+
+    @property
+    def route_block_size(self) -> int:
+        """Block size a dispatcher must use to compute a request's
+        routing digest so it matches this engine's advertised ones."""
+        return self._cfg.block_size
 
     def shutdown(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stop the engine. ``drain=True`` finishes every stream already
@@ -561,6 +747,8 @@ class GenerationEngine(ReadinessMixin):
                     self._held.clear()
                     self._fail_active(err)
                     return
+                if self._prefetch_q:
+                    self._apply_prefetches()
                 free = [i for i, r in enumerate(self._slots) if r is None]
                 idle = len(free) == self._cfg.max_slots and not self._held
                 # Pull everything queued into the held line; block only
@@ -586,7 +774,12 @@ class GenerationEngine(ReadinessMixin):
                     if outcome == "ok":
                         free.pop(0)
                 if any(r is not None for r in self._slots):
-                    self._decode_once()
+                    if self._spec is None:
+                        self._decode_once()
+                    else:
+                        self._spec_once()
+                elif self._held and self._prefetch_q:
+                    pass    # a staged prefetch lands at the next top
                 elif self._held:
                     # Starved with nothing in flight: the submit-time pool
                     # check makes this unreachable. Fail loudly rather
@@ -605,13 +798,16 @@ class GenerationEngine(ReadinessMixin):
                 self._release_slot(i)
 
     def _release_slot(self, i: int) -> None:
-        """Vacate slot ``i``: its blocks return to the pool and its table
-        row points at the trash block again."""
+        """Vacate slot ``i``: a paged slot's blocks return to the pool
+        (refcount-aware: a shared prefix block frees only when its last
+        reader ends) and its table row points at the trash block
+        again."""
         self._slots[i] = None
         self._positions[i] = -1
-        self._blocks.release(self._slot_blocks[i])
-        self._slot_blocks[i] = []
-        self._tables[i] = TRASH_BLOCK
+        if self._paged:
+            self._blocks.release(self._slot_blocks[i])
+            self._slot_blocks[i] = []
+            self._tables[i] = TRASH_BLOCK
 
     def _expire_held(self) -> None:
         """Fail deadline-expired requests parked in the held line now,
@@ -626,6 +822,24 @@ class GenerationEngine(ReadinessMixin):
             if req.held_ticket:
                 req.held_ticket = False
                 self._queue.release_held()
+            self._release_prefetches(req)
+
+    def _release_prefetches(self, req: _GenRequest) -> None:
+        """Drop staged prefetches only ``req`` wanted (it left the held
+        line unserved): each would take a device block on landing for a
+        chain nobody waits on. Keys another held request staged stay."""
+        if not req.prefetch_keys:
+            return
+        wanted: set = set()
+        for other in self._held:
+            wanted |= other.prefetch_keys
+        drop = req.prefetch_keys - wanted
+        req.prefetch_keys = set()
+        if not drop:
+            return
+        self._prefetch_q = deque(
+            e for e in self._prefetch_q if e[0] not in drop)
+        self._prefetch_inflight -= drop
 
     def _fail_expired(self, req: _GenRequest, now: float) -> None:
         wait_ms = (now - req.enqueued_at) * 1e3
@@ -633,34 +847,179 @@ class GenerationEngine(ReadinessMixin):
         req.handle._fail(DeadlineExceededError(
             f"deadline expired after {wait_ms:.1f} ms in queue"))
 
+    def _paged_reserve(self, req: _GenRequest):
+        """Reserve the blocks ``req`` needs: prefix-registry hits are
+        retained (shared), the rest freshly allocated. Returns ``(hits,
+        fresh, n_total)``, or None when the pool cannot cover it yet, or
+        ``"wait"`` when the chain continues in the host tier under
+        ``host_admission="wait"`` (the request holds the line while the
+        staged prefetch lands). Hits are looked up again after every
+        sweep (an eviction can take entries the first lookup matched);
+        cold registered prefixes are offloaded to the host tier (when
+        there is one) before any is dropped."""
+        n_total = self._blocks_needed(req.tokens.size, req.max_new)
+        while True:
+            hits = (self._blocks.lookup_prefix(req.tokens,
+                                               salt=_BASE_SALT)
+                    if self._cfg.prefix_reuse else [])
+            hits = hits[:n_total]
+            if self._host_cap:
+                cont = self._blocks.host_lookup(
+                    req.tokens, len(hits), salt=_BASE_SALT)
+                if cont:
+                    self._stage_prefetch(cont, req)
+                    if self._cfg.host_admission == "wait":
+                        return "wait"
+                    # "miss": admit now on the device-tier hits only; the
+                    # prefetch still lands for the next admission.
+            if self._chunked:
+                # A hit depth is whole chunks, and at least one prompt
+                # token stays in the suffix to score the sampled row.
+                cb = self._cfg.chunk_blocks
+                cap = ((int(req.tokens.size) - 1)
+                       // self._cfg.chunk_tokens) * cb
+                n_hit = min(len(hits), cap)
+                hits = hits[:n_hit - n_hit % cb]
+            need = n_total - len(hits)
+            free = self._blocks.free_count
+            if free >= need:
+                self._blocks.retain(hits)
+                return hits, self._blocks.alloc(need), n_total
+            if self._host_cap and self._offload_for(need - free):
+                continue
+            if not self._blocks.reclaim(need):
+                return None
+
+    # -- host tier (offload / prefetch) ------------------------------------
+
+    def _offload_for(self, shortfall: int) -> bool:
+        """Move up to ``shortfall`` cold registered-prefix blocks to the
+        host tier (the block's K/V of every layer copied to host memory,
+        then committed: the manager checks again under its lock, so a hit
+        landing meanwhile cancels that block's offload). Returns whether
+        any device block was freed."""
+        moved = 0
+        for key, blk in self._blocks.offload_candidates(shortfall):
+            payload = {n: self._cache[n][:, blk].to("cpu", copy=True)
+                       for n in ("k", "v")}
+            if self._blocks.offload_commit(key, payload):
+                moved += 1
+        if moved:
+            self._metrics.on_kv_offload(moved)
+        return moved > 0
+
+    def _stage_prefetch(self, cont, req: _GenRequest) -> None:
+        """Queue host→device copies for a chain continuation found in the
+        host tier; applied at the loop's next top, never inside a decode
+        step. Idempotent per key while a copy is pending; ``req`` records
+        the keys it staged."""
+        now = time.monotonic()
+        for key, payload in cont:
+            req.prefetch_keys.add(key)
+            if key in self._prefetch_inflight:
+                continue
+            self._prefetch_inflight.add(key)
+            self._prefetch_q.append((key, payload, now))
+
+    def _apply_prefetches(self) -> None:
+        """Land staged prefetches: allocate a device block (offloading or
+        reclaiming a cold one first if the pool is dry), write the staged
+        bytes, promote the registry entry (idempotent against an
+        admission that registered the chain cold meanwhile). Entries that
+        cannot get a block yet stay queued; the loop never blocks
+        here."""
+        for _ in range(len(self._prefetch_q)):
+            key, payload, t0 = self._prefetch_q.popleft()
+            if (self._blocks.free_count < 1
+                    and not self._offload_for(1)
+                    and not self._blocks.reclaim(1)):
+                self._prefetch_q.append((key, payload, t0))
+                continue
+            blk = self._blocks.alloc(1)[0]
+            for n in ("k", "v"):
+                self._cache[n][:, blk] = payload[n].to(self._device)
+            self._blocks.promote(key, blk)
+            self._prefetch_inflight.discard(key)
+            self._metrics.on_kv_prefetch(time.monotonic() - t0)
+
     def _admit(self, req: _GenRequest, slot: int) -> str:
         """Prefill ``req`` into ``slot`` and emit its first token. Returns
         ``"ok"`` (slot occupied), ``"done"`` (expired, failed, or finished
-        on its first token — slot stays free) or ``"starved"`` (not
-        enough free KV blocks yet — the request stays held)."""
+        on its first token — slot stays free) or ``"starved"`` (paged:
+        not enough free KV blocks yet, or its chain is still on its way
+        back from the host tier — the request stays held)."""
         now = time.monotonic()
         if req.expired(now):
             self._fail_expired(req, now)
             return "done"
-        n_total = self._blocks_needed(req.tokens.size, req.max_new)
-        if self._blocks.free_count < n_total:
-            return "starved"
-        row = self._blocks.alloc(n_total)
+        reservation = None
+        row: List[int] = []
+        read_row = None
+        if self._paged:
+            reservation = self._paged_reserve(req)
+            if not isinstance(reservation, tuple):
+                return "starved"
         req.t_admit = now
         length = int(req.tokens.size)
+        bs = self._cfg.block_size
+        n_full = length // bs
         nb = self._cfg.blocks_per_slot
-        table_row = np.full((nb,), TRASH_BLOCK, np.int32)
-        table_row[:n_total] = row
         try:
-            bucket = bucket_for(length, self._buckets)
-            toks = np.zeros((bucket,), np.int32)
-            toks[:length] = req.tokens
-            self._last_prefill_bucket = bucket
-            logits = self._prefill(toks, slot, length, table_row)
+            if self._paged:
+                hits, fresh, n_total = reservation
+                row = hits + fresh
+                read_row = np.full((nb,), TRASH_BLOCK, np.int32)
+                read_row[:n_total] = row
+            if self._chunked:
+                ct = self._cfg.chunk_tokens
+                # The loop starts at the first block not shared: the
+                # bucket is drawn on the suffix, so a deep hit runs a
+                # smaller program.
+                start = len(hits) * bs
+                suf_len = length - start
+                bucket = bucket_for(suf_len, self._chunked_buckets)
+                toks = np.zeros((bucket,), np.int32)
+                toks[:suf_len] = req.tokens[start:]
+                # Per-chunk write targets: only the fresh blocks the
+                # suffix's prompt positions land in; hit blocks are never
+                # written, generation blocks and padding go to trash.
+                suffix_blocks = row[len(hits):blocks_for(length, bs)]
+                wflat = np.full((bucket // bs,), TRASH_BLOCK, np.int32)
+                wflat[:len(suffix_blocks)] = suffix_blocks
+                if n_full > 0:
+                    self._metrics.on_prefix(len(hits), n_full)
+                self._metrics.on_chunked_prefill(bucket // ct, start // ct)
+                self._last_prefill_bucket = bucket
+                logits = self._chunked_prefill(
+                    toks, slot, length, start,
+                    wflat.reshape(bucket // ct, self._cfg.chunk_blocks),
+                    read_row)
+            else:
+                bucket = bucket_for(length, self._buckets)
+                toks = np.zeros((bucket,), np.int32)
+                toks[:length] = req.tokens
+                write_row = None
+                if self._paged:
+                    # Writes aimed at shared prefix blocks go to the trash
+                    # block: a sharer never touches bytes others read.
+                    write_row = read_row.copy()
+                    write_row[:len(hits)] = TRASH_BLOCK
+                    if self._cfg.prefix_reuse and n_full > 0:
+                        self._metrics.on_prefix(len(hits), n_full)
+                self._last_prefill_bucket = bucket
+                logits = self._prefill(toks, slot, length, write_row)
         except Exception as e:  # noqa: BLE001
-            self._blocks.release(row)
+            if self._paged:
+                self._blocks.release(row)
             req.handle._fail(e)
             return "done"
+        if self._paged and self._cfg.prefix_reuse and n_full > 0:
+            # Pin the prompt's full blocks for later admissions: the
+            # prefix now lives in the pool whether or not this stream
+            # survives its first token.
+            self._blocks.register_prefix(
+                req.tokens, row, n_full, salt=_BASE_SALT,
+                route_digest=prefix_route_digest(req.tokens, bs))
         req.t_first = time.monotonic()
         self._metrics.on_first_token((req.t_first - req.enqueued_at) * 1e3)
         tok = req.sample(logits)
@@ -669,22 +1028,113 @@ class GenerationEngine(ReadinessMixin):
         reason = self._finish_reason(req, tok, next_pos=length)
         if reason:
             self._finish(req, reason)
-            self._blocks.release(row)
+            if self._paged:
+                self._blocks.release(row)
             return "done"
         self._slots[slot] = req
         self._positions[slot] = length
         self._last[slot] = tok
-        self._slot_blocks[slot] = row
-        self._tables[slot] = table_row
+        if self._paged:
+            self._slot_blocks[slot] = row
+            self._tables[slot] = read_row
         return "ok"
 
     def _emit(self, req: _GenRequest, tok: int) -> None:
         self._metrics.on_tokens()
         req.handle._emit(tok)
 
+    def _spec_once(self) -> None:
+        """Draft up to k tokens per slot host-side, verify all k + 1
+        positions in one forward, accept per slot: a slot whose drafts all
+        miss still emits one token (verify row 0 is the decode step's
+        logits), and a step where no slot drafted anything is the plain
+        decode step. Greedy acceptance emits exactly the one-token
+        stream; sampled acceptance is the seeded rejection rule of
+        :mod:`.spec`."""
+        k = self._spec.k
+        w = k + 1
+        t0 = time.monotonic()
+        active = [i for i, r in enumerate(self._slots) if r is not None]
+        # Pad columns repeat the slot's last token: a valid id whose rows
+        # the host never reads (their K/V is overwritten before any mask
+        # exposes it).
+        toks = np.repeat(self._last.copy()[:, None], w, axis=1)
+        drafts: Dict[int, np.ndarray] = {}
+        for i in active:
+            req = self._slots[i]
+            # Most tokens this stream may still emit: drafting past
+            # cap - 1 cannot be accepted and keeps every write inside
+            # the blocks admission reserved.
+            cap = min(req.max_new - req.n_out,
+                      self._cfg.max_len - int(self._positions[i]))
+            if cap < 2:
+                continue
+            ctx = np.concatenate(
+                [np.asarray(req.tokens, np.int64),
+                 np.asarray(req.handle._tokens[:req.n_out], np.int64)])
+            d = np.asarray(self._drafter.propose(ctx, min(k, cap - 1)),
+                           np.int64).ravel()[:min(k, cap - 1)]
+            d = d[(d >= 0) & (d < self._model_cfg.vocab)]
+            if d.size:
+                drafts[i] = d
+                toks[i, 1:1 + d.size] = d
+        draft_ms = (time.monotonic() - t0) * 1e3
+        if not drafts:
+            # The plain step (still counted: tokens a step is the rate
+            # over every step speculation supervised).
+            self._decode_once()
+            self._metrics.on_spec_step(0, 0, len(active), draft_ms, 0.0)
+            return
+        t1 = time.monotonic()
+        logits_np = self._verify(toks, self._positions,
+                                 self._tables if self._paged else None)
+        exec_ms = (time.monotonic() - t1) * 1e3
+        self._peak_active = max(self._peak_active, len(active))
+        self._metrics.on_batch(self._cfg.max_slots, len(active), exec_ms,
+                               len(self._queue) + len(self._held))
+        proposed = accepted = emitted_total = 0
+        for i in active:
+            req = self._slots[i]
+            rows = logits_np[i]
+            d = drafts.get(i)
+            if d is None:
+                cand, hits = [req.sample(rows[0])], 0
+            elif req.sampling.temperature <= 0:
+                cand, hits = accept_greedy(rows, d)
+            else:
+                cand, hits = accept_sampled(rows, d, req.probs, req.rng)
+            emitted = 0
+            reason = None
+            for tok in cand:
+                tok = int(tok)
+                req.n_out += 1
+                self._emit(req, tok)
+                self._positions[i] += 1
+                self._last[i] = tok
+                emitted += 1
+                reason = self._finish_reason(
+                    req, tok, next_pos=int(self._positions[i]))
+                if reason:
+                    break
+            n_prop = int(d.size) if d is not None else 0
+            # EOS/length can cut an acceptance short: only tokens that
+            # reached the stream count as accepted drafts.
+            n_hit = min(hits, emitted)
+            req.spec_proposed += n_prop
+            req.spec_accepted += n_hit
+            proposed += n_prop
+            accepted += n_hit
+            emitted_total += emitted
+            if reason:
+                self._finish(req, reason)
+                self._release_slot(i)
+        self._metrics.on_spec_step(proposed, accepted, emitted_total,
+                                   draft_ms, exec_ms)
+
     def _decode_once(self) -> None:
         t0 = time.monotonic()
-        logits_np = self._decode(self._last, self._positions, self._tables)
+        logits_np = self._decode(self._last, self._positions,
+                                 self._tables if self._paged else None)
         exec_ms = (time.monotonic() - t0) * 1e3
         active = [i for i, r in enumerate(self._slots) if r is not None]
         self._peak_active = max(self._peak_active, len(active))
@@ -725,4 +1175,9 @@ class GenerationEngine(ReadinessMixin):
             "ttft_ms": (req.t_first - req.enqueued_at) * 1e3,
             "tokens_per_sec": ((req.n_out - 1) / gen_s
                                if req.n_out > 1 and gen_s > 0 else None),
+            # Per-request speculation accounting (None: spec off).
+            "spec_accept_rate": (
+                (req.spec_accepted / req.spec_proposed
+                 if req.spec_proposed else 0.0)
+                if self._spec is not None else None),
         })

@@ -2,10 +2,12 @@
 
 The subset of the JAX package's ``serve/metrics.py`` ``ServeMetrics`` that
 ``GenerationEngine`` calls, with the same snapshot keys: request,
-overload, deadline and batch counters, and bounded-reservoir percentiles
-of request latency, queue wait, decode-step time, time to first token and
-per-stream decode rate. The Prometheus exposition and the per-tenant
-series belong to later slices.
+overload, deadline and batch counters, the prefix-cache, host-tier,
+chunked-prefill and speculation counters, and bounded-reservoir
+percentiles of request latency, queue wait, decode-step time, time to
+first token, per-stream decode rate and the speculation step's draft and
+verify times. The Prometheus exposition and the per-tenant series belong
+to later slices.
 """
 
 from __future__ import annotations
@@ -70,11 +72,26 @@ class ServeMetrics:
         self.queue_depth = 0
         self.generations_total = 0
         self.tokens_generated_total = 0
+        self.prefix_hits_total = 0
+        self.prefix_misses_total = 0
+        self.prefix_hit_blocks_total = 0
+        self.prefix_lookup_blocks_total = 0
+        self.kv_offload_blocks_total = 0
+        self.kv_prefetch_blocks_total = 0
+        self.prefill_chunks_total = 0
+        self.prefill_chunks_skipped_total = 0
+        self.spec_steps_total = 0
+        self.spec_draft_tokens_total = 0      # proposed by the drafter
+        self.spec_accepted_tokens_total = 0   # proposals that reached streams
+        self.spec_emitted_tokens_total = 0    # all tokens out of spec steps
         self._request_ms = _Reservoir()
         self._queue_ms = _Reservoir(seed=1)
         self._execute_ms = _Reservoir(seed=2)
         self._ttft_ms = _Reservoir(seed=3)
         self._tps_user = _Reservoir(seed=4)
+        self._spec_draft_ms = _Reservoir(seed=5)
+        self._spec_verify_ms = _Reservoir(seed=6)
+        self._prefetch_ms = _Reservoir(seed=7)
 
     def on_submit(self, queue_depth: int) -> None:
         with self._lock:
@@ -126,6 +143,55 @@ class ServeMetrics:
     def on_tokens(self, n: int = 1) -> None:
         with self._lock:
             self.tokens_generated_total += n
+
+    def on_spec_step(self, proposed: int, accepted: int, emitted: int,
+                     draft_ms: float, verify_ms: float) -> None:
+        """One speculation-supervised decode step: ``proposed`` draft
+        tokens across the batch, ``accepted`` of them emitted, plus the
+        non-draft tokens, ``emitted`` in total. ``verify_ms`` is 0 for
+        a no-draft step that fell through to the plain decode (its
+        execute time lands in the batch reservoir either way)."""
+        with self._lock:
+            self.spec_steps_total += 1
+            self.spec_draft_tokens_total += proposed
+            self.spec_accepted_tokens_total += accepted
+            self.spec_emitted_tokens_total += emitted
+            self._spec_draft_ms.add(draft_ms)
+            if verify_ms > 0:
+                self._spec_verify_ms.add(verify_ms)
+
+    def on_prefix(self, hit_blocks: int, prompt_blocks: int) -> None:
+        """One prefix-cache lookup at admission: ``hit_blocks`` of the
+        prompt's ``prompt_blocks`` full blocks were already resident."""
+        with self._lock:
+            if hit_blocks > 0:
+                self.prefix_hits_total += 1
+            else:
+                self.prefix_misses_total += 1
+            self.prefix_hit_blocks_total += hit_blocks
+            self.prefix_lookup_blocks_total += prompt_blocks
+
+    def on_kv_offload(self, n: int = 1) -> None:
+        """``n`` cold registered-prefix blocks moved device -> host."""
+        with self._lock:
+            self.kv_offload_blocks_total += n
+
+    def on_kv_prefetch(self, seconds: float, n: int = 1) -> None:
+        """``n`` blocks landed host -> device; ``seconds`` is the
+        stage-to-landing latency of the chain (admission staged the
+        fetch, the engine loop's top applied it — never a decode
+        step)."""
+        with self._lock:
+            self.kv_prefetch_blocks_total += n
+            self._prefetch_ms.add(seconds * 1e3)
+
+    def on_chunked_prefill(self, n_chunks: int, n_skipped: int) -> None:
+        """One chunked prefill: ``n_chunks`` chunks ran and the prefix
+        cache let it skip ``n_skipped`` more (the shared prefix it never
+        recomputed)."""
+        with self._lock:
+            self.prefill_chunks_total += n_chunks
+            self.prefill_chunks_skipped_total += n_skipped
 
     def on_generation_end(self, n_tokens: int, seconds: float) -> None:
         """One finished stream: records its decode rate (first token →
@@ -184,9 +250,43 @@ class ServeMetrics:
                 "generation": {
                     "generations_total": self.generations_total,
                     "tokens_generated_total": self.tokens_generated_total,
+                    "prefix_hits_total": self.prefix_hits_total,
+                    "prefix_misses_total": self.prefix_misses_total,
+                    "prefix_hit_blocks_total": self.prefix_hit_blocks_total,
+                    "prefix_lookup_blocks_total":
+                        self.prefix_lookup_blocks_total,
+                    "kv_offload_blocks_total": self.kv_offload_blocks_total,
+                    "kv_prefetch_blocks_total":
+                        self.kv_prefetch_blocks_total,
+                    "kv_prefetch_ms_p50": self._prefetch_ms.quantile(0.50),
+                    "prefill_chunks_total": self.prefill_chunks_total,
+                    "prefill_chunks_skipped_total":
+                        self.prefill_chunks_skipped_total,
                     "ttft_p50": self._ttft_ms.quantile(0.50),
                     "ttft_p99": self._ttft_ms.quantile(0.99),
                     "tokens_per_sec_user_p50": self._tps_user.quantile(0.50),
                     "tokens_per_sec_user_p99": self._tps_user.quantile(0.99),
+                },
+                # Speculation: acceptance over proposed drafts and the
+                # effective tokens a step (> 1.0: beating one-token decode).
+                "spec": {
+                    "steps_total": self.spec_steps_total,
+                    "draft_tokens_total": self.spec_draft_tokens_total,
+                    "accepted_tokens_total":
+                        self.spec_accepted_tokens_total,
+                    "emitted_tokens_total":
+                        self.spec_emitted_tokens_total,
+                    "accept_rate": (
+                        self.spec_accepted_tokens_total
+                        / self.spec_draft_tokens_total
+                        if self.spec_draft_tokens_total else None),
+                    "tokens_per_step": (
+                        self.spec_emitted_tokens_total
+                        / self.spec_steps_total
+                        if self.spec_steps_total else None),
+                    "draft_ms_p50": self._spec_draft_ms.quantile(0.50),
+                    "draft_ms_p99": self._spec_draft_ms.quantile(0.99),
+                    "verify_ms_p50": self._spec_verify_ms.quantile(0.50),
+                    "verify_ms_p99": self._spec_verify_ms.quantile(0.99),
                 },
             }

@@ -8,7 +8,7 @@ streams must be token-identical for a 9-token prompt (bucket 16, dense
 attention on the JAX side) and a 130-token prompt (bucket 256, the
 Pallas flash kernel). The rest pins the port engine's own contracts:
 batch invariance, the HTTP front end, block accounting, deadlines, and
-the knobs this slice does not carry.
+the knobs still to come.
 """
 
 import http.client
@@ -184,19 +184,24 @@ def test_submit_validation(engine):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_layout="contiguous"), dict(prefix_reuse=True),
-    dict(chunked_prefill=True), dict(host_blocks=4),
-    dict(tenant_weights={"a": 1.0}), dict(preempt=True)])
+    dict(tenant_weights={"a": 1.0}), dict(tenant_priorities={"a": 1}),
+    dict(tenant_block_budgets={"a": 4}), dict(tenant_slo_ttft_ms={"a": 50.0}),
+    dict(preempt=True)])
 def test_later_slice_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """The tenant knobs come with the tenants and LoRA; each refusal names
+    the roadmap item."""
+    with pytest.raises(NotImplementedError,
+                       match="later slice.*Queue 1 item 12"):
         GenerationConfig(**knob)
 
 
 def test_adapters_and_spec_raise(model):
-    for kw in (dict(adapters=object()), dict(spec=object())):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            GenerationEngine(model, GenerationConfig(**ENGINE),
-                             device="cpu", **kw)
+    """LoRA adapters are still refused (speculative decoding is served:
+    ``tests/test_torch_spec.py``)."""
+    with pytest.raises(NotImplementedError,
+                       match="later slice.*Queue 1 item 12"):
+        GenerationEngine(model, GenerationConfig(**ENGINE), device="cpu",
+                         adapters=object())
 
 
 def test_shutdown_rejects_new_requests(model):

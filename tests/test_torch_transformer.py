@@ -195,7 +195,9 @@ def test_block_manager_accounting():
     bm.release(a + [tkv.TRASH_BLOCK])     # trash padding is skipped
     assert bm.used_count == 1             # the retained block survives
     bm.release(a[:1])
-    assert bm.gauges() == {"total": 4, "free": 4, "used": 0}
+    assert bm.gauges() == {"total": 4, "free": 4, "used": 0,
+                           "registered_prefix_blocks": 0, "host_total": 0,
+                           "host_used": 0, "host_free": 0}
     with pytest.raises(RuntimeError, match="double free"):
         bm.release(a[:1])
     with pytest.raises(RuntimeError, match="exhausted"):
