@@ -48,9 +48,10 @@ Phases, one JSON line each:
                its largest value, six launches bitwise equal; and as the
                speculative verify launches it (S·W rows, ``plan_rows=S``),
                each column bitwise the S-row decode launch.
-4. engine   — ``GenerationEngine`` (8 slots, max_len 2048, paged,
-               block 16), ``warmup()``, 8 concurrent requests of 32 new
-               tokens with prompts from 9 to 1500 tokens, one over
+4. engine   — ``GenerationEngine`` (8 slots, max_len 2048, paged with
+               ``paged_kernel=True``, block 16), ``warmup()``, 8
+               concurrent requests of 32 new tokens with prompts from 9 to
+               1500 tokens, one over
                ``HttpServer`` ``POST /generate``. Launch counters are
                zeroed just before the requests and read just after: the
                flash kernel must run n_layers times per prefill, the
@@ -81,6 +82,35 @@ Phases, one JSON line each:
                the greedy streams' agreement and the verify rows against
                sequential decode rows (bitwise or max |Δ|, and which GEMM
                shapes give a row other bits at M = S·W than at M = S).
+               Every paged engine of the serving phases passes
+               ``kv_layout="paged", paged_kernel=True``: K8 is measured.
+6a. engine_lora — multi-tenant LoRA on the same model: rank 16, alpha
+               32, all four targets, a table of 4 rows with 3 tenants
+               resident, 8 slots, paged with K8. A base-only round and a
+               round mixing base and the three tenants on fresh engines
+               (decode step p50, TTFT p50, K3-fwd and K8 launches; the
+               mixed round again under ``torch.profiler``); each
+               tenant alone bitwise the same tenant mixed (greedy and
+               seeded); the mixed round's base streams bitwise a plain
+               engine's; one tenant's prefill and 4 paged decode steps
+               with ``adapters=`` on the card against the CPU's plain
+               versions from the same table (TOL_E2E), the card at most
+               half as far from them as the CPU's wrong-delta controls
+               (base, another row, unscaled); a preempt-by-evict drill (one slot, a priority-1
+               tenant evicts a base stream) whose evicted stream ends
+               bitwise its unpreempted run, spec off (checked) and on
+               (reported); an adapter saved, restored, reloaded and
+               generating the same tokens.
+6b. routing — F1 and F2: the default paged engine (``paged_kernel=False``,
+               the gather) bitwise the contiguous engine of engine_kv (a)
+               with no K8 launch; an f32 model (the bench widths, 2
+               layers) through the prefill and paged decode on the card
+               against the CPU (TOL_F32), no kernel launched; a bf16
+               d_head-64 engine with ``paged_kernel=True`` generating
+               (the model routes to the plain versions: no kernel
+               launched, ``stats()["kernels"]`` all False); one f32
+               fused-backend ResNet-50 step (plain K1/K2 versions) against
+               the f32 stock step's loss.
 7. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's; the flash
                forward's and K8's host time per call. K8 at four shapes
@@ -532,6 +562,30 @@ KV_SPEC_PERIOD, KV_SPEC_REPEATS, KV_SPEC_NEW = 37, 8, 64
 # The engine phase's paged streams and decode step p50, which engine_kv's
 # contiguous run is set beside.
 PAGED_STREAMS = {}
+# engine_kv (a)'s contiguous streams, which the routing phase's default
+# paged engine must equal bitwise.
+CONTIGUOUS_STREAMS = {}
+# engine_lora: rank, alpha, table rows, tenants resident, B's scale (so
+# the tenants differ), new tokens a stream, the preempt drill's lengths.
+LORA_RANK, LORA_ALPHA, LORA_CAPACITY, LORA_TENANTS = 16, 32.0, 4, 3
+LORA_B_SCALE = 0.01
+LORA_NEW_TOKENS = 32
+LORA_PROMPT_LENS = (9, 100, 300, 1000, 64, 200, 600, 40)
+LORA_PREEMPT_LEN, LORA_PREEMPT_NEW = 37 * 4, 48
+# The tenant's card-vs-CPU reference: a LORA_REF_T-token prompt and
+# LORA_REF_STEPS paged decode steps; the card must sit within TOL_E2E of
+# the CPU's logits and at most half as far from them as any of the CPU
+# controls a wrong delta would produce (base, another row, unscaled).
+LORA_REF_T, LORA_REF_STEPS = 256, 4
+# routing: the f32 model's depth (bench widths), prompt and decode steps,
+# and the card-vs-CPU tolerance on f32 logits (cuBLAS vs MKL summation
+# order over K up to 8192); the d_head-64 engine's heads.
+ROUTE_LAYERS, ROUTE_T, ROUTE_STEPS = 2, 128, 3
+TOL_F32 = 2e-3
+ROUTE_HEADS64 = 32
+ROUTE_H64_PROMPTS, ROUTE_H64_NEW = (9, 300, 1000, 77), 16
+ROUTE_RN_BATCH = 8
+TOL_RN_F32 = 1e-3
 # The trainer phase's bare-loop step p50, which the elastic phase prints
 # beside its launched Trainer's.
 TRAINER_BARE_P50 = {}
@@ -988,7 +1042,8 @@ def phase_engine(model, seed: int):
     cfg = model.cfg
     torch.cuda.reset_peak_memory_stats()
     eng = GenerationEngine(model, GenerationConfig(
-        max_slots=MAX_SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+        paged_kernel=True, block_size=BLOCK,
         default_max_new_tokens=NEW_TOKENS, max_queue=64), device="cuda")
     srv = None
     try:
@@ -1066,15 +1121,21 @@ def phase_engine(model, seed: int):
 
 
 def _kv_engine(model, **kw):
+    """A serving engine on the card; paged (with K8: ``paged_kernel=True``)
+    unless ``kv_layout`` says otherwise."""
     from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
+    kw.setdefault("kv_layout", "paged")
+    if kw["kv_layout"] == "paged":
+        kw.setdefault("paged_kernel", True)
     kw.setdefault("max_slots", MAX_SLOTS)
     kw.setdefault("max_len", MAX_LEN)
     kw.setdefault("block_size", BLOCK)
     kw.setdefault("default_max_new_tokens", KV_NEW_TOKENS)
     kw.setdefault("max_queue", 64)
     spec = kw.pop("spec", None)
+    adapters = kw.pop("adapters", None)
     return GenerationEngine(model, GenerationConfig(**kw), device="cuda",
-                            spec=spec)
+                            spec=spec, adapters=adapters)
 
 
 def _kv_serve(eng, prompts, one_by_one: bool = False):
@@ -1121,7 +1182,8 @@ def _first_step_delta(model, prompt) -> float:
         _, lc = tr.prefill(w, toks, cc, 0, cfg)
         nxt = lp[T - 1].argmax()[None].to(torch.int32)
         pos = torch.tensor([T], dtype=torch.int32, device="cuda")
-        _, dp = kv.paged_decode_step(w, nxt, pc, pos, row[None], cfg)
+        _, dp = kv.paged_decode_step(w, nxt, pc, pos, row[None], cfg,
+                                     kernel=True)
         _, dc = tr.decode_step(w, nxt, cc, pos, cfg)
     return {"prefill_logits_bitwise": bool(torch.equal(lp[T - 1],
                                                        lc[T - 1])),
@@ -1166,7 +1228,8 @@ def _verify_vs_sequential(model, layout: str, prompts) -> dict:
         for _ in range(W):
             drafts.append(cur.clone())
             if layout == "paged":
-                _, lg = kv.paged_decode_step(w, cur, seq, pos, tables, cfg)
+                _, lg = kv.paged_decode_step(w, cur, seq, pos, tables, cfg,
+                                             kernel=True)
             else:
                 _, lg = tr.decode_step(w, cur, seq, pos, cfg)
             logs.append(lg)
@@ -1174,7 +1237,8 @@ def _verify_vs_sequential(model, layout: str, prompts) -> dict:
             pos = pos + 1
         drafts = torch.stack(drafts, dim=1)
         if layout == "paged":
-            _, vl = kv.paged_verify_step(w, drafts, cache, pos0, tables, cfg)
+            _, vl = kv.paged_verify_step(w, drafts, cache, pos0, tables, cfg,
+                                         kernel=True)
         else:
             _, vl = tr.verify_step(w, drafts, cache, pos0, cfg)
         ref = torch.stack(logs, dim=1)
@@ -1231,6 +1295,7 @@ def phase_engine_kv(model, seed: int) -> dict:
         check(r["n_tokens"] == NEW_TOKENS and all(
             0 <= t < cfg.vocab for t in r["tokens"]),
               f"contiguous request did not finish: {r}")
+    CONTIGUOUS_STREAMS.update(tokens=[r["tokens"] for r in res])
     paged = PAGED_STREAMS.get("tokens")
     agree = ([a == b["tokens"] for a, b in zip(paged, res)]
              if paged else None)
@@ -1467,6 +1532,517 @@ def phase_engine_kv(model, seed: int) -> dict:
     return total
 
 
+def _lora_round(eng, prompts, tenants, sampling=None) -> tuple:
+    """Serve ``prompts`` (``tenants[i]`` the adapter of prompt ``i``, None
+    for base) all at once with the launch counters zeroed just before
+    and read just after; returns the results, the launches and the
+    decode steps run."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    torch.cuda.synchronize()
+    steps0 = eng.stats()["batches_total"]
+    LAUNCHES.reset()
+    hs = [eng.submit(p, adapter=t, sampling=sampling)
+          for p, t in zip(prompts, tenants)]
+    res = [h.result(600) for h in hs]
+    torch.cuda.synchronize()
+    return res, LAUNCHES.snapshot(), eng.stats()["batches_total"] - steps0
+
+
+def _probe_round(model, reg, prompt, names) -> list:
+    """One prompt under the base and each tenant in one round."""
+    eng = _kv_engine(model, adapters=reg,
+                     default_max_new_tokens=LORA_NEW_TOKENS)
+    try:
+        return _lora_round(eng, [prompt] * (len(names) + 1),
+                           [None] + list(names))[0]
+    finally:
+        eng.shutdown()
+
+
+def _preempt_drill(model, reg, spec=None) -> dict:
+    """One decode slot, tenant t0 in priority class 1: an unpreempted run
+    of a long base stream, then the same stream evicted by a t0 admission
+    after its first token. Returns whether the evicted stream ended
+    equal to its unpreempted run, the counters, and the error the replay
+    raised, if any (reported, never hidden)."""
+    from horovod_tpu_torch.serve import SamplingParams
+    rng = np.random.RandomState(37)
+    prompt = np.tile(rng.randint(0, model.cfg.vocab, 37),
+                     LORA_PREEMPT_LEN // 37)
+    other = rng.randint(0, model.cfg.vocab, 40)
+    out = {}
+    reg.set_priority("t0", 1)
+    try:
+        for name, sampling in (("greedy", None), ("seeded", SamplingParams(
+                temperature=0.9, top_k=50, seed=5))):
+            eng = _kv_engine(model, max_slots=1, adapters=reg, spec=spec,
+                             default_max_new_tokens=LORA_PREEMPT_NEW)
+            try:
+                ref = eng.generate(prompt, sampling=sampling, timeout=600)
+                h = eng.submit(prompt, sampling=sampling)
+                kind, _ = h.next_event(timeout=600)
+                check(kind == "token", f"preempt drill: {kind} first")
+                hp = eng.submit(other, adapter="t0", max_new_tokens=8)
+                got, err = None, None
+                try:
+                    got = h.result(600)
+                except RuntimeError as e:   # a diverged replay, reported
+                    err = repr(e)[:300]
+                hp.result(600)
+                gen = eng.stats()["generation"]
+            finally:
+                eng.shutdown()
+            out[name] = dict(
+                equal=(got is not None and got["tokens"] == ref["tokens"]),
+                error=err, preemptions=gen["preemptions_total"],
+                resumed=gen["preempt_resumed_total"],
+                exhausted=gen["preempt_exhausted_total"],
+                spec_accept_rate=(got or {}).get("spec_accept_rate"))
+    finally:
+        reg.set_priority("t0", None)
+    return out
+
+
+def _lora_reference(model, reg, tenant: str, other: str, seed: int) -> dict:
+    """One tenant's prefill and LORA_REF_STEPS paged decode steps through
+    the port's functions with ``adapters=`` on the card (K3-fwd, K8 and
+    the delta's gather and products) and on the CPU (the plain versions)
+    from the same weights and table, beside three CPU controls that a
+    wrong delta on the card would reproduce: no delta (the base), another
+    tenant's row, and the delta unscaled (``alpha = rank``)."""
+    from horovod_tpu_torch.parallel.kv_blocks import (blocks_for,
+                                                      init_paged_kv_cache,
+                                                      paged_decode_step,
+                                                      paged_prefill)
+    from horovod_tpu_torch.parallel.lora import LoraConfig, _tree_map
+    from horovod_tpu_torch.parallel.transformer import gen_weights
+    cfg, lora = model.cfg, reg.lora
+    T, steps = LORA_REF_T, LORA_REF_STEPS
+    rng = np.random.RandomState(seed + 20)
+    prompt = rng.randint(0, cfg.vocab, T).astype(np.int32)
+    feed = rng.randint(0, cfg.vocab, steps).astype(np.int32)
+    nb = blocks_for(T + steps, BLOCK)
+    blocks = np.arange(1, nb + 1, dtype=np.int32)
+
+    def run(w, table, idx, lcfg, device):
+        with torch.no_grad():
+            cache = init_paged_kv_cache(cfg, nb + 1, BLOCK, 1, device=device)
+            t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+            kw = dict(adapters=table, lora=lcfg)
+            _, lg = paged_prefill(w, t(prompt), cache, 0, t(blocks), cfg,
+                                  adapter_idx=idx, **kw)
+            out = [lg[T - 1].float().cpu()]
+            for i in range(steps):
+                _, lg = paged_decode_step(
+                    w, t(feed[i:i + 1]), cache,
+                    t(np.array([T + i], np.int32)), t(blocks[None]), cfg,
+                    kernel=True, adapter_idx=t(np.array([idx], np.int32)),
+                    **kw)
+                out.append(lg[0].float().cpu())
+        return torch.stack(out)
+
+    row, other_row = reg.index_of(tenant), reg.index_of(other)
+    table = reg.table()
+    with torch.no_grad():
+        w = gen_weights(model)
+    t0 = time.monotonic()
+    card = run(w, table, row, lora, "cuda")
+    card_s = time.monotonic() - t0
+    del w
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        w = gen_weights(cpu_model)
+    del cpu_model
+    ctable = _tree_map(lambda x: x.cpu(), table)
+    t0 = time.monotonic()
+    cpu = run(w, ctable, row, lora, "cpu")
+    cpu_s = time.monotonic() - t0
+    unscaled = LoraConfig(rank=lora.rank, alpha=float(lora.rank),
+                          targets=lora.targets)
+    controls = {
+        "base": run(w, ctable, -1, lora, "cpu"),
+        "other_row": run(w, ctable, other_row, lora, "cpu"),
+        "unscaled": run(w, ctable, row, unscaled, "cpu")}
+    del w, ctable
+    diff = (card - cpu).abs().max().item()
+    dist = {k: (v - cpu).abs().max().item() for k, v in controls.items()}
+    check(bool(torch.isfinite(card).all()),
+          "engine_lora reference: card logits not finite")
+    check(diff <= TOL_E2E, f"engine_lora reference: card vs CPU logits of "
+                           f"tenant {tenant} differ by {diff} > {TOL_E2E}")
+    check(2 * diff < min(dist.values()),
+          f"engine_lora reference: the card's {diff} from the CPU's logits "
+          f"does not separate from the wrong-delta controls {dist}")
+    return dict(tenant=tenant, positions=T + steps, max_abs_diff=diff,
+                bound=TOL_E2E, control_max_abs_diff=dist,
+                top1_card=card.argmax(-1).tolist(),
+                top1_cpu=cpu.argmax(-1).tolist(), card_s=card_s,
+                cpu_s=cpu_s)
+
+
+def phase_engine_lora(model, seed: int) -> dict:
+    """Multi-tenant LoRA serving on the full-width model (see the module
+    docstring, 6a). Returns the K3-fwd and K8 launches of the driven
+    rounds."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.parallel.checkpoint import (restore_adapter,
+                                                       save_adapter)
+    from horovod_tpu_torch.parallel.lora import (LoraConfig, adapter_bytes,
+                                                 init_adapter)
+    from horovod_tpu_torch.serve import AdapterRegistry, SamplingParams
+    from horovod_tpu_torch.serve.spec import SpecConfig
+    cfg = model.cfg
+    L = cfg.n_layers
+    t_phase = time.monotonic()
+    lora = LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA)
+    reg = AdapterRegistry(cfg, lora, capacity=LORA_CAPACITY, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    trees = {}
+    for i in range(LORA_TENANTS):
+        trees[f"t{i}"] = init_adapter(gen, cfg, lora, b_scale=LORA_B_SCALE,
+                                      device="cuda")
+        reg.load(f"t{i}", trees[f"t{i}"])
+    rng = np.random.RandomState(seed + 16)
+    prompts = [rng.randint(0, cfg.vocab, n) for n in LORA_PROMPT_LENS]
+    names = [f"t{i}" for i in range(LORA_TENANTS)]
+    mixed_tenants = [None] + names + [None] + names
+    seeded = SamplingParams(temperature=0.9, top_k=50, seed=3)
+    total: dict = {}
+    rounds = {}
+    mixed_res = {}
+    for rname, tenants in (("base_only", [None] * len(prompts)),
+                           ("mixed", mixed_tenants)):
+        eng = _kv_engine(model, adapters=reg,
+                         default_max_new_tokens=LORA_NEW_TOKENS)
+        try:
+            eng.warmup()
+            res, launches, steps = _lora_round(eng, prompts, tenants)
+            stats = eng.stats()
+            if rname == "mixed":
+                seeded_res, _, _ = _lora_round(eng, prompts, tenants,
+                                               seeded)
+                # the mixed round again under torch.profiler: the
+                # device's busy share and what takes its time
+                def serve_mixed():
+                    for h in [eng.submit(p, adapter=t)
+                              for p, t in zip(prompts, tenants)]:
+                        h.result(600)
+                wall_s, rows = device_profile(serve_mixed)
+                profiled = {"wall_s": wall_s, **busy_shares(
+                    rows, wall_s, {"k3_fwd": "flash_fwd_wgmma_kernel",
+                                   "k8": "paged_decode"}),
+                    "top": [{"name": k[:80], "ms": us / 1e3, "count": n}
+                            for us, k, n in rows[:8]]}
+                alone = {s: {i: eng.submit(prompts[i], adapter=t,
+                                           sampling=smp).result(600)["tokens"]
+                             for i, t in enumerate(tenants) if t is not None}
+                         for s, smp in (("greedy", None),
+                                        ("seeded", seeded))}
+        finally:
+            eng.shutdown()
+        del eng
+        _add_launches(total, launches)
+        check(launches.get("flash_attention", 0) == L * len(prompts),
+              f"engine_lora {rname}: K3-fwd launched {launches}, expected "
+              f"{L} x {len(prompts)} prefills")
+        check(launches.get("paged_decode_attention", 0) == L * steps,
+              f"engine_lora {rname}: K8 launched {launches}, expected "
+              f"{L} x {steps} decode steps")
+        for r in res:
+            check(r["n_tokens"] == LORA_NEW_TOKENS and all(
+                0 <= t < cfg.vocab for t in r["tokens"]),
+                  f"engine_lora {rname}: request did not finish: {r}")
+        ttft = [r["ttft_ms"] for r in res]
+        rounds[rname] = dict(
+            decode_step_ms_p50=stats["latency_ms"]["execute_p50"],
+            decode_step_ms_p99=stats["latency_ms"]["execute_p99"],
+            ttft_ms_p50=float(np.median(ttft)), decode_steps=steps,
+            launches=launches, decode_tokens_per_s=(
+                stats["batch_live_rows_total"]
+                / stats["execute_seconds_total"]))
+        mixed_res[rname] = res
+        torch.cuda.empty_cache()
+    res = mixed_res["mixed"]
+    # each tenant alone bitwise the same tenant mixed, greedy and seeded
+    alone_equal = {s: [alone[s][i] == r[i]["tokens"] for i in alone[s]]
+                   for s, r in (("greedy", res), ("seeded", seeded_res))}
+    check(all(v for d in alone_equal.values() for v in d),
+          f"engine_lora: a tenant alone differs from it mixed: "
+          f"{alone_equal}")
+    base_streams = [rr["tokens"] for t, rr in zip(mixed_tenants, res)
+                    if t is None]
+    # the mixed round's base streams bitwise a plain engine's
+    plain = _kv_engine(model, default_max_new_tokens=LORA_NEW_TOKENS)
+    try:
+        base_idx = [i for i, t in enumerate(mixed_tenants) if t is None]
+        plain_res, _, _ = _lora_round(plain, [prompts[i] for i in base_idx],
+                                      [None] * len(base_idx))
+    finally:
+        plain.shutdown()
+    del plain
+    base_equal = [a == b["tokens"] for a, b in zip(base_streams, plain_res)]
+    check(all(base_equal), f"engine_lora: base streams through the adapter "
+                           f"engine differ from a plain engine's: "
+                           f"{base_equal}")
+    # the same prompt under the base and each tenant: all streams differ
+    probe = {t: rr["tokens"] for t, rr in zip(
+        [None] + names, _probe_round(model, reg, prompts[0], names))}
+    distinct = len({tuple(v) for v in probe.values()})
+    check(distinct == LORA_TENANTS + 1,
+          f"engine_lora: tenants' streams on one prompt are not distinct: "
+          f"{probe}")
+    # one tenant against the CPU's plain versions from the same table
+    reference = _lora_reference(model, reg, names[0], names[1], seed)
+    torch.cuda.empty_cache()
+    # preempt-by-evict: spec off (the contract, checked), spec on
+    # (reported)
+    preempt = {"spec_off": _preempt_drill(model, reg)}
+    check(all(v["equal"] and v["preemptions"] >= 1 and v["resumed"] >= 1
+              for v in preempt["spec_off"].values()),
+          f"engine_lora: the evicted stream differs from its unpreempted "
+          f"run: {preempt['spec_off']}")
+    preempt["spec_on"] = _preempt_drill(model, reg,
+                                        spec=SpecConfig(k=KV_SPEC_K))
+    # an adapter saved, restored, reloaded: the same tokens
+    tmp = tempfile.mkdtemp()
+    try:
+        t0 = time.monotonic()
+        save_adapter(tmp, "t1", trees["t1"])
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        restored = restore_adapter(tmp, "t1")
+        restore_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reg.evict("t1")
+    t0 = time.monotonic()
+    reg.load("t1", restored)
+    load_ms = (time.monotonic() - t0) * 1e3
+    eng = _kv_engine(model, adapters=reg,
+                     default_max_new_tokens=LORA_NEW_TOKENS)
+    try:
+        i1 = mixed_tenants.index("t1")
+        again = eng.generate(prompts[i1], adapter="t1", timeout=600)
+    finally:
+        eng.shutdown()
+    del eng
+    check(again["tokens"] == res[i1]["tokens"],
+          "engine_lora: the restored adapter generates other tokens")
+    out = dict(
+        rank=LORA_RANK, alpha=LORA_ALPHA, targets=list(lora.targets),
+        capacity=LORA_CAPACITY, resident=LORA_TENANTS,
+        adapter_bytes=adapter_bytes(cfg, lora),
+        table_bytes=adapter_bytes(cfg, lora) * LORA_CAPACITY,
+        b_scale=LORA_B_SCALE, slots=MAX_SLOTS, new_tokens=LORA_NEW_TOKENS,
+        prompt_lens=list(LORA_PROMPT_LENS),
+        round_tenants=[t or "base" for t in mixed_tenants],
+        rounds=rounds,
+        decode_step_ratio_mixed_over_base=(
+            rounds["mixed"]["decode_step_ms_p50"]
+            / rounds["base_only"]["decode_step_ms_p50"]),
+        mixed_profile=profiled,
+        distinct_streams=distinct, alone_equal_mixed=alone_equal,
+        base_equal_plain=base_equal, reference=reference, preempt=preempt,
+        checkpoint=dict(save_s=save_s, restore_s=restore_s,
+                        load_ms=load_ms, tokens_equal=True),
+        launches=total, gpu=smi_line(),
+        phase_s=time.monotonic() - t_phase)
+    emit("engine_lora", **out)
+    torch.cuda.empty_cache()
+    return total
+
+
+def _route_f32_logits(seed: int) -> dict:
+    """An f32 model at the bench widths (ROUTE_LAYERS layers): a prompt's
+    prefill (the transformer routes it to the plain version) and
+    ROUTE_STEPS paged decode steps (the gather, the engine's route for a
+    model K8 does not take), then one training forward and backward over
+    the prompt (the packed flash route gives way to the dense attention),
+    on the card and on the CPU from the same weights; the kernels take no
+    f32 input, so none may launch."""
+    from horovod_tpu_torch.ops import LAUNCHES, paged_attention_supported
+    from horovod_tpu_torch.parallel.kv_blocks import (blocks_for,
+                                                      init_paged_kv_cache,
+                                                      paged_decode_step,
+                                                      paged_prefill)
+    from horovod_tpu_torch.parallel.transformer import (Transformer,
+                                                        TransformerConfig,
+                                                        dense_nll, forward,
+                                                        gen_weights)
+    cfg = TransformerConfig(**dict(LM, n_layers=ROUTE_LAYERS),
+                            dtype=torch.float32, unembed_dtype=torch.float32)
+    model = Transformer(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 17), device="cuda")
+    rng = np.random.RandomState(seed + 17)
+    prompt = rng.randint(0, cfg.vocab, ROUTE_T).astype(np.int32)
+    feed = rng.randint(0, cfg.vocab, ROUTE_STEPS).astype(np.int32)
+    nb = blocks_for(ROUTE_T + ROUTE_STEPS, BLOCK)
+    row = np.arange(1, nb + 1, dtype=np.int32)
+
+    def run(m, device):
+        with torch.no_grad():
+            w = gen_weights(m)
+            cache = init_paged_kv_cache(cfg, nb + 1, BLOCK, 1, device=device)
+            t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+            _, lg = paged_prefill(w, t(prompt), cache, 0, t(row), cfg)
+            out = [lg[ROUTE_T - 1].cpu()]
+            for i in range(ROUTE_STEPS):
+                _, lg = paged_decode_step(
+                    w, t(feed[i:i + 1]), cache,
+                    t(np.array([ROUTE_T + i], np.int32)), t(row[None]), cfg,
+                    kernel=paged_attention_supported(
+                        cfg.d_head, BLOCK, cfg.dtype, device))
+                out.append(lg[0].cpu())
+        return torch.stack(out)
+
+    def train(m, device):
+        tok = torch.tensor(prompt[None], device=device)
+        loss = dense_nll(forward(m, tok), torch.roll(tok, -1, 1)).mean()
+        loss.backward()
+        norm = torch.sqrt(sum(p.grad.double().pow(2).sum()
+                              for p in m.parameters()))
+        return loss.item(), norm.item()
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    card = run(model, "cuda")
+    card_train = train(model, "cuda")
+    torch.cuda.synchronize()
+    launches = LAUNCHES.snapshot()
+    cpu = run(cpu_model, "cpu")
+    cpu_train = train(cpu_model, "cpu")
+    del model, cpu_model
+    loss_rel = abs(card_train[0] - cpu_train[0]) / abs(cpu_train[0])
+    norm_rel = abs(card_train[1] - cpu_train[1]) / cpu_train[1]
+    check(max(loss_rel, norm_rel) <= TOL_F32,
+          f"routing f32: card vs CPU training loss / grad norm differ by "
+          f"{loss_rel} / {norm_rel} relative > {TOL_F32}")
+    diff = (card - cpu).abs().max().item()
+    check(bool(torch.isfinite(card).all()), "routing f32: logits not finite")
+    check(not launches, f"routing f32: a kernel launched on f32: {launches}")
+    check(diff <= TOL_F32, f"routing f32: card vs CPU logits differ by "
+                           f"{diff} > {TOL_F32}")
+    return dict(layers=ROUTE_LAYERS, prompt_len=ROUTE_T, steps=ROUTE_STEPS,
+                max_abs_diff=diff, bound=TOL_F32,
+                logits_absmax=card.abs().max().item(),
+                top1_equal=card.argmax(-1).tolist() == cpu.argmax(-1)
+                .tolist(), train_loss_card_cpu=[card_train[0], cpu_train[0]],
+                train_loss_rel_diff=loss_rel,
+                grad_norm_card_cpu=[card_train[1], cpu_train[1]],
+                grad_norm_rel_diff=norm_rel, launches=launches)
+
+
+def _route_head64(seed: int) -> dict:
+    """A bf16 model with d_head 64 (bench widths, ROUTE_HEADS64 heads,
+    ROUTE_LAYERS layers) served by a paged engine with
+    ``paged_kernel=True``: the kernels take d_head 128 only, so the
+    transformer and the engine route every prefill and decode step to
+    the plain versions."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.transformer import (Transformer,
+                                                        TransformerConfig)
+    cfg = TransformerConfig(**dict(LM, n_layers=ROUTE_LAYERS,
+                                   n_heads=ROUTE_HEADS64),
+                            dtype=torch.bfloat16, unembed_dtype=torch.float32)
+    model = Transformer(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 18), device="cuda")
+    rng = np.random.RandomState(seed + 18)
+    prompts = [rng.randint(0, cfg.vocab, n) for n in ROUTE_H64_PROMPTS]
+    eng = _kv_engine(model, default_max_new_tokens=ROUTE_H64_NEW)
+    try:
+        eng.warmup()
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        res = [h.result(600) for h in [eng.submit(p) for p in prompts]]
+        torch.cuda.synchronize()
+        launches = LAUNCHES.snapshot()
+        step_ms = eng.stats()["latency_ms"]["execute_p50"]
+        kernels = eng.stats()["kernels"]
+    finally:
+        eng.shutdown()
+    del eng, model
+    check(not any(kernels.values()),
+          f"routing d_head 64: the engine chose a kernel: {kernels}")
+    for r in res:
+        check(r["n_tokens"] == ROUTE_H64_NEW and all(
+            0 <= t < cfg.vocab for t in r["tokens"]),
+              f"routing d_head 64: request did not finish: {r}")
+    check(not launches, f"routing d_head 64: a kernel launched: {launches}")
+    return dict(d_head=cfg.d_head, heads=cfg.n_heads, layers=ROUTE_LAYERS,
+                requests=len(res), decode_step_ms_p50=step_ms,
+                kernels=kernels, launches=launches)
+
+
+def _route_resnet_f32(seed: int) -> dict:
+    """One f32 ResNet-50 step with the fused backend (K1/K2 take bf16
+    only: their plain versions run) against the f32 stock (``"xla"``)
+    step from the same weights and batch."""
+    from horovod_tpu_torch.models import resnet50
+    from horovod_tpu_torch.ops import LAUNCHES
+    x, y = synthetic_batch(ROUTE_RN_BATCH, seed + 19)
+    out = {}
+    for backend in ("fused", "xla"):
+        model = resnet50(RN_CLASSES, conv_backend=backend, device="cuda",
+                         dtype=torch.float32,
+                         generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        loss, _ = _one_step(model, x, y)
+        torch.cuda.synchronize()
+        out[backend] = dict(loss=loss, launches=LAUNCHES.snapshot())
+        del model
+        torch.cuda.empty_cache()
+    rel = abs(out["fused"]["loss"] - out["xla"]["loss"]) / abs(
+        out["xla"]["loss"])
+    check(np.isfinite(out["fused"]["loss"]), "routing ResNet f32: loss")
+    check(not out["fused"]["launches"],
+          f"routing ResNet f32: a kernel launched: {out['fused']}")
+    check(rel <= TOL_RN_F32, f"routing ResNet f32: fused loss off the stock "
+                             f"loss by {rel} > {TOL_RN_F32}")
+    return dict(batch=ROUTE_RN_BATCH, loss_rel_diff=rel, bound=TOL_RN_F32,
+                **out)
+
+
+def phase_routing(model, seed: int):
+    """F1 and F2 on the card (see the module docstring, 6b)."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    cfg = model.cfg
+    t_phase = time.monotonic()
+    # F2: the default paged engine (the gather) against engine_kv (a)'s
+    # contiguous streams, the same prompts and greedy sampling
+    rng0 = np.random.RandomState(seed)
+    prompts = [rng0.randint(0, cfg.vocab, n) for n in PROMPT_LENS]
+    eng = _kv_engine(model, paged_kernel=False,
+                     default_max_new_tokens=NEW_TOKENS)
+    try:
+        res, launches, steps, _ = _kv_serve(eng, prompts)
+        step_ms = eng.stats()["latency_ms"]["execute_p50"]
+    finally:
+        eng.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+    contiguous = CONTIGUOUS_STREAMS.get("tokens")
+    check(contiguous is not None, "routing: engine_kv (a) did not run")
+    equal = [a["tokens"] == b for a, b in zip(res, contiguous)]
+    check(all(equal), f"routing: the default paged engine's streams differ "
+                      f"from the contiguous engine's: {equal}")
+    check(launches.get("paged_decode_attention", 0) == 0,
+          f"routing: K8 launched without paged_kernel: {launches}")
+    check(launches.get("flash_attention", 0) == cfg.n_layers * len(prompts),
+          f"routing: K3-fwd launched {launches}")
+    f2 = dict(streams_equal_contiguous=equal, decode_steps=steps,
+              decode_step_ms_p50=step_ms, launches=launches)
+    LAUNCHES.reset()
+    out = dict(f2_default_paged=f2, f1_f32=_route_f32_logits(seed),
+               f1_head64=_route_head64(seed),
+               f1_resnet_f32=_route_resnet_f32(seed), gpu=smi_line(),
+               phase_s=time.monotonic() - t_phase)
+    emit("routing", **out)
+    torch.cuda.empty_cache()
+
+
 def phase_e2e(model, seed: int):
     """A 256-token prompt + 4 decode steps through the same port
     functions on the card (kernels) and on the CPU (plain versions)."""
@@ -1493,7 +2069,7 @@ def phase_e2e(model, seed: int):
             for i in range(steps):
                 _, lg = paged_decode_step(
                     w, t(feed[i:i + 1]), cache, t(np.array([T + i], np.int32)),
-                    t(row[None]), cfg)
+                    t(row[None]), cfg, kernel=True)
                 out.append(lg[0].float().cpu())
         return torch.stack(out)
 
@@ -3770,7 +4346,8 @@ def _greedy_tokens(model, prompts) -> tuple:
     from horovod_tpu_torch.ops import LAUNCHES
     from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
     eng = GenerationEngine(model, GenerationConfig(
-        max_slots=CK_SLOTS, max_len=MAX_LEN, block_size=BLOCK,
+        max_slots=CK_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+        paged_kernel=True, block_size=BLOCK,
         default_max_new_tokens=CK_NEW_TOKENS), device="cuda")
     try:
         eng.warmup()
@@ -4289,6 +4866,9 @@ def main() -> int:
         phase_e2e(model, args.seed)
         for name, n in phase_engine_kv(model, args.seed).items():
             launches[name] = launches.get(name, 0) + n
+        for name, n in phase_engine_lora(model, args.seed).items():
+            launches[name] = launches.get(name, 0) + n
+        phase_routing(model, args.seed)
         del model
         torch.cuda.empty_cache()
         times.update(phase_timing(args.seed, peaks))

@@ -2,7 +2,8 @@
 models: the transformer (:func:`params_from_jax`,
 :func:`params_to_numpy`, and across a mesh :func:`params_to_global`),
 the pipelined transformer's stage slices (:func:`pp_params_from_jax`,
-:func:`pp_params_to_numpy`, :func:`pp_params_to_global`), the ResNet
+:func:`pp_params_to_numpy`, :func:`pp_params_to_global`), LoRA adapter
+trees (:func:`adapter_from_jax`, :func:`adapter_to_numpy`), the ResNet
 (:func:`resnet_from_jax`,
 :func:`resnet_to_numpy`), and the JAX leaf order both train steps plan
 their gradient buckets in (:func:`jax_leaf_order`).
@@ -275,3 +276,30 @@ def resnet_to_numpy(model: ResNet) -> Dict[str, Dict[str, Any]]:
             node = node.setdefault(key, {})
         node[path[-1]] = _to_flax(path, t.detach().float().cpu().numpy())
     return out
+
+
+def adapter_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, lora,
+                     device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """A JAX adapter tree (``{"layers": [{target: {"a": [d_in, r], "b":
+    [r, d_out]}}]}``, numpy leaves; ``parallel.lora.init_adapter`` or
+    ``restore_adapter``) as the port's: the same tree of f32 tensors on
+    ``device``, checked against ``(cfg, lora)`` first. The layout is one
+    to one (``A`` is applied as ``x @ A``, as in JAX)."""
+    from .parallel.lora import check_adapter
+    check_adapter(tree, cfg, lora)
+    dev = resolve_device(device)
+    return {"layers": [
+        {t: {k: torch.tensor(_float_leaf(pair[k], f"layers[{li}].{t}.{k}"),
+                             device=dev) for k in ("a", "b")}
+         for t, pair in layer.items()}
+        for li, layer in enumerate(tree["layers"])]}
+
+
+def adapter_to_numpy(adapter: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`adapter_from_jax`: the port's adapter tree as
+    f32 numpy leaves in the JAX tree shape."""
+    return {"layers": [{t: {k: _np(pair[k]) if torch.is_tensor(pair[k])
+                            else np.asarray(pair[k], np.float32)
+                            for k in ("a", "b")}
+                        for t, pair in layer.items()}
+                       for layer in adapter["layers"]]}

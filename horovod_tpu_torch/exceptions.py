@@ -105,3 +105,18 @@ class ServerClosedError(HorovodError):
     (``shutdown(drain=False)``). Distinct from
     :class:`ServerOverloadedError` because it is terminal, not retryable.
     """
+
+
+class PreemptedError(HorovodError):
+    """A generation stream was evicted from its decode slot by a
+    higher-priority admission more times than the engine's preemption
+    retry budget allows.
+
+    Delivered through the stream's handle by the
+    :class:`~horovod_tpu_torch.serve.GenerationEngine` preemption plane
+    with terminal reason ``preempted_exhausted``. An eviction itself is
+    invisible to the client: the engine keeps the stream's emitted
+    tokens and replays it, suppressed and verified, so only a stream
+    preempted more than ``GenerationConfig.preempt_retries`` times sees
+    this error.
+    """

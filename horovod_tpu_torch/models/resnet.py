@@ -49,7 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from ..ops.fused_conv_bn import fused_linear_bn_act
+from ..ops.fused_conv_bn import (conv_bn_supported, fused_linear_bn_act,
+                                 fused_linear_bn_act_reference)
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
@@ -211,9 +212,16 @@ def _moments(xf: torch.Tensor):
 
 def fused_conv1x1(conv: Conv, x2: torch.Tensor, a=None, b=None):
     """The JAX ``_FusedConv1x1``: ``(y, s1, s2, count)`` of a 1x1 conv on
-    ``x2 [M, Cin]`` through the fused kernel, optionally behind the
-    ``relu(a·x + b)`` prologue."""
-    y, s1, s2 = fused_linear_bn_act(x2, conv.matrix(), a, b)
+    ``x2 [M, Cin]`` (in the block's ``cfg.dtype``) through the fused
+    kernel, optionally behind the ``relu(a·x + b)`` prologue. Where the
+    card's kernels do not take the model (an f32 model, channels that are
+    not multiples of 64: :func:`~..ops.fused_conv_bn.conv_bn_supported`)
+    the plain version runs under autograd, the same math the CPU runs."""
+    w = conv.matrix()
+    if conv_bn_supported(x2.device, x2.dtype, *x2.shape, w.shape[0]):
+        y, s1, s2 = fused_linear_bn_act(x2, w, a, b)
+    else:
+        y, s1, s2 = fused_linear_bn_act_reference(x2, w, a, b)
     return y, s1, s2, x2.shape[0]
 
 

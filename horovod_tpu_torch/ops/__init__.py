@@ -18,6 +18,13 @@
   BatchNorm statistics, forward and backward, replacing the Pallas
   ``_fwd_kernel`` and ``_bwd_kernel`` of ``pallas_conv.py``.
 
+Each family has one routing predicate
+(:func:`~.attention.flash_supported`,
+:func:`~.paged_attention.paged_attention_supported`,
+:func:`~.fused_conv_bn.conv_bn_supported`): on the card the kernels take
+bf16 (d_head 128; channels multiples of 64), on the CPU the plain
+versions take every input. The model that calls them routes by it; a
+wrapper given a CUDA input its kernel does not take raises.
 :data:`~._build.LAUNCHES` counts each kernel's launches. The eager
 collectives and the fused gradient allreduce live beside them
 (``collectives.py``, ``fusion.py``).
@@ -29,9 +36,9 @@ from .attention import (flash_attention, flash_attention_bwd_reference,
                         flash_attention_prefill, flash_attention_qkv,
                         flash_attention_qkv_bwd_reference,
                         flash_attention_qkv_reference,
-                        flash_attention_reference, qkv_flash_tilable,
-                        xla_attention)
-from .fused_conv_bn import (fused_linear_bn_act,
+                        flash_attention_reference, flash_supported,
+                        qkv_flash_tilable, xla_attention)
+from .fused_conv_bn import (conv_bn_supported, fused_linear_bn_act,
                             fused_linear_bn_act_bwd_reference,
                             fused_linear_bn_act_reference)
 from .paged_attention import (paged_attention_reference,
@@ -43,8 +50,9 @@ __all__ = ["LAUNCHES", "flash_attention", "flash_attention_prefill",
            "flash_attention_bwd_reference",
            "flash_attention_qkv", "flash_attention_qkv_reference",
            "flash_attention_qkv_bwd_reference", "qkv_flash_tilable",
-           "xla_attention",
+           "xla_attention", "flash_supported",
            "paged_decode_attention", "paged_attention_reference",
            "paged_attention_supported", "fused_linear_bn_act",
+           "conv_bn_supported",
            "fused_linear_bn_act_reference",
            "fused_linear_bn_act_bwd_reference"]

@@ -226,3 +226,14 @@ def sm_count(device) -> int:
 def current_stream(device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_card(device, what: str) -> bool:
+    """Whether a tensor on ``device`` reaches a kernel: True on a CUDA
+    device, False on the CPU (where every wrapper runs its plain
+    version), ``ValueError`` elsewhere. Each kernel family's routing
+    predicate starts here."""
+    kind = torch.device(device).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {device}")
+    return kind == "cuda"

@@ -37,7 +37,11 @@ tensor it runs the plain PyTorch version with the same rounding points
 :func:`flash_attention_qkv_reference`,
 :func:`flash_attention_qkv_bwd_reference`). There is no other path and
 no fallback: a CUDA input the kernels do not take (anything but bf16 with
-d_head 128) raises.
+d_head 128) raises. A model routes before it calls: :func:`flash_supported`
+says from its device, dtype and head width whether the wrappers take it,
+and the transformer takes the plain versions on the card for a model the
+kernels do not take (an f32 or fp16 model, another head width), as the
+JAX package routes by shape and ``_SCORE_BYTES_CUTOVER``.
 
 The two backward flavours differ only in constants, which the kernels
 take as arguments: the ``[B, T, H, D]`` path hands them the prescaled q,
@@ -142,6 +146,16 @@ def _bwd_reference(q, k, v, do, lse2, delta, causal: bool, qscale: float,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * grad_scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), do.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_supported(device, dtype: torch.dtype, d_head: int) -> bool:
+    """The flash family's routing predicate: whether its wrappers take
+    inputs of ``dtype`` and ``d_head`` on ``device``. On the CPU every
+    input (the plain versions); on the card bf16 with d_head 128, any T,
+    batch and head count (the kernels); ``ValueError`` on another
+    device."""
+    return (not _build.on_card(device, "flash attention")
+            or (d_head == _D and dtype == torch.bfloat16))
 
 
 def _check_operand(name: str, x: torch.Tensor, like: torch.Tensor) -> None:

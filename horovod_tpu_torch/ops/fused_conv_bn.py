@@ -23,7 +23,9 @@ anything else; on a CPU tensor they run the plain versions
 :func:`fused_linear_bn_act_reference` and
 :func:`fused_linear_bn_act_bwd_reference`, the same math with the same
 rounding points. The sums are taken in a fixed order on the card, so two
-launches on the same input agree bitwise.
+launches on the same input agree bitwise. The model routes before it
+calls (:func:`conv_bn_supported`): on the card, a model whose activations or
+channels the kernels do not take runs the plain versions.
 
 :func:`fwd_plan` and :func:`bwd_plan` are the kernels' host-side
 planners: persistent CTAs (one per SM) over contiguous runs of row tiles
@@ -62,6 +64,17 @@ def fusable(m: int, cin: int = 64, cout: int = 64) -> bool:
     :mod:`horovod_tpu_torch.models.resnet`.)"""
     return m >= 1 and cin > 0 and cout > 0 and cin % 64 == 0 \
         and cout % 64 == 0
+
+
+def conv_bn_supported(device, dtype: torch.dtype, m: int, cin: int,
+                      cout: int) -> bool:
+    """The conv family's routing predicate: whether its wrappers take a
+    ``dtype`` ``[m, cin]`` activation against a ``[cout, cin]`` weight
+    on ``device``. On the CPU every input (the plain versions); on the
+    card a bf16 activation of :func:`fusable` shape (K1/K2);
+    ``ValueError`` on another device."""
+    return (not _build.on_card(device, "fused_linear_bn_act")
+            or (fusable(m, cin, cout) and dtype == torch.bfloat16))
 
 
 def _prologue(x2: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

@@ -7,7 +7,10 @@ paged pool through its block-table row. On a CUDA tensor
 ``csrc/paged_attention.cu``; on a CPU tensor it runs
 :func:`paged_attention_reference`, which gathers each slot's blocks into
 a contiguous view and runs the dense math. There is no fallback: a CUDA
-input the kernel does not take raises.
+input the kernel does not take raises. The engine routes before it
+calls, as the JAX engine does: :func:`paged_attention_supported` on its
+model and device decides whether ``paged_kernel`` runs the kernel or
+the gather.
 
 The kernel splits each slot's keys into chunks, one CTA per (slot, head,
 chunk), and merges the chunks' partial softmax states in a fixed order.
@@ -73,10 +76,16 @@ def split_plan(S: int, H: int, max_blocks: int, block_size: int,
 
 
 def paged_attention_supported(d_head: int, block_size: int,
-                              dtype: torch.dtype = torch.bfloat16) -> bool:
-    """Whether the CUDA kernel takes these shapes: d_head 128, a bf16
-    query and pool, any block size."""
-    return d_head == _D and dtype == torch.bfloat16 and block_size >= 1
+                              dtype: torch.dtype = torch.bfloat16,
+                              device="cuda") -> bool:
+    """The paged family's routing predicate: whether
+    :func:`paged_decode_attention` takes a query and pool on ``device``.
+    On the CPU every input (the plain version); on the card a bf16 query
+    and pool with d_head 128 and any block size (the kernel);
+    ``ValueError`` on another device."""
+    return block_size >= 1 and (
+        not _build.on_card(device, "paged_decode_attention")
+        or (d_head == _D and dtype == torch.bfloat16))
 
 
 def paged_attention_reference(q, k_pool, v_pool, block_tables, positions,

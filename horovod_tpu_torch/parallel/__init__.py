@@ -1,15 +1,19 @@
 """Model layers of the port: the named mesh (dp / pp / ep / sp / tp), the
 tp, sp (ring, Ulysses), ep (MoE) and pp (GPipe, 1F1B) layers, the
 transformer LM and its train steps (dp × tp × sp × ep, and dp × pp × tp
-pipelined), its paged KV cache, and the integrity-checked checkpoints
+pipelined), its paged KV cache, the LoRA adapters of the generation
+forwards (``lora``), and the integrity-checked checkpoints
 (``checkpoint``)."""
 
-from .checkpoint import (read_manifest, restore_for_inference,
-                         restore_sharded, save_sharded, snapshot_to_host,
-                         verify_checkpoint, write_manifest)
+from .checkpoint import (read_manifest, restore_adapter,
+                         restore_for_inference, restore_sharded, save_adapter,
+                         save_sharded, snapshot_to_host, verify_checkpoint,
+                         write_manifest)
 
 from .kv_blocks import (TRASH_BLOCK, BlockManager, blocks_for,
                         init_paged_kv_cache, paged_decode_step, paged_prefill)
+from .lora import (LoraConfig, adapter_bytes, check_adapter,
+                   check_adapter_name, init_adapter, stack_adapters)
 from .mesh import (AXES, Mesh, axis_size, create_hybrid_mesh,
                    grad_sync_by_spec, make_mesh)
 from .moe import moe_ffn
@@ -36,4 +40,6 @@ __all__ = ["Transformer", "TransformerConfig", "forward", "forward_hidden",
            "pp_param_specs", "make_pp_transformer_train_step",
            "save_sharded", "restore_sharded", "restore_for_inference",
            "verify_checkpoint", "write_manifest", "read_manifest",
-           "snapshot_to_host"]
+           "snapshot_to_host", "save_adapter", "restore_adapter",
+           "LoraConfig", "adapter_bytes", "check_adapter",
+           "check_adapter_name", "init_adapter", "stack_adapters"]

@@ -58,7 +58,9 @@ both). A rank's own commit (:func:`local_tree`) keeps its blocks.
 
 ``restore_for_inference(mesh=, spec_fn=)`` returns each leaf as this
 rank's block under ``spec_fn``'s spec on ``mesh``. int8 serving weights
-and LoRA adapters are ``ROADMAP.md`` Queue 1 item 12.
+are ``ROADMAP.md`` Queue 1 item 12. LoRA adapters persist one directory
+each (:func:`save_adapter`, :func:`restore_adapter`), in this format with
+JAX's manifest and its ``adapter_name`` meta.
 """
 
 from __future__ import annotations
@@ -1156,13 +1158,50 @@ def _place(tree: Any, mesh, spec_fn, prefix: Tuple) -> Any:
     return _map(one, tree, with_path=True)
 
 
-def save_adapter(*args, **kwargs):
-    """LoRA adapter persistence is ``ROADMAP.md`` Queue 1 item 12."""
-    raise NotImplementedError(
-        "save_adapter — LoRA adapters are ROADMAP.md Queue 1 item 12")
+# -- LoRA adapters: one directory per adapter, manifest-CRC-verified like
+# the base checkpoints, so a hot-load can prove the delta it serves ---------
+
+def adapter_path(directory: str, name: str) -> str:
+    """Where the adapter ``name`` lives under ``directory``
+    (``adapter_<name>``, next to the base ``ckpt_<step>`` directories).
+    The name follows :func:`~.lora.check_adapter_name`."""
+    from .lora import check_adapter_name
+    check_adapter_name(name)
+    return os.path.join(os.path.abspath(directory), f"adapter_{name}")
 
 
-def restore_adapter(*args, **kwargs):
-    """LoRA adapter persistence is ``ROADMAP.md`` Queue 1 item 12."""
-    raise NotImplementedError(
-        "restore_adapter — LoRA adapters are ROADMAP.md Queue 1 item 12")
+def save_adapter(directory: str, name: str, adapter: Any) -> str:
+    """Write the adapter tree (``{"layers": [{target: {"a", "b"}}]}`` of
+    tensors or arrays) to ``<directory>/adapter_<name>`` in the port's
+    checkpoint format, then its integrity manifest (JAX's, with the
+    ``adapter_name`` meta) strictly after the tree's rename. Base
+    checkpoints in the same directory are untouched; returns the path."""
+    path = adapter_path(directory, name)
+    tree = _map(lambda x: _contiguous(
+        x.detach().float().cpu().numpy() if torch.is_tensor(x) else x),
+        adapter)
+    write_tree(path, tree)
+    write_manifest(path, tree, extra_meta={"adapter_name": name})
+    return path
+
+
+def restore_adapter(directory: str, name: str, *,
+                    verify: bool = True) -> Any:
+    """Read the adapter ``name`` back as a host (numpy) tree, every leaf
+    CRC-checked against its manifest first: a corrupt adapter raises
+    :class:`~..exceptions.CheckpointCorruptError` naming the path and the
+    offending leaf, and the base weights it would ride on are never
+    touched. A missing adapter raises ``FileNotFoundError``."""
+    path = adapter_path(directory, name)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"no adapter {name!r} under {directory} "
+                                f"(looked for {path})")
+    tree = _load(path, read_index(path))
+    if verify:
+        manifest = read_manifest(path)
+        if manifest is None:
+            raise CheckpointCorruptError(
+                path, f"no {MANIFEST_NAME} — cannot verify adapter "
+                      f"integrity")
+        _verify_leaves(path, manifest, tree)
+    return tree

@@ -17,10 +17,16 @@ positions.
 Unlike the JAX functions, which return a new pool, the device functions
 write the pool **in place** (a full-width pool is a gigabyte; copying it
 per step would double the memory and the traffic) and return the same
-dict. Both paged steps, decode and verify, read the pool through the
-paged decode-attention kernel on a CUDA device, so a speculated stream
-never mixes two attention numerics; the JAX verify gathers the pool
-(``ROADMAP.md`` Queue 3 logs the difference).
+dict. Both paged steps, decode and verify, take JAX's ``kernel`` flag:
+``kernel=False`` (the default, the engine's ``paged_kernel=False``)
+gathers each slot's blocks into its contiguous view and runs the same
+:func:`~.transformer.cached_attention` the contiguous step runs, so the
+paged engine is bitwise the contiguous one; ``kernel=True`` reads the
+pool through the paged decode-attention kernel. Under ``kernel=True``
+the verify runs the kernel too, so a speculated stream never mixes two
+attention numerics; the JAX engine refuses speculation with the kernel
+(``ROADMAP.md`` Queue 3 logs the difference). Every entry point takes
+the LoRA hook's ``adapters``/``adapter_idx``/``lora`` (:mod:`.lora`).
 """
 
 from __future__ import annotations
@@ -35,8 +41,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.paged_attention import paged_decode_attention
-from .transformer import (TransformerConfig, _clamped, check_dense,
-                          prompt_forward, step_forward)
+from .lora import make_delta
+from .transformer import (TransformerConfig, _clamped, cached_attention,
+                          check_dense, prompt_forward, step_forward)
 
 #: Physical block 0 — reserved, never allocated; see module docstring.
 TRASH_BLOCK = 0
@@ -74,7 +81,8 @@ def init_paged_kv_cache(cfg: TransformerConfig, n_blocks: int,
 
 def paged_prefill(w: Dict, tokens: torch.Tensor, cache: Dict, slot: int,
                   write_row: torch.Tensor, cfg: TransformerConfig,
-                  length: Optional[int] = None) -> Tuple[Dict, torch.Tensor]:
+                  length: Optional[int] = None, *, adapters=None,
+                  adapter_idx=None, lora=None) -> Tuple[Dict, torch.Tensor]:
     """Full-prompt forward writing every position's K/V through
     ``write_row`` into the pool.
 
@@ -89,7 +97,8 @@ def paged_prefill(w: Dict, tokens: torch.Tensor, cache: Dict, slot: int,
 
     Returns ``(cache, logits [T, vocab] f32)``. The attention is the
     self-contained causal flash attention over the prompt: the logits
-    read nothing from the pool."""
+    read nothing from the pool. ``adapters``/``adapter_idx``/``lora``:
+    the LoRA table, this prompt's row (``-1`` = base), its config."""
     check_dense(cfg, "paged_prefill")
     T = tokens.shape[0]
     bs = cache["k"].shape[2]
@@ -110,7 +119,8 @@ def paged_prefill(w: Dict, tokens: torch.Tensor, cache: Dict, slot: int,
             if rem:     # the last block is partial: write its rows only
                 pool[wr[n_full], :rem] = x[n_full * bs:]
 
-    logits = prompt_forward(w, tokens, cfg, store)
+    logits = prompt_forward(w, tokens, cfg, store, delta=make_delta(
+        "prompt", adapters, adapter_idx, lora, cfg))
     cache["lengths"][slot] = T if length is None else int(length)
     return cache, logits
 
@@ -120,7 +130,8 @@ def paged_chunked_prefill(w: Dict, tokens: torch.Tensor, cache: Dict,
                           read_row: torch.Tensor, start: int,
                           cfg: TransformerConfig,
                           length: Optional[int] = None,
-                          chunk_blocks: int = 1
+                          chunk_blocks: int = 1, *, adapters=None,
+                          adapter_idx=None, lora=None
                           ) -> Tuple[Dict, torch.Tensor]:
     """Chunked prefill: chunks of ``C = chunk_blocks · block_size`` tokens,
     one after the other, whose attention reads K/V back out of the pool
@@ -147,7 +158,8 @@ def paged_chunked_prefill(w: Dict, tokens: torch.Tensor, cache: Dict,
     attends (f32 scores, -1e30 mask, f32 softmax, as JAX's scan body)
     over the gathered ``[max_blocks · block_size]`` view of the pool at
     the same shapes whatever the hit depth, so a hit's suffix logits and
-    the pool bytes it writes are bitwise those of the cold loop."""
+    the pool bytes it writes are bitwise those of the cold loop. The LoRA
+    arguments are :func:`paged_prefill`'s."""
     check_dense(cfg, "paged_chunked_prefill")
     B = tokens.shape[0]
     bs = cache["k"].shape[2]
@@ -169,6 +181,7 @@ def paged_chunked_prefill(w: Dict, tokens: torch.Tensor, cache: Dict,
     rr = read_row.to(device=dev, dtype=torch.long)
     wr = write_rows.to(device=dev, dtype=torch.long)
     kpos = torch.arange(M, device=dev)
+    delta = make_delta("prompt", adapters, adapter_idx, lora, cfg)
     outs = []
     for c in range(B // C):
         wblocks = wr[c]
@@ -191,14 +204,25 @@ def paged_chunked_prefill(w: Dict, tokens: torch.Tensor, cache: Dict,
             return torch.einsum("bhqk,bkhd->bqhd", p, vg.float())
 
         outs.append(prompt_forward(w, tokens[c * C:(c + 1) * C], cfg,
-                                   store, attend=attend))
+                                   store, attend=attend, delta=delta))
     cache["lengths"][slot] = B if length is None else int(length)
     return cache, torch.cat(outs)
 
 
+def _gathered(pool: torch.Tensor, block_tables: torch.Tensor
+              ) -> torch.Tensor:
+    """Each slot's blocks of one layer's pool as its contiguous ``[S,
+    max_blocks·block_size, H, d]`` view (JAX's gather path)."""
+    S, nb = block_tables.shape
+    return pool[block_tables.long()].reshape(S, nb * pool.shape[1],
+                                              *pool.shape[2:])
+
+
 def paged_decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
                       positions: torch.Tensor, block_tables: torch.Tensor,
-                      cfg: TransformerConfig) -> Tuple[Dict, torch.Tensor]:
+                      cfg: TransformerConfig, *, kernel: bool = False,
+                      adapters=None, adapter_idx=None, lora=None
+                      ) -> Tuple[Dict, torch.Tensor]:
     """One autoregressive step for every slot, through the block table.
 
     Args:
@@ -208,9 +232,18 @@ def paged_decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
         the trash block for an unoccupied slot — and its output row is
         garbage to be ignored).
       block_tables: ``[S, max_blocks]`` int32, trash-padded.
+      kernel: read the pool through
+        :func:`~..ops.paged_attention.paged_decode_attention` (the K8
+        kernel on the card where it takes the input) instead of gathering
+        each slot's blocks into its contiguous view for
+        :func:`~.transformer.cached_attention`. The gather is the
+        reference: the contiguous cache's own attention over the same
+        view, so paged and contiguous streams are bitwise equal.
+      adapters, adapter_idx, lora: the per-slot LoRA hook
+        (``adapter_idx [S]``, ``-1`` = base), as in
+        :func:`~.transformer.decode_step`.
 
-    Each layer writes the new K/V at ``positions`` and runs
-    :func:`~..ops.paged_attention.paged_decode_attention` over keys
+    Each layer writes the new K/V at ``positions`` and attends keys
     ``0..pos``, with inactive slots' positions clamped to 0 as the JAX
     step does. Returns ``(cache, logits [S, vocab] f32)``; every slot's
     row depends only on that slot's token, position and blocks."""
@@ -226,17 +259,24 @@ def paged_decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
         k_pool, v_pool = cache["k"][li], cache["v"][li]
         k_pool[phys, off] = k.to(k_pool.dtype)
         v_pool[phys, off] = v.to(v_pool.dtype)
-        return paged_decode_attention(q.contiguous(), k_pool, v_pool,
-                                      block_tables, pos).to(q.dtype)
+        if kernel:
+            return paged_decode_attention(q.contiguous(), k_pool, v_pool,
+                                          block_tables, pos).to(q.dtype)
+        return cached_attention(q, _gathered(k_pool, block_tables),
+                                _gathered(v_pool, block_tables), pos)
 
-    logits = step_forward(w, last_tokens, cfg, mix)
+    logits = step_forward(w, last_tokens, cfg, mix, delta=make_delta(
+        "step", adapters, adapter_idx, lora, cfg, rows=S,
+        device=positions.device))
     cache["lengths"].copy_(torch.where(active, pos + 1, cache["lengths"]))
     return cache, logits
 
 
 def paged_verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
                       positions: torch.Tensor, block_tables: torch.Tensor,
-                      cfg: TransformerConfig) -> Tuple[Dict, torch.Tensor]:
+                      cfg: TransformerConfig, *, kernel: bool = False,
+                      adapters=None, adapter_idx=None, lora=None
+                      ) -> Tuple[Dict, torch.Tensor]:
     """Paged speculative verify: score ``W = k + 1`` positions per slot
     in one forward against the pool (the paged sibling of
     :func:`~.transformer.verify_step`).
@@ -246,12 +286,15 @@ def paged_verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
     go to :data:`TRASH_BLOCK`. Speculated writes land in the slot's
     private blocks only (admission reserves every position a stream may
     write, and shared prefix blocks cover whole prompt blocks), so a
-    rejected draft needs no rollback. The ``S·W`` flattened rows run
-    :func:`~..ops.paged_attention.paged_decode_attention` over the
-    slot's table repeated ``W`` times, with the decode step's split plan
-    (``plan_rows=S``): on a CUDA device each row sums its keys in the
-    decode step's chunks and order. Returns ``(cache, logits [S, W,
-    vocab] f32)``."""
+    rejected draft needs no rollback. The ``S·W`` flattened rows attend
+    the slot's gathered view repeated ``W`` times with
+    :func:`~.transformer.cached_attention` (JAX's path), or with
+    ``kernel=True`` run :func:`~..ops.paged_attention.
+    paged_decode_attention` over the slot's table repeated ``W`` times
+    with the decode step's split plan (``plan_rows=S``): on the card each
+    row then sums its keys in the decode step's chunks and order. The
+    LoRA hook repeats each slot's ``adapter_idx`` over its ``W`` rows.
+    Returns ``(cache, logits [S, W, vocab] f32)``."""
     check_dense(cfg, "paged_verify_step")
     S, W = draft_tokens.shape
     bs = cache["k"].shape[2]
@@ -273,11 +316,19 @@ def paged_verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
         k_pool, v_pool = cache["k"][li], cache["v"][li]
         k_pool[phys, off] = k.reshape(S, W, *k.shape[1:]).to(k_pool.dtype)
         v_pool[phys, off] = v.reshape(S, W, *v.shape[1:]).to(v_pool.dtype)
-        return paged_decode_attention(q.contiguous(), k_pool, v_pool,
-                                      tables_w, flat_pos,
-                                      plan_rows=S).to(q.dtype)
+        if kernel:
+            return paged_decode_attention(q.contiguous(), k_pool, v_pool,
+                                          tables_w, flat_pos,
+                                          plan_rows=S).to(q.dtype)
+        return cached_attention(
+            q, _gathered(k_pool, block_tables).repeat_interleave(W, dim=0),
+            _gathered(v_pool, block_tables).repeat_interleave(W, dim=0),
+            flat_pos)
 
-    logits = step_forward(w, draft_tokens.reshape(S * W), cfg, mix)
+    logits = step_forward(w, draft_tokens.reshape(S * W), cfg, mix,
+                          delta=make_delta("step", adapters, adapter_idx,
+                                           lora, cfg, rows=S, repeat=W,
+                                           device=pos.device))
     cache["lengths"].copy_(torch.where(active, pos + 1, cache["lengths"]))
     return cache, logits.reshape(S, W, -1)
 
@@ -329,9 +380,10 @@ class BlockManager:
     makes prefix sharing tenant-scoped, so a block has exactly ONE
     owner for its whole allocated life — shared-prefix retains are
     always same-tenant. :meth:`set_budget` caps a tenant's owned
-    blocks; enforcement belongs to the engine's admission path, which
-    takes it with the tenants (``ROADMAP.md`` Queue 1 item 12). The
-    manager only does the ledger: :meth:`owned_count`, owner-filtered
+    blocks; enforcement belongs to the engine's admission path
+    (``GenerationEngine``: rejection at the door, starvation of that
+    tenant alone, its own blocks reclaimed first). The manager only does
+    the ledger: :meth:`owned_count`, owner-filtered
     :meth:`offload_candidates` (a tenant over budget offloads its OWN
     coldest blocks first) and owner-filtered :meth:`reclaim` (it
     evicts its own registry residue, never another tenant's cache).

@@ -37,7 +37,12 @@ caller's ``attend``, the chunked prefill's pool read), decode steps a
 caller-supplied ``mix``: the paged pool read in :mod:`.kv_blocks`, or
 the contiguous cache's :func:`cached_attention`, plain PyTorch as the
 JAX function is plain XLA. The contiguous functions write the cache in
-place, as the paged ones write the pool.
+place, as the paged ones write the pool. On the card the kernels take a
+bf16 model with d_head 128; every other model's attention routes to the
+plain versions (:func:`~..ops.attention.flash_supported`), as on the
+CPU. The route is decided from the config, not from the activations, so
+a tensor that reaches a wrapper in another dtype than the model's raises
+instead of leaving the kernel.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import DeviceLike, resolve_device
 from ..ops.attention import (flash_attention, flash_attention_prefill,
-                             flash_attention_qkv, qkv_flash_tilable)
+                             flash_attention_qkv, flash_attention_reference,
+                             flash_supported, qkv_flash_tilable)
 from .mesh import local_slice
 from .moe import moe_ffn
 from .ring import ring_attention
@@ -266,25 +272,35 @@ def _split_heads(qkv: torch.Tensor, cfg: TransformerConfig,
                               cfg.d_head)).unbind(-2)
 
 
+def _no_delta(name: str, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return y
+
+
 def _layer(layer: Dict, x: torch.Tensor, cfg: TransformerConfig,
            attend: Callable, reduce: Optional[Callable] = None,
-           ffn: Optional[Callable] = None) -> torch.Tensor:
+           ffn: Optional[Callable] = None,
+           delta: Optional[Callable] = None) -> torch.Tensor:
     """One pre-norm layer over ``x [..., d_model]``. ``attend(qkv)`` maps
     the head-major projection ``[..., H·3·dh]`` to the attention output
     ``[..., H·dh]``; ``reduce`` (tp's row-parallel sum) combines the
     products of ``wo`` and ``w2``; ``ffn(layer, h)`` replaces the dense
-    FFN (the MoE's)."""
+    FFN (the MoE's). ``delta(name, x, y)`` adjusts the output ``y = x @
+    W`` of each of ``wqkv`` (before the head split), ``wo``, ``w1``
+    (before the GELU) and ``w2``: the LoRA hook of the generation
+    forwards (JAX ``_prompt_forward``/``_step_forward``'s ``dl``)."""
+    dl = _no_delta if delta is None else delta
     h = rms_norm(x, layer["ln1"])
-    attn = attend(h @ layer["wqkv"])
-    proj = attn.to(cfg.dtype) @ layer["wo"]
+    attn = attend(dl("wqkv", h, h @ layer["wqkv"]))
+    a = attn.to(cfg.dtype)
+    proj = dl("wo", a, a @ layer["wo"])
     if reduce is not None:
         proj = reduce(proj)
     x = x + proj
     h2 = rms_norm(x, layer["ln2"])
     if ffn is not None:
         return x + ffn(layer, h2)
-    up = F.gelu(h2 @ layer["w1"], approximate="tanh")
-    down = up @ layer["w2"]
+    up = F.gelu(dl("w1", h2, h2 @ layer["w1"]), approximate="tanh")
+    down = dl("w2", up, up @ layer["w2"])
     if reduce is not None:
         down = reduce(down)
     return x + down
@@ -371,11 +387,15 @@ def attend_heads(qkv: torch.Tensor, cfg: TransformerConfig,
                  n_heads: Optional[int] = None) -> torch.Tensor:
     """Causal attention over the head-major projection ``[B, T,
     H·3·dh]`` (``n_heads`` heads, default ``cfg.n_heads``) through
-    :func:`~..ops.attention.flash_attention` with ``cfg.attn_backend``;
-    returns ``[B, T, H·dh]``."""
+    :func:`~..ops.attention.flash_attention` with ``cfg.attn_backend``
+    (``"xla"`` for a model the card's kernels do not take); returns
+    ``[B, T, H·dh]``."""
     q, k, v = _split_heads(qkv, cfg, n_heads)
+    backend = (cfg.attn_backend
+               if flash_supported(qkv.device, cfg.dtype, cfg.d_head)
+               else "xla")
     return flash_attention(q, k, v, causal=True,
-                           backend=cfg.attn_backend).flatten(-2)
+                           backend=backend).flatten(-2)
 
 
 def _train_attend(cfg: TransformerConfig, T: int, mesh=None) -> Callable:
@@ -383,7 +403,8 @@ def _train_attend(cfg: TransformerConfig, T: int, mesh=None) -> Callable:
     (JAX ``forward_hidden`` :165-185) over this rank's ``n_heads / tp``
     heads: :func:`~.ring.ring_attention` when the mesh has ``sp``, the
     packed flash kernels when ``cfg.attn_backend`` is ``"pallas"`` and
-    the shape is tilable, :func:`attend_heads` otherwise."""
+    the shape is tilable and the kernels take the model,
+    :func:`attend_heads` otherwise."""
     heads = cfg.n_heads // (mesh.shape.get("tp", 1) if mesh else 1)
     if mesh is not None and "sp" in mesh.shape:
         def ring(qkv):
@@ -392,7 +413,11 @@ def _train_attend(cfg: TransformerConfig, T: int, mesh=None) -> Callable:
                                   causal=True).flatten(-2)
         return ring
     if cfg.attn_backend == "pallas" and qkv_flash_tilable(T, cfg.d_head):
-        return lambda qkv: flash_attention_qkv(qkv, heads, causal=True)
+        def packed(qkv):
+            if flash_supported(qkv.device, cfg.dtype, cfg.d_head):
+                return flash_attention_qkv(qkv, heads, causal=True)
+            return attend_heads(qkv, cfg, heads)
+        return packed
     return lambda qkv: attend_heads(qkv, cfg, heads)
 
 
@@ -539,41 +564,55 @@ def lm_loss(w: Dict, tokens: torch.Tensor, labels: torch.Tensor,
     return loss
 
 
+def _bind(delta: Optional[Callable], li: int) -> Optional[Callable]:
+    """``delta(li, name, x, y)`` bound to layer ``li`` (None stays None)."""
+    if delta is None:
+        return None
+    return lambda name, x, y: delta(li, name, x, y)
+
+
 def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
-                   store_kv: Callable,
-                   attend: Optional[Callable] = None) -> torch.Tensor:
+                   store_kv: Callable, attend: Optional[Callable] = None,
+                   delta: Optional[Callable] = None) -> torch.Tensor:
     """Prompt-phase forward (``w`` from :func:`gen_weights`): per layer
     the computed K/V (``[T, H, dh]``) is handed to ``store_kv(li, k, v)``
     and the attention is the self-contained causal
     :func:`~..ops.attention.flash_attention_prefill` over the prompt (the
-    kernel at every length). ``attend(li, q)`` replaces that attention
+    kernel at every length; its plain version for a model the card's
+    kernels do not take). ``attend(li, q)`` replaces that attention
     with a caller-supplied read (q ``[1, T, H, dh]`` → attention of the
     same shape), the chunked prefill's hook: ``store_kv`` runs first, so
     the hook may gather the just-stored rows back out of a paged pool.
-    Returns logits ``[T, vocab]`` f32."""
+    ``delta(li, name, x, y)`` adjusts each target matmul's output (the
+    LoRA hook, :mod:`.lora`). Returns logits ``[T, vocab]`` f32."""
     x = w["embed"][tokens.long()][None].to(cfg.dtype)           # [1, T, D]
+    flash = (flash_attention_prefill
+             if flash_supported(x.device, cfg.dtype, cfg.d_head)
+             else flash_attention_reference)
     for li, layer in enumerate(w["layers"]):
         def attn(qkv, li=li):
             q, k, v = _split_heads(qkv, cfg)
             store_kv(li, k[0], v[0])
             if attend is not None:
                 return attend(li, q).to(cfg.dtype).flatten(-2)
-            return flash_attention_prefill(q, k, v,
-                                           causal=True).flatten(-2)
-        x = _layer(layer, x, cfg, attn)
+            return flash(q, k, v, causal=True).flatten(-2)
+        x = _layer(layer, x, cfg, attn, delta=_bind(delta, li))
     return unembed(w, rms_norm(x, w["lnf"]), cfg)[0]
 
 
 def step_forward(w: Dict, last_tokens: torch.Tensor,
-                 cfg: TransformerConfig, mix: Callable) -> torch.Tensor:
+                 cfg: TransformerConfig, mix: Callable,
+                 delta: Optional[Callable] = None) -> torch.Tensor:
     """Decode-step forward (``w`` from :func:`gen_weights`):
     ``mix(li, q, k, v)`` does the cache write and attention read (q/k/v
-    ``[S, H, dh]`` → attention of the same shape). Returns logits
-    ``[S, vocab]`` f32."""
+    ``[S, H, dh]`` → attention of the same shape); ``delta(li, name, x,
+    y)`` is the per-slot LoRA hook (row-independent, :mod:`.lora`).
+    Returns logits ``[S, vocab]`` f32."""
     x = w["embed"][last_tokens.long()].to(cfg.dtype)             # [S, D]
     for li, layer in enumerate(w["layers"]):
         x = _layer(layer, x, cfg, lambda qkv, li=li: mix(
-            li, *_split_heads(qkv, cfg)).flatten(-2))
+            li, *_split_heads(qkv, cfg)).flatten(-2),
+            delta=_bind(delta, li))
     return unembed(w, rms_norm(x, w["lnf"]), cfg)
 
 
@@ -598,13 +637,16 @@ def init_kv_cache(cfg: TransformerConfig, max_slots: int, max_len: int,
 
 
 def prefill(w: Dict, tokens: torch.Tensor, cache: Dict, slot: int,
-            cfg: TransformerConfig, length: Optional[int] = None):
+            cfg: TransformerConfig, length: Optional[int] = None, *,
+            adapters=None, adapter_idx=None, lora=None):
     """Full-prompt forward writing every position's K/V into slot
     ``slot`` of the contiguous cache, in place. ``tokens`` is ``[T]`` at
     a bucket width (padded positions' K/V are written but masked by
     ``length``). Returns ``(cache, logits [T, vocab] f32)``; the logits
     read nothing from the cache (the same self-contained attention as
-    the paged prefill)."""
+    the paged prefill). ``adapters``/``adapter_idx``/``lora``: the LoRA
+    table, this prompt's row (``-1`` = base) and its
+    :class:`~.lora.LoraConfig`."""
     check_dense(cfg, "prefill")
     T = tokens.shape[0]
     if T > cache["k"].shape[2]:
@@ -615,7 +657,9 @@ def prefill(w: Dict, tokens: torch.Tensor, cache: Dict, slot: int,
         cache["k"][li, slot, :T] = k.to(cache["k"].dtype)
         cache["v"][li, slot, :T] = v.to(cache["v"].dtype)
 
-    logits = prompt_forward(w, tokens, cfg, store)
+    from .lora import make_delta
+    logits = prompt_forward(w, tokens, cfg, store, delta=make_delta(
+        "prompt", adapters, adapter_idx, lora, cfg))
     cache["lengths"][slot] = T if length is None else int(length)
     return cache, logits
 
@@ -649,13 +693,16 @@ def _clamped(positions: torch.Tensor):
 
 
 def decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
-                positions: torch.Tensor, cfg: TransformerConfig):
+                positions: torch.Tensor, cfg: TransformerConfig, *,
+                adapters=None, adapter_idx=None, lora=None):
     """One autoregressive step for every slot of the contiguous cache:
     each slot's K/V is written at ``positions[s]`` (``-1`` = inactive: its
     scratch write lands at row 0 of its own slot, its output row is
     garbage), then :func:`cached_attention` over the slot's rows. Writes
     in place; returns ``(cache, logits [S, vocab] f32)``. Every slot's
-    row depends only on that slot's token, position and cache row."""
+    row depends only on that slot's token, position and cache row.
+    ``adapters``/``adapter_idx [S]``/``lora``: the per-slot LoRA hook
+    (``-1`` = base)."""
     check_dense(cfg, "decode_step")
     S = last_tokens.shape[0]
     active, pos = _clamped(positions)
@@ -668,13 +715,17 @@ def decode_step(w: Dict, last_tokens: torch.Tensor, cache: Dict,
         vc[rows, at] = v.to(vc.dtype)
         return cached_attention(q, kc, vc, pos)
 
-    logits = step_forward(w, last_tokens, cfg, mix)
+    from .lora import make_delta
+    logits = step_forward(w, last_tokens, cfg, mix, delta=make_delta(
+        "step", adapters, adapter_idx, lora, cfg, rows=S,
+        device=last_tokens.device))
     cache["lengths"].copy_(torch.where(active, pos + 1, cache["lengths"]))
     return cache, logits
 
 
 def verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
-                positions: torch.Tensor, cfg: TransformerConfig):
+                positions: torch.Tensor, cfg: TransformerConfig, *,
+                adapters=None, adapter_idx=None, lora=None):
     """Speculative verify: score ``W = k + 1`` positions per slot in one
     forward. ``draft_tokens [S, W]`` holds, per slot, its last sampled
     token then the drafted continuation; column ``j`` writes its K/V at
@@ -685,7 +736,8 @@ def verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
     the decode step's per-row math over the slot's cache (repeated ``W``
     times). Returns ``(cache, logits [S, W, vocab] f32)``; row ``j`` is
     the next-token distribution after ``draft_tokens[s, :j + 1]``. Only
-    column 0's position is claimed in ``lengths``."""
+    column 0's position is claimed in ``lengths``. The LoRA hook repeats
+    each slot's ``adapter_idx`` over its ``W`` rows."""
     check_dense(cfg, "verify_step")
     S, W = draft_tokens.shape
     max_len = cache["k"].shape[2]
@@ -704,7 +756,11 @@ def verify_step(w: Dict, draft_tokens: torch.Tensor, cache: Dict,
         return cached_attention(q, kc.repeat_interleave(W, dim=0),
                                 vc.repeat_interleave(W, dim=0), flat_pos)
 
-    logits = step_forward(w, draft_tokens.reshape(S * W), cfg, mix)
+    from .lora import make_delta
+    logits = step_forward(w, draft_tokens.reshape(S * W), cfg, mix,
+                          delta=make_delta("step", adapters, adapter_idx,
+                                           lora, cfg, rows=S, repeat=W,
+                                           device=pos.device))
     cache["lengths"].copy_(torch.where(active, pos + 1, cache["lengths"]))
     return cache, logits.reshape(S, W, -1)
 

@@ -8,12 +8,12 @@ Orca-style iteration-level scheduling over vLLM-style paged KV memory:
   boundary: a new request prefills into a free slot while its neighbours
   are mid-stream. Slot rows are numerically independent, so a request's
   greedy stream is the same whether it runs alone or in a busy batch.
-* **Two KV layouts.** ``"paged"`` (the default): a fixed pool of
-  ``block_size``-position blocks (:mod:`..parallel.kv_blocks`); a stream
-  reserves at admission every block it can write and holds only those,
-  admission tracks free blocks next to free slots (``blocks_exhausted``
-  vs ``slots_full``). ``"contiguous"``: every slot reserves ``max_len``
-  rows of :func:`~..parallel.transformer.init_kv_cache`.
+* **Two KV layouts.** ``"contiguous"`` (the default, as in JAX): every
+  slot reserves ``max_len`` rows of :func:`~..parallel.transformer.
+  init_kv_cache`. ``"paged"``: a fixed pool of ``block_size``-position
+  blocks (:mod:`..parallel.kv_blocks`); a stream reserves at admission
+  every block it can write and holds only those, admission tracks free
+  blocks next to free slots (``blocks_exhausted`` vs ``slots_full``).
 * **Prefix reuse, chunked prefill, host tier** (paged): full prompt
   blocks are registered and shared copy-on-write by later prompts with
   the same prefix; ``chunked_prefill`` runs every admission as chunks
@@ -23,13 +23,30 @@ Orca-style iteration-level scheduling over vLLM-style paged KV memory:
 * **Speculative decoding** (``spec=SpecConfig(k)``): a host-side drafter
   proposes up to ``k`` tokens a slot and one verify forward scores all
   ``k + 1`` positions (:mod:`.spec`).
-* **Kernels.** Prompts run the flash-attention prefill kernel, paged
-  decode and verify steps the paged decode-attention kernel on a CUDA
-  device (their plain PyTorch versions on the CPU); the contiguous decode
-  and the chunked prefill's pool read are plain PyTorch, as the JAX
-  functions are plain XLA. Prompts pad to power-of-two buckets, so
-  :meth:`GenerationEngine.warmup` can run every shape the engine will
-  see before traffic.
+* **Multi-tenant LoRA** (``adapters=AdapterRegistry``): ``submit(adapter=
+  name)`` serves that tenant's fine-tune; the per-slot adapter row is
+  data gathered inside the same prefill and decode steps
+  (:mod:`..parallel.lora`), so a mixed batch is the same step. Admission
+  is the :class:`~.sched.FairScheduler`'s pick (weighted deficit round
+  robin over tenants, strict priority classes above it, FIFO within a
+  tenant), with per-tenant quotas and KV block budgets; a higher-priority
+  admission that finds no slot or blocks may preempt-by-evict the
+  lowest-priority stream, which rejoins the held line and replays its
+  emitted tokens suppressed and verified (``PreemptedError`` past
+  ``preempt_retries``).
+* **Kernels.** Prompts run the flash-attention prefill kernel; paged
+  decode and verify steps run the paged decode-attention kernel under
+  ``paged_kernel=True``, and otherwise gather each slot's blocks into the
+  contiguous cache's own attention, so the default paged engine is
+  bitwise the contiguous one. The routes are chosen once, from the model
+  config, as the JAX engine chooses them: on the card a model the kernels
+  do not take (f32, fp16, d_head other than 128) runs the prefill's plain
+  version and the gather even under ``paged_kernel=True``, as on the
+  CPU; ``stats()["kernels"]`` says which route each phase took. The LoRA
+  delta, the contiguous decode and the chunked prefill's pool read are
+  plain PyTorch, as the JAX functions are plain XLA. Prompts pad to
+  power-of-two buckets, so :meth:`GenerationEngine.warmup` can run every
+  shape the engine will see before traffic.
 * **Sampling is per-request and host-side** (numpy, seeded per request:
   greedy / temperature / top-k), so a stream is reproducible no matter
   what shares its batch.
@@ -38,18 +55,17 @@ Orca-style iteration-level scheduling over vLLM-style paged KV memory:
   checked while a request waits for a slot
   (:class:`~..exceptions.DeadlineExceededError` through the handle),
   graceful drain on shutdown, ``/healthz`` readiness via
-  :class:`~.engine.ReadinessMixin`. Admission is FIFO (what the JAX
-  engine's fair scheduler does with one tenant).
+  :class:`~.engine.ReadinessMixin`.
 
 The loop is one background thread: one consumer keeps slot assignment and
-the queue's FIFO order trivially correct. Not ported yet (each raises
-``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 12): tenants,
-their budgets and preemption, LoRA adapters.
+the scheduler's state trivially correct (fairness reorders held requests
+across tenants only; within a tenant, FIFO holds).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue as std_queue
 import threading
 import time
@@ -60,26 +76,26 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..exceptions import (DeadlineExceededError, ServerClosedError,
-                          ServerOverloadedError)
+from ..exceptions import (DeadlineExceededError, PreemptedError,
+                          ServerClosedError, ServerOverloadedError)
+from ..ops.attention import flash_supported
 from ..ops.paged_attention import paged_attention_supported
 from ..parallel.kv_blocks import (TRASH_BLOCK, BlockManager, blocks_for,
                                   init_paged_kv_cache, paged_chunked_prefill,
                                   paged_decode_step, paged_prefill,
                                   paged_verify_step, prefix_route_digest)
+from ..parallel.lora import target_shapes
 from ..parallel.transformer import (Transformer, check_dense, decode_step,
                                     gen_weights, init_kv_cache, prefill,
                                     verify_step)
+from .adapters import AdapterRegistry
 from .batcher import RequestQueue, bucket_for
 from .engine import ReadinessMixin
 from .metrics import ServeMetrics
+from .sched import FairScheduler
 from .spec import SpecConfig, accept_greedy, accept_sampled
 
 _DEFAULT = object()    # "knob not passed" sentinel (None is a real value)
-_LATER = "a later slice of the PyTorch port (ROADMAP.md Queue 1 item 12)"
-# The prefix registry's salt of base-model traffic: the JAX engine's
-# reserved NUL frame, so a base key can never equal a tenant's.
-_BASE_SALT = b"\x00"
 
 
 def prefill_buckets(max_len: int) -> Tuple[int, ...]:
@@ -110,17 +126,23 @@ class SamplingParams:
 
 @dataclasses.dataclass(frozen=True)
 class GenerationConfig:
-    """Engine knobs (the JAX ``GenerationConfig`` without the tenants).
+    """Engine knobs (the JAX ``GenerationConfig``: the same fields,
+    defaults and validation).
 
     ``max_slots`` is the decode batch width and ``max_len`` the per-
     request cache depth (prompt + generated tokens). ``kv_layout``:
 
-    * ``"paged"`` (the default): a pool of ``n_blocks`` blocks of
-      ``block_size`` positions, the reserved trash block included;
-      ``None`` sizes it for every slot at full depth (``max_slots ·
-      ceil(max_len/block_size) + 1``). ``prefix_reuse`` shares full
-      block-aligned prompt prefixes copy-on-write across streams.
-    * ``"contiguous"``: every slot reserves ``max_len`` rows up front.
+    * ``"contiguous"`` (the default): every slot reserves ``max_len``
+      rows up front.
+    * ``"paged"``: a pool of ``n_blocks`` blocks of ``block_size``
+      positions, the reserved trash block included; ``None`` sizes it for
+      every slot at full depth (``max_slots · ceil(max_len/block_size) +
+      1``). ``prefix_reuse`` shares full block-aligned prompt prefixes
+      copy-on-write across streams. ``paged_kernel`` reads the pool
+      through the paged decode-attention kernel in the decode and verify
+      steps; off (the default), each slot's blocks are gathered into the
+      contiguous view the contiguous cache's attention reads, which is
+      the bitwise reference.
 
     ``chunked_prefill`` (paged + prefix_reuse) runs every admission
     through :func:`~..parallel.kv_blocks.paged_chunked_prefill`: a
@@ -136,14 +158,24 @@ class GenerationConfig:
     the host tier stages a prefetch, applied at the loop's top (never
     inside a decode step). ``host_admission`` picks what that admission
     does meanwhile: ``"wait"`` holds it in the queue until the prefetch
-    lands (FIFO kept), ``"miss"`` admits it at once on the device-tier
-    hits only (a recompute, never a stale read).
+    lands, ``"miss"`` admits it at once on the device-tier hits only (a
+    recompute, never a stale read).
 
-    The tenant knobs (``tenant_*``, ``preempt``) come with the tenants
-    and LoRA: a non-default value raises ``NotImplementedError``.
-    ``preempt`` defaults to False here: without tenant priority classes
-    the JAX engine's preemption never fires, which is this engine's
-    behaviour.
+    The multi-tenant policy (host-side data, none of it a shape):
+    ``tenant_weights`` / ``tenant_priorities`` / ``tenant_slo_ttft_ms``
+    map tenant names (``"base"`` included) to their fair-share weight
+    (> 0, default 1), strict priority class (higher admits first and may
+    preempt lower; default 0) and TTFT target in ms. An attached
+    :class:`~.adapters.AdapterRegistry`'s own per-tenant values override
+    these. ``tenant_block_budgets`` (paged only) caps the KV pool blocks
+    a tenant may hold: over budget, its admissions are rejected
+    (``blocks_exhausted`` with a ``retry_after_ms`` hint) or starved
+    without holding any other tenant's line, and the tenant offloads or
+    reclaims its OWN coldest blocks first. ``preempt`` lets a
+    higher-priority admission evict the lowest-priority active stream;
+    ``preempt_retries`` is how many evictions one stream survives before
+    failing with :class:`~..exceptions.PreemptedError`
+    (``preempted_exhausted``).
     """
 
     max_slots: int = 8
@@ -152,10 +184,11 @@ class GenerationConfig:
     default_deadline_ms: Optional[float] = None
     default_max_new_tokens: int = 64
     eos_id: Optional[int] = None
-    kv_layout: str = "paged"
+    kv_layout: str = "contiguous"
     block_size: int = 16
     n_blocks: Optional[int] = None
     prefix_reuse: bool = False
+    paged_kernel: bool = False
     chunked_prefill: bool = False
     chunk_blocks: int = 1
     host_blocks: int = 0
@@ -164,7 +197,8 @@ class GenerationConfig:
     tenant_priorities: Optional[Dict[str, int]] = None
     tenant_block_budgets: Optional[Dict[str, int]] = None
     tenant_slo_ttft_ms: Optional[Dict[str, float]] = None
-    preempt: bool = False
+    preempt: bool = True
+    preempt_retries: int = 3
 
     def __post_init__(self):
         if self.max_slots < 1:
@@ -193,9 +227,11 @@ class GenerationConfig:
                 f"host_admission must be 'wait' or 'miss', got "
                 f"{self.host_admission!r}")
         if self.kv_layout != "paged":
-            for knob in ("prefix_reuse", "chunked_prefill", "host_blocks"):
+            for knob in ("prefix_reuse", "paged_kernel", "chunked_prefill",
+                         "host_blocks"):
                 if getattr(self, knob):
-                    raise ValueError(f"{knob} requires kv_layout='paged'")
+                    raise ValueError(
+                        f"{knob} requires kv_layout='paged'")
             if self.n_blocks is not None:
                 raise ValueError(
                     "n_blocks applies to kv_layout='paged' only")
@@ -219,12 +255,29 @@ class GenerationConfig:
             raise ValueError(
                 "host_blocks > 0 requires prefix_reuse=True (only "
                 "registered prefixes ever offload)")
-        for knob in ("tenant_weights", "tenant_priorities",
-                     "tenant_block_budgets", "tenant_slo_ttft_ms",
-                     "preempt"):
-            if getattr(self, knob):
-                raise NotImplementedError(
-                    f"GenerationConfig.{knob} comes in {_LATER}")
+        for t, w in (self.tenant_weights or {}).items():
+            if w <= 0:
+                raise ValueError(
+                    f"tenant_weights[{t!r}] must be > 0, got {w} (use "
+                    f"tenant_priorities, not zero weights, to de-class "
+                    f"a tenant)")
+        for t, slo in (self.tenant_slo_ttft_ms or {}).items():
+            if slo <= 0:
+                raise ValueError(
+                    f"tenant_slo_ttft_ms[{t!r}] must be > 0, got {slo}")
+        if self.tenant_block_budgets:
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "tenant_block_budgets requires kv_layout='paged' "
+                    "(contiguous slots have no block pool to budget)")
+            for t, b in self.tenant_block_budgets.items():
+                if b < 1:
+                    raise ValueError(
+                        f"tenant_block_budgets[{t!r}] must be >= 1, "
+                        f"got {b}")
+        if self.preempt_retries < 0:
+            raise ValueError(
+                f"preempt_retries must be >= 0, got {self.preempt_retries}")
 
     @property
     def chunk_tokens(self) -> int:
@@ -260,6 +313,7 @@ class GenerationHandle:
         self._tokens: List[int] = []
         self._error: Optional[BaseException] = None
         self._info: Optional[Dict] = None
+        self.request: Any = None    # the engine's _GenRequest (tests)
 
     # -- engine side -------------------------------------------------------
 
@@ -323,7 +377,30 @@ class _GenRequest:
     n_out: int = 0
     t_admit: Optional[float] = None     # dequeued into a slot
     t_first: Optional[float] = None     # first token sampled
-    # Whether this request holds a max_queue admission ticket.
+    # Tenant identity: tenant is the quota/metrics key ("base" for
+    # adapter-less traffic), adapter the registry name (None = base),
+    # adapter_slot the table row the stream pins for its lifetime
+    # (retained at submit, released by _req_done).
+    tenant: str = "base"
+    adapter: Optional[str] = None
+    adapter_slot: int = -1
+    stream_id: int = -1
+    # Prefix-registry salt: cached K/V is a function of the weights that
+    # wrote it, so tenants never hit each other's prefixes (nor a
+    # reloaded adapter its predecessor's). Base traffic carries the
+    # reserved NUL frame: an adapter salt starts with a name character,
+    # so a base key never equals a tenant's.
+    prefix_salt: bytes = b"\x00"
+    _done_accounted: bool = False
+    # Priority class resolved at submit (registry, else config, else 0).
+    priority: int = 0
+    # Preemption envelope: evictions so far, and while resuming the
+    # already-emitted tokens to regenerate suppressed and verified.
+    retries: int = 0
+    replay_expect: Optional[List[int]] = None
+    replay_i: int = 0
+    # Whether this request holds a max_queue admission ticket (False for
+    # a preempted stream back in the held line: it was admitted once).
     held_ticket: bool = False
     # Host-tier keys this request staged prefetches for (dropped if it
     # leaves the held line unserved).
@@ -381,30 +458,43 @@ class GenerationEngine(ReadinessMixin):
       device: where the cache lives and the model runs; ``"cuda"`` (the
         default) raises on a host without CUDA, ``"cpu"`` runs the
         kernels' plain PyTorch versions.
+      adapters: an :class:`~.adapters.AdapterRegistry` on ``device``: the
+        multi-tenant plane. ``submit(adapter="name")`` then serves that
+        tenant's LoRA fine-tune; the per-slot adapter row is gathered
+        inside the same prefill and decode steps whether the batch is
+        base-only or mixed, quotas gate admission, and ``stats()``
+        splits TTFT and tokens by tenant.
       spec: :class:`~.spec.SpecConfig` turns on speculative decoding
         (``None``: off). A step where no slot drafted anything is the
         plain decode step.
-      adapters: LoRA adapters are not ported yet; anything but ``None``
-        raises ``NotImplementedError``.
     """
 
     def __init__(self, model: Transformer,
                  config: GenerationConfig = GenerationConfig(), *,
-                 device: DeviceLike = "cuda", adapters: Any = None,
+                 device: DeviceLike = "cuda",
+                 adapters: Optional[AdapterRegistry] = None,
                  spec: Optional[SpecConfig] = None):
-        if adapters is not None:
-            raise NotImplementedError(f"LoRA adapters come in {_LATER}")
         cfg = model.cfg
         check_dense(cfg, "GenerationEngine")
         self._device = resolve_device(device)
         if model.device != self._device:
             raise ValueError(f"model is on {model.device}, the engine's "
                              f"device is {self._device}; move it first")
-        if self._device.type == "cuda" and not paged_attention_supported(
-                cfg.d_head, config.block_size, cfg.dtype):
-            raise ValueError(
-                f"the CUDA kernels take bf16 with d_head 128; got "
-                f"{cfg.dtype} with d_head {cfg.d_head}")
+        if adapters is not None:
+            if not isinstance(adapters, AdapterRegistry):
+                raise TypeError(
+                    f"adapters must be an AdapterRegistry, got "
+                    f"{type(adapters).__name__}")
+            a_cfg = adapters.model_cfg
+            if (target_shapes(a_cfg) != target_shapes(cfg)
+                    or a_cfg.n_layers != cfg.n_layers):
+                raise ValueError(
+                    "the AdapterRegistry was built for another model "
+                    "shape (d_model, d_ff or n_layers differ)")
+            if adapters.device != self._device:
+                raise ValueError(
+                    f"the AdapterRegistry's table is on {adapters.device}, "
+                    f"the engine's device is {self._device}")
         if spec is not None and spec.k + 1 > config.max_len:
             raise ValueError(
                 f"spec k={spec.k} needs k+1 <= max_len={config.max_len}")
@@ -412,10 +502,33 @@ class GenerationEngine(ReadinessMixin):
         self._cfg = config
         with torch.no_grad():
             self._weights = gen_weights(model)
+        self._adapters = adapters
+        # Per-slot adapter table row, the decode step's gather index
+        # (-1 = base): data, never a shape.
+        self._adapter_idx = np.full((config.max_slots,), -1, np.int32)
+        self._tenant_lock = threading.Lock()
+        self._tenant_inflight: Dict[str, int] = {}
+        # Block demand a tenant has in flight (reserved at the door,
+        # freed by _req_done): the budget's admission-time half; the
+        # pool's owner ledger is the occupancy half. Under _tenant_lock.
+        self._tenant_blocks: Dict[str, int] = {}
         self._queue = RequestQueue(config.max_queue)
         self._metrics = ServeMetrics()
+        if adapters is not None:
+            # Fold an evicted tenant's metrics into "retired".
+            adapters.add_evict_listener(self._metrics.forget_tenant)
+        # Admission order: weighted DRR over tenants, strict priorities
+        # above it; weights and priorities resolve at every pick.
+        self._sched = FairScheduler(self._weight_of, self._priority_of)
         s = config.max_slots
         self._paged = config.kv_layout == "paged"
+        # paged_kernel: K8 in the paged decode and verify steps where the
+        # kernel takes the model (JAX's paged_attention_supported gate);
+        # otherwise the gather into the contiguous view.
+        self._use_kernel = bool(
+            self._paged and config.paged_kernel
+            and paged_attention_supported(cfg.d_head, config.block_size,
+                                          cfg.dtype, self._device))
         if self._paged:
             self._n_blocks = config.resolved_n_blocks
             self._cache = init_paged_kv_cache(cfg, self._n_blocks,
@@ -423,6 +536,8 @@ class GenerationEngine(ReadinessMixin):
                                               device=self._device)
             self._blocks = BlockManager(self._n_blocks, config.block_size,
                                         host_blocks=config.host_blocks)
+            for t, b in (config.tenant_block_budgets or {}).items():
+                self._blocks.set_budget(t, int(b))
             self._tables = np.full((s, config.blocks_per_slot),
                                    TRASH_BLOCK, np.int32)
             self._slot_blocks: List[List[int]] = [[] for _ in range(s)]
@@ -446,13 +561,14 @@ class GenerationEngine(ReadinessMixin):
             b for b in self._buckets if b % c == 0 and b >= 2 * c)
         self._last_prefill_bucket: Optional[int] = None
         # Requests popped from the admission queue but not yet in a slot
-        # (block-starved, or waiting on a host-tier prefetch); FIFO: the
-        # head request holds the line.
+        # (block-starved, waiting on a host-tier prefetch, or preempted);
+        # the scheduler picks among them.
         self._held: deque = deque()
         self._peak_active = 0
         self._slots: List[Optional[_GenRequest]] = [None] * s
         self._positions = np.full((s,), -1, np.int32)
         self._last = np.zeros((s,), np.int32)
+        self._stream_seq = itertools.count()
         self._closed = False
         self._warmed = False
         self._abort = False
@@ -467,78 +583,107 @@ class GenerationEngine(ReadinessMixin):
         # A copy, never a view: the loop mutates these host arrays.
         return torch.tensor(arr, device=self._device)
 
+    def _lora(self, adapter_idx) -> Dict:
+        """The LoRA keywords of one device call: the registry's current
+        table (read here, at the step boundary: a load swaps in a new
+        table, never writes this one) and ``adapter_idx`` (a prompt's
+        int row, or the ``[S]`` per-slot rows). Empty without a registry,
+        and for a step whose rows are all base: ``where`` would return
+        every row's ``y`` unchanged."""
+        if self._adapters is None:
+            return {}
+        if isinstance(adapter_idx, np.ndarray):
+            if not (adapter_idx >= 0).any():
+                return {}
+            adapter_idx = self._to_device(adapter_idx)
+        elif adapter_idx < 0:
+            return {}
+        return dict(adapters=self._adapters.table(),
+                    adapter_idx=adapter_idx, lora=self._adapters.lora)
+
     @torch.no_grad()
     def _prefill(self, tokens: np.ndarray, slot: int, length: int,
-                 write_row: Optional[np.ndarray]) -> np.ndarray:
+                 write_row: Optional[np.ndarray],
+                 adapter_slot: int = -1) -> np.ndarray:
         """Prefill one padded prompt; returns the logits row of its last
         real position (the only row sampling reads)."""
         toks = self._to_device(tokens)
+        lora = self._lora(adapter_slot)
         if self._paged:
             _, logits = paged_prefill(
                 self._weights, toks, self._cache, slot,
-                self._to_device(write_row), self._model_cfg, length=length)
+                self._to_device(write_row), self._model_cfg, length=length,
+                **lora)
         else:
             _, logits = prefill(self._weights, toks, self._cache, slot,
-                                self._model_cfg, length=length)
+                                self._model_cfg, length=length, **lora)
         return logits[length - 1].cpu().numpy()
 
     @torch.no_grad()
     def _chunked_prefill(self, tokens: np.ndarray, slot: int, length: int,
                          start: int, write_rows: np.ndarray,
-                         read_row: np.ndarray) -> np.ndarray:
+                         read_row: np.ndarray,
+                         adapter_slot: int = -1) -> np.ndarray:
         """The chunked prefill of a suffix starting at ``start``; returns
         the logits row of the last prompt position."""
         _, logits = paged_chunked_prefill(
             self._weights, self._to_device(tokens), self._cache, slot,
             self._to_device(write_rows), self._to_device(read_row), start,
             self._model_cfg, length=length,
-            chunk_blocks=self._cfg.chunk_blocks)
+            chunk_blocks=self._cfg.chunk_blocks,
+            **self._lora(adapter_slot))
         return logits[length - start - 1].cpu().numpy()
 
     @torch.no_grad()
     def _decode(self, last: np.ndarray, positions: np.ndarray,
-                tables: Optional[np.ndarray]) -> np.ndarray:
+                tables: Optional[np.ndarray],
+                adapter_idx: np.ndarray) -> np.ndarray:
         """One decode step for every slot; returns ``[S, vocab]`` logits."""
         toks, pos = self._to_device(last), self._to_device(positions)
+        lora = self._lora(adapter_idx)
         if self._paged:
             _, logits = paged_decode_step(
                 self._weights, toks, self._cache, pos,
-                self._to_device(tables), self._model_cfg)
+                self._to_device(tables), self._model_cfg,
+                kernel=self._use_kernel, **lora)
         else:
             _, logits = decode_step(self._weights, toks, self._cache, pos,
-                                    self._model_cfg)
+                                    self._model_cfg, **lora)
         return logits.cpu().numpy()
 
     @torch.no_grad()
     def _verify(self, drafts: np.ndarray, positions: np.ndarray,
-                tables: Optional[np.ndarray]) -> np.ndarray:
+                tables: Optional[np.ndarray],
+                adapter_idx: np.ndarray) -> np.ndarray:
         """One verify forward over ``[S, k + 1]`` draft columns; returns
         ``[S, k + 1, vocab]`` logits."""
         toks, pos = self._to_device(drafts), self._to_device(positions)
+        lora = self._lora(adapter_idx)
         if self._paged:
             _, logits = paged_verify_step(
                 self._weights, toks, self._cache, pos,
-                self._to_device(tables), self._model_cfg)
+                self._to_device(tables), self._model_cfg,
+                kernel=self._use_kernel, **lora)
         else:
             _, logits = verify_step(self._weights, toks, self._cache, pos,
-                                    self._model_cfg)
+                                    self._model_cfg, **lora)
         return logits.cpu().numpy()
 
     def warmup(self) -> Tuple[Any, ...]:
         """Run the decode step, the verify step (with ``spec``) and every
         prefill bucket (the chunked ones on a chunked engine) once before
         traffic. Paged writes land in the trash block, contiguous ones in
-        rows past every slot's length, so the cache stays usable.
-        Returns the shapes warmed."""
+        rows past every slot's length, so the cache stays usable; every
+        row is base. Returns the shapes warmed."""
         s = self._cfg.max_slots
         nb = self._cfg.blocks_per_slot
         tables = np.full((s, nb), TRASH_BLOCK, np.int32)
         idle = np.full((s,), -1, np.int32)
-        self._decode(np.zeros((s,), np.int32), idle, tables)
+        self._decode(np.zeros((s,), np.int32), idle, tables, idle)
         spec_keys: Tuple[Any, ...] = ()
         if self._spec is not None:
             w = self._spec.k + 1
-            self._verify(np.zeros((s, w), np.int32), idle, tables)
+            self._verify(np.zeros((s, w), np.int32), idle, tables, idle)
             spec_keys = (("verify", w),)
         trash_row = np.full((nb,), TRASH_BLOCK, np.int32)
         if self._chunked:
@@ -563,18 +708,24 @@ class GenerationEngine(ReadinessMixin):
                max_new_tokens: Optional[int] = None,
                sampling: Optional[SamplingParams] = None,
                eos_id: Any = _DEFAULT,
-               deadline_ms: Optional[float] = None) -> GenerationHandle:
+               deadline_ms: Optional[float] = None,
+               adapter: Optional[str] = None) -> GenerationHandle:
         """Enqueue one prompt; returns a :class:`GenerationHandle`
         streaming the sampled tokens. Raises
-        :class:`ServerOverloadedError` when the admission queue is full,
-        :class:`ServerClosedError` after shutdown, ``ValueError`` on a
-        malformed prompt or one the pool could never hold (all eagerly,
-        in the caller's thread).
+        :class:`ServerOverloadedError` when the admission queue is full
+        (or the tenant is over its quota — reason ``tenant_quota`` — or
+        over its block budget), :class:`ServerClosedError` after
+        shutdown, ``ValueError`` on a malformed prompt, one the pool (or
+        the tenant's budget) could never hold, an ``adapter`` that is not
+        resident or an ``adapter`` without a registry (all eagerly, in
+        the caller's thread).
 
         ``max_new_tokens`` is clamped to the cache room left after the
         prompt (the stream then finishes with reason ``"length"``);
         ``eos_id=None`` disables EOS for this request even when the
-        engine has a default."""
+        engine has a default. ``adapter`` names the tenant's resident
+        LoRA fine-tune (None = base); the stream pins the adapter's row
+        for its whole lifetime, so an evict racing it is refused."""
         toks = np.asarray(tokens, np.int32)
         if toks.ndim != 1 or toks.size == 0:
             raise ValueError(
@@ -595,12 +746,13 @@ class GenerationEngine(ReadinessMixin):
         # Token t+1's K/V lands at position L+t; the last sampled token
         # needs no cache write, so room caps new tokens at max_len-L+1.
         max_new = min(max_new, self._cfg.max_len - toks.size + 1)
+        need_blocks = 0
         if self._paged:
-            need = self._blocks_needed(toks.size, max_new)
-            if need > self._blocks.usable:
+            need_blocks = self._blocks_needed(toks.size, max_new)
+            if need_blocks > self._blocks.usable:
                 raise ValueError(
-                    f"request needs {need} KV blocks (prompt {toks.size} "
-                    f"+ up to {max_new} generated, block_size="
+                    f"request needs {need_blocks} KV blocks (prompt "
+                    f"{toks.size} + up to {max_new} generated, block_size="
                     f"{self._cfg.block_size}) but the pool holds only "
                     f"{self._blocks.usable} usable blocks — raise "
                     f"n_blocks or lower max_new_tokens")
@@ -608,25 +760,58 @@ class GenerationEngine(ReadinessMixin):
         eos = self._cfg.eos_id if eos_id is _DEFAULT else eos_id
         if deadline_ms is None:
             deadline_ms = self._cfg.default_deadline_ms
-        now = time.monotonic()
-        handle = GenerationHandle()
-        req = _GenRequest(
-            tokens=toks, max_new=max_new, sampling=sampling, eos=eos,
-            handle=handle, enqueued_at=now,
-            deadline_at=(None if deadline_ms is None
-                         else now + deadline_ms / 1e3),
-            rng=np.random.default_rng(sampling.seed))
+        tenant = "base" if adapter is None else adapter
+        a_slot = -1
+        salt = b"\x00"      # the base frame (_GenRequest.prefix_salt)
+        if adapter is not None:
+            if self._adapters is None:
+                raise ValueError(
+                    f"submit(adapter={adapter!r}) on an engine without an "
+                    f"AdapterRegistry — pass adapters= to "
+                    f"GenerationEngine")
+            # Retain before admission: the row must survive the queue
+            # wait too (an evict of a queued tenant would free the row
+            # its prefill is about to gather from).
+            a_slot = self._adapters.retain(adapter)   # ValueError if absent
+            # Read after retain: the refcount blocks reloads, so the salt
+            # is stable for the stream's lifetime.
+            salt = (f"{adapter}\x00"
+                    f"{self._adapters.generation(adapter)}\x00".encode())
         try:
-            depth = self._queue.put(req)   # raises Closed / Overloaded
-        except ServerOverloadedError:
-            reason, detail = self._overload_reason(toks.size, max_new)
-            self._metrics.on_overload(reason)
-            err = ServerOverloadedError(
-                f"request queue full ({self._cfg.max_queue}); "
-                f"{reason}: {detail}")
-            err.retry_after_ms = self._metrics.retry_after_ms(
-                len(self._queue))
-            raise err from None
+            # Raises over quota (tenant_quota) or over the block budget
+            # (blocks_exhausted), both with a retry_after_ms hint.
+            self._tenant_admit(tenant, need_blocks=need_blocks)
+            now = time.monotonic()
+            handle = GenerationHandle()
+            req = _GenRequest(
+                tokens=toks, max_new=max_new, sampling=sampling, eos=eos,
+                handle=handle, enqueued_at=now,
+                deadline_at=(None if deadline_ms is None
+                             else now + deadline_ms / 1e3),
+                rng=np.random.default_rng(sampling.seed),
+                tenant=tenant, adapter=adapter, adapter_slot=a_slot,
+                prefix_salt=salt, stream_id=next(self._stream_seq),
+                priority=self._priority_of(tenant))
+            handle.request = req
+            try:
+                depth = self._queue.put(req)   # raises Closed / Overloaded
+            except ServerOverloadedError:
+                self._tenant_release(tenant, blocks=need_blocks)
+                reason, detail = self._overload_reason(toks.size, max_new)
+                self._metrics.on_overload(reason)
+                err = ServerOverloadedError(
+                    f"request queue full ({self._cfg.max_queue}); "
+                    f"{reason}: {detail}")
+                err.retry_after_ms = self._metrics.retry_after_ms(
+                    len(self._queue))
+                raise err from None
+            except ServerClosedError:
+                self._tenant_release(tenant, blocks=need_blocks)
+                raise
+        except BaseException:
+            if adapter is not None:
+                self._adapters.release(adapter)
+            raise
         self._metrics.on_submit(depth)
         return handle
 
@@ -634,6 +819,117 @@ class GenerationEngine(ReadinessMixin):
                  timeout: Optional[float] = None, **kw) -> Dict:
         """Synchronous :meth:`submit` (+ ``handle.result(timeout)``)."""
         return self.submit(tokens, **kw).result(timeout)
+
+    def _tenant_admit(self, tenant: str, need_blocks: int = 0) -> None:
+        """Count ``tenant``'s in-flight streams (queued + decoding) and
+        reject over quota, atomically (two racing submits cannot both
+        squeeze under the cap); the rejection is its own reason,
+        ``tenant_quota``. With a block budget, ``need_blocks`` is also
+        reserved against it here (released by :meth:`_req_done`): over
+        budget, only THIS tenant is rejected, ``blocks_exhausted`` with a
+        ``retry_after_ms`` hint."""
+        quota = (self._adapters.quota(tenant)
+                 if self._adapters is not None else None)
+        budget = self._blocks.budget(tenant) if self._paged else None
+        if budget is not None and need_blocks > budget:
+            raise ValueError(
+                f"request needs {need_blocks} KV blocks but tenant "
+                f"{tenant!r} has a block budget of {budget} — it can "
+                f"NEVER be admitted; raise the tenant's budget or lower "
+                f"max_new_tokens")
+        with self._tenant_lock:
+            inflight = self._tenant_inflight.get(tenant, 0)
+            if quota is not None and inflight >= quota:
+                self._metrics.on_overload("tenant_quota")
+                err = ServerOverloadedError(
+                    f"tenant {tenant!r} over quota: {inflight} streams "
+                    f"in flight >= quota {quota} — finish streams or "
+                    f"raise the tenant's quota")
+                err.retry_after_ms = self._metrics.retry_after_ms(inflight)
+                raise err
+            if budget is not None:
+                demand = self._tenant_blocks.get(tenant, 0)
+                if demand + need_blocks > budget:
+                    self._metrics.on_overload("blocks_exhausted")
+                    err = ServerOverloadedError(
+                        f"tenant {tenant!r} over KV block budget: "
+                        f"{demand} blocks reserved in flight + "
+                        f"{need_blocks} needed > budget {budget} — "
+                        f"blocks_exhausted for THIS tenant only; finish "
+                        f"streams or raise tenant_block_budgets")
+                    err.retry_after_ms = self._metrics.retry_after_ms(
+                        len(self._queue))
+                    raise err
+                self._tenant_blocks[tenant] = demand + need_blocks
+            self._tenant_inflight[tenant] = inflight + 1
+
+    def _tenant_label(self, req: _GenRequest) -> Optional[str]:
+        """The tenant stamped into metrics: only an engine with an
+        AdapterRegistry splits by tenant."""
+        return req.tenant if self._adapters is not None else None
+
+    def _tenant_release(self, tenant: str, blocks: int = 0) -> None:
+        with self._tenant_lock:
+            n = self._tenant_inflight.get(tenant, 1) - 1
+            if n > 0:
+                self._tenant_inflight[tenant] = n
+            else:
+                self._tenant_inflight.pop(tenant, None)
+            if blocks:
+                d = self._tenant_blocks.get(tenant, 0) - blocks
+                if d > 0:
+                    self._tenant_blocks[tenant] = d
+                else:
+                    self._tenant_blocks.pop(tenant, None)
+
+    def _req_done(self, req: _GenRequest) -> None:
+        """One request left the engine (finished, failed, expired or
+        cancelled): drop its in-flight count, its block-budget demand and
+        its adapter-row reference. Idempotent."""
+        if req._done_accounted:
+            return
+        req._done_accounted = True
+        self._tenant_release(req.tenant, blocks=self._demand_of(req))
+        if req.adapter is not None and self._adapters is not None:
+            self._adapters.release(req.adapter)
+
+    def _demand_of(self, req: _GenRequest) -> int:
+        """The block demand :meth:`_tenant_admit` reserved for ``req``
+        (0 when its tenant has no budget), recomputed from its prompt
+        length and clamped ``max_new``."""
+        if not self._paged or self._blocks.budget(req.tenant) is None:
+            return 0
+        return self._blocks_needed(req.tokens.size, req.max_new)
+
+    # -- scheduling policy: the registry's value, then the config's map,
+    # then the neutral default; read at every pick and admission.
+
+    def _weight_of(self, tenant: str) -> float:
+        if self._adapters is not None:
+            w = self._adapters.weight(tenant)
+            if w is not None:
+                return w
+        w = (self._cfg.tenant_weights or {}).get(tenant)
+        return 1.0 if w is None else float(w)
+
+    def _priority_of(self, tenant: str) -> int:
+        if self._adapters is not None:
+            p = self._adapters.priority(tenant)
+            if p is not None:
+                return p
+        return int((self._cfg.tenant_priorities or {}).get(tenant, 0))
+
+    def _slo_of(self, tenant: str) -> Optional[float]:
+        if self._adapters is not None:
+            slo = self._adapters.slo_ttft_ms(tenant)
+            if slo is not None:
+                return slo
+        return (self._cfg.tenant_slo_ttft_ms or {}).get(tenant)
+
+    def slo_burn(self, tenant: str) -> float:
+        """``tenant``'s SLO burn fraction on this engine (0.0 when
+        unknown)."""
+        return self._metrics.slo_burn(tenant)
 
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
         """KV blocks a request reserves at admission: every position it
@@ -660,8 +956,8 @@ class GenerationEngine(ReadinessMixin):
 
     def stats(self) -> Dict:
         """The ``/stats`` snapshot: :class:`ServeMetrics` plus the slot,
-        bucket and (paged) block-pool view (``batch_fill_ratio`` is
-        decode-slot occupancy)."""
+        bucket, (paged) block-pool and adapter-table view
+        (``batch_fill_ratio`` is decode-slot occupancy)."""
         snap = self._metrics.snapshot()
         snap["max_slots"] = self._cfg.max_slots
         snap["max_len"] = self._cfg.max_len
@@ -669,6 +965,13 @@ class GenerationEngine(ReadinessMixin):
         snap["peak_active_slots"] = self._peak_active
         snap["prefill_buckets"] = list(self._buckets)
         snap["kv_layout"] = self._cfg.kv_layout
+        # The routes chosen from the model config: the flash prefill
+        # kernel (or its plain version) and K8 (or the gather).
+        on_card = self._device.type == "cuda"
+        snap["kernels"] = {
+            "prefill": on_card and flash_supported(
+                self._device, self._model_cfg.dtype, self._model_cfg.d_head),
+            "paged_decode": on_card and self._use_kernel}
         if self._paged:
             snap["block_size"] = self._cfg.block_size
             snap["blocks"] = self._blocks.gauges()
@@ -678,11 +981,45 @@ class GenerationEngine(ReadinessMixin):
                                        if hits + misses else None)
             snap["chunked_prefill"] = self._cfg.chunked_prefill
             snap["prefix_digests"] = list(self.prefix_digests())
+            # Per-tenant owned/budget blocks: a key of its own, since the
+            # "blocks" gauges must stay scalar.
+            snap["blocks_by_tenant"] = self._blocks.tenant_gauges()
         snap["last_prefill_bucket"] = self._last_prefill_bucket
+        if self._adapters is not None:
+            snap["adapters_resident"] = len(self._adapters.resident())
+            snap["adapter_table"] = self._adapters.gauges()
         snap["spec_k"] = self._spec.k if self._spec is not None else 0
         snap["device"] = str(self._device)
         snap["max_queue"] = self._cfg.max_queue
         return snap
+
+    # -- the multi-tenant adapter surface ----------------------------------
+
+    @property
+    def adapters(self) -> Optional[AdapterRegistry]:
+        """This engine's registry (None = base-only engine)."""
+        return self._adapters
+
+    def adapter_names(self) -> Optional[Tuple[str, ...]]:
+        """Resident adapter names, or None without a registry."""
+        if self._adapters is None:
+            return None
+        return self._adapters.resident()
+
+    def adapters_resident(self) -> Optional[int]:
+        """Resident-adapter count for ``/healthz`` (None = no registry)."""
+        names = self.adapter_names()
+        return None if names is None else len(names)
+
+    def load_adapter(self, name: str, adapter: Any,
+                     quota: Optional[int] = None) -> int:
+        """Hot-load ``adapter`` under ``name``; returns its table row.
+        Raises ``ValueError`` without a registry or on a full table."""
+        if self._adapters is None:
+            raise ValueError(
+                "engine has no AdapterRegistry — pass adapters= to "
+                "GenerationEngine to serve adapters")
+        return self._adapters.load(name, adapter, quota=quota)
 
     def prefix_digests(self) -> Tuple[str, ...]:
         """Advisory routing digests of the prefix chains this engine
@@ -706,6 +1043,11 @@ class GenerationEngine(ReadinessMixin):
         if self._closed:
             return
         self._closed = True
+        if self._adapters is not None:
+            # A registry shared across engines must not keep this one's
+            # metrics alive.
+            self._adapters.remove_evict_listener(
+                self._metrics.forget_tenant)
         if drain:
             self._queue.close()
         else:
@@ -723,6 +1065,7 @@ class GenerationEngine(ReadinessMixin):
                 req.handle._fail(ServerClosedError(
                     "server shut down before execution"))
                 cancelled += 1
+            self._req_done(req)
         if cancelled:
             self._metrics.on_shutdown_cancel(cancelled)
 
@@ -744,6 +1087,7 @@ class GenerationEngine(ReadinessMixin):
                         "server shut down before completion")
                     for req in self._held:
                         req.handle._fail(err)
+                        self._req_done(req)
                     self._held.clear()
                     self._fail_active(err)
                     return
@@ -751,8 +1095,9 @@ class GenerationEngine(ReadinessMixin):
                     self._apply_prefetches()
                 free = [i for i, r in enumerate(self._slots) if r is None]
                 idle = len(free) == self._cfg.max_slots and not self._held
-                # Pull everything queued into the held line; block only
-                # when fully idle.
+                # Pull everything queued into the held line (the scheduler
+                # is fair only across tenants it can see); block only when
+                # fully idle. Held requests keep their max_queue ticket.
                 want = len(self._queue) or (len(free) if idle else 0)
                 if want > 0:
                     batch = self._queue.take_batch(want, 0.0, hold=True)
@@ -762,32 +1107,57 @@ class GenerationEngine(ReadinessMixin):
                         r.held_ticket = True
                     self._held.extend(batch)
                 self._expire_held()
+                # Admission order is the FairScheduler's pick; a tenant
+                # starved on blocks holds only its own line.
+                blocked: set = set()
+                budget_blocked: set = set()
                 while self._held and free:
-                    req = self._held[0]
+                    i = self._sched.pick(self._held,
+                                         blocked=frozenset(blocked))
+                    if i is None:
+                        break       # every pending tenant is block-starved
+                    req = self._held[i]
+                    # The ticket covers the request until its first
+                    # admission attempt: from then on it is being served.
                     if req.held_ticket:
                         req.held_ticket = False
                         self._queue.release_held()
                     outcome = self._admit(req, free[0])
-                    if outcome == "starved":
-                        break       # FIFO: the head holds the line
-                    self._held.popleft()
+                    if outcome in ("starved", "starved_budget"):
+                        blocked.add(req.tenant)
+                        if outcome == "starved_budget":
+                            budget_blocked.add(req.tenant)
+                        continue
+                    del self._held[i]
                     if outcome == "ok":
                         free.pop(0)
+                preempted = False
+                if (self._cfg.preempt and self._held
+                        and (not free or blocked)
+                        and any(r is not None for r in self._slots)):
+                    preempted = self._maybe_preempt(budget_blocked)
                 if any(r is not None for r in self._slots):
                     if self._spec is None:
                         self._decode_once()
                     else:
                         self._spec_once()
-                elif self._held and self._prefetch_q:
-                    pass    # a staged prefetch lands at the next top
+                elif self._held and (self._prefetch_q or preempted):
+                    # Progress is in motion: a staged prefetch lands at the
+                    # next top, or an eviction freed slots the next
+                    # admission pass fills.
+                    pass
                 elif self._held:
                     # Starved with nothing in flight: the submit-time pool
-                    # check makes this unreachable. Fail loudly rather
-                    # than spin.
+                    # and budget checks make this unreachable. Fail loudly
+                    # rather than spin.
                     req = self._held.popleft()
+                    if req.held_ticket:
+                        req.held_ticket = False
+                        self._queue.release_held()
                     req.handle._fail(ServerOverloadedError(
                         "KV block pool cannot cover an admitted request "
                         "with the engine idle — admission accounting bug"))
+                    self._req_done(req)
             except Exception as e:  # noqa: BLE001 — deliver, don't die
                 self._fail_active(e)
 
@@ -795,6 +1165,7 @@ class GenerationEngine(ReadinessMixin):
         for i, req in enumerate(self._slots):
             if req is not None:
                 req.handle._fail(exc)
+                self._req_done(req)
                 self._release_slot(i)
 
     def _release_slot(self, i: int) -> None:
@@ -804,6 +1175,7 @@ class GenerationEngine(ReadinessMixin):
         again."""
         self._slots[i] = None
         self._positions[i] = -1
+        self._adapter_idx[i] = -1
         if self._paged:
             self._blocks.release(self._slot_blocks[i])
             self._slot_blocks[i] = []
@@ -843,29 +1215,113 @@ class GenerationEngine(ReadinessMixin):
 
     def _fail_expired(self, req: _GenRequest, now: float) -> None:
         wait_ms = (now - req.enqueued_at) * 1e3
-        self._metrics.on_deadline_expired(wait_ms)
+        self._metrics.on_deadline_expired(wait_ms,
+                                          tenant=self._tenant_label(req))
         req.handle._fail(DeadlineExceededError(
             f"deadline expired after {wait_ms:.1f} ms in queue"))
+        self._req_done(req)
+
+    # -- preemption --------------------------------------------------------
+
+    def _maybe_preempt(self, budget_blocked: set) -> bool:
+        """Preempt-by-evict: when a higher-priority held request found no
+        free slot (or no pool blocks), evict the LOWEST-priority active
+        stream so the next iteration admits the higher one. Tenants
+        starved on their own block budget do not count (evicting a
+        neighbour frees pool blocks, never budget). One victim per
+        iteration. Returns whether a stream was evicted."""
+        now = time.monotonic()
+        waiting = [r for r in self._held
+                   if r.tenant not in budget_blocked
+                   and not r.expired(now)]
+        if not waiting:
+            return False
+        top = max(self._priority_of(r.tenant) for r in waiting)
+        # Victim: the lowest priority class; ties evict the latest
+        # admitted stream (the least work lost to replay).
+        prio, _, slot = min(
+            (self._priority_of(r.tenant), -r.stream_id, i)
+            for i, r in enumerate(self._slots) if r is not None)
+        if top > prio:
+            self._preempt(slot)
+            return True
+        return False
+
+    def _preempt(self, slot: int) -> None:
+        """Evict the stream in ``slot``: everything it emitted becomes an
+        expect-prefix to regenerate suppressed and verified, its rng
+        restarts from the seed, its original deadline stays, and it
+        rejoins the held line without a new admission ticket. Past
+        ``preempt_retries`` evictions it fails with
+        :class:`PreemptedError` instead."""
+        req = self._slots[slot]
+        req.retries += 1
+        self._metrics.on_preempt("evicted", tenant=self._tenant_label(req))
+        self._release_slot(slot)
+        if req.retries > self._cfg.preempt_retries:
+            self._metrics.on_preempt("exhausted",
+                                     tenant=self._tenant_label(req))
+            req.handle._fail(PreemptedError(
+                f"stream {req.stream_id} (tenant {req.tenant!r}) "
+                f"evicted {req.retries} times > preempt_retries="
+                f"{self._cfg.preempt_retries}: preempted_exhausted — "
+                f"re-submit, or raise the tenant's priority or the "
+                f"retry budget"))
+            self._req_done(req)
+            return
+        req.replay_expect = list(req.handle._tokens)
+        req.replay_i = 0
+        req.n_out = 0
+        req.rng = np.random.default_rng(req.sampling.seed)
+        req.t_admit = None
+        self._held.append(req)
+
+    def _req_emit(self, req: _GenRequest, tok: int) -> None:
+        """Every sampled token flows through here. A stream resuming from
+        preemption first regenerates its emitted prefix suppressed: each
+        token checked against the kept envelope, none delivered or
+        counted again. A divergence breaks the slot-row contract, so it
+        raises (an engine fault, like the admission accounting guard)."""
+        if req.replay_expect is not None:
+            if req.replay_i < len(req.replay_expect):
+                want = req.replay_expect[req.replay_i]
+                if tok != want:
+                    raise RuntimeError(
+                        f"preemption replay diverged on stream "
+                        f"{req.stream_id}: position {req.replay_i} "
+                        f"regenerated {tok}, envelope expected {want} — "
+                        f"the slot-row bit-identity contract is broken")
+                req.replay_i += 1
+                return
+            req.replay_expect = None
+            self._metrics.on_preempt("resumed",
+                                     tenant=self._tenant_label(req))
+        self._metrics.on_tokens(tenant=self._tenant_label(req))
+        req.handle._emit(tok)
+
+    # -- block reservation -------------------------------------------------
 
     def _paged_reserve(self, req: _GenRequest):
         """Reserve the blocks ``req`` needs: prefix-registry hits are
-        retained (shared), the rest freshly allocated. Returns ``(hits,
-        fresh, n_total)``, or None when the pool cannot cover it yet, or
-        ``"wait"`` when the chain continues in the host tier under
-        ``host_admission="wait"`` (the request holds the line while the
-        staged prefetch lands). Hits are looked up again after every
-        sweep (an eviction can take entries the first lookup matched);
-        cold registered prefixes are offloaded to the host tier (when
-        there is one) before any is dropped."""
+        retained (shared), the rest freshly allocated to its tenant.
+        Returns ``(hits, fresh, n_total)``; None when the pool cannot
+        cover it yet; ``"wait"`` when the chain continues in the host tier
+        under ``host_admission="wait"``; ``"budget"`` when the tenant is
+        over its own block budget and offloading or reclaiming its OWN
+        coldest blocks cannot bring it under (a starvation that never
+        holds another tenant's line). Hits are looked up again after
+        every sweep; cold registered prefixes are offloaded to the host
+        tier (when there is one) before any is dropped."""
         n_total = self._blocks_needed(req.tokens.size, req.max_new)
+        budget = self._blocks.budget(req.tenant)
         while True:
             hits = (self._blocks.lookup_prefix(req.tokens,
-                                               salt=_BASE_SALT)
+                                               salt=req.prefix_salt)
                     if self._cfg.prefix_reuse else [])
             hits = hits[:n_total]
             if self._host_cap:
                 cont = self._blocks.host_lookup(
-                    req.tokens, len(hits), salt=_BASE_SALT)
+                    req.tokens, len(hits), salt=req.prefix_salt)
                 if cont:
                     self._stage_prefetch(cont, req)
                     if self._cfg.host_admission == "wait":
@@ -881,10 +1337,22 @@ class GenerationEngine(ReadinessMixin):
                 n_hit = min(len(hits), cap)
                 hits = hits[:n_hit - n_hit % cb]
             need = n_total - len(hits)
+            if budget is not None:
+                over = self._blocks.owned_count(req.tenant) + need - budget
+                if over > 0:
+                    if self._host_cap and self._offload_for(
+                            over, owner=req.tenant):
+                        continue
+                    if not self._blocks.reclaim(
+                            self._blocks.free_count + over,
+                            owner=req.tenant):
+                        return "budget"
+                    continue
             free = self._blocks.free_count
             if free >= need:
                 self._blocks.retain(hits)
-                return hits, self._blocks.alloc(need), n_total
+                return (hits, self._blocks.alloc(need, owner=req.tenant),
+                        n_total)
             if self._host_cap and self._offload_for(need - free):
                 continue
             if not self._blocks.reclaim(need):
@@ -892,14 +1360,16 @@ class GenerationEngine(ReadinessMixin):
 
     # -- host tier (offload / prefetch) ------------------------------------
 
-    def _offload_for(self, shortfall: int) -> bool:
-        """Move up to ``shortfall`` cold registered-prefix blocks to the
-        host tier (the block's K/V of every layer copied to host memory,
-        then committed: the manager checks again under its lock, so a hit
-        landing meanwhile cancels that block's offload). Returns whether
-        any device block was freed."""
+    def _offload_for(self, shortfall: int,
+                     owner: Optional[str] = None) -> bool:
+        """Move up to ``shortfall`` cold registered-prefix blocks (only
+        ``owner``'s when given) to the host tier: the block's K/V of every
+        layer copied to host memory, then committed (the manager checks
+        again under its lock, so a hit landing meanwhile cancels that
+        block's offload). Returns whether any device block was freed."""
         moved = 0
-        for key, blk in self._blocks.offload_candidates(shortfall):
+        for key, blk in self._blocks.offload_candidates(shortfall,
+                                                        owner=owner):
             payload = {n: self._cache[n][:, blk].to("cpu", copy=True)
                        for n in ("k", "v")}
             if self._blocks.offload_commit(key, payload):
@@ -912,14 +1382,14 @@ class GenerationEngine(ReadinessMixin):
         """Queue host→device copies for a chain continuation found in the
         host tier; applied at the loop's next top, never inside a decode
         step. Idempotent per key while a copy is pending; ``req`` records
-        the keys it staged."""
+        the keys it staged, and its tenant owns the landing blocks."""
         now = time.monotonic()
         for key, payload in cont:
             req.prefetch_keys.add(key)
             if key in self._prefetch_inflight:
                 continue
             self._prefetch_inflight.add(key)
-            self._prefetch_q.append((key, payload, now))
+            self._prefetch_q.append((key, payload, now, req.tenant))
 
     def _apply_prefetches(self) -> None:
         """Land staged prefetches: allocate a device block (offloading or
@@ -929,25 +1399,28 @@ class GenerationEngine(ReadinessMixin):
         cannot get a block yet stay queued; the loop never blocks
         here."""
         for _ in range(len(self._prefetch_q)):
-            key, payload, t0 = self._prefetch_q.popleft()
+            key, payload, t0, owner = self._prefetch_q.popleft()
             if (self._blocks.free_count < 1
                     and not self._offload_for(1)
                     and not self._blocks.reclaim(1)):
-                self._prefetch_q.append((key, payload, t0))
+                self._prefetch_q.append((key, payload, t0, owner))
                 continue
-            blk = self._blocks.alloc(1)[0]
+            blk = self._blocks.alloc(1, owner=owner)[0]
             for n in ("k", "v"):
                 self._cache[n][:, blk] = payload[n].to(self._device)
             self._blocks.promote(key, blk)
             self._prefetch_inflight.discard(key)
             self._metrics.on_kv_prefetch(time.monotonic() - t0)
 
+    # -- admission and the steps -------------------------------------------
+
     def _admit(self, req: _GenRequest, slot: int) -> str:
         """Prefill ``req`` into ``slot`` and emit its first token. Returns
         ``"ok"`` (slot occupied), ``"done"`` (expired, failed, or finished
-        on its first token — slot stays free) or ``"starved"`` (paged:
-        not enough free KV blocks yet, or its chain is still on its way
-        back from the host tier — the request stays held)."""
+        on its first token — slot stays free), ``"starved"`` (paged: not
+        enough free KV blocks yet, or its chain is on its way back from
+        the host tier) or ``"starved_budget"`` (its tenant is over its own
+        block budget); a starved request stays held."""
         now = time.monotonic()
         if req.expired(now):
             self._fail_expired(req, now)
@@ -957,6 +1430,8 @@ class GenerationEngine(ReadinessMixin):
         read_row = None
         if self._paged:
             reservation = self._paged_reserve(req)
+            if reservation == "budget":
+                return "starved_budget"
             if not isinstance(reservation, tuple):
                 return "starved"
         req.t_admit = now
@@ -993,7 +1468,7 @@ class GenerationEngine(ReadinessMixin):
                 logits = self._chunked_prefill(
                     toks, slot, length, start,
                     wflat.reshape(bucket // ct, self._cfg.chunk_blocks),
-                    read_row)
+                    read_row, req.adapter_slot)
             else:
                 bucket = bucket_for(length, self._buckets)
                 toks = np.zeros((bucket,), np.int32)
@@ -1007,41 +1482,55 @@ class GenerationEngine(ReadinessMixin):
                     if self._cfg.prefix_reuse and n_full > 0:
                         self._metrics.on_prefix(len(hits), n_full)
                 self._last_prefill_bucket = bucket
-                logits = self._prefill(toks, slot, length, write_row)
+                logits = self._prefill(toks, slot, length, write_row,
+                                       req.adapter_slot)
         except Exception as e:  # noqa: BLE001
             if self._paged:
                 self._blocks.release(row)
             req.handle._fail(e)
+            self._req_done(req)
             return "done"
         if self._paged and self._cfg.prefix_reuse and n_full > 0:
             # Pin the prompt's full blocks for later admissions: the
             # prefix now lives in the pool whether or not this stream
             # survives its first token.
             self._blocks.register_prefix(
-                req.tokens, row, n_full, salt=_BASE_SALT,
-                route_digest=prefix_route_digest(req.tokens, bs))
-        req.t_first = time.monotonic()
-        self._metrics.on_first_token((req.t_first - req.enqueued_at) * 1e3)
+                req.tokens, row, n_full, salt=req.prefix_salt,
+                route_digest=prefix_route_digest(req.tokens, bs,
+                                                 req.adapter))
+        if req.replay_expect is None:
+            # A resuming stream's first token was delivered (and its TTFT
+            # recorded) before the eviction.
+            req.t_first = time.monotonic()
+            self._metrics.on_first_token(
+                (req.t_first - req.enqueued_at) * 1e3,
+                tenant=self._tenant_label(req),
+                slo_ms=self._slo_of(req.tenant))
         tok = req.sample(logits)
         req.n_out = 1
-        self._emit(req, tok)
-        reason = self._finish_reason(req, tok, next_pos=length)
+        try:
+            self._req_emit(req, tok)
+            reason = self._finish_reason(req, tok, next_pos=length)
+            if reason:
+                self._finish(req, reason)
+        except RuntimeError as e:
+            # A replay that diverged at its first token: this stream
+            # fails with the error; it never held a slot.
+            reason = "error"
+            req.handle._fail(e)
+            self._req_done(req)
         if reason:
-            self._finish(req, reason)
             if self._paged:
                 self._blocks.release(row)
             return "done"
         self._slots[slot] = req
         self._positions[slot] = length
         self._last[slot] = tok
+        self._adapter_idx[slot] = req.adapter_slot
         if self._paged:
             self._slot_blocks[slot] = row
             self._tables[slot] = read_row
         return "ok"
-
-    def _emit(self, req: _GenRequest, tok: int) -> None:
-        self._metrics.on_tokens()
-        req.handle._emit(tok)
 
     def _spec_once(self) -> None:
         """Draft up to k tokens per slot host-side, verify all k + 1
@@ -1069,6 +1558,8 @@ class GenerationEngine(ReadinessMixin):
                       self._cfg.max_len - int(self._positions[i]))
             if cap < 2:
                 continue
+            # [:n_out]: a preemption replay drafts from the regenerated
+            # prefix only, never from the envelope's future tokens.
             ctx = np.concatenate(
                 [np.asarray(req.tokens, np.int64),
                  np.asarray(req.handle._tokens[:req.n_out], np.int64)])
@@ -1087,7 +1578,8 @@ class GenerationEngine(ReadinessMixin):
             return
         t1 = time.monotonic()
         logits_np = self._verify(toks, self._positions,
-                                 self._tables if self._paged else None)
+                                 self._tables if self._paged else None,
+                                 self._adapter_idx)
         exec_ms = (time.monotonic() - t1) * 1e3
         self._peak_active = max(self._peak_active, len(active))
         self._metrics.on_batch(self._cfg.max_slots, len(active), exec_ms,
@@ -1108,7 +1600,7 @@ class GenerationEngine(ReadinessMixin):
             for tok in cand:
                 tok = int(tok)
                 req.n_out += 1
-                self._emit(req, tok)
+                self._req_emit(req, tok)
                 self._positions[i] += 1
                 self._last[i] = tok
                 emitted += 1
@@ -1134,7 +1626,8 @@ class GenerationEngine(ReadinessMixin):
     def _decode_once(self) -> None:
         t0 = time.monotonic()
         logits_np = self._decode(self._last, self._positions,
-                                 self._tables if self._paged else None)
+                                 self._tables if self._paged else None,
+                                 self._adapter_idx)
         exec_ms = (time.monotonic() - t0) * 1e3
         active = [i for i, r in enumerate(self._slots) if r is not None]
         self._peak_active = max(self._peak_active, len(active))
@@ -1144,7 +1637,7 @@ class GenerationEngine(ReadinessMixin):
             req = self._slots[i]
             tok = req.sample(logits_np[i])
             req.n_out += 1
-            self._emit(req, tok)
+            self._req_emit(req, tok)
             self._positions[i] += 1
             self._last[i] = tok
             reason = self._finish_reason(req, tok,
@@ -1162,17 +1655,30 @@ class GenerationEngine(ReadinessMixin):
         return None
 
     def _finish(self, req: _GenRequest, reason: str) -> None:
+        if (req.replay_expect is not None
+                and req.replay_i < len(req.replay_expect)):
+            # The regenerated stream ended before its own envelope: the
+            # divergence _req_emit guards.
+            raise RuntimeError(
+                f"preemption replay of stream {req.stream_id} finished "
+                f"({reason}) at position {req.replay_i} but its envelope "
+                f"holds {len(req.replay_expect)} tokens — the slot-row "
+                f"bit-identity contract is broken")
         now = time.monotonic()
         gen_s = now - req.t_first
-        self._metrics.on_generation_end(req.n_out, gen_s)
+        self._metrics.on_generation_end(req.n_out, gen_s,
+                                        tenant=self._tenant_label(req))
         # queue_ms is the admission wait (enqueue → slot), not TTFT.
         self._metrics.on_response((now - req.enqueued_at) * 1e3,
                                   (req.t_admit - req.enqueued_at) * 1e3)
+        self._req_done(req)
         req.handle._finish({
             "tokens": list(req.handle._tokens),
             "finish_reason": reason,
             "n_tokens": req.n_out,
             "ttft_ms": (req.t_first - req.enqueued_at) * 1e3,
+            "tenant": req.tenant,
+            "adapter": req.adapter,
             "tokens_per_sec": ((req.n_out - 1) / gen_s
                                if req.n_out > 1 and gen_s > 0 else None),
             # Per-request speculation accounting (None: spec off).

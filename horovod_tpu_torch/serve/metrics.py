@@ -2,12 +2,15 @@
 
 The subset of the JAX package's ``serve/metrics.py`` ``ServeMetrics`` that
 ``GenerationEngine`` calls, with the same snapshot keys: request,
-overload, deadline and batch counters, the prefix-cache, host-tier,
-chunked-prefill and speculation counters, and bounded-reservoir
-percentiles of request latency, queue wait, decode-step time, time to
-first token, per-stream decode rate and the speculation step's draft and
-verify times. The Prometheus exposition and the per-tenant series belong
-to later slices.
+overload (split ``slots_full`` / ``blocks_exhausted`` / ``tenant_quota``),
+deadline and batch counters, the prefix-cache, host-tier, chunked-prefill,
+speculation and preemption counters, bounded-reservoir percentiles of
+request latency, queue wait, decode-step time, time to first token,
+per-stream decode rate and the speculation step's draft and verify
+times, and the per-tenant split (``tenants``: TTFT, tokens, generations,
+preemptions and the SLO burn of each tenant, evicted tenants folded into
+``retired``). The Prometheus exposition (the ``hvd_tenant_*`` series
+among it) comes with the ``/metrics`` route.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ class ServeMetrics:
         self.rejected_overload = 0
         self.rejected_slots_full = 0
         self.rejected_blocks_exhausted = 0
+        self.rejected_tenant_quota = 0
         self.expired_deadline = 0
         self.cancelled_shutdown = 0
         self.batches_total = 0
@@ -92,6 +96,14 @@ class ServeMetrics:
         self._spec_draft_ms = _Reservoir(seed=5)
         self._spec_verify_ms = _Reservoir(seed=6)
         self._prefetch_ms = _Reservoir(seed=7)
+        # Preemption plane: evictions and their verdicts (resumed +
+        # exhausted <= preemptions while an evicted stream replays).
+        self.preemptions_total = 0
+        self.preempt_resumed_total = 0
+        self.preempt_exhausted_total = 0
+        # Per-tenant recorders, created on the first tenant-stamped
+        # event; engines without an AdapterRegistry stamp none.
+        self._tenants: Dict[str, Dict] = {}
 
     def on_submit(self, queue_depth: int) -> None:
         with self._lock:
@@ -99,19 +111,27 @@ class ServeMetrics:
             self.queue_depth = queue_depth
 
     def on_overload(self, reason: str = "slots_full") -> None:
-        """``reason`` names the scarce resource: ``"slots_full"`` or
-        ``"blocks_exhausted"``."""
+        """``reason`` names the scarce resource: ``"slots_full"``,
+        ``"blocks_exhausted"`` or ``"tenant_quota"``;
+        ``rejected_overload`` stays the total."""
         with self._lock:
             self.rejected_overload += 1
             if reason == "blocks_exhausted":
                 self.rejected_blocks_exhausted += 1
+            elif reason == "tenant_quota":
+                self.rejected_tenant_quota += 1
             else:
                 self.rejected_slots_full += 1
 
-    def on_deadline_expired(self, queue_ms: float) -> None:
+    def on_deadline_expired(self, queue_ms: float,
+                            tenant: Optional[str] = None) -> None:
+        """``tenant`` also counts the expiry against the tenant's SLO
+        burn (a deadline miss burns, target or no target)."""
         with self._lock:
             self.expired_deadline += 1
             self._queue_ms.add(queue_ms)
+            if tenant is not None:
+                self._tenant(tenant)["deadline_miss_total"] += 1
 
     def on_shutdown_cancel(self, n: int) -> None:
         with self._lock:
@@ -135,14 +155,89 @@ class ServeMetrics:
             self._request_ms.add(request_ms)
             self._queue_ms.add(queue_ms)
 
-    def on_first_token(self, ttft_ms: float) -> None:
-        """Time to first token: submit → the prefill's sampled token."""
+    def _tenant(self, name: str) -> Dict:
+        """The per-tenant recorder bundle (caller holds ``self._lock``)."""
+        t = self._tenants.get(name)
+        if t is None:
+            t = self._tenants[name] = {
+                "generations_total": 0, "tokens_generated_total": 0,
+                "first_tokens_total": 0, "ttft_slo_miss_total": 0,
+                "deadline_miss_total": 0, "preemptions_total": 0,
+                "slo_ttft_target_ms": None,
+                "_ttft": _Reservoir(seed=5), "_tps": _Reservoir(seed=6)}
+        return t
+
+    @staticmethod
+    def _burn(t: Dict) -> float:
+        """SLO burn fraction of one tenant: misses over outcomes, a
+        deadline miss counting in both (an expired request never had a
+        first token)."""
+        misses = t["ttft_slo_miss_total"] + t["deadline_miss_total"]
+        outcomes = t["first_tokens_total"] + t["deadline_miss_total"]
+        return misses / outcomes if outcomes else 0.0
+
+    def on_first_token(self, ttft_ms: float, tenant: Optional[str] = None,
+                       slo_ms: Optional[float] = None) -> None:
+        """Time to first token: submit → the prefill's sampled token.
+        ``tenant`` also records the per-tenant split; ``slo_ms`` is the
+        tenant's TTFT target (a first token past it is one SLO miss)."""
         with self._lock:
             self._ttft_ms.add(ttft_ms)
+            if tenant is not None:
+                t = self._tenant(tenant)
+                t["_ttft"].add(ttft_ms)
+                t["first_tokens_total"] += 1
+                if slo_ms is not None:
+                    t["slo_ttft_target_ms"] = float(slo_ms)
+                    if ttft_ms > slo_ms:
+                        t["ttft_slo_miss_total"] += 1
 
-    def on_tokens(self, n: int = 1) -> None:
+    def on_tokens(self, n: int = 1, tenant: Optional[str] = None) -> None:
         with self._lock:
             self.tokens_generated_total += n
+            if tenant is not None:
+                self._tenant(tenant)["tokens_generated_total"] += n
+
+    def on_preempt(self, outcome: str,
+                   tenant: Optional[str] = None) -> None:
+        """One preemption event: ``"evicted"`` (``tenant`` is the evicted
+        stream's), ``"resumed"`` (its replay caught up) or
+        ``"exhausted"`` (evicted past the retry budget)."""
+        if outcome not in ("evicted", "resumed", "exhausted"):
+            raise ValueError(
+                f"preempt outcome must be 'evicted', 'resumed' or "
+                f"'exhausted', got {outcome!r}")
+        with self._lock:
+            if outcome == "evicted":
+                self.preemptions_total += 1
+                if tenant is not None:
+                    self._tenant(tenant)["preemptions_total"] += 1
+            elif outcome == "resumed":
+                self.preempt_resumed_total += 1
+            else:
+                self.preempt_exhausted_total += 1
+
+    def slo_burn(self, tenant: str) -> float:
+        """The tenant's SLO burn fraction (0.0 when unknown)."""
+        with self._lock:
+            t = self._tenants.get(tenant)
+            return self._burn(t) if t is not None else 0.0
+
+    def forget_tenant(self, tenant: str) -> None:
+        """The tenant's adapter was evicted: fold its counters into the
+        one ``"retired"`` bundle and drop its recorders, so tenant churn
+        cannot grow the per-tenant state without bound."""
+        if tenant == "retired":
+            return
+        with self._lock:
+            t = self._tenants.pop(tenant, None)
+            if t is None:
+                return
+            r = self._tenant("retired")
+            for k in ("generations_total", "tokens_generated_total",
+                      "first_tokens_total", "ttft_slo_miss_total",
+                      "deadline_miss_total", "preemptions_total"):
+                r[k] += t[k]
 
     def on_spec_step(self, proposed: int, accepted: int, emitted: int,
                      draft_ms: float, verify_ms: float) -> None:
@@ -193,15 +288,22 @@ class ServeMetrics:
             self.prefill_chunks_total += n_chunks
             self.prefill_chunks_skipped_total += n_skipped
 
-    def on_generation_end(self, n_tokens: int, seconds: float) -> None:
+    def on_generation_end(self, n_tokens: int, seconds: float,
+                          tenant: Optional[str] = None) -> None:
         """One finished stream: records its decode rate (first token →
-        last token, per stream — not aggregate throughput)."""
+        last token, per stream — not aggregate throughput); ``tenant``
+        also records the per-tenant split."""
         tps = ((n_tokens - 1) / seconds
                if n_tokens > 1 and seconds > 0 else None)
         with self._lock:
             self.generations_total += 1
             if tps is not None:
                 self._tps_user.add(tps)
+            if tenant is not None:
+                t = self._tenant(tenant)
+                t["generations_total"] += 1
+                if tps is not None:
+                    t["_tps"].add(tps)
 
     def retry_after_ms(self, queue_depth: int) -> float:
         """Backoff hint for an overload rejection: how long until the
@@ -229,6 +331,7 @@ class ServeMetrics:
                 "rejected_overload": self.rejected_overload,
                 "rejected_slots_full": self.rejected_slots_full,
                 "rejected_blocks_exhausted": self.rejected_blocks_exhausted,
+                "rejected_tenant_quota": self.rejected_tenant_quota,
                 "expired_deadline": self.expired_deadline,
                 "cancelled_shutdown": self.cancelled_shutdown,
                 "batches_total": self.batches_total,
@@ -262,6 +365,10 @@ class ServeMetrics:
                     "prefill_chunks_total": self.prefill_chunks_total,
                     "prefill_chunks_skipped_total":
                         self.prefill_chunks_skipped_total,
+                    "preemptions_total": self.preemptions_total,
+                    "preempt_resumed_total": self.preempt_resumed_total,
+                    "preempt_exhausted_total":
+                        self.preempt_exhausted_total,
                     "ttft_p50": self._ttft_ms.quantile(0.50),
                     "ttft_p99": self._ttft_ms.quantile(0.99),
                     "tokens_per_sec_user_p50": self._tps_user.quantile(0.50),
@@ -289,4 +396,24 @@ class ServeMetrics:
                     "verify_ms_p50": self._spec_verify_ms.quantile(0.50),
                     "verify_ms_p99": self._spec_verify_ms.quantile(0.99),
                 },
+                # Per-tenant split: the numbers a per-tenant SLO is
+                # written against (empty without tenant-stamped events).
+                "tenants": {
+                    name: {
+                        "generations_total": t["generations_total"],
+                        "tokens_generated_total":
+                            t["tokens_generated_total"],
+                        "first_tokens_total": t["first_tokens_total"],
+                        "ttft_slo_miss_total": t["ttft_slo_miss_total"],
+                        "deadline_miss_total": t["deadline_miss_total"],
+                        "preemptions_total": t["preemptions_total"],
+                        "slo_ttft_target_ms": t["slo_ttft_target_ms"],
+                        "slo_burn": self._burn(t),
+                        "ttft_p50": t["_ttft"].quantile(0.50),
+                        "ttft_p99": t["_ttft"].quantile(0.99),
+                        "tokens_per_sec_user_p50":
+                            t["_tps"].quantile(0.50),
+                        "tokens_per_sec_user_p99":
+                            t["_tps"].quantile(0.99),
+                    } for name, t in sorted(self._tenants.items())},
             }

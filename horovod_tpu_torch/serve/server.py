@@ -5,7 +5,8 @@ Port of the generation routes of the JAX package's ``serve/server.py``
 onto HTTP status codes:
 
 * ``POST /generate`` with ``{"tokens": [...], "max_new_tokens",
-  "temperature", "top_k", "seed", "eos", "deadline_ms", "stream"}`` →
+  "temperature", "top_k", "seed", "eos", "deadline_ms", "stream",
+  "adapter"}`` (``adapter``: the tenant's resident LoRA fine-tune) →
   200 with **chunked** streaming: one JSON line per sampled token
   (``{"token": 17}``) the moment the engine emits it, then a final
   ``{"done": true, "finish_reason": ..., ...}`` line. ``"stream": false``
@@ -14,7 +15,8 @@ onto HTTP status codes:
   overload → 503 (with ``retry_after_ms`` and ``Retry-After``), deadline
   → 504, shut down → 503 (not retryable), bad request → 400.
 * ``GET /stats`` → 200, the engine's snapshot as JSON.
-* ``GET /healthz`` → 200 when ready, 503 while warming or draining.
+* ``GET /healthz`` → 200 when ready, 503 while warming or draining;
+  with an adapter registry the body also carries ``adapters_resident``.
 """
 
 from __future__ import annotations
@@ -64,8 +66,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(200, self.gen_engine.stats())
         elif path == "/healthz":
             ready, status, depth = self.gen_engine.health()
-            self._reply(200 if ready else 503,
-                        {"status": status, "queue_depth": depth})
+            body = {"status": status, "queue_depth": depth}
+            # Adapter-table residency: how many fine-tunes this endpoint
+            # can serve now (absent without a registry).
+            k = self.gen_engine.adapters_resident()
+            if k is not None:
+                body["adapters_resident"] = int(k)
+            self._reply(200 if ready else 503, body)
         else:
             self._reply(404, {"error": f"no such path {self.path}"})
 
@@ -88,6 +95,8 @@ class _Handler(BaseHTTPRequestHandler):
                 top_k=int(req.get("top_k", 0)),
                 seed=int(req.get("seed", 0)))
             kw = {}
+            if req.get("adapter") is not None:
+                kw["adapter"] = str(req["adapter"])
             if req.get("max_new_tokens") is not None:
                 kw["max_new_tokens"] = int(req["max_new_tokens"])
             if "eos" in req:

@@ -459,9 +459,12 @@ def test_restore_for_inference_refusals(tmp_path):
         tckpt.restore_for_inference(str(tmp_path), mesh=object())
     with pytest.raises(FileNotFoundError):
         tckpt.restore_for_inference(str(tmp_path))
-    for fn in (tckpt.save_adapter, tckpt.restore_adapter):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(str(tmp_path), "a")
+    # adapters are served (tests/test_torch_adapters.py): a missing one
+    # is not found, a reserved name is refused
+    with pytest.raises(FileNotFoundError):
+        tckpt.restore_adapter(str(tmp_path), "a")
+    with pytest.raises(ValueError, match="reserved"):
+        tckpt.save_adapter(str(tmp_path), "base", {"layers": []})
     from horovod_tpu_torch import serve
     assert serve.restore_for_inference is tckpt.restore_for_inference
 

@@ -8,7 +8,7 @@ streams must be token-identical for a 9-token prompt (bucket 16, dense
 attention on the JAX side) and a 130-token prompt (bucket 256, the
 Pallas flash kernel). The rest pins the port engine's own contracts:
 batch invariance, the HTTP front end, block accounting, deadlines, and
-the knobs still to come.
+the tenant knobs' validation.
 """
 
 import http.client
@@ -31,6 +31,9 @@ from horovod_tpu_torch.serve import (GenerationConfig, GenerationEngine,
 
 DIMS = dict(vocab=64, d_model=256, n_heads=2, n_layers=2, d_ff=256)
 ENGINE = dict(max_slots=2, max_len=256, default_max_new_tokens=6)
+# The port's engine in the paged layout on K8 (its plain version here),
+# the JAX engine's paged layout with its Pallas kernel.
+PAGED = dict(kv_layout="paged", paged_kernel=True)
 SHORT = [3, 1, 4, 1, 5, 9, 2, 6, 5]                     # bucket 16
 LONG = list(np.random.RandomState(5).randint(0, 64, 130))  # bucket 256
 PROMPTS = {"short": SHORT, "long": LONG}
@@ -58,7 +61,8 @@ def model(tree):
 
 @pytest.fixture(scope="module")
 def engine(model):
-    eng = GenerationEngine(model, GenerationConfig(**ENGINE), device="cpu")
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE, **PAGED),
+                           device="cpu")
     eng.warmup()
     yield eng
     eng.shutdown()
@@ -70,7 +74,7 @@ def jax_streams(tree):
                                  unembed_dtype=jnp.float32)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     eng = jserve.GenerationEngine(params, jcfg, jserve.GenerationConfig(
-        **ENGINE, kv_layout="paged", paged_kernel=True))
+        **ENGINE, **PAGED))
     try:
         return {(name, mode): eng.generate(
                     p, timeout=600, sampling=jserve.SamplingParams(
@@ -109,7 +113,8 @@ def test_stream_identical_alone_and_mid_batch(engine):
 
 
 def test_blocks_return_to_zero_after_drain(model):
-    eng = GenerationEngine(model, GenerationConfig(**ENGINE), device="cpu")
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE, **PAGED),
+                           device="cpu")
     try:
         hs = [eng.submit(p, max_new_tokens=n)
               for p, n in ((SHORT, 3), (LONG, 5), (SHORT[:4], 8))]
@@ -184,28 +189,39 @@ def test_submit_validation(engine):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tenant_weights={"a": 1.0}), dict(tenant_priorities={"a": 1}),
-    dict(tenant_block_budgets={"a": 4}), dict(tenant_slo_ttft_ms={"a": 50.0}),
-    dict(preempt=True)])
+    (dict(tenant_weights={"a": 1.0}), dict(tenant_weights={"a": 0.0})),
+    (dict(tenant_priorities={"a": 1}), None),
+    (dict(kv_layout="paged", tenant_block_budgets={"a": 4}),
+     dict(tenant_block_budgets={"a": 4})),
+    (dict(tenant_slo_ttft_ms={"a": 50.0}),
+     dict(tenant_slo_ttft_ms={"a": 0.0})),
+    (dict(preempt=True), dict(preempt=True, preempt_retries=-1))])
 def test_later_slice_knobs_raise(knob):
-    """The tenant knobs come with the tenants and LoRA; each refusal names
-    the roadmap item."""
-    with pytest.raises(NotImplementedError,
-                       match="later slice.*Queue 1 item 12"):
-        GenerationConfig(**knob)
+    """The tenant knobs are served: each valid value is accepted as JAX
+    accepts it, and each invalid one raises JAX's ``ValueError``."""
+    valid, invalid = knob
+    GenerationConfig(**valid)
+    jserve.GenerationConfig(**valid)
+    if invalid is not None:
+        with pytest.raises(ValueError) as ours:
+            GenerationConfig(**invalid)
+        with pytest.raises(ValueError) as ref:
+            jserve.GenerationConfig(**invalid)
+        assert str(ours.value) == str(ref.value)
 
 
 def test_adapters_and_spec_raise(model):
-    """LoRA adapters are still refused (speculative decoding is served:
-    ``tests/test_torch_spec.py``)."""
-    with pytest.raises(NotImplementedError,
-                       match="later slice.*Queue 1 item 12"):
-        GenerationEngine(model, GenerationConfig(**ENGINE), device="cpu",
-                         adapters=object())
+    """``adapters=`` takes an AdapterRegistry (``tests/test_torch_adapters
+    .py`` serves it); anything else raises (speculative decoding is
+    served: ``tests/test_torch_spec.py``)."""
+    with pytest.raises(TypeError, match="AdapterRegistry"):
+        GenerationEngine(model, GenerationConfig(**ENGINE, **PAGED),
+                         device="cpu", adapters=object())
 
 
 def test_shutdown_rejects_new_requests(model):
-    eng = GenerationEngine(model, GenerationConfig(**ENGINE), device="cpu")
+    eng = GenerationEngine(model, GenerationConfig(**ENGINE, **PAGED),
+                           device="cpu")
     assert eng.health()[1] == "warming"
     eng.shutdown()
     assert eng.health()[1] == "draining"

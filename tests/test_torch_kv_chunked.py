@@ -147,28 +147,31 @@ def test_single_chunk_bucket_rejected(model):
 
 def test_chunked_config_validation():
     with pytest.raises(ValueError, match="prefix_reuse"):
-        GenerationConfig(block_size=4, chunked_prefill=True)
+        GenerationConfig(kv_layout="paged", block_size=4, chunked_prefill=True)
     with pytest.raises(ValueError, match="power of two"):
-        GenerationConfig(block_size=4, prefix_reuse=True,
+        GenerationConfig(kv_layout="paged", block_size=4, prefix_reuse=True,
                          chunked_prefill=True, chunk_blocks=3)
     with pytest.raises(ValueError, match="chunk"):
-        GenerationConfig(block_size=4, max_len=16, max_slots=2,
-                         prefix_reuse=True, chunked_prefill=True,
-                         chunk_blocks=4)
+        GenerationConfig(kv_layout="paged", block_size=4, max_len=16,
+                         max_slots=2, prefix_reuse=True,
+                         chunked_prefill=True, chunk_blocks=4)
     with pytest.raises(ValueError, match="prefix_reuse"):
-        GenerationConfig(block_size=4, host_blocks=4)
+        GenerationConfig(kv_layout="paged", block_size=4, host_blocks=4)
     with pytest.raises(ValueError, match="host_admission"):
-        GenerationConfig(block_size=4, prefix_reuse=True, host_blocks=4,
+        GenerationConfig(kv_layout="paged", block_size=4,
+                         prefix_reuse=True, host_blocks=4,
                          host_admission="later")
     with pytest.raises(ValueError, match="host_blocks"):
         GenerationConfig(host_blocks=-1)
-    gc = GenerationConfig(block_size=4, max_len=16, max_slots=2,
-                          prefix_reuse=True, chunked_prefill=True,
-                          chunk_blocks=2)
+    gc = GenerationConfig(kv_layout="paged", block_size=4, max_len=16,
+                          max_slots=2, prefix_reuse=True,
+                          chunked_prefill=True, chunk_blocks=2)
     assert gc.chunk_tokens == 8
 
 
 def _engine(model, **kw):
+    kw.setdefault("kv_layout", "paged")
+    kw.setdefault("paged_kernel", True)
     kw.setdefault("block_size", BS)
     kw.setdefault("prefix_reuse", True)
     kw.setdefault("chunked_prefill", True)

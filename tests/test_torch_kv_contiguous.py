@@ -150,32 +150,37 @@ def _paged_setup(w, tcfg, bs=4):
 
 
 def test_paged_verify_matches_sequential_decode_bitwise(model, runs):
+    """Paged verify rows and the pool they write are bitwise W sequential
+    paged decode steps', through the paged kernel's route (its plain
+    version here) and through the gather."""
     tcfg = common.torch_config()
     w = common.torch_weights(model)
-    with torch.no_grad():
-        cache, tables = _paged_setup(w, tcfg)
-        seq = {n: x.clone() for n, x in cache.items()}
-        last = np.stack([p[L - 1] for p in runs["tpre"]]).argmax(-1)
-        last = last.astype(np.int32)
-        pos = np.full((S,), L, np.int32)
-        drafts, logs = [], []
-        for _ in range(W):
-            drafts.append(last.copy())
-            _, lg = tkv.paged_decode_step(w, common.t(last), seq,
-                                          common.t(pos), common.t(tables),
-                                          tcfg)
-            logs.append(lg.numpy())
-            last = lg.numpy().argmax(-1).astype(np.int32)
-            pos = pos + 1
-        _, vl = tkv.paged_verify_step(
-            w, common.t(np.stack(drafts, axis=1)), cache,
-            common.t(np.full((S,), L, np.int32)), common.t(tables), tcfg)
-    np.testing.assert_array_equal(vl.numpy(), np.stack(logs, axis=1))
-    for n in ("k", "v"):
-        np.testing.assert_array_equal(cache[n].numpy(), seq[n].numpy())
-    # and the paged rows are the contiguous ones: same dense math over
-    # the same [max_len] view
-    np.testing.assert_array_equal(vl.numpy(), runs["tver"])
+    for kernel in (True, False):
+        with torch.no_grad():
+            cache, tables = _paged_setup(w, tcfg)
+            seq = {n: x.clone() for n, x in cache.items()}
+            last = np.stack([p[L - 1] for p in runs["tpre"]]).argmax(-1)
+            last = last.astype(np.int32)
+            pos = np.full((S,), L, np.int32)
+            drafts, logs = [], []
+            for _ in range(W):
+                drafts.append(last.copy())
+                _, lg = tkv.paged_decode_step(
+                    w, common.t(last), seq, common.t(pos), common.t(tables),
+                    tcfg, kernel=kernel)
+                logs.append(lg.numpy())
+                last = lg.numpy().argmax(-1).astype(np.int32)
+                pos = pos + 1
+            _, vl = tkv.paged_verify_step(
+                w, common.t(np.stack(drafts, axis=1)), cache,
+                common.t(np.full((S,), L, np.int32)), common.t(tables),
+                tcfg, kernel=kernel)
+        np.testing.assert_array_equal(vl.numpy(), np.stack(logs, axis=1))
+        for n in ("k", "v"):
+            np.testing.assert_array_equal(cache[n].numpy(), seq[n].numpy())
+        # and the paged rows are the contiguous ones: same dense math over
+        # the same [max_len] view
+        np.testing.assert_array_equal(vl.numpy(), runs["tver"])
 
 
 def test_verify_tail_past_max_len_is_dropped(model):
@@ -205,41 +210,51 @@ def test_verify_tail_past_max_len_is_dropped(model):
 def test_paged_matches_contiguous_model_layer_bitwise(model):
     """With max_len % block_size == 0 the paged prefill and decode steps
     give logits bitwise the contiguous cache's (JAX ``test_paged_kv``'s
-    cross-layout contract, held inside the port)."""
+    cross-layout contract, held inside the port), through the paged
+    kernel's route (its plain version here) and through the gather."""
     tcfg = common.torch_config()
     w = common.torch_weights(model)
     toks = np.random.RandomState(0).randint(0, 32, (6,)).astype(np.int32)
-    with torch.no_grad():
-        c = ttr.init_kv_cache(tcfg, S, 16, device="cpu")
-        _, cl = ttr.prefill(w, common.t(toks), c, 0, tcfg)
-        pc = tkv.init_paged_kv_cache(tcfg, 5, 8, S, device="cpu")
-        _, pl = tkv.paged_prefill(w, common.t(toks), pc, 0,
-                                  common.t(np.array([1, 2], np.int32)), tcfg)
-        np.testing.assert_array_equal(cl.numpy(), pl.numpy())
-        tbl = np.full((S, 2), tkv.TRASH_BLOCK, np.int32)
-        tbl[0] = [1, 2]
-        last = np.full((S,), 7, np.int32)
-        pos = np.full((S,), -1, np.int32)
-        tok = int(cl[5].argmax())
-        for i in range(6, 10):
-            last[0], pos[0] = tok, i
-            _, dc = ttr.decode_step(w, common.t(last), c, common.t(pos), tcfg)
-            _, dp = tkv.paged_decode_step(w, common.t(last), pc,
-                                          common.t(pos), common.t(tbl), tcfg)
-            np.testing.assert_array_equal(dc[0].numpy(), dp[0].numpy())
-            tok = int(dc[0].argmax())
-    assert int(pc["lengths"][0]) == int(c["lengths"][0]) == 10
+    for kernel in (True, False):
+        with torch.no_grad():
+            c = ttr.init_kv_cache(tcfg, S, 16, device="cpu")
+            _, cl = ttr.prefill(w, common.t(toks), c, 0, tcfg)
+            pc = tkv.init_paged_kv_cache(tcfg, 5, 8, S, device="cpu")
+            _, pl = tkv.paged_prefill(w, common.t(toks), pc, 0,
+                                      common.t(np.array([1, 2], np.int32)),
+                                      tcfg)
+            np.testing.assert_array_equal(cl.numpy(), pl.numpy())
+            tbl = np.full((S, 2), tkv.TRASH_BLOCK, np.int32)
+            tbl[0] = [1, 2]
+            last = np.full((S,), 7, np.int32)
+            pos = np.full((S,), -1, np.int32)
+            tok = int(cl[5].argmax())
+            for i in range(6, 10):
+                last[0], pos[0] = tok, i
+                _, dc = ttr.decode_step(w, common.t(last), c, common.t(pos),
+                                        tcfg)
+                _, dp = tkv.paged_decode_step(w, common.t(last), pc,
+                                              common.t(pos), common.t(tbl),
+                                              tcfg, kernel=kernel)
+                np.testing.assert_array_equal(dc[0].numpy(), dp[0].numpy())
+                tok = int(dc[0].argmax())
+        assert int(pc["lengths"][0]) == int(c["lengths"][0]) == 10
 
 
 @pytest.mark.parametrize("mode", ["greedy", "sampled"])
 def test_engine_streams_paged_equal_contiguous_bitwise(model, mode):
     """Engine level: the contiguous, paged and paged+prefix engines give
-    the same stream, first and on a warm registry."""
+    the same stream, first and on a warm registry (the paged engines
+    through the paged kernel's route, its plain version here, and the
+    default gather)."""
     samp = (SamplingParams(temperature=0.7, top_k=8, seed=11)
             if mode == "sampled" else None)
     engines = [common.engine(model, kv_layout="contiguous"),
-               common.engine(model, block_size=4),
-               common.engine(model, block_size=4, prefix_reuse=True)]
+               common.engine(model, kv_layout="paged", paged_kernel=True,
+                             block_size=4),
+               common.engine(model, kv_layout="paged", paged_kernel=True,
+                             block_size=4, prefix_reuse=True),
+               common.engine(model, kv_layout="paged", block_size=4)]
     try:
         res = [e.generate(PROMPT, sampling=samp, timeout=common.TIMEOUT)
                for e in engines]
@@ -248,7 +263,8 @@ def test_engine_streams_paged_equal_contiguous_bitwise(model, mode):
     finally:
         for e in engines:
             e.shutdown()
-    assert res[0]["tokens"] == res[1]["tokens"] == res[2]["tokens"]
+    assert (res[0]["tokens"] == res[1]["tokens"] == res[2]["tokens"]
+            == res[3]["tokens"])
     assert again["tokens"] == res[0]["tokens"]
     assert engines[2].stats()["generation"]["prefix_hits_total"] == 1
     assert engines[0].stats()["kv_layout"] == "contiguous"

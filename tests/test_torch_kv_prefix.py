@@ -165,9 +165,11 @@ def test_cow_divergence_counters_and_block_accounting(model):
     sharer; divergent suffixes land in private blocks; every block not
     pinned by the registry returns to the pool after each drain (JAX
     ``test_paged_kv``'s counters, exactly)."""
-    eng = common.engine(model, block_size=4, prefix_reuse=True,
+    eng = common.engine(model, kv_layout="paged", paged_kernel=True,
+                        block_size=4, prefix_reuse=True,
                         default_max_new_tokens=3)
-    ref = common.engine(model, block_size=4)
+    ref = common.engine(model, kv_layout="paged", paged_kernel=True,
+                        block_size=4)
     try:
         a = eng.generate(PROMPT, timeout=common.TIMEOUT)
         snap = eng.stats()
@@ -211,7 +213,8 @@ def test_prefix_streams_match_jax_engine(model):
     tree = common.make_tree()
     jeng = common.jax_engine(tree, kv_layout="paged", block_size=4,
                              prefix_reuse=True)
-    eng = common.engine(model, block_size=4, prefix_reuse=True)
+    eng = common.engine(model, kv_layout="paged", paged_kernel=True,
+                        block_size=4, prefix_reuse=True)
     try:
         for p in (PROMPT, PROMPT + [9, 8], PROMPT):
             want = jeng.generate(p, timeout=600)["tokens"]

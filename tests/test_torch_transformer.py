@@ -144,7 +144,7 @@ def _run_paged(tree, dtype):
                               jnp.asarray(pos), jnp.asarray(tables))
             tcache, tl = tkv.paged_decode_step(
                 w, torch.from_numpy(last), tcache, torch.from_numpy(pos),
-                torch.from_numpy(tables), tcfg)
+                torch.from_numpy(tables), tcfg, kernel=True)
             jlog.append(np.asarray(jl)[0])
             tlog.append(tl[0].numpy())
             pos[0] += 1

@@ -66,8 +66,8 @@ def engine(model, spec=None, **kw):
 
 
 def jax_engine(tree, spec=None, **kw):
-    """The JAX engine with the same knobs (its default layout is
-    contiguous, the port's paged: pass ``kv_layout`` explicitly)."""
+    """The JAX engine with the same knobs (the same defaults as the
+    port's: contiguous unless ``kv_layout`` says otherwise)."""
     kw.setdefault("max_slots", 2)
     kw.setdefault("max_len", 16)
     kw.setdefault("default_max_new_tokens", 4)
