@@ -10,8 +10,10 @@ card:
 
 * serving — the generation engine serving the bench LM at full width
   (paged and contiguous layouts, prefix reuse with the chunked prefill,
-  the host tier, speculative decoding) (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
-  of 128, 8 layers, d_ff 8192; random weights from a seed);
+  the host tier, speculative decoding, LoRA tenants, int8 weights)
+  (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
+  of 128, 8 layers, d_ff 8192; random weights from a seed), and the
+  single-shot engine serving ResNet-50 beside it over HTTP;
 * training — ``bench.py``'s ResNet-50 train step with
   ``--conv-backend fused`` at full width (``[3,4,6,3]`` bottlenecks, 64
   base filters, 1000 classes, 224x224, batch 128, bf16 compute with f32
@@ -111,6 +113,29 @@ Phases, one JSON line each:
                launched, ``stats()["kernels"]`` all False); one f32
                fused-backend ResNet-50 step (plain K1/K2 versions) against
                the f32 stock step's loss.
+6c. engine_int8 — int8 serving weights: the engine phase's model
+               quantized on the host (``quantize_tree``), an int8 engine
+               (``params_from_jax`` of the int8 tree) beside a plain engine
+               on the dequantized f32 weights, both the engine phase's
+               configuration and prompts: (a) the bytes each model plus
+               ``gen_weights`` holds on the card (int8 at most
+               INT8_MAX_BYTES); (b) greedy and seeded streams, bitwise
+               equal; (c) TTFT and decode step p50; (d) n_layers K3-fwd a
+               prefill and K8 a step on the int8 path; (e) the int8 path's
+               logits on the card against the CPU's (e2e's prompt,
+               TOL_E2E); one int8 round under ``torch.profiler``.
+6d. serve_single — ResNet-50 (stock convs, bf16, ``train=False``)
+               through the single-shot ``Engine`` (max_batch 32, 5 ms):
+               the six buckets warmed (seconds), 256 one-image requests in
+               bursts of 1, 3, 8 and 32, every served row bitwise
+               ``apply_fn`` rerun on its recorded executed batch;
+               request, queue and execute p50/p99, images/s, fill ratio;
+               4 images' card logits against the CPU's (TOL_SS_CPU); then
+               ``HttpServer(engine=..., generate=<the int8 engine>)``: one
+               ``/predict`` (bitwise the served row), one ``/generate``,
+               ``/healthz`` and a ``/metrics`` scrape holding
+               ``hvd_request_seconds``, ``hvd_generate_ttft_seconds`` and
+               ``hvd_build_info`` for both ``engine=`` labels.
 7. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's; the flash
                forward's and K8's host time per call. K8 at four shapes
@@ -257,7 +282,11 @@ Phases, one JSON line each:
                max_len 2048, block 16): 4 greedy requests of 16 new tokens
                give the same tokens as an engine built from the live
                weights, the flash kernel running n_layers times per
-               prefill and K8 n_layers times per decode step; bytes,
+               prefill and K8 n_layers times per decode step; then
+               ``restore_for_inference(dtype="int8")`` of the same
+               checkpoint served the same way, its tokens equal to
+               ``quantize_model`` of the f32 restore's (engine_int8 (f));
+               bytes,
                save, verify, restore and ``restore_for_inference`` times.
                Checkpoints go to a temporary directory removed after each
                of these two phases.
@@ -294,21 +323,24 @@ Phases, one JSON line each:
                K3-lse + 16 + 16 of its dq/dkv pair a step; step p50,
                peak bytes, optimizer-state elements and buckets per spec
                group of each; (c) ``save_sharded`` of (a)'s and (b)'s
-               ZeRO states in the 2-D canonical form, verify, restore
-               into a fresh state, one more step from each, bitwise;
-               ``restore_for_inference(mesh=, spec_fn=)`` of (a)'s leaf
-               for leaf the live model's; bytes, save, verify and
-               restore times.
-31. bench   — ``python -m horovod_tpu_torch.bench`` four times (the
-               default two lines, the same with ``--zero --overlap``,
-               ``--model resnet50 --conv-backend fused``, ``--model
-               transformer_lm --accum-steps 2``), each in a process of
+               ZeRO states in the 2-D canonical form, restore (verified
+               against the manifest) into a fresh state, one more step
+               from each, bitwise; ``restore_for_inference(mesh=,
+               spec_fn=)`` of (a)'s leaf for leaf the live model's;
+               bytes, save and restore times.
+31. bench   — ``python -m horovod_tpu_torch.bench`` twice, over one
+               timed region each (``--conv-backend fused``: the fused
+               ResNet and the LM lines; ``--model transformer_lm --zero
+               --overlap --accum-steps 2``), each in a process of
                its own: names, finite positive values, 0 < mfu <= 1, the
                knob fields, the peak bytes, the card; then ``--scaling
-               --model resnet50`` (a launcher world of 1: the scaling
-               line of 1 GPU, then the per-GPU line).
+               --model resnet50 --rounds 1`` (a launcher world of 1 timed
+               over one region: the scaling line of 1 GPU, then the
+               per-GPU line, the stock ResNet's).
 
-Then, before the last line, the card's ``name, power.limit`` and one
+Every line carries ``phase_s``, the seconds since its phase began, and
+a ``phase_seconds`` line lists each phase's wall seconds. Then, before
+the last line, the card's ``name, power.limit`` and one
 ``{"kernels": [...]}`` object; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with
 no result line. Run: ``python3 chip_smoke.py`` from the repository root.
@@ -370,6 +402,7 @@ PAGED_PARITY_BS = (1, 8, 12, 32)
 # Logits of std ~0.9 after 8 bf16 layers on two devices whose matmuls
 # round differently: 0.035 measured on an H100, bound at about 3x that.
 TOL_E2E = 0.1
+E2E_T, E2E_STEPS = 256, 4      # e2e's (and engine_int8 (e)'s) prompt, steps
 # ResNet-50 training (bench.py's resnet50 config).
 RN_BATCH, RN_IMAGE, RN_CLASSES = 128, 224, 1000
 RN_WARMUP, RN_STEPS = 2, 10
@@ -478,18 +511,21 @@ TOL_WIRE = {"bf16": dict(loss_rtol=5e-3, rtol=5e-2, atol=4e-2),
 GUARD_TIMED_PAIRS = 4
 # The bench entry (bench): python -m horovod_tpu_torch.bench with these
 # arguments, each in a process of its own; its metric names per run.
-BENCH_RUNS = (((), ("resnet50_synthetic_images_per_sec_per_gpu",
-                    "transformer_lm_tokens_per_sec_per_gpu")),
-              (("--zero", "--overlap"),
+# Each run times one region: the phase checks the entry's lines, not its
+# rates (train, lm_train, zero_overlap and train_knobs time those steps
+# at depth). The fused ResNet line rides with the plain LM line, the LM's
+# knobs (ZeRO, overlap, accumulation) share one process, and the stock
+# ResNet line comes from the --scaling world of 1.
+BENCH_RUNS = ((("--conv-backend", "fused", "--rounds", "1"),
                ("resnet50_synthetic_images_per_sec_per_gpu",
                 "transformer_lm_tokens_per_sec_per_gpu")),
-              (("--model", "resnet50", "--conv-backend", "fused"),
-               ("resnet50_synthetic_images_per_sec_per_gpu",)),
-              (("--model", "transformer_lm", "--accum-steps", "2"),
+              (("--model", "transformer_lm", "--zero", "--overlap",
+                "--accum-steps", "2", "--rounds", "1"),
                ("transformer_lm_tokens_per_sec_per_gpu",)))
 BENCH_TIMEOUT = 400
-# The --scaling sweep through the launcher: one world of 1 on one card.
-BENCH_SCALING = ("--scaling", "--model", "resnet50")
+# The --scaling sweep through the launcher: one world of 1 on one card,
+# over one timed region; its per-GPU line is the stock ResNet line.
+BENCH_SCALING = ("--scaling", "--model", "resnet50", "--rounds", "1")
 # ZeRO-1 and overlap (zero_overlap): ZO_STEPS steps per variant from one
 # seed on a 1-rank NCCL world, where the reduce-scatter and all-gather
 # move nothing: every variant's params must equal the plain run's
@@ -586,6 +622,22 @@ ROUTE_HEADS64 = 32
 ROUTE_H64_PROMPTS, ROUTE_H64_NEW = (9, 300, 1000, 77), 16
 ROUTE_RN_BATCH = 8
 TOL_RN_F32 = 1e-3
+# engine_int8: the engine phase's configuration and prompts on int8
+# weights (quantize_model of the same random weights) beside a plain
+# engine on their dequantized f32 weights; the seeded round's sampling;
+# the most the int8 engine's weights may hold on the card.
+INT8_SAMPLED = dict(temperature=0.8, top_k=50, seed=7)
+INT8_MAX_BYTES = 0.55e9
+# serve_single: ResNet-50 (stock cuDNN convs, bf16 compute, train=False)
+# through the single-shot Engine: SS_REQUESTS one-image requests in
+# bursts cycling through SS_BURSTS, each burst answered before the next;
+# SS_CPU_IMAGES of them also on the CPU, whose logits the card's must
+# match within TOL_SS_CPU (bf16 activations through 53 convs; e2e_train's
+# logits bound).
+SS_MAX_BATCH, SS_TIMEOUT_MS = 32, 5.0
+SS_REQUESTS, SS_BURSTS = 256, (1, 3, 8, 32)
+SS_CPU_IMAGES = 4
+TOL_SS_CPU = 1e-2
 # The trainer phase's bare-loop step p50, which the elastic phase prints
 # beside its launched Trainer's.
 TRAINER_BARE_P50 = {}
@@ -618,8 +670,25 @@ SOURCES = {
 }
 
 
+# Wall seconds of each phase, in run order (run_phase), and the start of
+# the phase running now: every line a phase prints carries ``phase_s``,
+# the seconds since its phase began.
+PHASE_SECONDS = {}
+_PHASE_T0 = [time.monotonic()]
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw, "phase_s": round(
+        time.monotonic() - _PHASE_T0[0], 3)}), flush=True)
+
+
+def run_phase(name: str, fn, *args):
+    """``fn(*args)`` as the phase ``name``: its wall seconds go into
+    PHASE_SECONDS."""
+    _PHASE_T0[0] = time.monotonic()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.monotonic() - _PHASE_T0[0]
+    return out
 
 
 def check(cond: bool, what: str) -> None:
@@ -1054,7 +1123,7 @@ def phase_engine(model, seed: int):
         rng = np.random.RandomState(seed)
         prompts = [rng.randint(0, cfg.vocab, n) for n in PROMPT_LENS]
         http_prompt = rng.randint(0, cfg.vocab, HTTP_PROMPT_LEN)
-        srv = HttpServer(eng).start()
+        srv = HttpServer(generate=eng).start()
         steps0 = eng.stats()["batches_total"]
         http_out: dict = {}
         LAUNCHES.reset()
@@ -1138,20 +1207,22 @@ def _kv_engine(model, **kw):
                             spec=spec, adapters=adapters)
 
 
-def _kv_serve(eng, prompts, one_by_one: bool = False):
-    """Serve ``prompts`` (all at once, or each alone) with the launch
-    counters zeroed just before and read just after; returns the
-    results, the launches, the decode and verify steps run and the wall
-    time."""
+def _kv_serve(eng, prompts, one_by_one: bool = False, sampling=None):
+    """Serve ``prompts`` (all at once, or each alone; greedy, or with
+    ``sampling``) with the launch counters zeroed just before and read
+    just after; returns the results, the launches, the decode and verify
+    steps run and the wall time."""
     from horovod_tpu_torch.ops import LAUNCHES
+    kw = {} if sampling is None else {"sampling": sampling}
     torch.cuda.synchronize()
     steps0 = eng.stats()["batches_total"]
     LAUNCHES.reset()
     t0 = time.monotonic()
     if one_by_one:
-        results = [eng.submit(p).result(600) for p in prompts]
+        results = [eng.submit(p, **kw).result(600) for p in prompts]
     else:
-        results = [h.result(600) for h in [eng.submit(p) for p in prompts]]
+        results = [h.result(600)
+                   for h in [eng.submit(p, **kw) for p in prompts]]
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     launches = LAUNCHES.snapshot()
@@ -1271,7 +1342,6 @@ def phase_engine_kv(model, seed: int) -> dict:
     rng = np.random.RandomState(seed + 15)
     total: dict = {}
     out: dict = {}
-    t_phase = time.monotonic()
 
     # (a) contiguous: the engine phase's PROMPT_LENS prompts, greedy;
     # K3-fwd for every prefill, no K8
@@ -1527,7 +1597,6 @@ def phase_engine_kv(model, seed: int) -> dict:
     out["spec"]["agreement"] = agree
     out["spec"]["k"] = KV_SPEC_K
     out["launches"] = total
-    out["phase_s"] = time.monotonic() - t_phase
     emit("engine_kv", **out)
     return total
 
@@ -1694,7 +1763,6 @@ def phase_engine_lora(model, seed: int) -> dict:
     from horovod_tpu_torch.serve.spec import SpecConfig
     cfg = model.cfg
     L = cfg.n_layers
-    t_phase = time.monotonic()
     lora = LoraConfig(rank=LORA_RANK, alpha=LORA_ALPHA)
     reg = AdapterRegistry(cfg, lora, capacity=LORA_CAPACITY, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed + 16)
@@ -1846,8 +1914,7 @@ def phase_engine_lora(model, seed: int) -> dict:
         base_equal_plain=base_equal, reference=reference, preempt=preempt,
         checkpoint=dict(save_s=save_s, restore_s=restore_s,
                         load_ms=load_ms, tokens_equal=True),
-        launches=total, gpu=smi_line(),
-        phase_s=time.monotonic() - t_phase)
+        launches=total, gpu=smi_line())
     emit("engine_lora", **out)
     torch.cuda.empty_cache()
     return total
@@ -2009,7 +2076,6 @@ def phase_routing(model, seed: int):
     """F1 and F2 on the card (see the module docstring, 6b)."""
     from horovod_tpu_torch.ops import LAUNCHES
     cfg = model.cfg
-    t_phase = time.monotonic()
     # F2: the default paged engine (the gather) against engine_kv (a)'s
     # contiguous streams, the same prompts and greedy sampling
     rng0 = np.random.RandomState(seed)
@@ -2037,48 +2103,332 @@ def phase_routing(model, seed: int):
     LAUNCHES.reset()
     out = dict(f2_default_paged=f2, f1_f32=_route_f32_logits(seed),
                f1_head64=_route_head64(seed),
-               f1_resnet_f32=_route_resnet_f32(seed), gpu=smi_line(),
-               phase_s=time.monotonic() - t_phase)
+               f1_resnet_f32=_route_resnet_f32(seed), gpu=smi_line())
     emit("routing", **out)
     torch.cuda.empty_cache()
 
 
-def phase_e2e(model, seed: int):
-    """A 256-token prompt + 4 decode steps through the same port
-    functions on the card (kernels) and on the CPU (plain versions)."""
+def _resident_bytes(build):
+    """``build()``'s result and the device bytes it holds: the change of
+    ``torch.cuda.memory_allocated()`` across it (allocations, not the
+    caching allocator's reserve)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = build()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def phase_engine_int8(model, seed: int):
+    """int8 serving weights at full width: the weights quantized on the
+    host (``quantize_tree`` of ``params_to_numpy``: the card never holds
+    an f32 copy of the int8 model), then (a) the bytes each engine's
+    weights hold on the card, int8 against the plain model of the
+    dequantized f32 weights, across the model's build and
+    ``gen_weights``; (b) both engines' greedy and seeded streams of the
+    engine phase's 8 prompts, expected bitwise equal (the same f32
+    products cast to bf16 at the same point); (c) TTFT and decode step
+    p50; (d) K3-fwd and K8 launched n_layers times a prefill and a step
+    on the int8 path; (e) the int8 path's logits on the card against the
+    CPU's, e2e's prompt and steps. Returns the int8 engine (kept for
+    serve_single) and its rounds' launches."""
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.ops.quant import dequantize_tree, quantize_tree
+    from horovod_tpu_torch.parallel.transformer import gen_weights
+    from horovod_tpu_torch.serve import SamplingParams
+    cfg = model.cfg
+    t0 = time.monotonic()
+    qtree = quantize_tree(convert.params_to_numpy(model))
+    quantize_s = time.monotonic() - t0
+
+    def build(tree):
+        def run():
+            with torch.no_grad():
+                m = convert.params_from_jax(tree, cfg)
+                return m, gen_weights(m)
+        return run
+    (m8, w8), int8_bytes = _resident_bytes(build(qtree))
+    (m32, w32), plain_bytes = _resident_bytes(build(dequantize_tree(qtree)))
+    del w8, w32
+    check(m8.quantized and not m32.quantized, "int8 model not int8")
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab, n) for n in PROMPT_LENS]
+    prompts.append(rng.randint(0, cfg.vocab, HTTP_PROMPT_LEN))
+    rounds, stats, launches = {}, {}, {}
+    engines = {"plain": _kv_engine(m32, default_max_new_tokens=NEW_TOKENS)}
+    del m32
+    try:
+        engines["int8"] = _kv_engine(m8, default_max_new_tokens=NEW_TOKENS)
+        for name, eng in engines.items():
+            eng.warmup()
+            for mode, sp in (("greedy", None),
+                             ("seeded", SamplingParams(**INT8_SAMPLED))):
+                res, got, steps, wall_s = _kv_serve(eng, prompts,
+                                                    sampling=sp)
+                want_launches(got, {
+                    "flash_attention": cfg.n_layers * len(prompts),
+                    "paged_decode_attention": cfg.n_layers * steps},
+                    f"engine_int8 {name} {mode}")
+                check(steps > 0, f"engine_int8 {name} {mode}: no step")
+                rounds[name, mode] = dict(
+                    tokens=[r["tokens"] for r in res],
+                    ttft_ms=[r["ttft_ms"] for r in res], wall_s=wall_s,
+                    decode_steps=steps)
+                if name == "int8":
+                    _add_launches(launches, got)
+            stats[name] = eng.stats()
+            if name == "plain":      # its 2.7 GB go before the int8 rounds
+                eng.shutdown()
+                engines[name] = None
+                gc.collect()
+                torch.cuda.empty_cache()
+        profiled = profile_round(engines["int8"], prompts)
+        t0 = time.monotonic()
+        card = _e2e_logits(m8, "cuda", seed)
+        card_s = time.monotonic() - t0
+        cpu_model = convert.params_from_jax(qtree, cfg, device="cpu")
+        t0 = time.monotonic()
+        cpu = _e2e_logits(cpu_model, "cpu", seed)
+        cpu_s = time.monotonic() - t0
+        del cpu_model, qtree
+    except BaseException:
+        for eng in engines.values():
+            if eng is not None:
+                eng.shutdown()
+        raise
+    int8_eng = engines["int8"]
+    diff = (card - cpu).abs().max().item()
+    equal = {mode: rounds["int8", mode]["tokens"]
+             == rounds["plain", mode]["tokens"]
+             for mode in ("greedy", "seeded")}
+    emit("engine_int8", weight_bytes={"int8": int8_bytes,
+                                      "plain": plain_bytes},
+         weight_ratio=plain_bytes / int8_bytes, quantize_s=quantize_s,
+         streams_bitwise_equal=equal,
+         distinct_seeded_tokens=len({t for toks in
+                                     rounds["int8", "seeded"]["tokens"]
+                                     for t in toks}),
+         ttft_p50_ms={n: float(np.median(rounds[n, "greedy"]["ttft_ms"]))
+                      for n in ("plain", "int8")},
+         decode_step_ms_p50={n: stats[n]["latency_ms"]["execute_p50"]
+                             for n in ("plain", "int8")},
+         decode_step_ms_p99={n: stats[n]["latency_ms"]["execute_p99"]
+                             for n in ("plain", "int8")},
+         launches=launches, kernels=stats["int8"]["kernels"],
+         e2e={"max_abs_diff": diff, "bound": TOL_E2E,
+              "top1_card": card.argmax(-1).tolist(),
+              "top1_cpu": cpu.argmax(-1).tolist(), "card_s": card_s,
+              "cpu_s": cpu_s})
+    emit("engine_int8_profile", **profiled)
+    try:
+        check(0 < int8_bytes <= INT8_MAX_BYTES,
+              f"int8 weights hold {int8_bytes} bytes > {INT8_MAX_BYTES}")
+        check(plain_bytes > 4 * int8_bytes,
+              f"plain {plain_bytes} vs int8 {int8_bytes} bytes")
+        check(all(equal.values()), f"int8 streams differ from the plain "
+                                   f"engine's on dequantized weights: "
+                                   f"{equal}")
+        check(bool(torch.isfinite(card).all()),
+              "int8 card logits not finite")
+        check(diff <= TOL_E2E, f"int8 logits differ by {diff} > {TOL_E2E}")
+        check(card.argmax(-1).tolist()[-1] == cpu.argmax(-1).tolist()[-1],
+              "int8 e2e top-1 differs")
+    except BaseException:
+        int8_eng.shutdown()
+        raise
+    return int8_eng, launches
+
+
+def _post(port: int, path: str, body: dict) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _get(port: int, path: str) -> tuple:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_serve_single(gen_eng, seed: int):
+    """ResNet-50 (stock convs, bf16, train=False) through the single-shot
+    ``Engine`` (max_batch 32, 5 ms flush): every bucket warmed, then
+    SS_REQUESTS one-image requests in bursts of SS_BURSTS, each served
+    row bitwise ``apply_fn`` rerun on its recorded executed batch;
+    request/queue/execute p50 and p99, images/s and the fill ratio;
+    SS_CPU_IMAGES images' card logits against the CPU's; then
+    ``HttpServer(engine=..., generate=gen_eng)`` (the int8 engine): one
+    ``/predict``, one ``/generate``, ``/healthz`` and a ``/metrics``
+    scrape holding both engines' series. Shuts ``gen_eng`` down."""
+    from horovod_tpu_torch.obs.registry import parse_exposition
+    from horovod_tpu_torch.serve import Engine, HttpServer, ServeConfig
+    try:
+        model = build_resnet("xla", seed + 5)
+
+        def apply_fn(m, x):
+            return m(x, train=False)
+        eng = Engine(apply_fn, model, item_shape=(RN_IMAGE, RN_IMAGE, 3),
+                     config=ServeConfig(max_batch=SS_MAX_BATCH,
+                                        batch_timeout_ms=SS_TIMEOUT_MS,
+                                        record_executed_batch=True))
+        srv = None
+        try:
+            t0 = time.monotonic()
+            buckets = eng.warmup()
+            torch.cuda.synchronize()
+            warm_s = time.monotonic() - t0
+            rng = np.random.RandomState(seed + 6)
+            images = rng.standard_normal(
+                (SS_REQUESTS, RN_IMAGE, RN_IMAGE, 3)).astype(np.float32)
+            futs, bursts, i = [], [], 0
+            t0 = time.monotonic()
+            while i < SS_REQUESTS:
+                n = min(SS_BURSTS[len(bursts) % len(SS_BURSTS)],
+                        SS_REQUESTS - i)
+                burst = [eng.submit(images[j]) for j in range(i, i + n)]
+                for f in burst:
+                    f.result(600)
+                futs += burst
+                bursts.append(n)
+                i += n
+            serve_s = time.monotonic() - t0
+            stats = eng.stats()
+            # each executed batch once: every served row bitwise its row
+            mismatched, batches = 0, {}
+            for f in futs:
+                batches.setdefault(id(f.request.executed_batch),
+                                   (f.request.executed_batch, []))[1] \
+                    .append(f)
+            with torch.inference_mode():
+                for batch, members in batches.values():
+                    again = apply_fn(model, torch.from_numpy(batch).to(
+                        "cuda")).float().cpu().numpy()
+                    for f in members:
+                        mismatched += (f.result().tobytes()
+                                       != again[f.request.row].tobytes())
+            sizes = sorted({f.request.bucket for f in futs})
+            cpu_model = copy.deepcopy(model).to("cpu")
+            with torch.inference_mode():
+                cpu = cpu_model(torch.from_numpy(images[:SS_CPU_IMAGES]),
+                                train=False).float().numpy()
+            del cpu_model
+            card = np.stack([futs[j].result()
+                             for j in range(SS_CPU_IMAGES)])
+            cpu_diff = float(np.abs(card - cpu).max())
+
+            srv = HttpServer(engine=eng, generate=gen_eng).start()
+            code, body = _post(srv.port, "/predict",
+                               {"inputs": images[0].tolist()})
+            check(code == 200, f"/predict {code}: {body[:200]}")
+            pred = np.asarray(json.loads(body)["outputs"], np.float32)
+            pred_diff = float(np.abs(pred - futs[0].result()).max())
+            code, body = _post(srv.port, "/generate",
+                               {"tokens": list(range(1, 65)),
+                                "max_new_tokens": 8, "stream": False})
+            check(code == 200, f"/generate {code}: {body[:200]}")
+            gen_tokens = json.loads(body)["tokens"]
+            hz_code, _, hz = _get(srv.port, "/healthz")
+            m_code, ctype, text = _get(srv.port, "/metrics")
+            parsed = parse_exposition(text.decode())
+        finally:
+            if srv is not None:
+                srv.stop()
+            eng.shutdown()
+    finally:
+        gen_eng.shutdown()
+    lat = stats["latency_ms"]
+    per_engine = {e: sorted({k[0] for k in parsed
+                             if ("engine", e) in k[1]})
+                  for e in ("predict", "generate")}
+    want_series = ("hvd_request_seconds_count",
+                   "hvd_generate_ttft_seconds_count", "hvd_build_info")
+    emit("serve_single", buckets=list(buckets), warmup_s=warm_s,
+         requests=len(futs), bursts=bursts[:len(SS_BURSTS)],
+         buckets_run=sizes, serve_s=serve_s,
+         images_per_s=len(futs) / serve_s,
+         batches=stats["batches_total"],
+         fill_ratio=stats["batch_fill_ratio"],
+         request_ms={"p50": lat["request_p50"], "p99": lat["request_p99"]},
+         queue_ms={"p50": lat["queue_p50"], "p99": lat["queue_p99"]},
+         execute_ms={"p50": lat["execute_p50"], "p99": lat["execute_p99"]},
+         rows_not_bitwise=mismatched, executed_batches=len(batches),
+         cpu_images=SS_CPU_IMAGES, cpu_max_abs_diff=cpu_diff,
+         cpu_bound=TOL_SS_CPU, logits_std=float(cpu.std()),
+         http={"predict_max_abs_diff": pred_diff,
+               "generate_tokens": len(gen_tokens), "healthz": hz_code,
+               "metrics": m_code, "content_type": ctype,
+               "series": {e: len(v) for e, v in per_engine.items()}})
+    check(mismatched == 0, f"{mismatched} served rows differ from their "
+                           f"executed batch's rows")
+    check(len(futs) == SS_REQUESTS and set(sizes) >= {1, 4, 8, 32},
+          f"served {len(futs)} requests in buckets {sizes}")
+    check(cpu_diff <= TOL_SS_CPU, f"serve_single card vs CPU logits "
+                                  f"{cpu_diff} > {TOL_SS_CPU}")
+    check(pred_diff == 0.0, f"/predict differs from the served row by "
+                            f"{pred_diff}")
+    check(len(gen_tokens) == 8, f"/generate gave {gen_tokens}")
+    check(hz_code == 200, f"/healthz {hz_code}: {hz[:200]}")
+    check(m_code == 200 and ctype.startswith("text/plain; version=0.0.4"),
+          f"/metrics {m_code} {ctype}")
+    for e, names in per_engine.items():
+        for series in want_series:
+            check(series in names, f"/metrics lacks {series} for "
+                                   f"engine={e}")
+
+
+def _e2e_logits(model, device: str, seed: int):
+    """The last prompt row's logits and E2E_STEPS decode steps' of an
+    E2E_T-token prompt (from ``seed``) through the paged prefill and the
+    paged decode step with ``kernel=True`` on ``device``: the kernels on
+    the card, their plain versions on the CPU. f32 ``[1 + steps,
+    vocab]`` on the CPU."""
     from horovod_tpu_torch.parallel.kv_blocks import (blocks_for,
                                                       init_paged_kv_cache,
                                                       paged_decode_step,
                                                       paged_prefill)
     from horovod_tpu_torch.parallel.transformer import gen_weights
     cfg = model.cfg
-    T, steps = 256, 4
+    T, steps = E2E_T, E2E_STEPS
     rng = np.random.RandomState(seed + 1)
     prompt = rng.randint(0, cfg.vocab, T).astype(np.int32)
     feed = rng.randint(0, cfg.vocab, steps).astype(np.int32)
     nb = blocks_for(T + steps, BLOCK)
     row = np.arange(1, nb + 1, dtype=np.int32)
+    with torch.no_grad():
+        w = gen_weights(model)
+        cache = init_paged_kv_cache(cfg, nb + 1, BLOCK, 1, device=device)
+        t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+        _, lg = paged_prefill(w, t(prompt), cache, 0, t(row), cfg)
+        out = [lg[T - 1].float().cpu()]
+        for i in range(steps):
+            _, lg = paged_decode_step(
+                w, t(feed[i:i + 1]), cache, t(np.array([T + i], np.int32)),
+                t(row[None]), cfg, kernel=True)
+            out.append(lg[0].float().cpu())
+    return torch.stack(out)
 
-    def run(m, device):
-        with torch.no_grad():
-            w = gen_weights(m)
-            cache = init_paged_kv_cache(cfg, nb + 1, BLOCK, 1, device=device)
-            t = lambda a: torch.tensor(a, device=device)  # noqa: E731
-            _, lg = paged_prefill(w, t(prompt), cache, 0, t(row), cfg)
-            out = [lg[T - 1].float().cpu()]
-            for i in range(steps):
-                _, lg = paged_decode_step(
-                    w, t(feed[i:i + 1]), cache, t(np.array([T + i], np.int32)),
-                    t(row[None]), cfg, kernel=True)
-                out.append(lg[0].float().cpu())
-        return torch.stack(out)
 
+def phase_e2e(model, seed: int):
+    """A 256-token prompt + 4 decode steps through the same port
+    functions on the card (kernels) and on the CPU (plain versions)."""
+    T, steps = E2E_T, E2E_STEPS
     t0 = time.monotonic()
-    card = run(model, "cuda")
+    card = _e2e_logits(model, "cuda", seed)
     card_s = time.monotonic() - t0
     cpu_model = copy.deepcopy(model).to("cpu")
     t0 = time.monotonic()
-    cpu = run(cpu_model, "cpu")
+    cpu = _e2e_logits(cpu_model, "cpu", seed)
     cpu_s = time.monotonic() - t0
     del cpu_model
     check(bool(torch.isfinite(card).all()), "card logits not finite")
@@ -3571,7 +3921,8 @@ def phase_bench(smi: str):
           f"bench --scaling printed {[ln['metric'] for ln in lines]}")
     check(lines[0]["value"] == 1.0 and lines[0]["world"] == 1
           and lines[0]["images_per_sec_total"] > 0
-          and lines[1]["gpu"] == smi, f"bench --scaling lines {lines}")
+          and lines[1]["gpu"] == smi and lines[1]["conv_backend"] == "xla"
+          and 0 < lines[1]["mfu"] <= 1, f"bench --scaling lines {lines}")
 
 
 def want_launches(got: dict, want: dict, what: str) -> None:
@@ -4458,12 +4809,41 @@ def phase_lm_ckpt_serve(seed: int):
               "greedy tokens of the restored LM differ from the live one's")
         check(all(len(t) == CK_NEW_TOKENS for t in runs["live"]["tokens"]),
               "engine requests did not finish")
+        # engine_int8 (f): the int8 restore of the same checkpoint serves
+        # the tokens of quantize_model applied to its f32 restore.
+        t0 = time.monotonic()
+        v8 = restore_for_inference(ckdir, dtype="int8")
+        rfi8_ms = (time.monotonic() - t0) * 1e3
+        builds = (("restored_int8", lambda: convert.params_from_jax(
+                      v8["params"], serve_cfg)),
+                  ("quantize_model", lambda: convert.quantize_model(
+                      convert.params_from_jax(variables["params"],
+                                              serve_cfg))))
+        int8 = {}
+        for name, build in builds:
+            model = build()
+            check(model.quantized, f"lm_ckpt {name}: not an int8 model")
+            toks, launches, dsteps = _greedy_tokens(model, prompts)
+            want_launches(launches, {
+                "flash_attention": cfg.n_layers * len(prompts),
+                "paged_decode_attention": cfg.n_layers * dsteps},
+                f"lm_ckpt engine {name}")
+            int8[name] = dict(tokens=toks, launches=launches,
+                              decode_steps=dsteps)
+            del model
+            torch.cuda.empty_cache()
+        del v8
+        check(int8["restored_int8"]["tokens"]
+              == int8["quantize_model"]["tokens"],
+              "greedy tokens of the int8 restore differ from quantize_model "
+              "of the f32 restore")
         out.update(checkpoint_bytes=nbytes, save_ms=save_ms,
                    save_mb_per_s=nbytes / 1e6 / (save_ms / 1e3),
                    verify_ms=verify_ms, restore_ms=restore_ms,
                    restore_for_inference_ms=rfi_ms,
                    restore_for_inference_files=len(opened),
-                   engine=runs)
+                   restore_for_inference_int8_ms=rfi8_ms,
+                   engine=runs, engine_int8=int8)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     emit("lm_ckpt_serve", batch=LM_BATCH, seq=LM_SEQ, zero=True, **out)
@@ -4647,14 +5027,16 @@ def _mz_report(opt, losses, times, peak, smi) -> dict:
 
 def _mz_checkpoint(name, state, params, init, step, data, per_step,
                    seed: int, infer=None) -> dict:
-    """``save_sharded`` of a ZeRO state (2-D canonical form), verify,
-    restore into a fresh state from another seed (its parameters and
-    shards bitwise the live ones), one more step from each (bitwise);
-    ``infer(ckdir)`` checks the serving restore. Bytes and times."""
+    """``save_sharded`` of a ZeRO state (2-D canonical form), restore
+    (which verifies the manifest first; lm_ckpt_serve times
+    ``verify_checkpoint`` at this size) into a fresh state from another
+    seed (its parameters and shards bitwise the live ones), one more step
+    from each (bitwise); ``infer(ckdir)`` checks the serving restore.
+    Bytes and times."""
     import shutil
     import tempfile
-    from horovod_tpu_torch.parallel.checkpoint import (
-        restore_sharded, save_sharded, verify_checkpoint)
+    from horovod_tpu_torch.parallel.checkpoint import (restore_sharded,
+                                                       save_sharded)
 
     def bits(st):
         return ([p.detach().clone() for p in _leaf_list(params(st))]
@@ -4667,9 +5049,6 @@ def _mz_checkpoint(name, state, params, init, step, data, per_step,
         path = save_sharded(ckdir, MZ_STEPS, params(state), state.optimizer)
         save_ms = (time.monotonic() - t0) * 1e3
         nbytes = _ckpt_bytes(path)
-        t0 = time.monotonic()
-        check(verify_checkpoint(path) is True, f"{name} verify_checkpoint")
-        verify_ms = (time.monotonic() - t0) * 1e3
         extra = infer(ckdir) if infer is not None else {}
         fresh = init(seed + 1)
         torch.cuda.synchronize()
@@ -4697,8 +5076,7 @@ def _mz_checkpoint(name, state, params, init, step, data, per_step,
         shutil.rmtree(ckdir, ignore_errors=True)
     return dict(checkpoint_bytes=nbytes, save_ms=save_ms,
                 save_mb_per_s=nbytes / 1e6 / (save_ms / 1e3),
-                verify_ms=verify_ms, restore_ms=restore_ms,
-                resumed_bitwise=resumed, **extra)
+                restore_ms=restore_ms, resumed_bitwise=resumed, **extra)
 
 
 def _leaf_list(params) -> list:
@@ -4856,48 +5234,64 @@ def main() -> int:
     if args.elastic_worker:
         return elastic_worker(args.seed)
     errs, launches, times = {}, {}, {}
+
+    def add(got: dict) -> None:
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
     try:
-        smi = phase_device()
+        smi = run_phase("device", phase_device)
         peaks = peaks_for(smi)
-        phase_build()
-        errs.update(phase_parity(args.seed))
+        run_phase("build", phase_build)
+        errs.update(run_phase("parity", phase_parity, args.seed))
         model = build_model(args.seed)
-        launches.update(phase_engine(model, args.seed))
-        phase_e2e(model, args.seed)
-        for name, n in phase_engine_kv(model, args.seed).items():
-            launches[name] = launches.get(name, 0) + n
-        for name, n in phase_engine_lora(model, args.seed).items():
-            launches[name] = launches.get(name, 0) + n
-        phase_routing(model, args.seed)
+        add(run_phase("engine", phase_engine, model, args.seed))
+        run_phase("e2e", phase_e2e, model, args.seed)
+        add(run_phase("engine_kv", phase_engine_kv, model, args.seed))
+        add(run_phase("engine_lora", phase_engine_lora, model, args.seed))
+        run_phase("routing", phase_routing, model, args.seed)
+        int8_eng, got = run_phase("engine_int8", phase_engine_int8, model,
+                                  args.seed)
+        add(got)
         del model
         torch.cuda.empty_cache()
-        times.update(phase_timing(args.seed, peaks))
-        errs.update(phase_parity_conv(args.seed))
-        launches.update(phase_train(args.seed))
-        phase_e2e_train(args.seed)
-        times.update(phase_timing_conv(args.seed, peaks))
-        phase_parity_attn(args.seed)
-        launches.update(phase_lm_train(args.seed, peaks))
-        phase_e2e_lm_train(args.seed)
-        attn_times, attn_errs = phase_timing_attn(args.seed, peaks)
+        run_phase("serve_single", phase_serve_single, int8_eng, args.seed)
+        del int8_eng
+        torch.cuda.empty_cache()
+        times.update(run_phase("timing", phase_timing, args.seed, peaks))
+        errs.update(run_phase("parity_conv", phase_parity_conv, args.seed))
+        launches.update(run_phase("train", phase_train, args.seed))
+        run_phase("e2e_train", phase_e2e_train, args.seed)
+        times.update(run_phase("timing_conv", phase_timing_conv, args.seed,
+                               peaks))
+        run_phase("parity_attn", phase_parity_attn, args.seed)
+        launches.update(run_phase("lm_train", phase_lm_train, args.seed,
+                                  peaks))
+        run_phase("e2e_lm_train", phase_e2e_lm_train, args.seed)
+        attn_times, attn_errs = run_phase("timing_attn", phase_timing_attn,
+                                          args.seed, peaks)
         times.update(attn_times)
         errs.update(attn_errs)
-        errs.update(phase_parity_attn_bhtd(args.seed))
-        launches.update(phase_pp_lm_train(args.seed, peaks))
-        phase_e2e_pp_lm_train(args.seed)
-        times.update(phase_timing_attn_bhtd(args.seed, peaks))
-        phase_train_knobs(args.seed)
-        phase_guard(args.seed)
-        phase_zero_overlap(args.seed)
-        phase_trainer(args.seed)
-        phase_elastic(args.seed)
-        phase_lm_ckpt_serve(args.seed)
-        phase_lm_mesh(args.seed, peaks, smi)
-        phase_lm_mesh_zero(args.seed, smi)
-        phase_bench(smi)
+        errs.update(run_phase("parity_attn_bhtd", phase_parity_attn_bhtd,
+                              args.seed))
+        launches.update(run_phase("pp_lm_train", phase_pp_lm_train,
+                                  args.seed, peaks))
+        run_phase("e2e_pp_lm_train", phase_e2e_pp_lm_train, args.seed)
+        times.update(run_phase("timing_attn_bhtd", phase_timing_attn_bhtd,
+                               args.seed, peaks))
+        run_phase("train_knobs", phase_train_knobs, args.seed)
+        run_phase("guard", phase_guard, args.seed)
+        run_phase("zero_overlap", phase_zero_overlap, args.seed)
+        run_phase("trainer", phase_trainer, args.seed)
+        run_phase("elastic", phase_elastic, args.seed)
+        run_phase("lm_ckpt_serve", phase_lm_ckpt_serve, args.seed)
+        run_phase("lm_mesh", phase_lm_mesh, args.seed, peaks, smi)
+        run_phase("lm_mesh_zero", phase_lm_mesh_zero, args.seed, smi)
+        run_phase("bench", phase_bench, smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
+    emit("phase_seconds", seconds=PHASE_SECONDS,
+         total_s=time.time() - _T_START)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches.get(name, 0),
                     max_abs_err=errs[name], **times[name])

@@ -35,7 +35,8 @@ emitted during the backward under ``--overlap``).
 Timing: each of ``rounds`` regions runs ``iters × steps_per_call`` plain
 steps (``bench.py``'s count; torch has no scan to amortise dispatch)
 and ends in a host read of the loss; the rate is the median over the
-regions. Warmup runs ``warmup × steps_per_call`` steps first.
+regions (``--rounds`` sets their count). Warmup runs
+``warmup × steps_per_call`` steps first.
 
 ``HVD_BENCH_SMOKE=1`` or ``--device cpu`` takes the smoke configs
 (cifar20 at 64², batch 16; the small LM) on a world of 1 — gloo on the
@@ -74,6 +75,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -412,10 +414,12 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
 def lm_line(device: torch.device, wire_dtype=None, tp: int = 1,
             pp: int = 1, accum_steps: int = 1, mesh_dp=None,
             seed: int = 0, zero: bool = False,
-            overlap: bool = False) -> dict:
+            overlap: bool = False, rounds: Optional[int] = None) -> dict:
     cfg = _lm_config(device.type)
     cfg.update(wire_dtype=wire_dtype, tp=tp, pp=pp, accum_steps=accum_steps,
                mesh_dp=mesh_dp, zero=zero, overlap=overlap)
+    if rounds:
+        cfg["rounds"] = rounds
     rate, order = measure_lm(cfg, device, seed)
     n = hvd.size()
     per_gpu = rate / n
@@ -498,6 +502,8 @@ def _child_args(args) -> list:
         out += ["--conv-backend", args.conv_backend]
     if args.wire_dtype:
         out += ["--wire-dtype", args.wire_dtype]
+    if args.rounds:
+        out += ["--rounds", str(args.rounds)]
     return out + [f for f, on in (("--zero", args.zero),
                                   ("--overlap", args.overlap)) if on]
 
@@ -595,10 +601,15 @@ def main(argv=None) -> int:
                         "for the smoke configs on a gloo world of 1")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the weights and the synthetic batches")
+    p.add_argument("--rounds", type=int, default=None,
+                   help="timed regions of each line, whose median is its "
+                        "rate (default: the config's)")
     args = p.parse_args(argv)
     if args.accum_steps < 1:
         raise SystemExit(f"--accum-steps must be >= 1, got "
                          f"{args.accum_steps}")
+    if args.rounds is not None and args.rounds < 1:
+        raise SystemExit(f"--rounds must be >= 1, got {args.rounds}")
     tp, pp, mesh_dp = args.tp, args.pp, None
     if args.mesh:
         tp, pp, mesh_dp = _parse_mesh(args.mesh, tp, pp)
@@ -626,7 +637,7 @@ def main(argv=None) -> int:
     try:
         if args.model == "transformer_lm":
             _emit(lm_line(device, wire, tp, pp, args.accum_steps, mesh_dp,
-                          args.seed, args.zero, args.overlap))
+                          args.seed, args.zero, args.overlap, args.rounds))
             return 0
         if pp > 1 or tp > 1:
             raise SystemExit(
@@ -635,6 +646,8 @@ def main(argv=None) -> int:
         cfg = _bench_config(args.model or "resnet50", args.device)
         cfg.update(accum_steps=args.accum_steps, wire_dtype=wire,
                    zero=args.zero, overlap=args.overlap)
+        if args.rounds:
+            cfg["rounds"] = args.rounds
         if args.conv_backend:
             if cfg["model"] != "resnet50":
                 raise SystemExit(
@@ -646,7 +659,8 @@ def main(argv=None) -> int:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
             _emit(lm_line(device, wire, accum_steps=1, seed=args.seed,
-                          zero=args.zero, overlap=args.overlap))
+                          zero=args.zero, overlap=args.overlap,
+                          rounds=args.rounds))
         return 0
     finally:
         hvd.shutdown()

@@ -18,10 +18,14 @@ local_slice`), and the blocks all-gather back into the global leaves
 arrays with ``np.asarray`` first) or CPU tensors (the bf16 leaves of
 ``restore_for_inference``): this module never imports JAX.
 
-Float leaves (f32, bf16) are carried as f32. The JAX package's int8
-inference format (a ``(q, scale)`` pair per quantized weight, from
-``restore_for_inference(dtype="int8")``) is not ported yet and raises
-``NotImplementedError``.
+Float leaves (f32, bf16) are carried as f32. An int8 leaf — the
+inference format of ``restore_for_inference(dtype="int8")`` and
+:func:`~.ops.quant.quantize_tree`: a ``(q, scale)`` pair, the JAX
+package's ``QuantizedTensor`` or the port's — becomes a
+:class:`~.ops.quant.QuantizedWeight` on the device (the int8 payload and
+its f32 scales, no float copy); :func:`quantize_model` gives the same
+model from a float one. Only the transformer serves int8; the other
+converters refuse it.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models.resnet import ResNet, ResNetConfig
+from .ops.quant import (QuantizedTensor, QuantizedWeight, as_quantized,
+                        quantize_tree)
 from .parallel.mesh import gather_global, local_slice
 from .parallel.transformer import (Transformer, TransformerConfig,
                                    param_specs)
@@ -45,14 +51,19 @@ def _layer_keys(cfg: TransformerConfig) -> Tuple[str, ...]:
 
 
 def _float_leaf(leaf: Any, name: str) -> np.ndarray:
+    if as_quantized(leaf) is not None:
+        raise ValueError(
+            f"{name}: an int8 (quantized) leaf; int8 weights serve through "
+            f"the transformer's params_from_jax only")
     if torch.is_tensor(leaf):
         # restore_for_inference(dtype="bf16") returns torch.bfloat16
         # leaves: numpy has no bfloat16.
         leaf = leaf.detach().float().cpu().numpy()
     if isinstance(leaf, tuple) or np.asarray(leaf).dtype.kind in "iub":
-        raise NotImplementedError(
-            f"{name}: int8-quantized weights come in a later slice of the "
-            f"PyTorch port; restore the checkpoint in f32 or bf16")
+        raise ValueError(
+            f"{name}: a {type(leaf).__name__} of "
+            f"{np.asarray(leaf).dtype} is no float leaf; int8 weights come "
+            f"as (q, scale) pairs (ops.quant.quantize_tree)")
     return np.asarray(leaf, dtype=np.float32)
 
 
@@ -60,61 +71,130 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy().copy()
 
 
+def _scale_spec(spec) -> Tuple:
+    """The spec of a quantized weight's scales: its last dimension's."""
+    return tuple(spec[-1:]) if spec else ()
+
+
+def _np_leaf(t) -> Any:
+    """A model leaf as host numpy: a :class:`QuantizedTensor` of numpy
+    arrays for an int8 weight, f32 otherwise."""
+    if isinstance(t, QuantizedWeight):
+        return QuantizedTensor(q=t.q.detach().cpu().numpy().copy(),
+                               scale=_np(t.scale))
+    return _np(t)
+
+
 def params_to_numpy(model: Transformer) -> Dict[str, Any]:
     """The model's weights as the JAX parameter tree ``{"embed", "lnf",
-    "layers": [{...}, ...]}`` of f32 numpy arrays (the inverse of
+    "layers": [{...}, ...]}`` of f32 numpy arrays, an int8 weight as a
+    :class:`~.ops.quant.QuantizedTensor` of numpy arrays (the inverse of
     :func:`params_from_jax`); on a mesh, this rank's blocks."""
     keys = _layer_keys(model.cfg)
-    return {"embed": _np(model.embed), "lnf": _np(model.lnf),
-            "layers": [{key: _np(getattr(blk, key)) for key in keys}
+    return {"embed": _np_leaf(model.embed), "lnf": _np(model.lnf),
+            "layers": [{key: _np_leaf(getattr(blk, key)) for key in keys}
                        for blk in model.layers]}
 
 
 def params_to_global(model: Transformer) -> Dict[str, Any]:
     """The global (canonical) JAX tree of a model on a mesh: each
     rank's blocks all-gathered under :func:`~.parallel.transformer.
-    param_specs`, as f32 numpy arrays. Collective: every rank of the
-    mesh must call it. Off a mesh it is :func:`params_to_numpy`."""
+    param_specs`, as f32 numpy arrays (an int8 weight's payload and
+    scales gathered alike). Collective: every rank of the mesh must call
+    it. Off a mesh it is :func:`params_to_numpy`."""
     if model.mesh is None:
         return params_to_numpy(model)
     specs = param_specs(model.cfg, model.mesh)
     keys = _layer_keys(model.cfg)
 
     def g(t, spec):
+        if isinstance(t, QuantizedWeight):
+            return QuantizedTensor(
+                q=gather_global(t.q, spec, model.mesh).cpu().numpy(),
+                scale=_np(gather_global(t.scale, _scale_spec(spec),
+                                        model.mesh)))
         return _np(gather_global(t, spec, model.mesh))
-    return {"embed": _np(model.embed), "lnf": _np(model.lnf),
+    return {"embed": _np_leaf(model.embed), "lnf": _np(model.lnf),
             "layers": [{key: g(getattr(blk, key), sp[key]) for key in keys}
                        for blk, sp in zip(model.layers, specs["layers"])]}
+
+
+def _leaf_of(tree: Dict[str, Any], name: str) -> Any:
+    node = tree
+    for part in name.split("."):
+        node = node[int(part)] if part.isdigit() else node[part]
+    return node
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
                     device: DeviceLike = "cuda", mesh=None) -> Transformer:
     """Build a :class:`Transformer` on ``device`` holding ``tree``'s
-    weights (as f32): on a ``mesh``, this rank's block of each global
-    leaf (:func:`~.parallel.transformer.param_specs`). Raises
-    ``ValueError`` on a missing leaf or a shape that does not match
-    ``cfg``."""
+    weights: float leaves as f32 parameters, int8 leaves (``(q, scale)``
+    pairs: the JAX package's ``QuantizedTensor`` or the port's) as
+    :class:`~.ops.quant.QuantizedWeight` buffers — the payload and its
+    f32 scales, with no float copy of the weight ever allocated. On a
+    ``mesh``, this rank's block of each global leaf
+    (:func:`~.parallel.transformer.param_specs`; a scale split as its
+    column). Raises ``ValueError`` on a missing leaf, a shape that does
+    not match ``cfg``, or an int8 norm scale."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev, mesh=mesh)
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"tree has {len(tree['layers'])} layers, cfg "
                          f"{cfg.n_layers}")
     specs = param_specs(cfg, mesh)
-    pairs = [(model.embed, tree["embed"], "embed", ()),
-             (model.lnf, tree["lnf"], "lnf", ())]
-    for i, (blk, leaves) in enumerate(zip(model.layers, tree["layers"])):
-        pairs += [(getattr(blk, key), leaves[key], f"layers[{i}].{key}",
-                   specs["layers"][i][key]) for key in _layer_keys(cfg)]
+
+    def spec_of(name):
+        return specs["layers"][0][name.rsplit(".", 1)[1]] \
+            if name.startswith("layers.") else ()
+
+    def block(arr, spec):
+        if mesh is not None:
+            arr = local_slice(arr, spec, mesh)
+        return np.ascontiguousarray(arr)
+
+    def weights(name, shape):
+        leaf = _leaf_of(tree, name)
+        where = name.replace("layers.", "layers[", 1).replace(".", "].", 1) \
+            if name.startswith("layers.") else name
+        spec = spec_of(name)
+        want = tuple(local_slice(np.empty(shape, np.int8), spec, mesh).shape
+                     if mesh is not None else shape)
+        qt = as_quantized(leaf)
+        if qt is None:
+            arr = block(_float_leaf(leaf, where), spec)
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{where}: shape {arr.shape} does not "
+                                 f"match {want}")
+            return torch.nn.Parameter(torch.tensor(arr, device=dev))
+        if len(shape) < 2:
+            raise ValueError(f"{where}: an int8 norm scale; quantize only "
+                             f"the matmul weights (min_ndim=2)")
+        q = np.asarray(qt.q)
+        scale = np.asarray(qt.scale)
+        if q.dtype != np.int8 or scale.dtype != np.float32 \
+                or tuple(q.shape) != tuple(shape) \
+                or tuple(scale.shape) != tuple(shape[-1:]):
+            raise ValueError(
+                f"{where}: (q, scale) of {q.dtype}{tuple(q.shape)}, "
+                f"{scale.dtype}{tuple(scale.shape)} does not match int8"
+                f"{tuple(shape)}, float32{tuple(shape[-1:])}")
+        return QuantizedWeight(
+            torch.tensor(block(q, spec), device=dev),
+            torch.tensor(block(scale, _scale_spec(spec)), device=dev))
+
     with torch.no_grad():
-        for param, leaf, name, spec in pairs:
-            arr = _float_leaf(leaf, name)
-            if mesh is not None:
-                arr = np.ascontiguousarray(local_slice(arr, spec, mesh))
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"{name}: shape {arr.shape} does not match "
-                                 f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(arr))
-    return model
+        return Transformer(cfg, device=dev, mesh=mesh, weights=weights)
+
+
+def quantize_model(model: Transformer) -> Transformer:
+    """A new int8 :class:`Transformer` on ``model``'s device (and mesh):
+    the host :func:`~.ops.quant.quantize_tree` of its global weights
+    through :func:`params_from_jax` — the model that
+    ``restore_for_inference(dtype="int8")`` of its checkpoint serves.
+    On a mesh the weights are gathered first (collective), so each
+    scale is its unsharded column's."""
+    return params_from_jax(quantize_tree(params_to_global(model)),
+                           model.cfg, device=model.device, mesh=model.mesh)
 
 
 def pp_params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, mesh,

@@ -138,19 +138,24 @@ def _flatten(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     return [(path, tree)]
 
 
-def _map(fn, tree: Any, path: Tuple = (), with_path: bool = False) -> Any:
+def _map(fn, tree: Any, path: Tuple = (), with_path: bool = False,
+         is_leaf=None) -> Any:
     """``tree`` with every leaf replaced by ``fn(leaf)`` (``fn(key path,
-    leaf)`` with ``with_path``)."""
+    leaf)`` with ``with_path``); ``is_leaf(node)`` true stops the walk
+    at ``node``."""
     if tree is None:
         return None
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree) if with_path else fn(tree)
     if isinstance(tree, Fields):
-        return Fields((k, _map(fn, v, path + (("attr", k),), with_path))
+        return Fields((k, _map(fn, v, path + (("attr", k),), with_path,
+                               is_leaf))
                       for k, v in tree.items())
     if isinstance(tree, dict):
-        return {k: _map(fn, v, path + (("key", k),), with_path)
+        return {k: _map(fn, v, path + (("key", k),), with_path, is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v, path + (("idx", i),), with_path)
+        return [_map(fn, v, path + (("idx", i),), with_path, is_leaf)
                 for i, v in enumerate(tree)]
     return fn(path, tree) if with_path else fn(tree)
 
@@ -1058,16 +1063,23 @@ def restore_local(directory: str, step: int, params: Any, opt_state: Any,
 
 # -- serving restore ----------------------------------------------------------
 
-#: restore_for_inference's serving dtypes (None = as stored).
-INFERENCE_DTYPES = (None, "fp32", "bf16")
+#: restore_for_inference's serving dtypes. None = as stored; "int8" is
+#: weight-only per-channel quantization (``ops/quant.py``) that the
+#: generation forwards dequantize where they use each weight.
+INFERENCE_DTYPES = (None, "fp32", "bf16", "int8")
 
 
 def _inference_cast(variables: Any, dtype: Optional[str]) -> Any:
     """The serving dtype, applied after verification (manifests record the
-    stored bytes). bf16 leaves come back as CPU ``torch.bfloat16``
-    tensors: numpy has no bfloat16."""
+    stored bytes, never the quantized or downcast view). bf16 leaves come
+    back as CPU ``torch.bfloat16`` tensors: numpy has no bfloat16; int8
+    quantizes every float leaf of ndim >= 2 into a
+    :class:`~..ops.quant.QuantizedTensor` of numpy arrays."""
     if dtype is None:
         return variables
+    if dtype == "int8":
+        from ..ops.quant import quantize_tree
+        return quantize_tree(variables)
 
     def one(a):
         a = np.asarray(a)
@@ -1090,13 +1102,17 @@ def restore_for_inference(directory: str, step: Optional[int] = None, *,
     ``{params, opt_state}`` — and reads only those subtrees: the
     optimizer state's files are never opened.
 
-    ``dtype``: ``None`` serves the stored dtypes, ``"fp32"``/``"bf16"``
-    cast every float leaf after verification (bf16 as CPU
-    ``torch.bfloat16`` tensors). A truncated file, a garbage directory or
-    a flipped byte raises :class:`~horovod_tpu_torch.exceptions.
-    CheckpointCorruptError` naming the path (and the leaf at fault); when
-    a manifest is present the read leaves are CRC-checked against it as
-    a subset.
+    ``dtype`` (:data:`INFERENCE_DTYPES`, checked before any I/O):
+    ``None`` serves the stored dtypes, ``"fp32"``/``"bf16"`` cast every
+    float leaf after verification (bf16 as CPU ``torch.bfloat16``
+    tensors), ``"int8"`` quantizes the matmul weights (float leaves of
+    ndim >= 2) into :class:`~..ops.quant.QuantizedTensor` pairs of an
+    int8 payload and per-channel f32 scales, strictly after the CRCs
+    were checked against the stored f32 leaves. A truncated file, a
+    garbage directory or a flipped byte raises
+    :class:`~horovod_tpu_torch.exceptions.CheckpointCorruptError` naming
+    the path (and the leaf at fault); when a manifest is present the
+    read leaves are CRC-checked against it as a subset.
 
     With ``mesh`` set, every leaf comes back as this rank's block of it
     under ``spec_fn(path, leaf)``'s spec on ``mesh`` (per dimension the
@@ -1105,13 +1121,10 @@ def restore_for_inference(directory: str, step: Optional[int] = None, *,
     the JAX function's global arrays placed by ``named_sharding_tree``.
     A spec of None, and every leaf without ``spec_fn``, is fully
     replicated; without ``mesh`` ``spec_fn`` is unused, as in JAX.
-    Verification runs first, on the stored leaves.
-
-    ``dtype="int8"`` is ``ROADMAP.md`` Queue 1 item 12."""
-    if dtype == "int8":
-        raise NotImplementedError(
-            "restore_for_inference(dtype='int8') — int8 serving weights "
-            "are ROADMAP.md Queue 1 item 12")
+    Verification runs first, on the stored leaves. An int8 leaf is
+    quantized whole first and its payload and scales then split (the
+    scales by the spec's last dimension), so every scale is that of the
+    unsharded weight's column."""
     if dtype not in INFERENCE_DTYPES:
         raise ValueError(
             f"restore_for_inference dtype={dtype!r} is not supported; "
@@ -1137,25 +1150,42 @@ def restore_for_inference(directory: str, step: Optional[int] = None, *,
     if manifest is not None:
         _verify_leaves(path, manifest,
                        (Fields if attrs else dict)(variables), subset=True)
+    # int8 quantizes the global leaves, before a mesh splits them; the
+    # other casts apply to the blocks.
+    quantized = dtype == "int8"
+    if quantized:
+        variables = _inference_cast(variables, dtype)
     if mesh is not None:
         variables = {k: _place(v, mesh, spec_fn, (k,))
                      for k, v in variables.items()}
-    return _inference_cast(variables, dtype)
+    return variables if quantized else _inference_cast(variables, dtype)
 
 
 def _place(tree: Any, mesh, spec_fn, prefix: Tuple) -> Any:
     """Each leaf of a loaded serving subtree as this rank's block under
-    ``spec_fn(key tuple, leaf)`` on ``mesh`` (replicated for None)."""
+    ``spec_fn(key tuple, leaf)`` on ``mesh`` (replicated for None); a
+    quantized leaf's payload by the spec, its scales by the spec's last
+    dimension."""
+    from ..ops.quant import QuantizedTensor, as_quantized
     from .mesh import local_slice
 
-    def one(kp, leaf):
-        path = prefix + tuple(k for _, k in kp)
-        spec = spec_fn(path, leaf) if spec_fn is not None else None
-        arr = np.asarray(leaf)
+    def block(arr, spec):
+        arr = np.asarray(arr)
         if spec is None or not arr.ndim:
             return arr
         return _contiguous(local_slice(arr, spec, mesh))
-    return _map(one, tree, with_path=True)
+
+    def one(kp, leaf):
+        path = prefix + tuple(k for _, k in kp)
+        qt = as_quantized(leaf)
+        if qt is None:
+            return block(leaf, spec_fn(path, leaf) if spec_fn else None)
+        spec = spec_fn(path, qt.q) if spec_fn else None
+        return QuantizedTensor(
+            q=block(qt.q, spec),
+            scale=block(qt.scale, None if spec is None
+                        else tuple(spec)[-1:]))
+    return _map(one, tree, with_path=True, is_leaf=as_quantized)
 
 
 # -- LoRA adapters: one directory per adapter, manifest-CRC-verified like

@@ -61,6 +61,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops.attention import (flash_attention, flash_attention_prefill,
                              flash_attention_qkv, flash_attention_reference,
                              flash_supported, qkv_flash_tilable)
+from ..ops.quant import QuantizedWeight, dequantize, is_quantized
 from .mesh import local_slice
 from .moe import moe_ffn
 from .ring import ring_attention
@@ -162,30 +163,29 @@ def spec_of(specs: Dict, name: str):
     return node
 
 
+def _block_leaves(cfg: TransformerConfig):
+    """``(name, shape, init std)`` of one layer's leaves in draw order
+    (std None: a norm scale of ones)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    leaves = [("ln1", (d,), None), ("wqkv", (d, 3 * d), d ** -0.5),
+              ("wo", (d, d), d ** -0.5), ("ln2", (d,), None)]
+    if cfg.n_experts:
+        E = cfg.n_experts
+        return leaves + [("gate", (d, E), d ** -0.5),
+                         ("w1", (E, d, ff), d ** -0.5),
+                         ("w2", (E, ff, d), ff ** -0.5)]
+    return leaves + [("w1", (d, ff), d ** -0.5), ("w2", (ff, d), ff ** -0.5)]
+
+
 class Block(nn.Module):
-    """One pre-norm layer's parameters (JAX names and layouts), this
-    rank's blocks of them under ``take`` (identity off a mesh)."""
+    """One pre-norm layer's weights (JAX names and layouts), each from
+    ``make(name, shape, std)``: an ``nn.Parameter``, or a
+    :class:`~..ops.quant.QuantizedWeight` in an int8 model."""
 
-    def __init__(self, cfg: TransformerConfig, normal: Callable,
-                 take: Callable = lambda name, t: t):
+    def __init__(self, cfg: TransformerConfig, make: Callable):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
-
-        def param(name, shape, std):
-            setattr(self, name, nn.Parameter(take(name, normal(shape, std))))
-
-        param("ln1", (d,), None)
-        param("wqkv", (d, 3 * d), d ** -0.5)
-        param("wo", (d, d), d ** -0.5)
-        param("ln2", (d,), None)
-        if cfg.n_experts:
-            E = cfg.n_experts
-            param("gate", (d, E), d ** -0.5)
-            param("w1", (E, d, ff), d ** -0.5)
-            param("w2", (E, ff, d), ff ** -0.5)
-        else:
-            param("w1", (d, ff), d ** -0.5)
-            param("w2", (ff, d), ff ** -0.5)
+        for name, shape, std in _block_leaves(cfg):
+            setattr(self, name, make(name, shape, std))
 
 
 class Transformer(nn.Module):
@@ -199,39 +199,60 @@ class Transformer(nn.Module):
     On a ``mesh`` every rank draws the same global weights and keeps its
     block of each under :func:`param_specs` (so the model computes the
     function of the unsharded one; seed alike on every rank), and the
-    forwards run the mesh's axes."""
+    forwards run the mesh's axes.
+
+    ``weights(name, shape)`` supplies each leaf (``"embed"``, ``"lnf"``,
+    ``"layers.3.wqkv"``; this rank's block on a mesh) instead of drawing
+    it: an ``nn.Parameter``, or a :class:`~..ops.quant.QuantizedWeight`
+    for an int8 model (:func:`~..convert.params_from_jax` builds one
+    that way, with no float copy of the weight). An int8 model serves
+    only: the generation forwards dequantize each weight where they use
+    it, the training forwards refuse it."""
 
     def __init__(self, cfg: TransformerConfig, *,
                  generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = "cuda", mesh=None):
+                 device: DeviceLike = "cuda", mesh=None,
+                 weights: Optional[Callable] = None):
         super().__init__()
         check_mesh(cfg, mesh)
         dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-
-        def normal(shape, std):
-            if std is None:
-                return torch.ones(shape, device=dev)
-            return torch.randn(shape, generator=generator, device=dev) * std
-
         self.cfg = cfg
         self.mesh = mesh
-        specs = param_specs(cfg, mesh)["layers"][0] if cfg.n_layers else {}
+        if weights is not None:
+            def leaf(name, shape, std):
+                return weights(name, shape)
+        else:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            specs = param_specs(cfg, mesh)["layers"][0] if cfg.n_layers \
+                else {}
 
-        def take(name, t):
-            if mesh is None:
-                return t
-            return local_slice(t, specs[name], mesh).clone()
+            def leaf(name, shape, std):
+                if std is None:
+                    t = torch.ones(shape, device=dev)
+                else:
+                    t = torch.randn(shape, generator=generator,
+                                    device=dev) * std
+                key = name.rsplit(".", 1)[-1]
+                if mesh is not None and name.startswith("layers."):
+                    t = local_slice(t, specs[key], mesh).clone()
+                return nn.Parameter(t)
 
-        self.embed = nn.Parameter(normal((cfg.vocab, cfg.d_model), 0.02))
-        self.lnf = nn.Parameter(normal((cfg.d_model,), None))
-        self.layers = nn.ModuleList(Block(cfg, normal, take)
-                                    for _ in range(cfg.n_layers))
+        self.embed = leaf("embed", (cfg.vocab, cfg.d_model), 0.02)
+        self.lnf = leaf("lnf", (cfg.d_model,), None)
+        self.layers = nn.ModuleList(
+            Block(cfg, lambda name, shape, std, i=i: leaf(
+                f"layers.{i}.{name}", shape, std))
+            for i in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.lnf.device
+
+    @property
+    def quantized(self) -> bool:
+        """Whether any weight is held as int8 (an inference-only model)."""
+        return any(isinstance(m, QuantizedWeight) for m in self.modules())
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens)
@@ -242,19 +263,60 @@ def gen_weights(model: Transformer) -> Dict:
     parameter tree: projections cast to ``cfg.dtype`` once (not at every
     matmul), norm scales and the embedding f32, the unembedding in
     ``cfg.unembed_dtype``. Casts to the parameters' own dtype are free
-    (no copy). Call under ``torch.no_grad()`` for inference."""
+    (no copy). An int8 weight stays a :class:`~..ops.quant.
+    QuantizedTensor` of the model's buffers, which the forwards
+    dequantize where they use it (the tied unembedding is then the
+    embedding's pair). Call under ``torch.no_grad()`` for inference."""
     cfg = model.cfg
     dt = cfg.dtype
+
+    def proj(t):
+        return t.tensor() if isinstance(t, QuantizedWeight) else t.to(dt)
     layers = []
     for b in model.layers:
-        layer = {"ln1": b.ln1, "wqkv": b.wqkv.to(dt), "wo": b.wo.to(dt),
-                 "ln2": b.ln2, "w1": b.w1.to(dt), "w2": b.w2.to(dt)}
+        layer = {"ln1": b.ln1, "wqkv": proj(b.wqkv), "wo": proj(b.wo),
+                 "ln2": b.ln2, "w1": proj(b.w1), "w2": proj(b.w2)}
         if cfg.n_experts:
-            layer["gate"] = b.gate.to(dt)
+            layer["gate"] = proj(b.gate)
         layers.append(layer)
-    return {"embed": model.embed,
-            "unembed": model.embed.to(cfg.unembed_dtype),
-            "lnf": model.lnf, "layers": layers}
+    if isinstance(model.embed, QuantizedWeight):
+        embed = unembed_w = model.embed.tensor()
+    else:
+        embed, unembed_w = model.embed, model.embed.to(cfg.unembed_dtype)
+    return {"embed": embed, "unembed": unembed_w, "lnf": model.lnf,
+            "layers": layers}
+
+
+def _check_float(w: Dict, what: str) -> None:
+    """Refuse int8 weights where only float ones run: int8 is for
+    inference only, as in the JAX package (its training step
+    differentiates float leaves)."""
+    if any(is_quantized(t) for t in [w["embed"]] + [
+            t for layer in w["layers"] for t in layer.values()]):
+        raise ValueError(
+            f"{what} takes float weights; this model holds int8 "
+            f"(quantized) weights, which serve only (the generation "
+            f"forwards of GenerationEngine)")
+
+
+def _w(layer: Dict, name: str, cfg: TransformerConfig) -> torch.Tensor:
+    """``layer[name]`` in ``cfg.dtype`` where the forward uses it: an
+    int8 weight dequantizes here (``q * scale`` in f32, then
+    ``cfg.dtype``: the reference's rounding points), one weight at a
+    time."""
+    t = layer[name]
+    return dequantize(t, cfg.dtype) if is_quantized(t) else t
+
+
+def _embed(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig
+           ) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in ``cfg.dtype``. An int8 table
+    gathers its int8 rows, then scales them: bitwise the rows of the
+    dequantized table, without dequantizing the table."""
+    e, idx = w["embed"], tokens.long()
+    if is_quantized(e):
+        return (e.q[idx] * e.scale).to(cfg.dtype)
+    return e[idx].to(cfg.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -290,17 +352,17 @@ def _layer(layer: Dict, x: torch.Tensor, cfg: TransformerConfig,
     forwards (JAX ``_prompt_forward``/``_step_forward``'s ``dl``)."""
     dl = _no_delta if delta is None else delta
     h = rms_norm(x, layer["ln1"])
-    attn = attend(dl("wqkv", h, h @ layer["wqkv"]))
+    attn = attend(dl("wqkv", h, h @ _w(layer, "wqkv", cfg)))
     a = attn.to(cfg.dtype)
-    proj = dl("wo", a, a @ layer["wo"])
+    proj = dl("wo", a, a @ _w(layer, "wo", cfg))
     if reduce is not None:
         proj = reduce(proj)
     x = x + proj
     h2 = rms_norm(x, layer["ln2"])
     if ffn is not None:
         return x + ffn(layer, h2)
-    up = F.gelu(dl("w1", h2, h2 @ layer["w1"]), approximate="tanh")
-    down = dl("w2", up, up @ layer["w2"])
+    up = F.gelu(dl("w1", h2, h2 @ _w(layer, "w1", cfg)), approximate="tanh")
+    down = dl("w2", up, up @ _w(layer, "w2", cfg))
     if reduce is not None:
         down = reduce(down)
     return x + down
@@ -379,8 +441,13 @@ def unembed(w: Dict, x: torch.Tensor, cfg: TransformerConfig
             ) -> torch.Tensor:
     """Tied-head logits ``[..., vocab]`` f32 from the final hidden states
     (already through the final norm; :func:`_logits` of the tied
-    unembedding)."""
-    return _logits(x, w["unembed"], cfg)
+    unembedding). An int8 embedding dequantizes into
+    ``cfg.unembed_dtype`` here, as the reference casts its dequantized
+    f32 table."""
+    u = w["unembed"]
+    if is_quantized(u):
+        u = dequantize(u, cfg.unembed_dtype)
+    return _logits(x, u, cfg)
 
 
 def attend_heads(qkv: torch.Tensor, cfg: TransformerConfig,
@@ -437,8 +504,10 @@ def _moe_ffn(mesh, aux: list) -> Callable:
 def _hidden(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
             mesh=None, aux: Optional[list] = None) -> torch.Tensor:
     """The final hidden states; on a mesh the layers run its axes and a
-    MoE layer appends its load-balance loss to ``aux``."""
-    x = w["embed"][tokens.long()].to(cfg.dtype)                 # [B, T, D]
+    MoE layer appends its load-balance loss to ``aux``. Float weights
+    only (the training forward)."""
+    _check_float(w, "the training forward")
+    x = _embed(w, tokens, cfg)                                  # [B, T, D]
     attend = _train_attend(cfg, tokens.shape[-1], mesh)
     run = remat_layer if cfg.remat else _layer
     kw = {}
@@ -585,7 +654,7 @@ def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
     the hook may gather the just-stored rows back out of a paged pool.
     ``delta(li, name, x, y)`` adjusts each target matmul's output (the
     LoRA hook, :mod:`.lora`). Returns logits ``[T, vocab]`` f32."""
-    x = w["embed"][tokens.long()][None].to(cfg.dtype)           # [1, T, D]
+    x = _embed(w, tokens, cfg)[None]                            # [1, T, D]
     flash = (flash_attention_prefill
              if flash_supported(x.device, cfg.dtype, cfg.d_head)
              else flash_attention_reference)
@@ -608,7 +677,7 @@ def step_forward(w: Dict, last_tokens: torch.Tensor,
     ``[S, H, dh]`` → attention of the same shape); ``delta(li, name, x,
     y)`` is the per-slot LoRA hook (row-independent, :mod:`.lora`).
     Returns logits ``[S, vocab]`` f32."""
-    x = w["embed"][last_tokens.long()].to(cfg.dtype)             # [S, D]
+    x = _embed(w, last_tokens, cfg)                             # [S, D]
     for li, layer in enumerate(w["layers"]):
         x = _layer(layer, x, cfg, lambda qkv, li=li: mix(
             li, *_split_heads(qkv, cfg)).flatten(-2),
@@ -856,6 +925,10 @@ def make_parallel_train_step(cfg: TransformerConfig,
             model = Transformer(cfg, generator=gen, device=dev, mesh=mesh)
         elif model.cfg != cfg:
             raise ValueError(f"model.cfg {model.cfg} is not {cfg}")
+        elif model.quantized:
+            raise ValueError(
+                "make_parallel_train_step takes float weights; this model "
+                "holds int8 (quantized) weights, which serve only")
         elif model.mesh is not mesh:
             raise ValueError("the model was built on another mesh than "
                              "the step's")

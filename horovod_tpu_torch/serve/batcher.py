@@ -1,18 +1,39 @@
-"""Bounded request queue and power-of-two buckets.
+"""Dynamic batching: request queue, power-of-two buckets, padding.
 
-A copy of the JAX package's ``serve/batcher.py`` pieces the generation
-engine uses (``RequestQueue``, ``bucket_for``) — framework-neutral host
-code, copied because the port never imports the JAX package.
+A copy of the JAX package's ``serve/batcher.py`` (framework-neutral host
+code, numpy in and out; copied because the port never imports the JAX
+package). Single requests arrive on a bounded queue and leave as padded
+batches of a power-of-two bucket size, at most ``log2(max_batch) + 1``
+shapes, each run once by ``warmup()``. A batch ships when it reaches
+``max_batch`` or when its oldest request has waited
+``batch_timeout_ms``. Padding replicates row 0, so a padded batch cannot
+make NaN or Inf rows out of zeros in a model whose rows interact.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from collections import deque
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from ..exceptions import ServerClosedError, ServerOverloadedError
+
+
+def bucket_sizes(max_batch: int) -> Tuple[int, ...]:
+    """(1, 2, 4, …, max_batch). ``max_batch`` must be a power of two so
+    the top bucket and the flush threshold coincide."""
+    if max_batch < 1 or (max_batch & (max_batch - 1)):
+        raise ValueError(f"max_batch must be a power of two, got {max_batch}")
+    sizes = []
+    b = 1
+    while b <= max_batch:
+        sizes.append(b)
+        b *= 2
+    return tuple(sizes)
 
 
 def bucket_for(n: int, buckets: Sequence[int]) -> int:
@@ -21,6 +42,38 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
         if n <= b:
             return b
     raise ValueError(f"batch of {n} exceeds the top bucket {buckets[-1]}")
+
+
+def pad_rows(rows: Sequence[np.ndarray], bucket: int) -> np.ndarray:
+    """Stack single-example rows into a [bucket, *item_shape] array,
+    replicating row 0 into the padding slots."""
+    n = len(rows)
+    if not 0 < n <= bucket:
+        raise ValueError(f"{n} rows do not fit bucket {bucket}")
+    return np.stack(list(rows) + [rows[0]] * (bucket - n))
+
+
+@dataclasses.dataclass
+class Request:
+    """One queued single-shot request (a single example)."""
+
+    inputs: np.ndarray
+    future: Any                      # concurrent.futures.Future
+    enqueued_at: float               # time.monotonic()
+    deadline_at: Optional[float]     # absolute monotonic deadline, or None
+    # Filled by the engine at dispatch. ``executed_batch`` (only with
+    # ``ServeConfig.record_executed_batch``: it pins the padded array for
+    # the future's lifetime) is the [bucket, *item] program input and
+    # ``row`` this request's row in it: ``apply_fn(variables,
+    # executed_batch)[row]`` is bitwise the served output.
+    bucket: Optional[int] = None
+    executed_batch: Optional[np.ndarray] = None
+    row: Optional[int] = None
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        if self.deadline_at is None:
+            return False
+        return (time.monotonic() if now is None else now) >= self.deadline_at
 
 
 class RequestQueue:

@@ -954,6 +954,13 @@ class GenerationEngine(ReadinessMixin):
                 f"all {self._cfg.max_slots} decode slots busy and the "
                 f"queue is full — raise max_slots/max_queue or shed load")
 
+    def _active_rows(self) -> int:
+        """Live decode slots plus held requests (block-starved, waiting
+        on a prefetch, or preempted): with the queue depth
+        (:meth:`~.engine.ReadinessMixin.load`), a dispatcher's
+        least-depth signal. Lock-free reads: approximate by design."""
+        return sum(r is not None for r in self._slots) + len(self._held)
+
     def stats(self) -> Dict:
         """The ``/stats`` snapshot: :class:`ServeMetrics` plus the slot,
         bucket, (paged) block-pool and adapter-table view
@@ -992,6 +999,22 @@ class GenerationEngine(ReadinessMixin):
         snap["device"] = str(self._device)
         snap["max_queue"] = self._cfg.max_queue
         return snap
+
+    def prom_collect(self):
+        """This engine's ``(meta, samples)`` in Prometheus terms:
+        everything :meth:`stats` knows (TTFT, tokens/s per user, block
+        gauges, prefix hit rate, rejection splits, tenants) plus the
+        histograms, labelled ``engine="generate"``
+        (:func:`~.metrics.collect_stats`)."""
+        from .metrics import collect_stats
+        return collect_stats(self.stats(), self._metrics.registry,
+                             engine="generate")
+
+    def prom_metrics(self) -> str:
+        """Prometheus text exposition of :meth:`prom_collect` (the
+        ``/metrics`` body when this engine serves alone)."""
+        from ..obs.registry import render
+        return render(*self.prom_collect())
 
     # -- the multi-tenant adapter surface ----------------------------------
 

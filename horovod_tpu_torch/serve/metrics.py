@@ -1,16 +1,20 @@
-"""Serving counters and latency quantiles of the generation engine.
+"""Serving observability: counters, latency quantiles, batch fill, and
+their Prometheus exposition.
 
-The subset of the JAX package's ``serve/metrics.py`` ``ServeMetrics`` that
-``GenerationEngine`` calls, with the same snapshot keys: request,
-overload (split ``slots_full`` / ``blocks_exhausted`` / ``tenant_quota``),
-deadline and batch counters, the prefix-cache, host-tier, chunked-prefill,
+Port of the JAX package's ``serve/metrics.py`` (without the fleet's
+``FleetMetrics``), with the same snapshot keys: request, overload (split
+``slots_full`` / ``blocks_exhausted`` / ``tenant_quota``), deadline and
+batch counters, the prefix-cache, host-tier, chunked-prefill,
 speculation and preemption counters, bounded-reservoir percentiles of
-request latency, queue wait, decode-step time, time to first token,
+request latency, queue wait, execute time, time to first token,
 per-stream decode rate and the speculation step's draft and verify
-times, and the per-tenant split (``tenants``: TTFT, tokens, generations,
-preemptions and the SLO burn of each tenant, evicted tenants folded into
-``retired``). The Prometheus exposition (the ``hvd_tenant_*`` series
-among it) comes with the ``/metrics`` route.
+times, and the per-tenant split (``tenants``; evicted tenants folded
+into ``retired``). Each engine's :class:`ServeMetrics` also carries a
+private :class:`~..obs.registry.MetricsRegistry` with the reference's
+histograms and ``hvd_tenant_*`` series (names, help strings, buckets,
+labels); :func:`collect_stats` maps a ``/stats`` snapshot onto the
+stable ``hvd_*`` series and merges them, each sample labelled
+``engine=``, for the ``/metrics`` route.
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ from __future__ import annotations
 import random
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
+from ..obs.registry import Meta, MetricsRegistry, Sample
 from ..version import __version__
 
 
@@ -56,11 +61,76 @@ class _Reservoir:
 
 class ServeMetrics:
     """Thread-safe serving counters + latency recorders (one lock: the
-    submitting threads and the engine loop race on every counter)."""
+    submitting threads and the engine loop race on every counter), and
+    the engine's private Prometheus registry: two engines in one process
+    must not share series. The reservoirs feed the ``/stats``
+    percentiles; the histograms are what a scraper aggregates."""
+
+    # Bucket bounds of the per-user decode rate (tokens/s): not a
+    # latency, so the latency default would waste every bucket under 1.
+    TPS_BUCKETS = (1, 2, 5, 10, 20, 50, 100, 200, 500, 1000)
 
     def __init__(self):
         self._lock = threading.Lock()
         self._t0 = time.monotonic()
+        self.registry = MetricsRegistry()
+        self._h_request = self.registry.histogram(
+            "hvd_request_seconds", "End-to-end request latency")
+        self._h_queue = self.registry.histogram(
+            "hvd_queue_seconds", "Time from submit to execution start")
+        self._h_execute = self.registry.histogram(
+            "hvd_execute_seconds", "Device batch execution time")
+        self._h_ttft = self.registry.histogram(
+            "hvd_generate_ttft_seconds",
+            "Time to first token (submit to the prefill's sampled "
+            "token)")
+        self._h_tps = self.registry.histogram(
+            "hvd_generate_tokens_per_sec_user",
+            "Per-stream decode rate (first token to last)",
+            buckets=self.TPS_BUCKETS)
+        # Per-tenant series: one label, bounded by the resident adapters
+        # + "base" + "retired", never by the user count.
+        self._h_tenant_ttft = self.registry.histogram(
+            "hvd_tenant_ttft_seconds",
+            "Per-tenant time to first token", labels=("tenant",))
+        self._h_tenant_tps = self.registry.histogram(
+            "hvd_tenant_tokens_per_sec_user",
+            "Per-tenant per-stream decode rate", labels=("tenant",),
+            buckets=self.TPS_BUCKETS)
+        self._c_tenant_generations = self.registry.counter(
+            "hvd_tenant_generations_total",
+            "Generation streams finished, by tenant", labels=("tenant",))
+        self._c_tenant_tokens = self.registry.counter(
+            "hvd_tenant_tokens_generated_total",
+            "Tokens sampled, by tenant", labels=("tenant",))
+        # SLO burn against the tenant's own targets: the series exist
+        # only for tenants that declared an SLO or missed a deadline.
+        self._c_tenant_slo_ttft_miss = self.registry.counter(
+            "hvd_tenant_slo_ttft_miss_total",
+            "First tokens later than the tenant's TTFT SLO target",
+            labels=("tenant",))
+        self._c_tenant_slo_deadline_miss = self.registry.counter(
+            "hvd_tenant_slo_deadline_miss_total",
+            "Requests expired past their deadline, by tenant",
+            labels=("tenant",))
+        self._g_tenant_slo_burn = self.registry.gauge(
+            "hvd_tenant_slo_burn",
+            "Fraction of the tenant's outcomes that burned its SLO "
+            "(TTFT misses + deadline misses over completions + "
+            "deadline misses)", labels=("tenant",))
+        self._g_tenant_slo_target = self.registry.gauge(
+            "hvd_tenant_slo_ttft_target_ms",
+            "The tenant's configured TTFT SLO target",
+            labels=("tenant",))
+        self._h_spec_draft = self.registry.histogram(
+            "hvd_spec_draft_seconds",
+            "Host-side draft proposal time per spec step")
+        self._h_spec_verify = self.registry.histogram(
+            "hvd_spec_verify_seconds",
+            "Verify-forward execution time per spec step")
+        self._h_prefetch = self.registry.histogram(
+            "hvd_kv_prefetch_seconds",
+            "Host-to-device prefetch latency per block chain")
         self.requests_total = 0
         self.responses_total = 0
         self.rejected_overload = 0
@@ -132,6 +202,9 @@ class ServeMetrics:
             self._queue_ms.add(queue_ms)
             if tenant is not None:
                 self._tenant(tenant)["deadline_miss_total"] += 1
+                self._refresh_burn(tenant)
+        if tenant is not None:
+            self._c_tenant_slo_deadline_miss.labels(tenant=tenant).inc()
 
     def on_shutdown_cancel(self, n: int) -> None:
         with self._lock:
@@ -148,12 +221,15 @@ class ServeMetrics:
             self.execute_seconds_total += execute_ms / 1e3
             self.queue_depth = queue_depth
             self._execute_ms.add(execute_ms)
+        self._h_execute.observe(execute_ms / 1e3)
 
     def on_response(self, request_ms: float, queue_ms: float) -> None:
         with self._lock:
             self.responses_total += 1
             self._request_ms.add(request_ms)
             self._queue_ms.add(queue_ms)
+        self._h_request.observe(request_ms / 1e3)
+        self._h_queue.observe(queue_ms / 1e3)
 
     def _tenant(self, name: str) -> Dict:
         """The per-tenant recorder bundle (caller holds ``self._lock``)."""
@@ -176,6 +252,11 @@ class ServeMetrics:
         outcomes = t["first_tokens_total"] + t["deadline_miss_total"]
         return misses / outcomes if outcomes else 0.0
 
+    def _refresh_burn(self, tenant: str) -> None:
+        """Re-publish the tenant's burn gauge (caller holds the lock)."""
+        self._g_tenant_slo_burn.labels(tenant=tenant).set(
+            self._burn(self._tenants[tenant]))
+
     def on_first_token(self, ttft_ms: float, tenant: Optional[str] = None,
                        slo_ms: Optional[float] = None) -> None:
         """Time to first token: submit → the prefill's sampled token.
@@ -187,16 +268,27 @@ class ServeMetrics:
                 t = self._tenant(tenant)
                 t["_ttft"].add(ttft_ms)
                 t["first_tokens_total"] += 1
+                missed = slo_ms is not None and ttft_ms > slo_ms
                 if slo_ms is not None:
                     t["slo_ttft_target_ms"] = float(slo_ms)
-                    if ttft_ms > slo_ms:
-                        t["ttft_slo_miss_total"] += 1
+                    self._g_tenant_slo_target.labels(
+                        tenant=tenant).set(float(slo_ms))
+                if missed:
+                    t["ttft_slo_miss_total"] += 1
+                self._refresh_burn(tenant)
+        self._h_ttft.observe(ttft_ms / 1e3)
+        if tenant is not None:
+            self._h_tenant_ttft.labels(tenant=tenant).observe(ttft_ms / 1e3)
+            if missed:
+                self._c_tenant_slo_ttft_miss.labels(tenant=tenant).inc()
 
     def on_tokens(self, n: int = 1, tenant: Optional[str] = None) -> None:
         with self._lock:
             self.tokens_generated_total += n
             if tenant is not None:
                 self._tenant(tenant)["tokens_generated_total"] += n
+        if tenant is not None:
+            self._c_tenant_tokens.labels(tenant=tenant).inc(n)
 
     def on_preempt(self, outcome: str,
                    tenant: Optional[str] = None) -> None:
@@ -225,8 +317,10 @@ class ServeMetrics:
 
     def forget_tenant(self, tenant: str) -> None:
         """The tenant's adapter was evicted: fold its counters into the
-        one ``"retired"`` bundle and drop its recorders, so tenant churn
-        cannot grow the per-tenant state without bound."""
+        one ``"retired"`` bundle and series and drop its recorders and
+        labelled series, so tenant churn cannot grow the per-tenant state
+        without bound (counters stay monotone through the fold; histogram
+        children end)."""
         if tenant == "retired":
             return
         with self._lock:
@@ -238,6 +332,22 @@ class ServeMetrics:
                       "first_tokens_total", "ttft_slo_miss_total",
                       "deadline_miss_total", "preemptions_total"):
                 r[k] += t[k]
+        for metric in (self._c_tenant_generations, self._c_tenant_tokens,
+                       self._c_tenant_slo_ttft_miss,
+                       self._c_tenant_slo_deadline_miss):
+            count = metric.labels(tenant=tenant).value
+            metric.remove(tenant=tenant)
+            if count > 0:
+                metric.labels(tenant="retired").inc(count)
+        self._h_tenant_ttft.remove(tenant=tenant)
+        self._h_tenant_tps.remove(tenant=tenant)
+        self._g_tenant_slo_burn.remove(tenant=tenant)
+        self._g_tenant_slo_target.remove(tenant=tenant)
+
+    def ttft_totals(self) -> Tuple[float, int]:
+        """Cumulative ``(seconds_sum, count)`` of the TTFT histogram (what
+        a scraper's ``rate(_sum)/rate(_count)`` differences)."""
+        return self._h_ttft.sum, self._h_ttft.count
 
     def on_spec_step(self, proposed: int, accepted: int, emitted: int,
                      draft_ms: float, verify_ms: float) -> None:
@@ -254,6 +364,9 @@ class ServeMetrics:
             self._spec_draft_ms.add(draft_ms)
             if verify_ms > 0:
                 self._spec_verify_ms.add(verify_ms)
+        self._h_spec_draft.observe(draft_ms / 1e3)
+        if verify_ms > 0:
+            self._h_spec_verify.observe(verify_ms / 1e3)
 
     def on_prefix(self, hit_blocks: int, prompt_blocks: int) -> None:
         """One prefix-cache lookup at admission: ``hit_blocks`` of the
@@ -279,6 +392,7 @@ class ServeMetrics:
         with self._lock:
             self.kv_prefetch_blocks_total += n
             self._prefetch_ms.add(seconds * 1e3)
+        self._h_prefetch.observe(seconds)
 
     def on_chunked_prefill(self, n_chunks: int, n_skipped: int) -> None:
         """One chunked prefill: ``n_chunks`` chunks ran and the prefix
@@ -299,11 +413,16 @@ class ServeMetrics:
             self.generations_total += 1
             if tps is not None:
                 self._tps_user.add(tps)
+                self._h_tps.observe(tps)
             if tenant is not None:
                 t = self._tenant(tenant)
                 t["generations_total"] += 1
                 if tps is not None:
                     t["_tps"].add(tps)
+        if tenant is not None:
+            self._c_tenant_generations.labels(tenant=tenant).inc()
+            if tps is not None:
+                self._h_tenant_tps.labels(tenant=tenant).observe(tps)
 
     def retry_after_ms(self, queue_depth: int) -> float:
         """Backoff hint for an overload rejection: how long until the
@@ -325,7 +444,8 @@ class ServeMetrics:
                     if self.batch_rows_total else None)
             return {
                 "uptime_seconds": time.monotonic() - self._t0,
-                "horovod_tpu_torch_version": __version__,
+                # The reference's key: it feeds hvd_build_info.
+                "horovod_tpu_version": __version__,
                 "requests_total": self.requests_total,
                 "responses_total": self.responses_total,
                 "rejected_overload": self.rejected_overload,
@@ -417,3 +537,175 @@ class ServeMetrics:
                             t["_tps"].quantile(0.99),
                     } for name, t in sorted(self._tenants.items())},
             }
+
+
+# -- Prometheus exposition of the serving plane (the /metrics route) ---------
+#
+# Everything /stats knows, renamed onto the stable hvd_* series of the
+# reference's inventory and merged with the ServeMetrics histograms. The
+# map is explicit: series names are an API, and a renamed snapshot key
+# must break here, not rename a series every dashboard keys on.
+
+# snapshot key -> (series name, type, help)
+_TOP = {
+    "uptime_seconds": ("hvd_uptime_seconds", "gauge",
+                       "Seconds since this engine's metrics started"),
+    "requests_total": ("hvd_requests_total", "counter",
+                       "Requests admitted to the queue"),
+    "responses_total": ("hvd_responses_total", "counter",
+                        "Requests answered successfully"),
+    "rejected_overload": ("hvd_rejected_overload_total", "counter",
+                          "Requests rejected at the door (all reasons)"),
+    "expired_deadline": ("hvd_expired_deadline_total", "counter",
+                         "Requests dropped at dequeue past deadline"),
+    "cancelled_shutdown": ("hvd_cancelled_shutdown_total", "counter",
+                           "Requests cancelled by non-drain shutdown"),
+    "batches_total": ("hvd_batches_total", "counter",
+                      "Device batches executed"),
+    "batch_rows_total": ("hvd_batch_rows_total", "counter",
+                         "Bucket slots executed (padding included)"),
+    "batch_live_rows_total": ("hvd_batch_live_rows_total", "counter",
+                              "Live request rows executed"),
+    "batch_fill_ratio": ("hvd_batch_fill_ratio", "gauge",
+                         "Live rows / executed rows (cumulative)"),
+    "queue_depth": ("hvd_queue_depth", "gauge",
+                    "Admission queue depth at last event"),
+    "max_queue": ("hvd_max_queue", "gauge", "Admission queue capacity"),
+    "max_slots": ("hvd_max_slots", "gauge", "Decode slots configured"),
+    "max_len": ("hvd_max_len", "gauge", "KV positions per stream"),
+    "active_slots": ("hvd_active_slots", "gauge",
+                     "Streams mid-generation right now"),
+    "peak_active_slots": ("hvd_peak_active_slots", "gauge",
+                          "High-water concurrent streams"),
+    "prefix_hit_rate": ("hvd_prefix_hit_rate", "gauge",
+                        "Prefix-cache lookup hit rate"),
+    "block_size": ("hvd_kv_block_size", "gauge",
+                   "Tokens per KV block (paged layout)"),
+    "adapters_resident": ("hvd_adapters_resident", "gauge",
+                          "LoRA adapters resident in the device table"),
+    "spec_k": ("hvd_spec_k", "gauge",
+               "Max draft tokens per decode step (0 = speculation off)"),
+}
+
+_GENERATION = {
+    "generations_total": ("hvd_generations_total", "counter",
+                          "Generation streams finished"),
+    "tokens_generated_total": ("hvd_tokens_generated_total", "counter",
+                               "Tokens sampled across all streams"),
+    "prefix_hits_total": ("hvd_prefix_hits_total", "counter",
+                          "Prefix-cache lookups with >=1 resident block"),
+    "prefix_misses_total": ("hvd_prefix_misses_total", "counter",
+                            "Prefix-cache lookups with no resident block"),
+    "prefix_hit_blocks_total": ("hvd_prefix_hit_blocks_total", "counter",
+                                "Prompt blocks served from the prefix "
+                                "cache"),
+    "prefix_lookup_blocks_total": ("hvd_prefix_lookup_blocks_total",
+                                   "counter",
+                                   "Prompt blocks looked up"),
+    "kv_offload_blocks_total": ("hvd_kv_offload_blocks_total", "counter",
+                                "KV blocks offloaded device -> host"),
+    "kv_prefetch_blocks_total": ("hvd_kv_prefetch_blocks_total", "counter",
+                                 "KV blocks prefetched host -> device"),
+    "prefill_chunks_total": ("hvd_prefill_chunks_total", "counter",
+                             "Prefill scan chunks executed"),
+    "prefill_chunks_skipped_total": ("hvd_prefill_chunks_skipped_total",
+                                     "counter",
+                                     "Prefill scan chunks skipped via "
+                                     "prefix hits"),
+    "preemptions_total": ("hvd_preemptions_total", "counter",
+                          "Streams evicted from a decode slot by a "
+                          "higher-priority admission"),
+    "preempt_resumed_total": ("hvd_preempt_resumed_total", "counter",
+                              "Preempted streams resumed "
+                              "bit-identically"),
+    "preempt_exhausted_total": ("hvd_preempt_exhausted_total", "counter",
+                                "Preempted streams terminated on their "
+                                "retry budget"),
+}
+
+_SPEC = {
+    "steps_total": ("hvd_spec_steps_total", "counter",
+                    "Decode steps supervised by speculation"),
+    "draft_tokens_total": ("hvd_spec_draft_tokens_total", "counter",
+                           "Draft tokens proposed"),
+    "accepted_tokens_total": ("hvd_spec_accepted_tokens_total", "counter",
+                              "Draft tokens accepted into streams"),
+    "emitted_tokens_total": ("hvd_spec_emitted_tokens_total", "counter",
+                             "Tokens emitted by speculation-supervised "
+                             "steps"),
+    "accept_rate": ("hvd_spec_accept_rate", "gauge",
+                    "Accepted / proposed draft tokens (cumulative)"),
+    "tokens_per_step": ("hvd_spec_tokens_per_step", "gauge",
+                        "Effective tokens per decode step (cumulative)"),
+}
+
+_BLOCKS = {
+    "total": ("hvd_kv_blocks_total", "gauge",
+              "Usable KV blocks in the pool"),
+    "free": ("hvd_kv_blocks_free", "gauge", "KV blocks free right now"),
+    "used": ("hvd_kv_blocks_used", "gauge", "KV blocks allocated"),
+    "registered_prefix_blocks": ("hvd_kv_prefix_registered_blocks",
+                                 "gauge",
+                                 "Blocks pinned by the prefix registry"),
+}
+
+
+def _number(v) -> bool:
+    return v is not None and not isinstance(v, bool) \
+        and isinstance(v, (int, float))
+
+
+def collect_stats(snap: Dict, registry: MetricsRegistry,
+                  engine: str) -> Tuple[Meta, List[Sample]]:
+    """One engine's ``(meta, samples)`` for the exposition renderer
+    (:func:`~..obs.registry.render`): the ``/stats`` snapshot mapped onto
+    the stable series names, the rejection split as a labelled counter,
+    the build info, and the registry's histograms and tenant series —
+    every sample labelled ``engine=<engine>``, so two engines merge into
+    one valid scrape."""
+    labels = {"engine": engine}
+    meta: Meta = {}
+    samples: List[Sample] = []
+
+    def emit(table: Dict, src: Dict) -> None:
+        for key, (name, typ, help_) in table.items():
+            v = src.get(key)
+            if not _number(v):
+                continue
+            meta[name] = (typ, help_)
+            samples.append((name, dict(labels), float(v)))
+
+    emit(_TOP, snap)
+    emit(_GENERATION, snap.get("generation") or {})
+    emit(_SPEC, snap.get("spec") or {})
+    blocks = snap.get("blocks") or {}
+    emit(_BLOCKS, blocks)
+    # The tier= split of the block gauges: the unlabelled series stay the
+    # device pool; tier= samples count every block across the hierarchy.
+    for dev_key, host_key in (("total", "host_total"), ("free", "host_free"),
+                              ("used", "host_used")):
+        if host_key not in blocks:
+            continue
+        name = _BLOCKS[dev_key][0]
+        for tier, key in (("device", dev_key), ("host", host_key)):
+            if _number(blocks.get(key)):
+                samples.append((name, {**labels, "tier": tier},
+                                float(blocks[key])))
+    meta["hvd_rejected_total"] = (
+        "counter", "Door rejections split by the scarce resource")
+    for key, reason in (("rejected_slots_full", "slots_full"),
+                        ("rejected_blocks_exhausted", "blocks_exhausted"),
+                        ("rejected_tenant_quota", "tenant_quota")):
+        if key in snap:
+            samples.append(("hvd_rejected_total",
+                            {**labels, "reason": reason}, float(snap[key])))
+    version = snap.get("horovod_tpu_version")
+    if version:
+        meta["hvd_build_info"] = (
+            "gauge", "Constant 1, labeled with the serving build")
+        samples.append(("hvd_build_info",
+                        {**labels, "version": str(version)}, 1.0))
+    h_meta, h_samples = registry.collect(const_labels=labels)
+    meta.update(h_meta)
+    samples.extend(h_samples)
+    return meta, samples

@@ -1,22 +1,32 @@
-"""Thin HTTP front end over :class:`~.generate.GenerationEngine`.
+"""Thin HTTP front end over the serving engines.
 
-Port of the generation routes of the JAX package's ``serve/server.py``
-(stdlib ``http.server`` only), mapping the engine's backpressure contract
-onto HTTP status codes:
+Port of the JAX package's ``serve/server.py`` (stdlib ``http.server``
+only): the single-shot :class:`~.engine.Engine` (``engine=``) and the
+:class:`~.generate.GenerationEngine` (``generate=``), either or both,
+with the engines' backpressure contract mapped onto HTTP status codes:
 
+* ``POST /predict`` with ``{"inputs": <nested list>, "deadline_ms"}`` →
+  200 ``{"outputs": ...}`` from ``engine``;
 * ``POST /generate`` with ``{"tokens": [...], "max_new_tokens",
   "temperature", "top_k", "seed", "eos", "deadline_ms", "stream",
-  "adapter"}`` (``adapter``: the tenant's resident LoRA fine-tune) →
-  200 with **chunked** streaming: one JSON line per sampled token
-  (``{"token": 17}``) the moment the engine emits it, then a final
-  ``{"done": true, "finish_reason": ..., ...}`` line. ``"stream": false``
+  "adapter"}`` (``adapter``: the tenant's resident LoRA fine-tune) → 200
+  with **chunked** streaming from ``generate``: one JSON line per sampled
+  token (``{"token": 17}``) the moment the engine emits it, then a final
+  ``{"done": true, "finish_reason": ..., ...}`` line; ``"stream": false``
   buffers into one JSON object. The stream starts only once the first
-  token exists, so queue-time failures still get real status codes:
-  overload → 503 (with ``retry_after_ms`` and ``Retry-After``), deadline
-  → 504, shut down → 503 (not retryable), bad request → 400.
-* ``GET /stats`` → 200, the engine's snapshot as JSON.
-* ``GET /healthz`` → 200 when ready, 503 while warming or draining;
-  with an adapter registry the body also carries ``adapters_resident``.
+  token exists, so queue-time failures still get real status codes;
+* overload → 503 (with ``retry_after_ms`` and ``Retry-After``),
+  preempted past the retry budget → 503, deadline → 504, shut down →
+  503 (not retryable), bad request or shape → 400;
+* ``GET /stats`` → 200, the primary engine's snapshot (``engine`` when
+  attached, else ``generate``), the generation snapshot nested under
+  ``"generate"`` when both are;
+* ``GET /metrics`` → 200, one Prometheus text exposition (0.0.4) of
+  every attached engine, each sample labelled ``engine=`` (``predict``
+  or ``generate``);
+* ``GET /healthz`` → 200 when every attached engine is ready, 503 while
+  one warms or drains; with an adapter registry the body also carries
+  ``adapters_resident``.
 """
 
 from __future__ import annotations
@@ -26,13 +36,18 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from ..exceptions import (DeadlineExceededError, ServerClosedError,
-                          ServerOverloadedError)
+import numpy as np
+
+from ..exceptions import (DeadlineExceededError, PreemptedError,
+                          ServerClosedError, ServerOverloadedError)
 from .generate import SamplingParams
 
 
 class _Handler(BaseHTTPRequestHandler):
-    gen_engine = None            # installed by HttpServer
+    # Installed by HttpServer: the single-shot Engine, the
+    # GenerationEngine (either may be None).
+    engine = None
+    gen_engine = None
     # HTTP/1.1 for Transfer-Encoding: chunked (the /generate stream);
     # every non-chunked reply carries Content-Length, so keep-alive works.
     protocol_version = "HTTP/1.1"
@@ -60,18 +75,49 @@ class _Handler(BaseHTTPRequestHandler):
             headers = {"Retry-After": str(max(1, int(-(-ra // 1000))))}
         self._reply(503, body, headers)
 
+    def _primary(self):
+        """The engine whose health and stats lead: the single-shot engine
+        when attached, else the generation engine."""
+        return self.engine if self.engine is not None else self.gen_engine
+
     def do_GET(self):
         path = self.path.split("?", 1)[0].rstrip("/")
         if path == "/stats":
-            self._reply(200, self.gen_engine.stats())
+            snap = self._primary().stats()
+            if self.engine is not None and self.gen_engine is not None:
+                snap["generate"] = self.gen_engine.stats()
+            self._reply(200, snap)
+        elif path == "/metrics":
+            # The engines' samples merge before rendering (each carries
+            # its engine= label): two renders concatenated would repeat
+            # # TYPE lines, which the exposition format forbids.
+            meta, samples = {}, []
+            for eng in (self.engine, self.gen_engine):
+                if eng is not None:
+                    m, smp = eng.prom_collect()
+                    meta.update(m)
+                    samples.extend(smp)
+            from ..obs.registry import render
+            body = render(meta, samples).encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
         elif path == "/healthz":
-            ready, status, depth = self.gen_engine.health()
+            primary = self._primary()
+            ready, status, depth = primary.health()
+            if ready and self.gen_engine is not None \
+                    and self.gen_engine is not primary:
+                ready, status, depth = self.gen_engine.health()
             body = {"status": status, "queue_depth": depth}
             # Adapter-table residency: how many fine-tunes this endpoint
             # can serve now (absent without a registry).
-            k = self.gen_engine.adapters_resident()
-            if k is not None:
-                body["adapters_resident"] = int(k)
+            if self.gen_engine is not None:
+                k = self.gen_engine.adapters_resident()
+                if k is not None:
+                    body["adapters_resident"] = int(k)
             self._reply(200 if ready else 503, body)
         else:
             self._reply(404, {"error": f"no such path {self.path}"})
@@ -79,9 +125,9 @@ class _Handler(BaseHTTPRequestHandler):
     def _chunk(self, data: bytes) -> None:
         self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
 
-    def do_POST(self):
-        if self.path != "/generate":
-            self._reply(404, {"error": f"no such path {self.path}"})
+    def _do_generate(self):
+        if self.gen_engine is None:
+            self._reply(404, {"error": "no generation engine attached"})
             return
         try:
             n = int(self.headers.get("Content-Length", 0))
@@ -141,6 +187,10 @@ class _Handler(BaseHTTPRequestHandler):
             self._overloaded(e)
         except DeadlineExceededError as e:
             self._reply(504, {"error": str(e)})
+        except PreemptedError as e:
+            # Preempted past the retry budget before the first token
+            # (headers not sent yet): a retryable 503 with the typed repr.
+            self._reply(503, {"error": repr(e), "retryable": True})
         except ServerClosedError as e:
             self._reply(503, {"error": str(e), "retryable": False})
         except ValueError as e:
@@ -153,13 +203,57 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(500, {"error": f"generation failed: {e!r}"})
 
 
-class HttpServer:
-    """Serve a :class:`~.generate.GenerationEngine` over HTTP on a
-    background thread. ``port=0`` binds an ephemeral port (read it back
-    from ``.port``)."""
+    def do_POST(self):
+        if self.path == "/generate":
+            self._do_generate()
+            return
+        if self.path != "/predict" or self.engine is None:
+            self._reply(404, {"error": f"no such path {self.path}"})
+            return
+        try:
+            n = int(self.headers.get("Content-Length", 0))
+            req = json.loads(self.rfile.read(n) or b"{}")
+            if not isinstance(req, dict):
+                raise ValueError(
+                    f"body must be a JSON object, got {type(req).__name__}")
+            x = np.asarray(req["inputs"])
+            deadline_ms = req.get("deadline_ms")
+            if deadline_ms is not None:
+                deadline_ms = float(deadline_ms)   # "abc" -> 400 below
+        except (ValueError, KeyError, TypeError,
+                json.JSONDecodeError) as e:
+            self._reply(400, {"error": f"bad request: {e!r}"})
+            return
+        try:
+            out = self.engine.infer(x, deadline_ms=deadline_ms)
+            self._reply(200, {"outputs": np.asarray(out).tolist()})
+        except ServerOverloadedError as e:
+            self._overloaded(e)
+        except DeadlineExceededError as e:
+            self._reply(504, {"error": str(e)})
+        except ServerClosedError as e:
+            self._reply(503, {"error": str(e), "retryable": False})
+        except ValueError as e:   # shape mismatch from Engine.submit
+            self._reply(400, {"error": str(e)})
 
-    def __init__(self, generate, host: str = "127.0.0.1", port: int = 0):
-        handler = type("BoundHandler", (_Handler,), {"gen_engine": generate})
+
+class HttpServer:
+    """Serve an :class:`~.engine.Engine` (and/or a
+    :class:`~.generate.GenerationEngine` via ``generate=``) over HTTP on
+    a background thread, with the JAX package's signature. With both
+    attached, ``/predict`` hits the single-shot engine and ``/generate``
+    the generation engine; ``/healthz`` is ready only when every attached
+    engine is, and ``/stats`` nests the generation snapshot under
+    ``"generate"``. ``port=0`` binds an ephemeral port (read it back from
+    ``.port``)."""
+
+    def __init__(self, engine=None, host: str = "127.0.0.1", port: int = 0,
+                 *, generate=None):
+        if engine is None and generate is None:
+            raise ValueError(
+                "HttpServer needs an engine= and/or a generate= engine")
+        handler = type("BoundHandler", (_Handler,),
+                       {"engine": engine, "gen_engine": generate})
         self._httpd = ThreadingHTTPServer((host, port), handler)
         self._httpd.daemon_threads = True
         self.host, self.port = self._httpd.server_address[:2]

@@ -460,7 +460,7 @@ def test_http_adapter_field_and_healthz(model, jax_adapters):
     try:
         eng.warmup()
         want = eng.generate(PROMPT, adapter="a1", timeout=TIMEOUT)["tokens"]
-        with HttpServer(eng) as srv:
+        with HttpServer(generate=eng) as srv:
             conn = http.client.HTTPConnection(srv.host, srv.port,
                                               timeout=60)
             conn.request("POST", "/generate", body=json.dumps(

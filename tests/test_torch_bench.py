@@ -24,6 +24,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -336,6 +337,7 @@ def test_refusals_exit_nonzero_naming_the_roadmap_item(args, needle):
     (("--conv-backend", "fused"), "smoke"),
     (("--accum-steps", "3"), "does not divide"),
     (("--accum-steps", "0"), ">= 1"),
+    (("--rounds", "0"), "--rounds must be >= 1"),
     (("--mesh", "dp=1,ep=2"), "--mesh expects"),
     (("--model", "transformer_lm", "--pp", "2"), "must divide the world"),
     (("--pp", "2"), "conv models are not staged"),
@@ -350,6 +352,29 @@ def test_other_refusals_name_why(args, needle, monkeypatch):
         tbench.main([*args, "--device", "cpu"])
     from horovod_tpu_torch import runtime
     assert not runtime.is_initialized()
+
+
+@pytest.mark.parametrize("model", ["resnet50", "transformer_lm"])
+def test_rounds_sets_the_timed_regions(model, monkeypatch):
+    """``--rounds N`` times N regions for either line, and a --scaling
+    sweep passes it to its worlds."""
+    for var in ("HVD_RANK", "HVD_SIZE", "HVD_LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    seen = []
+    real = tbench._median_rate
+
+    def counting(run_once, units, rounds):
+        seen.append(rounds)
+        return real(run_once, units, rounds)
+    monkeypatch.setattr(tbench, "_median_rate", counting)
+    assert tbench.main(["--device", "cpu", "--model", model,
+                        "--rounds", "2"]) == 0
+    assert seen == [2]
+    args = types.SimpleNamespace(
+        model=model, device="cpu", seed=0, accum_steps=1,
+        conv_backend=None, wire_dtype=None, rounds=1, zero=False,
+        overlap=False)
+    assert tbench._child_args(args)[-2:] == ["--rounds", "1"]
 
 
 @pytest.mark.parametrize("np_,args,mesh", [

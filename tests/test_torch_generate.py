@@ -132,7 +132,7 @@ def test_http_generate_streams_tokens(engine):
     """One POST /generate: chunked JSON lines, one per token, then the
     done line; the tokens equal the engine's own stream."""
     want = engine.generate(SHORT, timeout=TIMEOUT)["tokens"]
-    with HttpServer(engine) as srv:
+    with HttpServer(generate=engine) as srv:
         conn = http.client.HTTPConnection(srv.host, srv.port, timeout=60)
         try:
             conn.request("POST", "/generate",

@@ -33,7 +33,9 @@ import importlib, pkgutil, sys
 import horovod_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for needed in ("horovod_tpu_torch.ops.sparse", "horovod_tpu_torch.elastic",
-               "horovod_tpu_torch.launcher", "horovod_tpu_torch.obs.summary"):
+               "horovod_tpu_torch.launcher", "horovod_tpu_torch.obs.summary",
+               "horovod_tpu_torch.ops.quant",
+               "horovod_tpu_torch.serve.engine"):
     assert needed in names, names
 for name in names:
     if not name.endswith(".__main__"):   # running it would launch

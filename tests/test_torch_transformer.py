@@ -68,16 +68,26 @@ def test_params_from_jax_rejects_wrong_shapes(tree):
 
 
 def test_params_from_jax_refuses_int8_leaves(tree):
-    """The JAX int8 inference format (quantize → (q, scale) pairs) is not
-    carried yet: a clear NotImplementedError, not a silent cast."""
+    """An int8 leaf of the JAX inference format (quantize → a (q, scale)
+    pair) is carried as an int8 weight, with no float copy; a bare int8
+    array (no scales) or an int8 norm scale is refused with a clear
+    ValueError, not a silent cast."""
     from horovod_tpu.ops.quant import quantize
+    from horovod_tpu_torch.ops.quant import QuantizedWeight
     _, tcfg = _configs("f32")
     layers = [dict(layer) for layer in tree["layers"]]
     layers[0]["wqkv"] = quantize(layers[0]["wqkv"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        params_from_jax(dict(tree, layers=layers), tcfg, device="cpu")
+    model = params_from_jax(dict(tree, layers=layers), tcfg, device="cpu")
+    assert isinstance(model.layers[0].wqkv, QuantizedWeight)
+    assert model.layers[0].wqkv.q.dtype == torch.int8 and model.quantized
+    np.testing.assert_array_equal(model.layers[0].wqkv.q.numpy(),
+                                  layers[0]["wqkv"].q)
     layers[0]["wqkv"] = layers[0]["wqkv"].q          # a bare int8 array
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):
+        params_from_jax(dict(tree, layers=layers), tcfg, device="cpu")
+    layers[0]["wqkv"] = tree["layers"][0]["wqkv"]
+    layers[0]["ln1"] = quantize(tree["layers"][0]["ln1"][None])
+    with pytest.raises(ValueError, match="int8 norm scale"):
         params_from_jax(dict(tree, layers=layers), tcfg, device="cpu")
 
 

@@ -10,7 +10,8 @@ tp column/row pair, ring and Ulysses attention, ``moe_ffn``, ``gpipe``
 spec-grouped plane, the four-axis LM step (with ZeRO and overlap), the
 tp MLP on the core stack, the guard, the pipelined step with tp and on
 dp×tp×pp, the checkpoints' mesh reshapes (the 2-D canonical ZeRO form,
-the pipelined stages) and the sharded serving restore — and writes what
+the pipelined stages) and the sharded serving restore (f32 and int8) —
+and writes what
 it saw to
 ``<workdir>/rank<r>.pkl`` for the test process to compare against the
 JAX functions.
@@ -516,6 +517,43 @@ def _infer_case(c, workdir):
             "coords": dict(mesh.coords)}
 
 
+def _infer8_case(c, workdir):
+    """``restore_for_inference(dtype="int8")`` of a tp=2 model's
+    checkpoint with ``mesh=`` and ``spec_fn=``, the f32 restore without
+    mesh, and the int8 blocks of ``params_from_jax`` (the quantized
+    global tree on the mesh) and of ``quantize_model`` (the live model)."""
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.ops.quant import quantize_tree
+    from horovod_tpu_torch.parallel import checkpoint as ckpt
+    from horovod_tpu_torch.parallel import transformer as ttr
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+    cfg = _lm_cfg(c, ttr)
+    mesh = create_hybrid_mesh(tp=2)
+    init, _ = ttr.make_parallel_train_step(
+        cfg, functools.partial(torch.optim.SGD, lr=0.1), mesh=mesh,
+        device="cpu")
+    st = init(seed=3)
+    d = os.path.join(workdir, "infer8")
+    ckpt.save_sharded(d, 0, st.model, st.optimizer)
+    specs = ttr.param_specs(cfg, mesh)
+
+    def spec_fn(path, leaf):
+        node = specs
+        for k in path[1:]:
+            node = node[k]
+        return node
+    full = ckpt.restore_for_inference(d)
+    model = convert.params_from_jax(quantize_tree(full["params"]), cfg,
+                                    device="cpu", mesh=mesh)
+    quantized = convert.quantize_model(st.model)
+    return {"blocks": ckpt.restore_for_inference(d, mesh=mesh,
+                                                 spec_fn=spec_fn,
+                                                 dtype="int8"),
+            "full": full, "coords": dict(mesh.coords),
+            "model": convert.params_to_numpy(model)["layers"],
+            "quantized": convert.params_to_numpy(quantized)["layers"]}
+
+
 class _Counts:
     """Calls of the collectives that carry a step's gradients, counted by
     wrapping ``torch.distributed``'s functions."""
@@ -605,9 +643,10 @@ def run(rank: int, world: int, port: int, workdir: str) -> None:
     hvd.init(device="cpu", timeout=datetime.timedelta(seconds=120))
     out = []
     for c in cases:
-        if c["kind"] in ("ckpt", "zckpt", "ppckpt", "infer"):
+        if c["kind"] in ("ckpt", "zckpt", "ppckpt", "infer", "infer8"):
             fn = {"ckpt": _ckpt_case, "zckpt": _zckpt_case,
-                  "ppckpt": _ppckpt_case, "infer": _infer_case}[c["kind"]]
+                  "ppckpt": _ppckpt_case, "infer": _infer_case,
+                  "infer8": _infer8_case}[c["kind"]]
             out.append(fn(c, workdir))
             continue
         mesh = make_mesh(c["mesh"])
