@@ -10,7 +10,8 @@ card:
 
 * serving — the generation engine serving the bench LM at full width
   (paged and contiguous layouts, prefix reuse with the chunked prefill,
-  the host tier, speculative decoding, LoRA tenants, int8 weights)
+  the host tier, speculative decoding, LoRA tenants, int8 weights; a
+  fleet of thread and subprocess replicas behind one router)
   (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
   of 128, 8 layers, d_ff 8192; random weights from a seed), and the
   single-shot engine serving ResNet-50 beside it over HTTP;
@@ -136,6 +137,25 @@ Phases, one JSON line each:
                ``/healthz`` and a ``/metrics`` scrape holding
                ``hvd_request_seconds``, ``hvd_generate_ttft_seconds`` and
                ``hvd_build_info`` for both ``engine=`` labels.
+6e. fleet   — the serving fleet on the engine phase's model and load
+               (paged with K8; 16 requests of 16 new tokens, greedy and
+               seeded in turns) against one uninterrupted engine's
+               streams: (a) two thread replicas behind
+               ``HttpServer(generate=FleetRouter)`` with
+               ``replica_kill=r1@stream=3``: every stream bitwise its
+               reference, resumed >= 1, exhausted 0, ``/healthz`` with the
+               membership, ``/metrics`` with ``replica=`` labels, K3-fwd
+               and K8 launched; (b) a ``python -m
+               horovod_tpu_torch.serve.proc_replica`` child on the card
+               (the same seed; it loads the kernels the build phase built)
+               beside a thread replica: its first stream alone, then
+               SIGKILLed mid-stream (``replica_proc_kill``), its streams
+               resumed on the thread replica bitwise; (c) the autoscaler
+               (1 to 2 replicas) over two bursts: one grow, one shrink,
+               every stream bitwise. TTFT and decode step p50 against the
+               single engine, the dispatch split, spawn → ready, kill →
+               detection and → each stream's first resumed token. Every
+               child is reaped, on failure too.
 7. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's; the flash
                forward's and K8's host time per call. K8 at four shapes
@@ -365,6 +385,7 @@ import sys
 import threading
 import time
 import traceback
+from typing import Optional
 
 _T_START = time.time()   # before torch's import: an elastic worker's start
 
@@ -638,6 +659,22 @@ SS_MAX_BATCH, SS_TIMEOUT_MS = 32, 5.0
 SS_REQUESTS, SS_BURSTS = 256, (1, 3, 8, 32)
 SS_CPU_IMAGES = 4
 TOL_SS_CPU = 1e-2
+# fleet: the serving fleet on the bench LM at the engine phase's load (8
+# slots, max_len 2048, block 16, paged with K8): FLEET_REQUESTS requests
+# of FLEET_NEW_TOKENS, greedy and seeded in turns, prompts cycling
+# FLEET_PROMPT_LENS; the thread fleet's r1 killed at its
+# FLEET_KILL_STREAM-th admitted stream, the subprocess replica SIGKILLed
+# at its FLEET_PROC_KILL_STREAM-th (its first stream served alone); the
+# routers' membership sweep every FLEET_POLL_S; the autoscaler's knobs.
+FLEET_REQUESTS, FLEET_NEW_TOKENS = 16, 16
+FLEET_PROMPT_LENS = (9, 100, 300, 1000, 64, 200, 600, 40)
+FLEET_SAMPLED = dict(temperature=0.8, top_k=50)
+FLEET_KILL_STREAM, FLEET_PROC_KILL_STREAM = 3, 3
+FLEET_POLL_S = 0.05
+FLEET_READY_TIMEOUT_S = 240.0
+FLEET_SCALE = dict(min_replicas=1, max_replicas=2, high_watermark=4.0,
+                   low_watermark=1.0, breach_up=1, breach_down=2,
+                   cooldown_s=0.0)
 # The trainer phase's bare-loop step p50, which the elastic phase prints
 # beside its launched Trainer's.
 TRAINER_BARE_P50 = {}
@@ -2385,6 +2422,405 @@ def phase_serve_single(gen_eng, seed: int):
         for series in want_series:
             check(series in names, f"/metrics lacks {series} for "
                                    f"engine={e}")
+
+
+def _fleet_engine(model):
+    """A replica of the fleet phase: the engine phase's configuration
+    (paged with K8), FLEET_NEW_TOKENS a stream."""
+    return _kv_engine(model, default_max_new_tokens=FLEET_NEW_TOKENS)
+
+
+def _fleet_load(vocab: int, seed: int):
+    """The fleet phase's prompts and per-request sampling (None: greedy),
+    and the same as ``/generate`` bodies."""
+    from horovod_tpu_torch.serve import SamplingParams
+    rng = np.random.RandomState(seed + 11)
+    prompts = [rng.randint(0, vocab, FLEET_PROMPT_LENS[
+        i % len(FLEET_PROMPT_LENS)]).tolist() for i in range(FLEET_REQUESTS)]
+    samplings = [None if i % 2 == 0 else
+                 SamplingParams(**FLEET_SAMPLED, seed=100 + i)
+                 for i in range(FLEET_REQUESTS)]
+    bodies = [{"tokens": p, "max_new_tokens": FLEET_NEW_TOKENS,
+               **({} if s is None else dict(FLEET_SAMPLED, seed=s.seed))}
+              for p, s in zip(prompts, samplings)]
+    return prompts, samplings, bodies
+
+
+def _http_stream(port: int, body: dict, out: dict) -> None:
+    """POST ``body`` to ``/generate`` and read the chunked stream line by
+    line, each line's arrival time beside it."""
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        out["t0"] = time.time()
+        conn.request("POST", "/generate", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        lines, times = [], []
+        for raw in iter(resp.readline, b""):
+            raw = raw.strip()
+            if raw:
+                lines.append(json.loads(raw))
+                times.append(time.time())
+        conn.close()
+        out.update(lines=lines, times=times)
+    except Exception as e:  # noqa: BLE001 — reported by the main thread
+        out["error"] = repr(e)
+
+
+def _timed_handle(handle, out: dict) -> None:
+    """Drain a generation handle, each token's arrival time beside it."""
+    try:
+        times = []
+        while True:
+            kind, val = handle.next_event(600)
+            if kind == "token":
+                times.append(time.time())
+            elif kind == "done":
+                out.update(info=val, times=times)
+                return
+            else:
+                raise val
+    except Exception as e:  # noqa: BLE001 — reported by the main thread
+        out["error"] = repr(e)
+
+
+def _run_threads(fn, items) -> list:
+    outs = [{} for _ in items]
+    threads = [threading.Thread(target=fn, args=(*it, o))
+               for it, o in zip(items, outs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not any(t.is_alive() for t in threads), "a stream did not end")
+    return outs
+
+
+def _events(kind: str, **match) -> list:
+    from horovod_tpu_torch.obs import flightrec
+    return [e for e in flightrec.recorder().events()
+            if e["kind"] == kind
+            and all(e.get(k) == v for k, v in match.items())]
+
+
+def _resume_ms(kill_t: float, outs: list) -> Optional[dict]:
+    """From a replica's death to the first token each stranded stream's
+    client received from its replay (the end of the stream's longest
+    pause that ends after the death: tokens sent before the death may
+    still arrive after it, and the replay's suppressed prefix never
+    reaches the client); min and max over the streams that failed
+    over."""
+    ms = []
+    for o in outs:
+        t = o["times"]
+        if o.get("failovers", 0) < 1 or len(t) < 2:
+            continue
+        pauses = [(t[j + 1] - t[j], t[j + 1]) for j in range(len(t) - 1)
+                  if t[j + 1] > kill_t]
+        if pauses:
+            ms.append((max(pauses)[1] - kill_t) * 1e3)
+    return {"min": min(ms), "max": max(ms), "streams": len(ms)} \
+        if ms else None
+
+
+def phase_fleet(model, seed: int, smi: str):
+    """The serving fleet on the bench LM, every replica at the engine
+    phase's load with K3-fwd prefills and K8 decode steps; the reference
+    is one uninterrupted engine serving the same FLEET_REQUESTS streams.
+    (a) Two thread replicas sharing the weights, each with its own pool,
+    behind ``HttpServer(generate=router)``; ``replica_kill`` on r1 at its
+    FLEET_KILL_STREAM-th stream: every stream bitwise its reference,
+    ``resumed`` >= 1, ``exhausted`` 0; ``/healthz`` with the membership,
+    ``/metrics`` parsed with ``replica=`` labels and the fleet series; the
+    K3-fwd and K8 launches. (b) A subprocess replica
+    (``spawn_replica_factory``, ``"device": "cuda"``, the same seed)
+    beside a thread replica: its first stream alone, then the fleet's
+    half; ``replica_proc_kill`` SIGKILLs it mid-stream and its streams
+    resume on the thread replica bitwise their references; spawn → ready
+    and kill → first resumed token. (c) ``FleetAutoscaler`` (1 to 2
+    replicas) over two bursts: exactly one grow and one shrink, every
+    stream bitwise its reference. Every child is reaped."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.testing import faults
+    run_dir = tempfile.mkdtemp(prefix="hvd-fleet-")
+    saved = {k: os.environ.get(k)
+             for k in ("HVD_FAULT_SPEC", "HVD_FLIGHTREC_DIR")}
+    # The replicas' post-mortems go to the run's directory, not the cwd.
+    os.environ["HVD_FLIGHTREC_DIR"] = os.path.join(run_dir, "flightrec")
+    try:
+        return _fleet_run(model, seed, smi, run_dir)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _fleet_run(model, seed: int, smi: str, run_dir: str):
+    from horovod_tpu_torch.obs.registry import parse_exposition
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.serve import (FleetAutoscaler, FleetRouter,
+                                         HttpServer)
+    from horovod_tpu_torch.serve.proc_replica import spawn_replica_factory
+    from horovod_tpu_torch.testing import faults
+    cfg = model.cfg
+    prompts, samplings, bodies = _fleet_load(cfg.vocab, seed)
+    launches: dict = {}
+
+    def arm(spec: Optional[str]) -> None:
+        if spec is None:
+            os.environ.pop("HVD_FAULT_SPEC", None)
+        else:
+            os.environ["HVD_FAULT_SPEC"] = spec
+        faults.reset()
+
+    def want_streams(tokens, what: str) -> None:
+        bad = [i for i, t in tokens if list(t) != ref_tokens[i]]
+        check(not bad, f"{what}: streams {bad} differ from the "
+                       f"uninterrupted engine's")
+
+    # The reference: one uninterrupted engine, all streams at once.
+    ref = _fleet_engine(model)
+    try:
+        ref.warmup()
+        t0 = time.monotonic()
+        refs = [h.result(600) for h in
+                [ref.submit(p, sampling=s) for p, s in zip(prompts,
+                                                           samplings)]]
+        ref_s = time.monotonic() - t0
+        ref_stats = ref.stats()
+    finally:
+        ref.shutdown()
+    ref_tokens = [r["tokens"] for r in refs]
+    single = {"wall_s": ref_s,
+              "ttft_p50_ms": float(np.median([r["ttft_ms"] for r in refs])),
+              "decode_step_ms_p50": ref_stats["latency_ms"]["execute_p50"]}
+
+    # (a) the thread fleet over HTTP, r1 killed mid-stream.
+    engines, srv, router = [], None, None
+    try:
+        arm(f"replica_kill=r1@stream={FLEET_KILL_STREAM}")
+        for _ in range(2):
+            engines.append(_fleet_engine(model))
+            engines[-1].warmup()
+        router = FleetRouter(engines=engines, poll_interval_s=FLEET_POLL_S)
+        srv = HttpServer(generate=router).start()
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        t0 = time.monotonic()
+        outs = _run_threads(lambda b, o: _http_stream(srv.port, b, o),
+                            [(b,) for b in bodies])
+        torch.cuda.synchronize()
+        a_wall = time.monotonic() - t0
+        a_launches = LAUNCHES.snapshot()
+        hz_code, _, hz = _get(srv.port, "/healthz")
+        m_code, _, text = _get(srv.port, "/metrics")
+        a_stats = router.stats()
+        per_replica = [e.stats() for e in engines]
+    finally:
+        if srv is not None:
+            srv.stop()
+        if router is not None:
+            router.shutdown()
+        for e in engines:
+            e.shutdown(drain=False)
+        arm(None)
+    _add_launches(launches, a_launches)
+    for o in outs:
+        check("error" not in o and o.get("status") == 200
+              and o["lines"] and o["lines"][-1].get("done") is True
+              and "error" not in o["lines"][-1],
+              f"(a) /generate failed: {o.get('error') or o.get('lines')}")
+        done = o["lines"][-1]
+        o["failovers"] = done["failovers"]
+        check([x["token"] for x in o["lines"][:-1]] == done["tokens"],
+              "(a) the streamed tokens are not the done line's")
+    want_streams([(i, o["lines"][-1]["tokens"]) for i, o in
+                  enumerate(outs)], "(a) the thread fleet")
+    fo = a_stats["fleet"]["failover_total"]
+    check(fo["resumed"] >= 1 and fo["exhausted"] == 0,
+          f"(a) failover outcomes {fo}")
+    k3 = a_launches.get("flash_attention", 0)
+    k8 = a_launches.get("paged_decode_attention", 0)
+    check(k3 >= cfg.n_layers * FLEET_REQUESTS and k3 % cfg.n_layers == 0,
+          f"(a) flash_attention launched {k3} times")
+    check(k8 > 0 and k8 % cfg.n_layers == 0,
+          f"(a) paged_decode_attention launched {k8} times")
+    hz = json.loads(hz)
+    check(hz_code == 200 and hz.get("replicas") == {
+        "ready": 1, "warming": 0, "draining": 0, "dead": 0},
+        f"(a) /healthz {hz_code}: {hz}")
+    parsed = parse_exposition(text.decode())
+    check(m_code == 200 and parsed.get(
+        ("hvd_fleet_replicas", (("state", "ready"),))) == 1.0
+        and parsed.get(("hvd_failover_total", (("outcome", "resumed"),)),
+                       0) >= 1
+        and any(dict(lb).get("replica") == "r0" for n, lb in parsed
+                if n == "hvd_generate_ttft_seconds_count"),
+        "(a) /metrics lacks the fleet series or the replica= labels")
+    crash = _events("serve_crash", replica="r1")
+    check(bool(crash) and crash[-1]["inflight"],
+          "(a) no serve_crash event naming r1's streams")
+    kill_t = crash[-1]["t"]
+    failed = [e["t"] for e in _events("serve_failover") if e["t"] >= kill_t]
+    client_ttft = [(o["times"][0] - o["t0"]) * 1e3 for o in outs]
+    thread_fleet = {
+        "wall_s": a_wall, "dispatch": a_stats["fleet"]["dispatch_total"],
+        "failover": fo, "stranded": a_stats["fleet"][
+            "streams_stranded_total"],
+        "ttft_p50_ms": float(np.median(
+            [o["lines"][-1]["ttft_ms"] for o in outs])),
+        "client_ttft_p50_ms": float(np.median(client_ttft)),
+        "decode_step_ms_p50": [p["latency_ms"]["execute_p50"]
+                               for p in per_replica],
+        "kill_to_detect_ms": (min(failed) - kill_t) * 1e3 if failed
+        else None,
+        "kill_to_resumed_token_ms": _resume_ms(kill_t, outs),
+        "launches": a_launches, "healthz": hz,
+        "metrics_samples": len(parsed)}
+
+    # (b) a subprocess replica beside a thread replica, SIGKILLed.
+    factory, router, thread = None, None, None
+    try:
+        arm(f"replica_proc_kill=r1@stream={FLEET_PROC_KILL_STREAM}")
+        spec = {"model": dict(LM, dtype="bfloat16",
+                              unembed_dtype="float32"),
+                "seed": seed, "device": "cuda",
+                "generation": dict(
+                    max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+                    paged_kernel=True, block_size=BLOCK,
+                    default_max_new_tokens=FLEET_NEW_TOKENS, max_queue=64)}
+        factory = spawn_replica_factory(
+            spec, run_dir=run_dir, ready_timeout_s=FLEET_READY_TIMEOUT_S)
+        thread = _fleet_engine(model)
+        thread.warmup()
+        router = FleetRouter(engines=[thread], factory=factory,
+                             liveness_factory=factory.liveness_factory,
+                             poll_interval_s=FLEET_POLL_S)
+        t0 = time.monotonic()
+        child = router.add_replica(warm=False)
+        spawn_s = time.monotonic() - t0
+        child.engine.warmup()       # raises if the child dies or times out
+        ready_s = time.monotonic() - t0
+        check(router.counts()["ready"] == 2, f"(b) {router.counts()}")
+        alone = child.engine.generate(prompts[0], sampling=samplings[0],
+                                      timeout=600)
+        want_streams([(0, alone["tokens"])], "(b) the child alone")
+        half = range(FLEET_REQUESTS // 2, FLEET_REQUESTS)
+        LAUNCHES.reset()
+        handles = [router.submit(prompts[i], sampling=samplings[i])
+                   for i in half]
+        b_outs = _run_threads(_timed_handle, [(h,) for h in handles])
+        torch.cuda.synchronize()
+        b_launches = LAUNCHES.snapshot()
+        b_stats = router.stats()
+        pid = child.engine.pid
+        rc = child.engine._proc.wait(60)
+    finally:
+        if router is not None:
+            router.shutdown(timeout=30)
+        if thread is not None:
+            thread.shutdown(drain=False)
+        for c in (factory.clients.values() if factory else ()):
+            if c._proc.poll() is None:
+                c._proc.kill()
+            c._proc.wait(60)
+        arm(None)
+    _add_launches(launches, b_launches)
+    for o in b_outs:
+        check("error" not in o, f"(b) a stream failed: {o.get('error')}")
+        o["failovers"] = o["info"]["failovers"]
+    want_streams([(i, o["info"]["tokens"]) for i, o in zip(half, b_outs)],
+                 "(b) the subprocess fleet")
+    fo_b = b_stats["fleet"]["failover_total"]
+    check(rc == -9, f"(b) the child exited {rc}, not by SIGKILL")
+    check(fo_b["resumed"] >= 1 and fo_b["exhausted"] == 0,
+          f"(b) failover outcomes {fo_b}")
+    with open(os.path.join(run_dir, "flightrec", "r1",
+                           "hvd_flightrec.rank0.json")) as f:
+        crash = [e for e in json.load(f)["events"]
+                 if e["kind"] == "serve_crash"]
+    check(bool(crash) and crash[-1]["inflight"],
+          "(b) the child left no serve_crash naming its streams")
+    kill_t = crash[-1]["t"]
+    failed = [e["t"] for e in _events("serve_failover", replica="r1")
+              if e["t"] >= kill_t]
+    proc_fleet = {
+        "spawn_s": spawn_s, "spawn_to_ready_s": ready_s, "child_pid": pid,
+        "child_rc": rc, "dispatch": b_stats["fleet"]["dispatch_total"],
+        "failover": fo_b,
+        "kill_to_detect_ms": (min(failed) - kill_t) * 1e3 if failed
+        else None,
+        "kill_to_resumed_token_ms": _resume_ms(kill_t, b_outs),
+        "launches": b_launches}
+
+    # (c) the autoscaler over two bursts.
+    router = None
+    try:
+        router = FleetRouter(factory=lambda name: _fleet_engine(model),
+                             initial=1, poll_interval_s=FLEET_POLL_S)
+        router.warmup()
+        scaler = FleetAutoscaler(router, **FLEET_SCALE)
+        decisions = []
+
+        def poll_until(pred, what: str, limit_s: float = 240.0) -> None:
+            end = time.monotonic() + limit_s
+            while not pred():
+                check(time.monotonic() < end, f"(c) {what}: {decisions}")
+                d = scaler.poll_once()
+                if d is not None:
+                    decisions.append((d, time.monotonic()))
+                time.sleep(FLEET_POLL_S)
+
+        LAUNCHES.reset()
+        first = [router.submit(prompts[i], sampling=samplings[i])
+                 for i in range(FLEET_REQUESTS // 2)]
+        t_burst = time.monotonic()
+        poll_until(lambda: router.counts()["ready"] == 2, "no grow")
+        grow_ready_s = time.monotonic() - decisions[0][1]
+        second = [router.submit(prompts[i], sampling=samplings[i])
+                  for i in range(FLEET_REQUESTS // 2, FLEET_REQUESTS)]
+        results = [h.result(600) for h in first + second]
+        c_dispatch = router.stats()["fleet"]["dispatch_total"]
+        poll_until(lambda: router.counts() == {
+            "ready": 1, "warming": 0, "draining": 0, "dead": 0}
+            and len(decisions) >= 2, "no shrink")
+        for _ in range(3):          # settled: no further decision
+            d = scaler.poll_once()
+            if d is not None:
+                decisions.append((d, time.monotonic()))
+        torch.cuda.synchronize()
+        c_launches = LAUNCHES.snapshot()
+        c_stats = router.stats()
+    finally:
+        if router is not None:
+            router.shutdown()
+    _add_launches(launches, c_launches)
+    want_streams(list(enumerate(r["tokens"] for r in results)),
+                 "(c) the autoscaled fleet")
+    check([d for d, _ in decisions] == ["grow", "shrink"]
+          and c_stats["fleet"]["scale_events"] == {"grow": 1, "shrink": 1},
+          f"(c) decisions {[d for d, _ in decisions]}, "
+          f"{c_stats['fleet']['scale_events']}")
+    autoscale = {"decisions": [d for d, _ in decisions],
+                 "burst_to_grow_s": decisions[0][1] - t_burst,
+                 "grow_to_ready_s": grow_ready_s,
+                 "dispatch": c_dispatch, "launches": c_launches}
+    for part, got in (("(b)", b_launches), ("(c)", c_launches)):
+        check(got.get("flash_attention", 0) > 0
+              and got.get("paged_decode_attention", 0) > 0,
+              f"{part} K3-fwd or K8 not launched: {got}")
+    emit("fleet", nvidia_smi=smi, requests=FLEET_REQUESTS,
+         new_tokens=FLEET_NEW_TOKENS, single=single,
+         thread_fleet=thread_fleet, proc_fleet=proc_fleet,
+         autoscale=autoscale, launches=launches)
+    return launches
 
 
 def _e2e_logits(model, device: str, seed: int):
@@ -5252,10 +5688,11 @@ def main() -> int:
         int8_eng, got = run_phase("engine_int8", phase_engine_int8, model,
                                   args.seed)
         add(got)
-        del model
         torch.cuda.empty_cache()
         run_phase("serve_single", phase_serve_single, int8_eng, args.seed)
         del int8_eng
+        add(run_phase("fleet", phase_fleet, model, args.seed, smi))
+        del model
         torch.cuda.empty_cache()
         times.update(run_phase("timing", phase_timing, args.seed, peaks))
         errs.update(run_phase("parity_conv", phase_parity_conv, args.seed))

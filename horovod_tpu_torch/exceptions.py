@@ -36,6 +36,20 @@ class WorkerFailureError(TransportError):
     catching a dead rank."""
 
 
+class ReplicaTimeoutError(TransportError):
+    """A subprocess serving replica did not answer within its transport
+    timeout.
+
+    Raised by :class:`horovod_tpu_torch.serve.proc_replica.
+    ProcReplicaClient` when an HTTP round trip to the child worker times
+    out. A class of its own on purpose: :meth:`horovod_tpu_torch.serve.
+    router.ReplicaHandle.load` reads any other stats-surface failure as
+    the ``1 << 30`` busy sentinel (route around it), but a timeout means
+    the child may be hung, so the handle marks it suspect and runs a
+    liveness check at once: a wedged process is evicted within one poll
+    instead of being routed around forever."""
+
+
 class CheckpointCorruptError(HorovodError):
     """A checkpoint's bytes do not match its integrity manifest.
 
@@ -120,3 +134,19 @@ class PreemptedError(HorovodError):
     preempted more than ``GenerationConfig.preempt_retries`` times sees
     this error.
     """
+
+
+class FailoverExhaustedError(HorovodError):
+    """A generation stream stranded by a replica's death could not be
+    resumed anywhere: it failed on its retry budget's worth of replicas,
+    waited out the fleet's overload window, or its replay diverged.
+
+    Delivered through the stream's handle by the
+    :class:`horovod_tpu_torch.serve.FleetRouter` failover plane (its
+    ``reason`` is ``"exhausted"``, or ``"preempted_exhausted"`` when a
+    preemption stranded it). Distinct from :class:`ServerOverloadedError`
+    on purpose: overload means "the fleet is full, back off and retry";
+    this means "this stream died N times and the router will not
+    retry-storm it", counted apart
+    (``hvd_failover_total{outcome="exhausted"}``). The client re-submits
+    from scratch if it still wants the result."""

@@ -148,9 +148,8 @@ def _start_fleet_thread(fleet, interval: float) -> threading.Event:
         while not stop.is_set():
             try:
                 sys.stderr.write(f"tpurun: {fleet.line()}\n")
-            except NotImplementedError as e:
-                sys.stderr.write(f"tpurun: {e}\n")
-                return
+            except Exception:  # noqa: BLE001 — telemetry must never
+                pass           # kill supervision
             stop.wait(interval)
     threading.Thread(target=loop, daemon=True, name="tpurun-fleet").start()
     return stop
@@ -369,7 +368,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         if fleet is None:
             return 2
         print(f"tpurun: {fleet.line()}", flush=True)
-        return 0 if fleet.last_up > 0 else 1
+        # Exit 1 only when no training rank answered: a serving fleet's
+        # scrape that answered is a live endpoint whatever its replicas.
+        return 0 if (fleet.last_mode == "serving"
+                     or fleet.last_up > 0) else 1
     if not args.command:
         parser.error("no command given")
     if args.nnodes > 1 and not args.coordinator:

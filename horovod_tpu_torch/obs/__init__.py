@@ -12,8 +12,8 @@
   a rank dies badly.
 
 * :mod:`.summary` — the launcher's ``--metrics-summary`` fleet line:
-  every rank's ``/metrics`` scraped and aggregated into one line (the
-  serving fleet's line is ``ROADMAP.md`` Queue 1 item 12).
+  every rank's ``/metrics`` scraped and aggregated into one line, or a
+  serving fleet's replica-centric line from its router's ``/metrics``.
 """
 
 from . import flightrec  # noqa: F401

@@ -57,8 +57,8 @@ pipelined stages' count: a restore onto another pp size raises, giving
 both). A rank's own commit (:func:`local_tree`) keeps its blocks.
 
 ``restore_for_inference(mesh=, spec_fn=)`` returns each leaf as this
-rank's block under ``spec_fn``'s spec on ``mesh``. int8 serving weights
-are ``ROADMAP.md`` Queue 1 item 12. LoRA adapters persist one directory
+rank's block under ``spec_fn``'s spec on ``mesh``; ``dtype="int8"``
+quantizes the weights for serving. LoRA adapters persist one directory
 each (:func:`save_adapter`, :func:`restore_adapter`), in this format with
 JAX's manifest and its ``adapter_name`` meta.
 """

@@ -47,6 +47,11 @@ Orca-style iteration-level scheduling over vLLM-style paged KV memory:
   plain PyTorch, as the JAX functions are plain XLA. Prompts pad to
   power-of-two buckets, so :meth:`GenerationEngine.warmup` can run every
   shape the engine will see before traffic.
+* **Liveness** (for a fleet's router): :meth:`GenerationEngine.
+  loop_alive` reads dead on the loop thread's death and on a busy loop
+  with no iteration for ``stall_s``; each iteration calls the fault
+  injector's ``serve_hook``, and the flight recorder keeps the serving
+  events (``serve_admit``, ``serve_crash`` naming the in-flight streams).
 * **Sampling is per-request and host-side** (numpy, seeded per request:
   greedy / temperature / top-k), so a stream is reproducible no matter
   what shares its batch.
@@ -66,7 +71,9 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import queue as std_queue
+import signal
 import threading
 import time
 from collections import deque
@@ -78,6 +85,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..exceptions import (DeadlineExceededError, PreemptedError,
                           ServerClosedError, ServerOverloadedError)
+from ..obs import flightrec
 from ..ops.attention import flash_supported
 from ..ops.paged_attention import paged_attention_supported
 from ..parallel.kv_blocks import (TRASH_BLOCK, BlockManager, blocks_for,
@@ -88,6 +96,7 @@ from ..parallel.lora import target_shapes
 from ..parallel.transformer import (Transformer, check_dense, decode_step,
                                     gen_weights, init_kv_cache, prefill,
                                     verify_step)
+from ..testing import faults
 from .adapters import AdapterRegistry
 from .batcher import RequestQueue, bucket_for
 from .engine import ReadinessMixin
@@ -572,10 +581,52 @@ class GenerationEngine(ReadinessMixin):
         self._closed = False
         self._warmed = False
         self._abort = False
+        # Serving-plane identity and liveness: ``serve_name`` is stamped
+        # by the fleet router at attach (fault clauses and flight-recorder
+        # events name replicas by it); the loop beat and the admitted-
+        # stream counter feed loop_alive() and the fault hook.
+        self.serve_name = "engine"
+        self._beat = time.monotonic()
+        self._stall_mark: Optional[Tuple[float, float]] = None
+        self._streams_started = 0
+        self._loop_error_dumped = False
         self._thread = threading.Thread(target=self._loop,
                                         name="hvd-torch-generate-loop",
                                         daemon=True)
         self._thread.start()
+
+    def loop_alive(self, stall_s: float = 60.0) -> bool:
+        """The in-process liveness probe a :class:`~.router.ReplicaHandle`
+        polls for thread replicas: False once the loop thread died
+        without a shutdown (abrupt death: the ``replica_kill`` drill), or
+        once the loop was seen with work pending (live slots, held or
+        queued requests) and no completed iteration for ``stall_s``
+        seconds (a wedged loop: the ``replica_hang`` drill). The stall
+        clock starts at the first busy observation with no progress
+        since, not at the raw beat's age: an idle loop parks in the
+        untimed queue wait by design, so its beat is stale, and a
+        request landing in that queue must not read as a wedge before
+        the loop has had ``stall_s`` to wake. ``stall_s`` must cover the
+        engine's worst single iteration (a first prefill, a warmup)."""
+        if self._closed:
+            return True     # a drained or shut-down loop's exit is no death
+        if not self._thread.is_alive():
+            return False
+        if not stall_s:
+            return True
+        busy = (any(r is not None for r in self._slots)
+                or self._held or len(self._queue))
+        now = time.monotonic()
+        if not busy:
+            self._stall_mark = None
+            return True
+        mark = self._stall_mark
+        if mark is not None and self._beat != mark[1]:
+            mark = None     # the loop iterated since the last mark
+        if mark is None:
+            self._stall_mark = (now, self._beat)
+            return True
+        return now - mark[0] <= stall_s
 
     # -- the device programs -----------------------------------------------
 
@@ -813,6 +864,9 @@ class GenerationEngine(ReadinessMixin):
                 self._adapters.release(adapter)
             raise
         self._metrics.on_submit(depth)
+        flightrec.record("serve_admit", replica=self.serve_name,
+                         stream=req.stream_id, tenant=tenant,
+                         prompt_len=int(toks.size))
         return handle
 
     def generate(self, tokens: Sequence[int],
@@ -1100,11 +1154,43 @@ class GenerationEngine(ReadinessMixin):
 
     # -- the continuous-batching loop --------------------------------------
 
+    def _crash_dump(self, reason: str) -> None:
+        """This replica's flight-recorder post-mortem: one event naming
+        every in-flight stream, then the ring's dump (what an operator
+        reads after a replica's death to know which streams the
+        failover plane had to resume)."""
+        inflight = [r.stream_id for r in self._slots if r is not None]
+        inflight += [r.stream_id for r in self._held]
+        flightrec.record("serve_crash", replica=self.serve_name,
+                         inflight=inflight, queued=len(self._queue))
+        flightrec.dump(reason=f"serving replica {self.serve_name}: "
+                              f"{reason}")
+
     def _loop(self):
         if self._device.type == "cuda":
             torch.cuda.set_device(self._device)
         while True:
             try:
+                self._beat = time.monotonic()
+                act = faults.serve_hook(self.serve_name,
+                                        self._streams_started)
+                if act == "kill":
+                    # Abrupt loop death: the thread exits without failing
+                    # its handles (a crashed process delivers nothing);
+                    # the stranded streams are the failover drill's point.
+                    self._crash_dump("fault injection: replica_kill")
+                    return
+                if act == "proc_kill":
+                    # Real process death: the post-mortem first (SIGKILL
+                    # runs no atexit), then SIGKILL ourselves, so the
+                    # parent sees a dead pid and broken streams.
+                    self._crash_dump("fault injection: replica_proc_kill")
+                    os.kill(os.getpid(), signal.SIGKILL)
+                if act == "hang":
+                    # Park forever with the thread alive: only the
+                    # stale-beat half of loop_alive() catches this.
+                    while True:
+                        time.sleep(3600)
                 if self._abort:
                     err = ServerClosedError(
                         "server shut down before completion")
@@ -1182,6 +1268,12 @@ class GenerationEngine(ReadinessMixin):
                         "with the engine idle — admission accounting bug"))
                     self._req_done(req)
             except Exception as e:  # noqa: BLE001 — deliver, don't die
+                # Every active stream is about to fail: the post-mortem
+                # first, once per engine (the loop keeps serving after an
+                # error; a fault in every batch must not pay a dump each).
+                if not self._loop_error_dumped:
+                    self._loop_error_dumped = True
+                    self._crash_dump(f"engine loop error: {e!r}")
                 self._fail_active(e)
 
     def _fail_active(self, exc: BaseException) -> None:
@@ -1280,6 +1372,9 @@ class GenerationEngine(ReadinessMixin):
         req = self._slots[slot]
         req.retries += 1
         self._metrics.on_preempt("evicted", tenant=self._tenant_label(req))
+        flightrec.record("serve_preempt", replica=self.serve_name,
+                         stream=req.stream_id, tenant=req.tenant,
+                         n_tokens=req.n_out, retries=req.retries)
         self._release_slot(slot)
         if req.retries > self._cfg.preempt_retries:
             self._metrics.on_preempt("exhausted",
@@ -1458,6 +1553,7 @@ class GenerationEngine(ReadinessMixin):
             if not isinstance(reservation, tuple):
                 return "starved"
         req.t_admit = now
+        self._streams_started += 1     # the serve_hook @stream counter
         length = int(req.tokens.size)
         bs = self._cfg.block_size
         n_full = length // bs
@@ -1695,6 +1791,9 @@ class GenerationEngine(ReadinessMixin):
         self._metrics.on_response((now - req.enqueued_at) * 1e3,
                                   (req.t_admit - req.enqueued_at) * 1e3)
         self._req_done(req)
+        flightrec.record("serve_complete", replica=self.serve_name,
+                         stream=req.stream_id, n_tokens=req.n_out,
+                         reason=reason)
         req.handle._finish({
             "tokens": list(req.handle._tokens),
             "finish_reason": reason,

@@ -1,8 +1,8 @@
 """Serving observability: counters, latency quantiles, batch fill, and
 their Prometheus exposition.
 
-Port of the JAX package's ``serve/metrics.py`` (without the fleet's
-``FleetMetrics``), with the same snapshot keys: request, overload (split
+Port of the JAX package's ``serve/metrics.py``, with the same snapshot
+keys: request, overload (split
 ``slots_full`` / ``blocks_exhausted`` / ``tenant_quota``), deadline and
 batch counters, the prefix-cache, host-tier, chunked-prefill,
 speculation and preemption counters, bounded-reservoir percentiles of
@@ -14,7 +14,10 @@ private :class:`~..obs.registry.MetricsRegistry` with the reference's
 histograms and ``hvd_tenant_*`` series (names, help strings, buckets,
 labels); :func:`collect_stats` maps a ``/stats`` snapshot onto the
 stable ``hvd_*`` series and merges them, each sample labelled
-``engine=``, for the ``/metrics`` route.
+``engine=``, for the ``/metrics`` route. :class:`FleetMetrics` is the
+fleet router's own series: membership by state, dispatch by replica,
+scale events, strands and failover outcomes, adapter and prefix
+affinity, subprocess members.
 """
 
 from __future__ import annotations
@@ -537,6 +540,209 @@ class ServeMetrics:
                             t["_tps"].quantile(0.99),
                     } for name, t in sorted(self._tenants.items())},
             }
+
+
+class FleetMetrics:
+    """The fleet plane's own series, in a private registry (the engines'
+    rule: two metric surfaces in one process must not collide), with
+    the JAX package's names:
+
+    * ``hvd_fleet_replicas{state=}``: membership by state (``ready``,
+      ``warming``, ``draining``, ``dead``);
+    * ``hvd_fleet_dispatch_total{replica=}``: requests routed to each
+      replica (least-depth dispatch keeps these roughly level; a skew
+      means a sick replica); a retired replica's count folds into
+      ``replica="retired"``;
+    * ``hvd_fleet_scale_events_total{direction=}``: autoscaler changes
+      committed (``grow``, ``shrink``), pre-seeded at 0;
+    * ``hvd_streams_stranded_total``: streams whose replica died (or
+      aborted) with the stream in flight;
+    * ``hvd_failover_total{outcome=}``: ``resumed`` (re-dispatched and
+      the replayed prefix verified) or ``exhausted`` (the retry budget,
+      the overload window, or a diverging replay), pre-seeded at 0 and
+      kept apart from the overload counters. ``stranded`` can exceed
+      ``resumed + exhausted``: a stranded stream that meets its own
+      verdict mid-failover (deadline, fleet shutdown) is counted there;
+    * lazily, on first use: ``hvd_fleet_adapters_resident``,
+      ``hvd_fleet_adapter_dispatch_total{outcome=}``,
+      ``hvd_fleet_prefix_dispatch_total{outcome=}`` and
+      ``hvd_fleet_replica_procs`` (a thread-only, adapter-free fleet
+      exposes none of them).
+    """
+
+    def __init__(self):
+        self.registry = MetricsRegistry()
+        self._g_replicas = self.registry.gauge(
+            "hvd_fleet_replicas", "Fleet membership by replica state",
+            labels=("state",))
+        self._c_dispatch = self.registry.counter(
+            "hvd_fleet_dispatch_total",
+            "Requests dispatched to each replica", labels=("replica",))
+        self._c_scale = self.registry.counter(
+            "hvd_fleet_scale_events_total",
+            "Autoscaler membership changes committed",
+            labels=("direction",))
+        for direction in ("grow", "shrink"):
+            self._c_scale.labels(direction=direction)
+        self._c_stranded = self.registry.counter(
+            "hvd_streams_stranded_total",
+            "Streams whose replica died with the stream in flight")
+        self._c_failover = self.registry.counter(
+            "hvd_failover_total",
+            "Stranded-stream failover outcomes", labels=("outcome",))
+        for outcome in ("resumed", "exhausted"):
+            self._c_failover.labels(outcome=outcome)
+        self._g_adapters = None
+        self._c_adapter_dispatch = None
+        self._c_prefix_dispatch = None
+        self._g_procs = None
+        self._replica_names: List[str] = []
+        self._retired_names: set = set()
+        # One lock over the dispatch fold: read, remove and re-add in
+        # forget_replica must not interleave with an on_dispatch racing
+        # a drain, or the raced increment is lost and the fleet total
+        # goes backwards.
+        self._fold_lock = threading.Lock()
+
+    def on_dispatch(self, replica: str) -> None:
+        with self._fold_lock:
+            if replica in self._retired_names:
+                # The dispatch raced an eviction: the request was served
+                # there; credit the retired aggregate instead of
+                # resurrecting a folded series nothing would fold again.
+                replica = "retired"
+            if replica not in self._replica_names:
+                self._replica_names.append(replica)
+            self._c_dispatch.labels(replica=replica).inc()
+
+    def forget_replica(self, name: str) -> None:
+        """A replica left the membership: fold its dispatch count into
+        ``replica="retired"`` and drop its series. Names are never
+        reused, so without the fold an autoscaling fleet would grow a
+        dead series a cycle; the fleet total stays monotone and the
+        cardinality at live replicas + 1."""
+        with self._fold_lock:
+            self._retired_names.add(name)
+            if name not in self._replica_names:
+                return
+            count = self._c_dispatch.labels(replica=name).value
+            self._c_dispatch.remove(replica=name)
+            self._replica_names.remove(name)
+            if count > 0:
+                if "retired" not in self._replica_names:
+                    self._replica_names.append("retired")
+                self._c_dispatch.labels(replica="retired").inc(count)
+
+    def set_adapters_resident(self, count: Optional[int]) -> None:
+        """``hvd_fleet_adapters_resident``: distinct adapters resident
+        across the live membership (None: no replica has a registry; the
+        series stays absent until one does)."""
+        if count is None and self._g_adapters is None:
+            return
+        if self._g_adapters is None:
+            self._g_adapters = self.registry.gauge(
+                "hvd_fleet_adapters_resident",
+                "Distinct LoRA adapters resident across live replicas")
+        self._g_adapters.set(int(count or 0))
+
+    def set_replica_procs(self, count: int) -> None:
+        """``hvd_fleet_replica_procs``: live members backed by a
+        subprocess worker (engines exposing a ``pid``); absent from a
+        thread-only fleet, so its presence is the topology signal."""
+        if count <= 0 and self._g_procs is None:
+            return
+        if self._g_procs is None:
+            self._g_procs = self.registry.gauge(
+                "hvd_fleet_replica_procs",
+                "Fleet members backed by a subprocess replica worker")
+        self._g_procs.set(int(count))
+
+    def on_adapter_dispatch(self, outcome: str) -> None:
+        """One adapter-carrying dispatch: ``affine`` (the replica had the
+        adapter resident) or ``miss`` (lazy-loaded on dispatch)."""
+        if outcome not in ("affine", "miss"):
+            raise ValueError(
+                f"adapter dispatch outcome must be 'affine' or 'miss', "
+                f"got {outcome!r}")
+        if self._c_adapter_dispatch is None:
+            self._c_adapter_dispatch = self.registry.counter(
+                "hvd_fleet_adapter_dispatch_total",
+                "Adapter-carrying dispatches by affinity outcome",
+                labels=("outcome",))
+            for o in ("affine", "miss"):
+                self._c_adapter_dispatch.labels(outcome=o)
+        self._c_adapter_dispatch.labels(outcome=outcome).inc()
+
+    def adapter_dispatch_counts(self) -> Dict[str, int]:
+        if self._c_adapter_dispatch is None:
+            return {}
+        return {o: int(self._c_adapter_dispatch.labels(outcome=o).value)
+                for o in ("affine", "miss")}
+
+    def on_prefix_dispatch(self, outcome: str) -> None:
+        """One dispatch whose prompt carried a routable prefix digest:
+        ``affine`` (the replica advertised it) or ``miss`` (it will
+        prefill the prefix cold)."""
+        if outcome not in ("affine", "miss"):
+            raise ValueError(
+                f"prefix dispatch outcome must be 'affine' or 'miss', "
+                f"got {outcome!r}")
+        if self._c_prefix_dispatch is None:
+            self._c_prefix_dispatch = self.registry.counter(
+                "hvd_fleet_prefix_dispatch_total",
+                "Prefix-carrying dispatches by affinity outcome",
+                labels=("outcome",))
+            for o in ("affine", "miss"):
+                self._c_prefix_dispatch.labels(outcome=o)
+        self._c_prefix_dispatch.labels(outcome=outcome).inc()
+
+    def prefix_dispatch_counts(self) -> Dict[str, int]:
+        if self._c_prefix_dispatch is None:
+            return {}
+        return {o: int(self._c_prefix_dispatch.labels(outcome=o).value)
+                for o in ("affine", "miss")}
+
+    def on_stranded(self, n: int = 1) -> None:
+        """``n`` streams were stranded by a replica's death or abort."""
+        self._c_stranded.inc(n)
+
+    def on_failover(self, outcome: str) -> None:
+        """One stranded stream's failover verdict: ``resumed`` or
+        ``exhausted``."""
+        if outcome not in ("resumed", "exhausted"):
+            raise ValueError(
+                f"failover outcome must be 'resumed' or 'exhausted', "
+                f"got {outcome!r}")
+        self._c_failover.labels(outcome=outcome).inc()
+
+    def failover_counts(self) -> Dict[str, int]:
+        return {o: int(self._c_failover.labels(outcome=o).value)
+                for o in ("resumed", "exhausted")}
+
+    def stranded_count(self) -> int:
+        return int(self._c_stranded.value)
+
+    def on_scale(self, direction: str) -> None:
+        if direction not in ("grow", "shrink"):
+            raise ValueError(
+                f"scale direction must be 'grow' or 'shrink', got "
+                f"{direction!r}")
+        self._c_scale.labels(direction=direction).inc()
+
+    def set_replicas(self, counts: Dict[str, int]) -> None:
+        """Refresh the membership gauge; every state is set (absent ones
+        to 0), so a shrink shows as ready going down."""
+        for state in ("ready", "warming", "draining", "dead"):
+            self._g_replicas.labels(state=state).set(counts.get(state, 0))
+
+    def dispatch_counts(self) -> Dict[str, int]:
+        with self._fold_lock:
+            return {name: int(self._c_dispatch.labels(replica=name).value)
+                    for name in self._replica_names}
+
+    def scale_counts(self) -> Dict[str, int]:
+        return {d: int(self._c_scale.labels(direction=d).value)
+                for d in ("grow", "shrink")}
 
 
 # -- Prometheus exposition of the serving plane (the /metrics route) ---------

@@ -27,6 +27,15 @@ with the engines' backpressure contract mapped onto HTTP status codes:
 * ``GET /healthz`` → 200 when every attached engine is ready, 503 while
   one warms or drains; with an adapter registry the body also carries
   ``adapters_resident``.
+
+Either slot also takes a :class:`~.router.FleetRouter`, which duck-types
+the engine surface: ``POST /generate`` and ``/predict`` route through
+its least-depth dispatch, ``GET /stats`` nests the replicas' snapshots
+under ``"replicas"``, ``GET /metrics`` is one exposition whose replica
+samples carry a ``replica=`` label beside the fleet series, and
+``GET /healthz`` reports fleet readiness (>= 1 ready replica) with the
+membership breakdown (``replicas``) and the subprocess replicas' own
+``/metrics`` endpoints (``replica_metrics``) in its body.
 """
 
 from __future__ import annotations
@@ -112,12 +121,28 @@ class _Handler(BaseHTTPRequestHandler):
                     and self.gen_engine is not primary:
                 ready, status, depth = self.gen_engine.health()
             body = {"status": status, "queue_depth": depth}
+            # A mounted FleetRouter (in either slot) adds its membership
+            # breakdown, and the endpoints of the subprocess replicas,
+            # which serve their own /metrics: the router never relays
+            # those samples, a scraper (FleetPoller) walks them.
+            for eng in (primary, self.gen_engine):
+                fleet_health = getattr(eng, "fleet_health", None)
+                if callable(fleet_health):
+                    body["replicas"] = fleet_health()
+                    endpoints = eng.replica_metrics_endpoints()
+                    if endpoints:
+                        body["replica_metrics"] = endpoints
+                    break
             # Adapter-table residency: how many fine-tunes this endpoint
-            # can serve now (absent without a registry).
-            if self.gen_engine is not None:
-                k = self.gen_engine.adapters_resident()
-                if k is not None:
-                    body["adapters_resident"] = int(k)
+            # can serve now (absent without a registry); engines and
+            # routers both answer it.
+            for eng in (primary, self.gen_engine):
+                fn = getattr(eng, "adapters_resident", None)
+                if callable(fn):
+                    k = fn()
+                    if k is not None:
+                        body["adapters_resident"] = int(k)
+                        break
             self._reply(200 if ready else 503, body)
         else:
             self._reply(404, {"error": f"no such path {self.path}"})

@@ -39,10 +39,11 @@ on the first launch and NOT again after ``tpurun --restarts`` relaunches
 the world.
 
 ``ckpt`` clauses fire from :func:`ckpt_hook`, which
-``elastic.ElasticState`` calls right after each two-phase commit. The
-``resize`` and serving-plane clauses belong to planes the port has not
-ported yet (live resize, the serving fleet): they parse, so one spec
-serves both packages, and fire once those planes call their hooks.
+``elastic.ElasticState`` calls right after each two-phase commit; the
+serving-plane clauses from :func:`serve_hook`, which every
+``GenerationEngine`` loop iteration calls. The ``resize`` clauses belong
+to a plane the port has not ported yet (live resize): they parse, so one
+spec serves both packages, and fire once that plane calls its hook.
 
 Actions:
 
@@ -66,14 +67,15 @@ Actions:
   ``verify_checkpoint``. ``drop_marker`` deletes the commit marker.
 
 Hooks: :func:`step_hook` is called once per training step by
-``Trainer.fit``, :func:`ckpt_hook` after each elastic commit; both are
+``Trainer.fit``, :func:`ckpt_hook` after each elastic commit,
+:func:`serve_hook` once per serving-engine loop iteration; all are
 near-zero-cost no-ops when ``HVD_FAULT_SPEC`` is unset.
 
 This is a copy of the JAX package's ``testing/faults.py``. The parser
 takes the whole grammar, so one spec serves both packages; the hooks of
-the planes the port has not ported yet (live resize, the serving fleet,
-the coordination plane) come with those planes, and until then their
-clauses never fire. The corruption acts on the port's checkpoint format
+the planes the port has not ported yet (live resize, the coordination
+plane) come with those planes, and until then their clauses never
+fire. The corruption acts on the port's checkpoint format
 (one ``.npy`` file a leaf) where the JAX package's acts on its own. The
 port has no heartbeat plane yet, so ``mute`` parks the rank like
 ``hang`` does.
@@ -450,6 +452,49 @@ def ckpt_hook(step: int, ckpt_dir: str, marker: str) -> None:
             continue
         _fired.add(key)
         _corrupt_checkpoint(f, ckpt_dir, marker)
+
+
+def serve_hook(replica: str, streams_admitted: int) -> Optional[str]:
+    """Fire any serving-plane clause scoped to engine ``replica``. Called
+    once per :class:`~horovod_tpu_torch.serve.generate.GenerationEngine`
+    loop iteration (a near-zero-cost no-op unless the spec has a serve
+    clause). Returns ``"kill"`` (the loop must die abruptly, stranding
+    its handles: the failover drill), ``"proc_kill"`` (the loop must
+    SIGKILL its own process after dumping a post-mortem: the subprocess
+    replica drill, whose parent sees a dead pid), ``"hang"`` (the loop
+    must park forever with its thread alive: only a stale-beat liveness
+    probe catches it), or None. ``slow_step`` clauses sleep here, every
+    call.
+
+    ``streams_admitted`` is the replica's cumulative count of streams
+    admitted into decode slots; a ``@stream=k`` clause fires once that
+    count reaches k, i.e. with stream k mid-flight, deterministically.
+    """
+    faults = _active()
+    if not faults:
+        return None
+    epoch = _restart_epoch()
+    out: Optional[str] = None
+    for i, f in enumerate(faults):
+        if f.target != "serve" or f.epoch != epoch:
+            continue
+        if f.action == "slow_step":
+            time.sleep(f.value / 1000.0)
+            continue
+        if f.name != replica or streams_admitted < (f.stream or 0):
+            continue
+        key = (i, epoch)
+        if key in _fired:
+            continue
+        _fired.add(key)
+        from ..obs import flightrec
+        flightrec.record("fault", action=f.action, replica=replica,
+                         stream=f.stream)
+        print(f"[faults] serving replica {replica}: {f.action} at "
+              f"admitted stream {f.stream} (epoch {epoch})", flush=True)
+        out = {"replica_kill": "kill",
+               "replica_proc_kill": "proc_kill"}.get(f.action, "hang")
+    return out
 
 
 def reset() -> None:

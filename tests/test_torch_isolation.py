@@ -35,7 +35,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for needed in ("horovod_tpu_torch.ops.sparse", "horovod_tpu_torch.elastic",
                "horovod_tpu_torch.launcher", "horovod_tpu_torch.obs.summary",
                "horovod_tpu_torch.ops.quant",
-               "horovod_tpu_torch.serve.engine"):
+               "horovod_tpu_torch.serve.engine",
+               "horovod_tpu_torch.serve.router",
+               "horovod_tpu_torch.serve.fleet",
+               "horovod_tpu_torch.serve.proc_replica"):
     assert needed in names, names
 for name in names:
     if not name.endswith(".__main__"):   # running it would launch
@@ -80,7 +83,53 @@ def test_every_submodule_is_importable_here():
             "horovod_tpu_torch.elastic",
             "horovod_tpu_torch.launcher",
             "horovod_tpu_torch.launcher.__main__",
-            "horovod_tpu_torch.obs.summary"} <= set(names)
+            "horovod_tpu_torch.obs.summary",
+            "horovod_tpu_torch.serve.router",
+            "horovod_tpu_torch.serve.fleet",
+            "horovod_tpu_torch.serve.proc_replica"} <= set(names)
+
+
+# What a subprocess replica's worker runs before it serves: its module,
+# the engine built from a spec, the HTTP server, one stream.
+_WORKER_PROBE = """
+import json, sys
+from horovod_tpu_torch.serve import proc_replica
+from horovod_tpu_torch.serve.server import HttpServer
+spec = {"model": dict(vocab=32, d_model=16, n_heads=2, n_layers=1, d_ff=32,
+                      dtype="float32", unembed_dtype="float32"),
+        "seed": 0, "device": "cpu",
+        "generation": dict(max_slots=1, max_len=8, default_max_new_tokens=2)}
+eng = proc_replica.build_engine(spec)
+eng.warmup()
+srv = HttpServer(generate=eng).start()
+out = eng.generate([1, 2, 3], timeout=60)
+srv.stop()
+eng.shutdown()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "horovod_tpu" or m.startswith("horovod_tpu."))
+print(len(out["tokens"]), "tokens;", "leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_replica_worker_loads_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _WORKER_PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "2 tokens; leaked: []" in proc.stdout
+
+
+def test_replica_worker_defaults_to_cuda(monkeypatch):
+    """A spec without ``device`` builds on the card: without CUDA the
+    worker raises rather than serving from the CPU."""
+    from horovod_tpu_torch.serve.proc_replica import build_engine
+    _without_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_engine({"model": dict(vocab=16, d_model=64, n_heads=1,
+                                    n_layers=1, d_ff=64, dtype="float32")})
 
 
 def test_no_file_names_jax_or_the_jax_package():

@@ -348,8 +348,30 @@ def test_fleet_line_matches_jax_and_one_shot_exit_codes(monkeypatch):
 
 
 def test_serving_fleet_line_names_item_12(monkeypatch):
-    poller = summary.FleetPoller("127.0.0.1", 1, 1)
-    monkeypatch.setattr(poller, "sample",
-                        lambda: [{"hvd_fleet_replicas": 2.0}])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        poller.line()
+    """Item 12's serving line: pointed at a fleet router's ``/metrics``,
+    the poller prints JAX's replica-centric line, and the one-shot
+    ``--metrics-summary`` exits 0 on it."""
+    monkeypatch.delenv("HVD_METRICS_PORT", raising=False)
+    reg = MetricsRegistry()
+    states = reg.gauge("hvd_fleet_replicas", "m", labels=("state",))
+    for state, n in (("ready", 2), ("warming", 1), ("draining", 0),
+                     ("dead", 0)):
+        states.labels(state=state).set(n)
+    reg.gauge("hvd_queue_depth", "d").set(3)
+    ttft = reg.histogram("hvd_generate_ttft_seconds", "t")
+    for v in (0.004, 0.02, 0.03, 0.3):
+        ttft.observe(v)
+    reg.counter("hvd_fleet_scale_events_total", "s",
+                labels=("direction",)).labels(direction="grow").inc()
+    reg.counter("hvd_prefix_hits_total", "h").inc(3)
+    reg.counter("hvd_prefix_misses_total", "m").inc(1)
+    with obs_http.MetricsListener(launcher._free_port(),
+                                  render=reg.render) as lst:
+        got = summary.FleetPoller("127.0.0.1", lst.port, 1).line()
+        want = jsummary.FleetPoller("127.0.0.1", lst.port, 1).line()
+        assert got == want
+        assert got.startswith("fleet: 2/3 replicas ready | depth=3 | "
+                              "prefix=75% | ttft_p50<=")
+        assert "grow_events 1" in got
+        assert launcher.main(["-np", "1", "--metrics-summary",
+                              "--metrics-port", str(lst.port)]) == 0
