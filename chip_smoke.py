@@ -11,7 +11,8 @@ card:
 * serving — the generation engine serving the bench LM at full width
   (paged and contiguous layouts, prefix reuse with the chunked prefill,
   the host tier, speculative decoding, LoRA tenants, int8 weights; a
-  fleet of thread and subprocess replicas behind one router)
+  fleet of thread and subprocess replicas behind one router; a one-rank
+  tp mesh, and a tp=2 world of two gloo ranks sharing the card)
   (``bench.py``'s ``_LM_TPU``: vocab 32768, d_model 2048, 16 heads
   of 128, 8 layers, d_ff 8192; random weights from a seed), and the
   single-shot engine serving ResNet-50 beside it over HTTP;
@@ -156,6 +157,28 @@ Phases, one JSON line each:
                single engine, the dispatch split, spawn → ready, kill →
                detection and → each stream's first resumed token. Every
                child is reaped, on failure too.
+6f. serve_tp — serving under a tp mesh: (a) the bench LM on a one-rank
+               tp mesh (``make_mesh({"tp": 1})``, the same weights) at the
+               engine phase's load in both layouts (paged with K8), one
+               request over ``HttpServer`` on the leader: every stream
+               bitwise the plain engine's, n_layers K3-fwd a prefill and
+               K8 a step, decode step p50 beside the plain engine's; (b)
+               K3-fwd at T=2048 and K8 in the balanced and engine-mix
+               plans at 8 and 4 heads (tp 2 and 4) against their plain
+               versions, timed beside their bounds (K3-fwd beside SDPA);
+               (c) a tp=2 world of two processes on the one card (this
+               script's ``--serve-tp-rank`` mode: ``dist.init_process_group
+               ("gloo")``, then ``hvd.init(device="cuda")``), the bench LM
+               at full width with 8 heads a rank: 16 requests of 16 new
+               tokens, greedy and seeded in turns, in both layouts, then a
+               follower SIGKILLed mid-round. Each stream's agreement with
+               the one-rank engine's (greedy streams checked identical up
+               to a token whose top-2 margin is within 2 x the measured
+               |Δ|), the logits' max |Δ| on one prefill and one decode
+               step, the plane's host ms a descriptor, the followers'
+               K3-fwd and K8 launches against the leader's, kill → the
+               leader's error. Step times in (c) are not tp speed: both
+               ranks share one card and a gloo link.
 7. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's; the flash
                forward's and K8's host time per call. K8 at four shapes
@@ -330,17 +353,18 @@ Phases, one JSON line each:
                (TOL_ATTN_ULPS, TOL_LSE), then timed beside their bounds
                and SDPA. Multi-rank tp/sp/ep need more than one card.
 30. lm_mesh_zero — ZeRO-1 and overlap on every axis of the full-width
-               LM on one card, AdamW with ``foreach`` pinned, counters
+               LM cut to MZ_LAYERS layers, on one card, AdamW with
+               ``foreach`` pinned, counters
                zeroed before each step: (a) the four-axis step on the
                one-rank ``make_mesh({"dp", "pp", "ep", "tp"})`` (the
                hybrid ZeRO plane with every non-scatter axis at size 1)
                plain, ``zero``, ``overlap`` and both, MZ_STEPS steps
                each, params and losses bitwise the dp-only ``zero=True``
-               step's and the plain step's, 8 K3-qkv + 8 dq + 8 dkv a
-               step; (b) the pipelined step on ``make_mesh({"dp", "pp",
-               "tp"})`` (2 microbatches of 4) plain, ``zero``,
-               ``overlap`` and both, bitwise the plain step's, 16
-               K3-lse + 16 + 16 of its dq/dkv pair a step; step p50,
+               step's and the plain step's, one K3-qkv, dq and dkv a
+               layer a step; (b) the pipelined step on ``make_mesh({"dp",
+               "pp", "tp"})`` (2 microbatches of 4) plain, ``zero``,
+               ``overlap`` and both, bitwise the plain step's, 2 K3-lse
+               and 2 of its dq/dkv pair a layer a step; step p50,
                peak bytes, optimizer-state elements and buckets per spec
                group of each; (c) ``save_sharded`` of (a)'s and (b)'s
                ZeRO states in the 2-D canonical form, restore (verified
@@ -380,6 +404,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -593,6 +618,7 @@ EL_TIMEOUT = 300
 # The mesh axes (slice 13) on one card.
 MESH_STEPS = 5
 MZ_STEPS = 4             # lm_mesh_zero: steps of each variant (p50 of the last 3)
+MZ_LAYERS = 4            # lm_mesh_zero's depth (the bench LM's 8, cut in half)
 MZ_FOUR = (("dp_zero", False, dict(zero=True)), ("plain", True, {}),
            ("zero", True, dict(zero=True)),
            ("overlap", True, dict(overlap=True)),
@@ -675,6 +701,24 @@ FLEET_READY_TIMEOUT_S = 240.0
 FLEET_SCALE = dict(min_replicas=1, max_replicas=2, high_watermark=4.0,
                    low_watermark=1.0, breach_up=1, breach_down=2,
                    cooldown_s=0.0)
+# serve_tp: serving under a tp mesh. (b) times K3-fwd at T = TP_FLASH_T
+# and K8 in the balanced and engine-mix plans at the per-rank head counts
+# of TP_SIZES; (c) is a tp = 2 world of two gloo ranks sharing the card:
+# TP_REQUESTS requests of TP_NEW_TOKENS (prompts cycling
+# FLEET_PROMPT_LENS, greedy and seeded in turns) in both layouts, then a
+# third round whose follower SIGKILLs itself TP_KILL_CALLS descriptors
+# in. The world's collective timeout, TP_PLANE_S, bounds every wait of
+# the step plane; TP_WORLD_S bounds the world. The tp = 2 forward's
+# logits must lie within TP_DELTA_CAPS of the one-rank engine's (bf16
+# sums in another order: 0.049 and 0.030 measured on an H100); a forward
+# with its row-parallel sums dropped must not.
+TP_SIZES = (2, 4)
+TP_FLASH_T = 2048
+TP_REQUESTS, TP_NEW_TOKENS = 16, 16
+TP_SAMPLED = dict(temperature=0.8, top_k=50)
+TP_KILL_CALLS = 20
+TP_PLANE_S, TP_WORLD_S = 60.0, 240.0
+TP_DELTA_CAPS = {"prefill": 0.25, "decode": 0.25}
 # The trainer phase's bare-loop step p50, which the elastic phase prints
 # beside its launched Trainer's.
 TRAINER_BARE_P50 = {}
@@ -837,13 +881,14 @@ def flash_inputs(T: int, gen: torch.Generator):
 
 
 def paged_inputs(positions, gen: torch.Generator, layers: int = 0,
-                 bs: int = BLOCK):
+                 bs: int = BLOCK, heads: int = LM["n_heads"]):
     """The engine's pool (one layer's, or ``layers`` layers' stacked; in
-    blocks of ``bs``), random tables over blocks 1.. (block 0 is the trash
-    block) and q, for ``len(positions)`` slots."""
+    blocks of ``bs``; ``heads`` heads, a tp rank's), random tables over
+    blocks 1.. (block 0 is the trash block) and q, for ``len(positions)``
+    slots."""
     nb = -(-MAX_LEN // bs)
     n_blocks = MAX_SLOTS * nb + 1
-    H, S = LM["n_heads"], len(positions)
+    H, S = heads, len(positions)
     shape = (layers,) * bool(layers) + (n_blocks, bs, H, 128)
     pool = lambda: torch.randn(shape, generator=gen, device="cuda",  # noqa: E731
                                dtype=torch.bfloat16)
@@ -1246,20 +1291,24 @@ def _kv_engine(model, **kw):
 
 def _kv_serve(eng, prompts, one_by_one: bool = False, sampling=None):
     """Serve ``prompts`` (all at once, or each alone; greedy, or with
-    ``sampling``) with the launch counters zeroed just before and read
-    just after; returns the results, the launches, the decode and verify
-    steps run and the wall time."""
+    ``sampling``: one SamplingParams for every request, or a list of each
+    request's, None for greedy) with the launch counters zeroed just
+    before and read just after; returns the results, the launches, the
+    decode and verify steps run and the wall time."""
     from horovod_tpu_torch.ops import LAUNCHES
-    kw = {} if sampling is None else {"sampling": sampling}
+    per = (sampling if isinstance(sampling, list)
+           else [sampling] * len(prompts))
+    kws = [{} if s is None else {"sampling": s} for s in per]
     torch.cuda.synchronize()
     steps0 = eng.stats()["batches_total"]
     LAUNCHES.reset()
     t0 = time.monotonic()
     if one_by_one:
-        results = [eng.submit(p, **kw).result(600) for p in prompts]
+        results = [eng.submit(p, **kw).result(600)
+                   for p, kw in zip(prompts, kws)]
     else:
-        results = [h.result(600)
-                   for h in [eng.submit(p, **kw) for p in prompts]]
+        results = [h.result(600) for h in [
+            eng.submit(p, **kw) for p, kw in zip(prompts, kws)]]
     torch.cuda.synchronize()
     wall_s = time.monotonic() - t0
     launches = LAUNCHES.snapshot()
@@ -1402,7 +1451,9 @@ def phase_engine_kv(model, seed: int) -> dict:
         check(r["n_tokens"] == NEW_TOKENS and all(
             0 <= t < cfg.vocab for t in r["tokens"]),
               f"contiguous request did not finish: {r}")
-    CONTIGUOUS_STREAMS.update(tokens=[r["tokens"] for r in res])
+    CONTIGUOUS_STREAMS.update(
+        tokens=[r["tokens"] for r in res],
+        decode_step_ms_p50=stats["latency_ms"]["execute_p50"])
     paged = PAGED_STREAMS.get("tokens")
     agree = ([a == b["tokens"] for a, b in zip(paged, res)]
              if paged else None)
@@ -2823,6 +2874,557 @@ def _fleet_run(model, seed: int, smi: str, run_dir: str):
     return launches
 
 
+# -- serving under a tp mesh ------------------------------------------------
+
+def _tp_load(vocab: int, seed: int) -> tuple:
+    """serve_tp (c)'s requests: TP_REQUESTS prompts cycling
+    FLEET_PROMPT_LENS, greedy and seeded in turns (each request's
+    sampling as a dict, None for greedy)."""
+    rng = np.random.RandomState(seed + 19)
+    prompts = [rng.randint(0, vocab, FLEET_PROMPT_LENS[i % len(
+        FLEET_PROMPT_LENS)]) for i in range(TP_REQUESTS)]
+    samplings = [None if i % 2 == 0 else dict(TP_SAMPLED, seed=i)
+                 for i in range(TP_REQUESTS)]
+    return prompts, samplings
+
+
+def _tp_samplings(samplings) -> list:
+    """:func:`_tp_load`'s samplings as :func:`_kv_serve` takes them."""
+    from horovod_tpu_torch.serve import SamplingParams
+    return [None if s is None else SamplingParams(**s) for s in samplings]
+
+
+def _tp_margins(w, cfg, prompts, streams, mesh) -> list:
+    """Per greedy stream, the top-2 logit margin at each generated
+    position: one prefill of the prompt and the stream (teacher forced)."""
+    from horovod_tpu_torch.parallel.transformer import (init_kv_cache,
+                                                        prefill)
+    out = []
+    for p, toks in zip(prompts, streams):
+        seq = np.concatenate([p, np.asarray(toks[:-1], np.int64)])
+        cache = init_kv_cache(cfg, 1, MAX_LEN, device="cuda", mesh=mesh)
+        with torch.no_grad():
+            _, lg = prefill(w, torch.tensor(seq, device="cuda"), cache, 0,
+                            cfg)
+        top = lg[len(p) - 1:].topk(2, dim=-1).values
+        out.append((top[:, 0] - top[:, 1]).cpu().numpy().tolist())
+        del cache, lg
+    return out
+
+
+def _serve_tp_one_rank(model, seed: int, run_dir: str) -> tuple:
+    """(a): the bench LM on a one-rank tp mesh (the same weights as the
+    engine phase's model) at the engine phase's load in both layouts,
+    every stream bitwise the plain engines'; then (c)'s load on it, the
+    reference streams and greedy margins of the tp = 2 world, and the
+    prefill and decode logits its |Δ| is measured against."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel.mesh import make_mesh
+    from horovod_tpu_torch.parallel.transformer import (
+        Transformer, decode_step, gen_weights, init_kv_cache, prefill)
+    from horovod_tpu_torch.serve import HttpServer
+    cfg = model.cfg
+    L = cfg.n_layers
+    launches_total: dict = {}
+    lines = {}
+    hvd.init()
+    try:
+        mesh = make_mesh({"tp": 1})
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tp1 = Transformer(cfg, generator=gen, device="cuda", mesh=mesh)
+        check(all(torch.equal(a, b) for a, b in zip(
+            tp1.parameters(), model.parameters())),
+              "serve_tp: the one-rank tp model's weights differ from the "
+              "engine phase's")
+        rng = np.random.RandomState(seed)
+        prompts = [rng.randint(0, cfg.vocab, n) for n in PROMPT_LENS]
+        http_prompt = rng.randint(0, cfg.vocab, HTTP_PROMPT_LEN)
+        refs = {"paged": PAGED_STREAMS, "contiguous": CONTIGUOUS_STREAMS}
+        for layout in ("paged", "contiguous"):
+            ref = refs[layout].get("tokens")
+            plain_p50 = refs[layout].get("decode_step_ms_p50")
+            if ref is None:
+                # The plain engine's streams when the engine and engine_kv
+                # phases did not run before this one.
+                plain = _kv_engine(model, kv_layout=layout,
+                                   default_max_new_tokens=NEW_TOKENS)
+                try:
+                    plain.warmup()
+                    ref = [r["tokens"] for r in _kv_serve(plain, prompts)[0]]
+                    plain_p50 = plain.stats()["latency_ms"]["execute_p50"]
+                finally:
+                    plain.shutdown()
+                del plain
+            eng = _kv_engine(tp1, kv_layout=layout,
+                             default_max_new_tokens=NEW_TOKENS)
+            srv = None
+            try:
+                eng.warmup()
+                # One request over HTTP on the leader first, then the
+                # engine phase's prompts with the counters zeroed.
+                srv = HttpServer(generate=eng).start()
+                http_out: dict = {}
+                _http_generate(srv.port, http_prompt, http_out)
+                res, launches, steps, wall_s = _kv_serve(eng, prompts)
+                stats = eng.stats()
+            finally:
+                if srv is not None:
+                    srv.stop()
+                eng.shutdown()
+            del eng
+            check(http_out.get("status") == 200
+                  and http_out["lines"][-1].get("n_tokens") == NEW_TOKENS,
+                  f"serve_tp (a) {layout}: HTTP /generate failed: "
+                  f"{http_out}")
+            _add_launches(launches_total, launches)
+            got = [r["tokens"] for r in res]
+            check(got == ref,
+                  f"serve_tp (a) {layout}: the one-rank tp engine's streams "
+                  f"differ from the plain engine's")
+            k3 = launches.get("flash_attention", 0)
+            k8 = launches.get("paged_decode_attention", 0)
+            check(k3 == L * len(prompts),
+                  f"serve_tp (a) {layout}: flash_attention launched {k3}")
+            check(k8 == (L * steps if layout == "paged" else 0)
+                  and steps > 0,
+                  f"serve_tp (a) {layout}: paged_decode_attention launched "
+                  f"{k8} in {steps} steps")
+            lines[layout] = dict(
+                streams_bitwise_plain=True, requests=len(prompts),
+                http_requests=1,
+                launches=launches, decode_steps=steps, wall_s=wall_s,
+                decode_step_ms_p50=stats["latency_ms"]["execute_p50"],
+                plain_decode_step_ms_p50=plain_p50,
+                ttft_p50_ms=stats["generation"]["ttft_p50"])
+            torch.cuda.empty_cache()
+        emit("serve_tp", part="a_one_rank", mesh={"tp": 1}, **lines)
+
+        # (c)'s reference on the one-rank engine: its load in both
+        # layouts, the greedy streams' margins, and one prefill and one
+        # decode step's logits.
+        load_prompts, samplings = _tp_load(cfg.vocab, seed)
+        ref = {}
+        w = gen_weights(tp1)
+        for layout in ("contiguous", "paged"):
+            eng = _kv_engine(tp1, kv_layout=layout,
+                             default_max_new_tokens=TP_NEW_TOKENS)
+            try:
+                eng.warmup()
+                res, _, _, _ = _kv_serve(eng, load_prompts,
+                                         sampling=_tp_samplings(samplings))
+            finally:
+                eng.shutdown()
+            del eng
+            streams = [r["tokens"] for r in res]
+            greedy = [i for i, s in enumerate(samplings) if s is None]
+            ref[layout] = dict(tokens=streams, margins=dict(zip(
+                greedy, _tp_margins(w, cfg, [load_prompts[i] for i in greedy],
+                                    [streams[i] for i in greedy], mesh))))
+        probe = load_prompts[2]
+        cache = init_kv_cache(cfg, 1, MAX_LEN, device="cuda", mesh=mesh)
+        with torch.no_grad():
+            _, pre = prefill(w, torch.tensor(probe, device="cuda"), cache, 0,
+                             cfg)
+            nxt = int(pre[-1].argmax())
+            _, dec = decode_step(
+                w, torch.tensor([nxt], device="cuda"), cache,
+                torch.tensor([len(probe)], dtype=torch.int32, device="cuda"),
+                cfg)
+        np.save(os.path.join(run_dir, "probe.npy"), probe)
+        np.save(os.path.join(run_dir, "prefill.npy"), pre.cpu().numpy())
+        np.save(os.path.join(run_dir, "decode.npy"), dec.cpu().numpy())
+        with open(os.path.join(run_dir, "load.json"), "w") as f:
+            json.dump(dict(prompts=[p.tolist() for p in load_prompts],
+                           samplings=samplings, next_token=nxt), f)
+        del tp1, w, cache, pre, dec
+    finally:
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+    return launches_total, ref
+
+
+def _tp_kernel_rows(seed: int, peaks) -> None:
+    """(b): K3-fwd at T = TP_FLASH_T and K8 in the balanced and engine-mix
+    plans at the per-rank head counts of TP_SIZES, each against its plain
+    version on the same inputs and timed beside its bound (K3-fwd also
+    beside SDPA on the same q, k, v)."""
+    from horovod_tpu_torch.ops.attention import (flash_attention_prefill,
+                                                 flash_attention_reference)
+    from horovod_tpu_torch.ops.paged_attention import (
+        paged_attention_reference, paged_decode_attention)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    d, T, L = 128, TP_FLASH_T, LM["n_layers"]
+    plans = dict(PAGED_TIMED)
+    rng = np.random.RandomState(seed + 3)
+    plans["balanced"] = tuple(int(p) for p in rng.randint(896, 1152,
+                                                          MAX_SLOTS))
+    for tp in (1,) + TP_SIZES:
+        H = LM["n_heads"] // tp
+        qkv = torch.randn((1, T, H, 3, d), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+        got = flash_attention_prefill(q, k, v, causal=True)
+        want = flash_attention_reference(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= TOL_FLASH, f"serve_tp (b): flash_attention at {H} "
+                                f"heads off its plain version by {err}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # Queued behind a sleep, as K8: at 4 and 8 heads the launch is
+        # shorter than its host call.
+        ms = time_ms(lambda: flash_attention_prefill(q, k, v, causal=True),
+                     queued=True)
+        host = host_ms(lambda: flash_attention_prefill(q, k, v, causal=True))
+        plain = time_ms(lambda: flash_attention_reference(
+            q, k, v, causal=True), reps=5, inner=2)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), queued=True)
+        bnd, by = bound_ms(4.0 * d * H * T * (T + 1) / 2,
+                           4.0 * T * H * d * 2, peaks)
+        emit("serve_tp", part="b_kernels", kernel="flash_attention", tp=tp,
+             heads=H, T=T, ms=ms, plain_ms=plain, library_ms=lib,
+             bound_ms=bnd, bound_by=by, share_of_bound=bnd / ms,
+             max_abs_err=err, host_ms_per_call=host, timed="queued",
+             library="torch.nn.functional.scaled_dot_product_attention")
+        del qkv, q, k, v, got, want, qt, kt, vt
+        if tp == 1:
+            continue
+        for name in ("balanced", "engine_mix"):
+            positions = plans[name]
+            qp, kp, vp, tables, pos = paged_inputs(positions, gen, layers=L,
+                                                   heads=H)
+            got = paged_decode_attention(qp, kp[0], vp[0], tables, pos)
+            want = paged_attention_reference(qp, kp[0], vp[0], tables, pos)
+            err = float((got.float() - want.float()).abs().max())
+            check(err <= TOL_PAGED,
+                  f"serve_tp (b): paged_decode_attention at {H} heads "
+                  f"({name}) off its plain version by {err}")
+            views = [(kp[i], vp[i]) for i in range(L)]
+            turn = itertools.cycle(views).__next__
+
+            def run():
+                kk, vv = turn()
+                return paged_decode_attention(qp, kk, vv, tables, pos)
+            ms = time_ms(run, queued=True)
+            plain = time_ms(lambda: paged_attention_reference(
+                qp, kp[0], vp[0], tables, pos), reps=5, inner=2)
+            keys = sum(min(p, MAX_LEN - 1) + 1 for p in positions if p >= 0)
+            nbytes = (keys * H * d * 2 * 2 + 2 * qp.numel() * 2
+                      + tables.numel() * 4)
+            bnd, by = bound_ms(4.0 * d * H * keys, nbytes, peaks)
+            emit("serve_tp", part="b_kernels",
+                 kernel="paged_decode_attention", tp=tp, heads=H, shape=name,
+                 S=len(positions), keys=keys, ms=ms, plain_ms=plain,
+                 library_ms=None, bound_ms=bnd, bound_by=by,
+                 share_of_bound=bnd / ms, max_abs_err=err)
+            del qp, kp, vp, views, got, want
+            torch.cuda.empty_cache()
+
+
+def _first_diff(a, b) -> Optional[int]:
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _check_tp_deltas(rec: dict, prefix: str, what: str) -> None:
+    """The tp = 2 world's prefill and decode logits within TP_DELTA_CAPS
+    of the one-rank engine's (``prefix`` picks the sound forward's
+    readings or the control's)."""
+    for name, cap in TP_DELTA_CAPS.items():
+        d = rec[f"{prefix}{name}_max_abs_delta"]
+        check(math.isfinite(d) and d <= cap,
+              f"serve_tp (c): {what}'s {name} logits are {d} off the "
+              f"one-rank engine's, above the cap {cap}")
+
+
+def _serve_tp_world(seed: int, ref: dict, run_dir: str) -> None:
+    """(c): a tp = 2 world of two processes sharing the card, each calling
+    ``dist.init_process_group("gloo")`` before ``hvd.init(device="cuda")``
+    (this script's ``--serve-tp-rank`` mode). Checks the streams against
+    the one-rank engine's where the greedy margin exceeds the measured
+    |Δ|, the followers' launches against the leader's, and that the
+    SIGKILLed follower fails the leader's streams within the plane's
+    timeout; holds the logits' |Δ| to TP_DELTA_CAPS, and checks that the
+    caps fail a control with the row-parallel sums dropped; reaps both
+    processes, on failure too."""
+    import socket
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, HVD_FLIGHTREC_DIR=run_dir,
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    for k in ("HVD_RANK", "HVD_SIZE", "HVD_LOCAL_RANK", "HVD_FAULT_SPEC"):
+        env.pop(k, None)
+    procs, logs = [], []
+    t0 = time.monotonic()
+    try:
+        for r in range(2):
+            log = open(os.path.join(run_dir, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--serve-tp-rank", str(r), "--serve-tp-dir", run_dir,
+                 "--serve-tp-port", str(port), "--seed", str(seed)],
+                cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = t0 + TP_WORLD_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    world_s = time.monotonic() - t0
+
+    def tail(r):
+        with open(os.path.join(run_dir, f"rank{r}.log")) as f:
+            return f.read()[-3000:]
+    check(procs[0].returncode == 0,
+          f"serve_tp (c): the leader exited {procs[0].returncode}:\n"
+          f"{tail(0)}")
+    check(procs[1].returncode == -signal.SIGKILL,
+          f"serve_tp (c): the follower exited {procs[1].returncode} "
+          f"(expected its own SIGKILL):\n{tail(1)}")
+    recs = []
+    for r in range(2):
+        with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    lead, fol = recs
+    _check_tp_deltas(lead, "", "the tp = 2 forward")
+    try:
+        _check_tp_deltas(lead, "control_", "the control")
+        caught = False
+    except AssertionError:
+        caught = True
+    check(caught, f"serve_tp (c): the |Δ| caps {TP_DELTA_CAPS} pass the "
+                  f"control with every row-parallel sum dropped")
+    delta = max(lead["prefill_max_abs_delta"], lead["decode_max_abs_delta"])
+    L = LM["n_layers"]
+    out = {}
+    for layout in ("contiguous", "paged"):
+        got, want = lead[layout], ref[layout]
+        agree, identical = [], 0
+        for i, (a, b) in enumerate(zip(got["tokens"], want["tokens"])):
+            j = _first_diff(a, b)
+            agree.append(sum(x == y for x, y in zip(a, b)))
+            identical += j is None
+            margins = want["margins"].get(i)
+            if margins is not None and j is not None:
+                check(margins[j] <= 2 * delta,
+                      f"serve_tp (c) {layout}: greedy stream {i} differs "
+                      f"from the one-rank engine's at token {j}, where "
+                      f"the margin {margins[j]} exceeds 2 x |Δ| {delta}")
+        check(all(len(t) == TP_NEW_TOKENS for t in got["tokens"]),
+              f"serve_tp (c) {layout}: a stream did not finish")
+        lk3 = got["launches"].get("flash_attention", 0)
+        lk8 = got["launches"].get("paged_decode_attention", 0)
+        check(lk3 == L * TP_REQUESTS,
+              f"serve_tp (c) {layout}: the leader's flash_attention "
+              f"launched {lk3}, expected {L} x {TP_REQUESTS}")
+        check(lk8 == (L * got["steps"] if layout == "paged" else 0),
+              f"serve_tp (c) {layout}: the leader's paged_decode_attention "
+              f"launched {lk8} in {got['steps']} steps")
+        fk = fol[layout]["launches"]
+        for name in ("flash_attention", "paged_decode_attention"):
+            want_n = (got["launches"].get(name, 0)
+                      + got["warmup_launches"].get(name, 0))
+            check(fk.get(name, 0) == want_n,
+                  f"serve_tp (c) {layout}: the follower launched {name} "
+                  f"{fk.get(name, 0)} times, the leader {want_n}")
+        plane = got["plane"]
+        out[layout] = dict(
+            streams_identical=identical, requests=TP_REQUESTS,
+            tokens_agree=agree, greedy_margins_min=min(
+                min(m) for m in want["margins"].values()),
+            leader_launches=got["launches"], follower_launches=fk,
+            decode_steps=got["steps"], wall_s=got["wall_s"],
+            decode_step_ms_p50=got["decode_step_ms_p50"],
+            ttft_p50_ms=got["ttft_p50_ms"],
+            plane_calls=plane["calls"],
+            plane_host_ms_per_call=plane["send_ms"] / max(plane["calls"], 1),
+            plane_payload_bytes_per_call=(plane["payload_bytes"]
+                                          / max(plane["calls"], 1)))
+    kill = lead["kill"]
+    check(kill["errors"] and all(
+        e in ("WorkerFailureError", "StalledError", "TransportError")
+        for e in kill["errors"]),
+          f"serve_tp (c): the killed follower's round ended {kill}")
+    kill_ms = (kill["first_error_at"] - fol["killed_at"]) * 1e3
+    check(0 <= kill_ms < TP_PLANE_S * 1e3,
+          f"serve_tp (c): kill -> the leader's error took {kill_ms} ms")
+    emit("serve_tp", part="c_tp2_world", tp=2, heads=LM["n_heads"] // 2,
+         note="both ranks share one card and a gloo link: step times are "
+              "not tp speed", world_s=world_s,
+         step_allreduce_ms=lead["allreduce_ms"],
+         step_allreduces=2 * L,
+         prefill_max_abs_delta=lead["prefill_max_abs_delta"],
+         decode_max_abs_delta=lead["decode_max_abs_delta"],
+         delta_caps=TP_DELTA_CAPS,
+         control_prefill_max_abs_delta=lead[
+             "control_prefill_max_abs_delta"],
+         control_decode_max_abs_delta=lead["control_decode_max_abs_delta"],
+         kill_to_leader_error_ms=kill_ms, kill_errors=kill["errors"],
+         **out)
+
+
+def phase_serve_tp(model, seed: int, peaks) -> dict:
+    """Serving under a tp mesh: (a) one rank, (b) the kernels at the
+    per-rank head counts, (c) a tp = 2 world on the card. Returns (a)'s
+    K3-fwd and K8 launches."""
+    import shutil
+    import tempfile
+    run_dir = tempfile.mkdtemp(prefix="hvd-serve-tp-")
+    try:
+        launches, ref = _serve_tp_one_rank(model, seed, run_dir)
+        _tp_kernel_rows(seed, peaks)
+        _serve_tp_world(seed, ref, run_dir)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    return launches
+
+
+def serve_tp_worker(rank: int, run_dir: str, port: int, seed: int) -> int:
+    """One rank of serve_tp (c)'s world (``--serve-tp-rank``): a gloo
+    group built here, then ``hvd.init(device="cuda")`` (which adopts it;
+    both ranks drive ``cuda:0``), the bench LM on ``create_hybrid_mesh(
+    tp=2)`` from the seed (8 heads a rank), (c)'s |Δ| forwards, its load
+    in both layouts, and a third round whose follower SIGKILLs itself.
+    Writes ``rank<r>.json`` in ``run_dir``."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank, timeout=datetime.timedelta(seconds=TP_PLANE_S))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.mesh import create_hybrid_mesh
+    from horovod_tpu_torch.parallel.transformer import (
+        Transformer, TransformerConfig, decode_step, gen_weights,
+        init_kv_cache, prefill)
+    hvd.init(device="cuda")
+    mesh = create_hybrid_mesh(tp=2)
+    cfg = TransformerConfig(**LM, dtype=torch.bfloat16,
+                            unembed_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = Transformer(cfg, generator=gen, device="cuda", mesh=mesh)
+    torch.cuda.empty_cache()
+    with open(os.path.join(run_dir, "load.json")) as f:
+        load = json.load(f)
+    rec = {"rank": rank, "heads": cfg.n_heads // 2}
+    path = os.path.join(run_dir, f"rank{rank}.json")
+
+    def dump():
+        with open(path, "w") as f:
+            json.dump(rec, f)
+    probe = np.load(os.path.join(run_dir, "probe.npy"))
+    w = gen_weights(model)
+
+    def probe_deltas(prefix: str) -> None:
+        # One prefill of the probe and one decode step after it, each
+        # logits' max |Δ| against the one-rank engine's.
+        cache = init_kv_cache(cfg, 1, MAX_LEN, device="cuda", mesh=mesh)
+        with torch.no_grad():
+            _, pre = prefill(w, torch.tensor(probe, device="cuda"), cache,
+                             0, cfg)
+            _, dec = decode_step(
+                w, torch.tensor([load["next_token"]], device="cuda"), cache,
+                torch.tensor([len(probe)], dtype=torch.int32,
+                             device="cuda"), cfg)
+        for name, got in (("prefill", pre), ("decode", dec)):
+            want = np.load(os.path.join(run_dir, f"{name}.npy"))
+            rec[f"{prefix}{name}_max_abs_delta"] = float(
+                np.abs(got.cpu().numpy() - want).max())
+    probe_deltas("")
+    if rank == 0:
+        # The control: the same forwards with every row-parallel sum
+        # dropped (each rank keeps its own partial product), a wrong tp
+        # path that TP_DELTA_CAPS must catch. It issues no collective, so
+        # the leader runs it alone.
+        from horovod_tpu_torch.parallel import transformer as ttr
+        real = ttr.tp_reduce
+        ttr.tp_reduce = lambda mesh: (lambda y: y)
+        try:
+            probe_deltas("control_")
+        finally:
+            ttr.tp_reduce = real
+    torch.cuda.empty_cache()
+    # What one of a decode step's 2 x n_layers row-parallel sums costs
+    # on this world (gloo through host staging).
+    row = torch.zeros((MAX_SLOTS, cfg.d_model), dtype=cfg.dtype,
+                      device="cuda")
+    for _ in range(3):
+        dist.all_reduce(row)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.all_reduce(row)
+    torch.cuda.synchronize()
+    rec["allreduce_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    prompts = [np.asarray(p) for p in load["prompts"]]
+    samplings = load["samplings"]
+    for layout in ("contiguous", "paged"):
+        LAUNCHES.reset()
+        eng = _kv_engine(model, kv_layout=layout,
+                         default_max_new_tokens=TP_NEW_TOKENS)
+        if not eng.is_leader:
+            eng.wait(TP_WORLD_S)
+            rec[layout] = dict(launches=LAUNCHES.snapshot(),
+                               plane=eng.stats()["tp"])
+            continue
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm = LAUNCHES.snapshot()
+        try:
+            res, launches, steps, wall_s = _kv_serve(
+                eng, prompts, sampling=_tp_samplings(samplings))
+            stats = eng.stats()
+        finally:
+            eng.shutdown()
+        rec[layout] = dict(
+            tokens=[r["tokens"] for r in res], launches=launches,
+            warmup_launches=warm, steps=steps, wall_s=wall_s,
+            decode_step_ms_p50=stats["latency_ms"]["execute_p50"],
+            ttft_p50_ms=stats["generation"]["ttft_p50"], plane=stats["tp"])
+        del eng
+        torch.cuda.empty_cache()
+    # The kill round: the follower dies TP_KILL_CALLS descriptors in.
+    eng = _kv_engine(model, kv_layout="paged",
+                     default_max_new_tokens=TP_NEW_TOKENS)
+    if not eng.is_leader:
+        while eng._plane.calls < TP_KILL_CALLS and eng._thread.is_alive():
+            time.sleep(0.0005)
+        rec["killed_at"] = time.time()
+        dump()
+        os.kill(os.getpid(), signal.SIGKILL)
+    eng.warmup()
+    hs = [eng.submit(p, sampling=None) for p in prompts]
+    errors, first = [], None
+    for h in hs:
+        try:
+            h.result(TP_WORLD_S)
+            errors.append(None)
+        except Exception as e:  # noqa: BLE001 — what the round checks
+            first = first or time.time()
+            errors.append(type(e).__name__)
+    rec["kill"] = dict(errors=errors, first_error_at=first)
+    eng.shutdown(drain=False, timeout=TP_PLANE_S)
+    dump()
+    sys.stdout.flush()
+    # The world lost a rank: skip the process groups' teardown.
+    os._exit(0)
+
+
 def _e2e_logits(model, device: str, seed: int):
     """The last prompt row's logits and E2E_STEPS decode steps' of an
     E2E_T-token prompt (from ``seed``) through the paged prefill and the
@@ -3390,9 +3992,11 @@ def phase_parity_attn(seed: int):
          tolerance={"ulps": TOL_ATTN_ULPS, "lse": TOL_LSE})
 
 
-def lm_config():
+def lm_config(n_layers: int = LM["n_layers"]):
+    """The bench LM, at full width; ``n_layers`` cuts its depth."""
     from horovod_tpu_torch.parallel.transformer import TransformerConfig
-    return TransformerConfig(**LM, dtype=torch.bfloat16,
+    return TransformerConfig(**dict(LM, n_layers=n_layers),
+                             dtype=torch.bfloat16,
                              unembed_dtype=torch.bfloat16)
 
 
@@ -5525,9 +6129,9 @@ def _leaf_list(params) -> list:
 
 def phase_lm_mesh_zero(seed: int, smi: str):
     """ZeRO-1 and overlap on the four-axis and the pipelined steps at
-    full width on one-rank meshes naming every axis, bitwise their plain
-    steps; the hybrid ZeRO checkpoints and the sharded serving
-    restore."""
+    full width and MZ_LAYERS deep on one-rank meshes naming every axis,
+    bitwise their plain steps; the hybrid ZeRO checkpoints and the
+    sharded serving restore."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import convert
     from horovod_tpu_torch.parallel.checkpoint import restore_for_inference
@@ -5538,7 +6142,7 @@ def phase_lm_mesh_zero(seed: int, smi: str):
         make_parallel_train_step, param_specs)
     hvd.init()
     check(hvd.size() == 1, "expected a 1-rank world")
-    cfg = lm_config()
+    cfg = lm_config(MZ_LAYERS)
     data = lm_batch(LM_BATCH, LM_SEQ, seed)
     adamw = functools.partial(torch.optim.AdamW, **ADAMW, foreach=True)
     out: dict = {"a": {}, "b": {}}
@@ -5627,6 +6231,7 @@ def phase_lm_mesh_zero(seed: int, smi: str):
         del state, host
         out["b"][name] = row
     emit("lm_mesh_zero", batch=LM_BATCH, seq=LM_SEQ, steps=MZ_STEPS,
+         n_layers=MZ_LAYERS,
          microbatches=PP_MICRO, four_axis_mesh=dict(mesh4.shape),
          pp_mesh=dict(mesh3.shape), gpu=smi, **out,
          note="one card: every non-scatter axis has size 1, so the "
@@ -5655,6 +6260,12 @@ def main() -> int:
     ap.add_argument("--elastic-worker", action="store_true",
                     help="run as one rank of the elastic phase's launched "
                          "world (started by the launcher, not by hand)")
+    ap.add_argument("--serve-tp-rank", type=int, default=None,
+                    help="run as this rank of the serve_tp phase's tp=2 "
+                         "world (started by the phase, not by hand)")
+    ap.add_argument("--serve-tp-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-tp-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5669,6 +6280,9 @@ def main() -> int:
         return 2
     if args.elastic_worker:
         return elastic_worker(args.seed)
+    if args.serve_tp_rank is not None:
+        return serve_tp_worker(args.serve_tp_rank, args.serve_tp_dir,
+                               args.serve_tp_port, args.seed)
     errs, launches, times = {}, {}, {}
 
     def add(got: dict) -> None:
@@ -5692,6 +6306,7 @@ def main() -> int:
         run_phase("serve_single", phase_serve_single, int8_eng, args.seed)
         del int8_eng
         add(run_phase("fleet", phase_fleet, model, args.seed, smi))
+        add(run_phase("serve_tp", phase_serve_tp, model, args.seed, peaks))
         del model
         torch.cuda.empty_cache()
         times.update(run_phase("timing", phase_timing, args.seed, peaks))

@@ -364,7 +364,10 @@ def adapter_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, lora,
     [r, d_out]}}]}``, numpy leaves; ``parallel.lora.init_adapter`` or
     ``restore_adapter``) as the port's: the same tree of f32 tensors on
     ``device``, checked against ``(cfg, lora)`` first. The layout is one
-    to one (``A`` is applied as ``x @ A``, as in JAX)."""
+    to one (``A`` is applied as ``x @ A``, as in JAX). The tree stays
+    global on a tp mesh too: an ``AdapterRegistry(mesh=)`` cuts each
+    rank's blocks when it loads it (as it does a JAX tree's numpy
+    leaves)."""
     from .parallel.lora import check_adapter
     check_adapter(tree, cfg, lora)
     dev = resolve_device(device)

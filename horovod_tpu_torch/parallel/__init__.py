@@ -11,7 +11,8 @@ from .checkpoint import (read_manifest, restore_adapter,
                          write_manifest)
 
 from .kv_blocks import (TRASH_BLOCK, BlockManager, blocks_for,
-                        init_paged_kv_cache, paged_decode_step, paged_prefill)
+                        init_paged_kv_cache, paged_decode_step,
+                        paged_kv_cache_specs, paged_prefill)
 from .lora import (LoraConfig, adapter_bytes, check_adapter,
                    check_adapter_name, init_adapter, stack_adapters)
 from .mesh import (AXES, Mesh, axis_size, create_hybrid_mesh,
@@ -23,7 +24,7 @@ from .tp import column_parallel, init_column, init_row, row_parallel
 from .pp_transformer import (init_pp_params, make_pp_transformer_train_step,
                              pp_param_specs)
 from .transformer import (Transformer, TransformerConfig, dense_nll, forward,
-                          forward_hidden, gen_weights,
+                          forward_hidden, gen_weights, kv_cache_specs,
                           make_parallel_train_step, param_specs,
                           prompt_forward, rms_norm, step_forward, unembed)
 
@@ -31,7 +32,8 @@ __all__ = ["Transformer", "TransformerConfig", "forward", "forward_hidden",
            "unembed", "dense_nll", "make_parallel_train_step", "gen_weights",
            "prompt_forward", "step_forward", "rms_norm", "TRASH_BLOCK",
            "BlockManager", "blocks_for", "init_paged_kv_cache",
-           "paged_prefill", "paged_decode_step", "Mesh", "AXES",
+           "paged_prefill", "paged_decode_step", "kv_cache_specs",
+           "paged_kv_cache_specs", "Mesh", "AXES",
            "axis_size", "create_hybrid_mesh", "make_mesh",
            "grad_sync_by_spec", "moe_ffn", "gpipe", "ring_attention",
            "ulysses_attention", "column_parallel", "row_parallel",

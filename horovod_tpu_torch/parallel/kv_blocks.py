@@ -27,6 +27,12 @@ the verify runs the kernel too, so a speculated stream never mixes two
 attention numerics; the JAX engine refuses speculation with the kernel
 (``ROADMAP.md`` Queue 3 logs the difference). Every entry point takes
 the LoRA hook's ``adapters``/``adapter_idx``/``lora`` (:mod:`.lora`).
+
+On a tp mesh (the model's, carried in the weights) every function runs
+this rank's ``n_heads / tp`` heads against a pool of those heads
+(:func:`paged_kv_cache_specs`), with the row-parallel sums of
+:func:`~.transformer.prompt_forward` and
+:func:`~.transformer.step_forward`; K8 then runs at ``H / tp`` heads.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from ..device import DeviceLike, resolve_device
 from ..ops.paged_attention import paged_decode_attention
 from .lora import make_delta
 from .transformer import (TransformerConfig, _clamped, cached_attention,
-                          check_dense, prompt_forward, step_forward)
+                          check_dense, local_heads, prompt_forward,
+                          step_forward)
 
 #: Physical block 0 — reserved, never allocated; see module docstring.
 TRASH_BLOCK = 0
@@ -54,12 +61,27 @@ def blocks_for(n_tokens: int, block_size: int) -> int:
     return -(-int(n_tokens) // int(block_size))
 
 
+def paged_kv_cache_specs(cfg: TransformerConfig, mesh) -> Dict:
+    """The spec tree matching :func:`init_paged_kv_cache` (JAX
+    ``paged_kv_cache_specs``): the head axis (axis 3 of ``[L, N, bs, H,
+    dh]``) shards over ``tp``, as the contiguous
+    :func:`~.transformer.kv_cache_specs`; blocks and positions are
+    replicated."""
+    tp = "tp" if mesh is not None and "tp" in mesh.axis_names else None
+    kv = (None, None, None, tp, None)
+    return {"k": kv, "v": kv, "lengths": ()}
+
+
 def init_paged_kv_cache(cfg: TransformerConfig, n_blocks: int,
                         block_size: int, max_slots: int,
                         dtype: Optional[torch.dtype] = None, *,
-                        device: DeviceLike = "cuda") -> Dict:
+                        device: DeviceLike = "cuda", mesh=None) -> Dict:
     """Fresh (zeroed) paged K/V pool on ``device``. ``n_blocks`` includes
-    the reserved trash block, so ``n_blocks - 1`` blocks are usable."""
+    the reserved trash block, so ``n_blocks - 1`` blocks are usable. On
+    a tp ``mesh`` the pool holds this rank's ``n_heads / tp`` heads
+    (:func:`paged_kv_cache_specs`); the block ids are the same on every
+    rank, so one host :class:`BlockManager` (the leader's) names every
+    rank's blocks."""
     check_dense(cfg, "init_paged_kv_cache")
     dev = resolve_device(device)
     if n_blocks < 2:
@@ -71,7 +93,8 @@ def init_paged_kv_cache(cfg: TransformerConfig, n_blocks: int,
             f"block_size must be a power of two (prefill buckets are "
             f"powers of two and chunk the prompt by block), got "
             f"{block_size}")
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_heads, cfg.d_head)
+    shape = (cfg.n_layers, n_blocks, block_size, local_heads(cfg, mesh),
+             cfg.d_head)
     kv_dtype = cfg.dtype if dtype is None else dtype
     return {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
             "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
@@ -175,7 +198,7 @@ def paged_chunked_prefill(w: Dict, tokens: torch.Tensor, cache: Dict,
             f"chunked bucket {B} exceeds the table depth "
             f"{max_blocks} blocks × {bs}")
     M = max_blocks * bs
-    H, dh = cfg.n_heads, cfg.d_head
+    H, dh = cache["k"].shape[3:]        # this rank's heads on a tp mesh
     sm_scale = float(dh) ** -0.5
     dev = cache["k"].device
     rr = read_row.to(device=dev, dtype=torch.long)

@@ -23,6 +23,15 @@ stream through an adapter engine is bitwise a plain engine's. The
 gather index is clipped into ``[0, rows - 1]`` as the JAX ``safe`` index
 is: a base row gathers row 0 and discards it.
 
+On a tp mesh a rank holds its block of each adapter leaf
+(:func:`adapter_specs`): the column-parallel targets (``wqkv``, ``w1``)
+this rank's column block of ``B`` (the same contiguous block
+:func:`~.mesh.local_slice` takes of the weight, so ``wqkv``'s block is
+this rank's heads), the row-parallel ones (``wo``, ``w2``) its row block
+of ``A``. A row-parallel delta is then a partial sum, added before the
+layer's tp sum (:func:`~.transformer._layer`), so the summed output
+carries the whole delta.
+
 Adapter trees mirror the transformer's layer list:
 ``{"layers": [{target: {"a": [d_in, r], "b": [r, d_out]}}, ...]}`` with
 targets from :data:`LORA_TARGETS`. The device table's lifecycle lives in
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .mesh import local_slice
 from .transformer import TransformerConfig
 
 #: The per-layer dense matmuls a LoRA delta can target, in forward order.
@@ -108,6 +118,33 @@ def target_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, int]]:
             "w1": (d, cfg.d_ff), "w2": (cfg.d_ff, d)}
 
 
+#: The column-parallel targets (their B splits over tp); the others are
+#: row-parallel (their A splits).
+COLUMN_TARGETS = ("wqkv", "w1")
+
+
+def adapter_specs(lora: LoraConfig) -> Dict[str, Dict[str, Tuple]]:
+    """``target -> {"a": spec, "b": spec}`` of one adapter's leaves on a
+    tp mesh, per dimension as :func:`~.transformer.param_specs` writes
+    them: B's columns of a column-parallel target, A's rows of a
+    row-parallel one."""
+    col = {"a": (None, None), "b": (None, "tp")}
+    row = {"a": ("tp", None), "b": (None, None)}
+    return {t: (col if t in COLUMN_TARGETS else row) for t in lora.targets}
+
+
+def local_adapter(adapter: Any, lora: LoraConfig, mesh) -> Any:
+    """This rank's block of every leaf of a global adapter tree
+    (:func:`adapter_specs`); the tree itself off a mesh."""
+    if mesh is None:
+        return adapter
+    specs = adapter_specs(lora)
+    return {"layers": [
+        {t: {n: local_slice(pair[n], specs[t][n], mesh) for n in ("a", "b")}
+         for t, pair in layer.items()}
+        for layer in adapter["layers"]]}
+
+
 def adapter_bytes(cfg: TransformerConfig, lora: LoraConfig) -> int:
     """Bytes of ONE adapter (f32 A/B pairs)."""
     shapes = target_shapes(cfg)
@@ -119,10 +156,11 @@ def adapter_bytes(cfg: TransformerConfig, lora: LoraConfig) -> int:
 def init_adapter(generator: Optional[torch.Generator],
                  cfg: TransformerConfig, lora: LoraConfig,
                  b_scale: float = 0.0, *,
-                 device: DeviceLike = "cpu") -> Dict:
-    """Fresh adapter tree of f32 tensors on ``device``: ``A ~ N(0,
-    1/d_in)`` and ``B = 0`` (the standard LoRA init: the delta starts at
-    zero). ``b_scale > 0`` draws ``B ~ N(0, b_scale²)`` instead, for tests
+                 device: DeviceLike = "cuda") -> Dict:
+    """Fresh adapter tree of f32 tensors on ``device`` (``"cuda"`` by
+    default, as every entry point of the port; ``"cpu"`` must be asked
+    for): ``A ~ N(0, 1/d_in)`` and ``B = 0`` (the standard LoRA init: the
+    delta starts at zero). ``b_scale > 0`` draws ``B ~ N(0, b_scale²)`` instead, for tests
     and benches that need distinct tenants without fine-tuning them.
     ``generator`` (on ``device``) seeds the draws, in the order layer by
     layer, target by target, ``A`` then ``B``."""
@@ -217,19 +255,24 @@ def stack_adapters(adapters: Sequence[Any], *,
 
 def empty_adapter_table(cfg: TransformerConfig, lora: LoraConfig,
                         capacity: int, *,
-                        device: DeviceLike = "cuda") -> Any:
+                        device: DeviceLike = "cuda", mesh=None) -> Any:
     """All-zero f32 stacked table of ``capacity`` rows on ``device``: a
     zero row IS the base model (delta 0), so an unoccupied row is
-    harmless even if a stale index gathered it."""
+    harmless even if a stale index gathered it. On a tp ``mesh`` each row
+    holds this rank's blocks (:func:`adapter_specs`)."""
     if capacity < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
     dev = resolve_device(device)
     shapes = target_shapes(cfg)
+    specs = adapter_specs(lora)
+
+    def zeros(shape, spec):
+        if mesh is not None:
+            shape = local_slice(np.empty(shape, np.int8), spec, mesh).shape
+        return torch.zeros((capacity,) + tuple(shape), device=dev)
     return {"layers": [
-        {t: {"a": torch.zeros((capacity, shapes[t][0], lora.rank),
-                              device=dev),
-             "b": torch.zeros((capacity, lora.rank, shapes[t][1]),
-                              device=dev)}
+        {t: {"a": zeros((shapes[t][0], lora.rank), specs[t]["a"]),
+             "b": zeros((lora.rank, shapes[t][1]), specs[t]["b"])}
          for t in lora.targets}
         for _ in range(cfg.n_layers)]}
 

@@ -2,7 +2,9 @@
 train step (data-parallel, or dp × tp × sp × ep over a mesh), the
 prompt/decode-step forwards the generation engine runs, and the
 contiguous KV cache (:func:`init_kv_cache`, :func:`prefill`,
-:func:`decode_step`, :func:`verify_step`).
+:func:`decode_step`, :func:`verify_step`). On a tp mesh the generation
+forwards run this rank's ``n_heads / tp`` heads against a cache of those
+heads (:func:`kv_cache_specs`), with tp's row-parallel sums.
 
 Port of the JAX package's ``parallel/transformer.py``. On a mesh
 (:mod:`.mesh`) the model holds this rank's blocks of the JAX global
@@ -131,6 +133,30 @@ def check_mesh(cfg: TransformerConfig, mesh) -> None:
             raise ValueError(
                 f"n_experts={cfg.n_experts} must equal the ep mesh axis "
                 f"size {mesh.shape['ep']} (one expert per ep rank)")
+
+
+def serving_tp(mesh, what: str = "the generation forwards") -> int:
+    """The tp size the generation forwards run at on ``mesh`` (1 off a
+    mesh). Serving shards over ``tp`` only: a mesh whose dp, pp, ep or sp
+    axis is above 1 raises ``ValueError`` naming the axis (a replica per
+    dp slice is a fleet of tp groups, not one engine)."""
+    if mesh is None:
+        return 1
+    for a in ("dp", "pp", "ep", "sp"):
+        n = mesh.shape.get(a, 1)
+        if n > 1:
+            raise ValueError(
+                f"{what}: serving runs on a tp mesh only, and this mesh "
+                f"has {a}={n} (serve one tp group per engine: replicas "
+                f"over dp are a fleet of engines; pp, ep and sp do not "
+                f"serve)")
+    return int(mesh.shape.get("tp", 1))
+
+
+def local_heads(cfg: TransformerConfig, mesh) -> int:
+    """The attention heads this rank computes and caches: ``n_heads /
+    tp`` on a tp mesh (the head-major ``wqkv`` columns it holds)."""
+    return cfg.n_heads // serving_tp(mesh)
 
 
 def param_specs(cfg: TransformerConfig, mesh) -> Dict:
@@ -266,7 +292,9 @@ def gen_weights(model: Transformer) -> Dict:
     (no copy). An int8 weight stays a :class:`~..ops.quant.
     QuantizedTensor` of the model's buffers, which the forwards
     dequantize where they use it (the tied unembedding is then the
-    embedding's pair). Call under ``torch.no_grad()`` for inference."""
+    embedding's pair). ``"mesh"`` is the model's mesh: the generation
+    forwards read it to run this rank's heads and the row-parallel sums.
+    Call under ``torch.no_grad()`` for inference."""
     cfg = model.cfg
     dt = cfg.dtype
 
@@ -284,7 +312,7 @@ def gen_weights(model: Transformer) -> Dict:
     else:
         embed, unembed_w = model.embed, model.embed.to(cfg.unembed_dtype)
     return {"embed": embed, "unembed": unembed_w, "lnf": model.lnf,
-            "layers": layers}
+            "layers": layers, "mesh": model.mesh}
 
 
 def _check_float(w: Dict, what: str) -> None:
@@ -640,6 +668,16 @@ def _bind(delta: Optional[Callable], li: int) -> Optional[Callable]:
     return lambda name, x, y: delta(li, name, x, y)
 
 
+def _serving(w: Dict, cfg: TransformerConfig):
+    """``(heads, reduce)`` of a generation forward: this rank's head
+    count and tp's row-parallel sum from the weights' mesh (the model's:
+    :func:`gen_weights`). At tp 1 there is nothing to sum, so no
+    collective is issued."""
+    mesh = w.get("mesh")
+    tp = serving_tp(mesh)
+    return cfg.n_heads // tp, (tp_reduce(mesh) if tp > 1 else None)
+
+
 def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
                    store_kv: Callable, attend: Optional[Callable] = None,
                    delta: Optional[Callable] = None) -> torch.Tensor:
@@ -653,19 +691,25 @@ def prompt_forward(w: Dict, tokens: torch.Tensor, cfg: TransformerConfig,
     same shape), the chunked prefill's hook: ``store_kv`` runs first, so
     the hook may gather the just-stored rows back out of a paged pool.
     ``delta(li, name, x, y)`` adjusts each target matmul's output (the
-    LoRA hook, :mod:`.lora`). Returns logits ``[T, vocab]`` f32."""
+    LoRA hook, :mod:`.lora`). Returns logits ``[T, vocab]`` f32.
+
+    On a tp mesh (``w["mesh"]``) the K/V, the queries and the attention
+    are this rank's ``n_heads / tp`` heads and the ``wo``/``w2`` products
+    are summed over tp, so every rank returns the same logits."""
+    heads, reduce = _serving(w, cfg)
     x = _embed(w, tokens, cfg)[None]                            # [1, T, D]
     flash = (flash_attention_prefill
              if flash_supported(x.device, cfg.dtype, cfg.d_head)
              else flash_attention_reference)
     for li, layer in enumerate(w["layers"]):
         def attn(qkv, li=li):
-            q, k, v = _split_heads(qkv, cfg)
+            q, k, v = _split_heads(qkv, cfg, heads)
             store_kv(li, k[0], v[0])
             if attend is not None:
                 return attend(li, q).to(cfg.dtype).flatten(-2)
             return flash(q, k, v, causal=True).flatten(-2)
-        x = _layer(layer, x, cfg, attn, delta=_bind(delta, li))
+        x = _layer(layer, x, cfg, attn, reduce=reduce,
+                   delta=_bind(delta, li))
     return unembed(w, rms_norm(x, w["lnf"]), cfg)[0]
 
 
@@ -676,28 +720,43 @@ def step_forward(w: Dict, last_tokens: torch.Tensor,
     ``mix(li, q, k, v)`` does the cache write and attention read (q/k/v
     ``[S, H, dh]`` → attention of the same shape); ``delta(li, name, x,
     y)`` is the per-slot LoRA hook (row-independent, :mod:`.lora`).
-    Returns logits ``[S, vocab]`` f32."""
+    Returns logits ``[S, vocab]`` f32. On a tp mesh q/k/v are this
+    rank's heads, as in :func:`prompt_forward`."""
+    heads, reduce = _serving(w, cfg)
     x = _embed(w, last_tokens, cfg)                             # [S, D]
     for li, layer in enumerate(w["layers"]):
         x = _layer(layer, x, cfg, lambda qkv, li=li: mix(
-            li, *_split_heads(qkv, cfg)).flatten(-2),
-            delta=_bind(delta, li))
+            li, *_split_heads(qkv, cfg, heads)).flatten(-2),
+            reduce=reduce, delta=_bind(delta, li))
     return unembed(w, rms_norm(x, w["lnf"]), cfg)
 
 
 # -- the contiguous KV cache --------------------------------------------------
 
+def kv_cache_specs(cfg: TransformerConfig, mesh) -> Dict:
+    """The spec tree matching :func:`init_kv_cache` (JAX
+    ``kv_cache_specs``), per dimension as :func:`param_specs` writes
+    them: the head axis shards over ``tp`` (each tp rank caches the heads
+    its ``wqkv`` columns compute); slots and positions are replicated."""
+    tp = "tp" if mesh is not None and "tp" in mesh.axis_names else None
+    kv = (None, None, None, tp, None)
+    return {"k": kv, "v": kv, "lengths": ()}
+
+
 def init_kv_cache(cfg: TransformerConfig, max_slots: int, max_len: int,
                   dtype: Optional[torch.dtype] = None, *,
-                  device: DeviceLike = "cuda") -> Dict:
+                  device: DeviceLike = "cuda", mesh=None) -> Dict:
     """Fresh (zeroed) contiguous K/V cache on ``device``: ``{"k", "v":
     [n_layers, max_slots, max_len, n_heads, d_head], "lengths":
     [max_slots] int32}``. Every slot reserves ``max_len`` rows up front;
     rows past a slot's length are garbage by contract (padded prefill
-    writes land there) and are masked out of every attention."""
+    writes land there) and are masked out of every attention. On a tp
+    ``mesh`` the cache holds this rank's ``n_heads / tp`` heads
+    (:func:`kv_cache_specs`)."""
     check_dense(cfg, "init_kv_cache")
     dev = resolve_device(device)
-    shape = (cfg.n_layers, max_slots, max_len, cfg.n_heads, cfg.d_head)
+    shape = (cfg.n_layers, max_slots, max_len,
+             local_heads(cfg, mesh), cfg.d_head)
     kv_dtype = cfg.dtype if dtype is None else dtype
     return {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
             "v": torch.zeros(shape, dtype=kv_dtype, device=dev),

@@ -63,6 +63,9 @@ class World:
     backend: str
     owns_group: bool
     timeline: Any = None        # Timeline writer (rank 0 only)
+    #: The bound, in seconds, on a collective of the world's group: the
+    #: ``timeout`` given to :func:`init`, else the group's own.
+    timeout_s: float = 0.0
 
 
 _world: Optional[World] = None
@@ -80,7 +83,8 @@ def init(device: DeviceLike = None, *,
     NCCL, raising when CUDA is missing; ``device="cpu"`` uses gloo. With
     no ``device``, ``HVD_DEVICE`` decides (``cuda`` when unset).
     ``timeout`` bounds the rendezvous and every collective
-    (``torch.distributed``'s default otherwise)."""
+    (``torch.distributed``'s default otherwise); an adopted group keeps
+    its own. Either way ``World.timeout_s`` holds the bound."""
     global _world
     with _lock:
         if _world is not None:
@@ -116,6 +120,8 @@ def init(device: DeviceLike = None, *,
                                         **kw)
         else:
             backend = dist.get_backend()
+        timeout_s = (timeout.total_seconds() if owns and timeout is not None
+                     else _group_timeout_s(backend))
         timeline = None
         tl_path = _config.timeline_path()
         if tl_path and rank_ == 0:
@@ -123,9 +129,24 @@ def init(device: DeviceLike = None, *,
             timeline = Timeline(tl_path)
         _world = World(rank=rank_, size=size_, local_rank=local,
                        device=dev, backend=backend, owns_group=owns,
-                       timeline=timeline)
+                       timeline=timeline, timeout_s=timeout_s)
         _start_observability(_world)
         return _world
+
+
+#: The bound assumed for a group whose timeout torch does not expose.
+DEFAULT_TIMEOUT_S = 60.0
+
+
+def _group_timeout_s(backend: str) -> float:
+    """The default group's collective timeout in seconds, as its backend
+    holds it (:data:`DEFAULT_TIMEOUT_S` where this torch does not say)."""
+    dev = torch.device("cuda" if backend == "nccl" else "cpu")
+    try:
+        opts = dist.group.WORLD._get_backend(dev).options
+        return float(opts._timeout.total_seconds())
+    except (AttributeError, RuntimeError):
+        return DEFAULT_TIMEOUT_S
 
 
 def _start_observability(w: World) -> None:

@@ -33,11 +33,12 @@ from ..parallel.checkpoint import (INFERENCE_DTYPES, restore_adapter,
                                    restore_for_inference, save_adapter)
 from ..parallel.kv_blocks import (BlockManager, blocks_for,
                                   init_paged_kv_cache, paged_decode_step,
-                                  paged_prefill, paged_verify_step)
+                                  paged_kv_cache_specs, paged_prefill,
+                                  paged_verify_step)
 from ..parallel.lora import (LoraConfig, adapter_bytes, check_adapter_name,
                              init_adapter, stack_adapters)
-from ..parallel.transformer import (decode_step, init_kv_cache, prefill,
-                                    verify_step)
+from ..parallel.transformer import (decode_step, init_kv_cache,
+                                    kv_cache_specs, prefill, verify_step)
 
 from .adapters import AdapterRegistry
 from .batcher import (Request, RequestQueue, bucket_for, bucket_sizes,
@@ -64,7 +65,8 @@ __all__ = ["Engine", "ServeConfig", "SERVE_PHASES", "Request",
            "save_adapter", "restore_adapter", "BlockManager", "blocks_for",
            "init_paged_kv_cache", "paged_prefill", "paged_decode_step",
            "paged_verify_step", "init_kv_cache", "prefill", "decode_step",
-           "verify_step", "PreemptedError", "DeadlineExceededError",
+           "verify_step", "kv_cache_specs", "paged_kv_cache_specs",
+           "PreemptedError", "DeadlineExceededError",
            "ServerClosedError", "ServerOverloadedError", "FleetMetrics",
            "FleetRouter", "ReplicaHandle", "FleetAutoscaler",
            "heartbeat_liveness", "FailoverExhaustedError",

@@ -41,6 +41,15 @@ table:
   tenant too; registry values override the engine config's defaults and
   apply at the next admission.
 
+* **On a tp mesh** (``mesh=``, the model's) the table holds this
+  rank's block of every adapter leaf (:func:`~..parallel.lora.
+  adapter_specs`); :meth:`AdapterRegistry.load` takes the global tree and
+  slices it. A tp engine's followers load nothing themselves: the
+  leader's engine sends each row loaded since its last device call with
+  that call (:meth:`AdapterRegistry.rows_since`, the table generation),
+  and the follower's registry installs it (:meth:`AdapterRegistry.
+  install`) before the step that may read it.
+
 Weights come from anything yielding the
 :func:`~..parallel.lora.init_adapter` tree shape — typically
 :func:`~..parallel.checkpoint.restore_adapter` (manifest-CRC-verified),
@@ -58,7 +67,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..parallel.lora import (LoraConfig, _as_tensor, _tree_map,
                              check_adapter, check_adapter_name,
-                             empty_adapter_table)
+                             empty_adapter_table, local_adapter)
 from ..parallel.transformer import TransformerConfig
 
 
@@ -73,21 +82,30 @@ class AdapterRegistry:
       capacity: table rows, the most adapters resident at once.
       device: where the table lives (the engine's device; ``"cuda"`` by
         default, ``"cpu"`` for CPU engines).
+      mesh: the tp mesh of the model the adapters ride (None: unsharded);
+        the table then holds this rank's blocks.
 
     Thread-safe: every method holds one lock, a load's checks, copy and
     swap included.
     """
 
     def __init__(self, model_cfg: TransformerConfig, lora: LoraConfig,
-                 capacity: int = 8, *, device: DeviceLike = "cuda"):
+                 capacity: int = 8, *, device: DeviceLike = "cuda",
+                 mesh=None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self._model_cfg = model_cfg
         self._lora = lora
         self._capacity = int(capacity)
         self._device = resolve_device(device)
+        self._mesh = mesh
         self._table = empty_adapter_table(model_cfg, lora, capacity,
-                                          device=self._device)
+                                          device=self._device, mesh=mesh)
+        # The table generation (bumped by every load and install) and,
+        # at tp above 1, each row's last load as (generation, global host
+        # tree): what a tp leader sends its followers.
+        self._version = 0
+        self._row_trees: Dict[int, Tuple[int, Any]] = {}
         self._lock = threading.Lock()
         self._names: Dict[str, int] = {}
         self._ref = np.zeros(self._capacity, np.int64)
@@ -125,6 +143,32 @@ class AdapterRegistry:
     def device(self) -> torch.device:
         return self._device
 
+    @property
+    def mesh(self):
+        """The tp mesh the table's blocks are cut for (None: whole)."""
+        return self._mesh
+
+    def rows_since(self, version: int) -> Tuple[int, list]:
+        """``(current generation, [(row, global tree), ...])``: the rows
+        loaded after table generation ``version``, each with its last
+        load's global tree (at tp above 1; otherwise no tree is kept and
+        the list is empty). A tp leader sends these with its next device
+        call."""
+        with self._lock:
+            return self._version, [
+                (row, tree) for row, (v, tree) in
+                sorted(self._row_trees.items()) if v > version]
+
+    def install(self, row: int, adapter: Any) -> None:
+        """Write the global ``adapter`` tree's blocks into ``row`` (a tp
+        follower's copy of its leader's load): the table is swapped, as
+        by :meth:`load`, with no name or policy bookkeeping."""
+        staged = _tree_map(lambda x: _as_tensor(x, self._device),
+                           local_adapter(adapter, self._lora, self._mesh))
+        with self._lock, torch.no_grad():
+            self._table = _tree_map(_with_row(row), self._table, staged)
+            self._version += 1
+
     def table(self) -> Any:
         """The current stacked device table. Never written after it is
         published: a concurrent load swaps in a new one."""
@@ -161,7 +205,13 @@ class AdapterRegistry:
             raise ValueError(
                 f"slo_ttft_ms must be > 0 or None, got {slo_ttft_ms}")
         check_adapter(adapter, self._model_cfg, self._lora)
-        staged = _tree_map(lambda x: _as_tensor(x, self._device), adapter)
+        host = None
+        if self._mesh is not None and self._mesh.shape.get("tp", 1) > 1:
+            host = _tree_map(lambda x: np.array(
+                x.detach().float().cpu() if torch.is_tensor(x) else x,
+                np.float32), adapter)
+        staged = _tree_map(lambda x: _as_tensor(x, self._device),
+                           local_adapter(adapter, self._lora, self._mesh))
         with self._lock:
             row = self._names.get(name)
             if row is not None:
@@ -180,6 +230,9 @@ class AdapterRegistry:
                 row = self._free[-1]
             with torch.no_grad():
                 self._table = _tree_map(_with_row(row), self._table, staged)
+            self._version += 1
+            if host is not None:
+                self._row_trees[row] = (self._version, host)
             if name not in self._names:
                 self._free.pop()
             self._names[name] = row

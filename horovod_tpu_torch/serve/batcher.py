@@ -118,15 +118,20 @@ class RequestQueue:
             self._external = max(0, self._external - n)
 
     def take_batch(self, max_batch: int, batch_timeout_ms: float, *,
-                   hold: bool = False) -> List[Any]:
+                   hold: bool = False,
+                   idle_s: Optional[float] = None) -> Optional[List[Any]]:
         """Block until a batch is due, then return it (an empty list
         means the queue was closed and fully drained). A batch is due
         when ``max_batch`` requests are queued or the oldest has waited
         ``batch_timeout_ms``; a closed queue flushes immediately.
         ``hold=True`` keeps the returned requests counted against
         ``max_queue`` until :meth:`release_held` hands each ticket back.
+        ``idle_s`` bounds the wait of an empty queue: None is returned
+        when nothing arrived within it (a tp leader's heartbeat tick).
         """
         deadline_of_oldest = None
+        idle_until = (None if idle_s is None
+                      else time.monotonic() + float(idle_s))
         with self._cv:
             while True:
                 if self._q:
@@ -149,7 +154,13 @@ class RequestQueue:
                     deadline_of_oldest = None
                     if self._closed:
                         return []
-                    self._cv.wait()
+                    if idle_until is None:
+                        self._cv.wait()
+                        continue
+                    left = idle_until - time.monotonic()
+                    if left <= 0:
+                        return None
+                    self._cv.wait(left)
 
     def close(self) -> None:
         """Stop admission; queued requests stay for the consumer."""

@@ -24,6 +24,12 @@ device program per batch leaves nothing to overlap on the host, and one
 consumer keeps the queue's FIFO order. ``apply_fn(variables, batch)``
 runs under ``torch.inference_mode()`` on a ``[bucket, *item_shape]``
 tensor on the engine's device.
+
+Under a tp mesh (``variables`` a model on one) every rank
+builds the engine with the same arguments: the tp group's rank 0 serves,
+and sends each padded batch through the step plane (:mod:`.tp_plane`)
+to the other ranks, which run ``apply_fn`` on it with their shards (its
+row-parallel sums need every rank) and answer nothing.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ..exceptions import (DeadlineExceededError, ServerClosedError,
 from .batcher import (Request, RequestQueue, bucket_for, bucket_sizes,
                       pad_rows)
 from .metrics import ServeMetrics
+from .tp_plane import TpRole, plane_for
 
 # Serving phases on the timeline, in emission order: QUEUE is the wait
 # assembling the batch (flush policy), PAD the host-side bucket and
@@ -131,7 +138,7 @@ def _to_host(t: Any) -> np.ndarray:
     return np.asarray(t)
 
 
-class Engine(ReadinessMixin):
+class Engine(ReadinessMixin, TpRole):
     """In-process dynamic-batching inference server.
 
     Args:
@@ -151,6 +158,12 @@ class Engine(ReadinessMixin):
       device: where batches run; ``"cuda"`` (the default) raises on a
         host without CUDA.
 
+    When ``variables`` is a model on a tp mesh (``variables.mesh``) with
+    tp above 1, the tp group's rank 0 serves and the other ranks follow
+    (the module docstring): there :meth:`submit` raises ``ValueError``
+    naming the leader and :meth:`wait` blocks until the leader shuts
+    down.
+
     A served row comes back as numpy (bf16 outputs widened to f32).
     """
 
@@ -159,6 +172,7 @@ class Engine(ReadinessMixin):
                  config: ServeConfig = ServeConfig(),
                  timeline: Optional[Any] = None, *,
                  device: DeviceLike = "cuda"):
+        self._plane = plane_for(getattr(variables, "mesh", None), "Engine")
         self._device = resolve_device(device)
         self._apply = apply_fn
         self._variables = variables
@@ -179,19 +193,37 @@ class Engine(ReadinessMixin):
         self._timeline = timeline
         self._closed = False
         self._warmed = False
-        self._thread = threading.Thread(target=self._dispatch_loop,
-                                        name="hvd-torch-serve-dispatch",
-                                        daemon=True)
+        if self.is_leader:
+            self._thread = threading.Thread(target=self._dispatch_loop,
+                                            name="hvd-torch-serve-dispatch",
+                                            daemon=True)
+        else:
+            # A follower runs ``apply_fn`` on each batch the leader sends,
+            # the outputs left on the device.
+            self._thread = threading.Thread(
+                target=self._follow, name="hvd-torch-tp-follower",
+                args=(lambda op, args: self._apply_batch(args["batch"]),
+                      self._device), daemon=True)
         self._thread.start()
 
     # -- the device program ------------------------------------------------
 
-    def _execute(self, bucket: int, batch: np.ndarray) -> Any:
-        """``apply_fn`` on the padded host batch; the outputs as numpy
-        (the copy back waits for the device)."""
+    def _apply_batch(self, batch: np.ndarray) -> Any:
+        """``apply_fn`` on the padded host batch, on this rank."""
         x = torch.from_numpy(batch).to(self._device)
         with torch.inference_mode():
-            out = self._apply(self._variables, x)
+            return self._apply(self._variables, x)
+
+    def _execute(self, bucket: int, batch: np.ndarray) -> Any:
+        """``apply_fn`` on the padded host batch (sent to the tp
+        followers first); the outputs as numpy (the copy back waits for
+        the device)."""
+        plane = self._plane
+        if plane is None:
+            out = self._apply_batch(batch)
+        else:
+            out = plane.run("apply", {"batch": batch},
+                            lambda: self._apply_batch(batch))
         out_np = _tree_map(_to_host, out)
         with self._stats_lock:
             self._run_ids.add(bucket)
@@ -202,7 +234,8 @@ class Engine(ReadinessMixin):
         cuDNN's autotuning, the allocator's growth and the first launches
         of each shape happen at deploy time, not under load; checks that
         outputs carry a leading batch axis. Returns the buckets warmed.
-        """
+        On a tp leader every rank runs them."""
+        self._leader_only("warmup()")
         for b in self._buckets:
             out = self._execute(
                 b, np.zeros((b,) + self._item_shape, self._item_dtype))
@@ -222,7 +255,9 @@ class Engine(ReadinessMixin):
         """Enqueue one example; returns a future resolving to its output
         row (a numpy tree). Raises :class:`ServerOverloadedError` when
         the queue is full, :class:`ServerClosedError` after shutdown.
-        The :class:`~.batcher.Request` is ``future.request``."""
+        The :class:`~.batcher.Request` is ``future.request``. On a tp
+        follower it raises ``ValueError`` naming the leader."""
+        self._leader_only("submit()")
         x = np.asarray(inputs, self._item_dtype)
         if x.shape != self._item_shape:
             raise ValueError(
@@ -262,7 +297,7 @@ class Engine(ReadinessMixin):
         snap["max_queue"] = self._cfg.max_queue
         snap["batch_timeout_ms"] = self._cfg.batch_timeout_ms
         snap["device"] = str(self._device)
-        return snap
+        return self._tp_stats(snap)
 
     def prom_collect(self):
         """This engine's ``(meta, samples)`` in Prometheus terms:
@@ -282,7 +317,11 @@ class Engine(ReadinessMixin):
     def shutdown(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stop the engine. ``drain=True`` serves everything already
         queued first; ``drain=False`` fails pending futures with
-        :class:`ServerClosedError`. Idempotent."""
+        :class:`ServerClosedError`. On a tp leader the loop's end
+        releases the followers; on a follower it waits up to ``timeout``
+        for that. Idempotent."""
+        if self._shutdown_follower(timeout):
+            return
         if self._closed:
             return
         self._closed = True
@@ -327,17 +366,26 @@ class Engine(ReadinessMixin):
 
     def _dispatch_loop(self):
         tl = self._timeline
+        plane = self._plane
         while True:
             if tl:
                 tl.start(_TIMELINE_ROW, "INFERENCE")
                 tl.activity_start(_TIMELINE_ROW, "QUEUE")
-            batch = self._queue.take_batch(self._cfg.max_batch,
-                                           self._cfg.batch_timeout_ms)
+            # A tp leader's idle wait is bounded by the plane's heartbeat.
+            batch = self._queue.take_batch(
+                self._cfg.max_batch, self._cfg.batch_timeout_ms,
+                idle_s=plane.beat_s if plane is not None else None)
             if tl:
                 tl.activity_end(_TIMELINE_ROW)
+            if batch is None:
+                if tl:
+                    tl.abort(_TIMELINE_ROW)
+                plane.beat()
+                continue
             if not batch:               # closed + drained
                 if tl:
                     tl.abort(_TIMELINE_ROW)
+                self._stop_followers()
                 return
             try:
                 self._run_batch(batch, tl)

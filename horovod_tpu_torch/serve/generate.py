@@ -47,6 +47,17 @@ Orca-style iteration-level scheduling over vLLM-style paged KV memory:
   plain PyTorch, as the JAX functions are plain XLA. Prompts pad to
   power-of-two buckets, so :meth:`GenerationEngine.warmup` can run every
   shape the engine will see before traffic.
+* **Tensor parallelism.** A model on a tp mesh (every rank holding its
+  :func:`~..parallel.transformer.param_specs` blocks, from
+  :func:`~..convert.params_from_jax` with ``mesh=``) serves from one
+  engine per rank, built on every rank with the same arguments. The
+  cache holds each rank's ``n_heads / tp`` heads
+  (:func:`~..parallel.transformer.kv_cache_specs`). The tp group's rank
+  0 is the leader: it runs this loop and sends every device call first
+  to the other ranks, which run it on their shards
+  (:mod:`.tp_plane`); :meth:`GenerationEngine.wait` blocks a follower
+  until the leader stops. A mesh with dp, pp, ep or sp above 1 is
+  refused.
 * **Liveness** (for a fleet's router): :meth:`GenerationEngine.
   loop_alive` reads dead on the loop thread's death and on a busy loop
   with no iteration for ``stall_s``; each iteration calls the fault
@@ -69,6 +80,7 @@ across tenants only; within a tenant, FIFO holds).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -76,6 +88,7 @@ import queue as std_queue
 import signal
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -103,6 +116,7 @@ from .engine import ReadinessMixin
 from .metrics import ServeMetrics
 from .sched import FairScheduler
 from .spec import SpecConfig, accept_greedy, accept_sampled
+from .tp_plane import TpRole, plane_for
 
 _DEFAULT = object()    # "knob not passed" sentinel (None is a real value)
 
@@ -306,6 +320,20 @@ class GenerationConfig:
         return self.max_slots * self.blocks_per_slot + 1
 
 
+class _HostBlock(dict):
+    """A block's K/V staged in the host tier: the payload the
+    :class:`~..parallel.kv_blocks.BlockManager` holds (the leader's
+    head shard, ``{"k", "v": [n_layers, block_size, heads, d_head]}``).
+    Every rank keeps its own shard in its engine's host store under
+    ``pid``; once the manager and the prefetch queue let go of the
+    payload, ``pid`` is dropped from every rank's store at the next
+    device call."""
+
+    def __init__(self, pid: int):
+        super().__init__()
+        self.pid = pid
+
+
 class GenerationHandle:
     """Streaming result of one generation request.
 
@@ -457,7 +485,7 @@ class _GenRequest:
         return e / e.sum()
 
 
-class GenerationEngine(ReadinessMixin):
+class GenerationEngine(ReadinessMixin, TpRole):
     """Continuous-batching generation server over one transformer.
 
     Args:
@@ -476,6 +504,12 @@ class GenerationEngine(ReadinessMixin):
       spec: :class:`~.spec.SpecConfig` turns on speculative decoding
         (``None``: off). A step where no slot drafted anything is the
         plain decode step.
+
+    On a tp mesh every rank constructs the engine with the same
+    arguments. On the leader (``is_leader``: tp index 0) it serves as
+    above; on a follower it runs the leader's device calls on its shards
+    and :meth:`submit` raises ``ValueError`` naming the leader; call
+    :meth:`wait` there to block until the leader's :meth:`shutdown`.
     """
 
     def __init__(self, model: Transformer,
@@ -485,6 +519,9 @@ class GenerationEngine(ReadinessMixin):
                  spec: Optional[SpecConfig] = None):
         cfg = model.cfg
         check_dense(cfg, "GenerationEngine")
+        # The step plane first (it creates a process group: collective,
+        # so every rank reaches it before any rank-dependent check).
+        self._plane = plane_for(model.mesh, "GenerationEngine")
         self._device = resolve_device(device)
         if model.device != self._device:
             raise ValueError(f"model is on {model.device}, the engine's "
@@ -504,6 +541,12 @@ class GenerationEngine(ReadinessMixin):
                 raise ValueError(
                     f"the AdapterRegistry's table is on {adapters.device}, "
                     f"the engine's device is {self._device}")
+            if adapters.mesh is not model.mesh and (
+                    adapters.mesh is not None or self._plane is not None):
+                raise ValueError(
+                    "the AdapterRegistry was built for another mesh than "
+                    "the model's: pass AdapterRegistry(..., mesh="
+                    "model.mesh) on every rank")
         if spec is not None and spec.k + 1 > config.max_len:
             raise ValueError(
                 f"spec k={spec.k} needs k+1 <= max_len={config.max_len}")
@@ -512,6 +555,9 @@ class GenerationEngine(ReadinessMixin):
         with torch.no_grad():
             self._weights = gen_weights(model)
         self._adapters = adapters
+        # The table generation the tp followers hold (the leader sends
+        # the rows loaded since with its next device call).
+        self._lora_synced = 0
         # Per-slot adapter table row, the decode step's gather index
         # (-1 = base): data, never a shape.
         self._adapter_idx = np.full((config.max_slots,), -1, np.int32)
@@ -542,7 +588,10 @@ class GenerationEngine(ReadinessMixin):
             self._n_blocks = config.resolved_n_blocks
             self._cache = init_paged_kv_cache(cfg, self._n_blocks,
                                               config.block_size, s,
-                                              device=self._device)
+                                              device=self._device,
+                                              mesh=model.mesh)
+            # Host bookkeeping, which only the leader's loop reads (its
+            # block ids name every rank's blocks).
             self._blocks = BlockManager(self._n_blocks, config.block_size,
                                         host_blocks=config.host_blocks)
             for t, b in (config.tenant_block_budgets or {}).items():
@@ -552,7 +601,7 @@ class GenerationEngine(ReadinessMixin):
             self._slot_blocks: List[List[int]] = [[] for _ in range(s)]
         else:
             self._cache = init_kv_cache(cfg, s, config.max_len,
-                                        device=self._device)
+                                        device=self._device, mesh=model.mesh)
             self._blocks = None
         self._chunked = self._paged and config.chunked_prefill
         # Host-tier prefetches staged by admissions, applied at the top
@@ -560,6 +609,11 @@ class GenerationEngine(ReadinessMixin):
         self._host_cap = config.host_blocks if self._paged else 0
         self._prefetch_q: deque = deque()
         self._prefetch_inflight: set = set()
+        # This rank's host-tier shards by payload id, and the ids whose
+        # payload the leader let go of (dropped at the next device call).
+        self._host_store: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._host_drops: deque = deque()
+        self._host_pids = itertools.count()
         self._spec = spec
         self._drafter = spec.make_drafter() if spec is not None else None
         self._buckets = prefill_buckets(config.max_len)
@@ -590,9 +644,14 @@ class GenerationEngine(ReadinessMixin):
         self._stall_mark: Optional[Tuple[float, float]] = None
         self._streams_started = 0
         self._loop_error_dumped = False
-        self._thread = threading.Thread(target=self._loop,
-                                        name="hvd-torch-generate-loop",
-                                        daemon=True)
+        if self.is_leader:
+            self._thread = threading.Thread(target=self._loop,
+                                            name="hvd-torch-generate-loop",
+                                            daemon=True)
+        else:
+            self._thread = threading.Thread(
+                target=self._follow, args=(self._run_op, self._device),
+                name="hvd-torch-tp-follower", daemon=True)
         self._thread.start()
 
     def loop_alive(self, stall_s: float = 60.0) -> bool:
@@ -652,12 +711,41 @@ class GenerationEngine(ReadinessMixin):
         return dict(adapters=self._adapters.table(),
                     adapter_idx=adapter_idx, lora=self._adapters.lora)
 
+    def _device_call(self, op: str, **args):
+        """One call that touches device state, run on this rank; on a tp
+        leader it is sent to the followers first (:mod:`.tp_plane`), under
+        the plane's lock, with the LoRA rows loaded since the last call,
+        and a failure takes the plane down (the followers' collectives
+        are left unmatched). Host-tier payloads let go of since the last
+        call are dropped first, on every rank."""
+        plane = self._plane
+        with plane.lock if plane is not None else contextlib.nullcontext():
+            args["drops"] = [self._host_drops.popleft()
+                             for _ in range(len(self._host_drops))]
+            if plane is None:
+                return self._run_op(op, args)
+            if self._adapters is not None:
+                # A row a step reads was loaded before its stream was
+                # submitted, so before this read: the followers install
+                # it ahead of the call.
+                self._lora_synced, rows = self._adapters.rows_since(
+                    self._lora_synced)
+                if rows:
+                    args["lora_rows"] = rows
+            return plane.run(op, args, lambda: self._run_op(op, args))
+
     @torch.no_grad()
-    def _prefill(self, tokens: np.ndarray, slot: int, length: int,
-                 write_row: Optional[np.ndarray],
-                 adapter_slot: int = -1) -> np.ndarray:
-        """Prefill one padded prompt; returns the logits row of its last
-        real position (the only row sampling reads)."""
+    def _run_op(self, op: str, args: Dict) -> Any:
+        """Run device call ``op`` on this rank's shards (the leader's
+        loop, or a follower's from the leader's descriptor)."""
+        for pid in args.pop("drops", ()):
+            self._host_store.pop(pid, None)
+        for row, tree in args.pop("lora_rows", ()):
+            if not self.is_leader:
+                self._adapters.install(row, tree)
+        return getattr(self, "_op_" + op)(**args)
+
+    def _op_prefill(self, tokens, slot, length, write_row, adapter_slot):
         toks = self._to_device(tokens)
         lora = self._lora(adapter_slot)
         if self._paged:
@@ -668,28 +756,19 @@ class GenerationEngine(ReadinessMixin):
         else:
             _, logits = prefill(self._weights, toks, self._cache, slot,
                                 self._model_cfg, length=length, **lora)
-        return logits[length - 1].cpu().numpy()
+        return logits
 
-    @torch.no_grad()
-    def _chunked_prefill(self, tokens: np.ndarray, slot: int, length: int,
-                         start: int, write_rows: np.ndarray,
-                         read_row: np.ndarray,
-                         adapter_slot: int = -1) -> np.ndarray:
-        """The chunked prefill of a suffix starting at ``start``; returns
-        the logits row of the last prompt position."""
+    def _op_chunked(self, tokens, slot, length, start, write_rows,
+                    read_row, adapter_slot):
         _, logits = paged_chunked_prefill(
             self._weights, self._to_device(tokens), self._cache, slot,
             self._to_device(write_rows), self._to_device(read_row), start,
             self._model_cfg, length=length,
             chunk_blocks=self._cfg.chunk_blocks,
             **self._lora(adapter_slot))
-        return logits[length - start - 1].cpu().numpy()
+        return logits
 
-    @torch.no_grad()
-    def _decode(self, last: np.ndarray, positions: np.ndarray,
-                tables: Optional[np.ndarray],
-                adapter_idx: np.ndarray) -> np.ndarray:
-        """One decode step for every slot; returns ``[S, vocab]`` logits."""
+    def _op_decode(self, last, positions, tables, adapter_idx):
         toks, pos = self._to_device(last), self._to_device(positions)
         lora = self._lora(adapter_idx)
         if self._paged:
@@ -700,14 +779,9 @@ class GenerationEngine(ReadinessMixin):
         else:
             _, logits = decode_step(self._weights, toks, self._cache, pos,
                                     self._model_cfg, **lora)
-        return logits.cpu().numpy()
+        return logits
 
-    @torch.no_grad()
-    def _verify(self, drafts: np.ndarray, positions: np.ndarray,
-                tables: Optional[np.ndarray],
-                adapter_idx: np.ndarray) -> np.ndarray:
-        """One verify forward over ``[S, k + 1]`` draft columns; returns
-        ``[S, k + 1, vocab]`` logits."""
+    def _op_verify(self, drafts, positions, tables, adapter_idx):
         toks, pos = self._to_device(drafts), self._to_device(positions)
         lora = self._lora(adapter_idx)
         if self._paged:
@@ -718,14 +792,74 @@ class GenerationEngine(ReadinessMixin):
         else:
             _, logits = verify_step(self._weights, toks, self._cache, pos,
                                     self._model_cfg, **lora)
-        return logits.cpu().numpy()
+        return logits
+
+    def _op_reset_lengths(self):
+        self._cache["lengths"].zero_()
+
+    def _op_offload(self, blk, pid):
+        """Stage block ``blk``'s K/V of every layer (this rank's heads) in
+        host memory under ``pid``."""
+        shard = {n: self._cache[n][:, blk].to("cpu", copy=True)
+                 for n in ("k", "v")}
+        self._host_store[pid] = shard
+        return shard
+
+    def _op_prefetch(self, blk, pid):
+        """Write the staged shard ``pid`` back into block ``blk``."""
+        shard = self._host_store[pid]
+        for n in ("k", "v"):
+            self._cache[n][:, blk] = shard[n].to(self._device)
+
+    # The leader's views of the calls: the host rows sampling reads.
+
+    def _prefill(self, tokens: np.ndarray, slot: int, length: int,
+                 write_row: Optional[np.ndarray],
+                 adapter_slot: int = -1) -> np.ndarray:
+        """Prefill one padded prompt; returns the logits row of its last
+        real position (the only row sampling reads)."""
+        logits = self._device_call(
+            "prefill", tokens=tokens, slot=slot, length=length,
+            write_row=write_row, adapter_slot=adapter_slot)
+        return logits[length - 1].cpu().numpy()
+
+    def _chunked_prefill(self, tokens: np.ndarray, slot: int, length: int,
+                         start: int, write_rows: np.ndarray,
+                         read_row: np.ndarray,
+                         adapter_slot: int = -1) -> np.ndarray:
+        """The chunked prefill of a suffix starting at ``start``; returns
+        the logits row of the last prompt position."""
+        logits = self._device_call(
+            "chunked", tokens=tokens, slot=slot, length=length, start=start,
+            write_rows=write_rows, read_row=read_row,
+            adapter_slot=adapter_slot)
+        return logits[length - start - 1].cpu().numpy()
+
+    def _decode(self, last: np.ndarray, positions: np.ndarray,
+                tables: Optional[np.ndarray],
+                adapter_idx: np.ndarray) -> np.ndarray:
+        """One decode step for every slot; returns ``[S, vocab]`` logits."""
+        return self._device_call(
+            "decode", last=last, positions=positions, tables=tables,
+            adapter_idx=adapter_idx).cpu().numpy()
+
+    def _verify(self, drafts: np.ndarray, positions: np.ndarray,
+                tables: Optional[np.ndarray],
+                adapter_idx: np.ndarray) -> np.ndarray:
+        """One verify forward over ``[S, k + 1]`` draft columns; returns
+        ``[S, k + 1, vocab]`` logits."""
+        return self._device_call(
+            "verify", drafts=drafts, positions=positions, tables=tables,
+            adapter_idx=adapter_idx).cpu().numpy()
 
     def warmup(self) -> Tuple[Any, ...]:
         """Run the decode step, the verify step (with ``spec``) and every
         prefill bucket (the chunked ones on a chunked engine) once before
         traffic. Paged writes land in the trash block, contiguous ones in
         rows past every slot's length, so the cache stays usable; every
-        row is base. Returns the shapes warmed."""
+        row is base. Returns the shapes warmed (on a tp leader every
+        rank runs them)."""
+        self._leader_only("warmup()")
         s = self._cfg.max_slots
         nb = self._cfg.blocks_per_slot
         tables = np.full((s, nb), TRASH_BLOCK, np.int32)
@@ -749,7 +883,7 @@ class GenerationEngine(ReadinessMixin):
             for t in self._buckets:
                 self._prefill(np.zeros((t,), np.int32), 0, 1, trash_row)
             buckets = self._buckets
-        self._cache["lengths"].zero_()
+        self._device_call("reset_lengths")
         self._warmed = True
         return ("decode",) + spec_keys + tuple(buckets)
 
@@ -776,7 +910,9 @@ class GenerationEngine(ReadinessMixin):
         ``eos_id=None`` disables EOS for this request even when the
         engine has a default. ``adapter`` names the tenant's resident
         LoRA fine-tune (None = base); the stream pins the adapter's row
-        for its whole lifetime, so an evict racing it is refused."""
+        for its whole lifetime, so an evict racing it is refused. On a
+        tp follower it raises ``ValueError`` naming the leader."""
+        self._leader_only("submit()")
         toks = np.asarray(tokens, np.int32)
         if toks.ndim != 1 or toks.size == 0:
             raise ValueError(
@@ -1018,7 +1154,11 @@ class GenerationEngine(ReadinessMixin):
     def stats(self) -> Dict:
         """The ``/stats`` snapshot: :class:`ServeMetrics` plus the slot,
         bucket, (paged) block-pool and adapter-table view
-        (``batch_fill_ratio`` is decode-slot occupancy)."""
+        (``batch_fill_ratio`` is decode-slot occupancy), and on a tp mesh
+        the step plane's counters under ``"tp"`` (a follower reports
+        those alone)."""
+        if not self.is_leader:
+            return self._tp_stats({"device": str(self._device)})
         snap = self._metrics.snapshot()
         snap["max_slots"] = self._cfg.max_slots
         snap["max_len"] = self._cfg.max_len
@@ -1050,6 +1190,7 @@ class GenerationEngine(ReadinessMixin):
             snap["adapters_resident"] = len(self._adapters.resident())
             snap["adapter_table"] = self._adapters.gauges()
         snap["spec_k"] = self._spec.k if self._spec is not None else 0
+        self._tp_stats(snap)
         snap["device"] = str(self._device)
         snap["max_queue"] = self._cfg.max_queue
         return snap
@@ -1116,7 +1257,11 @@ class GenerationEngine(ReadinessMixin):
         """Stop the engine. ``drain=True`` finishes every stream already
         admitted (queued AND mid-generation) first; ``drain=False`` fails
         pending handles with :class:`ServerClosedError` and aborts
-        in-flight streams. Idempotent."""
+        in-flight streams. On a tp leader the loop's end releases the
+        followers; on a follower it waits up to ``timeout`` for that.
+        Idempotent."""
+        if self._shutdown_follower(timeout):
+            return
         if self._closed:
             return
         self._closed = True
@@ -1199,6 +1344,7 @@ class GenerationEngine(ReadinessMixin):
                         self._req_done(req)
                     self._held.clear()
                     self._fail_active(err)
+                    self._stop_followers()
                     return
                 if self._prefetch_q:
                     self._apply_prefetches()
@@ -1209,9 +1355,20 @@ class GenerationEngine(ReadinessMixin):
                 # fully idle. Held requests keep their max_queue ticket.
                 want = len(self._queue) or (len(free) if idle else 0)
                 if want > 0:
-                    batch = self._queue.take_batch(want, 0.0, hold=True)
+                    # A tp leader's idle wait is bounded by the plane's
+                    # heartbeat, so its followers' waits stay bounded too.
+                    batch = self._queue.take_batch(
+                        want, 0.0, hold=True,
+                        idle_s=(self._plane.beat_s
+                                if self._plane is not None and idle
+                                else None))
+                    if batch is None:
+                        self._plane.beat()
+                        continue
                     if not batch and idle:
-                        return      # closed and drained, nothing in flight
+                        # Closed and drained, nothing in flight.
+                        self._stop_followers()
+                        return
                     for r in batch:
                         r.held_ticket = True
                     self._held.extend(batch)
@@ -1484,13 +1641,19 @@ class GenerationEngine(ReadinessMixin):
         ``owner``'s when given) to the host tier: the block's K/V of every
         layer copied to host memory, then committed (the manager checks
         again under its lock, so a hit landing meanwhile cancels that
-        block's offload). Returns whether any device block was freed."""
+        block's offload). Each rank stages its own head shard. Returns
+        whether any device block was freed."""
         moved = 0
         for key, blk in self._blocks.offload_candidates(shortfall,
                                                         owner=owner):
-            payload = {n: self._cache[n][:, blk].to("cpu", copy=True)
-                       for n in ("k", "v")}
+            # Committed first, copied right after: the freed block is
+            # written by no device call queued before the copy.
+            payload = _HostBlock(next(self._host_pids))
             if self._blocks.offload_commit(key, payload):
+                weakref.finalize(payload, self._host_drops.append,
+                                 payload.pid)
+                payload.update(self._device_call("offload", blk=blk,
+                                                  pid=payload.pid))
                 moved += 1
         if moved:
             self._metrics.on_kv_offload(moved)
@@ -1524,8 +1687,7 @@ class GenerationEngine(ReadinessMixin):
                 self._prefetch_q.append((key, payload, t0, owner))
                 continue
             blk = self._blocks.alloc(1, owner=owner)[0]
-            for n in ("k", "v"):
-                self._cache[n][:, blk] = payload[n].to(self._device)
+            self._device_call("prefetch", blk=blk, pid=payload.pid)
             self._blocks.promote(key, blk)
             self._prefetch_inflight.discard(key)
             self._metrics.on_kv_prefetch(time.monotonic() - t0)

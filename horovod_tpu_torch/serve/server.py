@@ -277,6 +277,12 @@ class HttpServer:
         if engine is None and generate is None:
             raise ValueError(
                 "HttpServer needs an engine= and/or a generate= engine")
+        for e in (engine, generate):
+            if e is not None and not getattr(e, "is_leader", True):
+                raise ValueError(
+                    f"this engine is a tp follower (its leader is global "
+                    f"rank {e.leader_rank}): followers answer no "
+                    f"requests — run HttpServer on the leader only")
         handler = type("BoundHandler", (_Handler,),
                        {"engine": engine, "gen_engine": generate})
         self._httpd = ThreadingHTTPServer((host, port), handler)

@@ -38,7 +38,8 @@ for needed in ("horovod_tpu_torch.ops.sparse", "horovod_tpu_torch.elastic",
                "horovod_tpu_torch.serve.engine",
                "horovod_tpu_torch.serve.router",
                "horovod_tpu_torch.serve.fleet",
-               "horovod_tpu_torch.serve.proc_replica"):
+               "horovod_tpu_torch.serve.proc_replica",
+               "horovod_tpu_torch.serve.tp_plane"):
     assert needed in names, names
 for name in names:
     if not name.endswith(".__main__"):   # running it would launch
@@ -66,6 +67,7 @@ def test_every_submodule_is_importable_here():
     assert {"horovod_tpu_torch.ops.attention",
             "horovod_tpu_torch.ops.paged_attention",
             "horovod_tpu_torch.serve.generate",
+            "horovod_tpu_torch.serve.tp_plane",
             "horovod_tpu_torch.ops.fused_conv_bn",
             "horovod_tpu_torch.ops.collectives",
             "horovod_tpu_torch.ops.fusion",

@@ -477,7 +477,8 @@ class TestAdapterPlane:
         assert (reg.weight("a1"), reg.priority("a1"),
                 reg.slo_ttft_ms("a1")) == (2.0, 1, 50.0)
         ref = init_adapter(torch.Generator().manual_seed(101), cfg,
-                           LoraConfig(rank=2, alpha=8.0), b_scale=0.5)
+                           LoraConfig(rank=2, alpha=8.0), b_scale=0.5,
+                           device="cpu")
         row = reg.index_of("a1")
         table = reg.table()
         for li, layer in enumerate(ref["layers"]):
