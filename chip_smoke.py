@@ -177,8 +177,24 @@ Phases, one JSON line each:
                |Δ|), the logits' max |Δ| on one prefill and one decode
                step, the plane's host ms a descriptor, the followers'
                K3-fwd and K8 launches against the leader's, kill → the
-               leader's error. Step times in (c) are not tp speed: both
-               ranks share one card and a gloo link.
+               leader's error (its started streams fail with the
+               group's error, the others are refused as closed). Step
+               times in (c) are not tp speed: both ranks share one card
+               and a gloo link.
+6g. fleet_tp — a fleet of tp groups: ``FleetRouter`` over two tp = 2
+               groups of the bench LM (``spawn_replica_factory`` with
+               ``"tp": 2``: four processes, two gloo worlds sharing the
+               card, 8 heads a rank), paged with K8, the fleet phase's 16
+               requests of 16 tokens: each rank's K3-fwd and K8 launches
+               (its counters, read from its heartbeat just before and
+               just after the round; each follower's equal to its
+               leader's, K3-fwd n_layers a prefill); then the same round
+               with a follower of r0 SIGKILLed after r0's third stream's
+               first token: every stream bitwise its undisturbed stream,
+               strands resumed, r0's leader gone within the world's
+               timeout. Spawn → ready, kill → detection and → first
+               resumed token, decode step p50 a group, peak bytes a rank;
+               no rank outlives the shutdown.
 7. timing   — each kernel's median time beside its bound, its plain
                version's time and a library yardstick's; the flash
                forward's and K8's host time per call. K8 at four shapes
@@ -216,7 +232,8 @@ Phases, one JSON line each:
                K3-fwd); step p50, tokens/s, MFU, peak memory; the loss
                must be finite and fall.
 15. lm_train_profile — one LM step under ``torch.profiler``.
-16. e2e_lm_train — one full-width step at batch 1, T=256 on the card and
+16. e2e_lm_train — one full-width step (4 of the 8 layers) at batch 1,
+               T=256 on the card and
                on the CPU from the same weights and batch: loss, logits,
                gradients and updates compared.
 17. timing_attn — K3-qkv and the dq/dkv pair at the LM step's shape
@@ -237,7 +254,8 @@ Phases, one JSON line each:
                K3-qkv and no forward without lse); step p50, tokens/s,
                MFU, peak memory; the loss must be finite and fall.
 20. pp_lm_train_profile — one pipelined step under ``torch.profiler``.
-21. e2e_pp_lm_train — one full-width pipelined step at batch 2 (2
+21. e2e_pp_lm_train — one full-width pipelined step (4 of the 8 layers)
+               at batch 2 (2
                microbatches of 1), T=256, on the card (NCCL world) and on
                the CPU (gloo world) from the same weights and batch: loss,
                gradients and the update compared.
@@ -502,6 +520,10 @@ TOL_E2E_TRAIN = {"loss": 2e-3, "logits": 1e-2, "param_updates": 0.3,
 LM_BATCH, LM_SEQ = 8, 2048
 LM_WARMUP, LM_STEPS = 2, 10
 LM_E2E_BATCH, LM_E2E_SEQ = 1, 256
+# e2e_lm_train's and e2e_pp_lm_train's depth: the bench LM's width, 4 of
+# its 8 layers (cut for the script's time: the CPU's side of each
+# comparison is most of its phase).
+E2E_LM_LAYERS = 4
 ADAMW = dict(lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1)
 # (T, causal) of the attention parity checks at B=1, H=16, d=128.
 ATTN_PARITY = ((128, True), (1024, True), (2048, True), (256, False),
@@ -719,6 +741,18 @@ TP_SAMPLED = dict(temperature=0.8, top_k=50)
 TP_KILL_CALLS = 20
 TP_PLANE_S, TP_WORLD_S = 60.0, 240.0
 TP_DELTA_CAPS = {"prefill": 0.25, "decode": 0.25}
+# fleet_tp: a FleetRouter over two tp = 2 groups of subprocesses
+# (spawn_replica_factory with "tp": 2), each on the device set FTP_DEVICES
+# (all four ranks share the card over gloo), paged with K8: the fleet
+# phase's load (FLEET_REQUESTS requests of FLEET_NEW_TOKENS, greedy and
+# seeded in turns), then the same round with a follower of r0 SIGKILLed
+# after r0's FTP_KILL_STREAM-th stream's first token. FTP_WORLD_S is each
+# group's collective timeout; its dead leader must exit within it plus
+# FTP_EXIT_MARGIN_S.
+FTP_DEVICES = ("cuda:0", "cuda:0")
+FTP_KILL_STREAM = 3
+FTP_WORLD_S, FTP_EXIT_MARGIN_S = 60.0, 10.0
+FTP_READY_TIMEOUT_S, FTP_PROBE_S = 300.0, 5.0
 # The trainer phase's bare-loop step p50, which the elastic phase prints
 # beside its launched Trainer's.
 TRAINER_BARE_P50 = {}
@@ -3254,9 +3288,12 @@ def _serve_tp_world(seed: int, ref: dict, run_dir: str) -> None:
             plane_payload_bytes_per_call=(plane["payload_bytes"]
                                           / max(plane["calls"], 1)))
     kill = lead["kill"]
-    check(kill["errors"] and all(
-        e in ("WorkerFailureError", "StalledError", "TransportError")
-        for e in kill["errors"]),
+    # A started stream fails with the group's error; one the death caught
+    # before its first token is refused (the leader closed for good).
+    check(any(kill["started"]) and all(
+        e in (("WorkerFailureError", "StalledError", "TransportError")
+              if started else ("ServerClosedError",))
+        for e, started in zip(kill["errors"], kill["started"])),
           f"serve_tp (c): the killed follower's round ended {kill}")
     kill_ms = (kill["first_error_at"] - fol["killed_at"]) * 1e3
     check(0 <= kill_ms < TP_PLANE_S * 1e3,
@@ -3417,12 +3454,254 @@ def serve_tp_worker(rank: int, run_dir: str, port: int, seed: int) -> int:
         except Exception as e:  # noqa: BLE001 — what the round checks
             first = first or time.time()
             errors.append(type(e).__name__)
-    rec["kill"] = dict(errors=errors, first_error_at=first)
+    rec["kill"] = dict(errors=errors, first_error_at=first,
+                       started=[bool(h._tokens) for h in hs])
     eng.shutdown(drain=False, timeout=TP_PLANE_S)
     dump()
     sys.stdout.flush()
     # The world lost a rank: skip the process groups' teardown.
     os._exit(0)
+
+
+# -- a fleet of tp groups ---------------------------------------------------
+
+def _fresh_beats(client, after: float, limit_s: float = 10.0) -> list:
+    """Each rank's heartbeat record written after ``after`` (time.time()):
+    its kernel launches and peak bytes as they stand once idle."""
+    end = time.monotonic() + limit_s
+    while True:
+        beats = client.rank_heartbeats()
+        if all(b.get("ts", 0) > after for b in beats):
+            return beats
+        check(time.monotonic() < end,
+              f"fleet_tp: {client.name}'s ranks stopped beating: {beats}")
+        time.sleep(0.05)
+
+
+def _launch_delta(before: list, after: list) -> list:
+    names = ("flash_attention", "paged_decode_attention")
+    return [{n: a["launches"].get(n, 0) - b["launches"].get(n, 0)
+             for n in names} for b, a in zip(before, after)]
+
+
+def _ftp_round(router, prompts, samplings) -> list:
+    """Every request from its own thread (a group's submit returns at the
+    stream's first token), each token's arrival time beside it."""
+    def one(i, out):
+        try:
+            h = router.submit(prompts[i], sampling=samplings[i])
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            out["error"] = repr(e)
+            return
+        _timed_handle(h, out)
+    return _run_threads(one, [(i,) for i in range(len(prompts))])
+
+
+def phase_fleet_tp(seed: int, smi: str):
+    """A fleet of tp groups on the card: ``FleetRouter`` over two tp = 2
+    groups of the bench LM (``spawn_replica_factory`` with ``"tp": 2``
+    and the device sets FTP_DEVICES: four processes, two gloo worlds
+    sharing the card, 8 heads a rank), paged with K8. (a) The fleet
+    phase's requests: every stream served, K3-fwd and K8 launched on
+    every rank (the children's counters, read from their heartbeats just
+    before and just after the round), each follower's launches equal to
+    its leader's, K3-fwd n_layers a prefill of its group. (b) The same
+    round with a follower of r0 SIGKILLed after r0's FTP_KILL_STREAM-th
+    stream's first token: every stream bitwise its stream in (a), strands
+    each resumed and none exhausted, r0's leader gone within the world's
+    timeout plus FTP_EXIT_MARGIN_S. No rank outlives the shutdown. Prints
+    spawn → ready, kill → detection and → each resumed stream's first
+    token, the decode step p50 of each group and each rank's peak bytes.
+    Returns (a)'s launches on every rank, summed."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.testing import faults
+    run_dir = tempfile.mkdtemp(prefix="hvd-fleet-tp-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    saved = {k: os.environ.get(k)
+             for k in ("HVD_FAULT_SPEC", "HVD_FLIGHTREC_DIR", "PYTHONPATH")}
+    os.environ.pop("HVD_FAULT_SPEC", None)
+    os.environ["HVD_FLIGHTREC_DIR"] = os.path.join(run_dir, "flightrec")
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in (saved["PYTHONPATH"] or "").split(os.pathsep)
+                  if p])
+    faults.reset()
+    try:
+        return _fleet_tp_run(seed, smi, run_dir)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _fleet_tp_run(seed: int, smi: str, run_dir: str):
+    from horovod_tpu_torch.serve import FleetRouter
+    from horovod_tpu_torch.serve.proc_replica import spawn_replica_factory
+    L = LM["n_layers"]
+    prompts, samplings, _ = _fleet_load(LM["vocab"], seed)
+    spec = {"model": dict(LM, dtype="bfloat16", unembed_dtype="float32"),
+            "seed": seed, "tp": 2, "world_timeout_s": FTP_WORLD_S,
+            "generation": dict(
+                max_slots=MAX_SLOTS, max_len=MAX_LEN, kv_layout="paged",
+                paged_kernel=True, block_size=BLOCK,
+                default_max_new_tokens=FLEET_NEW_TOKENS, max_queue=64)}
+    # Four ranks and this process share the host's cores: a leader's
+    # /healthz gets FTP_PROBE_S before a miss counts toward its eviction.
+    factory = spawn_replica_factory(
+        spec, run_dir=run_dir, ready_timeout_s=FTP_READY_TIMEOUT_S,
+        device_groups=[list(FTP_DEVICES)] * 2,
+        client_kwargs={"probe_timeout_s": FTP_PROBE_S})
+    router = FleetRouter(factory=factory,
+                         liveness_factory=factory.liveness_factory,
+                         poll_interval_s=FLEET_POLL_S)
+    clients, out, launches = [], {}, {}
+    try:
+        t0 = time.monotonic()
+        handles = [router.add_replica(warm=False) for _ in range(2)]
+        clients = [h.engine for h in handles]
+        spawn_s = time.monotonic() - t0
+        ready_s = [None, None]
+
+        def warm(i, box):
+            clients[i].warmup()     # raises if a rank dies or times out
+            ready_s[i] = time.monotonic() - t0
+        warmed = _run_threads(lambda i, box: _guard(warm, i, box),
+                              [(0,), (1,)])
+        for w in warmed:
+            check("error" not in w, f"fleet_tp: a group failed its warmup: "
+                                    f"{w.get('error')}")
+        check(router.counts()["ready"] == 2, f"fleet_tp: {router.counts()}")
+        for c in clients:
+            check(c.tp == 2 and c.stats()["tp"]["backend"] == "gloo",
+                  f"fleet_tp: {c.name} is not a tp = 2 gloo world")
+
+        # (a) the undisturbed round.
+        mark = time.time()
+        base = [_fresh_beats(c, mark) for c in clients]
+        t_a = time.monotonic()
+        a_outs = _ftp_round(router, prompts, samplings)
+        a_wall = time.monotonic() - t_a
+        mark = time.time()
+        a_beats = [_fresh_beats(c, mark) for c in clients]
+        a_stats = router.stats()["fleet"]
+        for o in a_outs:
+            check("error" not in o, f"fleet_tp (a): a stream failed: "
+                                    f"{o.get('error')}")
+        tokens = [o["info"]["tokens"] for o in a_outs]
+        check(all(len(t) == FLEET_NEW_TOKENS for t in tokens),
+              "fleet_tp (a): a stream did not finish")
+        a_launch = {}
+        for c, b0, b1 in zip(clients, base, a_beats):
+            per_rank = _launch_delta(b0, b1)
+            a_launch[c.name] = per_rank
+            n = a_stats["dispatch_total"].get(c.name, 0)
+            lead, fol = per_rank
+            check(n > 0, f"fleet_tp (a): {c.name} took no request")
+            check(lead["flash_attention"] == L * n
+                  and lead["paged_decode_attention"] > 0
+                  and lead["paged_decode_attention"] % L == 0,
+                  f"fleet_tp (a): {c.name}'s leader launched {lead} for "
+                  f"{n} requests")
+            check(fol == lead, f"fleet_tp (a): {c.name}'s follower "
+                               f"launched {fol}, its leader {lead}")
+            for r in per_rank:
+                _add_launches(launches, r)
+        step_p50 = {c.name: c.stats().get("latency_ms", {}).get(
+            "execute_p50") for c in clients}
+        peaks = {c.name: [b.get("peak_bytes") for b in beats]
+                 for c, beats in zip(clients, a_beats)}
+
+        # (b) the same round, a follower of r0 SIGKILLed after r0's
+        # FTP_KILL_STREAM-th stream's first token.
+        c0 = clients[0]
+        follower, leader = c0.pids[1], c0._proc
+        seen, kill_t, exit_t = [0], [], []
+        submit = c0.submit
+
+        def watch_leader():
+            leader.wait()
+            exit_t.append(time.time())
+
+        def submit_then_kill(*a, **kw):
+            h = submit(*a, **kw)
+            seen[0] += 1
+            if seen[0] == FTP_KILL_STREAM:
+                os.kill(follower, signal.SIGKILL)
+                kill_t.append(time.time())
+                threading.Thread(target=watch_leader, daemon=True).start()
+            return h
+        c0.submit = submit_then_kill
+        before = router.stats()["fleet"]
+        t_b = time.monotonic()
+        b_outs = _ftp_round(router, prompts, samplings)
+        b_wall = time.monotonic() - t_b
+        check(bool(kill_t), f"fleet_tp (b): r0 took fewer than "
+                            f"{FTP_KILL_STREAM} streams")
+        for i, o in enumerate(b_outs):
+            check("error" not in o, f"fleet_tp (b): stream {i} failed: "
+                                    f"{o.get('error')}")
+            o["failovers"] = o["info"]["failovers"]
+        bad = [i for i, o in enumerate(b_outs)
+               if o["info"]["tokens"] != tokens[i]]
+        check(not bad, f"fleet_tp (b): streams {bad} differ from their "
+                       f"undisturbed streams")
+        end = time.monotonic() + FTP_WORLD_S + FTP_EXIT_MARGIN_S
+        while not exit_t and time.monotonic() < end:
+            time.sleep(0.01)
+        check(bool(exit_t) and exit_t[0] - kill_t[0]
+              <= FTP_WORLD_S + FTP_EXIT_MARGIN_S,
+              f"fleet_tp (b): r0's leader outlived its follower by more "
+              f"than {FTP_WORLD_S + FTP_EXIT_MARGIN_S} s")
+        b_stats = router.stats()["fleet"]
+        stranded = (b_stats["streams_stranded_total"]
+                    - before["streams_stranded_total"])
+        fo = {k: v - before["failover_total"].get(k, 0)
+              for k, v in b_stats["failover_total"].items()}
+        check(stranded >= 1 and fo.get("resumed") == stranded
+              and fo.get("exhausted", 0) == 0,
+              f"fleet_tp (b): stranded {stranded}, outcomes {fo}")
+        failed = [e["t"] for e in _events("serve_failover", replica="r0")
+                  if e["t"] >= kill_t[0]]
+        out = dict(
+            nvidia_smi=smi, groups=2, tp=2, devices=list(FTP_DEVICES),
+            backend="gloo", heads_per_rank=LM["n_heads"] // 2,
+            note="four ranks share one card over gloo: step times are not "
+                 "tp speed", requests=FLEET_REQUESTS,
+            new_tokens=FLEET_NEW_TOKENS, spawn_s=spawn_s,
+            spawn_to_ready_s=ready_s, a_wall_s=a_wall,
+            a_dispatch=a_stats["dispatch_total"], launches=a_launch,
+            decode_step_ms_p50=step_p50, peak_bytes=peaks,
+            ttft_p50_ms=float(np.median(
+                [o["info"]["ttft_ms"] for o in a_outs])),
+            b_wall_s=b_wall, b_streams_bitwise_a=True,
+            b_dispatch={k: v - before["dispatch_total"].get(k, 0)
+                        for k, v in b_stats["dispatch_total"].items()},
+            stranded=stranded, failover=fo,
+            kill_to_detect_ms=(min(failed) - kill_t[0]) * 1e3 if failed
+            else None,
+            kill_to_resumed_token_ms=_resume_ms(kill_t[0], b_outs),
+            kill_to_leader_exit_ms=(exit_t[0] - kill_t[0]) * 1e3)
+    finally:
+        router.shutdown(timeout=60)
+        for c in clients:
+            c.shutdown(drain=False, timeout=10)
+    pids = [p for c in clients for p in c.pids]
+    check(all(c.exited() for c in clients),
+          f"fleet_tp: ranks outlived the shutdown: {pids}")
+    emit("fleet_tp", **out, pids=pids)
+    return launches
+
+
+def _guard(fn, i, box) -> None:
+    try:
+        fn(i, box)
+    except Exception as e:  # noqa: BLE001 — reported by the caller
+        box["error"] = repr(e)
 
 
 def _e2e_logits(model, device: str, seed: int):
@@ -4116,12 +4395,12 @@ def _lm_one_step(model, tokens, labels):
 
 
 def phase_e2e_lm_train(seed: int):
-    """The full-width LM at batch 1, T=256 (tilable: the kernels run on
-    the card), one step on the card and on the CPU (plain versions) from
-    the same weights and batch."""
+    """The full-width LM (E2E_LM_LAYERS deep) at batch 1, T=256 (tilable:
+    the kernels run on the card), one step on the card and on the CPU
+    (plain versions) from the same weights and batch."""
     from horovod_tpu_torch.ops import LAUNCHES
     from horovod_tpu_torch.parallel.transformer import Transformer
-    cfg = lm_config()
+    cfg = lm_config(E2E_LM_LAYERS)
     card = Transformer(cfg, generator=torch.Generator(
         device="cuda").manual_seed(seed + 1), device="cuda")
     cpu = copy.deepcopy(card).to("cpu")
@@ -4147,7 +4426,7 @@ def phase_e2e_lm_train(seed: int):
     upd_cpu = {n: pp[n].detach() - before[n] for n in before}
     grad_err = {n: rel_l2(g_card[n], g_cpu[n]) for n in before}
     upd_err = {n: rel_l2(upd_card[n], upd_cpu[n]) for n in before}
-    cosine = F.cosine_similarity(     # f64: 470 M terms
+    cosine = F.cosine_similarity(     # f64: 268 M terms
         torch.cat([u.flatten() for u in upd_card.values()]).double(),
         torch.cat([u.flatten() for u in upd_cpu.values()]).double(),
         dim=0).item()
@@ -4161,9 +4440,9 @@ def phase_e2e_lm_train(seed: int):
          loss_card=loss_card, loss_cpu=loss_cpu,
          logits_std=logits_cpu.std().item(), diffs=diffs,
          worst_grad_leaf=worst_g, worst_update_leaf=worst_u,
-         grad_rel_l2={n: grad_err[n] for n in ("embed", "lnf",
-                                               "layers.0.wqkv",
-                                               "layers.7.w2")},
+         grad_rel_l2={n: grad_err[n] for n in (
+             "embed", "lnf", "layers.0.wqkv",
+             f"layers.{cfg.n_layers - 1}.w2")},
          update_cosine=cosine, tolerance=TOL_E2E_LM, launches=launches,
          card_s=card_s, cpu_s=cpu_s,
          note="grad/update_rel_l2: worst leaf's ||card-cpu||/||cpu||")
@@ -4377,7 +4656,7 @@ def phase_pp_lm_train(seed: int, peaks):
     return launches
 
 
-def _pp_one_step(params, device, tokens, labels):
+def _pp_one_step(params, device, tokens, labels, cfg):
     """One pipelined step on a 1-rank world of ``device`` (NCCL on the
     card, gloo on the CPU) from a copy of ``params``: returns the loss,
     the gradients, the updated parameters (on the CPU, by leaf name), the
@@ -4394,7 +4673,7 @@ def _pp_one_step(params, device, tokens, labels):
     hvd.init(device=device)
     try:
         init_state, step = pp_step_fn(
-            lm_config(), create_hybrid_mesh(dp=1, pp=1), device=device)
+            cfg, create_hybrid_mesh(dp=1, pp=1), device=device)
         state = init_state(params=copy_to(params))
         LAUNCHES.reset()
         t0 = time.monotonic()
@@ -4411,30 +4690,30 @@ def _pp_one_step(params, device, tokens, labels):
 
 
 def phase_e2e_pp_lm_train(seed: int):
-    """One full-width pipelined step at batch 2 (2 microbatches of 1),
-    T=256 (tilable: the kernels run on the card), through the same entry
-    points on the card and on the CPU (plain versions) from the same
-    weights and batch."""
+    """One full-width pipelined step (E2E_LM_LAYERS deep) at batch 2 (2
+    microbatches of 1), T=256 (tilable: the kernels run on the card),
+    through the same entry points on the card and on the CPU (plain
+    versions) from the same weights and batch."""
     from horovod_tpu_torch.parallel.pp_transformer import (init_pp_params,
                                                            named_leaves)
-    cfg = lm_config()
+    cfg = lm_config(E2E_LM_LAYERS)
     params = init_pp_params(torch.Generator(device="cuda").manual_seed(
         seed + 2), cfg, 1, 0, device="cuda")
     before = {n: p.detach().float().cpu() for n, p in named_leaves(params)}
     tokens, labels = lm_batch(PP_E2E_BATCH, PP_E2E_SEQ, seed + 6)
     loss_card, g_card, p_card, launches, card_s = _pp_one_step(
-        params, "cuda", tokens, labels)
+        params, "cuda", tokens, labels, cfg)
     n = cfg.n_layers * PP_MICRO
     check(all(launches.get(k) == n for k in BHTD_KERNELS),
           f"e2e pp step did not run the [B,T,H,D] kernels: {launches}")
     loss_cpu, g_cpu, p_cpu, _, cpu_s = _pp_one_step(params, "cpu", tokens,
-                                                    labels)
+                                                    labels, cfg)
     del params
 
     def rel_l2(a, b):
         return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
     grad_err = {n: rel_l2(g_card[n], g_cpu[n]) for n in before}
-    cosine = F.cosine_similarity(     # f64: 470 M terms
+    cosine = F.cosine_similarity(     # f64: 268 M terms
         torch.cat([(p_card[n] - before[n]).flatten() for n in before])
         .double(),
         torch.cat([(p_cpu[n] - before[n]).flatten() for n in before])
@@ -6307,6 +6586,7 @@ def main() -> int:
         del int8_eng
         add(run_phase("fleet", phase_fleet, model, args.seed, smi))
         add(run_phase("serve_tp", phase_serve_tp, model, args.seed, peaks))
+        add(run_phase("fleet_tp", phase_fleet_tp, args.seed, smi))
         del model
         torch.cuda.empty_cache()
         times.update(run_phase("timing", phase_timing, args.seed, peaks))

@@ -139,7 +139,8 @@ def serving_tp(mesh, what: str = "the generation forwards") -> int:
     """The tp size the generation forwards run at on ``mesh`` (1 off a
     mesh). Serving shards over ``tp`` only: a mesh whose dp, pp, ep or sp
     axis is above 1 raises ``ValueError`` naming the axis (a replica per
-    dp slice is a fleet of tp groups, not one engine)."""
+    dp slice is a fleet of tp groups, not one engine: ``FleetRouter(
+    factory=serve.spawn_replica_factory({..., "tp": n}))``)."""
     if mesh is None:
         return 1
     for a in ("dp", "pp", "ep", "sp"):
@@ -147,9 +148,10 @@ def serving_tp(mesh, what: str = "the generation forwards") -> int:
         if n > 1:
             raise ValueError(
                 f"{what}: serving runs on a tp mesh only, and this mesh "
-                f"has {a}={n} (serve one tp group per engine: replicas "
-                f"over dp are a fleet of engines; pp, ep and sp do not "
-                f"serve)")
+                f"has {a}={n} (serve one tp group per engine: dp replicas "
+                f"of a tp group are a fleet of groups, FleetRouter("
+                f"factory=serve.spawn_replica_factory({{..., 'tp': n}})); "
+                f"pp, ep and sp do not serve)")
     return int(mesh.shape.get("tp", 1))
 
 

@@ -1432,6 +1432,23 @@ class GenerationEngine(ReadinessMixin, TpRole):
                     self._loop_error_dumped = True
                     self._crash_dump(f"engine loop error: {e!r}")
                 self._fail_active(e)
+                self._close_if_broken()
+
+    def _close_if_broken(self) -> bool:
+        """On a tp leader whose step plane is down (a rank died, or a
+        call failed after its descriptor went out), no device call can
+        run again: fail the started streams with the group's error (a
+        fleet fails them over), close for good, and refuse every request
+        not started yet as a closed door (a fleet's dispatch tries the
+        next). True when it closed."""
+        err = self.plane_error
+        if err is None:
+            return False
+        self._fail_active(err)
+        self._closed = self._abort = True
+        self._queue.close()
+        self._fail_pending()
+        return True
 
     def _fail_active(self, exc: BaseException) -> None:
         for i, req in enumerate(self._slots):
@@ -1768,6 +1785,9 @@ class GenerationEngine(ReadinessMixin, TpRole):
         except Exception as e:  # noqa: BLE001
             if self._paged:
                 self._blocks.release(row)
+            if self._close_if_broken():
+                e = ServerClosedError(f"the tp group lost a rank before "
+                                      f"this request started: {e!r}")
             req.handle._fail(e)
             self._req_done(req)
             return "done"

@@ -46,6 +46,26 @@ model into one host.
 Kernels are built once, by the parent: a child loads the library the
 build directory already holds (``ops._build``), so two processes never
 compile at once.
+
+**A replica that is a tp group.** With ``"tp": n > 1`` in the spec, a
+replica is a tp world of ``n`` processes, one a device: rank 0, the
+leader, runs the engine loop and the HTTP server; ranks 1..n-1, the
+followers, follow it through the step plane (:mod:`.tp_plane`). The
+factory gives each group a device set (``device_groups=``, or consecutive
+sets of ``n`` of this host's GPUs), a fresh rendezvous on a free port of
+``host`` and the launcher's environment contract (``HVD_RANK``,
+``HVD_SIZE``, ``HVD_LOCAL_RANK`` = the rank's device index,
+``HVD_RESTART_EPOCH``, ``MASTER_ADDR``, ``MASTER_PORT``, ``HVD_DEVICE``).
+The world's backend follows the device set: NCCL over distinct GPUs,
+gloo where ranks share a GPU (NCCL refuses two ranks on one device) and
+on the CPU. The group is one :class:`ProcReplicaClient`, so the router,
+its failover and the autoscaler need nothing new: the client talks HTTP
+to the leader, and its liveness covers every rank (any rank's exit or
+stale heartbeat reads the group dead). A group that loses a rank is torn
+down whole: the leader exits once its step plane is down, a follower once
+its leader is gone, and the client reaps every rank, SIGKILLing a
+straggler. The JAX package drives a tp engine from one controller, so
+there a group is one process; here it is ``n``.
 """
 
 from __future__ import annotations
@@ -53,6 +73,7 @@ from __future__ import annotations
 import http.client
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -77,6 +98,12 @@ class _ClientCfg:
         self.default_deadline_ms = default_deadline_ms
 
 
+def _hb_path(ready_file: str, rank: int = 0) -> str:
+    """The heartbeat file of a replica's rank ``rank`` (rank 0: the
+    leader, or the one child of a tp = 1 replica)."""
+    return ready_file + ".hb" if rank == 0 else f"{ready_file}.hb{rank}"
+
+
 class ProcReplicaClient:
     """HTTP client for one subprocess replica, shaped like an engine.
 
@@ -86,6 +113,11 @@ class ProcReplicaClient:
     worker binds an ephemeral port and publishes it through
     ``ready_file``; until that lands the replica reads ``warming`` and
     takes no traffic.
+
+    A tp group's client also holds its ``followers`` (the ``Popen`` of
+    ranks 1..n-1, in rank order): the group reads dead once any rank's
+    process exits or any rank's heartbeat file goes stale, and
+    :meth:`shutdown` reaps every rank.
 
     Transport contract: ``submit`` maps
     EVERY transport failure — connect refusal, connect timeout, a
@@ -112,10 +144,13 @@ class ProcReplicaClient:
                  backoff_cap_s: float = 0.5,
                  ready_timeout_s: float = 180.0,
                  heartbeat_timeout_s: float = 5.0,
-                 default_deadline_ms: Optional[float] = None):
+                 default_deadline_ms: Optional[float] = None,
+                 followers: Sequence[subprocess.Popen] = ()):
         self.name = name
         self.serve_name = name          # router re-stamps on _attach
         self._proc = proc
+        self._followers = list(followers)
+        self.tp = 1 + len(self._followers)
         self._host = host
         self._port = port
         self._ready_file = ready_file
@@ -126,7 +161,8 @@ class ProcReplicaClient:
         self._backoff = backoff_s
         self._backoff_cap = backoff_cap_s
         self._ready_timeout = ready_timeout_s
-        self._hb_file = (ready_file + ".hb") if ready_file else None
+        self._hb_files = ([_hb_path(ready_file, r) for r in range(self.tp)]
+                          if ready_file else [])
         self._hb_timeout = heartbeat_timeout_s
         self._cfg = _ClientCfg(default_deadline_ms)
         self._closed = False            # router reads this as "draining"
@@ -141,6 +177,38 @@ class ProcReplicaClient:
     @property
     def pid(self) -> Optional[int]:
         return None if self._proc is None else self._proc.pid
+
+    @property
+    def pids(self) -> List[int]:
+        """Every rank's pid, in rank order (the leader's first)."""
+        return [p.pid for p in self._procs()]
+
+    def _procs(self) -> list:
+        return ([] if self._proc is None else [self._proc]) + self._followers
+
+    def _any_exited(self) -> bool:
+        """Whether any rank's process has exited (the group is then
+        dead: a tp world does not survive a lost rank)."""
+        return any(p.poll() is not None for p in self._procs())
+
+    def exited(self) -> bool:
+        """Whether every rank's process has exited (its devices are
+        free again)."""
+        return all(p.poll() is not None for p in self._procs())
+
+    def rank_heartbeats(self) -> List[Dict[str, Any]]:
+        """Each rank's last heartbeat record, in rank order (``{}`` for a
+        rank that has not beaten yet): its ``ts``, ``pid``, ``rank``,
+        ``device``, kernel ``launches`` since it started and, on a GPU,
+        ``peak_bytes`` (``torch.cuda.max_memory_allocated``)."""
+        out = []
+        for path in self._hb_files:
+            try:
+                with open(path) as f:
+                    out.append(json.load(f))
+            except (OSError, ValueError):
+                out.append({})
+        return out
 
     def _ensure_port(self) -> bool:
         """Resolve the child's ephemeral port from the ready file (one
@@ -319,7 +387,7 @@ class ProcReplicaClient:
         :meth:`mark_suspect` fired). A child still booting (no port
         yet) is warming, not dead."""
         del stall_timeout_s     # the child's own loop_alive covers stall
-        if self._proc is not None and self._proc.poll() is not None:
+        if self._any_exited():
             return False
         if not self._ensure_port():
             return True         # booting: add_replica's warmup gates traffic
@@ -338,27 +406,30 @@ class ProcReplicaClient:
         return True
 
     def _heartbeat_stale(self) -> bool:
-        """True once the worker's heartbeat file has gone silent past
-        the timeout. A missing file reads FRESH, not stale — the child
-        may still be booting (warmup gates traffic either way), and an
+        """True once any rank's heartbeat file has gone silent past the
+        timeout. A missing file reads FRESH, not stale — the child may
+        still be booting (warmup gates traffic either way), and an
         operator pointing at a worker predating the heartbeat plane
         must not have every replica read dead."""
-        if self._hb_file is None:
-            return False
-        try:
-            age = time.time() - os.path.getmtime(self._hb_file)
-        except OSError:
-            return False
-        return age > self._hb_timeout
+        now = time.time()
+        for path in self._hb_files:
+            try:
+                age = now - os.path.getmtime(path)
+            except OSError:
+                continue
+            if age > self._hb_timeout:
+                return True
+        return False
 
     def aborted(self) -> bool:
         """The ``CoordClient.aborted`` surface, so a subprocess replica
         wires onto the existing :func:`~.fleet.heartbeat_liveness` hook
-        unchanged: gone once the child process exited, its heartbeat
-        file went stale, or the ``/healthz`` probe's two-strike verdict
-        fired (the probe still runs — the heartbeat catches a SIGSTOPed
-        or wedged-before-accept child the HTTP path answers for)."""
-        if self._proc is not None and self._proc.poll() is not None:
+        unchanged: gone once any rank's process exited, any rank's
+        heartbeat file went stale, or the leader's ``/healthz`` probe's
+        two-strike verdict fired (the probe still runs — the heartbeat
+        catches a SIGSTOPed or wedged-before-accept child the HTTP path
+        answers for)."""
+        if self._any_exited():
             return True
         if self._heartbeat_stale():
             return True
@@ -553,10 +624,12 @@ class ProcReplicaClient:
         dead, same as a failed thread-replica warmup."""
         deadline = time.monotonic() + self._ready_timeout
         while time.monotonic() < deadline:
-            if self._proc is not None and self._proc.poll() is not None:
-                raise WorkerFailureError(
-                    f"replica {self.name} worker exited rc="
-                    f"{self._proc.returncode} before reporting ready")
+            for rank, p in enumerate(self._procs()):
+                if p.poll() is not None:
+                    raise WorkerFailureError(
+                        f"replica {self.name} worker"
+                        f"{f' rank {rank}' if self.tp > 1 else ''} exited "
+                        f"rc={p.returncode} before reporting ready")
             if self._ensure_port():
                 ready, _, _ = self.health()
                 if ready:
@@ -572,7 +645,9 @@ class ProcReplicaClient:
         still relaying (the router's drain-on-evict contract crosses
         the process boundary); ``drain=False`` aborts, escalating
         SIGTERM → SIGKILL if the control message does not land.
-        Idempotent, and safe on an already-dead child."""
+        A tp group's leader releases its followers as its loop ends; the
+        client then waits for every rank until the timeout and SIGKILLs
+        any still alive. Idempotent, and safe on an already-dead child."""
         self._closed = True
         deadline = time.monotonic() + max(0.1, timeout)
         if self._proc is not None and self._proc.poll() is None:
@@ -605,6 +680,14 @@ class ProcReplicaClient:
             except subprocess.TimeoutExpired:
                 self._proc.kill()
                 self._proc.wait(5.0)
+        for p in self._followers:
+            # Released by the leader's STOP, or failed by its death: a
+            # follower exits on its own, given a moment past the leader.
+            try:
+                p.wait(max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(5.0)
 
 
 # -- spawning ---------------------------------------------------------------
@@ -649,12 +732,170 @@ def _apply_backend_flags(flags: Optional[Dict[str, bool]]) -> None:
             setattr(obj, attr, bool(flags[key]))
 
 
+#: Launcher variables a group's child must not inherit from this process
+#: (it gets its own rank, size and rendezvous), and per-process listeners
+#: that would collide across the children of one host.
+_GROUP_ENV_DROP = ("HVD_RANK", "PMI_RANK", "OMPI_COMM_WORLD_RANK",
+                   "HVD_SIZE", "PMI_SIZE", "OMPI_COMM_WORLD_SIZE",
+                   "HVD_LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_RANK",
+                   "MASTER_ADDR", "MASTER_PORT", "HVD_METRICS_PORT",
+                   "HOROVOD_TIMELINE")
+
+
+def _spec_tp(spec: Dict[str, Any]) -> int:
+    tp = spec.get("tp", 1)
+    if isinstance(tp, bool) or not isinstance(tp, int) or tp < 1:
+        raise ValueError(f"spec tp must be an int >= 1, got {tp!r}")
+    return tp
+
+
+def _device_name(d: Any) -> str:
+    """``"cpu"`` or ``"cuda:<i>"`` (``ValueError`` for anything else: a
+    group's device is named, never resolved later)."""
+    name = str(d)
+    if name == "cpu":
+        return name
+    head, _, idx = name.partition(":")
+    if head == "cuda" and idx.isdigit():
+        return f"cuda:{int(idx)}"
+    raise ValueError(f"a group's device is 'cpu' or 'cuda:<i>', got {d!r}")
+
+
+def group_backend(devices: Sequence[str]) -> str:
+    """The backend of a tp world over ``devices``: NCCL where they are
+    distinct GPUs, gloo where ranks share a GPU (NCCL refuses two ranks
+    on one device) and on the CPU."""
+    if all(d == "cpu" for d in devices):
+        return "gloo"
+    return "nccl" if len(set(devices)) == len(devices) else "gloo"
+
+
+def check_group_spec(spec: Dict[str, Any],
+                     device_groups: Optional[Sequence[Sequence[str]]] = None
+                     ) -> Tuple[int, Optional[List[List[str]]]]:
+    """Validate a replica spec's tp group in the parent, before anything
+    is spawned: ``tp`` divides ``n_heads`` and ``d_ff``, the model is
+    dense (``n_experts`` 0: serving runs on a tp mesh only), and every
+    device set of ``device_groups`` has ``tp`` devices of one type.
+    Returns ``(tp, device_groups normalized)``; raises ``ValueError``."""
+    tp = _spec_tp(spec)
+    model = spec.get("model") or {}
+    if tp > 1 or device_groups is not None:
+        if int(model.get("n_experts", 0) or 0):
+            raise ValueError(
+                f"a tp group serves a dense model: n_experts="
+                f"{model['n_experts']} needs an ep axis, and serving runs "
+                f"on a tp mesh only")
+        for key in ("n_heads", "d_ff"):
+            if key in model and int(model[key]) % tp:
+                raise ValueError(f"spec tp={tp} must divide model {key}="
+                                 f"{model[key]}")
+    if tp > 1 and device_groups is None:
+        dev = str(spec.get("device", "cuda"))
+        if dev not in ("cuda", "cpu"):
+            raise ValueError(
+                f"spec device {dev!r} names one device; a tp={tp} group "
+                f"needs one a rank: pass device_groups=, or device 'cuda' "
+                f"(consecutive sets of this host's GPUs) or 'cpu'")
+    if device_groups is None:
+        return tp, None
+    groups = []
+    for g in device_groups:
+        devs = [_device_name(d) for d in g]
+        if len(devs) != tp:
+            raise ValueError(f"device set {list(g)} has {len(devs)} "
+                             f"devices; a tp={tp} group needs {tp}")
+        if len({d == "cpu" for d in devs}) > 1:
+            raise ValueError(f"device set {list(g)} mixes the CPU and "
+                             f"GPUs")
+        groups.append(devs)
+    if not groups:
+        raise ValueError("device_groups is empty")
+    return tp, groups
+
+
+class _DevicePlan:
+    """Which device set each group of a factory takes: the explicit sets
+    of ``device_groups`` in order, else ``"cpu"`` for every rank (a CPU
+    spec), else consecutive sets of ``tp`` of this host's GPUs. A set is
+    free once no group holds it or its group's processes have all
+    exited; a grow with no free set raises (never another device)."""
+
+    def __init__(self, tp: int, device: str,
+                 groups: Optional[List[List[str]]]):
+        self.tp = tp
+        self._device = device
+        self._groups = groups
+        self._owner: Dict[int, ProcReplicaClient] = {}
+
+    def _sets(self) -> Optional[List[List[str]]]:
+        if self._groups is not None:
+            return self._groups
+        if self._device == "cpu":
+            return None
+        import torch
+        n = torch.cuda.device_count()
+        return [[f"cuda:{i * self.tp + r}" for r in range(self.tp)]
+                for i in range(n // self.tp)]
+
+    def take(self, name: str) -> Tuple[int, List[str]]:
+        sets = self._sets()
+        if sets is None:
+            idx = len(self._owner)
+            return idx, ["cpu"] * self.tp
+        for idx, devs in enumerate(sets):
+            held = self._owner.get(idx)
+            if held is None or held.exited():
+                return idx, devs
+        raise RuntimeError(
+            f"no free device set for replica {name}: the {len(sets)} "
+            f"set(s) of {self.tp} device(s) ({sets}) are all held by live "
+            f"groups ({sorted(c.name for c in self._owner.values())}); "
+            f"pass more device_groups= or shrink first")
+
+    def hold(self, idx: int, client: ProcReplicaClient) -> None:
+        self._owner[idx] = client
+
+
+def _free_port(host: str) -> int:
+    with socket.socket() as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
+
+
+def group_env(rank: int, tp: int, device: str, host: str,
+              port: int) -> Dict[str, str]:
+    """The environment of a group's rank ``rank``: this process's, minus
+    the launcher and listener variables of :data:`_GROUP_ENV_DROP`, plus
+    the launcher's contract: ``HVD_RANK``, ``HVD_SIZE``,
+    ``HVD_LOCAL_RANK`` (the rank's device index on a GPU, its rank on the
+    CPU), ``HVD_RESTART_EPOCH``, ``MASTER_ADDR``/``MASTER_PORT`` (the
+    group's rendezvous) and ``HVD_DEVICE``; on the CPU an empty
+    ``CUDA_VISIBLE_DEVICES`` and ``OMP_NUM_THREADS`` (unless set) as the
+    launcher's ``--cpu`` exports them."""
+    env = {k: v for k, v in os.environ.items() if k not in _GROUP_ENV_DROP}
+    cpu = device == "cpu"
+    env.update(HVD_RANK=str(rank), HVD_SIZE=str(tp),
+               HVD_LOCAL_RANK=str(rank if cpu else
+                                  int(device.partition(":")[2])),
+               HVD_RESTART_EPOCH=os.environ.get("HVD_RESTART_EPOCH", "0"),
+               MASTER_ADDR=host, MASTER_PORT=str(port),
+               HVD_DEVICE="cpu" if cpu else "cuda")
+    if cpu:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+        env.setdefault("OMP_NUM_THREADS",
+                       str(max(1, (os.cpu_count() or 1) // tp)))
+    return env
+
+
 def spawn_replica_factory(spec: Dict[str, Any], *,
                           host: str = "127.0.0.1",
                           python: Optional[str] = None,
                           run_dir: Optional[str] = None,
                           ready_timeout_s: float = 180.0,
-                          client_kwargs: Optional[Dict[str, Any]] = None):
+                          client_kwargs: Optional[Dict[str, Any]] = None,
+                          device_groups: Optional[
+                              Sequence[Sequence[str]]] = None):
     """Build a ``factory(name) -> ProcReplicaClient`` for
     ``FleetRouter(factory=...)``: spawn, warm, drain, evict and the
     autoscaler work unchanged over subprocess replicas.
@@ -673,39 +914,105 @@ def spawn_replica_factory(spec: Dict[str, Any], *,
     names them. Each child inherits the environment (``HVD_FAULT_SPEC``
     reaches its loop; ``HVD_TORCH_BUILD_DIR`` its kernel library) and
     gets a flight-recorder directory of its own
-    (``$HVD_FLIGHTREC_DIR/<name>``)."""
+    (``$HVD_FLIGHTREC_DIR/<name>``).
+
+    ``tp`` in ``spec`` (default 1) makes each replica a tp group of that
+    many processes (see the module docstring), on the device sets of
+    ``device_groups`` (each a list of ``tp`` names, ``"cuda:<i>"`` or
+    ``"cpu"``; successive groups take free sets in order) or, without
+    it, ``"cpu"`` for every rank of a CPU spec and consecutive sets of
+    ``tp`` of ``torch.cuda.device_count()`` GPUs otherwise. Optional
+    ``world_timeout_s`` (default 60) is the group world's collective
+    timeout: the step plane's one bound. The spec is checked here,
+    before any spawn (:func:`check_group_spec`). At ``tp`` 1 without
+    ``device_groups`` every replica is one child on ``device``, as
+    before groups existed."""
+    tp, groups = check_group_spec(spec, device_groups)
     base = dict(spec)
     kw = dict(client_kwargs or {})
+    plan = (_DevicePlan(tp, str(spec.get("device", "cuda")), groups)
+            if tp > 1 or groups is not None else None)
 
-    def factory(name: str) -> ProcReplicaClient:
+    def _paths(name: str) -> Tuple[str, str, Dict[str, Any]]:
         rd = run_dir or tempfile.mkdtemp(prefix="hvd-proc-")
         os.makedirs(rd, exist_ok=True)
-        spec_path = os.path.join(rd, f"{name}.spec.json")
-        ready_path = os.path.join(rd, f"{name}.ready.json")
         child_spec = dict(base)
         child_spec["name"] = name
         child_spec.setdefault("host", host)
         child_spec.setdefault("torch_backends", _backend_flags())
-        with open(spec_path, "w") as f:
-            json.dump(child_spec, f)
-        cmd = [python or sys.executable, "-m",
-               "horovod_tpu_torch.serve.proc_replica",
-               "--spec", spec_path, "--ready-file", ready_path,
-               "--parent-pid", str(os.getpid())]
-        proc = subprocess.Popen(cmd, stdin=subprocess.PIPE)
-        client = ProcReplicaClient(
+        ready_path = os.path.join(rd, f"{name}.ready.json")
+        # A run directory reused across fleets: a stale ready, heartbeat
+        # or arrival file of an earlier replica of this name would read
+        # as this one's.
+        for r in range(tp):
+            for path in (_hb_path(ready_path, r),
+                         f"{ready_path}.arrived{r}"):
+                if os.path.exists(path):
+                    os.remove(path)
+        if os.path.exists(ready_path):
+            os.remove(ready_path)
+        return os.path.join(rd, f"{name}.spec.json"), ready_path, child_spec
+
+    def _cmd(spec_path: str, ready_path: str) -> List[str]:
+        return [python or sys.executable, "-m",
+                "horovod_tpu_torch.serve.proc_replica",
+                "--spec", spec_path, "--ready-file", ready_path,
+                "--parent-pid", str(os.getpid())]
+
+    def _client(name, child_spec, ready_path, proc, followers=()):
+        return ProcReplicaClient(
             name, proc, host=child_spec["host"], ready_file=ready_path,
             ready_timeout_s=ready_timeout_s,
             default_deadline_ms=(child_spec.get("generation")
-                                 or {}).get("default_deadline_ms"), **kw)
+                                 or {}).get("default_deadline_ms"),
+            followers=followers, **kw)
+
+    def factory(name: str) -> ProcReplicaClient:
+        spec_path, ready_path, child_spec = _paths(name)
+        if plan is None:
+            with open(spec_path, "w") as f:
+                json.dump(child_spec, f)
+            proc = subprocess.Popen(_cmd(spec_path, ready_path),
+                                    stdin=subprocess.PIPE)
+            client = _client(name, child_spec, ready_path, proc)
+            factory.clients[name] = client
+            return client
+        idx, devices = plan.take(name)
+        if tp == 1:
+            child_spec["device"] = devices[0]
+        child_spec.update(tp=tp, devices=devices,
+                          backend=group_backend(devices))
+        with open(spec_path, "w") as f:
+            json.dump(child_spec, f)
+        procs: List[subprocess.Popen] = []
+        try:
+            if tp == 1:
+                procs.append(subprocess.Popen(_cmd(spec_path, ready_path),
+                                              stdin=subprocess.PIPE))
+            else:
+                port = _free_port(child_spec["host"])
+                for rank, dev in enumerate(devices):
+                    procs.append(subprocess.Popen(
+                        _cmd(spec_path, ready_path),
+                        stdin=(subprocess.PIPE if rank == 0
+                               else subprocess.DEVNULL),
+                        env=group_env(rank, tp, dev, child_spec["host"],
+                                      port)))
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise
+        client = _client(name, child_spec, ready_path, procs[0], procs[1:])
+        plan.hold(idx, client)
         factory.clients[name] = client
         return client
 
     # Liveness for FleetRouter(liveness_factory=...): each spawned client
-    # has the ``aborted`` surface (pid, heartbeat file, two-strike
-    # /healthz), which heartbeat_liveness reads. Names this factory never
-    # minted (thread replicas attached by hand) get None: the handle
-    # falls back to the engine's own probe.
+    # has the ``aborted`` surface (every rank's pid and heartbeat file, a
+    # two-strike /healthz on the leader), which heartbeat_liveness reads.
+    # Names this factory never minted (thread replicas attached by hand)
+    # get None: the handle falls back to the engine's own probe.
     factory.clients = {}
 
     def liveness_factory(name: str):
@@ -743,18 +1050,32 @@ def _arm_parent_watchdog(parent_pid: int, engine_ref: list,
                      name="hvd-proc-parent-watchdog").start()
 
 
-def _arm_heartbeat(hb_file: str, period_s: float = 1.0) -> None:
+def _arm_heartbeat(hb_file: str, period_s: float = 1.0, *,
+                   rank: int = 0, device=None) -> None:
     """The worker's liveness beat: rewrite ``hb_file`` every ``period_s``
     (tmp + atomic replace: the parent reads the file's mtime). A
     SIGKILLed or SIGSTOPed worker stops beating, and the parent's
     :meth:`ProcReplicaClient.aborted` verdict flips within the heartbeat
-    timeout."""
+    timeout. Each beat also carries the rank, its device, the kernel
+    launches this process made (``ops.LAUNCHES``) and, on a GPU, its peak
+    allocated bytes (:meth:`ProcReplicaClient.rank_heartbeats`)."""
+    from ..ops import LAUNCHES
+
+    def record() -> Dict[str, Any]:
+        rec = {"ts": time.time(), "pid": os.getpid(), "rank": rank,
+               "device": None if device is None else str(device),
+               "launches": LAUNCHES.snapshot()}
+        if device is not None and device.type == "cuda":
+            import torch
+            rec["peak_bytes"] = int(torch.cuda.max_memory_allocated(device))
+        return rec
+
     def _beat():
         while True:
             try:
                 tmp = hb_file + ".tmp"
                 with open(tmp, "w") as f:
-                    json.dump({"ts": time.time(), "pid": os.getpid()}, f)
+                    json.dump(record(), f)
                 os.replace(tmp, hb_file)
             except OSError:
                 pass        # a full disk must not kill the worker
@@ -773,7 +1094,8 @@ def _resolve_dtype(name):
     return table[name]
 
 
-def _build_adapters(mcfg, ad: Optional[Dict[str, Any]], device="cuda"):
+def _build_adapters(mcfg, ad: Optional[Dict[str, Any]], device="cuda",
+                    mesh=None):
     """The worker's adapter plane from the spec's ``"adapters"`` block:
     ``{"rank", "alpha", "capacity", "entries": [{"name", "seed",
     "b_scale", "quota", "weight", "priority", "slo_ttft_ms"}, ...]}``.
@@ -784,7 +1106,9 @@ def _build_adapters(mcfg, ad: Optional[Dict[str, Any]], device="cuda"):
     in flight, ``weight``/``priority`` its fair-scheduling class,
     ``slo_ttft_ms`` its TTFT target; the base tenant takes the same knobs
     as ``"base_quota"``, ``"base_weight"``, ``"base_priority"``,
-    ``"base_slo_ttft_ms"``."""
+    ``"base_slo_ttft_ms"``. On a tp ``mesh`` every rank builds the
+    registry and only the leader loads the tenants (their rows reach the
+    followers with its next device call)."""
     if not ad:
         return None
     entries = list(ad.get("entries") or [])
@@ -801,7 +1125,9 @@ def _build_adapters(mcfg, ad: Optional[Dict[str, Any]], device="cuda"):
                       alpha=float(ad.get("alpha", 8.0)))
     reg = AdapterRegistry(mcfg, lora,
                           capacity=int(ad.get("capacity", len(entries))),
-                          device=dev)
+                          device=dev, mesh=mesh)
+    if mesh is not None and mesh.coords.get("tp", 0) != 0:
+        return reg
     for e in sorted(entries, key=lambda x: str(x.get("name"))):
         gen = torch.Generator(device=dev).manual_seed(int(e["seed"]))
         tree = init_adapter(gen, mcfg, lora,
@@ -832,14 +1158,15 @@ def _apply_policy(reg, tenant: str, weight, priority, slo_ttft_ms) -> None:
         reg.set_slo_ttft_ms(tenant, float(slo_ttft_ms))
 
 
-def build_engine(spec: Dict[str, Any]):
+def build_engine(spec: Dict[str, Any], mesh=None):
     """The worker's engine from a spec (see
     :func:`spawn_replica_factory`): the model's weights drawn by a
     ``torch.Generator`` on the spec's ``device`` (default ``"cuda"``)
     seeded with ``seed``, the generation config, the optional speculative
-    and adapter planes, the recorded numerics flags applied first. Raises
-    when the device cannot be reached: a replica never falls back to
-    another device."""
+    and adapter planes, the recorded numerics flags applied first. On a
+    tp ``mesh`` every rank draws the global weights and keeps its blocks
+    (``Transformer(mesh=)``). Raises when the device cannot be reached: a
+    replica never falls back to another device."""
     import torch
 
     from ..device import resolve_device
@@ -855,68 +1182,26 @@ def build_engine(spec: Dict[str, Any]):
             model_kw[key] = _resolve_dtype(model_kw[key])
     mcfg = TransformerConfig(**model_kw)
     gen = torch.Generator(device=dev).manual_seed(int(spec.get("seed", 0)))
-    model = Transformer(mcfg, generator=gen, device=dev)
+    model = Transformer(mcfg, generator=gen, device=dev, mesh=mesh)
     gcfg = GenerationConfig(**(spec.get("generation") or {}))
     spec_cfg = (SpecConfig.from_spec(spec["spec"])
                 if spec.get("spec") else None)
-    registry = _build_adapters(mcfg, spec.get("adapters"), dev)
+    registry = _build_adapters(mcfg, spec.get("adapters"), dev, mesh=mesh)
     return GenerationEngine(model, gcfg, device=dev, adapters=registry,
                             spec=spec_cfg)
 
 
-def worker_main(argv: Optional[List[str]] = None) -> int:
-    """The replica worker: spec → engine → warmup → HttpServer → ready
-    file, then block on the stdin control channel until the parent says
-    shutdown (or disappears)."""
-    import argparse
-
-    ap = argparse.ArgumentParser(
-        prog="python -m horovod_tpu_torch.serve.proc_replica",
-        description="Out-of-process serving replica worker")
-    ap.add_argument("--spec", required=True,
-                    help="path to the JSON engine spec")
-    ap.add_argument("--ready-file", required=True,
-                    help="path the worker writes its readiness/port to")
-    ap.add_argument("--parent-pid", type=int, default=0,
-                    help="parent pid for the orphan watchdog (0 = off)")
-    args = ap.parse_args(argv)
-    with open(args.spec) as f:
-        spec = json.load(f)
-    name = spec.get("name", "proc")
-    # A flight-recorder directory a replica: every child dumps as rank 0,
-    # so siblings sharing the parent's directory would overwrite each
-    # other's post-mortems.
-    base_dir = os.environ.get("HVD_FLIGHTREC_DIR")
-    if base_dir:
-        child_dir = os.path.join(base_dir, name)
-        os.makedirs(child_dir, exist_ok=True)
-        os.environ["HVD_FLIGHTREC_DIR"] = child_dir
-    engine_ref: list = []
-    if args.parent_pid:
-        _arm_parent_watchdog(args.parent_pid, engine_ref)
-
-    # The heavy imports after the watchdog is armed: a parent that dies
-    # while the child imports torch must still reap it.
-    from .server import HttpServer
-
-    eng = build_engine(spec)
-    eng.serve_name = name       # fault clauses and flightrec key on it
-    engine_ref.append(eng)
-    if spec.get("warmup", True):
-        eng.warmup()
-    srv = HttpServer(generate=eng, host=spec.get("host", "127.0.0.1"),
-                     port=int(spec.get("port", 0)))
-    srv.start()
-    ready = {"ready": True, "pid": os.getpid(),
-             "host": srv.host, "port": srv.port, "name": name}
-    tmp = args.ready_file + ".tmp"
+def _publish_ready(ready_file: str, info: Dict[str, Any]) -> None:
+    tmp = ready_file + ".tmp"
     with open(tmp, "w") as f:
-        json.dump(ready, f)
-    os.replace(tmp, args.ready_file)    # atomic: no torn ready read
-    _arm_heartbeat(args.ready_file + ".hb")
-    print(f"[proc_replica] {name}: ready on {srv.host}:{srv.port} "
-          f"(pid {os.getpid()}, {eng.stats()['device']})", flush=True)
+        json.dump(info, f)
+    os.replace(tmp, ready_file)     # atomic: no torn ready read
 
+
+def _serve_stdin(eng, srv) -> int:
+    """The leader's control channel: block on stdin until the parent says
+    shutdown (or disappears: EOF aborts, never orphans), then stop the
+    engine and the listener."""
     closed = False
     try:
         for raw in sys.stdin.buffer:
@@ -942,6 +1227,178 @@ def worker_main(argv: Optional[List[str]] = None) -> int:
         time.sleep(0.2)
         srv.stop()
     return 0
+
+
+#: How long a group's rank waits for the others to start (import torch
+#: and the port) before the rendezvous.
+_ARRIVE_TIMEOUT_S = 120.0
+
+
+def _arrive(ready_file: str, rank: int, tp: int, limit_s: float) -> None:
+    """Wait until every rank of the group has started (imported torch and
+    the port), so that the rendezvous, bounded by the world's timeout,
+    sees no start-up skew."""
+    open(f"{ready_file}.arrived{rank}", "w").close()
+    deadline = time.monotonic() + limit_s
+    while not all(os.path.exists(f"{ready_file}.arrived{r}")
+                  for r in range(tp)):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank {rank}: the group's other ranks did "
+                               f"not start within {limit_s} s")
+        time.sleep(0.01)
+
+
+def _arm_group_watchdog(eng, name: str, poll_s: float = 0.1) -> None:
+    """The leader leaves a broken group: once its step plane is down (a
+    follower died, or a device call failed after its descriptor went
+    out), no call can run again, so the process exits after a moment for
+    the HTTP handlers to send their streams' error lines. The followers
+    then fail too, and the group is gone whole."""
+    def _watch():
+        while eng.plane_error is None:
+            time.sleep(poll_s)
+        time.sleep(0.5)
+        print(f"[proc_replica] {name}: the tp group lost a rank "
+              f"({eng.plane_error!r}); exiting", flush=True)
+        os._exit(4)
+    threading.Thread(target=_watch, daemon=True,
+                     name="hvd-proc-group-watchdog").start()
+
+
+def _group_worker(spec: Dict[str, Any], ready_file: str, name: str,
+                  engine_ref: list) -> int:
+    """One rank of a tp group replica (see the module docstring): join
+    the group's world on this rank's device, build the engine on a tp
+    mesh; the leader warms, serves HTTP, writes the ready file (every
+    rank's pid and device) and reads the control channel; a follower
+    beats and follows until the leader stops it (exit 0) or is gone
+    (exit 1)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from .. import runtime
+    from ..device import resolve_device
+    from ..parallel.mesh import create_hybrid_mesh
+    from ..utils import config as _config
+    from .server import HttpServer
+
+    tp = _spec_tp(spec)
+    rank = _config.launcher_rank()
+    dev_name = spec["devices"][rank]
+    resolve_device(dev_name)    # no CUDA here: exit before the rendezvous
+    timeout = datetime.timedelta(
+        seconds=float(spec.get("world_timeout_s", 60.0)))
+    _arrive(ready_file, rank, tp, _ARRIVE_TIMEOUT_S)
+    if spec["backend"] == "gloo" and dev_name != "cpu":
+        # Ranks sharing a GPU: NCCL refuses two ranks on one device, so
+        # the world is gloo, built here and adopted by init().
+        dist.init_process_group("gloo", init_method="env://", rank=rank,
+                                world_size=tp, timeout=timeout)
+    world = runtime.init(device="cpu" if dev_name == "cpu" else "cuda",
+                         timeout=timeout)
+    if str(world.device) != dev_name or world.backend != spec["backend"]:
+        raise RuntimeError(f"rank {rank} joined on {world.device} over "
+                           f"{world.backend}, the plan says {dev_name} "
+                           f"over {spec['backend']}")
+    mesh = create_hybrid_mesh(tp=tp)
+    ranks: List[Any] = [None] * tp
+    dist.all_gather_object(ranks, {"rank": rank, "pid": os.getpid(),
+                                   "device": dev_name})
+    eng = build_engine(dict(spec, device=dev_name), mesh=mesh)
+    eng.serve_name = name       # fault clauses and flightrec key on it
+    engine_ref.append(eng)
+    hb = _hb_path(ready_file, rank)
+    if not eng.is_leader:
+        _arm_heartbeat(hb, rank=rank, device=world.device)
+        try:
+            eng.wait()
+        except BaseException as e:  # noqa: BLE001 — the group is gone
+            print(f"[proc_replica] {name} rank {rank}: the tp group lost "
+                  f"its leader ({e!r}); exiting", flush=True)
+            os._exit(1)     # a world that lost a rank: no teardown
+        runtime.shutdown()
+        return 0
+    if spec.get("warmup", True):
+        eng.warmup()
+    srv = HttpServer(generate=eng, host=spec.get("host", "127.0.0.1"),
+                     port=int(spec.get("port", 0)))
+    srv.start()
+    _publish_ready(ready_file, {
+        "ready": True, "pid": os.getpid(), "host": srv.host,
+        "port": srv.port, "name": name, "tp": tp,
+        "backend": world.backend, "ranks": ranks, "ready_at": time.time()})
+    _arm_heartbeat(hb, rank=0, device=world.device)
+    _arm_group_watchdog(eng, name)
+    print(f"[proc_replica] {name}: ready on {srv.host}:{srv.port} (tp="
+          f"{tp} over {world.backend}: "
+          + ", ".join(f"rank {r['rank']} pid {r['pid']} {r['device']}"
+                      for r in ranks) + ")", flush=True)
+    rc = _serve_stdin(eng, srv)
+    if eng.plane_error is not None:
+        sys.stdout.flush()
+        os._exit(rc)        # a world that lost a rank: no teardown
+    runtime.shutdown()
+    return rc
+
+
+def worker_main(argv: Optional[List[str]] = None) -> int:
+    """The replica worker: spec → engine → warmup → HttpServer → ready
+    file, then block on the stdin control channel until the parent says
+    shutdown (or disappears). With ``"tp" > 1`` in the spec it is one
+    rank of a tp group (:func:`_group_worker`; rank and rendezvous from
+    the launcher's environment)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m horovod_tpu_torch.serve.proc_replica",
+        description="Out-of-process serving replica worker")
+    ap.add_argument("--spec", required=True,
+                    help="path to the JSON engine spec")
+    ap.add_argument("--ready-file", required=True,
+                    help="path the worker writes its readiness/port to")
+    ap.add_argument("--parent-pid", type=int, default=0,
+                    help="parent pid for the orphan watchdog (0 = off)")
+    args = ap.parse_args(argv)
+    with open(args.spec) as f:
+        spec = json.load(f)
+    name = spec.get("name", "proc")
+    # A flight-recorder directory a replica: every child of a tp = 1
+    # replica dumps as rank 0, so siblings sharing the parent's directory
+    # would overwrite each other's post-mortems (a group's ranks dump
+    # under their own ranks).
+    base_dir = os.environ.get("HVD_FLIGHTREC_DIR")
+    if base_dir:
+        child_dir = os.path.join(base_dir, name)
+        os.makedirs(child_dir, exist_ok=True)
+        os.environ["HVD_FLIGHTREC_DIR"] = child_dir
+    engine_ref: list = []
+    if args.parent_pid:
+        _arm_parent_watchdog(args.parent_pid, engine_ref)
+    if _spec_tp(spec) > 1:
+        return _group_worker(spec, args.ready_file, name, engine_ref)
+
+    # The heavy imports after the watchdog is armed: a parent that dies
+    # while the child imports torch must still reap it.
+    from ..device import resolve_device
+    from .server import HttpServer
+
+    eng = build_engine(spec)
+    eng.serve_name = name       # fault clauses and flightrec key on it
+    engine_ref.append(eng)
+    if spec.get("warmup", True):
+        eng.warmup()
+    srv = HttpServer(generate=eng, host=spec.get("host", "127.0.0.1"),
+                     port=int(spec.get("port", 0)))
+    srv.start()
+    _publish_ready(args.ready_file, {
+        "ready": True, "pid": os.getpid(), "host": srv.host,
+        "port": srv.port, "name": name})
+    _arm_heartbeat(_hb_path(args.ready_file),
+                   device=resolve_device(spec.get("device", "cuda")))
+    print(f"[proc_replica] {name}: ready on {srv.host}:{srv.port} "
+          f"(pid {os.getpid()}, {eng.stats()['device']})", flush=True)
+    return _serve_stdin(eng, srv)
 
 
 if __name__ == "__main__":

@@ -86,6 +86,9 @@ class StepPlane:
         self.leader_rank = ranks[0]
         self.is_leader = mesh.coords["tp"] == 0
         self.timeout_s = runtime.world().timeout_s
+        #: The world's backend, which carries the forwards' row-parallel
+        #: sums (the plane's own group is gloo).
+        self.backend = runtime.world().backend
         self.beat_s = self.timeout_s / 4
         self._group = dist.new_group(
             ranks, backend="gloo",
@@ -249,7 +252,7 @@ class StepPlane:
                 "calls": self.calls, "beats": self.beats,
                 "payload_bytes": self.payload_bytes,
                 "send_ms": self.send_s * 1e3,
-                "timeout_s": self.timeout_s,
+                "timeout_s": self.timeout_s, "backend": self.backend,
                 "error": None if self._error is None else repr(self._error)}
 
 
@@ -277,6 +280,13 @@ class TpRole:
         """Whether this rank serves: off a tp mesh, or the tp group's
         rank 0."""
         return self._plane is None or self._plane.is_leader
+
+    @property
+    def plane_error(self) -> Optional[BaseException]:
+        """The error that took this rank's step plane down: a peer's
+        death or silence, or a failed call after its descriptor went out
+        (None while the plane is up, and off a mesh)."""
+        return None if self._plane is None else self._plane._error
 
     @property
     def leader_rank(self) -> Optional[int]:

@@ -540,8 +540,12 @@ class TestRealSubprocessDrill:
         monkeypatch.setenv("PYTHONPATH", REPO)
         monkeypatch.setenv("HVD_FLIGHTREC_DIR", str(tmp_path / "fr"))
         # The children inherit the spec: r1 dies at its 4th admitted
-        # stream (two come from the sibling check below).
-        monkeypatch.setenv("HVD_FAULT_SPEC", "replica_proc_kill=r1@stream=4")
+        # stream (two come from the sibling check below). A 40 ms slow
+        # step keeps each stream in flight past the next dispatch, so the
+        # least-loaded walk alternates (r0, r1, r0, r1) on a loaded host
+        # too and r1 reaches its 4th stream.
+        monkeypatch.setenv("HVD_FAULT_SPEC",
+                           "slow_step=40,replica_proc_kill=r1@stream=4")
         faults.reset()
         spec = {"model": TINY, "seed": 3, "device": "cpu",
                 "generation": dict(max_slots=2, max_len=16,

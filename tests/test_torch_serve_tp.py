@@ -164,11 +164,16 @@ def test_single_engine_rows_are_their_batch_forward(worlds):
 def test_a_killed_follower_fails_the_leaders_streams(worlds):
     leader, dead = worlds["kill"].result()[0]
     assert dead is None
-    assert leader["errors"] and all(
-        e in ("WorkerFailureError", "StalledError", "TransportError")
-        for e in leader["errors"]), leader["errors"]
+    # A started stream fails with the group's error; one the death caught
+    # before its first token is refused as a closed door, as is every
+    # later request: the leader closed for good.
+    assert any(leader["started"]), leader
+    for err, started in zip(leader["errors"], leader["started"]):
+        assert err in (("WorkerFailureError", "StalledError",
+                        "TransportError") if started
+                       else ("ServerClosedError",)), leader
     assert leader["waited"] < PLANE_S + 2.0, leader["waited"]
-    assert leader["late"] == "TransportError"
+    assert leader["late"] == "ServerClosedError"
     assert leader["plane_error"] is not None
 
 

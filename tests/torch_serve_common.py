@@ -77,3 +77,72 @@ def jax_engine(tree, spec=None, **kw):
 
 def t(a):
     return torch.from_numpy(np.asarray(a))
+
+
+# -- the tp-group fleet's toy (tests/test_torch_tp_fleet*.py) -----------------
+# Two tp = 2 groups of subprocesses serve it on the CPU; the JAX engine
+# serves the same weights unsharded: the port's seeded draw, read back
+# through ``convert.params_to_numpy``.
+
+TP_DIMS = dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=128)
+TP_SEED = 3
+TP_GEN = dict(max_slots=2, max_len=32, default_max_new_tokens=6)
+TP_LAYOUTS = {"contiguous": {},
+              "paged": dict(kv_layout="paged", block_size=4,
+                            paged_kernel=True)}
+TP_SAMPLED = dict(temperature=0.8, top_k=8)
+TP_MARGIN = 1e-4
+
+
+def tp_spec(layout: str, **extra) -> dict:
+    """The subprocess replica spec of one tp = 2 group on the CPU."""
+    return dict({"model": dict(TP_DIMS, dtype="float32",
+                               unembed_dtype="float32"),
+                 "seed": TP_SEED, "device": "cpu", "tp": 2,
+                 "generation": dict(TP_GEN, **TP_LAYOUTS[layout])}, **extra)
+
+
+def tp_model():
+    """The port's unsharded model from the spec's seed (what every rank
+    of a group draws before keeping its blocks)."""
+    cfg = ttr.TransformerConfig(**TP_DIMS, dtype=torch.float32,
+                                unembed_dtype=torch.float32)
+    return ttr.Transformer(cfg, generator=torch.Generator().manual_seed(
+        TP_SEED), device="cpu")
+
+
+def tp_tree(model) -> dict:
+    from horovod_tpu_torch.convert import params_to_numpy
+    return params_to_numpy(model)
+
+
+def tp_requests(n: int = 16) -> list:
+    """``n`` requests of 3 to 12 prompt tokens (seeded), greedy and
+    seeded sampling in turns: ``(tokens, sampling kwargs or None)``."""
+    rng = np.random.RandomState(11)
+    return [(rng.randint(1, TP_DIMS["vocab"], 3 + i % 10).tolist(),
+             None if i % 2 == 0 else dict(TP_SAMPLED, seed=100 + i))
+            for i in range(n)]
+
+
+def jax_tp_engine(tree, layout: str):
+    """The JAX engine on the tree, unsharded (the XLA gather where the
+    port's paged engine takes the kernel's route)."""
+    kw = {k: v for k, v in TP_LAYOUTS[layout].items() if k != "paged_kernel"}
+    cfg = jtr.TransformerConfig(**TP_DIMS, dtype=jnp.float32,
+                                unembed_dtype=jnp.float32,
+                                attn_backend="xla")
+    return jserve.GenerationEngine(jax_params(tree), cfg,
+                                   jserve.GenerationConfig(**TP_GEN, **kw))
+
+
+def greedy_margins(model, prompt, tokens) -> list:
+    """The top-2 logit margin at each generated position of a greedy
+    stream (one teacher-forced prefill of the unsharded model)."""
+    seq = list(prompt) + list(tokens[:-1])
+    cache = ttr.init_kv_cache(model.cfg, 1, len(seq), device="cpu")
+    with torch.no_grad():
+        _, lg = ttr.prefill(torch_weights(model), torch.tensor(seq), cache,
+                            0, model.cfg)
+    top = lg[len(prompt) - 1:].topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()

@@ -220,8 +220,9 @@ def _single_case(c, mesh):
 
 
 def _kill_case(c, mesh):
-    """A follower SIGKILLed mid-round: the leader's streams fail with the
-    runtime's error within the plane's timeout."""
+    """A follower SIGKILLed mid-round: the leader's started streams fail
+    with the runtime's error within the plane's timeout, the others and
+    every later request are refused (the leader closed)."""
     from horovod_tpu_torch.serve import GenerationConfig, GenerationEngine
     model = _model(c, mesh)
     eng = GenerationEngine(model, GenerationConfig(**c["config"]),
@@ -242,6 +243,8 @@ def _kill_case(c, mesh):
         except Exception as e:  # noqa: BLE001 — the point of the case
             errors.append(type(e).__name__)
     waited = time.monotonic() - t0
+    # Whether each stream had started (its first token out) at the death.
+    started = [bool(h._tokens) for h in hs]
     # A request after the death fails too, at once.
     try:
         eng.generate(c["prompts"][0], timeout=c["timeout"], max_new_tokens=2)
@@ -249,8 +252,8 @@ def _kill_case(c, mesh):
     except Exception as e:  # noqa: BLE001
         late = type(e).__name__
     eng.shutdown(drain=False, timeout=c["timeout"])
-    return {"errors": errors, "waited": waited, "late": late,
-            "plane_error": eng.stats()["tp"]["error"]}
+    return {"errors": errors, "started": started, "waited": waited,
+            "late": late, "plane_error": eng.stats()["tp"]["error"]}
 
 
 def _refuse_case(c, mesh):
