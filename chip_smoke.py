@@ -4,7 +4,8 @@
 Drives the port's four main paths, the training-plane knobs (ZeRO-1
 and the overlapped exchange among them), the Trainer with its
 checkpoints, the launcher with elastic recovery, the checkpoint-to-serving
-chain, and the bench entry, and
+chain, and the tool entries (the bench, the serving bench and the step
+profiler), and
 holds every CUDA kernel on them against its plain PyTorch version on the
 card:
 
@@ -185,7 +186,9 @@ Phases, one JSON line each:
                groups of the bench LM (``spawn_replica_factory`` with
                ``"tp": 2``: four processes, two gloo worlds sharing the
                card, 8 heads a rank), paged with K8, the fleet phase's 16
-               requests of 16 tokens: each rank's K3-fwd and K8 launches
+               requests of 16 tokens, submitted at once (the router
+               spreads the burst over both groups): each rank's K3-fwd
+               and K8 launches
                (its counters, read from its heartbeat just before and
                just after the round; each follower's equal to its
                leader's, K3-fwd n_layers a prefill); then the same round
@@ -262,6 +265,31 @@ Phases, one JSON line each:
 22. timing_attn_bhtd — the three [B,T,H,D] launches and the pair at
                B=4, T=2048 beside their bounds, plain versions and SDPA;
                the Delta pass (``timing_delta``).
+22a. serve_bench — ``python -m horovod_tpu_torch.serve_bench``'s
+               ``main`` in this process, counters zeroed just before and
+               read just after: ``--mode generate --model bench_lm``
+               (the bench LM, paged with ``--paged-kernel``, block 16, 8
+               slots, max_len 2048, 32 new tokens; JAX's open-loop
+               schedule with a 1024-token system prompt on half the
+               arrivals; deadline 10 s) at 4 and 16 qps for 4 s each:
+               exit 0, no in-deadline drop at 4 qps, tokens/s > 0 at
+               both points, K3-fwd n_layers a prefill (the completed
+               requests and the warmup's buckets) and K8 a multiple of
+               n_layers, both > 0 and added to the ``kernels`` line;
+               TTFT p50/p99, aggregate and per-user tokens/s, slot fill
+               and peak bytes a point. Then ``--mode predict --qps 200
+               --duration 2`` (the MLP through ``serve.Engine``): every
+               request served, no kernel launched.
+22b. profile_step — ``python -m horovod_tpu_torch.profile_step``'s
+               ``main`` in this process: ``--model transformer_lm
+               --steps 3`` (the bench's LM step) and ``--model resnet50
+               --conv-backend fused --steps 3``: the trace's step count
+               3, the categories summing to the busy total, busy a step
+               at most the step's wall, the hand-kernel categories
+               non-zero (``flash_fwd_wgmma``, ``flash_bwd_dq``,
+               ``flash_bwd_dkv`` in the LM; ``conv_bn_fwd``,
+               ``conv_bn_bwd`` in the ResNet), each printed beside
+               ``PERF.md`` §5's device time of the same step.
 23. train_knobs — the full-width LM, two steps per variant from the same
                seed and batch, counters zeroed before each: accumulation
                over 2 microbatches (16 K3-qkv + 16 dq + 16 dkv a step;
@@ -316,8 +344,9 @@ Phases, one JSON line each:
                writer=AsyncCheckpointer)`` (durable at each epoch's end),
                2 epochs of 4 steps, cuDNN pinned deterministic, run by
                ``python -m horovod_tpu_torch.launcher -np 1`` as this
-               script's ``--elastic-worker`` mode: (a) a clean run; (b)
-               the same with ``--restarts 1``,
+               script's ``--elastic-worker`` mode: (a) a clean run of
+               the worker's function in this process; (b) the worker
+               launched with ``--restarts 1``,
                ``HVD_RESTART_BACKOFF_MAX=0`` and
                ``HVD_FAULT_SPEC=rank=0:kill@step=5``: one relaunch, epoch
                1 logs ``resumed from committed step 4`` (markers 2 and 4
@@ -391,14 +420,14 @@ Phases, one JSON line each:
                spec_fn=)`` of (a)'s leaf for leaf the live model's;
                bytes, save and restore times.
 31. bench   — ``python -m horovod_tpu_torch.bench`` twice, over one
-               timed region each (``--conv-backend fused``: the fused
-               ResNet and the LM lines; ``--model transformer_lm --zero
-               --overlap --accum-steps 2``), each in a process of
-               its own: names, finite positive values, 0 < mfu <= 1, the
-               knob fields, the peak bytes, the card; then ``--scaling
-               --model resnet50 --rounds 1`` (a launcher world of 1 timed
-               over one region: the scaling line of 1 GPU, then the
-               per-GPU line, the stock ResNet's).
+               timed region each (no flags: the stock ResNet and the
+               plain LM lines; ``--model transformer_lm --zero --overlap
+               --accum-steps 2``), each in a process of its own: names,
+               finite positive values, 0 < mfu <= 1, the knob fields, the
+               peak bytes, the card; then ``--scaling --model resnet50
+               --conv-backend fused --rounds 1`` (a launcher world of 1
+               timed over one region: the scaling line of 1 GPU, then
+               the per-GPU line, the fused ResNet's, with its phases).
 
 Every line carries ``phase_s``, the seconds since its phase began, and
 a ``phase_seconds`` line lists each phase's wall seconds. Then, before
@@ -417,6 +446,7 @@ import dataclasses
 import functools
 import gc
 import http.client
+import io
 import itertools
 import json
 import math
@@ -581,10 +611,10 @@ GUARD_TIMED_PAIRS = 4
 # arguments, each in a process of its own; its metric names per run.
 # Each run times one region: the phase checks the entry's lines, not its
 # rates (train, lm_train, zero_overlap and train_knobs time those steps
-# at depth). The fused ResNet line rides with the plain LM line, the LM's
-# knobs (ZeRO, overlap, accumulation) share one process, and the stock
-# ResNet line comes from the --scaling world of 1.
-BENCH_RUNS = ((("--conv-backend", "fused", "--rounds", "1"),
+# at depth). The plain run gives the stock ResNet and the plain LM lines
+# from one process, the LM's knobs (ZeRO, overlap, accumulation) share
+# another, and the fused ResNet line comes from the --scaling world of 1.
+BENCH_RUNS = ((("--rounds", "1"),
                ("resnet50_synthetic_images_per_sec_per_gpu",
                 "transformer_lm_tokens_per_sec_per_gpu")),
               (("--model", "transformer_lm", "--zero", "--overlap",
@@ -592,8 +622,27 @@ BENCH_RUNS = ((("--conv-backend", "fused", "--rounds", "1"),
                ("transformer_lm_tokens_per_sec_per_gpu",)))
 BENCH_TIMEOUT = 400
 # The --scaling sweep through the launcher: one world of 1 on one card,
-# over one timed region; its per-GPU line is the stock ResNet line.
-BENCH_SCALING = ("--scaling", "--model", "resnet50", "--rounds", "1")
+# over one timed region; its per-GPU line is the fused ResNet line.
+BENCH_SCALING = ("--scaling", "--model", "resnet50", "--conv-backend",
+                 "fused", "--rounds", "1")
+# The serving bench entry (serve_bench): two generate-mode operating
+# points of the bench LM through the port's serve_bench main, then one
+# predict-mode point of its MLP Engine.
+SB_GEN = ("--mode", "generate", "--model", "bench_lm", "--kv-layout",
+          "paged", "--paged-kernel", "--block-size", "16", "--slots", "8",
+          "--max-len", "2048", "--gen-tokens", "32", "--prefix-tokens",
+          "1024", "--prefix-mix", "0.5", "--deadline-ms", "10000", "--qps",
+          "4,16", "--duration", "4")
+SB_PREDICT = ("--mode", "predict", "--qps", "200", "--duration", "2")
+# The step profiler entry (profile_step): each run's arguments, the
+# hand-written kernel categories its trace must show, and PERF.md §5's
+# device ms a step of the same step (the earlier torch.profiler
+# readings of the LM and the fused ResNet-50) printed beside its own.
+PS_RUNS = (("transformer_lm", ("--model", "transformer_lm", "--steps", "3"),
+            ("flash_fwd_wgmma", "flash_bwd_dq", "flash_bwd_dkv"), 150.9),
+           ("resnet50_fused", ("--model", "resnet50", "--conv-backend",
+                               "fused", "--steps", "3"),
+            ("conv_bn_fwd", "conv_bn_bwd"), 92.2))
 # ZeRO-1 and overlap (zero_overlap): ZO_STEPS steps per variant from one
 # seed on a 1-rank NCCL world, where the reduce-scatter and all-gather
 # move nothing: every variant's params must equal the plain run's
@@ -625,14 +674,15 @@ CK_PROMPT_LENS = (37, 300, 900, 1500)
 # The launcher and elastic recovery (elastic): the fused ResNet-50 at
 # batch 128 through Trainer.fit under run_with_recovery, EL_EPOCHS
 # epochs of EL_EPOCH_STEPS steps, an async commit every EL_COMMIT_EVERY
-# steps (durable at each epoch's end), in a world of 1 started by the
-# launcher: (a) clean; (b) killed after global step EL_KILL_STEP of
-# restart epoch 0 and relaunched once (--restarts 1, no backoff), which
-# must resume from EL_RESUME and end bitwise as (a); (c) in this process,
-# commits at steps 2 and 4, the step-4 commit's bytes flipped, then NaN
-# batches until HVD_MAX_BAD_STEPS=EL_BAD_BUDGET runs out: the rollback
-# walks past step 4 to step 2, then EL_AFTER finite steps. EL_STALL_STEPS
-# steps after a sync and after an async commit give the stall.
+# steps (durable at each epoch's end), in a world of 1: (a) clean, in
+# this process; (b) started by the launcher, killed after global step
+# EL_KILL_STEP of restart epoch 0 and relaunched once (--restarts 1, no
+# backoff), which must resume from EL_RESUME and end bitwise as (a); (c)
+# in this process, commits at steps 2 and 4, the step-4 commit's bytes
+# flipped, then NaN batches until HVD_MAX_BAD_STEPS=EL_BAD_BUDGET runs
+# out: the rollback walks past step 4 to step 2, then EL_AFTER finite
+# steps. EL_STALL_STEPS steps after a sync and after an async commit give
+# the stall.
 EL_EPOCHS, EL_EPOCH_STEPS, EL_COMMIT_EVERY = 2, 4, 2
 EL_KILL_STEP, EL_RESUME = 5, 4
 EL_BAD_BUDGET, EL_AFTER, EL_STALL_STEPS = 2, 2, 4
@@ -3485,8 +3535,9 @@ def _launch_delta(before: list, after: list) -> list:
 
 
 def _ftp_round(router, prompts, samplings) -> list:
-    """Every request from its own thread (a group's submit returns at the
-    stream's first token), each token's arrival time beside it."""
+    """Every request from its own thread, all at once (a group's submit
+    returns at the stream's first token), each token's arrival time
+    beside it."""
     def one(i, out):
         try:
             h = router.submit(prompts[i], sampling=samplings[i])
@@ -3601,7 +3652,8 @@ def _fleet_tp_run(seed: int, smi: str, run_dir: str):
             a_launch[c.name] = per_rank
             n = a_stats["dispatch_total"].get(c.name, 0)
             lead, fol = per_rank
-            check(n > 0, f"fleet_tp (a): {c.name} took no request")
+            check(n > 0, f"fleet_tp (a): {c.name} took no request of the "
+                         f"burst: {a_stats['dispatch_total']}")
             check(lead["flash_attention"] == L * n
                   and lead["paged_decode_attention"] > 0
                   and lead["paged_decode_attention"] % L == 0,
@@ -5217,11 +5269,10 @@ def phase_bench(smi: str):
                       "mesh": "dp1", "world": 1},
                   f"bench knob fields {ln}")
             check(ln["gpu"] == smi, f"bench card {ln['gpu']} vs {smi}")
-        if "--conv-backend" in args:
-            check(lines[0]["conv_backend"] == "fused", "bench backend")
         if "images" in names[0]:
-            check(0 < lines[0]["phases"]["backward_share"] <= 1,
-                  f"bench phases {lines[0]['phases']}")
+            check(lines[0]["conv_backend"] == "xla"
+                  and 0 < lines[0]["phases"]["backward_share"] <= 1,
+                  f"bench stock ResNet line {lines[0]}")
     # --scaling: one launcher world per size up to this host's GPUs (a
     # world of 1 here), then the largest world's per-GPU line.
     t0 = time.monotonic()
@@ -5240,8 +5291,121 @@ def phase_bench(smi: str):
           f"bench --scaling printed {[ln['metric'] for ln in lines]}")
     check(lines[0]["value"] == 1.0 and lines[0]["world"] == 1
           and lines[0]["images_per_sec_total"] > 0
-          and lines[1]["gpu"] == smi and lines[1]["conv_backend"] == "xla"
-          and 0 < lines[1]["mfu"] <= 1, f"bench --scaling lines {lines}")
+          and lines[1]["gpu"] == smi
+          and lines[1]["conv_backend"] == "fused"
+          and 0 < lines[1]["mfu"] <= 1
+          and 0 < lines[1]["phases"]["backward_share"] <= 1,
+          f"bench --scaling lines {lines}")
+
+
+def _run_entry(main, argv) -> tuple:
+    """An entry's ``main(argv)`` in this process, its standard output
+    captured (and echoed to stderr for the log): ``(exit code, JSON lines,
+    text)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    text = buf.getvalue()
+    sys.stderr.write(text)
+    rows = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    return rc, rows, text
+
+
+def phase_serve_bench(smi: str) -> dict:
+    """The serving bench entry on the card: two open-loop generate points
+    of the bench LM, then a predict point (see the module docstring)."""
+    from horovod_tpu_torch import serve_bench
+    from horovod_tpu_torch.ops import LAUNCHES
+    torch.cuda.empty_cache()
+    LAUNCHES.reset()
+    rc, rows, text = _run_entry(serve_bench.main, SB_GEN)
+    launches = LAUNCHES.snapshot()
+    check(rc == 0, f"serve_bench generate exited {rc}: {text[-2000:]}")
+    check(len(rows) == 2, f"serve_bench printed {len(rows)} rows")
+    low = rows[0]
+    check(low["qps_target"] == 4.0
+          and low["overload_drops"] + low["failed"] == 0,
+          f"serve_bench dropped in-deadline requests at 4 qps: {low}")
+    for r in rows:
+        check(r["tokens_per_sec"] > 0 and r["completed"] > 0,
+              f"serve_bench point {r['qps_target']}: no tokens")
+        check(r["kv_layout"] == "paged"
+              and (r["peak_bytes_per_chip"] or 0) > 0,
+              f"serve_bench row {r}")
+    layers = LM["n_layers"]
+    k3 = launches.get("flash_attention", 0)
+    k8 = launches.get("paged_decode_attention", 0)
+    warm = int(re.search(r"decode \+ (\d+) prefill buckets",
+                         text).group(1))
+    done = sum(r["completed"] for r in rows)
+    check(k3 > 0 and k3 % layers == 0 and k3 // layers >= done + warm,
+          f"serve_bench: flash_attention launched {k3} times for {done} "
+          f"requests + {warm} warmup prefills")
+    check(k8 > 0 and k8 % layers == 0,
+          f"serve_bench: paged_decode_attention launched {k8} times")
+    emit("serve_bench", args=list(SB_GEN), exit=rc, launches=launches,
+         prefills=k3 // layers, requests_completed=done,
+         warmup_prefills=warm, decode_steps=k8 // layers, points=[{
+             k: r[k] for k in ("qps_target", "sent", "completed",
+                               "ttft_p50_ms", "ttft_p99_ms",
+                               "ttft_hit_p50_ms", "ttft_cold_p50_ms",
+                               "tokens_per_sec", "tps_user_p50",
+                               "slot_fill", "peak_concurrent_streams",
+                               "peak_bytes_per_chip", "overload_drops",
+                               "deadline_drops", "failed")}
+             for r in rows], gpu=smi)
+    LAUNCHES.reset()
+    rc, rows, text = _run_entry(serve_bench.main, SB_PREDICT)
+    got = LAUNCHES.snapshot()
+    check(rc == 0 and len(rows) == 1
+          and rows[0]["completed"] == rows[0]["sent"] > 0,
+          f"serve_bench predict: exit {rc}, rows {rows}")
+    check(not got, f"serve_bench predict launched kernels: {got}")
+    emit("serve_bench_predict", args=list(SB_PREDICT), exit=rc,
+         row=rows[0], gpu=smi)
+    return launches
+
+
+def phase_profile_step(smi: str) -> dict:
+    """The step profiler entry on the card: the LM's and the fused
+    ResNet-50's tables (see the module docstring)."""
+    from horovod_tpu_torch import profile_step
+    from horovod_tpu_torch.ops import LAUNCHES
+    total = {}
+    for name, argv, kernels, perf_ms in PS_RUNS:
+        torch.cuda.empty_cache()
+        LAUNCHES.reset()
+        rc, rows, text = _run_entry(profile_step.main, argv)
+        launches = LAUNCHES.snapshot()
+        check(rc == 0 and len(rows) == 1,
+              f"profile_step {name}: exit {rc}: {text[-2000:]}")
+        agg = rows[0]
+        cats = agg["categories"]
+        busy = agg["busy_ms_per_step"]
+        check(agg["steps"] == 3, f"profile_step {name}: {agg['steps']} "
+                                 f"steps in the trace")
+        check(abs(sum(c["ms_per_step"] for c in cats.values()) - busy)
+              <= 1e-6 * busy, f"profile_step {name}: categories do not "
+                              f"sum to the busy total")
+        check(0 < busy <= agg["step_wall_ms_mean"],
+              f"profile_step {name}: busy {busy} ms a step against a "
+              f"step wall of {agg['step_wall_ms_mean']} ms")
+        for k in kernels:
+            check(cats.get(k, {}).get("ms_per_step", 0) > 0,
+                  f"profile_step {name}: no {k} time in {sorted(cats)}")
+        first = next(iter(cats.items()))
+        emit("profile_step", run=name, args=list(argv),
+             busy_ms_per_step=busy,
+             envelope_ms_per_step=agg["envelope_ms_per_step"],
+             step_wall_ms_mean=agg["step_wall_ms_mean"],
+             first_category={first[0]: first[1]},
+             kernels={k: cats.get(k) for k in kernels},
+             categories=cats, top_ops=agg["top_ops"][:8],
+             perf_md_device_ms_per_step=perf_ms, launches=launches,
+             gpu=smi)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 def want_launches(got: dict, want: dict, what: str) -> None:
@@ -5604,9 +5768,10 @@ def _digest(bits: list) -> str:
     return h.hexdigest()
 
 
-def elastic_worker(seed: int) -> int:
+def elastic_worker(seed: int, launched: bool = True) -> int:
     """One rank of the elastic phase's launched world (``--elastic-worker``,
-    started by ``python -m horovod_tpu_torch.launcher``): the fused
+    started by ``python -m horovod_tpu_torch.launcher``), or with
+    ``launched=False`` the same run in this process: the fused
     ResNet-50 through ``Trainer.fit`` under ``run_with_recovery`` with an
     async commit every EL_COMMIT_EVERY steps, made durable at each
     epoch's end. Writes its record to ``$HVD_SMOKE_OUT/epoch<e>.json``
@@ -5636,7 +5801,8 @@ def elastic_worker(seed: int) -> int:
         print(f"elastic_worker epoch {epoch}: launches {rec['launches']} "
               f"at the kill", flush=True)
         dump()
-    flightrec.add_crash_hook(on_kill)
+    if launched:
+        flightrec.add_crash_hook(on_kill)
     hvd.init()
     rec["t_init"] = time.time()
     torch.backends.cudnn.deterministic = True
@@ -5764,10 +5930,39 @@ def _launch_elastic(tag: str, root: str, seed: int, extra_env: dict,
                 text=text, epochs=epochs, out_dir=out_dir)
 
 
+def _elastic_in_process(root: str, seed: int) -> dict:
+    """The elastic worker's clean run in this process (the reference the
+    launched, killed and relaunched run must equal), its cuDNN settings
+    and the variables it reads restored after it."""
+    out_dir = os.path.join(root, "clean")
+    os.makedirs(out_dir)
+    env = {"HVD_SMOKE_OUT": out_dir,
+           "HVD_ELASTIC_DIR": os.path.join(out_dir, "commits")}
+    saved = {k: os.environ.get(k) for k in env}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    os.environ.update(env)
+    t0 = time.time()
+    try:
+        check(elastic_worker(seed, launched=False) == 0,
+              "elastic clean run failed")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with open(os.path.join(out_dir, "epoch0.json")) as f:
+        rec = json.load(f)
+    return dict(seconds=time.time() - t0, epochs={0: rec}, out_dir=out_dir)
+
+
 def phase_elastic(seed: int):
     """The launcher and elastic recovery on the card at full width: a
-    clean launched run, a killed-and-relaunched run that must resume
-    from EL_RESUME and end bitwise as the clean one, the time to
+    clean run in this process, a launched killed-and-relaunched run that
+    must resume from EL_RESUME and end bitwise as the clean one, the time to
     recover, and in this process the Trainer's rollback past a corrupt
     commit plus the commit's stall and bytes."""
     import shutil
@@ -5786,7 +5981,7 @@ def phase_elastic(seed: int):
     try:
         # (a) clean and (b) killed after global step EL_KILL_STEP, then
         # relaunched once.
-        clean = _launch_elastic("clean", root, seed, {}, restarts=0)
+        clean = _elastic_in_process(root, seed)
         killed = _launch_elastic(
             "killed", root, seed,
             {"HVD_FAULT_SPEC": f"rank=0:kill@step={EL_KILL_STEP}"},
@@ -5848,7 +6043,7 @@ def phase_elastic(seed: int):
                        commit_call_ms=a["commit_call_ms"],
                        epoch_end_wait_ms=a["epoch_end_wait_ms"],
                        first_step_ms=(a["t_first"] - a["t_restored"]) * 1e3,
-                       start_to_init_ms=(a["t_init"] - a["t_start"]) * 1e3),
+                       in_process=True),
             killed=dict(seconds=killed["seconds"],
                         launches_epoch0=k0["launches"],
                         launches=k1["launches"],
@@ -6610,6 +6805,8 @@ def main() -> int:
         run_phase("e2e_pp_lm_train", phase_e2e_pp_lm_train, args.seed)
         times.update(run_phase("timing_attn_bhtd", phase_timing_attn_bhtd,
                                args.seed, peaks))
+        add(run_phase("serve_bench", phase_serve_bench, smi))
+        add(run_phase("profile_step", phase_profile_step, smi))
         run_phase("train_knobs", phase_train_knobs, args.seed)
         run_phase("guard", phase_guard, args.seed)
         run_phase("zero_overlap", phase_zero_overlap, args.seed)

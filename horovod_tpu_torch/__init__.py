@@ -36,13 +36,25 @@ The ported slices:
   (``elastic.ElasticState`` two-phase commits with the verified fallback
   walk, ``elastic.run_with_recovery``, the Trainer's rollback).
 
+The package exports the reference's names (``hvd.models``,
+``hvd.serve``, ``hvd.callbacks``, ``hvd.BroadcastGlobalVariablesHook``,
+``hvd.world`` ...); the few with no torch meaning (``AXIS``, ``mesh``,
+the ``pallas_*`` modules) are listed in ``ROADMAP.md`` Queue 3.
 Importing the package never imports JAX or the JAX package.
 """
 
+from . import callbacks  # noqa: F401
+from . import data  # noqa: F401
 from . import elastic  # noqa: F401
+from . import hooks  # noqa: F401
+from . import models  # noqa: F401
+from . import obs  # noqa: F401
+from . import serve  # noqa: F401
+from . import training  # noqa: F401
 from .exceptions import (CheckpointCorruptError, CheckpointTimeoutError,
                          DeadlineExceededError, FailedPreconditionError,
-                         HorovodError, NonFiniteGradError,
+                         FailoverExhaustedError, HorovodError,
+                         NonFiniteGradError,
                          NotInitializedError, ServerClosedError,
                          ServerOverloadedError, StalledError, TransportError,
                          WorkerFailureError)
@@ -59,8 +71,9 @@ from .optimizer import (Compression, DistributedOptimizer, ZeroShardedState,
                         broadcast_optimizer_state, broadcast_parameters,
                         partition_optimizer, zero_from_canonical,
                         zero_to_canonical)
+from .hooks import BroadcastGlobalVariablesHook
 from .runtime import (init, is_initialized, local_rank, process_count,
-                      process_index, rank, shutdown, size)
+                      process_index, rank, shutdown, size, world)
 from .trainer import (AsyncCheckpointer, Trainer, latest_checkpoint_step,
                       restore_checkpoint, save_checkpoint)
 from .version import __version__
@@ -84,4 +97,7 @@ __all__ = ["__version__", "HorovodError", "ServerOverloadedError",
            "broadcast_parameters", "broadcast_optimizer_state",
            "broadcast_global_variables", "Compression", "Trainer",
            "AsyncCheckpointer", "save_checkpoint", "restore_checkpoint",
-           "latest_checkpoint_step", "elastic"]
+           "latest_checkpoint_step", "elastic", "callbacks", "data",
+           "hooks", "models", "obs", "serve", "training",
+           "BroadcastGlobalVariablesHook", "FailoverExhaustedError",
+           "world"]

@@ -267,17 +267,15 @@ def _measure_phases(state, data, accum: int, rate: float, iters: int,
             "update_share": share(t_upd)}
 
 
-def measure(cfg: dict, device: torch.device, seed: int = 0):
-    """Images/sec of the data-parallel train step over this process's
-    world (one GPU, or a gloo world of one on the CPU), and its phases.
-    Returns ``(total rate, phases, overlap order)``."""
+def build_step(cfg: dict, device: torch.device, seed: int = 0):
+    """The conv line's train state, step and synthetic batch: what
+    :func:`measure` times and ``profile_step`` profiles. Returns
+    ``(state, step, data)``; ``step(state, data)`` is one train step."""
     accum = int(cfg.get("accum_steps", 1))
     if cfg["batch_per_gpu"] % accum:
         raise SystemExit(
             f"--accum-steps {accum} does not divide the per-GPU batch of "
             f"{cfg['batch_per_gpu']}")
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     model = _build_model(cfg, device, seed)
     state = training.create_train_state(
         model, functools.partial(torch.optim.SGD, lr=cfg.get("lr", 0.1),
@@ -287,6 +285,17 @@ def measure(cfg: dict, device: torch.device, seed: int = 0):
     hvd.broadcast_parameters(model)
     step = training.make_train_step(accum_steps=accum)
     data = _synthetic_batch(cfg, device, seed + hvd.rank())
+    return state, step, data
+
+
+def measure(cfg: dict, device: torch.device, seed: int = 0):
+    """Images/sec of the data-parallel train step over this process's
+    world (one GPU, or a gloo world of one on the CPU), and its phases.
+    Returns ``(total rate, phases, overlap order)``."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state, step, data = build_step(cfg, device, seed)
+    accum = int(cfg.get("accum_steps", 1))
     k = int(cfg.get("steps_per_call", 1))
 
     def run(n_steps: int):
@@ -311,11 +320,13 @@ def _lm_config(device: str) -> dict:
     return cfg
 
 
-def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
-    """Tokens/sec of the transformer-LM train step over this process's
-    world: the data-parallel step (``make_parallel_train_step``), or the
-    pipelined 1F1B step with ``cfg["pp"] > 1``. Returns the total rate
-    and the overlap order (None without overlap)."""
+def build_lm_step(cfg: dict, device: torch.device, seed: int = 0):
+    """The LM line's train state, step and token batch over this
+    process's world: the data-parallel step (``make_parallel_train_
+    step``), the four-axis step (tp > 1) or the pipelined 1F1B step
+    (``cfg["pp"] > 1``); what :func:`measure_lm` times and
+    ``profile_step`` profiles. Returns ``(state, step, (tokens, labels),
+    tokens_per_step)``; ``step(state, tokens, labels)`` is one step."""
     from horovod_tpu_torch.parallel.mesh import (batch_block,
                                                  create_hybrid_mesh)
     from horovod_tpu_torch.parallel.transformer import (
@@ -336,8 +347,6 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
         raise SystemExit(
             f"--mesh dp={want_dp},tp={tp},pp={pp} does not match the world "
             f"size {n} (needs dp×tp×pp == world; dp here is {dp})")
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
     tcfg = TransformerConfig(
         vocab=cfg["vocab"], d_model=cfg["d_model"], n_heads=cfg["n_heads"],
         n_layers=cfg["n_layers"], d_ff=cfg["d_ff"], dtype=torch.bfloat16,
@@ -396,6 +405,17 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
                                               size=(B, T))).to(device)
         labels = torch.from_numpy(rng.randint(0, cfg["vocab"],
                                               size=(B, T))).to(device)
+    return state, step, (tokens, labels), B * dp * T
+
+
+def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
+    """Tokens/sec of the transformer-LM train step over this process's
+    world (:func:`build_lm_step`). Returns the total rate and the overlap
+    order (None without overlap)."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state, step, (tokens, labels), per_step = build_lm_step(cfg, device,
+                                                            seed)
     k = int(cfg.get("steps_per_call", 1))
 
     def run(n_steps: int):
@@ -406,7 +426,7 @@ def measure_lm(cfg: dict, device: torch.device, seed: int = 0):
 
     float(run(cfg["warmup"] * k))
     rate = _median_rate(lambda: run(cfg["iters"] * k),
-                        B * dp * T * cfg["iters"] * k,
+                        per_step * cfg["iters"] * k,
                         int(cfg.get("rounds", 1)))
     return rate, getattr(state.optimizer, "grad_order_source", None)
 

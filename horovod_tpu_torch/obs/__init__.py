@@ -30,3 +30,4 @@ from .registry import (  # noqa: F401
     registry,
     render,
 )
+from .summary import FleetPoller, scrape  # noqa: F401

@@ -26,11 +26,16 @@ bf16 (d_head 128; channels multiples of 64), on the CPU the plain
 versions take every input. The model that calls them routes by it; a
 wrapper given a CUDA input its kernel does not take raises.
 :data:`~._build.LAUNCHES` counts each kernel's launches. The eager
-collectives and the fused gradient allreduce live beside them
-(``collectives.py``, ``fusion.py``).
+collectives, the fused gradient allreduce and the sparse allreduce live
+beside them (``collectives.py``, ``fusion.py``, ``sparse.py``) and are
+re-exported here as the reference's ``ops`` does.
 """
 
 from ._build import LAUNCHES
+from .collectives import (Op, allgather, allreduce, alltoall, broadcast,
+                          grouped_allreduce, reducescatter)
+from .fusion import fused_allreduce, plan_buckets
+from .sparse import IndexedSlices, allreduce_indexed_slices
 from .attention import (flash_attention, flash_attention_bwd_reference,
                         flash_attention_lse_reference,
                         flash_attention_prefill, flash_attention_qkv,
@@ -45,7 +50,10 @@ from .paged_attention import (paged_attention_reference,
                               paged_attention_supported,
                               paged_decode_attention)
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_prefill",
+__all__ = ["LAUNCHES", "Op", "allreduce", "allgather", "broadcast",
+           "alltoall", "reducescatter", "grouped_allreduce", "plan_buckets",
+           "fused_allreduce", "IndexedSlices", "allreduce_indexed_slices",
+           "flash_attention", "flash_attention_prefill",
            "flash_attention_reference", "flash_attention_lse_reference",
            "flash_attention_bwd_reference",
            "flash_attention_qkv", "flash_attention_qkv_reference",

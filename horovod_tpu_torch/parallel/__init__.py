@@ -23,14 +23,16 @@ from .ring import ring_attention, ulysses_attention
 from .tp import column_parallel, init_column, init_row, row_parallel
 from .pp_transformer import (init_pp_params, make_pp_transformer_train_step,
                              pp_param_specs)
-from .transformer import (Transformer, TransformerConfig, dense_nll, forward,
-                          forward_hidden, gen_weights, kv_cache_specs,
-                          make_parallel_train_step, param_specs,
+from .transformer import (Transformer, TransformerConfig, decode_step,
+                          dense_nll, forward, forward_hidden, gen_weights,
+                          init_kv_cache, kv_cache_specs,
+                          make_parallel_train_step, param_specs, prefill,
                           prompt_forward, rms_norm, step_forward, unembed)
 
 __all__ = ["Transformer", "TransformerConfig", "forward", "forward_hidden",
            "unembed", "dense_nll", "make_parallel_train_step", "gen_weights",
-           "prompt_forward", "step_forward", "rms_norm", "TRASH_BLOCK",
+           "prompt_forward", "step_forward", "rms_norm", "prefill",
+           "decode_step", "init_kv_cache", "TRASH_BLOCK",
            "BlockManager", "blocks_for", "init_paged_kv_cache",
            "paged_prefill", "paged_decode_step", "kv_cache_specs",
            "paged_kv_cache_specs", "Mesh", "AXES",

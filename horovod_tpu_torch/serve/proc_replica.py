@@ -171,6 +171,11 @@ class ProcReplicaClient:
         self._inflight: set = set()
         self._inflight_lock = threading.Lock()
         self._last_stats: Dict[str, Any] = {}
+        # Submits this client started, those awaiting their verdict, those
+        # admitted, and the child's requests_total that is not theirs:
+        # what load() adds for requests the child has not counted yet.
+        self._submits = self._awaiting = self._admitted = 0
+        self._foreign = 0
 
     # -- process / readiness plumbing ---------------------------------------
 
@@ -277,15 +282,32 @@ class ProcReplicaClient:
         return status == "ok", status, int(body.get("queue_depth", 0))
 
     def load(self) -> int:
-        """Dispatch pressure (queued + executing rows) from the child's
-        ``/stats``. A transport timeout raises
+        """Dispatch pressure: queued + executing rows from the child's
+        ``/stats``, plus this client's submits the child has not counted
+        yet (sent, awaiting their verdict, and not in its
+        ``requests_total``), so that a burst of concurrent submits does
+        not read an idle child over and over. A transport timeout raises
         :class:`ReplicaTimeoutError` so the handle can key the
         suspect-and-check eviction path; any other failure propagates
         and reads as the busy sentinel."""
+        with self._inflight_lock:
+            before = (self._submits, self._awaiting)
         snap = self._get_json("/stats", self._probe_timeout)
         self._last_stats = snap
-        return int(snap.get("queue_depth", 0)) \
+        depth = int(snap.get("queue_depth", 0)) \
             + int(snap.get("active_slots", 0))
+        counted = int(snap.get("requests_total", 0))
+        with self._inflight_lock:
+            if self._awaiting == 0:
+                if before == (self._submits, 0):
+                    # Nothing of ours was on the wire during the read:
+                    # every request the child counted beyond our
+                    # admitted ones came from elsewhere.
+                    self._foreign = counted - self._admitted
+                return depth
+            ours = counted - self._foreign
+            unseen = self._admitted + self._awaiting - ours
+            return depth + max(0, min(self._awaiting, unseen))
 
     def stats(self) -> Dict[str, Any]:
         """The child's full ``/stats`` snapshot — or the LAST-KNOWN one
@@ -474,16 +496,26 @@ class ProcReplicaClient:
         if adapter is not None:
             body["adapter"] = adapter
         payload = json.dumps(body).encode()
-        conn, resp = self._post_generate(payload)
-        if resp.status != 200:
-            try:
-                err_body = json.loads(
-                    resp.read().decode("utf-8", "replace") or "{}")
-            except ValueError:
-                err_body = {}
-            finally:
-                conn.close()
-            self._raise_status(resp.status, err_body)
+        with self._inflight_lock:
+            self._submits += 1
+            self._awaiting += 1
+        admitted = False
+        try:
+            conn, resp = self._post_generate(payload)
+            if resp.status != 200:
+                try:
+                    err_body = json.loads(
+                        resp.read().decode("utf-8", "replace") or "{}")
+                except ValueError:
+                    err_body = {}
+                finally:
+                    conn.close()
+                self._raise_status(resp.status, err_body)
+            admitted = True
+        finally:
+            with self._inflight_lock:
+                self._awaiting -= 1
+                self._admitted += admitted
         handle = GenerationHandle()
         with self._inflight_lock:
             self._inflight.add(handle)

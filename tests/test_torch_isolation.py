@@ -39,7 +39,9 @@ for needed in ("horovod_tpu_torch.ops.sparse", "horovod_tpu_torch.elastic",
                "horovod_tpu_torch.serve.router",
                "horovod_tpu_torch.serve.fleet",
                "horovod_tpu_torch.serve.proc_replica",
-               "horovod_tpu_torch.serve.tp_plane"):
+               "horovod_tpu_torch.serve.tp_plane",
+               "horovod_tpu_torch.serve_bench",
+               "horovod_tpu_torch.profile_step"):
     assert needed in names, names
 for name in names:
     if not name.endswith(".__main__"):   # running it would launch
@@ -88,7 +90,9 @@ def test_every_submodule_is_importable_here():
             "horovod_tpu_torch.obs.summary",
             "horovod_tpu_torch.serve.router",
             "horovod_tpu_torch.serve.fleet",
-            "horovod_tpu_torch.serve.proc_replica"} <= set(names)
+            "horovod_tpu_torch.serve.proc_replica",
+            "horovod_tpu_torch.serve_bench",
+            "horovod_tpu_torch.profile_step"} <= set(names)
 
 
 # What a subprocess replica's worker runs before it serves: its module,
@@ -233,3 +237,39 @@ def test_bench_entry_defaults_to_cuda(monkeypatch):
     with pytest.raises(SystemExit, match="--device cpu"):
         bench.main([])
     assert not runtime.is_initialized()
+
+
+def test_serve_bench_and_profile_step_default_to_cuda(monkeypatch):
+    """The two tool entries run on the card unless ``--device cpu`` is
+    given: without CUDA they exit naming the flag, before any engine or
+    world is built."""
+    from horovod_tpu_torch import profile_step, serve_bench
+    _without_cuda(monkeypatch)
+    for argv in ([], ["--mode", "generate"]):
+        with pytest.raises(SystemExit, match="--device cpu"):
+            serve_bench.main(argv)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        profile_step.main([])
+    assert not runtime.is_initialized()
+
+
+_ENTRY_PROBE = """
+import sys
+from horovod_tpu_torch import profile_step, serve_bench
+assert serve_bench.main(["--device", "cpu", "--mode", "generate", "--qps",
+                         "50", "--duration", "0.1", "--gen-tokens", "2"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "horovod_tpu" or m.startswith("horovod_tpu."))
+print("leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_tool_entries_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _ENTRY_PROBE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "leaked: []" in proc.stdout

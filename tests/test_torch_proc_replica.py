@@ -344,6 +344,98 @@ class TestRouterIntegration:
         assert calls == [False]
         router.shutdown()
 
+    def test_load_counts_submits_the_child_has_not_counted(self, scripted):
+        port, set_script = scripted
+        child = {"status": "ok", "queue_depth": 0, "active_slots": 0,
+                 "requests_total": 0}
+        arrived, release = threading.Event(), threading.Event()
+        refuse = []
+
+        def script(h, p, b=None):
+            if p != "/generate":
+                h.reply_json(200, child)
+            elif refuse:
+                h.reply_json(503, {"error": "full"})
+            else:
+                arrived.set()
+                release.wait(5)
+                h.stream_lines([{"token": 1}, {
+                    "tokens": [1], "finish_reason": "length",
+                    "n_tokens": 1, "done": True}])
+        set_script(script)
+        c = _client(port)
+        assert c.load() == 0
+        box = []
+        t = threading.Thread(
+            target=lambda: box.append(c.submit([4], max_new_tokens=1)))
+        t.start()
+        assert arrived.wait(5)
+        assert c.load() == 1        # on the wire, not counted by the child
+        child.update(queue_depth=1, requests_total=1)
+        assert c.load() == 1        # counted by the child, once
+        release.set()
+        t.join(5)
+        assert box[0].result(timeout=5)["tokens"] == [1]
+        child.update(queue_depth=0)
+        assert c.load() == 0
+        # A refused submit leaves nothing pending.
+        refuse.append(True)
+        with pytest.raises(ServerOverloadedError):
+            c.submit([4])
+        assert c.load() == 0
+        # Requests from elsewhere are the child's own count, not ours.
+        child.update(queue_depth=2, requests_total=3)
+        assert c.load() == 2
+
+    def test_a_burst_spreads_over_idle_children(self):
+        """Concurrent submits each see the ones before them on the wire,
+        while the children's /stats still read idle: the router's
+        least-load walk alternates instead of piling every stream on
+        the first child."""
+        release = threading.Event()
+        arrivals = []
+        servers = [_scripted_server() for _ in range(2)]
+
+        def script_for(name):
+            def script(h, p, b=None):
+                if p != "/generate":
+                    h.reply_json(200, {"status": "ok", "queue_depth": 0,
+                                       "active_slots": 0,
+                                       "requests_total": 0})
+                    return
+                arrivals.append(name)
+                release.wait(5)
+                h.stream_lines([{"token": 1}, {
+                    "tokens": [1], "finish_reason": "length",
+                    "n_tokens": 1, "done": True}])
+            return script
+        for name, srv in zip("ab", servers):
+            srv.script = script_for(name)
+        clients = [ProcReplicaClient(name, None, port=srv.server_address[1],
+                                     probe_timeout_s=1.0)
+                   for name, srv in zip("ab", servers)]
+        router = FleetRouter(engines=clients, poll_interval_s=0)
+        try:
+            threads = []
+            for i in range(4):
+                t = threading.Thread(target=router.submit, args=([4],),
+                                     kwargs={"max_new_tokens": 1})
+                t.start()
+                threads.append(t)
+                deadline = time.monotonic() + 5
+                while len(arrivals) <= i and time.monotonic() < deadline:
+                    time.sleep(0.002)
+            assert sorted(arrivals) == ["a", "a", "b", "b"]
+            release.set()
+            for t in threads:
+                t.join(5)
+        finally:
+            release.set()
+            router.shutdown()
+            for srv in servers:
+                srv.shutdown()
+                srv.server_close()
+
     def test_load_timeout_marks_suspect_and_evicts_in_one_check(self):
         sock = socket.socket()
         sock.bind(("127.0.0.1", 0))
