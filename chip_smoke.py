@@ -239,6 +239,27 @@ Phases, one JSON line each:
                T=256 on the card and
                on the CPU from the same weights and batch: loss, logits,
                gradients and updates compared.
+16a. coord — the host coordination plane (``horovod_tpu_torch/coord``,
+               built by g++ from ``coord/csrc/coordinator.cc``): two ranks
+               sharing the card on a gloo group that ``init()`` adopts
+               (this script's ``--coord-rank`` mode), first a plain world
+               (``coordinator=False``), then a coordinated one on the
+               loopback. (a) the eager API on CUDA tensors (f32, bf16,
+               int32 allreduces on the star and, above
+               ``HOROVOD_RING_THRESHOLD``, the ring; a ragged allgather,
+               a broadcast from rank 1, alltoall, reducescatter,
+               ``broadcast_object``) bitwise a host numpy reference and
+               the plain world; (b) the full-width LM (COORD_LAYERS of
+               its 8 layers, batch COORD_BATCH a rank, T=2048), 3 dp
+               steps whose loss is averaged and whose step is resolved
+               through the coordinator, every loss bitwise the plain
+               world's, K3-qkv and the dq/dkv pair launched; (c) rank 1
+               submits another shape: both ranks raise
+               ``FailedPreconditionError`` within COORD_MISMATCH_S; (e)
+               eager allreduce at 4 KiB, 1 MiB, 64 MiB on the star and
+               the ring (median ms, GB/s); (d) rank 1 SIGKILLed mid-step:
+               rank 0 raises ``WorkerFailureError`` naming rank 1 within
+               ``HVD_HEARTBEAT_TIMEOUT`` + COORD_KILL_SLACK_S.
 17. timing_attn — K3-qkv and the dq/dkv pair at the LM step's shape
                (B=8, H=16, T=2048, causal) vs their plain versions (the
                kernels line's max_abs_err; six launches bitwise equal),
@@ -362,8 +383,8 @@ Phases, one JSON line each:
                after the resume), the commit's stall on the step loop
                (sync and async) and bytes, run (a)'s step p50 against
                the bare loop's.
-28. lm_ckpt_serve — the full-width LM with ``zero=True``: 2 steps (8
-               K3-qkv + 8 dq + 8 dkv each), ``save_sharded``,
+28. lm_ckpt_serve — the full-width LM (4 of its 8 layers) with
+               ``zero=True``: 2 steps (4 K3-qkv + 4 dq + 4 dkv each), ``save_sharded``,
                ``verify_checkpoint``, ``restore_sharded`` into a fresh
                state bitwise equal to the live one, one more step from
                each with bitwise-equal params; ``restore_for_inference``
@@ -665,10 +686,12 @@ TR_EPOCHS, TR_STEPS, TR_KEEP, TR_PREFETCH = 2, 4, 2, 2
 TR_BAD_BUDGET = 2
 TR_TIMED, TR_STALL_STEPS = 10, 4
 # The LM checkpoint to serving chain (lm_ckpt_serve): CK_STEPS ZeRO steps
-# of the full-width LM, save_sharded, restore into a fresh state, one more
-# step from each; restore_for_inference into engines of CK_SLOTS slots,
-# CK_REQUESTS greedy requests of CK_NEW_TOKENS new tokens.
-CK_STEPS = 2
+# of the full-width LM cut to CK_LAYERS of its 8 layers (for the script's
+# time: the coord phase came in beside it), save_sharded, restore into a
+# fresh state, one more step from each; restore_for_inference into
+# engines of CK_SLOTS slots, CK_REQUESTS greedy requests of CK_NEW_TOKENS
+# new tokens.
+CK_STEPS, CK_LAYERS = 2, 4
 CK_SLOTS, CK_REQUESTS, CK_NEW_TOKENS = 8, 4, 16
 CK_PROMPT_LENS = (37, 300, 900, 1500)
 # The launcher and elastic recovery (elastic): the fused ResNet-50 at
@@ -1047,11 +1070,19 @@ def ptxas_summary(log: str, needle: str) -> dict:
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch.coord import _build as coord_build
     from horovod_tpu_torch.ops import _build
     t0 = time.monotonic()
-    path = _build.build()
-    lib = _build.library()
-    secs = time.monotonic() - t0
+    # The coordination plane's g++ build runs beside the nvcc builds.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        coord = pool.submit(lambda: (coord_build.build(),
+                                     time.monotonic() - t0))
+        path = _build.build()
+        lib = _build.library()
+        secs = time.monotonic() - t0
+        coord_lib, coord_s = coord.result()
     with open(path + ".log") as f:
         log = f.read()
     # ptxas names the kernels whose wgmma it had to serialize: they would
@@ -1062,6 +1093,7 @@ def phase_build():
     conv = ptxas_summary(log, "conv_bn")
     paged = ptxas_summary(log, "paged")
     emit("build", seconds=secs, library=path, compiler_log=path + ".log",
+         coord_library=coord_lib, coord_seconds=coord_s,
          fused_conv_bn_ptxas=conv,
          flash_ptxas=flash, paged_ptxas=paged,
          flash_dynamic_smem_bytes={
@@ -6245,7 +6277,7 @@ def phase_lm_ckpt_serve(seed: int):
         TransformerConfig, make_parallel_train_step)
     hvd.init()
     check(hvd.size() == 1, "expected a 1-rank world")
-    cfg = lm_config()
+    cfg = lm_config(CK_LAYERS)
     tokens, labels = lm_batch(LM_BATCH, LM_SEQ, seed)
     adamw = functools.partial(torch.optim.AdamW, **ADAMW, foreach=True)
     init_state, step = make_parallel_train_step(cfg, adamw, zero=True)
@@ -6302,7 +6334,8 @@ def phase_lm_ckpt_serve(seed: int):
         check(sorted(variables) == ["params"] and len(opened) == n_params,
               f"restore_for_inference read {len(opened)} files, "
               f"{n_params} params leaves")
-        serve_cfg = TransformerConfig(**LM, dtype=torch.bfloat16,
+        serve_cfg = TransformerConfig(**dict(LM, n_layers=CK_LAYERS),
+                                      dtype=torch.bfloat16,
                                       unembed_dtype=torch.float32)
         rng = np.random.RandomState(seed)
         prompts = [rng.randint(0, cfg.vocab, n) for n in CK_PROMPT_LENS]
@@ -6728,6 +6761,415 @@ def _tree_leaves(tree, prefix=""):
         yield prefix, np.asarray(tree)
 
 
+# The coord phase: two ranks sharing the card, the bench LM at full width
+# cut to COORD_LAYERS layers and COORD_BATCH sequences of T=2048 a rank
+# (two AdamW states on one card; its gloo gradient exchange moves every
+# f32 gradient through the host each step).
+COORD_LAYERS, COORD_BATCH, COORD_STEPS = 2, 1, 3
+COORD_HEARTBEAT_S, COORD_KILL_SLACK_S = 10.0, 5.0
+COORD_MISMATCH_S = 5.0
+COORD_WORLD_S = 240.0          # the children's run, kill drill included
+COORD_TIMING = ((4096, 10), (1 << 20, 5), (64 << 20, 3))    # bytes, reps
+COORD_RING_ELEMS = 1 << 21     # 8 MiB of f32: above the 4 MiB threshold
+
+
+def coord_inputs(rank: int, seed: int) -> dict:
+    """(a)'s inputs of ``rank``: key -> (kind, host array, kwargs); bf16
+    arrays are their raw bits (uint16)."""
+    rng = np.random.RandomState(seed * 100 + rank)
+
+    def f32(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def bf16(*shape):
+        u = f32(*shape).view(np.uint32).astype(np.uint64)
+        return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+    def i32(*shape):
+        return rng.randint(-1000, 1000, size=shape).astype(np.int32)
+
+    big = COORD_RING_ELEMS
+    return {
+        "ar_f32_star": ("allreduce", f32(4099), dict(plane="star")),
+        "ar_f32_ring": ("allreduce", f32(big), {}),
+        "ar_bf16_star": ("allreduce", bf16(4099), dict(plane="star")),
+        "ar_bf16_ring": ("allreduce", bf16(2 * big), {}),
+        "ar_i32_star": ("allreduce", i32(4099), dict(plane="star")),
+        "ar_i32_ring": ("allreduce", i32(big), {}),
+        "ag_ragged": ("allgather", f32(3 * rank + 5, 64), {}),
+        "bc_root1": ("broadcast", f32(1000), dict(root_rank=1)),
+        "a2a": ("alltoall", f32(2 * 1024), {}),
+        "rs": ("reducescatter", f32(2 * 1024), {}),
+    }
+
+
+def coord_reference(seed: int) -> dict:
+    """(a)'s expected results on each rank, from both ranks' inputs on the
+    host: f32 and int32 sums in numpy, bf16 sums widened to f32 and
+    rounded to nearest even (the coordinator's rule), the rest moved."""
+    ins = [coord_inputs(r, seed) for r in range(2)]
+    out = [{}, {}]
+    for key, (kind, _, kw) in ins[0].items():
+        a, b = ins[0][key][1], ins[1][key][1]
+        if kind == "allreduce" and a.dtype == np.uint16:
+            f = ((a.astype(np.uint32) << 16).view(np.float32)
+                 + (b.astype(np.uint32) << 16).view(np.float32))
+            u = f.view(np.uint32).astype(np.uint64)
+            want = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+            out[0][key] = out[1][key] = want
+        elif kind == "allreduce":
+            out[0][key] = out[1][key] = a + b
+        elif kind == "allgather":
+            out[0][key] = out[1][key] = np.concatenate([a, b])
+        elif kind == "broadcast":
+            out[0][key] = out[1][key] = ins[kw["root_rank"]][key][1]
+        elif kind == "alltoall":
+            h = a.shape[0] // 2
+            out[0][key] = np.concatenate([a[:h], b[:h]])
+            out[1][key] = np.concatenate([a[h:], b[h:]])
+        else:
+            s = a + b
+            h = s.shape[0] // 2
+            out[0][key], out[1][key] = s[:h], s[h:]
+    return out
+
+
+def _coord_eager(hvd, rank: int, seed: int, planes: bool) -> tuple:
+    """(a) on this world: key -> host result (bf16 as bits), the result
+    devices, and the calls that raised (the plain world's backend may not
+    take every dtype or kind on CUDA tensors)."""
+    results, devices, raised = {}, {}, {}
+    for key, (kind, x, kw) in coord_inputs(rank, seed).items():
+        kw = dict(kw) if planes else {
+            k: v for k, v in kw.items() if k != "plane"}
+        t = torch.from_numpy(x.copy())
+        if x.dtype == np.uint16:
+            t = t.view(torch.int16).view(torch.bfloat16)
+        t = t.to("cuda")
+        fn = getattr(hvd, kind)
+        if kind in ("allreduce", "reducescatter"):
+            kw["op"] = hvd.Op.SUM
+        try:
+            got = fn(t, name=f"coord.{key}", **kw)
+        except Exception as e:  # noqa: BLE001 — reported, and checked
+            raised[key] = f"{type(e).__name__}: {e}"[:300]
+            continue
+        devices[key] = got.device.type
+        got = got.cpu()
+        if got.dtype == torch.bfloat16:
+            got = got.view(torch.int16)
+        results[key] = got.numpy().view(x.dtype) if x.dtype == np.uint16 \
+            else got.numpy()
+    obj = hvd.broadcast_object({"rank": rank, "seed": seed, "s": "x" * (
+        rank + 3)}, root_rank=0, name="coord.obj")
+    results["object"] = np.frombuffer(json.dumps(
+        obj, sort_keys=True).encode(), np.uint8)
+    return results, devices, raised
+
+
+def _coord_lm(hvd, seed: int, rank: int):
+    """(b): the dp step of the full-width LM (COORD_LAYERS deep) for
+    COORD_STEPS steps from the seed's weights, this rank's own batch; the
+    step's loss is the world mean (``training._world_mean``, an eager
+    allreduce) and each step number is resolved by ``broadcast_object``.
+    Returns the state, the step, this rank's batch, the losses, the step
+    seconds and the steps' launches."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.parallel.transformer import \
+        make_parallel_train_step
+    init_state, step = make_parallel_train_step(
+        lm_config(COORD_LAYERS),
+        functools.partial(torch.optim.AdamW, **ADAMW), device="cuda")
+    state = init_state(seed)
+    hvd.broadcast_parameters(state.model)
+    tokens, labels = lm_batch(COORD_BATCH, LM_SEQ, seed + 1 + rank,
+                              device="cuda")
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    losses, times = [], []
+    for i in range(COORD_STEPS):
+        t0 = time.monotonic()
+        state, loss = step(state, tokens, labels)
+        losses.append(loss.item())
+        at = hvd.broadcast_object(int(state.step), root_rank=0,
+                                  name=f"coord.step.{i}")
+        check(at == state.step == i + 1,
+              f"coord (b): step {state.step} resolved as {at}")
+        times.append(time.monotonic() - t0)
+    return state, step, (tokens, labels), losses, times, LAUNCHES.snapshot()
+
+
+def _coord_timings(hvd) -> list:
+    """(e): eager allreduce (SUM, f32 on the card) on each plane and size:
+    the median over the reps of host-clock calls (staging included)."""
+    rows = []
+    for nbytes, reps in COORD_TIMING:
+        x = torch.ones(nbytes // 4, device="cuda")
+        for plane in ("star", "ring"):
+            hvd.allreduce(x, average=False, plane=plane)
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hvd.allreduce(x, average=False, plane=plane)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            ms = float(np.median(ts)) * 1e3
+            rows.append(dict(bytes=nbytes, plane=plane, reps=reps,
+                             ms_p50=ms, gb_s=nbytes / ms / 1e6,
+                             ms=[t * 1e3 for t in ts]))
+    return rows
+
+
+def coord_worker(rank: int, run_dir: str, ports: str, seed: int) -> int:
+    """One rank of the coord phase (``--coord-rank``): a gloo group built
+    here (both ranks on ``cuda:0``), adopted first by a plain world, then
+    by a coordinated one. Writes ``rank<r>.json`` and ``rank<r>.npz`` in
+    ``run_dir``; rank 1 ends SIGKILLed by its own timer, mid-step."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+    faulthandler.enable()       # a crash leaves its stack in the log
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pg_port, coord_port = (int(p) for p in ports.split(","))
+
+    def mark(what: str) -> None:
+        print(f"coord rank {rank}: {what}", flush=True)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{pg_port}", world_size=2,
+        rank=rank, timeout=datetime.timedelta(seconds=COORD_WORLD_S))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.exceptions import (FailedPreconditionError,
+                                              WorkerFailureError)
+    rec = {"rank": rank}
+    arrays = {}
+
+    def dump():
+        np.savez(os.path.join(run_dir, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+
+    # The plain world: the process group alone.
+    mark("plain world")
+    hvd.init(device="cuda", coordinator=False)
+    check(hvd.world().coord is None, "coord: the plain world has a plane")
+    res, rec["plain_devices"], rec["plain_raised"] = _coord_eager(
+        hvd, rank, seed, planes=False)
+    arrays.update({f"plain.{k}": v for k, v in res.items()})
+    mark(f"plain (a) done, raised {sorted(rec['plain_raised'])}")
+    state, _, _, rec["plain_losses"], _, _ = _coord_lm(hvd, seed, rank)
+    mark(f"plain (b) losses {rec['plain_losses']}")
+    del state
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    # The coordinated world on the same group.
+    os.environ["HVD_COORD_ADDR"] = f"127.0.0.1:{coord_port}"
+    t0 = time.monotonic()
+    hvd.init(device="cuda", coordinator=True)
+    rec["coord_init_s"] = time.monotonic() - t0
+    coord = hvd.world().coord
+    check(coord is not None, "coord: init(coordinator=True) has no plane")
+    mark("coordinated world")
+    ring0 = coord.ring_ops()
+    res, rec["devices"], rec["raised"] = _coord_eager(hvd, rank, seed,
+                                                      planes=True)
+    rec["ring_ops"] = coord.ring_ops() - ring0
+    arrays.update({f"coord.{k}": v for k, v in res.items()})
+    torch.cuda.reset_peak_memory_stats()
+    state, step, batch, rec["losses"], times, rec["launches"] = _coord_lm(
+        hvd, seed, rank)
+    mark(f"coordinated (b) losses {rec['losses']}")
+    rec["step_ms"] = [t * 1e3 for t in times]
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # (c) the mismatch drill.
+    t0 = time.monotonic()
+    try:
+        hvd.allreduce(torch.zeros(rank + 1, device="cuda"),
+                      name="coord.drill.shape")
+        rec["mismatch"] = "no error"
+    except FailedPreconditionError as e:
+        rec["mismatch"] = str(e)
+    rec["mismatch_s"] = time.monotonic() - t0
+    rec["timing"] = _coord_timings(hvd)
+    mark("(c), (e) done")
+    # (d) the kill drill: rank 1 SIGKILLs itself halfway into a step.
+    kill_file = os.path.join(run_dir, "killed_at")
+    delay = float(np.median(times)) / 2
+    if rank == 1:
+        dump()
+
+        def kill():
+            with open(kill_file, "w") as f:
+                f.write(repr(time.time()))
+            os.kill(os.getpid(), signal.SIGKILL)
+        threading.Timer(delay, kill).start()
+        step(state, *batch)
+        time.sleep(COORD_WORLD_S)         # the timer fires first
+        return 3
+    try:
+        step(state, *batch)
+        rec["kill"] = "no error"
+    except WorkerFailureError as e:
+        rec["kill"] = str(e)
+    seen = time.time()
+    with open(kill_file) as f:
+        rec["kill_detect_s"] = seen - float(f.read())
+    rec["kill_delay_s"] = delay
+    dump()
+    # The group's peer is dead: leave without a teardown that could wait
+    # on it.
+    os._exit(0)
+
+
+def phase_coord(seed: int, smi: str) -> dict:
+    """The coord phase (see the module docstring, 16a). Returns the
+    coordinated LM steps' launches, both ranks'."""
+    import shutil
+    import socket
+    import tempfile
+    from horovod_tpu_torch.coord import _build as cbuild
+    t0 = time.monotonic()
+    lib = cbuild.build()
+    build_s = time.monotonic() - t0
+    here = os.path.dirname(os.path.abspath(__file__))
+    run_dir = tempfile.mkdtemp(prefix="hvd-coord-")
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(sk.getsockname()[1])
+    env = dict(os.environ, HVD_FLIGHTREC_DIR=run_dir,
+               HVD_HEARTBEAT_TIMEOUT=str(COORD_HEARTBEAT_S),
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    for k in ("HVD_RANK", "HVD_SIZE", "HVD_LOCAL_RANK", "HVD_FAULT_SPEC",
+              "HVD_COORD_ADDR", "HOROVOD_RING_THRESHOLD", "HOROVOD_TIMELINE"):
+        env.pop(k, None)
+    procs, logs = [], []
+    t0 = time.monotonic()
+    try:
+        for r in range(2):
+            log = open(os.path.join(run_dir, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--coord-rank",
+                 str(r), "--coord-dir", run_dir, "--coord-ports",
+                 ",".join(map(str, ports)), "--seed", str(seed)],
+                cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = t0 + COORD_WORLD_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    world_s = time.monotonic() - t0
+    try:
+        def tail(r):
+            with open(os.path.join(run_dir, f"rank{r}.log")) as f:
+                return f.read()[-4000:]
+        check(procs[0].returncode == 0,
+              f"coord: rank 0 exited {procs[0].returncode}:\n{tail(0)}\n"
+              f"rank 1:\n{tail(1)}")
+        check(procs[1].returncode == -signal.SIGKILL,
+              f"coord: rank 1 exited {procs[1].returncode} (expected its "
+              f"own SIGKILL):\n{tail(1)}")
+        recs, arrs = [], []
+        for r in range(2):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+            with np.load(os.path.join(run_dir, f"rank{r}.npz")) as z:
+                arrs.append({k: z[k] for k in z.files})
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    # (a)
+    want = coord_reference(seed)
+    plain_missing = sorted(set(recs[0]["plain_raised"])
+                           | set(recs[1]["plain_raised"]))
+    for r in range(2):
+        rec, arr = recs[r], arrs[r]
+        check(not rec["raised"], f"coord (a) rank {r}: {rec['raised']}")
+        for key, w in want[r].items():
+            got = arr[f"coord.{key}"]
+            check(got.dtype == w.dtype and got.shape == w.shape
+                  and got.tobytes() == w.tobytes(),
+                  f"coord (a) rank {r}: {key} is not the host reference")
+            check(rec["devices"][key] == "cuda",
+                  f"coord (a) rank {r}: {key} came back on "
+                  f"{rec['devices'][key]}")
+            if key not in plain_missing:
+                check(arr[f"plain.{key}"].tobytes() == got.tobytes(),
+                      f"coord (a) rank {r}: {key} differs from the plain "
+                      f"world's")
+        check(arr["coord.object"].tobytes() == arrs[0][
+            "plain.object"].tobytes(), "coord (a): broadcast_object")
+        check(json.loads(arr["coord.object"].tobytes())["rank"] == 0,
+              "coord (a): broadcast_object is not rank 0's")
+        check(rec["ring_ops"] == 3, f"coord (a) rank {r}: {rec['ring_ops']} "
+                                    f"ring ops, expected 3")
+    emit("coord_eager", ops=sorted(want[0]), ring_ops=recs[0]["ring_ops"],
+         plain_unsupported={k: recs[0]["plain_raised"].get(
+             k, recs[1]["plain_raised"].get(k)) for k in plain_missing},
+         coord_init_s=[rec["coord_init_s"] for rec in recs],
+         build_s=build_s, library=os.path.basename(lib))
+    # (b)
+    for r in range(2):
+        rec = recs[r]
+        check(rec["losses"] == rec["plain_losses"],
+              f"coord (b) rank {r}: losses {rec['losses']} are not the "
+              f"plain world's {rec['plain_losses']}")
+        check(all(np.isfinite(rec["losses"])), "coord (b): loss not finite")
+        for name in ATTN_KERNELS:
+            n = rec["launches"].get(name, 0)
+            check(n == COORD_LAYERS * COORD_STEPS,
+                  f"coord (b) rank {r}: {name} launched {n} times; "
+                  f"expected {COORD_LAYERS} x {COORD_STEPS}")
+    check(recs[0]["losses"] == recs[1]["losses"],
+          "coord (b): the ranks' world-mean losses differ")
+    emit("coord_lm", layers=COORD_LAYERS, batch_per_rank=COORD_BATCH,
+         seq=LM_SEQ, steps=COORD_STEPS, losses=recs[0]["losses"],
+         plain_losses=recs[0]["plain_losses"],
+         step_ms=[rec["step_ms"] for rec in recs],
+         peak_bytes=[rec["peak_bytes"] for rec in recs],
+         launches=[rec["launches"] for rec in recs])
+    # (c), (d)
+    for r in range(2):
+        check(recs[r]["mismatch"].startswith(
+            "Mismatched ALLREDUCE tensor shapes"),
+            f"coord (c) rank {r}: {recs[r]['mismatch']}")
+        check(recs[r]["mismatch_s"] < COORD_MISMATCH_S,
+              f"coord (c) rank {r}: {recs[r]['mismatch_s']:.2f} s")
+    kill = recs[0]["kill"]
+    check(kill.startswith("worker failure: rank 1 "),
+          f"coord (d): rank 0 saw {kill!r}")
+    check(recs[0]["kill_detect_s"] < COORD_HEARTBEAT_S + COORD_KILL_SLACK_S,
+          f"coord (d): {recs[0]['kill_detect_s']:.2f} s to the error")
+    emit("coord_drills", mismatch_s=[rec["mismatch_s"] for rec in recs],
+         mismatch=recs[0]["mismatch"][:200],
+         kill_delay_s=recs[0]["kill_delay_s"],
+         kill_detect_s=recs[0]["kill_detect_s"], kill=kill[:300],
+         heartbeat_timeout_s=COORD_HEARTBEAT_S,
+         bound_s=COORD_HEARTBEAT_S + COORD_KILL_SLACK_S)
+    # (e)
+    emit("coord_timing", rows=[{k: v for k, v in row.items() if k != "ms"}
+                               for row in recs[0]["timing"]],
+         staged="CUDA tensors staged to host bytes and back", card=smi,
+         world_s=world_s)
+    out = {}
+    for rec in recs:
+        for name in ATTN_KERNELS:
+            out[name] = out.get(name, 0) + rec["launches"].get(name, 0)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6740,6 +7182,11 @@ def main() -> int:
     ap.add_argument("--serve-tp-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--serve-tp-port", type=int, default=0,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--coord-rank", type=int, default=None,
+                    help="run as this rank of the coord phase's world of "
+                         "2 (started by the phase, not by hand)")
+    ap.add_argument("--coord-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--coord-ports", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6757,6 +7204,9 @@ def main() -> int:
     if args.serve_tp_rank is not None:
         return serve_tp_worker(args.serve_tp_rank, args.serve_tp_dir,
                                args.serve_tp_port, args.seed)
+    if args.coord_rank is not None:
+        return coord_worker(args.coord_rank, args.coord_dir,
+                            args.coord_ports, args.seed)
     errs, launches, times = {}, {}, {}
 
     def add(got: dict) -> None:
@@ -6794,6 +7244,7 @@ def main() -> int:
         launches.update(run_phase("lm_train", phase_lm_train, args.seed,
                                   peaks))
         run_phase("e2e_lm_train", phase_e2e_lm_train, args.seed)
+        add(run_phase("coord", phase_coord, args.seed, smi))
         attn_times, attn_errs = run_phase("timing_attn", phase_timing_attn,
                                           args.seed, peaks)
         times.update(attn_times)

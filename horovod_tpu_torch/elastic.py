@@ -7,7 +7,11 @@ is its own process (the JAX package's env world):
 
 * a dead or silent peer surfaces as :class:`WorkerFailureError`,
   :class:`StalledError` or :class:`TransportError`
-  (``runtime.peer_failures``), instead of hanging the survivors;
+  (``runtime.peer_failures``), instead of hanging the survivors; in a
+  coordinated world (the launcher's, ``HVD_COORD_ADDR``) the
+  coordinator's abort — a disconnect, or no heartbeat for
+  ``HVD_HEARTBEAT_TIMEOUT`` — raises :class:`WorkerFailureError` naming
+  the dead rank, on the plane's own calls and on the process group's;
 * ``python -m horovod_tpu_torch.launcher --restarts N`` tears the world
   down at the first failure and relaunches it, exporting
   ``HVD_RESTART_EPOCH``;
@@ -305,7 +309,8 @@ def run_with_recovery(train_fn: Callable[[ElasticState], Any],
     supervised restart that got past the first commit), restore it so
     ``train_fn`` resumes from the last committed step. When the world
     dies underneath the loop (:data:`RECOVERABLE`: a dead or silent
-    peer, a stalled collective), tear the local world down and re-raise,
+    peer, a stalled collective, the coordinator's abort), tear the local
+    world down (the coordination plane with it) and re-raise,
     so the process exits non-zero and ``--restarts N`` relaunches the
     world, which lands back here and resumes.
 

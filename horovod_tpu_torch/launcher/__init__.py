@@ -6,9 +6,16 @@ spawns ``-np`` ranks of a command on this host and exports to each:
 
 * ``HVD_RANK`` / ``HVD_SIZE`` / ``HVD_LOCAL_RANK`` — the process grid,
   which ``runtime.init()`` reads;
+* ``HVD_COORD_ADDR`` — the host coordination plane's rank-0
+  coordinator (``--coordinator host:port`` on multi-node runs, else
+  ``127.0.0.1`` and ``--coord-port`` or a free port), as the JAX
+  launcher exports it: a world of more than one rank is coordinated
+  (``runtime.init``);
 * ``MASTER_ADDR`` / ``MASTER_PORT`` — the ``env://`` rendezvous of the
-  ``torch.distributed`` world: ``--coordinator host:port`` on multi-node
-  runs, else ``127.0.0.1`` and a free port;
+  ``torch.distributed`` world. Rank 0 hosts both servers, so they take
+  two ports, by the JAX launcher's rule for its second server: the
+  coordinator's port + 1 when ``--coordinator`` or ``--coord-port``
+  fixes it, else a second free port;
 * ``HVD_RESTART_EPOCH`` — which (re)launch of the world this is, read by
   elastic recovery and the fault injector's ``@epoch``;
 * ``HVD_METRICS_PORT`` with ``--metrics-port``;
@@ -19,8 +26,9 @@ spawns ``-np`` ranks of a command on this host and exports to each:
 Every launch is supervised in any order: the first rank to fail tears
 its siblings down after ``FAILFAST_GRACE_SECS`` (SIGTERM, then SIGKILL
 after ``TERMINATE_GRACE_SECS``), so a dead rank never hangs the job.
-``--restarts K`` relaunches a failed world up to K times on a fresh
-rendezvous port, after a capped, jittered exponential backoff
+``--restarts K`` relaunches a failed world up to K times on fresh
+coordinator and rendezvous ports (an explicit multi-node
+``--coordinator`` stays), after a capped, jittered exponential backoff
 (``HVD_RESTART_BACKOFF_MAX``). SIGINT and SIGTERM are forwarded to the
 ranks, give ``128 + signal`` and never relaunch.
 
@@ -28,11 +36,10 @@ NCCL refuses two ranks on one GPU, so without ``--cpu`` an ``-np`` above
 the GPUs visible on this host exits before spawning. The GPU count never
 creates a CUDA context here (``utils.config.visible_gpus``).
 
-Not ported yet, each refused naming its ``ROADMAP.md`` Queue 1 item:
-``--max-np`` and live resize (item 15); the coordination plane
-(``HVD_COORD_ADDR``, item 13). The JAX launcher's ``--jax-distributed``
-has no counterpart: every world of the port is already one
-``torch.distributed`` world.
+Not ported yet, refused naming its ``ROADMAP.md`` Queue 1 item:
+``--max-np`` and live resize (item 15). The JAX launcher's
+``--jax-distributed`` has no counterpart: every world of the port is
+already one ``torch.distributed`` world.
 
 Usage::
 
@@ -64,8 +71,8 @@ TERMINATE_GRACE_SECS = 5.0
 # them.
 FAILFAST_GRACE_SECS = 3.0
 
-# The rendezvous port of --coordinator when it names none (the JAX
-# launcher's default coordinator port).
+# The coordinator's port when --coordinator names none (the JAX
+# launcher's default).
 DEFAULT_COORD_PORT = 29521
 
 
@@ -155,8 +162,27 @@ def _start_fleet_thread(fleet, interval: float) -> threading.Event:
     return stop
 
 
+def world_ports(coordinator: Optional[str], coord_port: Optional[int]
+                ) -> Tuple[str, int, int]:
+    """``(host, coordinator port, rendezvous port)`` of one launch: the
+    coordinator at ``coordinator`` (``host:port``, port 29521 when it
+    names none) or at ``coord_port`` on this host, the rendezvous at the
+    next port; with neither, two distinct free ports."""
+    if coordinator:
+        host, _, cport = coordinator.partition(":")
+        port = int(cport or DEFAULT_COORD_PORT)
+        return host, port, port + 1
+    if coord_port:
+        return "127.0.0.1", coord_port, coord_port + 1
+    port = _free_port()
+    rdzv = _free_port()
+    while rdzv == port:
+        rdzv = _free_port()
+    return "127.0.0.1", port, rdzv
+
+
 def _launch_once(np_: int, command: List[str], *,
-                 rdzv_port: Optional[int], cpu: bool, node_rank: int,
+                 coord_port: Optional[int], cpu: bool, node_rank: int,
                  nnodes: int, coordinator: Optional[str],
                  extra_env: Optional[dict], restart_epoch: int,
                  metrics_summary: bool = False,
@@ -167,11 +193,7 @@ def _launch_once(np_: int, command: List[str], *,
     non-zero exit code (0 when every rank succeeded) and whether the
     launcher itself was signalled."""
     world = nnodes * np_
-    if coordinator:
-        host, _, cport = coordinator.partition(":")
-        addr, port = host, int(cport or DEFAULT_COORD_PORT)
-    else:
-        addr, port = "127.0.0.1", rdzv_port or _free_port()
+    addr, cport, port = world_ports(coordinator, coord_port)
     procs: List[subprocess.Popen] = []
     interrupted = {"sig": None}
 
@@ -201,6 +223,7 @@ def _launch_once(np_: int, command: List[str], *,
                        HVD_SIZE=str(world),
                        HVD_LOCAL_RANK=str(local_rank % max(1, domain)),
                        HVD_RESTART_EPOCH=str(restart_epoch),
+                       HVD_COORD_ADDR=f"{addr}:{cport}",
                        MASTER_ADDR=addr, MASTER_PORT=str(port))
             if cpu:
                 env.update(HVD_DEVICE="cpu", CUDA_VISIBLE_DEVICES="")
@@ -274,11 +297,12 @@ def launch(np_: int, command: List[str], *,
     ``coordinator="host0:port"`` and ``nnodes``, each with its
     ``node_rank``; the world is ``nnodes * np_`` and this host's ranks are
     ``node_rank * np_ .. node_rank * np_ + np_ - 1``. ``coord_port`` fixes
-    the single-node rendezvous port of the first launch.
+    the single-node coordinator port of the first launch (the rendezvous
+    takes the next one).
 
     With ``restarts > 0`` a failed world is relaunched up to ``restarts``
-    times on a fresh rendezvous port (the explicit multi-host
-    ``coordinator`` stays), after a backoff of ``2^epoch`` seconds capped
+    times on fresh coordinator and rendezvous ports (the explicit
+    multi-host ``coordinator`` stays), after a backoff of ``2^epoch`` seconds capped
     at ``HVD_RESTART_BACKOFF_MAX`` (default 30) and jittered ±50%.
 
     Returns the first non-zero exit code (0 when all succeeded). Raises
@@ -291,7 +315,7 @@ def launch(np_: int, command: List[str], *,
     backoff_cap = _config.restart_backoff_max()
     for epoch in range(restarts + 1):
         rc, interrupted = _launch_once(
-            np_, command, rdzv_port=coord_port if epoch == 0 else None,
+            np_, command, coord_port=coord_port if epoch == 0 else None,
             cpu=cpu, node_rank=node_rank, nnodes=nnodes,
             coordinator=coordinator, extra_env=extra_env,
             restart_epoch=epoch, metrics_summary=metrics_summary,
@@ -320,14 +344,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="run the ranks on the CPU over gloo "
                              "(HVD_DEVICE=cpu, no GPU visible; CI/testing)")
     parser.add_argument("--coord-port", type=int, default=None,
-                        help="rendezvous port of the first launch "
-                             "(MASTER_PORT; a free port by default)")
+                        help="coordinator port of the first launch "
+                             "(HVD_COORD_ADDR; the torch rendezvous, "
+                             "MASTER_PORT, takes the next port; free "
+                             "ports by default)")
     parser.add_argument("--node-rank", type=int, default=0,
                         help="this host's index among --nnodes hosts")
     parser.add_argument("--nnodes", type=int, default=1,
                         help="total hosts in the job (world = nnodes * np)")
     parser.add_argument("--coordinator", default=None,
-                        help="host0:port rendezvous shared by all hosts "
+                        help="host0:port of the coordinator shared by all "
+                             "hosts; the rendezvous takes port + 1 "
                              "(required when nnodes > 1)")
     parser.add_argument("--restarts", type=int, default=0,
                         help="relaunch the whole world up to N times after "

@@ -12,7 +12,10 @@ writes ``hvd_flightrec.rank{N}.json`` when something terminal happens:
   for a reason" path;
 * the fault injector's ``kill``/``exit`` actions dump just before pulling
   the trigger, so a drilled "dead" rank leaves the record a real
-  preempted rank would.
+  preempted rank would;
+* the coordination plane's world abort, the moment it surfaces on a
+  surviving rank (``coord.client.CoordClient._abort_record``: an
+  ``abort`` event naming the dead rank, then the dump).
 
 Knobs: ``HVD_FLIGHTREC_DIR`` (dump directory, default cwd),
 ``HVD_FLIGHTREC_EVENTS`` (ring capacity, default 256; 0 disables both

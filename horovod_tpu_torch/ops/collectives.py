@@ -8,9 +8,22 @@ Port of the JAX package's ``ops/collectives.py`` eager surface on
 ``allgather_async_``, ``broadcast_async_`` and ``synchronize``
 (:431-490), ``broadcast_object`` and ``allgather_object`` (:492-549)
 and ``grouped_allreduce`` (:550). Each call takes this rank's tensor,
-leaves it as it is and returns a new one. Collectives are matched across
-ranks by call order, so ``name=`` is accepted for API parity and not
-used.
+leaves it as it is and returns a new one.
+
+In a coordinated world (``runtime.World.coord``: more than one rank and
+``HVD_COORD_ADDR``, which the launcher exports) the public eager calls go
+through the host coordination plane, as the JAX package's
+``_eager_dispatch`` (:185-199) sends them: each is matched across ranks
+by its name (``name=``, else :func:`_auto_name`'s counter), validated
+(a dtype, shape, root or op that differs between ranks raises
+:class:`~..exceptions.FailedPreconditionError` on every rank instead of
+hanging) and reduced at the rank-0 coordinator in rank order, or on the
+client-to-client ring above ``HOROVOD_RING_THRESHOLD``; ``plane=``
+(``"auto"``, ``"star"``, ``"ring"``) picks per call, and a world without
+a coordinator refuses any plane but ``"auto"``. In a plain world the calls
+run on the process group and are matched by call order. Either way the
+gradient exchange (:mod:`.fusion`), the bulk parameter broadcasts and
+:func:`reduce_` with a ``group`` stay on the process group.
 
 Dtypes neither NCCL nor gloo reduces are reduced in a wider carrier
 dtype chosen from a table (:data:`_CARRIERS`), never by catching a
@@ -27,6 +40,7 @@ from __future__ import annotations
 import enum
 import math
 import pickle
+import re
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -62,6 +76,31 @@ _CARRIERS = {
 
 # The most dimensions a variable-first-dim gather exchanges shapes for.
 _MAX_DIMS = 8
+
+
+_name_counter = 0
+
+
+def _auto_name(kind: str, name: Optional[str]) -> str:
+    """The cross-rank matching key of an eager call: ``Horovod<kind>_``
+    and the sanitized ``name``, or a per-process counter when there is
+    none (every rank calls in the same order, so the counters agree)."""
+    global _name_counter
+    if name is None:
+        _name_counter += 1
+        name = f"tensor_{_name_counter}"
+    return f"Horovod{kind}_" + re.sub(r"[^a-zA-Z0-9_]", "_", str(name))
+
+
+def _coord(plane: str):
+    """The world's coordination client, or None in a plain world (which
+    refuses a ``plane`` other than ``"auto"``)."""
+    coord = runtime.world().coord
+    if coord is None and plane != "auto":
+        raise ValueError(
+            f"plane={plane!r} is a multi-process eager-plane knob (star vs "
+            f"client-to-client ring); this world has no coordination plane")
+    return coord
 
 
 def _size(group) -> int:
@@ -121,7 +160,7 @@ def _own_copy(tensor: torch.Tensor) -> torch.Tensor:
 
 @runtime.maps_peer_failures
 def allreduce(tensor, average: bool = True, name: Optional[str] = None,
-              op: Optional[Op] = None):
+              op: Optional[Op] = None, plane: str = "auto"):
     """Sum (or average, or ``op``) ``tensor`` across all ranks. An
     :class:`~.sparse.IndexedSlices` takes the sparse path (two
     allgathers, :func:`~.sparse.allreduce_indexed_slices`), which only
@@ -135,7 +174,11 @@ def allreduce(tensor, average: bool = True, name: Optional[str] = None,
                 "allreduce; the sliced form only composes under SUM/AVERAGE")
         return allreduce_indexed_slices(
             tensor, average=resolved is Op.AVERAGE, name=name)
-    del name
+    key = _auto_name("Allreduce", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.collective("allreduce", tensor, key, op=resolved,
+                                plane=plane)
     return reduce_(_own_copy(tensor), resolved)
 
 
@@ -204,14 +247,22 @@ def _allgather(tensor: torch.Tensor, async_op: bool):
     return work, finish
 
 
+def _rows(tensor: torch.Tensor) -> torch.Tensor:
+    return tensor.reshape(1) if tensor.dim() == 0 else tensor
+
+
 @runtime.maps_peer_failures
-def allgather(tensor: torch.Tensor,
-              name: Optional[str] = None) -> torch.Tensor:
+def allgather(tensor: torch.Tensor, name: Optional[str] = None,
+              plane: str = "auto") -> torch.Tensor:
     """Concatenate each rank's tensor along dim 0, in rank order. Ranks
     may differ in the first dimension only (``MPI_Allgatherv``: the
     shapes are exchanged first, then every rank's rows padded to the
     longest); a 0-dim tensor gathers as one row."""
-    del name
+    key = _auto_name("Allgather", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.collective("allgather", _rows(tensor), key,
+                                plane=plane)
     _, finish = _allgather(tensor, False)
     return finish()
 
@@ -250,10 +301,15 @@ def allgather_ragged(tensor: torch.Tensor, valid_size: int, max_size: int,
 
 @runtime.maps_peer_failures
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
-              name: Optional[str] = None) -> torch.Tensor:
+              name: Optional[str] = None,
+              plane: str = "auto") -> torch.Tensor:
     """Every rank receives the root's tensor."""
-    del name
     _check_root(root_rank)
+    key = _auto_name("Broadcast", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.collective("broadcast", tensor, key,
+                                root_rank=root_rank, plane=plane)
     out = _own_copy(tensor)
     dist.broadcast(_bytes(out), src=root_rank)
     return out
@@ -261,16 +317,19 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0,
 
 @runtime.maps_peer_failures
 def alltoall(tensor: torch.Tensor, split_axis: int = 0,
-             concat_axis: int = 0,
-             name: Optional[str] = None) -> torch.Tensor:
+             concat_axis: int = 0, name: Optional[str] = None,
+             plane: str = "auto") -> torch.Tensor:
     """All-to-all: dim 0 splits into ``size`` equal blocks, and rank
     ``r`` receives block ``r`` of every rank, concatenated in rank
     order."""
-    del name
     if split_axis != 0 or concat_axis != 0:
         raise NotImplementedError(
             "eager alltoall supports split_axis=0/concat_axis=0; transpose "
             "first")
+    key = _auto_name("Alltoall", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.collective("alltoall", tensor, key, plane=plane)
     n = runtime.size()
     t = tensor.detach().contiguous()
     if t.dim() < 1 or t.shape[0] % n:
@@ -285,13 +344,17 @@ def alltoall(tensor: torch.Tensor, split_axis: int = 0,
 
 @runtime.maps_peer_failures
 def reducescatter(tensor: torch.Tensor, average: bool = False,
-                  name: Optional[str] = None,
-                  op: Optional[Op] = None) -> torch.Tensor:
+                  name: Optional[str] = None, op: Optional[Op] = None,
+                  plane: str = "auto") -> torch.Tensor:
     """Reduce across ranks (SUM unless ``average`` or ``op``), then rank
     ``r`` keeps block ``r`` of the first dimension, which must divide by
     the world size."""
-    del name
     resolved = _resolve(average, op)
+    key = _auto_name("Reducescatter", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.collective("reducescatter", tensor, key, op=resolved,
+                                plane=plane)
     n = runtime.size()
     t = tensor.detach()
     if t.dim() < 1 or t.shape[0] % n:
@@ -309,16 +372,21 @@ def reducescatter(tensor: torch.Tensor, average: bool = False,
 # A handle holds the collective's ``async_op=True`` work; synchronize()
 # waits on it and returns the result. Handles may be redeemed in any
 # order; on NCCL the wait makes the current stream wait for the
-# collective.
+# collective. In a coordinated world the handle is the plane's
+# CoordHandle: submits in flight together are fused by the coordinator.
 
 @runtime.maps_peer_failures
 def allreduce_async_(tensor: torch.Tensor, average: bool = True,
-                     name: Optional[str] = None,
-                     op: Optional[Op] = None) -> _Handle:
+                     name: Optional[str] = None, op: Optional[Op] = None,
+                     plane: str = "auto"):
     """Non-blocking :func:`allreduce`; returns a handle for
     :func:`synchronize`."""
-    del name
     resolved = _resolve(average, op)
+    key = _auto_name("Allreduce", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.submit("allreduce", tensor, key, op=resolved,
+                            plane=plane)
     work, buf, result_dtype = _start_reduce(_own_copy(tensor), resolved,
                                             None, True)
     n = runtime.size()
@@ -326,35 +394,44 @@ def allreduce_async_(tensor: torch.Tensor, average: bool = True,
 
 
 @runtime.maps_peer_failures
-def allgather_async_(tensor: torch.Tensor,
-                     name: Optional[str] = None) -> _Handle:
+def allgather_async_(tensor: torch.Tensor, name: Optional[str] = None,
+                     plane: str = "auto"):
     """Non-blocking :func:`allgather` (the shape exchange runs before it
     returns; the data moves asynchronously); returns a handle."""
-    del name
+    key = _auto_name("Allgather", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.submit("allgather", _rows(tensor), key, plane=plane)
     return _Handle(*_allgather(tensor, True))
 
 
 @runtime.maps_peer_failures
 def broadcast_async_(tensor: torch.Tensor, root_rank: int = 0,
-                     name: Optional[str] = None) -> _Handle:
+                     name: Optional[str] = None, plane: str = "auto"):
     """Non-blocking :func:`broadcast`; returns a handle."""
-    del name
     _check_root(root_rank)
+    key = _auto_name("Broadcast", name)
+    coord = _coord(plane)
+    if coord is not None:
+        return coord.submit("broadcast", tensor, key, root_rank=root_rank,
+                            plane=plane)
     out = _own_copy(tensor)
     work = dist.broadcast(_bytes(out), src=root_rank, async_op=True)
     return _Handle(work, lambda: out)
 
 
 @runtime.maps_peer_failures
-def synchronize(handle: _Handle):
+def synchronize(handle):
     """Block until an async handle's collective completes; returns its
-    result."""
+    result. Handles may be synchronized in any order."""
     return handle.wait()
 
 
 # -- object collectives ---------------------------------------------------------
 # Picklable host objects (resume epochs, config dicts, vocabularies) ride
-# the collectives as uint8 payloads on the world's device.
+# the collectives as uint8 payloads: on the world's device in a plain
+# world, as host bytes through the coordinator in a coordinated one (the
+# JAX package's two named rounds, ``.len`` then ``.bytes``).
 
 def _payload(obj) -> torch.Tensor:
     return torch.frombuffer(bytearray(pickle.dumps(obj)),
@@ -367,10 +444,11 @@ def broadcast_object(obj=None, root_rank: int = 0,
     """Every rank receives the root's picklable object (other ranks may
     pass anything). Two broadcasts: the payload length, then the bytes;
     a world of one returns ``obj`` with no collective."""
-    del name
     _check_root(root_rank)
     if runtime.size() == 1:
         return obj
+    if runtime.world().coord is not None:
+        return _coord_broadcast_object(obj, root_rank, name)
     dev = runtime.device()
     payload = _payload(obj) if runtime.rank() == root_rank else None
     length = torch.tensor([0 if payload is None else payload.numel()],
@@ -386,9 +464,10 @@ def broadcast_object(obj=None, root_rank: int = 0,
 def allgather_object(obj, name: Optional[str] = None) -> list:
     """Every rank's picklable object, in rank order, on every rank (the
     ragged payloads ride the variable-first-dim :func:`allgather`)."""
-    del name
     if runtime.size() == 1:
         return [obj]
+    if runtime.world().coord is not None:
+        return _coord_allgather_object(obj, name)
     payload = _payload(obj)
     lens = allgather(torch.tensor([payload.numel()], dtype=torch.int64,
                                   device=payload.device)).tolist()
@@ -400,14 +479,50 @@ def allgather_object(obj, name: Optional[str] = None) -> list:
     return out
 
 
+def _coord_broadcast_object(obj, root_rank: int, name: Optional[str]):
+    base = _auto_name("BroadcastObject", name)
+    payload = (torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                dtype=torch.uint8)
+               if runtime.rank() == root_rank
+               else torch.zeros(0, dtype=torch.uint8))
+    n = broadcast(torch.tensor([payload.numel()], dtype=torch.int32),
+                  root_rank=root_rank, name=base + ".len")
+    length = int(n[0])
+    buf = torch.zeros(length, dtype=torch.uint8)
+    buf[:payload.numel()] = payload[:length]
+    out = broadcast(buf, root_rank=root_rank, name=base + ".bytes")
+    return pickle.loads(out.numpy().tobytes())
+
+
+def _coord_allgather_object(obj, name: Optional[str]) -> list:
+    payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                               dtype=torch.uint8).reshape(-1, 1)
+    base = _auto_name("AllgatherObject", name)
+    lens = allgather(torch.tensor([payload.shape[0]], dtype=torch.int32),
+                     name=base + ".len")
+    blob = allgather(payload, name=base + ".bytes").numpy().tobytes()
+    out, off = [], 0
+    for n in lens.tolist():
+        out.append(pickle.loads(blob[off:off + n]))
+        off += n
+    return out
+
+
 @runtime.maps_peer_failures
 def grouped_allreduce(tensors: Sequence[torch.Tensor], average: bool = True,
                       name: Optional[str] = None,
                       fusion_threshold: Optional[int] = None
                       ) -> List[torch.Tensor]:
     """Allreduce a list of tensors as fused flat buckets
-    (:func:`~.fusion.fused_allreduce`)."""
+    (:func:`~.fusion.fused_allreduce`). In a coordinated world every
+    tensor is submitted at once under ``<name>.<i>`` and the coordinator
+    fuses the responses (its threshold is ``HOROVOD_FUSION_THRESHOLD``;
+    ``fusion_threshold`` plans the process group's buckets only)."""
     from .fusion import fused_allreduce
-    del name
+    if runtime.world().coord is not None:
+        base = _auto_name("GroupedAllreduce", name)
+        handles = [allreduce_async_(t, average=average, name=f"{base}.{i}")
+                   for i, t in enumerate(tensors)]
+        return [synchronize(h) for h in handles]
     return fused_allreduce(tensors, average=average,
                            fusion_threshold=fusion_threshold)

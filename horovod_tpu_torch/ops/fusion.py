@@ -456,6 +456,28 @@ def plan_grad_sync(specs: Sequence[Any], mesh, *,
     return out
 
 
+#: The world's axis name in a plan of the whole world (the JAX package's
+#: ``runtime.AXIS``).
+WORLD_AXIS = "hvd"
+
+
+def plan_exchange(tensors: Sequence[Any], *, world_size: int,
+                  axis_name: str = WORLD_AXIS,
+                  fusion_threshold: Optional[int] = None
+                  ) -> Tuple[List[List[int]], List[GradSync]]:
+    """The gradient plan seen from the coordinator's 1-D world (the JAX
+    package's ``plan_exchange``, ``ops/fusion.py:488``): every rank holds
+    a whole gradient, so each leaf's sync is ``GradSync(psum=(axis_name,),
+    shard=(), denom=world_size)``, and the buckets come from the same
+    fusion scan with the sync as the group key (one group: the plain
+    dtype and threshold walk). Returns ``(buckets, syncs)``. The port's
+    gradients ride the process group, whose plan is this one: the
+    optimizer carries it as ``exchange_plan``."""
+    syncs = [GradSync(psum=(axis_name,), shard=(), denom=int(world_size))
+             for _ in tensors]
+    return plan_buckets(tensors, fusion_threshold, groups=syncs), syncs
+
+
 # -- backward-overlapped emission ----------------------------------------------
 # One collective per bucket, started as soon as the backward has produced
 # the bucket's last gradient (a post-accumulate-grad hook on every

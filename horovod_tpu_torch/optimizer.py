@@ -35,6 +35,7 @@ part as zeros, so every rank runs the same plan.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
 import itertools
 import math
@@ -51,9 +52,9 @@ from .ops.fusion import (OverlapExchange, ZeroGroups, ZeroPlan, _all_finite,
                          _prescale_array, _reduce_bucket, _scatter_bucket,
                          _unfuse_buckets, emit_order, fold_finite,
                          fused_allgather_params, fused_allreduce,
-                         fused_reduce_scatter, plan_buckets, plan_grad_sync,
-                         plan_schedule, plan_zero, resolve_wire_dtype,
-                         shard_params, zero_groups)
+                         fused_reduce_scatter, plan_buckets, plan_exchange,
+                         plan_grad_sync, plan_schedule, plan_zero,
+                         resolve_wire_dtype, shard_params, zero_groups)
 from .ops.sparse import IndexedSlices, allreduce_indexed_slices
 from .utils import config as _config
 
@@ -599,6 +600,11 @@ class DistributedOptimizer:
             raise ValueError(_PROCESS_GROUP_REFUSAL.format("zero"))
         self.average = average
         self.fusion_threshold = fusion_threshold
+        # The 1-D world's view of the gradient plan (the JAX package's
+        # ``update_fn.exchange_plan`` stamp): the same buckets and
+        # denominators a host-plane executor would read.
+        self.exchange_plan = functools.partial(
+            plan_exchange, fusion_threshold=fusion_threshold)
         self.process_group = process_group
         self.accum_steps = accum_steps
         self.sparse_as_dense = sparse_as_dense

@@ -27,11 +27,23 @@ any other ``torch.distributed`` failure :class:`~.exceptions.
 TransportError` — the errors ``elastic.run_with_recovery`` recovers
 from.
 
+A world of more than one rank whose environment names a coordinator
+(``HVD_COORD_ADDR``, which the launcher exports) is a coordinated world:
+``init`` also brings the host coordination plane up
+(:class:`~.coord.client.CoordClient` as ``World.coord``), and the public
+eager collectives are negotiated by name at the rank-0 coordinator
+(:mod:`.ops.collectives`). The gradient exchange, the bulk parameter
+broadcasts and every call that passes a ``group=`` stay on the process
+group: that is the device plane. In a coordinated world a dead peer seen
+on the process group is named from the coordinator's abort, which knows
+which rank died.
+
 ``init`` also brings the telemetry plane up, as the reference's does:
 the flight recorder's init event and fatal-signal dump, the world-shape
 gauges of the process-default metrics registry, the per-rank
 ``/metrics`` listener when ``HVD_METRICS_PORT`` is set, and the
-Chrome-trace timeline on rank 0 when ``HOROVOD_TIMELINE`` is set.
+Chrome-trace timeline on rank 0 when ``HOROVOD_TIMELINE`` is set (in a
+coordinated world the native coordinator owns that file).
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ import datetime
 import functools
 import re
 import threading
+import time
+import warnings
 from typing import Any, Callable, Optional
 
 import torch
@@ -63,6 +77,7 @@ class World:
     backend: str
     owns_group: bool
     timeline: Any = None        # Timeline writer (rank 0 only)
+    coord: Any = None           # CoordClient of a coordinated world
     #: The bound, in seconds, on a collective of the world's group: the
     #: ``timeout`` given to :func:`init`, else the group's own.
     timeout_s: float = 0.0
@@ -75,7 +90,8 @@ _metrics_listener = None
 
 
 def init(device: DeviceLike = None, *,
-         timeout: Optional[datetime.timedelta] = None) -> World:
+         timeout: Optional[datetime.timedelta] = None,
+         coordinator: Optional[bool] = None) -> World:
     """Initialize the world. Idempotent: a second call returns the world
     the first one built.
 
@@ -84,7 +100,14 @@ def init(device: DeviceLike = None, *,
     no ``device``, ``HVD_DEVICE`` decides (``cuda`` when unset).
     ``timeout`` bounds the rendezvous and every collective
     (``torch.distributed``'s default otherwise); an adopted group keeps
-    its own. Either way ``World.timeout_s`` holds the bound."""
+    its own. Either way ``World.timeout_s`` holds the bound.
+
+    ``coordinator=None`` brings the coordination plane up when the world
+    has more than one rank and ``HVD_COORD_ADDR`` is set; ``True``
+    requires it (``ValueError`` in a world of one, ``TransportError``
+    without an address); ``False`` keeps a plain world. A failed build
+    or start of the plane raises: it never leaves a plain world
+    instead."""
     global _world
     with _lock:
         if _world is not None:
@@ -104,6 +127,14 @@ def init(device: DeviceLike = None, *,
             backend = "nccl"
         else:
             backend = "gloo"
+        if coordinator is None:
+            coordinator = (size_ > 1
+                           and _config.coordinator_address() is not None)
+        elif coordinator and size_ == 1:
+            raise ValueError(
+                "init(coordinator=True) requires a multi-process world; "
+                "single-controller mode has no cross-process negotiation "
+                "to coordinate")
         owns = not dist.is_initialized()
         if owns:
             if not 0 <= rank_ < size_:
@@ -122,14 +153,26 @@ def init(device: DeviceLike = None, *,
             backend = dist.get_backend()
         timeout_s = (timeout.total_seconds() if owns and timeout is not None
                      else _group_timeout_s(backend))
+        coord = None
+        if coordinator:
+            from .coord.client import CoordClient
+            try:
+                coord = CoordClient.from_env(rank_, size_)
+            except BaseException:
+                if owns:
+                    dist.destroy_process_group()
+                raise
         timeline = None
         tl_path = _config.timeline_path()
-        if tl_path and rank_ == 0:
+        if tl_path and rank_ == 0 and coord is None:
+            # In a coordinated world the native coordinator writes the
+            # timeline; a second writer would corrupt the file.
             from .utils.timeline import Timeline
             timeline = Timeline(tl_path)
         _world = World(rank=rank_, size=size_, local_rank=local,
                        device=dev, backend=backend, owns_group=owns,
-                       timeline=timeline, timeout_s=timeout_s)
+                       timeline=timeline, coord=coord,
+                       timeout_s=timeout_s)
         _start_observability(_world)
         return _world
 
@@ -190,6 +233,15 @@ def shutdown(error: Optional[BaseException] = None) -> None:
         if _world.timeline is not None:
             flightrec.remove_crash_hook(_world.timeline.flush)
             _world.timeline.close()
+        if _world.coord is not None:
+            try:
+                _world.coord.shutdown()
+            except Exception as e:  # noqa: BLE001 — teardown must finish
+                # A dead coordinator must not wedge the teardown: the
+                # process group and the world reset below still run.
+                warnings.warn(
+                    f"coordination-plane shutdown failed (coordinator "
+                    f"already dead?): {e!r} — continuing world teardown")
         if _world.owns_group and dist.is_initialized():
             if error is not None and _world.backend == "nccl":
                 dist.distributed_c10d._abort_process_group()
@@ -238,6 +290,29 @@ def device() -> torch.device:
 
 # -- a dead or silent peer ----------------------------------------------------
 
+#: How long a rank that saw a peer's connection close on the process
+#: group waits for the coordinator's abort, which names the dead rank
+#: (a killed process's sockets close at once, so the abort follows within
+#: milliseconds).
+PEER_NAMING_WAIT_S = 2.0
+
+
+def _coord_abort(wait_s: float) -> Optional[str]:
+    """The coordinator's abort message of a coordinated world (it names
+    the dead rank), waiting up to ``wait_s`` for it; None in a plain world
+    or when no abort came."""
+    coord = _world.coord if _world is not None else None
+    if coord is None:
+        return None
+    deadline = time.monotonic() + wait_s
+    while not coord.aborted():
+        if time.monotonic() >= deadline:
+            return None
+        time.sleep(0.01)
+    msg = coord.abort_message()
+    return coord._abort_record(msg) if msg else None
+
+
 _TIMEOUT = re.compile(r"timed? ?out|timing out|timeout", re.I)
 _PEER_GONE = re.compile(r"connection (reset|closed)|closed by peer|"
                         r"broken pipe|remote process", re.I)
@@ -256,10 +331,16 @@ def _peer_error(e: RuntimeError):
     where = (f"rank {_world.rank} of a world of {_world.size}"
              if _world is not None else "this rank")
     if _TIMEOUT.search(msg):
+        named = _coord_abort(0.0)
+        if named is not None:
+            return WorkerFailureError(f"{named} (seen on {where} as: {msg})")
         return StalledError(
             f"a collective on {where} waited past the process group's "
             f"timeout (a peer is wedged or gone): {msg}")
     if isinstance(e, dist.DistNetworkError) or _PEER_GONE.search(msg):
+        named = _coord_abort(PEER_NAMING_WAIT_S)
+        if named is not None:
+            return WorkerFailureError(f"{named} (seen on {where} as: {msg})")
         return WorkerFailureError(
             f"worker failure: a peer of {where} closed its connection "
             f"in a collective (it died or was torn down): {msg}")

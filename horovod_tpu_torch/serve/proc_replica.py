@@ -770,8 +770,8 @@ def _apply_backend_flags(flags: Optional[Dict[str, bool]]) -> None:
 _GROUP_ENV_DROP = ("HVD_RANK", "PMI_RANK", "OMPI_COMM_WORLD_RANK",
                    "HVD_SIZE", "PMI_SIZE", "OMPI_COMM_WORLD_SIZE",
                    "HVD_LOCAL_RANK", "OMPI_COMM_WORLD_LOCAL_RANK",
-                   "MASTER_ADDR", "MASTER_PORT", "HVD_METRICS_PORT",
-                   "HOROVOD_TIMELINE")
+                   "MASTER_ADDR", "MASTER_PORT", "HVD_COORD_ADDR",
+                   "HVD_METRICS_PORT", "HOROVOD_TIMELINE")
 
 
 def _spec_tp(spec: Dict[str, Any]) -> int:

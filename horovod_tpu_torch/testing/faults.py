@@ -68,17 +68,19 @@ Actions:
 
 Hooks: :func:`step_hook` is called once per training step by
 ``Trainer.fit``, :func:`ckpt_hook` after each elastic commit,
-:func:`serve_hook` once per serving-engine loop iteration; all are
+:func:`serve_hook` once per serving-engine loop iteration,
+:func:`coord_delay` in every coordination-plane submit; all are
 near-zero-cost no-ops when ``HVD_FAULT_SPEC`` is unset.
 
 This is a copy of the JAX package's ``testing/faults.py``. The parser
-takes the whole grammar, so one spec serves both packages; the hooks of
-the planes the port has not ported yet (live resize, the coordination
-plane) come with those planes, and until then their clauses never
-fire. The corruption acts on the port's checkpoint format
-(one ``.npy`` file a leaf) where the JAX package's acts on its own. The
-port has no heartbeat plane yet, so ``mute`` parks the rank like
-``hang`` does.
+takes the whole grammar, so one spec serves both packages; the hook of
+the plane the port has not ported yet (live resize) comes with that
+plane, and until then its clauses never fire. The corruption acts on the
+port's checkpoint format (one ``.npy`` file a leaf) where the JAX
+package's acts on its own. ``mute`` and ``coord:mute`` act on the
+coordination plane of a coordinated world (``runtime.World.coord``); in
+a plain world, which has no heartbeats, ``mute`` parks the rank like
+``hang`` and ``coord:mute`` does nothing.
 """
 
 from __future__ import annotations
@@ -336,8 +338,19 @@ def _fire(fault: Fault) -> None:
         print(f"[faults] rank {_my_rank()}: exit(1) at {tag}", flush=True)
         os._exit(1)
     elif fault.action in ("hang", "mute"):
-        if fault.action == "mute" and fault.target == "coord":
-            return  # no coordinator to mute in a torch.distributed world
+        client = None
+        from .. import runtime
+        if runtime.is_initialized():
+            client = runtime.world().coord
+        if fault.action == "mute":
+            if fault.target == "coord":
+                if client is not None:
+                    print(f"[faults] rank {_my_rank()}: coordinator mutes "
+                          f"heartbeat-acks at {tag}", flush=True)
+                    client.mute_coordinator_acks(True)
+                return  # the coordinator keeps serving; clients abort
+            if client is not None:
+                client.mute_heartbeats(True)
         print(f"[faults] rank {_my_rank()}: {fault.action} (sleeping "
               f"forever) at {tag}", flush=True)
         while True:  # parked until the launcher or the test kills us
@@ -495,6 +508,20 @@ def serve_hook(replica: str, streams_admitted: int) -> Optional[str]:
         out = {"replica_kill": "kill",
                "replica_proc_kill": "proc_kill"}.get(f.action, "hang")
     return out
+
+
+def coord_delay() -> None:
+    """Sleep per ``coord:delay_ms=<n>``: called from every
+    coordination-plane submit; a no-op unless the spec targets the
+    coordinator."""
+    faults = _active()
+    if not faults:
+        return
+    epoch = _restart_epoch()
+    for f in faults:
+        if (f.target == "coord" and f.action == "delay_ms"
+                and f.epoch == epoch):
+            time.sleep(f.value / 1000.0)
 
 
 def reset() -> None:

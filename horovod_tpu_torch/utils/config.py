@@ -26,6 +26,9 @@ imported here). The names and defaults are the same:
 * ``HVD_DEVICE`` — the device ``init()`` takes when its caller names
   none (:func:`device_default`; the launcher's ``--cpu`` exports
   ``cpu``).
+* The coordination plane: ``HVD_COORD_ADDR`` (:func:`coordinator_address`)
+  and ``HOROVOD_STALL_CHECK_TIME`` (:func:`stall_warning_secs`, 60 s by
+  default).
 * The launcher's and elastic recovery's own knobs: ``HVD_ELASTIC_DIR``
   (:func:`elastic_dir`), ``HVD_RESTART_BACKOFF_MAX``
   (:func:`restart_backoff_max`) and ``HVD_CHIPS_PER_HOST``
@@ -38,6 +41,10 @@ import os
 
 # Default tensor-fusion threshold: 64 MiB.
 DEFAULT_FUSION_THRESHOLD: int = 64 * 1024 * 1024
+
+# Seconds a collective may wait for its last rank before the coordinator
+# warns of a stall.
+DEFAULT_STALL_WARNING_SECS: float = 60.0
 
 
 def _int_env(name: str, default: int) -> int:
@@ -113,6 +120,24 @@ def timeline_path():
     """``HOROVOD_TIMELINE`` — path of the Chrome-tracing file, written by
     rank 0 only (None when unset)."""
     return os.environ.get("HOROVOD_TIMELINE") or None
+
+
+def stall_warning_secs() -> float:
+    """``HOROVOD_STALL_CHECK_TIME`` — seconds before the coordinator warns
+    that a collective waits on a subset of ranks (60 by default)."""
+    raw = os.environ.get("HOROVOD_STALL_CHECK_TIME")
+    if raw:
+        try:
+            return float(raw)
+        except ValueError:
+            pass
+    return DEFAULT_STALL_WARNING_SECS
+
+
+def coordinator_address():
+    """``HVD_COORD_ADDR`` — ``host:port`` of the coordination plane's
+    rank-0 coordinator (the launcher exports it), or None."""
+    return os.environ.get("HVD_COORD_ADDR") or None
 
 
 def restart_epoch() -> int:

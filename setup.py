@@ -28,15 +28,16 @@ setup(
     version="0.1.0",
     description="TPU-native distributed training framework "
                 "(Horovod v0.11.2 capability parity)",
-    # horovod_tpu_torch: the PyTorch/CUDA port (its CUDA sources ship as
-    # package data and are built with nvcc on first use; it needs torch,
-    # which the JAX package does not).
+    # horovod_tpu_torch: the PyTorch/CUDA port (its CUDA sources and its
+    # coordinator's C++ ship as package data and are built with nvcc and
+    # g++ on first use; it needs torch, which the JAX package does not).
     packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
                                     "horovod_tpu_torch",
                                     "horovod_tpu_torch.*"]),
     package_data={"horovod_tpu.coord": ["libhvdcoord.so", "coordinator.cc",
                                         "Makefile"],
-                  "horovod_tpu_torch.ops": ["csrc/*.cu"]},
+                  "horovod_tpu_torch.ops": ["csrc/*.cu"],
+                  "horovod_tpu_torch.coord": ["csrc/*.cc"]},
     python_requires=">=3.10",
     # jax floor: 0.9 is the version every CI leg verifies (this image
     # ships exactly one jax, so older floors would be untested claims).

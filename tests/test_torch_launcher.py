@@ -5,9 +5,14 @@ fleet poller (``obs.summary``) against the JAX package, on the CPU.
 * The same worker (it imports neither jax nor torch and prints its
   environment) under ``python -m horovod_tpu.launcher -np 3 --cpu`` and
   ``python -m horovod_tpu_torch.launcher -np 3 --cpu``: equal per-rank
-  ``HVD_RANK``, ``HVD_SIZE``, ``HVD_LOCAL_RANK`` and ``HVD_RESTART_EPOCH``;
-  the port's ranks also get ``MASTER_ADDR``/``MASTER_PORT``,
-  ``HVD_DEVICE=cpu`` and an empty ``CUDA_VISIBLE_DEVICES``.
+  ``HVD_RANK``, ``HVD_SIZE``, ``HVD_LOCAL_RANK`` and ``HVD_RESTART_EPOCH``,
+  and both export one ``HVD_COORD_ADDR`` on ``127.0.0.1``; the port's
+  ranks also get ``MASTER_ADDR``/``MASTER_PORT`` (the rendezvous, on a
+  port of its own), ``HVD_DEVICE=cpu`` and an empty
+  ``CUDA_VISIBLE_DEVICES``.
+* The two-port rule: ``--coord-port P`` puts the coordinator on P and the
+  rendezvous on P + 1 (``--coordinator host:P`` likewise); a relaunch
+  draws fresh ports for both.
 * Equal exit codes: a rank exiting 3; SIGINT (130, never relaunched); a
   rank failing on epoch 0 only under ``--restarts 1`` (0, two epochs).
   Equal parser errors for the shared flags.
@@ -49,7 +54,8 @@ WORKER = os.path.join(HERE, "torch_elastic_worker.py")
 ENV_SCRIPT = (
     "import os, sys\n"
     "keys = ('HVD_RANK', 'HVD_SIZE', 'HVD_LOCAL_RANK', 'HVD_RESTART_EPOCH',"
-    " 'MASTER_ADDR', 'MASTER_PORT', 'HVD_DEVICE', 'CUDA_VISIBLE_DEVICES')\n"
+    " 'MASTER_ADDR', 'MASTER_PORT', 'HVD_DEVICE', 'CUDA_VISIBLE_DEVICES',"
+    " 'HVD_COORD_ADDR')\n"
     "line = ' '.join(['ENV'] + [repr(os.environ.get(k)) for k in keys])\n"
     "os.write(1, (line + '\\n').encode())\n"
     "code = os.environ.get('EXIT_CODE_' + os.environ['HVD_RANK'] + '_'"
@@ -79,7 +85,49 @@ def test_rank_environment_matches_jax():
         (str(r), "3", str(r), "0") for r in range(3)]
     assert len({ln[5] for ln in got}) == 1          # one rendezvous port
     for ln in got:
-        assert ln[4] == "127.0.0.1" and ln[6:] == ("cpu", "")
+        assert ln[4] == "127.0.0.1" and ln[6:8] == ("cpu", "")
+    # One coordinator a world, exported as the JAX launcher exports it,
+    # on a port of its own beside the rendezvous.
+    for lines in (got, want):
+        assert len({ln[8] for ln in lines}) == 1
+        host, _, port = lines[0][8].partition(":")
+        assert host == "127.0.0.1" and int(port) > 0
+    assert got[0][8].partition(":")[2] != got[0][5]
+
+
+def test_coordinator_and_rendezvous_take_two_ports():
+    assert launcher.world_ports("10.0.0.1:4000", None) == (
+        "10.0.0.1", 4000, 4001)
+    assert launcher.world_ports("10.0.0.1", None) == (
+        "10.0.0.1", launcher.DEFAULT_COORD_PORT,
+        launcher.DEFAULT_COORD_PORT + 1)
+    assert launcher.world_ports(None, 5000) == ("127.0.0.1", 5000, 5001)
+    host, coord, rdzv = launcher.world_ports(None, None)
+    assert host == "127.0.0.1" and coord != rdzv
+    port = launcher._free_port()
+    out = _run("horovod_tpu_torch", ["-np", "2", "--cpu", "--coord-port",
+                                     str(port), sys.executable, "-c",
+                                     ENV_SCRIPT])
+    assert out.returncode == 0, out.stderr
+    for ln in _env_lines(out.stdout):
+        assert ln[8] == f"127.0.0.1:{port}" and ln[5] == str(port + 1)
+
+
+def test_a_relaunch_draws_fresh_ports_for_both():
+    port = launcher._free_port()
+    out = _run("horovod_tpu_torch",
+               ["-np", "2", "--cpu", "--restarts", "1", "--coord-port",
+                str(port), sys.executable, "-c", ENV_SCRIPT],
+               env={"EXIT_CODE_0_0": "5"})
+    assert out.returncode == 0, out.stderr
+    lines = _env_lines(out.stdout)
+    first = {(ln[8], ln[5]) for ln in lines if ln[3] == "0"}
+    second = {(ln[8], ln[5]) for ln in lines if ln[3] == "1"}
+    assert first == {(f"127.0.0.1:{port}", str(port + 1))}
+    assert len(second) == 1
+    (coord, rdzv), = second
+    assert coord != f"127.0.0.1:{port}" and rdzv != str(port + 1)
+    assert coord.partition(":")[2] != rdzv
 
 
 @pytest.mark.parametrize("case,env,restarts,want_rc,want_epochs", [
