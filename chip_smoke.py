@@ -29,6 +29,12 @@ card:
   through ``make_parallel_train_step`` on a 1-rank NCCL world, its
   attention on the packed flash forward with lse and the dq/dkv backward
   kernels;
+* the other conv families — the bench's ResNet-101 (``--conv-backend
+  fused``, K1/K2 in stages 0–1), VGG-16 and Inception V3 rows at full
+  width (batch 96), ResNet-101 fused and each new family (VGG, Inception,
+  the pre-activation CIFAR ResNet, the space-to-depth stem) card against
+  CPU, cross-replica BatchNorm in two gloo ranks sharing the card, and
+  the ImageNet example under the launcher with its resume;
 * pipelined LM training — the same LM and batch through
   ``make_pp_transformer_train_step`` (1F1B, 2 microbatches of 4) on a
   dp=1 x pp=1 mesh of a 1-rank NCCL world (one card: all 8 layers in one
@@ -440,15 +446,58 @@ Phases, one JSON line each:
                from each, bitwise; ``restore_for_inference(mesh=,
                spec_fn=)`` of (a)'s leaf for leaf the live model's;
                bytes, save and restore times.
-31. bench   — ``python -m horovod_tpu_torch.bench`` twice, over one
-               timed region each (no flags: the stock ResNet and the
-               plain LM lines; ``--model transformer_lm --zero --overlap
-               --accum-steps 2``), each in a process of its own: names,
+31. bench   — ``python -m horovod_tpu_torch.bench``'s ``main`` twice in
+               this process, over one timed region each (no flags: the
+               stock ResNet and the plain LM lines; ``--model
+               transformer_lm --zero --overlap --accum-steps 2``): names,
                finite positive values, 0 < mfu <= 1, the knob fields, the
                peak bytes, the card; then ``--scaling --model resnet50
-               --conv-backend fused --rounds 1`` (a launcher world of 1
-               timed over one region: the scaling line of 1 GPU, then
-               the per-GPU line, the fused ResNet's, with its phases).
+               --conv-backend fused --rounds 1`` in a process of its own
+               (a launcher world of 1 timed over one region: the scaling
+               line of 1 GPU, then the per-GPU line, the fused ResNet's,
+               with its phases).
+32. models  — the bench's other conv rows and the other families:
+               (a) the bench's ``main`` in this process for ``--model
+               resnet101 --conv-backend fused``, ``--model vgg16`` and
+               ``--model inception3`` (``--rounds 1`` each; full width:
+               224², 224² and 299², batch 96, bf16, local BatchNorm):
+               each line's name, a finite positive value, 0 < mfu <= 1
+               over ``FWD_GMACS``, the peak bytes, the card, and
+               ``conv_backend: "fused"`` for resnet101, whose run must
+               launch K1 and K2 16 times a forward-backward (counters
+               zeroed before it, read after: the ``kernels`` line's
+               totals), the others none; (b) ResNet-101 fused at flax's
+               init, batch MD_RN101_BATCH at MD_RN101_IMAGE² (both
+               stages' rows pass the ``M % 128`` gate), one SGD step on
+               the card (K1/K2 at all 16 sites) and on the CPU (their
+               plain versions) from the same weights: loss, logits, the
+               update's cosine, per-leaf updates and running statistics
+               within TOL_E2E_TRAIN; (c) VGG-16 (at 32², dense 4096),
+               Inception V3 (160²), ``cifar_resnet_v2(56)`` (32²) and
+               ResNet-50 with the space-to-depth stem (64²), in f32 (no
+               TF32) at a small batch, dropout off, card against CPU
+               from the same seeded weights: loss, logits, running
+               statistics and the gradients' cosine in f32, every
+               gradient leaf in f64, within TOL_FAMILY.
+33. sync_bn — cross-replica BatchNorm: two gloo ranks share the card
+               (this script's ``--sync-bn-rank`` mode; a gloo group, then
+               ``hvd.init(device="cuda")`` adopts it), each with half of
+               a global batch of 8 whose halves differ in statistics, two
+               SGD steps with ``axis_name=hvd.AXIS``: ``cifar_resnet_v1
+               (20)`` in f32 at 32², and ResNet-50 at 64² on the fused
+               backend (K1/K2 at every site: ``fold``'s group mean). The
+               ranks' running statistics must be bitwise equal; losses,
+               params, statistics and whole-batch eval logits must match
+               one card process training on the whole batch (local BN)
+               within TOL_SYNC; the same ranks with local BatchNorm (the
+               control) must miss it.
+34. conv_examples — ``python -m horovod_tpu_torch.launcher -np 1``
+               running ``horovod_tpu_torch.examples.imagenet_resnet50
+               --image 64 --classes 10 --epochs 2 --ckpt-dir <tmp>``
+               (synthetic data, cross-replica BatchNorm, rank-0
+               asynchronous checkpoints), then again with ``--epochs
+               3``: it must resume from the saved step and print its
+               allreduced final eval.
 
 Every line carries ``phase_s``, the seconds since its phase began, and
 a ``phase_seconds`` line lists each phase's wall seconds. Then, before
@@ -629,7 +678,8 @@ TOL_WIRE = {"bf16": dict(loss_rtol=5e-3, rtol=5e-2, atol=4e-2),
 # time with the guard off and on, in turns.
 GUARD_TIMED_PAIRS = 4
 # The bench entry (bench): python -m horovod_tpu_torch.bench with these
-# arguments, each in a process of its own; its metric names per run.
+# arguments, each through its main() in this process; its metric names
+# per run.
 # Each run times one region: the phase checks the entry's lines, not its
 # rates (train, lm_train, zero_overlap and train_knobs time those steps
 # at depth). The plain run gives the stock ResNet and the plain LM lines
@@ -646,6 +696,55 @@ BENCH_TIMEOUT = 400
 # over one timed region; its per-GPU line is the fused ResNet line.
 BENCH_SCALING = ("--scaling", "--model", "resnet50", "--conv-backend",
                  "fused", "--rounds", "1")
+# The bench's other conv rows (models (a)), each through the bench's main
+# in this process over one timed region; resnet101's must launch K1 and
+# K2 RN_SITES times a forward-backward.
+MD_BENCH = (("resnet101", ("--model", "resnet101", "--conv-backend",
+                           "fused", "--rounds", "1")),
+            ("vgg16", ("--model", "vgg16", "--rounds", "1")),
+            ("inception3", ("--model", "inception3", "--rounds", "1")))
+# models (b): ResNet-101 fused, card vs CPU, at flax's init: batch 4 at
+# 128² (stage rows 4096 and 1024 pass the M % 128 gate).
+MD_RN101_BATCH, MD_RN101_IMAGE = 4, 128
+MD_RN101_PARAMS = ("stem.kernel", "BottleneckBlock_0.shortcut.kernel",
+                   "BottleneckBlock_3.shortcut.kernel",
+                   "BottleneckBlock_1.BatchNorm_2.scale",
+                   "BottleneckBlock_5.BatchNorm_2.scale",
+                   "BottleneckBlock_32.BatchNorm_2.scale", "head.kernel")
+MD_RN101_STATS = ("stem_bn.var", "BottleneckBlock_0.BatchNorm_0.mean",
+                  "BottleneckBlock_2.BatchNorm_2.var",
+                  "BottleneckBlock_3.shortcut_bn.mean",
+                  "BottleneckBlock_32.BatchNorm_1.var")
+# models (c): each family on the card and the CPU from the same seeded
+# weights, dropout off: (name, input hw, batch). In f32 (TF32 off): loss,
+# logits, running statistics, and the gradients' whole-model cosine at
+# TOL_E2E_TRAIN's bound; in f64 every gradient leaf too. (f32 leaves are
+# not held one by one: through Inception's random-init BatchNorm chains
+# the CPU's own f32 gradients are up to 0.40 of a leaf off its f64 ones,
+# at a cosine of 0.999.) Errors are max|card - cpu| / max|cpu| per leaf
+# (logits: over the batch); each bound well inside TOL_E2E_TRAIN's.
+MD_FAMILY = (("vgg16", 32, 2), ("inception3", 160, 2),
+             ("cifar_resnet_v2_56", 32, 4), ("resnet50_s2d", 64, 2))
+TOL_FAMILY = {"loss": 1e-4, "logits": 1e-3, "grads": 1e-2,
+              "batch_stats": 1e-4, "grad_cosine": 0.9999}
+# sync_bn: two gloo ranks on the card, each half of a global batch of
+# SB_BATCH (the second half shifted and scaled), SB_STEPS SGD steps,
+# against one process training on the whole batch. f32 (no TF32): the
+# CPU test's tolerances (loss 1e-4 relative; params, running statistics
+# and eval logits 1e-3 of each leaf's largest entry). bf16 fused: the
+# loss as e2e_train's, the update's cosine, the statistics and the eval
+# logits 3e-2 relative (a CPU rehearsal measured 2.8e-3 and 4.6e-3; the
+# local-BN control 0.97 and 0.48). The control must miss the reference
+# by more than the tolerance in statistics and logits.
+SB_BATCH, SB_STEPS = 8, 2
+SB_WORLD_S = 240.0
+TOL_SYNC = {"f32": {"loss": 1e-4, "params": 1e-3, "batch_stats": 1e-3,
+                    "logits": 1e-3, "update_cosine": 0.9999},
+            "bf16": {"loss": 2e-3, "batch_stats": 3e-2, "logits": 3e-2,
+                     "update_cosine": 0.99}}
+# conv_examples: the imagenet example under the launcher, then resumed.
+EX_ARGS = ("--image", "64", "--classes", "10")
+EX_TIMEOUT = 300
 # The serving bench entry (serve_bench): two generate-mode operating
 # points of the bench LM through the port's serve_bench main, then one
 # predict-mode point of its MLP Engine.
@@ -5260,24 +5359,27 @@ def _zo_guard(state, model, x, y) -> dict:
                 loss=float(m["loss"]), launches=launches)
 
 
-def phase_bench(smi: str):
-    """``python -m horovod_tpu_torch.bench`` in a process of its own for
-    each of BENCH_RUNS: every line named as expected, finite positive
-    values, 0 < mfu <= 1, the knob fields, the peak bytes and the card."""
-    root = os.path.dirname(os.path.abspath(__file__))
+def _bench_in_process(args) -> tuple:
+    """The bench entry's ``main(args)`` in this process (no world may be
+    up: it builds and tears down its own): ``(lines, seconds)``."""
+    from horovod_tpu_torch import bench, runtime
+    check(not runtime.is_initialized(), "bench: a world is still up")
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    rc, lines, text = _run_entry(bench.main, args)
+    secs = time.monotonic() - t0
+    check(rc == 0, f"bench {args} exited {rc}: {text[-2000:]}")
+    return lines, secs
+
+
+def phase_bench(smi: str):
+    """The bench entry's ``main`` in this process for each of BENCH_RUNS:
+    every line named as expected, finite positive values, 0 < mfu <= 1,
+    the knob fields, the peak bytes and the card; then the --scaling
+    launcher world in a process of its own."""
+    root = os.path.dirname(os.path.abspath(__file__))
     for args, names in BENCH_RUNS:
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "horovod_tpu_torch.bench", *args],
-            cwd=root, capture_output=True, text=True,
-            timeout=BENCH_TIMEOUT)
-        secs = time.monotonic() - t0
-        check(proc.returncode == 0, f"bench {args} exited "
-                                    f"{proc.returncode}: "
-                                    f"{proc.stderr[-2000:]}")
-        lines = [json.loads(ln) for ln in proc.stdout.splitlines()
-                 if ln.startswith("{")]
+        lines, secs = _bench_in_process(args)
         emit("bench", args=list(args), seconds=secs, lines=lines)
         check([ln["metric"] for ln in lines] == list(names),
               f"bench {args} printed {[ln['metric'] for ln in lines]}")
@@ -7170,6 +7272,548 @@ def phase_coord(seed: int, smi: str) -> dict:
     return out
 
 
+# The models phase (see the module docstring, 32).
+
+def _bench_line_checks(name: str, line: dict, smi: str) -> None:
+    check(line["metric"] == f"{name}_synthetic_images_per_sec_per_gpu",
+          f"models: {name} printed {line['metric']}")
+    check(np.isfinite(line["value"]) and line["value"] > 0
+          and line["vs_baseline"] > 0, f"models: {name} value {line}")
+    check(0 < line["mfu"] <= 1 and line["tflops_per_gpu"] > 0,
+          f"models: {name} mfu {line}")
+    check(isinstance(line["peak_bytes_per_gpu"], int)
+          and line["peak_bytes_per_gpu"] > 0, f"models: {name} peak {line}")
+    check(line["gpu"] == smi, f"models: {name} card {line['gpu']} vs {smi}")
+    check(line["world"] == 1 and line["mesh"] == "dp1",
+          f"models: {name} world {line}")
+
+
+def _bench_passes(cfg: dict) -> int:
+    """Forward-backward passes of one bench line (``bench.measure``):
+    warmup and the timed regions, then ``_measure_phases``' two medians
+    of one untimed and ``max(3, iters)`` timed passes each."""
+    k = cfg["steps_per_call"]
+    return ((cfg["warmup"] + cfg["iters"] * cfg["rounds"]) * k
+            + 2 * (1 + max(3, cfg["iters"])))
+
+
+def _models_bench(smi: str) -> dict:
+    """models (a); returns the resnet101 run's launches."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.ops import LAUNCHES
+    kept = {}
+    for name, args in MD_BENCH:
+        LAUNCHES.reset()
+        lines, secs = _bench_in_process(args)
+        launches = LAUNCHES.snapshot()
+        check(len(lines) == 1, f"models: {name} printed {len(lines)} lines")
+        line = lines[0]
+        _bench_line_checks(name, line, smi)
+        cfg = dict(bench._GPU_CONFIGS[name], rounds=1)
+        if name == "resnet101":
+            check(line["conv_backend"] == "fused",
+                  f"models: resnet101 line {line}")
+            want = RN_SITES * _bench_passes(cfg)
+            want_launches(launches, {"fused_conv_bn_fwd": want,
+                                     "fused_conv_bn_bwd": want},
+                          "models: bench resnet101 fused")
+            kept = launches
+        else:
+            check(not launches, f"models: {name} launched {launches}")
+        emit("models_bench", model=name, args=list(args), seconds=secs,
+             passes=_bench_passes(cfg), launches=launches, line=line)
+        torch.cuda.empty_cache()
+    return kept
+
+
+def _step_grads(model, x, y):
+    """One training forward + backward (no optimizer): loss (mean cross
+    entropy in the logits' dtype), logits and each parameter's gradient
+    on the host."""
+    model.zero_grad(set_to_none=True)
+    logits = model(x, train=True)
+    loss = F.cross_entropy(logits, y.long())
+    loss.backward()
+    return (loss.item(), logits.detach().float().cpu(),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def _rel_max(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|got - ref| / max|ref|; 0 where both are all zero."""
+    d = (got.double() - ref.double()).abs().max().item()
+    m = ref.double().abs().max().item()
+    return d / m if m > 0 else d
+
+
+def _models_rn101(seed: int) -> dict:
+    """models (b): ResNet-101 fused, one SGD step, card vs CPU."""
+    from horovod_tpu_torch.models import resnet101
+    from horovod_tpu_torch.ops import LAUNCHES
+    card = resnet101(RN_CLASSES, conv_backend="fused", device="cuda",
+                     generator=torch.Generator().manual_seed(seed + 5))
+    cpu = copy.deepcopy(card).to("cpu")
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    rng = np.random.RandomState(seed + 6)
+    xs = rng.standard_normal((MD_RN101_BATCH, MD_RN101_IMAGE,
+                              MD_RN101_IMAGE, 3)).astype(np.float32)
+    ys = rng.randint(0, RN_CLASSES, size=(MD_RN101_BATCH,))
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    LAUNCHES.reset()
+    loss_card, logits_card = _one_step(card, x.cuda(), y.cuda())
+    launches = LAUNCHES.snapshot()
+    want_launches(launches, {"fused_conv_bn_fwd": RN_SITES,
+                             "fused_conv_bn_bwd": RN_SITES},
+                  "models (b): the ResNet-101 step")
+    loss_cpu, logits_cpu = _one_step(cpu, x, y)
+    check(bool(torch.isfinite(logits_card).all()), "models (b): logits")
+    cp, pp = dict(card.named_parameters()), dict(cpu.named_parameters())
+    cb, pb = dict(card.named_buffers()), dict(cpu.named_buffers())
+    rel = lambda a, b: _rel_err(a.detach().cpu(), b.detach())  # noqa: E731
+    diffs = {"loss": abs(loss_card - loss_cpu),
+             "logits": (logits_card - logits_cpu).abs().max().item(),
+             "param_updates": {n: rel(cp[n].cpu() - before[n],
+                                      pp[n] - before[n])
+                               for n in MD_RN101_PARAMS},
+             "batch_stats": {n: rel(cb[n], pb[n]) for n in MD_RN101_STATS}}
+    upd_card = torch.cat([(cp[n].detach().cpu() - before[n]).flatten()
+                          for n in before])
+    upd_cpu = torch.cat([(pp[n].detach() - before[n]).flatten()
+                         for n in before])
+    cosine = F.cosine_similarity(upd_card, upd_cpu, dim=0).item()
+    rec = dict(batch=MD_RN101_BATCH, image=MD_RN101_IMAGE,
+               loss_card=loss_card, loss_cpu=loss_cpu, diffs=diffs,
+               update_cosine=cosine, launches=launches,
+               tolerance=TOL_E2E_TRAIN)
+    check(diffs["loss"] <= TOL_E2E_TRAIN["loss"],
+          f"models (b): loss differs by {diffs['loss']}")
+    check(diffs["logits"] <= TOL_E2E_TRAIN["logits"],
+          f"models (b): logits differ by {diffs['logits']}")
+    check(cosine >= TOL_E2E_TRAIN["update_cosine"],
+          f"models (b): update cosine {cosine}")
+    for key in ("param_updates", "batch_stats"):
+        for n, v in diffs[key].items():
+            check(v <= TOL_E2E_TRAIN[key], f"models (b): {n} differs by {v}")
+    return rec
+
+
+def _family_model(name: str, seed: int, hw: int, dtype: torch.dtype):
+    """models (c)'s model on the CPU, dropout off, computing in ``dtype``
+    (f64: every parameter cast and the head too, so no f32 rounding of
+    the logits, card's and CPU's in other orders, enters the gradients)."""
+    from horovod_tpu_torch import models
+    gen = torch.Generator().manual_seed(seed)
+    if name == "vgg16":
+        m = models.vgg16(RN_CLASSES, dtype=dtype, dropout_rate=0.0,
+                         image_size=hw, device="cpu", generator=gen)
+    elif name == "inception3":
+        m = models.inception_v3(RN_CLASSES, dtype=dtype, dropout_rate=0.0,
+                                device="cpu", generator=gen)
+    elif name == "cifar_resnet_v2_56":
+        m = models.cifar_resnet_v2(56, dtype=dtype, device="cpu",
+                                   generator=gen)
+    else:
+        m = models.resnet50(RN_CLASSES, dtype=dtype, stem_space_to_depth=True,
+                            device="cpu", generator=gen)
+    m.head.dtype = dtype
+    return m.to(dtype)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _family_run(name: str, seed: int, hw: int, x, y,
+                dtype: torch.dtype) -> dict:
+    """One train forward + backward of a family model on the card and on
+    the CPU from the same weights, in ``dtype``: relative errors."""
+    from horovod_tpu_torch.ops import LAUNCHES
+    cpu = _family_model(name, seed, hw, dtype)
+    card = copy.deepcopy(cpu).to("cuda")
+    x = x.to(dtype)
+    LAUNCHES.reset()
+    with _no_tf32():
+        loss_card, logits_card, g_card = _step_grads(card, x.cuda(),
+                                                     y.cuda())
+    launches = LAUNCHES.snapshot()
+    t0 = time.monotonic()
+    loss_cpu, logits_cpu, g_cpu = _step_grads(cpu, x, y)
+    cpu_s = time.monotonic() - t0
+    check(not launches, f"models (c): {name} launched {launches}")
+    check(bool(torch.isfinite(logits_card).all()),
+          f"models (c): {name} logits not finite")
+    grads = {n: _rel_max(g_card[n], g_cpu[n]) for n in g_cpu}
+    cb, pb = dict(card.named_buffers()), dict(cpu.named_buffers())
+    stats = [_rel_max(cb[n].cpu(), pb[n]) for n in pb]
+    flat = lambda g: torch.cat([t.double().flatten()  # noqa: E731
+                                for t in g.values()])
+    worst = max(grads, key=grads.get)
+    return dict(params=sum(p.numel() for p in cpu.parameters()),
+                loss_card=loss_card, loss_cpu=loss_cpu,
+                loss=abs(loss_card - loss_cpu) / abs(loss_cpu),
+                logits=_rel_max(logits_card, logits_cpu),
+                grads_worst={worst: grads[worst]},
+                batch_stats_worst=max(stats) if stats else 0.0,
+                grad_cosine=F.cosine_similarity(flat(g_card), flat(g_cpu),
+                                                dim=0).item(),
+                cpu_s=cpu_s)
+
+
+def _models_family(seed: int) -> list:
+    """models (c): each family, card vs CPU: the forward (loss, logits,
+    running statistics) and the gradients' cosine in f32, every gradient
+    leaf in f64."""
+    out = []
+    for i, (name, hw, batch) in enumerate(MD_FAMILY):
+        rng = np.random.RandomState(seed + 30 + i)
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, hw, hw, 3)).astype(np.float32))
+        classes = 10 if name.startswith("cifar") else RN_CLASSES
+        y = torch.from_numpy(rng.randint(0, classes, size=(batch,)))
+        f32 = _family_run(name, seed + 20 + i, hw, x, y, torch.float32)
+        f64 = _family_run(name, seed + 20 + i, hw, x, y, torch.float64)
+        rec = dict(model=name, image=hw, batch=batch, f32=f32, f64=f64)
+        emit("models_family", **rec, tolerance=TOL_FAMILY)
+        for key in ("loss", "logits", "batch_stats_worst"):
+            tol = TOL_FAMILY["batch_stats" if key.startswith("batch")
+                             else key]
+            check(f32[key] <= tol,
+                  f"models (c): {name} f32 {key} differs by {f32[key]}")
+        check(f32["grad_cosine"] >= TOL_E2E_TRAIN["update_cosine"],
+              f"models (c): {name} f32 gradient cosine "
+              f"{f32['grad_cosine']}")
+        (leaf, err), = f64["grads_worst"].items()
+        check(err <= TOL_FAMILY["grads"],
+              f"models (c): {name} f64 gradient of {leaf} differs by {err}")
+        check(f64["grad_cosine"] >= TOL_FAMILY["grad_cosine"],
+              f"models (c): {name} f64 gradient cosine "
+              f"{f64['grad_cosine']}")
+        out.append(rec)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_models(seed: int, smi: str) -> dict:
+    """The models phase (see the module docstring, 32). Returns the bench
+    resnet101 run's launches (the kernels line's totals)."""
+    launches = _models_bench(smi)
+    emit("models_rn101", **_models_rn101(seed))
+    _models_family(seed)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The sync_bn phase (see the module docstring, 33).
+
+def sync_bn_batch(name: str, seed: int):
+    """The global batch of SB_BATCH: the second half shifted and scaled,
+    so the ranks' halves have other statistics."""
+    hw = 32 if name == "f32" else 64
+    rng = np.random.RandomState(seed + 40)
+    x = rng.standard_normal((SB_BATCH, hw, hw, 3)).astype(np.float32)
+    x[SB_BATCH // 2:] = 1.5 * x[SB_BATCH // 2:] + 0.5
+    return x, rng.randint(0, 10, size=(SB_BATCH,))
+
+
+def sync_bn_model(name: str, seed: int, axis_name):
+    """cifar_resnet_v1(20) in f32, or ResNet-50 fused (bf16), on the card
+    from the seed."""
+    from horovod_tpu_torch.models import cifar_resnet_v1, resnet50
+    gen = torch.Generator().manual_seed(seed + 41)
+    if name == "f32":
+        return cifar_resnet_v1(20, dtype=torch.float32, axis_name=axis_name,
+                               device="cuda", generator=gen)
+    return resnet50(10, conv_backend="fused", axis_name=axis_name,
+                    device="cuda", generator=gen)
+
+
+def _sb_record(model, x_all) -> dict:
+    """A run's params, running statistics and whole-batch eval logits."""
+    model.eval()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(x_all).cuda(), train=False)
+    rec = {f"p.{n}": p.detach().float().cpu().numpy().copy()
+           for n, p in model.named_parameters()}
+    rec.update({f"b.{n}": b.detach().float().cpu().numpy().copy()
+                for n, b in model.named_buffers()})
+    rec["logits"] = logits.float().cpu().numpy()
+    return rec
+
+
+def sync_bn_worker(rank: int, run_dir: str, port: int, seed: int) -> int:
+    """One rank of the sync_bn phase (``--sync-bn-rank``): a gloo group
+    built here (both ranks on ``cuda:0``), adopted by ``hvd.init``; each
+    model trained SB_STEPS steps on this rank's half with
+    ``axis_name=hvd.AXIS``, then with local BatchNorm. Writes
+    ``rank<r>.json`` and ``rank<r>.npz`` in ``run_dir``."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+        rank=rank, timeout=datetime.timedelta(seconds=SB_WORLD_S))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import LAUNCHES
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+    hvd.init(device="cuda")
+    check(hvd.size() == 2 and hvd.rank() == rank, "sync_bn: the world")
+    rec, arrays = {}, {}
+    n = SB_BATCH // 2
+    for name in ("f32", "bf16"):
+        x, y = sync_bn_batch(name, seed)
+        xs = torch.from_numpy(x[rank * n:(rank + 1) * n]).cuda()
+        ys = torch.from_numpy(y[rank * n:(rank + 1) * n]).cuda()
+        for tag, axis in (("sync", hvd.AXIS), ("local", None)):
+            model = sync_bn_model(name, seed, axis)
+            state = create_train_state(model, functools.partial(
+                torch.optim.SGD, lr=0.1, momentum=0.9),
+                device=hvd.runtime.device())
+            step = make_train_step()
+            LAUNCHES.reset()
+            losses = []
+            for _ in range(SB_STEPS):
+                state, metrics = step(state, (xs, ys))
+                losses.append(metrics["loss"].item())
+            rec[f"{name}.{tag}"] = {"losses": losses,
+                                    "launches": LAUNCHES.snapshot()}
+            arrays.update({f"{name}.{tag}.{k}": v for k, v in
+                           _sb_record(model, x).items()})
+            del state, model
+    hvd.shutdown()
+    dist.destroy_process_group()
+    np.savez(os.path.join(run_dir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def sync_bn_reference(seed: int) -> dict:
+    """One card process training on the whole batch (local BatchNorm,
+    plain SGD): what both ranks' cross-replica run must reproduce."""
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.training import cross_entropy_loss
+    out = {}
+    with _no_tf32():
+        for name in ("f32", "bf16"):
+            x, y = sync_bn_batch(name, seed)
+            model = sync_bn_model(name, seed, None)
+            init = {n: p.detach().float().cpu().numpy().copy()
+                    for n, p in model.named_parameters()}
+            opt = torch.optim.SGD([p for _, p in
+                                   convert.jax_leaf_order(model)],
+                                  lr=0.1, momentum=0.9)
+            xa, ya = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+            losses = []
+            for _ in range(SB_STEPS):
+                opt.zero_grad(set_to_none=True)
+                loss = cross_entropy_loss(model(xa, train=True), ya)
+                loss.backward()
+                opt.step()
+                losses.append(loss.item())
+            out[name] = dict(_sb_record(model, x), losses=losses, init=init)
+    return out
+
+
+def _sb_errors(got: dict, ref: dict, prefix: str) -> dict:
+    """Relative errors of one run (``prefix``'s arrays in ``got``)
+    against the reference."""
+    params = [k[2:] for k in ref if k.startswith("p.")]
+    stats = [k[2:] for k in ref if k.startswith("b.")]
+    g = lambda k: got[f"{prefix}.{k}"]  # noqa: E731
+    upd_got = np.concatenate([(g(f"p.{k}") - ref["init"][k]).ravel()
+                              for k in params]).astype(np.float64)
+    upd_ref = np.concatenate([(ref[f"p.{k}"] - ref["init"][k]).ravel()
+                              for k in params]).astype(np.float64)
+    cos = float(upd_got @ upd_ref / (np.linalg.norm(upd_got)
+                                     * np.linalg.norm(upd_ref)))
+
+    def rel(a, b):
+        m = np.abs(b).max()
+        d = np.abs(a - b).max()
+        return float(d / m) if m > 0 else float(d)
+    return {"params": max(rel(g(f"p.{k}"), ref[f"p.{k}"]) for k in params),
+            "batch_stats": max(rel(g(f"b.{k}"), ref[f"b.{k}"])
+                               for k in stats),
+            "logits": rel(g("logits"), ref["logits"]),
+            "update_cosine": cos}
+
+
+def phase_sync_bn(seed: int, smi: str) -> dict:
+    """The sync_bn phase (see the module docstring, 33). Returns the
+    fused model's launches, both ranks' cross-replica runs."""
+    import shutil
+    import socket
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    run_dir = tempfile.mkdtemp(prefix="hvd-sync-bn-")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    for k in ("HVD_RANK", "HVD_SIZE", "HVD_LOCAL_RANK", "HVD_COORD_ADDR",
+              "HVD_FAULT_SPEC", "HOROVOD_TIMELINE"):
+        env.pop(k, None)
+    procs, logs = [], []
+    t0 = time.monotonic()
+    try:
+        for r in range(2):
+            log = open(os.path.join(run_dir, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--sync-bn-rank", str(r), "--sync-bn-dir", run_dir,
+                 "--sync-bn-port", str(port), "--seed", str(seed)],
+                cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT))
+        # The whole-batch reference runs while the ranks start.
+        ref = sync_bn_reference(seed)
+        deadline = t0 + SB_WORLD_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    world_s = time.monotonic() - t0
+    try:
+        def tail(r):
+            with open(os.path.join(run_dir, f"rank{r}.log")) as f:
+                return f.read()[-4000:]
+        for r in range(2):
+            check(procs[r].returncode == 0,
+                  f"sync_bn: rank {r} exited {procs[r].returncode}:\n"
+                  f"{tail(r)}")
+        recs, arrs = [], []
+        for r in range(2):
+            with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+            with np.load(os.path.join(run_dir, f"rank{r}.npz")) as z:
+                arrs.append({k: z[k] for k in z.files})
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    launches = {}
+    for name in ("f32", "bf16"):
+        tol, want = TOL_SYNC[name], ref[name]
+        # Both ranks' cross-replica runs are one replicated state.
+        differ = [k for k in arrs[0] if k.startswith(f"{name}.sync.")
+                  and not np.array_equal(arrs[0][k], arrs[1][k])]
+        check(not differ, f"sync_bn {name}: the ranks' runs differ in "
+                          f"{differ[:4]}")
+        errs = {tag: _sb_errors(arrs[0], want, f"{name}.{tag}")
+                for tag in ("sync", "local")}
+        loss_err = {tag: max(abs(a - b) / abs(b) for a, b in zip(
+            recs[0][f"{name}.{tag}"]["losses"], want["losses"]))
+            for tag in ("sync", "local")}
+        for tag in ("sync", "local"):
+            errs[tag]["loss"] = loss_err[tag]
+        got_l = [recs[r][f"{name}.sync"]["launches"] for r in range(2)]
+        emit("sync_bn", model=("cifar_resnet_v1(20) f32" if name == "f32"
+                               else "resnet50 fused bf16"),
+             global_batch=SB_BATCH, steps=SB_STEPS, world_s=world_s,
+             losses_ref=want["losses"],
+             losses=recs[0][f"{name}.sync"]["losses"],
+             losses_local=recs[0][f"{name}.local"]["losses"],
+             errors=errs["sync"], control_errors=errs["local"],
+             tolerance=tol, launches=got_l, gpu=smi)
+        e = errs["sync"]
+        for key in ("loss", "batch_stats", "logits"):
+            check(e[key] <= tol[key], f"sync_bn {name}: {key} differs from "
+                                      f"the whole batch by {e[key]}")
+        if name == "f32":
+            check(e["params"] <= tol["params"],
+                  f"sync_bn f32: params differ by {e['params']}")
+        check(e["update_cosine"] >= tol["update_cosine"],
+              f"sync_bn {name}: update cosine {e['update_cosine']}")
+        c = errs["local"]
+        check(c["batch_stats"] > tol["batch_stats"]
+              and c["logits"] > tol["logits"],
+              f"sync_bn {name}: the local-BN control matches the whole "
+              f"batch ({c})")
+        if name == "bf16":
+            for r, got in enumerate(got_l):
+                want_launches(got, {"fused_conv_bn_fwd": RN_SITES * SB_STEPS,
+                                    "fused_conv_bn_bwd": RN_SITES * SB_STEPS},
+                              f"sync_bn: rank {r}'s fused steps")
+            for k, v in got_l[0].items():
+                launches[k] = launches.get(k, 0) + v + got_l[1].get(k, 0)
+    return launches
+
+
+# The conv_examples phase (see the module docstring, 34).
+
+def phase_conv_examples(smi: str) -> None:
+    """The imagenet example under the launcher, then resumed."""
+    import shutil
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    ck = tempfile.mkdtemp(prefix="hvd-ex-")
+    env = dict(os.environ, HVD_DATA_DIR="", PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    for k in ("HVD_RANK", "HVD_SIZE", "HVD_LOCAL_RANK", "HVD_COORD_ADDR",
+              "HVD_FAULT_SPEC", "HOROVOD_TIMELINE"):
+        env.pop(k, None)
+    runs = []
+    try:
+        for epochs in (2, 3):
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", "horovod_tpu_torch.launcher", "-np",
+                 "1", sys.executable, "-m",
+                 "horovod_tpu_torch.examples.imagenet_resnet50", *EX_ARGS,
+                 "--epochs", str(epochs), "--ckpt-dir", ck],
+                cwd=here, env=env, capture_output=True, text=True,
+                timeout=EX_TIMEOUT)
+            secs = time.monotonic() - t0
+            check(proc.returncode == 0,
+                  f"conv_examples --epochs {epochs} exited "
+                  f"{proc.returncode}: {proc.stdout[-2000:]}"
+                  f"{proc.stderr[-3000:]}")
+            out = proc.stdout
+            acc = re.search(r"final eval accuracy \(allreduced\): (\S+)",
+                            out)
+            check(acc is not None and 0.0 <= float(acc.group(1)) <= 1.0,
+                  f"conv_examples: no final eval in {out[-2000:]}")
+            epoch_lines = [ln for ln in out.splitlines()
+                           if ln.startswith("epoch ")]
+            runs.append(dict(epochs=epochs, seconds=secs,
+                             checkpoints=sorted(os.listdir(ck)),
+                             epoch_lines=epoch_lines,
+                             final_eval=float(acc.group(1))))
+        # 256 synthetic images at a global batch of 32: 8 steps an epoch.
+        check(runs[0]["checkpoints"] == ["ckpt_16", "ckpt_8"]
+              and "resumed" not in " ".join(runs[0]["epoch_lines"]),
+              f"conv_examples: first run {runs[0]}")
+        check(runs[1]["checkpoints"] == ["ckpt_16", "ckpt_24", "ckpt_8"],
+              f"conv_examples: resumed run {runs[1]}")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    check("resumed from step 16 (epoch 2)" in proc.stdout
+          and [ln.split()[1] for ln in runs[1]["epoch_lines"]] == ["3/3"],
+          f"conv_examples: the relaunch did not resume: {proc.stdout[-2000:]}")
+    emit("conv_examples", args=list(EX_ARGS), runs=runs, gpu=smi)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7187,6 +7831,12 @@ def main() -> int:
                          "2 (started by the phase, not by hand)")
     ap.add_argument("--coord-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--coord-ports", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--sync-bn-rank", type=int, default=None,
+                    help="run as this rank of the sync_bn phase's world of "
+                         "2 (started by the phase, not by hand)")
+    ap.add_argument("--sync-bn-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sync-bn-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7207,6 +7857,9 @@ def main() -> int:
     if args.coord_rank is not None:
         return coord_worker(args.coord_rank, args.coord_dir,
                             args.coord_ports, args.seed)
+    if args.sync_bn_rank is not None:
+        return sync_bn_worker(args.sync_bn_rank, args.sync_bn_dir,
+                              args.sync_bn_port, args.seed)
     errs, launches, times = {}, {}, {}
 
     def add(got: dict) -> None:
@@ -7267,6 +7920,9 @@ def main() -> int:
         run_phase("lm_mesh", phase_lm_mesh, args.seed, peaks, smi)
         run_phase("lm_mesh_zero", phase_lm_mesh_zero, args.seed, smi)
         run_phase("bench", phase_bench, smi)
+        add(run_phase("models", phase_models, args.seed, smi))
+        run_phase("sync_bn", phase_sync_bn, args.seed, smi)
+        run_phase("conv_examples", phase_conv_examples, smi)
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1

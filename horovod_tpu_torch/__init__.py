@@ -15,7 +15,10 @@ The ported slices:
   GPU over ``torch.distributed``: NCCL on the GPU, gloo on the CPU; the
   eager collectives, sparse gradients, ZeRO-1 and the
   backward-overlapped exchange), ``training.make_train_step`` and
-  ``models.resnet50`` with the fused 1x1-conv + BatchNorm kernels;
+  ``models.resnet50``/``resnet101`` with the fused 1x1-conv + BatchNorm
+  kernels, the other conv families (the CIFAR ResNets v1 and v2, VGG,
+  Inception V3), cross-replica BatchNorm (``axis_name=hvd.AXIS``),
+  ``data.load_dataset`` and the conv examples (``examples/``);
 * transformer-LM training —
   ``parallel.transformer.make_parallel_train_step`` on the same surface,
   with the packed flash-attention forward (with lse) and backward
@@ -38,8 +41,9 @@ The ported slices:
 
 The package exports the reference's names (``hvd.models``,
 ``hvd.serve``, ``hvd.callbacks``, ``hvd.BroadcastGlobalVariablesHook``,
-``hvd.world`` ...); the few with no torch meaning (``AXIS``, ``mesh``,
-the ``pallas_*`` modules) are listed in ``ROADMAP.md`` Queue 3.
+``hvd.world``, ``hvd.AXIS`` ...); the few with no torch meaning
+(``mesh``, the ``pallas_*`` modules) are listed in ``ROADMAP.md``
+Queue 3.
 Importing the package never imports JAX or the JAX package.
 """
 
@@ -72,8 +76,9 @@ from .optimizer import (Compression, DistributedOptimizer, ZeroShardedState,
                         partition_optimizer, zero_from_canonical,
                         zero_to_canonical)
 from .hooks import BroadcastGlobalVariablesHook
-from .runtime import (init, is_initialized, local_rank, process_count,
-                      process_index, rank, shutdown, size, world)
+from .runtime import (AXIS, init, is_initialized, local_rank,
+                      process_count, process_index, rank, shutdown, size,
+                      world)
 from .trainer import (AsyncCheckpointer, Trainer, latest_checkpoint_step,
                       restore_checkpoint, save_checkpoint)
 from .version import __version__
@@ -100,4 +105,4 @@ __all__ = ["__version__", "HorovodError", "ServerOverloadedError",
            "latest_checkpoint_step", "elastic", "callbacks", "data",
            "hooks", "models", "obs", "serve", "training",
            "BroadcastGlobalVariablesHook", "FailoverExhaustedError",
-           "world"]
+           "world", "AXIS"]

@@ -1,5 +1,5 @@
 """Benchmark: synthetic training throughput of the port on one GPU
-(ResNet-50 + transformer LM).
+(ResNet-50, ResNet-101, VGG-16, Inception V3 + transformer LM).
 
 Port of the JAX package's ``bench.py`` (which stays that package's
 contract): the same models, batches, optimizers, knobs and JSON lines,
@@ -7,6 +7,8 @@ with the metrics per GPU. Run it as::
 
     python -m horovod_tpu_torch.bench                  # both lines, card
     python -m horovod_tpu_torch.bench --model resnet50 --conv-backend fused
+    python -m horovod_tpu_torch.bench --model resnet101 --conv-backend fused
+    python -m horovod_tpu_torch.bench --model vgg16   # or inception3
     python -m horovod_tpu_torch.bench --model transformer_lm --accum-steps 2
     python -m horovod_tpu_torch.bench --zero --overlap  # ZeRO-1 + overlap
     python -m horovod_tpu_torch.bench --device cpu     # smoke sizes, CPU
@@ -52,8 +54,14 @@ py``'s rule and wording: ``--tp`` × ``--pp`` must divide the visible
 device count, here the world). The tp ranks of a dp group train on the
 same rows, so the global batch scales with dp only. ``--zero`` and
 ``--overlap`` compose with both: ZeRO over dp with the other axes as
-non-scatter axes (the hybrid plan), overlap on either plane. The models
-other than resnet50 exit non-zero naming their ``ROADMAP.md`` item.
+non-scatter axes (the hybrid plan), overlap on either plane.
+
+``--model`` takes the JAX bench's four conv rows (``bench.py``'s
+``_TPU_CONFIGS``, per GPU): resnet50 (224², batch 128), resnet101 (224²,
+batch 96), vgg16 (224², batch 96, SGD lr 0.01: VGG has no BatchNorm)
+and inception3 (299², batch 96), each with local BatchNorm;
+``--conv-backend`` applies to resnet50 and resnet101 only, with the JAX
+bench's guards against a mislabelled line.
 
 ``--scaling`` runs the conv model's line in worlds of 1, 2, 4, ... up to
 the GPUs this host shows (gloo worlds of 1 and 2 under ``--device cpu``),
@@ -82,7 +90,8 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import runtime, training
-from horovod_tpu_torch.models import cifar_resnet_v1, resnet50
+from horovod_tpu_torch.models import (cifar_resnet_v1, inception_v3,
+                                      resnet50, resnet101, vgg16)
 from horovod_tpu_torch.ops.fusion import wire_dtype_name
 from horovod_tpu_torch.utils.flops import (FWD_GMACS, TRAIN_GFLOP_PER_IMAGE,
                                            lm_train_gflop_per_token,
@@ -93,16 +102,26 @@ from horovod_tpu_torch.utils.flops import (FWD_GMACS, TRAIN_GFLOP_PER_IMAGE,
 # FLOPs-scaled from it, so vs_baseline compares hardware.
 BASELINE_IMG_PER_SEC_PER_DEVICE = 1656.82 / 16
 
-# bench.py's _TPU_CONFIGS["resnet50"], per GPU.
+# bench.py's _TPU_CONFIGS, per GPU.
 _GPU_CONFIGS = {
     "resnet50": dict(model="resnet50", image=224, batch_per_gpu=128,
                      warmup=5, iters=4, classes=1000, steps_per_call=8,
                      rounds=3),
+    "resnet101": dict(model="resnet101", image=224, batch_per_gpu=96,
+                      warmup=5, iters=4, classes=1000, steps_per_call=8,
+                      rounds=3),
+    # VGG has no BN: classic SGD needs the small-lr recipe or it blows up.
+    "vgg16": dict(model="vgg16", image=224, batch_per_gpu=96,
+                  warmup=5, iters=4, classes=1000, steps_per_call=8,
+                  rounds=3, lr=0.01),
+    "inception3": dict(model="inception3", image=299, batch_per_gpu=96,
+                       warmup=5, iters=4, classes=1000, steps_per_call=8,
+                       rounds=3),
 }
 _SMOKE_CONFIG = dict(model="cifar20", image=64, batch_per_gpu=16,
                      warmup=2, iters=5, classes=10, steps_per_call=1)
-# bench.py's conv models the port has no model for yet.
-_UNPORTED_MODELS = ("resnet101", "vgg16", "inception3")
+# The models --conv-backend applies to (bottleneck 1x1 convs).
+_FUSABLE_MODELS = ("resnet50", "resnet101")
 
 _LM_GPU = dict(vocab=32768, d_model=2048, n_heads=16, n_layers=8,
                d_ff=8192, seq=2048, batch_per_gpu=8,
@@ -186,14 +205,24 @@ def _bench_config(model: str, device: str) -> dict:
 
 def _build_model(cfg: dict, device: torch.device, seed: int):
     """Local (per-replica) BatchNorm, as the reference's benchmark. The
-    ``HVD_FUSED_PARTS`` sweep enters at construction."""
+    ``HVD_FUSED_PARTS`` sweep enters at construction; ``seed`` draws the
+    weights and seeds the dropout masks."""
     gen = torch.Generator().manual_seed(seed)
-    if cfg["model"] == "resnet50":
+    name = cfg["model"]
+    if name in _FUSABLE_MODELS:
         parts = tuple(os.environ.get(
             "HVD_FUSED_PARTS", "reduce,expand,shortcut").split(","))
-        return resnet50(cfg["classes"], dtype=torch.bfloat16,
-                        conv_backend=cfg.get("conv_backend", "xla"),
-                        fused_parts=parts, device=device, generator=gen)
+        build = resnet50 if name == "resnet50" else resnet101
+        return build(cfg["classes"], dtype=torch.bfloat16,
+                     conv_backend=cfg.get("conv_backend", "xla"),
+                     fused_parts=parts, device=device, generator=gen)
+    if name == "vgg16":
+        return vgg16(cfg["classes"], dtype=torch.bfloat16,
+                     image_size=cfg["image"], dropout_seed=seed,
+                     device=device, generator=gen)
+    if name == "inception3":
+        return inception_v3(cfg["classes"], dtype=torch.bfloat16,
+                            dropout_seed=seed, device=device, generator=gen)
     return cifar_resnet_v1(20, dtype=torch.float32, device=device,
                            generator=gen)
 
@@ -492,15 +521,6 @@ def _parse_mesh(spec: str, tp: int, pp: int):
     return sizes.get("tp", 1), sizes.get("pp", 1), sizes.get("dp")
 
 
-def _refuse_unported(args) -> None:
-    """The models not ported yet exit loudly, naming the ``ROADMAP.md``
-    item that brings them."""
-    if args.model in _UNPORTED_MODELS:
-        raise SystemExit(
-            f"--model {args.model} has no port model yet: ROADMAP.md "
-            f"Queue 1 item 14")
-
-
 def _emit(line: dict) -> None:
     """Print a result line, on rank 0 only (every rank measures the same
     world), in one write: the ranks of a launched world share one stdout,
@@ -577,22 +597,23 @@ def scaling(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description="Synthetic training throughput of the port "
-                    "(ResNet-50 + transformer LM), one JSON line each.")
+                    "(the conv models + transformer LM), one JSON line "
+                    "each.")
     p.add_argument("--scaling", action="store_true",
                    help="the conv model in worlds of 1, 2, 4, ... GPUs "
                         "(gloo worlds of 1 and 2 with --device cpu), each "
                         "through the launcher: one scaling-efficiency "
                         "line per world")
     p.add_argument("--model", default=None,
-                   choices=sorted(_GPU_CONFIGS) + list(_UNPORTED_MODELS)
-                   + ["transformer_lm"],
+                   choices=sorted(_GPU_CONFIGS) + ["transformer_lm"],
                    help="benchmark model (default: resnet50 then "
                         "transformer_lm; the smoke configs swap resnet50 "
                         "for cifar20)")
     p.add_argument("--conv-backend", default=None, choices=["xla", "fused"],
-                   help="ResNet conv backend: 'xla' is cuDNN, 'fused' "
-                        "sends the bottleneck 1x1 convs of stages 0-1 "
-                        "through the fused conv + BN kernels")
+                   help="ResNet conv backend (resnet50, resnet101): 'xla' "
+                        "is cuDNN, 'fused' sends the bottleneck 1x1 convs "
+                        "of stages 0-1 through the fused conv + BN "
+                        "kernels")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="in-step gradient accumulation over N microbatches "
                         "of the per-GPU batch, one exchange per step")
@@ -635,7 +656,6 @@ def main(argv=None) -> int:
         tp, pp, mesh_dp = _parse_mesh(args.mesh, tp, pp)
     if tp < 1 or pp < 1:
         raise SystemExit(f"--tp and --pp must be >= 1, got {tp}, {pp}")
-    _refuse_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "horovod_tpu_torch.bench runs on a CUDA device, but "
@@ -669,7 +689,13 @@ def main(argv=None) -> int:
         if args.rounds:
             cfg["rounds"] = args.rounds
         if args.conv_backend:
-            if cfg["model"] != "resnet50":
+            if (args.model or "resnet50") not in _FUSABLE_MODELS:
+                raise SystemExit(
+                    "--conv-backend applies to the resnet models only (the "
+                    "fused kernel targets bottleneck 1x1 convs); a silent "
+                    "ignore would mislabel a stock run as a fused "
+                    "measurement")
+            if cfg["model"] not in _FUSABLE_MODELS:
                 raise SystemExit(
                     "--conv-backend has no effect in smoke/CPU mode (the "
                     "smoke config swaps the model to cifar20)")

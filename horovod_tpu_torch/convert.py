@@ -3,10 +3,12 @@ models: the transformer (:func:`params_from_jax`,
 :func:`params_to_numpy`, and across a mesh :func:`params_to_global`),
 the pipelined transformer's stage slices (:func:`pp_params_from_jax`,
 :func:`pp_params_to_numpy`, :func:`pp_params_to_global`), LoRA adapter
-trees (:func:`adapter_from_jax`, :func:`adapter_to_numpy`), the ResNet
-(:func:`resnet_from_jax`,
-:func:`resnet_to_numpy`), and the JAX leaf order both train steps plan
-their gradient buckets in (:func:`jax_leaf_order`).
+trees (:func:`adapter_from_jax`, :func:`adapter_to_numpy`), the conv
+families — ResNet, VGG, Inception — by flax name (:func:`conv_from_jax`,
+:func:`conv_to_numpy`; :func:`resnet_from_jax` and
+:func:`resnet_to_numpy` for a :class:`~.models.resnet.ResNetConfig`),
+and the JAX leaf order both train steps plan their gradient buckets in
+(:func:`jax_leaf_order`).
 
 The JAX tree is ``{"embed", "lnf", "layers": [{"ln1", "wqkv", "wo",
 "ln2", "w1", "w2"}, ...]}`` with every projection ``[in, out]`` and used
@@ -311,19 +313,22 @@ def jax_leaf_order(model: torch.nn.Module
     return sorted(model.named_parameters(), key=lambda kv: _leaf_key(kv[0]))
 
 
-def resnet_from_jax(variables: Dict[str, Any], cfg: ResNetConfig,
-                    device: DeviceLike = "cuda") -> ResNet:
-    """Build a :class:`ResNet` on ``device`` holding the flax
-    ``variables``' params and batch_stats (as f32). Raises ``ValueError``
-    when a leaf is missing, extra, or of the wrong shape."""
-    dev = resolve_device(device)
-    model = ResNet(cfg, device=dev)
+def conv_from_jax(variables: Dict[str, Any],
+                  model: torch.nn.Module) -> torch.nn.Module:
+    """Load the flax ``variables`` (``{"params": ..., "batch_stats":
+    ...}``; a model without BatchNorm has no ``batch_stats``) into a
+    conv-family ``model`` (:class:`~.models.resnet.ResNet`,
+    :class:`~.models.vgg.VGG`, :class:`~.models.inception.InceptionV3`)
+    by name, conv kernels ``[kh, kw, Cin, Cout]`` -> ``[Cout, Cin, kh,
+    kw]``, dense kernels as they are, every leaf as f32; returns
+    ``model``. Raises ``ValueError`` when a leaf is missing, extra, or
+    of the wrong shape — before or after copying, never silently."""
     targets = dict(model.named_parameters())
     targets.update(model.named_buffers())
     seen = set()
     with torch.no_grad():
         for coll in ("params", "batch_stats"):
-            for path, leaf in _flatten(dict(variables[coll])):
+            for path, leaf in _flatten(dict(variables.get(coll, {}))):
                 name = ".".join(path)
                 if name not in targets:
                     raise ValueError(f"{coll}/{'/'.join(path)} has no "
@@ -342,10 +347,11 @@ def resnet_from_jax(variables: Dict[str, Any], cfg: ResNetConfig,
     return model
 
 
-def resnet_to_numpy(model: ResNet) -> Dict[str, Dict[str, Any]]:
-    """The model's variables as a flax-shaped numpy tree ``{"params":
-    ..., "batch_stats": ...}`` (conv kernels back in ``[kh, kw, Cin,
-    Cout]``)."""
+def conv_to_numpy(model: torch.nn.Module) -> Dict[str, Dict[str, Any]]:
+    """A conv-family model's variables as a flax-shaped numpy tree
+    ``{"params": ..., "batch_stats": ...}`` (conv kernels back in ``[kh,
+    kw, Cin, Cout]``; ``batch_stats`` empty for a model without
+    BatchNorm): the inverse of :func:`conv_from_jax`."""
     out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     named = [("params", n, t) for n, t in model.named_parameters()]
     named += [("batch_stats", n, t) for n, t in model.named_buffers()]
@@ -356,6 +362,20 @@ def resnet_to_numpy(model: ResNet) -> Dict[str, Dict[str, Any]]:
             node = node.setdefault(key, {})
         node[path[-1]] = _to_flax(path, t.detach().float().cpu().numpy())
     return out
+
+
+def resnet_from_jax(variables: Dict[str, Any], cfg: ResNetConfig,
+                    device: DeviceLike = "cuda") -> ResNet:
+    """Build a :class:`ResNet` of ``cfg`` on ``device`` holding the flax
+    ``variables``' params and batch_stats (:func:`conv_from_jax`)."""
+    return conv_from_jax(variables, ResNet(cfg,
+                                           device=resolve_device(device)))
+
+
+def resnet_to_numpy(model: ResNet) -> Dict[str, Dict[str, Any]]:
+    """The ResNet's variables as a flax-shaped numpy tree
+    (:func:`conv_to_numpy`)."""
+    return conv_to_numpy(model)
 
 
 def adapter_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, lora,

@@ -1,21 +1,24 @@
-"""Input pipeline: this rank's shard of each global batch, staged ahead on
-the device.
+"""Input pipeline: dataset loading, this rank's shard of each global
+batch, staged ahead on the device.
 
-Port of the two functions of the JAX package's ``data.py`` that the
-Trainer needs: :func:`shard_iterator` (:112) and
+Port of the JAX package's ``data.py``: :func:`load_dataset` (:53-109)
+with its synthetic stand-in ``_synthetic`` (:43-50) — the same arrays,
+dtypes, ``info``, digits shuffle and split, npz layout and error texts
+(plain numpy: the JAX module imports ``.training``, which imports JAX,
+so the port keeps its own copy) —, :func:`shard_iterator` (:112) and
 :func:`prefetch_to_device` (:126). A batch is a tuple, list or dict of
 arrays (numpy or torch) whose leading axis is the global batch; this
 rank keeps the contiguous ``rows/size()`` block at ``rank()``, as the
-JAX world's leading-axis split does. The dataset loaders and synthetic
-sets are ``ROADMAP.md`` Queue 1 item 14.
+JAX world's leading-axis split does.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import queue
 import threading
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,77 @@ import torch
 from . import runtime
 from .device import DeviceLike
 from .utils import timeline as _tl
+
+
+# ---------------------------------------------------------------------------
+# Dataset loading (real data when available; synthetic stand-in otherwise).
+# ---------------------------------------------------------------------------
+
+def _synthetic(n, shape, classes, seed):
+    rng = np.random.RandomState(seed)
+    # A learnable task: labels depend linearly on the input so loss
+    # actually decreases (pure noise would plateau instantly).
+    x = rng.randn(n, *shape).astype(np.float32)
+    w = rng.randn(int(np.prod(shape)), classes).astype(np.float32)
+    y = np.argmax(x.reshape(n, -1) @ w, axis=1).astype(np.int32)
+    return x, y
+
+
+def load_dataset(name: str, data_dir: Optional[str] = None,
+                 n_train: int = 4096, n_test: int = 512) -> Tuple[
+                     Tuple[np.ndarray, np.ndarray],
+                     Tuple[np.ndarray, np.ndarray], dict]:
+    """Load ``name`` in {"mnist", "cifar10", "digits"}.
+
+    Returns ``((x_train, y_train), (x_test, y_test), info)`` with
+    ``info = {"real": bool, "classes": int}``, numpy arrays (f32 images,
+    int32 labels). Real data is used when available: ``<data_dir or
+    $HVD_DATA_DIR>/<name>.npz`` in the Keras archive layout
+    (x_train/y_train/x_test/y_test) for mnist/cifar10; ``digits`` is
+    scikit-learn's real 8x8 handwritten-digit set shipped in its wheel
+    (1,797 images, shuffled with seed 0 and split 80/20). Without real
+    data, a deterministic learnable synthetic stand-in with the same
+    shapes is returned (``real: False``)."""
+    d = data_dir or os.environ.get("HVD_DATA_DIR")
+    info = {"real": False, "classes": 10}
+    if name == "digits":
+        try:
+            from sklearn.datasets import load_digits
+        except ImportError as e:  # optional dependency (extras: datasets)
+            raise ImportError(
+                "load_dataset('digits') needs scikit-learn (the real 8x8 "
+                "digit images ship inside its wheel): pip install "
+                "scikit-learn, or pip install horovod_tpu[datasets]"
+            ) from e
+        x, y = load_digits(return_X_y=True)
+        x = (x.astype(np.float32) / 16.0).reshape(-1, 8, 8, 1)
+        y = y.astype(np.int32)
+        # Deterministic shuffle + 80/20 split (the set ships unshuffled,
+        # grouped by writer).
+        idx = np.random.RandomState(0).permutation(len(x))
+        x, y = x[idx], y[idx]
+        n = int(0.8 * len(x))
+        info["real"] = True
+        return (x[:n], y[:n]), (x[n:], y[n:]), info
+    # npz datasets: name -> (x transform, synthetic stand-in shape).
+    _npz = {
+        "mnist": (lambda x: x.reshape(-1, 784), (784,)),
+        "cifar10": (lambda x: x, (32, 32, 3)),
+    }
+    if name not in _npz:
+        raise ValueError(f"unknown dataset {name!r} "
+                         "(expected mnist/cifar10/digits)")
+    x_tf, syn_shape = _npz[name]
+    path = d and os.path.join(d, f"{name}.npz")
+    if path and os.path.exists(path):
+        with np.load(path) as f:
+            info["real"] = True
+            return ((x_tf(f["x_train"]).astype(np.float32) / 255.0,
+                     f["y_train"].astype(np.int32).ravel()),
+                    (x_tf(f["x_test"]).astype(np.float32) / 255.0,
+                     f["y_test"].astype(np.int32).ravel()), info)
+    return (_synthetic(n_train, syn_shape, 10, 0),
+            _synthetic(n_test, syn_shape, 10, 1), info)
 
 
 def _tree_map(fn: Callable, batch: Any) -> Any:

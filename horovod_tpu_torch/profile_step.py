@@ -12,6 +12,8 @@ launches a step) and the top ops a step::
     python -m horovod_tpu_torch.profile_step --model resnet50
     python -m horovod_tpu_torch.profile_step --model resnet50 \\
         --conv-backend fused
+    python -m horovod_tpu_torch.profile_step --model resnet101 \\
+        --conv-backend fused         # or --model vgg16, inception3
     python -m horovod_tpu_torch.profile_step --model transformer_lm
     python -m horovod_tpu_torch.profile_step --timeline hvd_timeline.json
 
@@ -319,10 +321,14 @@ def profile_model(model: str, conv_backend: str, steps: Optional[int],
     else:
         cfg = bench._bench_config(model, device.type)
         if conv_backend != "xla":
-            if cfg["model"] != "resnet50":
+            # bench.py's mislabel guard: a run that profiles stock convs
+            # must not be recorded as a fused measurement.
+            if model not in bench._FUSABLE_MODELS \
+                    or cfg["model"] not in bench._FUSABLE_MODELS:
                 raise SystemExit(
-                    "--conv-backend applies to resnet50 on the card (the "
-                    "CPU's smoke config swaps the model to cifar20)")
+                    "--conv-backend fused applies to resnet50/resnet101 on "
+                    "the card only (the CPU's smoke config swaps the model "
+                    "to cifar20)")
             cfg["conv_backend"] = conv_backend
         state, step, data = bench.build_step(cfg, device)
 
@@ -340,7 +346,10 @@ def main(argv=None) -> int:
         prog="python -m horovod_tpu_torch.profile_step",
         description="Per-op device-time profile of the bench's train step.")
     p.add_argument("--model", default="resnet50",
-                   choices=("resnet50", "transformer_lm"))
+                   choices=("resnet50", "resnet101", "vgg16", "inception3",
+                            "transformer_lm"),
+                   help="any bench model (the CPU's smoke config swaps "
+                        "the conv models for cifar20)")
     p.add_argument("--conv-backend", default="xla", choices=("xla", "fused"),
                    help="ResNet conv backend: 'xla' is cuDNN, 'fused' the "
                         "fused 1x1 conv + BN kernels (K1, K2)")

@@ -83,6 +83,11 @@ class World:
     timeout_s: float = 0.0
 
 
+#: The world's data-parallel axis: ``axis_name=AXIS`` on a model's
+#: BatchNorm reduces its batch statistics over every rank of the world
+#: (the JAX package's mesh-axis name, kept as the same string).
+AXIS: str = "hvd"
+
 _world: Optional[World] = None
 _lock = threading.Lock()
 # Per-rank metrics HTTP listener (HVD_METRICS_PORT; obs.http).

@@ -15,8 +15,9 @@ model pieces its model builder reaches, on the CPU.
   default lines, their names and knob fields, null device fields; the
   knobs it runs (accumulation, the wire formats, ``HVD_LM_LOSS_CHUNK``,
   ZeRO and overlap with the order overlap used) recorded in the line;
-  and the knobs not ported yet refused with a non-zero exit naming
-  their ``ROADMAP.md`` item.
+  the bench's other conv rows (resnet101, vgg16, inception3) run, on the
+  CPU as JAX's smoke swap to cifar20, and build at full width with
+  flax's parameter counts; and the refusals name why.
 """
 
 import importlib.util
@@ -32,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_conv_common
 from horovod_tpu.models import resnet as jres
 from horovod_tpu_torch import bench as tbench
 from horovod_tpu_torch import convert
@@ -218,9 +220,12 @@ def test_formulas_and_configs_match_the_root_bench():
         assert port == renamed
         assert flops.lm_train_gflop_per_token(port) == \
             ref.lm_train_gflop_per_token(jax_cfg)
-    rn = {("batch_per_gpu" if k == "batch_per_chip" else k): v
-          for k, v in ref._TPU_CONFIGS["resnet50"].items()}
-    assert tbench._GPU_CONFIGS["resnet50"] == rn
+    assert sorted(tbench._GPU_CONFIGS) == sorted(ref._TPU_CONFIGS)
+    for model, jax_cfg in ref._TPU_CONFIGS.items():
+        rn = {("batch_per_gpu" if k == "batch_per_chip" else k): v
+              for k, v in jax_cfg.items()}
+        assert tbench._GPU_CONFIGS[model] == rn
+        assert tbench._baseline_for(model) == ref._baseline_for(model)
     for n, tp, pp in ((1, 1, 1), (4, 2, 1), (8, 2, 2)):
         assert tbench._mesh_desc(n, tp, pp) == ref._mesh_desc(n, tp, pp)
     assert flops.peaks_for("NVIDIA H100 80GB HBM3")[0] == 989e12
@@ -313,27 +318,54 @@ def test_scaling_runs_gloo_worlds_through_the_launcher():
         two["images_per_sec_total"], rel=1e-3)
 
 
-@pytest.mark.parametrize("args,needle", [
-    (("--model", "resnet101"), "item 14"),
-    (("--model", "inception3"), "item 14"),
-    (("--model", "vgg16", "--zero"), "item 14"),
+@pytest.mark.parametrize("args,want", [
+    (("--model", "resnet101"), {"zero": False}),
+    (("--model", "inception3"), {"zero": False}),
+    (("--model", "vgg16", "--zero"), {"zero": True}),
 ])
-def test_refusals_exit_nonzero_naming_the_roadmap_item(args, needle):
-    """What stays refused exits non-zero naming its ``ROADMAP.md`` item
-    and prints no line (``--zero``/``--overlap`` with ``--pp`` or
-    ``--tp`` > 1 run now: :func:`test_zero_and_overlap_on_the_mesh_
-    steps`)."""
-    proc = _bench(*args, "--device", "cpu")
-    assert proc.returncode != 0
-    assert needle in proc.stderr and "ROADMAP.md" in proc.stderr, \
-        proc.stderr[-2000:]
-    assert not [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+def test_refusals_exit_nonzero_naming_the_roadmap_item(args, want):
+    """The bench's other conv rows were refused (naming ``ROADMAP.md``
+    item 14) until their models were ported; the same arguments now run.
+    On the CPU the conv rows take JAX's smoke swap to cifar20: exit 0,
+    one line."""
+    (line,) = _lines(_bench(*args, "--device", "cpu"))
+    assert line["metric"] == "cifar20_synthetic_images_per_sec_per_cpu"
+    assert line["value"] > 0 and line["conv_backend"] == "xla"
+    assert {k: line[k] for k in want} == want
+
+
+def _flax_param_count(model: str) -> int:
+    """Parameters of flax's model for a ``_TPU_CONFIGS`` row, from
+    ``jax.eval_shape(model.init, ...)`` (nothing is computed)."""
+    ref = _root_bench()
+    cfg = ref._TPU_CONFIGS[model]
+    jmodel = ref._build_model(dict(cfg))
+    shapes = jax.eval_shape(
+        jmodel.init, jax.random.PRNGKey(0),
+        jax.ShapeDtypeStruct((1, cfg["image"], cfg["image"], 3),
+                             jnp.float32))
+    return sum(int(np.prod(a.shape)) for a in
+               jax.tree_util.tree_leaves(shapes["params"]))
+
+
+@pytest.mark.parametrize("model", ["resnet50", "resnet101", "vgg16",
+                                   "inception3"])
+def test_build_model_has_flax_parameter_count(model):
+    """``_build_model`` builds each ``_GPU_CONFIGS`` row at full width
+    (on the CPU) with the parameter count of flax's model for the same
+    row."""
+    cfg = dict(tbench._GPU_CONFIGS[model])
+    with torch_conv_common.one_thread():
+        port = tbench._build_model(cfg, torch.device("cpu"), 0)
+    assert sum(p.numel() for p in port.parameters()) == \
+        _flax_param_count(model)
 
 
 @pytest.mark.parametrize("args,needle", [
     (("--model", "transformer_lm", "--mesh", "dp=1,tp=2"),
      "must divide the visible device count 1"),
-    (("--model", "vgg16"), "item 14"),
+    (("--model", "vgg16", "--conv-backend", "fused"),
+     "resnet models only"),
     (("--conv-backend", "fused"), "smoke"),
     (("--accum-steps", "3"), "does not divide"),
     (("--accum-steps", "0"), ">= 1"),

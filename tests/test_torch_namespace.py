@@ -15,14 +15,11 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODULES = ("", ".obs", ".parallel", ".ops")
+MODULES = ("", ".obs", ".parallel", ".ops", ".models", ".data")
 
 # Public names of the reference that the port leaves out, by module.
 ABSENT = {
     "": {
-        "AXIS": "the name of a jax mesh axis; a torch world has ranks, "
-                "not a named axis (cross-replica BatchNorm, which takes "
-                "it, is ROADMAP item 14)",
         "mesh": "returns the world's jax Mesh; the port's meshes are "
                 "parallel.mesh.create_hybrid_mesh objects over process "
                 "groups",
@@ -33,6 +30,14 @@ ABSENT = {
                        "Transformer(cfg, generator=) or takes JAX's tree "
                        "through convert.params_from_jax",
     },
+    ".models": {
+        "MnistCNN": "the MNIST examples' model: ROADMAP item 15",
+        "mnist": "the MNIST examples' model module: ROADMAP item 15",
+        "SkipGram": "word2vec: ROADMAP item 15",
+        "embedding_grads_as_slices": "word2vec: ROADMAP item 15",
+        "word2vec": "word2vec's module: ROADMAP item 15",
+    },
+    ".data": {},
     ".ops": {
         "pallas_attention": "a Pallas module; the port's kernels are "
                             "ops.attention and ops/csrc",
@@ -84,6 +89,10 @@ def test_port_listing_loads_no_jax(listings):
 def test_user_code_of_the_reference_resolves():
     import horovod_tpu_torch as hvd
     assert callable(hvd.models.resnet50)
+    assert callable(hvd.models.resnet101) and callable(hvd.models.vgg16)
+    assert callable(hvd.models.inception_v3)
+    assert callable(hvd.data.load_dataset)
+    assert hvd.AXIS == "hvd" and hvd.AXIS is hvd.runtime.AXIS
     assert isinstance(hvd.callbacks.LearningRateWarmupCallback, type)
     assert isinstance(hvd.BroadcastGlobalVariablesHook, type)
     assert issubclass(hvd.FailoverExhaustedError, hvd.HorovodError)

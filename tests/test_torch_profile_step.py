@@ -14,6 +14,7 @@ import time
 import pytest
 import torch
 
+from torch_conv_common import one_thread
 from horovod_tpu_torch import profile_step as tps
 from horovod_tpu_torch import runtime
 from horovod_tpu_torch.utils.timeline import Timeline
@@ -189,4 +190,29 @@ def test_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         tps.main(["--model", "transformer_lm"])
+    assert not runtime.is_initialized()
+
+
+@pytest.mark.parametrize("model", ["resnet101", "vgg16", "inception3"])
+def test_every_bench_model_profiles_on_the_cpu(model, capsys):
+    """``--model`` takes every bench model, as JAX's ``bin/profile_step.
+    py`` does; on the CPU the conv rows take the smoke swap to
+    cifar20."""
+    with one_thread():
+        assert tps.main(["--device", "cpu", "--model", model, "--steps",
+                         "1"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["steps"] == 1 and last["model"] == model
+    assert last["busy_ms_per_step"] > 0
+    assert not runtime.is_initialized()
+
+
+@pytest.mark.parametrize("model", ["vgg16", "inception3", "resnet101"])
+def test_fused_guard_refuses_as_jax_does(model):
+    """JAX's mislabel guard (``bin/profile_step.py:243-250``): the fused
+    backend only for resnet50/resnet101, and never on the smoke swap
+    (the CPU's config), so every CPU run with it is refused."""
+    with pytest.raises(SystemExit, match="resnet50/resnet101"):
+        tps.main(["--device", "cpu", "--model", model, "--conv-backend",
+                  "fused", "--steps", "1"])
     assert not runtime.is_initialized()

@@ -4,8 +4,9 @@ tests/test_torch_pipeline.py (:func:`run_pp`), tests/test_torch_wire.py
 (:func:`run_wire`), tests/test_torch_guard.py (:func:`run_guard`),
 tests/test_torch_collectives.py (:func:`run_collectives`),
 tests/test_torch_zero.py (:func:`run_zero`),
-tests/test_torch_overlap.py (:func:`run_overlap`) and the checkpoint,
-Trainer and callback tests (:func:`run_ckpt`).
+tests/test_torch_overlap.py (:func:`run_overlap`), the checkpoint,
+Trainer and callback tests (:func:`run_ckpt`) and
+tests/test_torch_sync_bn.py (:func:`run_sync_bn`).
 
 Started by ``torch.multiprocessing.spawn`` with the launcher's environment
 contract (``HVD_RANK``/``HVD_SIZE``/``HVD_LOCAL_RANK``); it imports only
@@ -947,4 +948,55 @@ def run_ckpt(rank: int, world: int, port: int, workdir: str) -> None:
             "padded": fresh.optimizer.plan.padded}
     hvd.shutdown()
     with open(os.path.join(workdir, f"ckpt_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_sync_bn(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of tests/test_torch_sync_bn.py: for each case of
+    ``<workdir>/sync_bn_inputs.pkl`` (a ``ResNetConfig``'s fields, flax
+    variables, the global batch, the step count), ``steps`` SGD train
+    steps on this rank's half of the batch with cross-replica BatchNorm
+    (``axis_name=AXIS``), with a process group of the world as
+    ``axis_name`` (stock cases), and with local BatchNorm (the control);
+    writes the losses and the variables after each to
+    ``<workdir>/sync_bn_rank<r>.pkl``."""
+    os.environ.update(HVD_RANK=str(rank), HVD_SIZE=str(world),
+                      HVD_LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import convert
+    from horovod_tpu_torch.models.resnet import ResNetConfig
+    from horovod_tpu_torch.training import (create_train_state,
+                                            make_train_step)
+
+    with open(os.path.join(workdir, "sync_bn_inputs.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    hvd.init(device="cpu", timeout=datetime.timedelta(seconds=120))
+    group = dist.new_group(list(range(world)))
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+    out = {}
+    for case in cases:
+        n = case["x"].shape[0] // world
+        x = torch.tensor(case["x"][rank * n:(rank + 1) * n])
+        y = torch.tensor(case["y"][rank * n:(rank + 1) * n])
+        axes = {"sync": hvd.AXIS, "local": None}
+        if case["group_too"]:
+            axes["group"] = group
+        for tag, axis in axes.items():
+            cfg = ResNetConfig(**dict(case["cfg"], axis_name=axis))
+            model = convert.resnet_from_jax(case["variables"], cfg,
+                                            device="cpu")
+            state = create_train_state(model, sgd, device="cpu")
+            step = make_train_step()
+            losses = []
+            for _ in range(case["steps"]):
+                state, metrics = step(state, (x, y))
+                losses.append(float(metrics["loss"]))
+            out[(case["name"], tag)] = {
+                "losses": losses,
+                "variables": convert.resnet_to_numpy(model)}
+    hvd.shutdown()
+    with open(os.path.join(workdir, f"sync_bn_rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
